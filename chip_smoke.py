@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (`gat_tpu_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each ending in torch.cuda.synchronize(); any failure exits
+non-zero:
+
+1. the card: name and power limit (nvidia-smi);
+2. build the three CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
+   source, in parallel) and print nvcc's register/spill report;
+3. hold each kernel against its plain PyTorch version on the card, at the
+   main path's shapes (1024 clips of 0.5 s at 11025 Hz: Karplus-Strong
+   plucks over the 47 classes plus noise, from a seed), and time both
+   with CUDA events over distinct input buffers;
+4. drive the main path, `Transcriber(device="cuda").transcribe_clips`, at
+   the shipped checkpoints: every kernel's launch count must rise, the
+   labels must equal those of the plain versions fed to the same models,
+   and a small batch must agree with the plain path on the CPU;
+5. print the `{"kernels": [...]}` line, the card line, and last
+   `{"ok": true, "device": {...}}`.
+
+Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+SR = 11025
+N_CLIPS = 1024            # MAX_CLIPS_PER_BATCH of the serving path
+CLIP_LEN = SR // 2        # 5512 samples, 0.5 s
+SEED = 0
+POOL = 6                  # distinct input buffers per timing repetition
+# H100 SXM published peaks (dense, no sparsity) at a 700 W limit
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def karplus_strong_batch(midi: np.ndarray, rng: np.random.Generator,
+                         n: int, damping: float = 0.996) -> np.ndarray:
+    """(len(midi), n) plucked strings, one delay line per lane, each
+    normalized to peak 1."""
+    periods = np.maximum(2, np.round(
+        SR / (440.0 * 2.0 ** ((midi - 69.0) / 12.0)))).astype(np.int64)
+    lanes = np.arange(len(midi))
+    buf = rng.uniform(-1.0, 1.0, (len(midi), periods.max()))
+    out = np.empty((len(midi), n))
+    idx = np.zeros(len(midi), np.int64)
+    for i in range(n):
+        cur = buf[lanes, idx]
+        out[:, i] = cur
+        nxt = (idx + 1) % periods
+        buf[lanes, idx] = damping * 0.5 * (cur + buf[lanes, nxt])
+        idx = nxt
+    return out / (np.abs(out).max(axis=1, keepdims=True) + 1e-12)
+
+
+def make_clips(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """n clips cycling over the 47 classes E2..D6 (MIDI 40..86), plus
+    Gaussian noise of sigma 0.1. Returns (clips float32, midi)."""
+    rng = np.random.default_rng(seed)
+    midi = 40 + np.arange(n) % 47
+    clips = karplus_strong_batch(midi.astype(np.float64), rng, CLIP_LEN)
+    clips += rng.normal(0.0, 0.1, clips.shape)
+    return clips.astype(np.float32), midi
+
+
+def time_ms(fn, pool, reps: int) -> float:
+    """Median per-call device time: each repetition launches fn once on
+    every buffer of the pool between two CUDA events."""
+    import torch
+    for x in pool:
+        fn(x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for x in pool:
+            fn(x)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(pool))
+    return statistics.median(times)
+
+
+def profile_call(fn, wall_ms: float) -> None:
+    """Device time by kernel over one call under torch.profiler, and the
+    device's busy share of the call's unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy <= 0:
+        log("[profile] device time not measured (no kernel events)")
+        return
+    log(f"[profile] device busy {busy:.3f} ms of {wall_ms:.3f} ms per call "
+        f"({100 * busy / wall_ms:.1f}%)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
+            f"x{e.count:<3d} {e.key[:100]}")
+
+
+def fft_flops(n_mels_nnz: int, n_mels: int) -> int:
+    """Flops one frame of the front-ends needs: window, a real-input FFT
+    of 2048 points (2.5·N·log2 N, half a complex one), power of 1025
+    bins, sparse mel, log."""
+    return 2048 + 5 * 2048 * 11 // 2 + 3 * 1025 + 2 * n_mels_nnz + n_mels
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; this script runs "
+              "the port on a CUDA card", file=sys.stderr)
+        return 1
+    repo = Path(__file__).resolve().parent
+    if not (repo / "gat_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no gat_tpu_torch package beside {__file__}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(repo))
+
+    from gat_tpu_torch import features, kernels
+    from gat_tpu_torch.entry import entry
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.ops import spectral, yin
+    from gat_tpu_torch.ops.pitch import midi_to_note
+
+    # ---- 1. the card ------------------------------------------------------
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[card] {card} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {kind}")
+
+    # ---- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    reports = kernels.build()
+    log(f"[build] {len(reports)} kernels built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # ---- 3. kernels against their plain versions --------------------------
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    clips_np, midi = make_clips(N_CLIPS, SEED)
+    log(f"[data] {N_CLIPS} clips x {CLIP_LEN} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    clips = torch.from_numpy(clips_np).to(dev)
+    pool = [clips] + [
+        (clips + 0.01 * torch.randn(clips.shape, device=dev,
+                                    generator=torch.Generator(dev)
+                                    .manual_seed(SEED + i))).contiguous()
+        for i in range(1, POOL)]
+    torch.cuda.synchronize()
+
+    n, length = clips.shape
+    t_mel = spectral.n_frames(length, 2048, 256)
+    t_mfcc = spectral.n_frames(length, 2048, 512)
+    _, _, _, lo64, hi64 = features._kernel_tables(SR, 64, True, dev)
+    _, _, _, lo128, hi128 = features._kernel_tables(SR, 128, False, dev)
+    nnz64 = int((hi64 - lo64).sum())
+    nnz128 = int((hi128 - lo128).sum())
+    min_p, max_p = yin.yin_periods(SR, 50.0, 1000.0, 2048, 1024)
+    table_bytes_64 = 4 * (2048 + 2048 + 64 * 1025 + 2 * 64)
+    table_bytes_128 = 4 * (2048 + 2048 + 128 * 1025 + 2 * 128 + 128 * 64)
+
+    specs = [
+        dict(name="melspec_frontend", fn=features.melspec_features,
+             plain=features.melspec_features_plain,
+             source="gat_tpu_torch/csrc/melspec_frontend.cu",
+             replaces="gat_tpu/ops/pallas/melspec_frontend.py:71",
+             tolerance="atol 0.1 dB where the plain image > -60 dB; "
+                       "finite and >= -100 dB everywhere",
+             flops=n * (t_mel * fft_flops(nnz64, 64) + 3 * length),
+             nbytes=n * length * 4 + n * 64 * t_mel * 4 + table_bytes_64),
+        dict(name="mfcc_frontend", fn=features.mfcc_frontend,
+             plain=features.mfcc_frontend_plain,
+             source="gat_tpu_torch/csrc/mfcc_frontend.cu",
+             replaces="gat_tpu/ops/pallas/mfcc_frontend.py:87",
+             tolerance="atol 1e-3 on the 64 coefficients",
+             flops=n * (t_mfcc * (fft_flops(nnz128, 128) + 2 * 128)
+                        + 2 * 128 * 64 + 3 * length),
+             nbytes=n * length * 4 + n * 64 * 4 + table_bytes_128),
+        dict(name="yin_pitch", fn=yin.yin_pitch, plain=yin.yin_pitch_plain,
+             source="gat_tpu_torch/csrc/yin_pitch.cu",
+             replaces="gat_tpu/ops/yin.py:267",
+             tolerance="rtol 2e-3 on the pitch of every clip",
+             # the ACF's 2·W flops per lag, plus O(max_p) per frame for
+             # the sliding energies and the CMND
+             flops=n * t_mfcc * (2 * 1024 * (max_p + 1) + 9 * max_p),
+             nbytes=n * length * 4 + n * 4),
+    ]
+    failures = []
+    rows = []
+    for s in specs:
+        fn = (lambda x, f=s["fn"]: f(x, SR))
+        plain = (lambda x, f=s["plain"]: f(x, SR))
+        got = fn(clips)
+        ref = plain(clips)
+        torch.cuda.synchronize()
+        if s["name"] == "melspec_frontend":
+            mask = ref > -60.0
+            err = float((got - ref).abs()[mask].max())
+            ok = (err <= 0.1 and bool(torch.isfinite(got).all())
+                  and float(got.min()) >= -100.0)
+        elif s["name"] == "mfcc_frontend":
+            err = float((got - ref).abs().max())
+            ok = err <= 1e-3 and bool(torch.isfinite(got).all())
+        else:
+            rel = (got - ref).abs() / ref.abs()
+            err = float((got - ref).abs().max())
+            ok = float(rel.max()) <= 2e-3 and bool(torch.isfinite(got).all())
+            log(f"[check] yin_pitch max rel err {float(rel.max()):.3g}, "
+                f"clips over rtol 2e-3: {int((rel > 2e-3).sum())}")
+        log(f"[check] {s['name']}: shape {tuple(got.shape)} max abs err "
+            f"{err:.6g} ({s['tolerance']}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(s["name"])
+        ms = time_ms(fn, pool, reps=10)
+        plain_ms = time_ms(plain, pool, reps=10)
+        bound_ms, bound_by = bound(s["flops"], s["nbytes"])
+        log(f"[time] {s['name']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        rows.append(dict(name=s["name"], route="cuda", source=s["source"],
+                         replaces=s["replaces"], launches=0,
+                         max_abs_err=err, tolerance=s["tolerance"],
+                         ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None))
+        torch.cuda.synchronize()
+
+    # ---- 4. the main path -------------------------------------------------
+    t = Transcriber(device="cuda")
+    for s in specs:
+        s["fn"].launches = 0
+    t0 = time.perf_counter()
+    res = t.transcribe_clips(clips)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for row, s in zip(rows, specs):
+        row["launches"] = s["fn"].launches
+        if s["fn"].launches < 1:
+            failures.append(f"{s['name']} not launched on the main path")
+    log(f"[main] transcribe_clips({N_CLIPS}) first call {first_s:.3f} s, "
+        f"launches {[r['launches'] for r in rows]}")
+
+    probs = np.asarray(res["probs"])
+    pitch = np.asarray([p for p, _ in res["dsp_info"]])
+    if (probs.shape != (N_CLIPS, 47) or not np.isfinite(probs).all()
+            or not np.allclose(probs.sum(axis=1), 1.0, atol=1e-4)
+            or not np.isfinite(pitch).all()):
+        failures.append("main path output malformed")
+
+    # labels against the plain versions on the card, fed to the same models
+    with torch.no_grad():
+        hz = yin.yin_pitch_plain(clips, SR)
+        mf = torch.cat([features.mfcc_frontend_plain(clips, SR, 64),
+                        torch.log10(hz)[:, None]], dim=1)
+        ms_img = features.melspec_features_plain(clips, SR)
+        plain_probs, _, _ = t.predictor.ensemble_probs(
+            t.scaler.transform(mf), ms_img)
+    plain_labels = [t.predictor.reverse_map[int(i)]
+                    for i in plain_probs.argmax(dim=1).cpu()]
+    n_diff = sum(a != b for a, b in zip(res["labels"], plain_labels))
+    prob_err = float(np.abs(probs - plain_probs.cpu().numpy()).max())
+    log(f"[main] labels differing from the plain path on the card: {n_diff}"
+        f"; max |probs - plain probs| {prob_err:.3g}")
+    if n_diff:
+        failures.append(f"{n_diff} labels differ from the plain path")
+    truth = [midi_to_note(int(m), unicode=False) for m in midi]
+    acc = float(np.mean([a == b for a, b in zip(res["labels"], truth)]))
+    log(f"[main] label accuracy on the noisy plucks: {acc:.4f}")
+
+    # a small batch against the plain path on the CPU
+    k = 64
+    cpu = Transcriber(device="cpu").transcribe_clips(clips_np[:k])
+    cpu_pitch = np.asarray([p for p, _ in cpu["dsp_info"]])
+    cpu_prob_err = float(np.abs(cpu["probs"] - probs[:k]).max())
+    cpu_pitch_rel = float(np.max(np.abs(cpu_pitch - pitch[:k]) / cpu_pitch))
+    log(f"[main] vs CPU plain path on {k} clips: labels equal "
+        f"{cpu['labels'] == res['labels'][:k]}, max prob err "
+        f"{cpu_prob_err:.3g}, max pitch rel err {cpu_pitch_rel:.3g}")
+    if (cpu["labels"] != res["labels"][:k] or cpu_prob_err > 1e-2
+            or cpu_pitch_rel > 2e-3):
+        failures.append("card path disagrees with the CPU plain path")
+
+    # throughput of the user-facing call, host work included
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        t.transcribe_clips(pool[i % POOL])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    log(f"[main] transcribe_clips({N_CLIPS}): {dt * 1e3:.3f} ms/call, "
+        f"{N_CLIPS / dt:.1f} clips/s, {N_CLIPS * 0.5 / dt:.1f} audio-s/s "
+        f"on {card}")
+    profile_call(lambda: t.transcribe_clips(pool[1]), dt * 1e3)
+
+    # the flagship step through the port's entry point
+    step, (ex,) = entry(batch=32, device="cuda")
+    p_out, hz_out = step(ex)
+    torch.cuda.synchronize()
+    if (tuple(p_out.shape) != (32, 47) or tuple(hz_out.shape) != (32,)
+            or not bool(torch.isfinite(p_out).all())
+            or not bool(torch.isfinite(hz_out).all())):
+        failures.append("entry step output malformed")
+    log(f"[entry] step(32 clips) -> probs {tuple(p_out.shape)}, "
+        f"pitch {tuple(hz_out.shape)}")
+
+    if failures:
+        log(f"[fail] {failures}")
+        return 1
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,11 @@
+"""gat_tpu_torch — the PyTorch and CUDA port of gat_tpu for NVIDIA Hopper.
+
+The clip-ensemble path of `gat_tpu` (MFCC + YIN features into the MLP,
+the mel image into the CNN, a weighted softmax vote, and the YIN pitch
+baseline) rebuilt on PyTorch, with the two spectral front-ends and YIN as
+hand-written CUDA kernels (`csrc/`). Entry points run on the card unless
+the caller passes device="cpu", which runs the plain PyTorch versions of
+the kernels. `gat_tpu` stays the reference the port is tested against.
+"""
+
+__version__ = "1.0.0"

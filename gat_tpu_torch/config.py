@@ -1,0 +1,78 @@
+"""Static configuration of the PyTorch port.
+
+The values mirror `gat_tpu/config.py` one for one, so that both packages
+read the same shipped checkpoints with the same defaults. At inference the
+checkpoint's embedded config is the source of truth; these are the
+defaults a checkpoint falls back on and the names of the shipped files.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from pathlib import Path
+
+CONFIG_VERSION = "1.0.0"
+
+PROJECT_ROOT = Path(__file__).resolve().parent.parent
+# Data lives beside the package in a checkout; GAT_TPU_DATA_ROOT points an
+# installed package at a checkout's data/ directory (same variable as the
+# JAX package, so both read one tree).
+DATA_ROOT = Path(os.environ.get("GAT_TPU_DATA_ROOT", PROJECT_ROOT / "data"))
+CHECKPOINTS_ROOT = DATA_ROOT / "checkpoints"
+# Hand-written CUDA kernels are compiled here at first use.
+KERNEL_BUILD_DIR = PROJECT_ROOT / "build" / "gat_tpu_torch"
+
+TARGET_SR = 11025 * 2  # 22050 Hz: slicing rate of the file path
+CLIP_DURATION = 0.50   # seconds per note clip
+
+
+@dataclass(frozen=True)
+class MFCCConfig:
+    """MFCC-vector front-end of the MLP."""
+    N_MFCC: int = 64
+    BATCH_SIZE: int = 32
+    STANDARD_SCALER: bool = True
+    NORMALIZE_AUDIO_VOLUME: bool = True
+    ADD_PITCH_FEATURES: bool = True
+
+
+@dataclass(frozen=True)
+class MelSpecConfig:
+    """Mel-spectrogram front-end of the CNN."""
+    N_MELS: int = 64
+    N_FFT: int = 2048
+    HOP_LENGTH: int = 256
+    BATCH_SIZE: int = 32
+    NORMALIZE_AUDIO_VOLUME: bool = True
+    TO_DB: bool = True
+
+
+@dataclass(frozen=True)
+class MLPConfig:
+    """MLP checkpoints and topology. DEFAULT_CKPT_NAME is the shipped
+    synthetic-trained MLP; REFERENCE_CKPT_NAME the imported reference
+    weights."""
+    CHECKPOINTS_DIR: Path = CHECKPOINTS_ROOT / "mlp"
+    DEFAULT_CKPT_NAME: str = f"mlp_synth_v{CONFIG_VERSION}.gtckpt.npz"
+    REFERENCE_CKPT_NAME: str = f"mlp_v{CONFIG_VERSION}.gtckpt.npz"
+    HIDDEN_DIM: int = 128
+    NUM_HIDDEN_LAYERS: int = 2
+    DROPOUT: float = 0.1
+
+
+@dataclass(frozen=True)
+class CNNConfig:
+    """CNN checkpoints and topology."""
+    CHECKPOINTS_DIR: Path = CHECKPOINTS_ROOT / "cnn"
+    DEFAULT_CKPT_NAME: str = f"cnn_v{CONFIG_VERSION}.gtckpt.npz"
+    BASE_CHANNELS: int = 32
+    NUM_BLOCKS: int = 3
+    KERNEL_SIZE: int = 3
+    HIDDEN_DIM: int = 256
+    DROPOUT: float = 0.1
+
+
+MFCC_CONFIG = MFCCConfig()
+MELSPEC_CONFIG = MelSpecConfig()
+MLP_CONFIG = MLPConfig()
+CNN_CONFIG = CNNConfig()

@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels of `csrc/`.
+
+Each `csrc/<name>.cu` is compiled on its own by nvcc for Hopper
+(`sm_90a`) into a shared library with a plain C interface, which is loaded
+with ctypes. Nothing is compiled at import: a kernel is built at its first
+launch, or ahead of time by `build()`, which runs one nvcc per source, all
+at once. A library's file name carries a hash of its sources and flags, so
+an edited source is rebuilt and an unchanged one is reused.
+
+Every C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check` raises on anything but 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .config import KERNEL_BUILD_DIR
+
+__all__ = ["KERNELS", "build", "function", "check_input", "check",
+           "nvcc_path"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("melspec_frontend", "mfcc_frontend", "yin_pitch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """nvcc of the CUDA toolkit that PyTorch finds (CUDA_HOME, PATH or the
+    default install); raises when there is none."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = Path(CUDA_HOME or "") / "bin" / "nvcc"
+    if not CUDA_HOME or not nvcc.is_file():
+        raise RuntimeError("[gat_tpu_torch.kernels] nvcc not found: the CUDA "
+                           "kernels are built on a machine with the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return str(nvcc)
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return KERNEL_BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=KERNELS) -> dict[str, str]:
+    """Compile the named kernels that are not built yet, one nvcc process
+    per source, all started together. Returns nvcc's report (registers,
+    shared memory, spills) per kernel compiled in this call."""
+    todo = {n: _library_path(n) for n in names}
+    todo = {n: p for n, p in todo.items() if not p.is_file()}
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    KERNEL_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    reports, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("[gat_tpu_torch.kernels] build failed: "
+                           + "\n".join(failed))
+    return reports
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C entry point `symbol` of kernel `name`, building and loading
+    its library on first use. Pointers and the stream are c_void_p."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = _libs[name] = ctypes.CDLL(str(_library_path(name)))
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_input(clips, name: str) -> None:
+    """Raise unless `clips` is what every kernel here takes: contiguous
+    float32 of shape (N, L)."""
+    if clips.dtype != torch.float32 or clips.ndim != 2:
+        raise ValueError(f"[{name}] kernel takes float32 clips (N, L), got "
+                         f"{clips.dtype} {tuple(clips.shape)}")
+    if not clips.is_contiguous():
+        raise ValueError(f"[{name}] kernel takes contiguous clips")
+
+
+def check(status: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t from a launch."""
+    if status != 0:
+        raise RuntimeError(f"[gat_tpu_torch.kernels] {name} launch failed: "
+                           f"cudaError {status}")

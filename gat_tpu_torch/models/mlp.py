@@ -1,0 +1,64 @@
+"""MFCC-vector MLP classifier, the PyTorch twin of `gat_tpu/models/mlp.py`:
+
+    Linear(num_features → dims[0]) → LayerNorm → LeakyReLU(0.1) → Dropout
+    [halving hidden blocks while the next width is ≥ 8]
+    Linear(dims[-1] → num_classes)
+
+Submodules carry the flax layer names (`dense_0`, `ln_0`, …, `out`), so
+`params_from_flax` is a rename plus layout changes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+__all__ = ["MLP", "mlp_dims", "params_from_flax"]
+
+
+def mlp_dims(hidden_dim: int, num_hidden_layers: int) -> list[int]:
+    """Hidden widths: halve until < 8 or the layer budget is spent."""
+    dims = [hidden_dim]
+    for _ in range(num_hidden_layers - 1):
+        nxt = dims[-1] // 2
+        if nxt < 8:
+            break
+        dims.append(nxt)
+    return dims
+
+
+class MLP(nn.Module):
+    def __init__(self, num_features: int, hidden_dim: int = 128,
+                 num_hidden_layers: int = 2, num_classes: int = 47,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.n_hidden = 0
+        width_in = num_features
+        for i, width in enumerate(mlp_dims(hidden_dim, num_hidden_layers)):
+            self.add_module(f"dense_{i}", nn.Linear(width_in, width))
+            self.add_module(f"ln_{i}", nn.LayerNorm(width, eps=1e-5))
+            self.n_hidden += 1
+            width_in = width
+        self.dropout = nn.Dropout(dropout)
+        self.out = nn.Linear(width_in, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_hidden):
+            x = getattr(self, f"ln_{i}")(getattr(self, f"dense_{i}")(x))
+            x = self.dropout(F.leaky_relu(x, 0.1))
+        return self.out(x)
+
+
+def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """flax MLP variables (numpy trees) → MLP state_dict. Dense kernels
+    are (in, out), Linear weights (out, in); LayerNorm scale → weight."""
+    sd = {}
+    for name, p in variables["params"].items():
+        if "kernel" in p:
+            sd[f"{name}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(p["kernel"]).T))
+        else:
+            sd[f"{name}.weight"] = torch.from_numpy(np.asarray(p["scale"]))
+        sd[f"{name}.bias"] = torch.from_numpy(np.asarray(p["bias"]))
+    return sd

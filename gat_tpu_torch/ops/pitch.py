@@ -1,0 +1,32 @@
+"""Pitch unit conversions and Scientific Pitch Notation names.
+
+Dataset labels use the ASCII '#'; `midi_to_note` gives librosa's Unicode
+'♯' by default, as the reference's DSP baseline does.
+"""
+from __future__ import annotations
+
+__all__ = ["midi_to_note", "note_to_midi"]
+
+_PITCH_CLASSES_UNICODE = ["C", "C♯", "D", "D♯", "E", "F", "F♯", "G", "G♯",
+                          "A", "A♯", "B"]
+_PITCH_CLASSES_ASCII = ["C", "C#", "D", "D#", "E", "F", "F#", "G", "G#",
+                        "A", "A#", "B"]
+
+
+def midi_to_note(midi: int, unicode: bool = True) -> str:
+    """MIDI number → SPN name, e.g. 40 → 'E2' (octave, no cents)."""
+    midi = int(round(midi))
+    table = _PITCH_CLASSES_UNICODE if unicode else _PITCH_CLASSES_ASCII
+    return f"{table[midi % 12]}{midi // 12 - 1}"
+
+
+def note_to_midi(name: str) -> int:
+    """SPN name → MIDI number. Accepts '#'/'♯' and 'b'/'♭'; accidentals
+    carry across the octave boundary ('Cb4' is 59, 'B#3' is 60)."""
+    s = name.strip()
+    idx = _PITCH_CLASSES_ASCII.index(s[0].upper())
+    rest = s[1:]
+    while rest and rest[0] in "#♯b♭":
+        idx += 1 if rest[0] in "#♯" else -1
+        rest = rest[1:]
+    return (int(rest) + 1) * 12 + idx

@@ -1,0 +1,93 @@
+"""The CUDA kernels against their plain versions on the card. Every test
+carries the `cuda` marker and skips without a card. On a machine with one
+(`--noconftest`: the tests directory's conftest imports jax, which the
+port does not need):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from gat_tpu_torch import features
+from gat_tpu_torch.ops import yin
+
+pytestmark = pytest.mark.cuda
+
+SR = 11025
+
+
+def _tones(noise: float) -> torch.Tensor:
+    """47 decaying tones from 82.4 to 1174.7 Hz plus noise, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(3)
+    t = np.arange(5512) / SR
+    x = np.stack([np.sin(2 * np.pi * f * t) * np.exp(-3 * t)
+                  for f in np.geomspace(82.4, 1174.7, 47)])
+    x = x + rng.normal(0, noise, x.shape)
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+@pytest.fixture
+def clips():
+    return _tones(0.1)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("to_db", [True, False])
+def test_melspec_kernel(clips, normalize, to_db):
+    before = features.melspec_features.launches
+    got = features.melspec_features(clips, SR,
+                                    normalize_audio_volume=normalize,
+                                    to_db=to_db)
+    ref = features.melspec_features_plain(clips, SR,
+                                          normalize_audio_volume=normalize,
+                                          to_db=to_db)
+    torch.cuda.synchronize()
+    assert features.melspec_features.launches == before + 1
+    assert got.shape == ref.shape == (47, 64, 22, 1)
+    if to_db:
+        mask = ref > -60
+        assert float((got - ref).abs()[mask].max()) <= 0.1
+        assert float(got.min()) >= -100.0
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-3,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_mfcc_kernel(clips, normalize):
+    got = features.mfcc_frontend(clips, SR, 64, normalize)
+    ref = features.mfcc_frontend_plain(clips, SR, 64, normalize)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("noise", [0.1, 0.0])
+@pytest.mark.parametrize("length", [5512, 4608, 3000])
+def test_yin_kernel(noise, length):
+    x = _tones(noise)[:, :length].contiguous()
+    got = yin.yin_pitch(x, SR)
+    ref = yin.yin_pitch_plain(x, SR)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=0)
+
+
+@pytest.mark.parametrize("wrapper", [features.melspec_features,
+                                     features.mfcc_frontend, yin.yin_pitch],
+                         ids=lambda f: f.__name__)
+def test_wrappers_check_inputs(clips, wrapper):
+    with pytest.raises(ValueError, match="float32"):
+        wrapper(clips.double(), SR)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(clips.t().contiguous().t(), SR)
+    assert wrapper(clips[:0], SR).shape[0] == 0
+
+
+def test_transcribe_clips_card_vs_cpu(clips):
+    from gat_tpu_torch.infer import Transcriber
+    got = Transcriber(device="cuda").transcribe_clips(clips)
+    ref = Transcriber(device="cpu").transcribe_clips(clips.cpu())
+    assert got["labels"] == ref["labels"]
+    np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)

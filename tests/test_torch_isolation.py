@@ -1,0 +1,130 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, its entry points never fall back to the CPU on their own, and its
+CUDA kernels are built at first launch, never at import."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gat_tpu_torch import features, kernels
+from gat_tpu_torch.ops import yin
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gat_tpu")
+PORT_FILES = sorted((REPO / "gat_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+WRAPPERS = [(features.melspec_features, features.melspec_features_plain),
+            (features.mfcc_frontend, features.mfcc_frontend_plain),
+            (yin.yin_pitch, yin.yin_pitch_plain)]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_gat_tpu_import(path):
+    for name in _imported_modules(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_port_imports_with_jax_blocked():
+    """Every port module imports with jax, flax, optax and gat_tpu made
+    unimportable, in a fresh interpreter."""
+    mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                  .removesuffix(".__init__")
+                  for p in (REPO / "gat_tpu_torch").rglob("*.py"))
+    code = ("import sys\n"
+            f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_refuse_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from gat_tpu_torch.entry import entry
+    from gat_tpu_torch.infer import NotePredictor, Transcriber
+    for make in (Transcriber, lambda: Transcriber(device="cuda"),
+                 NotePredictor, entry):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+def test_kernels_not_built_at_import():
+    assert kernels._libs == {}
+    assert kernels.KERNELS == ("melspec_frontend", "mfcc_frontend",
+                               "yin_pitch")
+    for name in kernels.KERNELS:
+        assert (kernels.CSRC / f"{name}.cu").is_file()
+
+
+def test_build_needs_nvcc(monkeypatch, tmp_path):
+    import torch.utils.cpp_extension as cpp
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    monkeypatch.setattr(kernels, "KERNEL_BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_library_name_follows_sources(monkeypatch, tmp_path):
+    """An edited source gets a new library file, so it is rebuilt."""
+    for src in kernels.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = {n: kernels._library_path(n) for n in kernels.KERNELS}
+    (tmp_path / "dsp_common.cuh").write_text(
+        (tmp_path / "dsp_common.cuh").read_text() + "\n// edit\n")
+    after = {n: kernels._library_path(n) for n in kernels.KERNELS}
+    assert all(before[n] != after[n] for n in kernels.KERNELS)
+    assert len(set(after.values())) == 3
+
+
+def test_check_input_refuses_what_the_kernels_do_not_take():
+    x = torch.zeros(3, 5512)
+    kernels.check_input(x, "k")
+    for bad, what in ((x.double(), "float32"), (x[0], "float32"),
+                      (x.t().contiguous().t(), "contiguous")):
+        with pytest.raises(ValueError, match=what):
+            kernels.check_input(bad, "k")
+
+
+def test_check_raises_on_cuda_error():
+    kernels.check(0, "x")
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        kernels.check(1, "x")
+
+
+@pytest.mark.parametrize("wrapper,plain", WRAPPERS,
+                         ids=lambda f: getattr(f, "__name__", ""))
+def test_cpu_tensor_runs_plain_version(wrapper, plain):
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.1, (3, 5512)).astype(np.float32))
+    before = wrapper.launches
+    np.testing.assert_array_equal(wrapper(x, 11025).numpy(),
+                                  plain(x, 11025).numpy())
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("wrapper,plain", WRAPPERS,
+                         ids=lambda f: getattr(f, "__name__", ""))
+def test_other_devices_raise(wrapper, plain):
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(torch.empty(2, 5512, device="meta"), 11025)
