@@ -1,72 +1,160 @@
 // K1: the CNN's mel front-end, clips (N, L) -> mel image (N, n_mels, T, 1).
 //
-// Replaces the TPU kernel gat_tpu/ops/pallas/melspec_frontend.py::
-// melspec_pallas (and its block-DFT formulation blockmel.py::
-// melspec_block_pallas), both deleted in 1951c8f; the live reference is
-// gat_tpu/features.py::melspec_features. Per clip:
-//   1. volume normalization y / (rms + 1e-9) (when asked for);
-//   2. reflect center pad of n_fft/2, done in shared memory, so no padded
-//      copy reaches device memory;
-//   3. hop-`hop` frames with a periodic Hann window;
-//   4. a 2048-point FFT in shared memory, |X|^2 on the rfft bins;
-//   5. the HTK mel projection over each band's nonzero bins;
-//   6. 10*log10(max(., 1e-10)) (when to_db), no clamp;
-//   7. the image written NHWC, coalesced, once.
+// Replaces the TPU kernel melspec_pallas
+// (1951c8f^:gat_tpu/ops/pallas/melspec_frontend.py:71) and its block-DFT
+// form melspec_block_pallas (1951c8f^:gat_tpu/ops/pallas/blockmel.py:123);
+// the live reference is gat_tpu/features.py::melspec_features. Per clip:
+// volume normalization y / (rms + 1e-9) (when asked for), reflect center
+// pad of n_fft/2, hop-`hop` frames with a periodic Hann window, a
+// 2048-point DFT, |X|^2 on the 1025 rfft bins, the HTK mel projection,
+// 10*log10(max(., 1e-10)) (when to_db), the image written NHWC once.
 //
-// What bounds it: per 0.5 s clip at 11025 Hz the 22 real-input FFTs need
-// 22 * 2.5 * 2048 * 11 = 1.24 M fp32 flops against 22 KB read and 5.6 KB
-// written, so its roofline bound is the fp32 operation rate, not memory.
-// This kernel runs each as a complex 2048-point transform, twice that.
-// The design keeps the whole chain in shared memory (the (N, T, 1025)
-// spectrum never exists in device memory) and runs one block per clip.
-// This first version is held back further by latency: a __syncthreads
-// after each of the 11 FFT stages, and the frames of a clip in sequence.
+// What bounds it: the fp32 rate of 22 real 2048-point FFTs per 0.5 s clip
+// (22 * 2.5 * 2048 * 11 = 1.24 M flops against 22 KB read and 5.6 KB
+// written), not memory. One block of 256 threads owns one clip. What each
+// part of the design does about what held the first version of this kernel
+// back:
+//   1. A complex FFT on real data -> two frames per FFT: frames t (real
+//      part) and t + 1 (imaginary part) share one complex transform Z,
+//      split on the power bins as X_t = (Z[k] + conj Z[-k]) / 2 and
+//      X_t+1 = (Z[k] - conj Z[-k]) / 2i. Adjacent frames are paired, so
+//      the two differ little in level; an odd last frame runs with a zero
+//      partner. 11 transforms per 22-frame clip instead of 22.
+//   2. One frame at a time, a barrier per radix-2 stage -> Stockham passes
+//      in registers (fft_stockham.cuh): 128 threads run one transform, 16
+//      values each, as radix 16, 16 and 8 passes with two shared-memory
+//      exchanges. The last pass leaves X[k] and X[2048 - k] in the same
+//      thread, so the split needs no third exchange.
+//   3. Bank conflicts in the bit-reversed staging and the twiddle reads ->
+//      nothing is stored bit-reversed: the first pass reads its samples
+//      straight from the clip in device memory (L1-cached, reflect index
+//      per sample), the exchanges go through an XOR swizzle that gives
+//      every warp 32 distinct banks, and the twiddles are per-pass tables
+//      (computed by the host in float64) that a warp reads contiguously.
+//   4. Threads idle in the mel -> each band's nonzero bins are cut into 8
+//      equal parts; every (band, part) item sums its bins for the four
+//      frames in flight at once (one filterbank load, four FMAs), the items
+//      spread over all 256 threads, and one thread per (band, frame) then
+//      sums the band's 8 parts. fp32, no tensor cores.
+//   5. Low occupancy (2 blocks of 256 threads per SM) -> the clip is not
+//      copied into shared memory, and the power bins reuse the FFT's
+//      exchange buffer: 47,616 bytes of shared memory for 64 mels and 22
+//      frames, and __launch_bounds__(256, 4), so four blocks fit on an SM.
+//      The two halves of a block run two frame pairs at once (four frames
+//      in flight), so a 22-frame clip takes 6 rounds of 6 barriers: 3 in
+//      the FFT, 1 before the power bins overwrite the exchange buffer, 1
+//      after them, 1 after the mel partial sums.
 #include "dsp_common.cuh"
+#include "fft_stockham.cuh"
 
 using namespace gat;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kInFlight = 4;   // frames per round: two pairs
+constexpr int kMelParts = 8;   // parts of a band's nonzero bins
+constexpr int kPartStride = kInFlight * kMelParts + 4;  // floats per band,
+                                                        // padded for banks
+
+static size_t melspec_smem_bytes(int n_mels, int n_frames) {
+  return sizeof(float) *
+         (size_t)(4 * kFFT + n_mels * kPartStride + n_mels * n_frames);
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
 melspec_frontend_kernel(const float* __restrict__ clips,
                         float* __restrict__ out,
-                        const float* __restrict__ hann_g,
-                        const float* __restrict__ tw_g,
+                        const float* __restrict__ hann,
+                        const float* __restrict__ tw,
                         const float* __restrict__ fb,
                         const int* __restrict__ lo,
                         const int* __restrict__ hi, int n_samples, int hop,
                         int n_frames, int n_mels, int normalize, int to_db) {
   extern __shared__ float smem[];
-  float* re = smem;                          // kFFT
-  float* im = re + kFFT;                     // kFFT
-  float* tw_re = im + kFFT;                  // kFFT / 2
-  float* tw_im = tw_re + kFFT / 2;           // kFFT / 2
-  float* hann = tw_im + kFFT / 2;            // kFFT
-  float* power = hann + kFFT;                // kBins
-  float* scratch = power + kBins;            // kThreads
-  float* img = scratch + kThreads;           // n_mels * n_frames
-  float* padded = img + n_mels * n_frames;   // n_samples + kFFT
+  float* xre = smem;                           // 2 transforms x kFFT
+  float* xim = xre + 2 * kFFT;                 // 2 transforms x kFFT
+  float* power = smem;      // kInFlight x kBins, over the FFT's exchange
+  float* partial = xim + 2 * kFFT;             // n_mels x kPartStride
+  float* img = partial + n_mels * kPartStride; // n_mels x n_frames
 
-  for (int k = threadIdx.x; k < kFFT / 2; k += kThreads) {
-    tw_re[k] = tw_g[k];
-    tw_im[k] = tw_g[kFFT / 2 + k];
+  const float* clip = clips + (size_t)blockIdx.x * n_samples;
+  // The 1/2 of the two-for-one split, squared, and the volume
+  // normalization, which scales the power by 1 / (rms + eps)^2.
+  float scale = 0.25f;
+  if (normalize) {
+    float ss = 0.0f;
+    for (int i = threadIdx.x; i < n_samples; i += kThreads)
+      ss += clip[i] * clip[i];
+    ss = block_sum(ss, xre);
+    const float d = sqrtf(ss / (float)n_samples) + kVolumeEps;
+    scale = 0.25f / (d * d);
   }
-  for (int k = threadIdx.x; k < kFFT; k += kThreads) hann[k] = hann_g[k];
-  load_padded_clip(clips + (size_t)blockIdx.x * n_samples, n_samples,
-                   kFFT / 2, /*reflect=*/true, normalize != 0, padded,
-                   scratch);
 
-  for (int t = 0; t < n_frames; ++t) {
-    load_windowed_frame(padded, t * hop, hann, re, im);
-    fft2048(re, im, tw_re, tw_im);
-    power_bins(re, im, power);
-    for (int m = threadIdx.x; m < n_mels; m += kThreads) {
-      float v = mel_band(fb, lo, hi, power, m);
-      img[m * n_frames + t] = to_db ? 10.0f * log10f(fmaxf(v, 1e-10f)) : v;
+  const int g = threadIdx.x / kFFTThreads;  // transform of this thread
+  const int j = threadIdx.x % kFFTThreads;
+  float* re = xre + g * kFFT;
+  float* im = xim + g * kFFT;
+
+  for (int t0 = 0; t0 < n_frames; t0 += kInFlight) {
+    const int ta = t0 + 2 * g;  // frames ta (real part), ta + 1 (imaginary)
+    const bool has_a = ta < n_frames, has_b = ta + 1 < n_frames;
+    float vr[16], vi[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int n = j + kFFTThreads * r;
+      const int i = ta * hop + n - kFFT / 2;
+      const float w = hann[n];
+      vr[r] = has_a ? clip[reflect_index(i, n_samples)] * w : 0.0f;
+      vi[r] = has_b ? clip[reflect_index(i + hop, n_samples)] * w : 0.0f;
+    }
+    fft2048_stockham(vr, vi, re, im, tw, j);
+    __syncthreads();  // the last pass has read the exchange buffer
+    split_power_bins(vr, vi, j, power + 2 * g * kBins,
+                     power + (2 * g + 1) * kBins);
+    __syncthreads();
+
+    // mel partial sums: item i is (band m, part s) for the four frames
+    for (int i = threadIdx.x; i < n_mels * kMelParts; i += kThreads) {
+      const int m = i / kMelParts, s = i % kMelParts;
+      const int l = lo[m], h = hi[m];
+      const int len = (h - l + kMelParts - 1) / kMelParts;
+      const int k0 = l + s * len;
+      const int k1 = k0 + len < h ? k0 + len : h;
+      const float* row = fb + (size_t)m * kBins;
+      float acc[kInFlight] = {};
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) {
+        const float w = row[k];
+#pragma unroll
+        for (int f = 0; f < kInFlight; ++f) acc[f] += w * power[f * kBins + k];
+      }
+#pragma unroll
+      for (int f = 0; f < kInFlight; ++f)
+        partial[m * kPartStride + s * kInFlight + f] = acc[f];
+    }
+    __syncthreads();
+
+    // one thread per (band, frame) sums the parts and takes the dB
+    for (int i = threadIdx.x; i < n_mels * kInFlight; i += kThreads) {
+      const int f = i % kInFlight, m = i / kInFlight;
+      if (t0 + f >= n_frames) continue;
+      const float* q = partial + m * kPartStride + f;
+      float v = 0.0f;
+#pragma unroll
+      for (int s = 0; s < kMelParts; ++s) v += q[s * kInFlight];
+      v *= scale;
+      img[m * n_frames + t0 + f] = to_db ? 10.0f * log10f(fmaxf(v, 1e-10f))
+                                         : v;
     }
   }
   __syncthreads();
   float* o = out + (size_t)blockIdx.x * n_mels * n_frames;
   for (int i = threadIdx.x; i < n_mels * n_frames; i += kThreads)
     o[i] = img[i];
+}
+
+static cudaError_t melspec_set_attributes(int n_mels, int n_frames) {
+  return cudaFuncSetAttribute(
+      melspec_frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)melspec_smem_bytes(n_mels, n_frames));
 }
 
 extern "C" int gat_melspec_frontend(const float* clips, float* out,
@@ -76,14 +164,23 @@ extern "C" int gat_melspec_frontend(const float* clips, float* out,
                                     int n_samples, int hop, int n_frames,
                                     int n_mels, int normalize, int to_db,
                                     void* stream) {
-  size_t smem = sizeof(float) * (size_t)(5 * kFFT + kBins + kThreads +
-                                         n_mels * n_frames + n_samples);
-  cudaError_t err = cudaFuncSetAttribute(
-      melspec_frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = melspec_set_attributes(n_mels, n_frames);
   if (err != cudaSuccess) return (int)err;
-  melspec_frontend_kernel<<<n_clips, kThreads, smem, (cudaStream_t)stream>>>(
+  melspec_frontend_kernel<<<n_clips, kThreads,
+                            melspec_smem_bytes(n_mels, n_frames),
+                            (cudaStream_t)stream>>>(
       clips, out, hann, tw, fb, lo, hi, n_samples, hop, n_frames, n_mels,
       normalize, to_db);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM at these sizes, as the CUDA runtime computes it
+// from the kernel's registers and shared memory.
+extern "C" int gat_melspec_blocks_per_sm(int n_mels, int n_frames,
+                                         int* blocks) {
+  cudaError_t err = melspec_set_attributes(n_mels, n_frames);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, melspec_frontend_kernel, kThreads,
+      melspec_smem_bytes(n_mels, n_frames));
 }

@@ -48,9 +48,12 @@ def normalize_volume(y: torch.Tensor, eps: float = _VOLUME_EPS
 def _kernel_tables(sr: int, n_mels: int, htk: bool, device: torch.device
                    ) -> tuple[torch.Tensor, ...]:
     """(hann, twiddles, filterbank, lo, hi) for a front-end kernel: the
-    periodic Hann window, e^(-2πik/n_fft) for k < n_fft/2 as [cos | -sin],
-    the dense (n_mels, n_fft/2 + 1) filterbank and each band's nonzero
-    bin range [lo, hi)."""
+    periodic Hann window, the twiddle table of `csrc/fft_stockham.cuh`
+    (e^(-2πik/n_fft) for k < n_fft/2 as [cos | -sin], which K2's radix-2
+    FFT reads, then K1's Stockham pass tables W_256^(r·m), r, m < 16, and
+    W_2048^(r·b), r < 8, b < 256, each as [re | im]), the dense
+    (n_mels, n_fft/2 + 1) filterbank and each band's nonzero bin range
+    [lo, hi). Computed in float64, rounded to float32."""
     n = _KERNEL_N_FFT
     fb = (mel_filterbank_torchaudio(sr, n, n_mels) if htk
           else mel_filterbank_librosa(sr, n, n_mels))
@@ -59,8 +62,11 @@ def _kernel_tables(sr: int, n_mels: int, htk: bool, device: torch.device
     lo = np.where(any_nz, nz.argmax(axis=1), 0).astype(np.int32)
     hi = np.where(any_nz, fb.shape[1] - nz[:, ::-1].argmax(axis=1),
                   0).astype(np.int32)
-    ang = 2.0 * np.pi * np.arange(n // 2) / n
-    tw = np.concatenate([np.cos(ang), -np.sin(ang)]).astype(np.float32)
+    ang = [2.0 * np.pi * np.arange(n // 2) / n,
+           2.0 * np.pi * np.outer(np.arange(16), np.arange(16)).ravel() / 256,
+           2.0 * np.pi * np.outer(np.arange(8), np.arange(256)).ravel() / n]
+    tw = np.concatenate([x for a in ang for x in (np.cos(a), -np.sin(a))]
+                        ).astype(np.float32)
     hann = spectral._hann_np(n)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (hann, tw, fb, lo, hi))
@@ -96,9 +102,10 @@ def melspec_features(clips: torch.Tensor, sr: int, n_mels: int = 64,
     melspec_pallas` (deleted in 1951c8f; live reference
     `gat_tpu/features.py::melspec_features`). Its roofline bound is the
     fp32 rate of its FFTs (1.24 M flops per clip for real-input FFTs,
-    against 28 KB moved); it keeps pad, window, FFT, power, mel and dB of
-    one clip in shared memory, so the spectrum never reaches device
-    memory. CPU tensor: `melspec_features_plain`."""
+    against 28 KB moved). One block owns one clip and runs two adjacent
+    frames per complex FFT (register Stockham passes, four frames in
+    flight), then power, mel and dB in shared memory, so the spectrum
+    never reaches device memory. CPU tensor: `melspec_features_plain`."""
     if clips.device.type == "cpu":
         return melspec_features_plain(clips, sr, n_mels, n_fft, hop_length,
                                       normalize_audio_volume, to_db)

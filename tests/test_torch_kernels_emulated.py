@@ -38,7 +38,7 @@ EMULATION_HEADER = r"""
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 inline pthread_barrier_t emu_barrier;
@@ -54,6 +54,11 @@ constexpr int cudaSuccess = 0;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <class F> int cudaFuncSetAttribute(F, int, int bytes) {
   return bytes > 232448 ? 1 : 0;  // an H100 block's shared-memory limit
+}
+template <class F>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 0;  // no occupancy without a card
+  return 0;
 }
 inline int cudaGetLastError() { return 0; }
 alignas(16) inline float smem[232448 / sizeof(float)];
@@ -124,10 +129,38 @@ def _clips(length: int) -> torch.Tensor:
     return torch.from_numpy(x.astype(np.float32))
 
 
-@pytest.mark.parametrize("normalize", [True, False])
-@pytest.mark.parametrize("to_db", [True, False])
-def test_melspec_kernel_emulated(libs, normalize, to_db):
-    x = _clips(5512)
+def level_step_clip(length: int = 5512, onset: int = 2560) -> np.ndarray:
+    """(1, length): 1e-4 noise, then from `onset` a Karplus-Strong pluck of
+    peak 2. With the onset at 1024 + 256 t for an even t, frame t is all
+    noise and frame t + 1, its partner in one FFT of K1, holds the pluck:
+    their mel bands differ by up to about 60 dB."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(0.0, 1e-4, length)
+    period = round(SR / 196.0)
+    buf = rng.uniform(-1.0, 1.0, period)
+    for i in range(length - onset):
+        x[onset + i] += 2.0 * buf[i % period]
+        buf[i % period] = 0.498 * (buf[i % period] + buf[(i + 1) % period])
+    return x[None].astype(np.float32)
+
+
+def check_mel_image(got: torch.Tensor, ref: torch.Tensor, to_db: bool
+                    ) -> None:
+    """K1's tolerance against its plain version: 0.1 dB where the plain
+    image is above -60 dB, finite and >= -100 dB everywhere; without dB,
+    rtol 1e-3 and atol 1e-5 of the image's peak."""
+    assert got.shape == ref.shape
+    if to_db:
+        mask = ref > -60
+        assert float((got - ref).abs()[mask].max()) <= 0.1
+        assert float(got.min()) >= -100.0 and bool(torch.isfinite(got).all())
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-3,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+def _melspec_emulated(libs, x: torch.Tensor, normalize: bool, to_db: bool
+                      ) -> torch.Tensor:
     n, length = x.shape
     n_fr = spectral.n_frames(length, 2048, 256)
     out = torch.empty((n, 64, n_fr, 1))
@@ -137,16 +170,30 @@ def test_melspec_kernel_emulated(libs, normalize, to_db):
     assert fn(x.data_ptr(), out.data_ptr(), hann.data_ptr(), tw.data_ptr(),
               fb.data_ptr(), lo.data_ptr(), hi.data_ptr(), n, length, 256,
               n_fr, 64, int(normalize), int(to_db), None) == 0
+    return out
+
+
+@pytest.mark.parametrize("length", [5512, 5300, 1100])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("to_db", [True, False])
+def test_melspec_kernel_emulated(libs, normalize, to_db, length):
+    """22, 21 and 5 frames: the odd counts run the last frame of a clip
+    with a zero partner in its FFT."""
+    x = _clips(length)
+    out = _melspec_emulated(libs, x, normalize, to_db)
     ref = features.melspec_features_plain(x, SR,
                                           normalize_audio_volume=normalize,
                                           to_db=to_db)
-    if to_db:
-        mask = ref > -60
-        assert float((out - ref).abs()[mask].max()) <= 0.1
-        assert float(out.min()) >= -100.0 and bool(torch.isfinite(out).all())
-    else:
-        torch.testing.assert_close(out, ref, rtol=1e-3,
-                                   atol=1e-5 * float(ref.abs().max()))
+    check_mel_image(out, ref, to_db)
+
+
+def test_melspec_kernel_emulated_level_step(libs):
+    """A silent frame sharing its FFT with a loud one keeps its level."""
+    x = torch.from_numpy(level_step_clip())
+    ref = features.melspec_features_plain(x, SR)
+    step = ref[0, :, 7, 0] - ref[0, :, 6, 0]  # onset 2560: frames 6 and 7
+    assert float(step.max()) >= 55.0
+    check_mel_image(_melspec_emulated(libs, x, True, True), ref, True)
 
 
 @pytest.mark.parametrize("normalize", [True, False])
