@@ -8,13 +8,14 @@ non-zero:
 
 1. the card: name and power limit (nvidia-smi);
 2. build the three CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
-   source, in parallel), print nvcc's register/spill report and the mel
+   source, in parallel), print nvcc's register/spill report and each
    kernel's resident blocks per SM as the CUDA runtime computes them;
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes (1024 clips of 0.5 s at 11025 Hz: Karplus-Strong
    plucks over the 47 classes plus noise, from a seed; the mel kernel
-   also at 1100 samples, an odd frame count), and time both with CUDA
-   events over distinct input buffers;
+   also at 1100 samples, the MFCC kernel also at 4608 and 1100, so odd
+   and even frame counts), and time both with CUDA events over distinct
+   input buffers;
 4. drive the main path, `Transcriber(device="cuda").transcribe_clips`, at
    the shipped checkpoints: every kernel's launch count must rise, the
    labels must equal those of the plain versions fed to the same models,
@@ -214,14 +215,20 @@ def main() -> int:
     table_bytes_64 = sum(a.numel() * a.element_size() for a in tables64)
     table_bytes_128 = (sum(a.numel() * a.element_size() for a in tables128)
                        + 4 * 128 * 64)  # and the DCT matrix
-    blocks = ctypes.c_int(0)
-    status = kernels.function(
-        "melspec_frontend", "gat_melspec_blocks_per_sm",
-        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])(
-            64, t_mel, ctypes.addressof(blocks))
-    kernels.check(status, "melspec_frontend occupancy")
-    log(f"[occupancy] melspec_frontend_kernel: {blocks.value} resident "
-        f"blocks of 256 threads per SM at 64 mels x {t_mel} frames")
+    for name, symbol, args, at in (
+            ("melspec_frontend", "gat_melspec_blocks_per_sm", (64, t_mel),
+             f"64 mels x {t_mel} frames"),
+            ("mfcc_frontend", "gat_mfcc_blocks_per_sm", (128, t_mfcc),
+             f"128 mels x {t_mfcc} frames"),
+            ("yin_pitch", "gat_yin_blocks_per_sm", (1024, 512, t_mfcc, max_p),
+             f"{t_mfcc} frames x {max_p + 1} lags")):
+        blocks = ctypes.c_int(0)
+        status = kernels.function(
+            name, symbol, [ctypes.c_int] * len(args) + [ctypes.c_void_p])(
+                *args, ctypes.addressof(blocks))
+        kernels.check(status, f"{name} occupancy")
+        log(f"[occupancy] {name}_kernel: {blocks.value} resident blocks of "
+            f"256 threads per SM at {at}")
 
     specs = [
         dict(name="melspec_frontend", fn=features.melspec_features,
@@ -269,6 +276,16 @@ def main() -> int:
         elif s["name"] == "mfcc_frontend":
             err = float((got - ref).abs().max())
             ok = err <= 1e-3 and bool(torch.isfinite(got).all())
+            # 10 frames, and 3: an odd count runs with a zero partner
+            for short_len in (4608, 1100):
+                short = clips[:, :short_len].contiguous()
+                err_short = float((fn(short) - plain(short)).abs().max())
+                ok_short = err_short <= 1e-3
+                log(f"[check] mfcc_frontend at {short_len} samples "
+                    f"({spectral.n_frames(short_len, 2048, 512)} frames): "
+                    f"max abs err {err_short:.6g} -> "
+                    f"{'ok' if ok_short else 'FAIL'}")
+                ok = ok and ok_short
         else:
             rel = (got - ref).abs() / ref.abs()
             err = float((got - ref).abs().max())

@@ -22,12 +22,11 @@ namespace gat {
 
 constexpr int kFFTThreads = 128;  // threads per transform
 
-// Twiddle table (floats): [0, 1024) cos and [1024, 2048) -sin of 2*pi*k/2048
-// (the radix-2 table of dsp_common's fft2048), then the pass-B table
-// W_256^(r m), r, m < 16, as re [2048, 2304) and im [2304, 2560) at r*16+m,
-// then the pass-C table W_2048^(r b), r < 8, b < 256, as re [2560, 4608)
-// and im [4608, 6656) at r*256+b.
-constexpr int kTwPassB = 2048;
+// Twiddle table (floats): the pass-B table W_256^(r m), r, m < 16, as re
+// [0, 256) and im [256, 512) at r*16+m, then the pass-C table
+// W_2048^(r b), r < 8, b < 256, as re [512, 2560) and im [2560, 4608) at
+// r*256+b.
+constexpr int kTwPassB = 0;
 constexpr int kTwPassC = kTwPassB + 2 * 256;
 
 __device__ __forceinline__ int swizzle(int a) {

@@ -1,0 +1,138 @@
+// The round loop shared by the two spectral front-ends, K1 (mel image,
+// reflect pad) and K2 (MFCC, zero pad): frame pair -> 2048-point FFT ->
+// two-for-one split -> mel partial sums -> one value per (band, frame).
+//
+// One block of kThreads threads owns one clip. Its two halves of
+// kFFTThreads threads each run one complex transform, whose real part is
+// frame t and whose imaginary part is frame t + 1 (fft_stockham.cuh), so a
+// round carries kInFlight = 4 frames; an odd last frame runs with a zero
+// partner. The power bins of the four frames reuse the FFT's exchange
+// buffer. The mel is cut into (band, eighth-of-band) items spread over all
+// threads, each summing its bins for the four frames at once (one
+// filterbank load, four FMAs); one thread per (band, frame) then sums the
+// band's eight parts and hands the result to the caller's `emit`. Six
+// barriers per round: 3 in the FFT, 1 before the power bins overwrite the
+// exchange buffer, 1 after them, 1 after the mel partial sums.
+#pragma once
+
+#include "dsp_common.cuh"
+#include "fft_stockham.cuh"
+
+namespace gat {
+
+constexpr int kInFlight = 4;   // frames per round: two pairs
+constexpr int kMelParts = 8;   // parts of a band's nonzero bins
+constexpr int kPartStride = kInFlight * kMelParts + 4;  // floats per band,
+                                                        // padded for banks
+
+// Floats of shared memory the rounds use from the start of `smem`: the
+// two transforms' exchange buffer (re, im), then the mel partial sums.
+__host__ __device__ constexpr int mel_rounds_floats(int n_mels) {
+  return 4 * kFFT + n_mels * kPartStride;
+}
+
+// Sample i of the clip after a center pad: numpy 'reflect' (K1) or zeros
+// (K2) outside [0, n).
+template <bool kReflect>
+__device__ __forceinline__ float padded_sample(const float* __restrict__ clip,
+                                               int i, int n) {
+  if (kReflect) return clip[reflect_index(i, n)];
+  return (i >= 0 && i < n) ? clip[i] : 0.0f;
+}
+
+// The scale of the rounds' mel sums: the 1/2 of the two-for-one split,
+// squared, and the volume normalization y / (rms + eps) (when asked
+// for), which scales the power by 1 / (rms + eps)^2. Every thread of the
+// block calls this; scratch holds kThreads floats.
+__device__ __forceinline__ float power_scale(const float* __restrict__ clip,
+                                             int n_samples, int normalize,
+                                             float* scratch) {
+  if (!normalize) return 0.25f;
+  float ss = 0.0f;
+  for (int i = threadIdx.x; i < n_samples; i += kThreads)
+    ss += clip[i] * clip[i];
+  ss = block_sum(ss, scratch);
+  const float d = sqrtf(ss / (float)n_samples) + kVolumeEps;
+  return 0.25f / (d * d);
+}
+
+// Runs every frame of `clip` through the rounds; frame t reads samples
+// t * hop + n - kFFT / 2, n < kFFT, of the clip. For each band m and frame
+// t, one thread calls emit(m, t, v) with v the band's mel sum of |X|^2,
+// times 4 (the split's (1/2)^2 is the caller's to apply). Every thread of
+// the block calls this. On return the exchange buffer is free again, and
+// the last emit may still be running in other threads.
+template <bool kReflect, class Emit>
+__device__ __forceinline__ void mel_rounds(const float* __restrict__ clip,
+                                           int n_samples, int hop,
+                                           int n_frames, int n_mels,
+                                           const float* __restrict__ hann,
+                                           const float* __restrict__ tw,
+                                           const float* __restrict__ fb,
+                                           const int* __restrict__ lo,
+                                           const int* __restrict__ hi,
+                                           float* smem, Emit emit) {
+  float* xre = smem;                  // 2 transforms x kFFT
+  float* xim = xre + 2 * kFFT;        // 2 transforms x kFFT
+  float* power = smem;                // kInFlight x kBins, over xre / xim
+  float* partial = xim + 2 * kFFT;    // n_mels x kPartStride
+
+  const int g = threadIdx.x / kFFTThreads;  // transform of this thread
+  const int j = threadIdx.x % kFFTThreads;
+  float* re = xre + g * kFFT;
+  float* im = xim + g * kFFT;
+
+  for (int t0 = 0; t0 < n_frames; t0 += kInFlight) {
+    const int ta = t0 + 2 * g;  // frames ta (real part), ta + 1 (imaginary)
+    const bool has_a = ta < n_frames, has_b = ta + 1 < n_frames;
+    float vr[16], vi[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int n = j + kFFTThreads * r;
+      const int i = ta * hop + n - kFFT / 2;
+      const float w = hann[n];
+      vr[r] = has_a ? padded_sample<kReflect>(clip, i, n_samples) * w : 0.0f;
+      vi[r] = has_b ? padded_sample<kReflect>(clip, i + hop, n_samples) * w
+                    : 0.0f;
+    }
+    fft2048_stockham(vr, vi, re, im, tw, j);
+    __syncthreads();  // the last pass has read the exchange buffer
+    split_power_bins(vr, vi, j, power + 2 * g * kBins,
+                     power + (2 * g + 1) * kBins);
+    __syncthreads();
+
+    // mel partial sums: item i is (band m, part s) for the four frames
+    for (int i = threadIdx.x; i < n_mels * kMelParts; i += kThreads) {
+      const int m = i / kMelParts, s = i % kMelParts;
+      const int l = lo[m], h = hi[m];
+      const int len = (h - l + kMelParts - 1) / kMelParts;
+      const int k0 = l + s * len;
+      const int k1 = k0 + len < h ? k0 + len : h;
+      const float* row = fb + (size_t)m * kBins;
+      float acc[kInFlight] = {};
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) {
+        const float w = row[k];
+#pragma unroll
+        for (int f = 0; f < kInFlight; ++f) acc[f] += w * power[f * kBins + k];
+      }
+#pragma unroll
+      for (int f = 0; f < kInFlight; ++f)
+        partial[m * kPartStride + s * kInFlight + f] = acc[f];
+    }
+    __syncthreads();
+
+    // one thread per (band, frame) sums the parts
+    for (int i = threadIdx.x; i < n_mels * kInFlight; i += kThreads) {
+      const int f = i % kInFlight, m = i / kInFlight;
+      if (t0 + f >= n_frames) continue;
+      const float* q = partial + m * kPartStride + f;
+      float v = 0.0f;
+#pragma unroll
+      for (int s = 0; s < kMelParts; ++s) v += q[s * kInFlight];
+      emit(m, t0 + f, v);
+    }
+  }
+}
+
+}  // namespace gat

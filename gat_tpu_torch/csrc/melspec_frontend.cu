@@ -44,19 +44,15 @@
 //      in flight), so a 22-frame clip takes 6 rounds of 6 barriers: 3 in
 //      the FFT, 1 before the power bins overwrite the exchange buffer, 1
 //      after them, 1 after the mel partial sums.
-#include "dsp_common.cuh"
-#include "fft_stockham.cuh"
+// Items 1, 2 and 4 are the round loop of mel_rounds.cuh, which K2
+// (mfcc_frontend.cu) shares with a zero pad and its own epilogue.
+#include "mel_rounds.cuh"
 
 using namespace gat;
 
-constexpr int kInFlight = 4;   // frames per round: two pairs
-constexpr int kMelParts = 8;   // parts of a band's nonzero bins
-constexpr int kPartStride = kInFlight * kMelParts + 4;  // floats per band,
-                                                        // padded for banks
-
 static size_t melspec_smem_bytes(int n_mels, int n_frames) {
   return sizeof(float) *
-         (size_t)(4 * kFFT + n_mels * kPartStride + n_mels * n_frames);
+         (size_t)(mel_rounds_floats(n_mels) + n_mels * n_frames);
 }
 
 __global__ void __launch_bounds__(kThreads, 4)
@@ -69,82 +65,17 @@ melspec_frontend_kernel(const float* __restrict__ clips,
                         const int* __restrict__ hi, int n_samples, int hop,
                         int n_frames, int n_mels, int normalize, int to_db) {
   extern __shared__ float smem[];
-  float* xre = smem;                           // 2 transforms x kFFT
-  float* xim = xre + 2 * kFFT;                 // 2 transforms x kFFT
-  float* power = smem;      // kInFlight x kBins, over the FFT's exchange
-  float* partial = xim + 2 * kFFT;             // n_mels x kPartStride
-  float* img = partial + n_mels * kPartStride; // n_mels x n_frames
+  float* img = smem + mel_rounds_floats(n_mels);  // n_mels x n_frames
 
   const float* clip = clips + (size_t)blockIdx.x * n_samples;
-  // The 1/2 of the two-for-one split, squared, and the volume
-  // normalization, which scales the power by 1 / (rms + eps)^2.
-  float scale = 0.25f;
-  if (normalize) {
-    float ss = 0.0f;
-    for (int i = threadIdx.x; i < n_samples; i += kThreads)
-      ss += clip[i] * clip[i];
-    ss = block_sum(ss, xre);
-    const float d = sqrtf(ss / (float)n_samples) + kVolumeEps;
-    scale = 0.25f / (d * d);
-  }
+  const float scale = power_scale(clip, n_samples, normalize, smem);
 
-  const int g = threadIdx.x / kFFTThreads;  // transform of this thread
-  const int j = threadIdx.x % kFFTThreads;
-  float* re = xre + g * kFFT;
-  float* im = xim + g * kFFT;
-
-  for (int t0 = 0; t0 < n_frames; t0 += kInFlight) {
-    const int ta = t0 + 2 * g;  // frames ta (real part), ta + 1 (imaginary)
-    const bool has_a = ta < n_frames, has_b = ta + 1 < n_frames;
-    float vr[16], vi[16];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int n = j + kFFTThreads * r;
-      const int i = ta * hop + n - kFFT / 2;
-      const float w = hann[n];
-      vr[r] = has_a ? clip[reflect_index(i, n_samples)] * w : 0.0f;
-      vi[r] = has_b ? clip[reflect_index(i + hop, n_samples)] * w : 0.0f;
-    }
-    fft2048_stockham(vr, vi, re, im, tw, j);
-    __syncthreads();  // the last pass has read the exchange buffer
-    split_power_bins(vr, vi, j, power + 2 * g * kBins,
-                     power + (2 * g + 1) * kBins);
-    __syncthreads();
-
-    // mel partial sums: item i is (band m, part s) for the four frames
-    for (int i = threadIdx.x; i < n_mels * kMelParts; i += kThreads) {
-      const int m = i / kMelParts, s = i % kMelParts;
-      const int l = lo[m], h = hi[m];
-      const int len = (h - l + kMelParts - 1) / kMelParts;
-      const int k0 = l + s * len;
-      const int k1 = k0 + len < h ? k0 + len : h;
-      const float* row = fb + (size_t)m * kBins;
-      float acc[kInFlight] = {};
-#pragma unroll 4
-      for (int k = k0; k < k1; ++k) {
-        const float w = row[k];
-#pragma unroll
-        for (int f = 0; f < kInFlight; ++f) acc[f] += w * power[f * kBins + k];
-      }
-#pragma unroll
-      for (int f = 0; f < kInFlight; ++f)
-        partial[m * kPartStride + s * kInFlight + f] = acc[f];
-    }
-    __syncthreads();
-
-    // one thread per (band, frame) sums the parts and takes the dB
-    for (int i = threadIdx.x; i < n_mels * kInFlight; i += kThreads) {
-      const int f = i % kInFlight, m = i / kInFlight;
-      if (t0 + f >= n_frames) continue;
-      const float* q = partial + m * kPartStride + f;
-      float v = 0.0f;
-#pragma unroll
-      for (int s = 0; s < kMelParts; ++s) v += q[s * kInFlight];
-      v *= scale;
-      img[m * n_frames + t0 + f] = to_db ? 10.0f * log10f(fmaxf(v, 1e-10f))
-                                         : v;
-    }
-  }
+  mel_rounds</*kReflect=*/true>(
+      clip, n_samples, hop, n_frames, n_mels, hann, tw, fb, lo, hi, smem,
+      [&](int m, int t, float v) {
+        v *= scale;
+        img[m * n_frames + t] = to_db ? 10.0f * log10f(fmaxf(v, 1e-10f)) : v;
+      });
   __syncthreads();
   float* o = out + (size_t)blockIdx.x * n_mels * n_frames;
   for (int i = threadIdx.x; i < n_mels * n_frames; i += kThreads)

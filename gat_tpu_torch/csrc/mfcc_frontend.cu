@@ -4,74 +4,76 @@
 // mfcc_mean_pallas, deleted in 1951c8f; the live reference is
 // gat_tpu/features.py::mfcc_feature_vectors (spectral.mfcc, then the mean
 // over frames). Per clip:
-//   1. volume normalization y / (rms + 1e-9) (when asked for);
-//   2. zero center pad of n_fft/2 in shared memory;
-//   3. hop-`hop` frames, periodic Hann, a 2048-point FFT, |X|^2;
-//   4. the Slaney mel projection (128 bands) over each band's nonzero bins;
-//   5. 10*log10(max(., 1e-10)), then the clamp at peak - top_db, with the
-//      peak over all frames and bands of the clip (a block-wide max);
-//   6. the mean over frames, then one orthonormal DCT-II. The DCT commutes
+//   1. volume normalization y / (rms + 1e-9) (when asked for), applied as
+//      the scale 1 / (rms + eps)^2 on the power;
+//   2. hop-`hop` frames over a zero center pad of n_fft/2, periodic Hann,
+//      a 2048-point DFT, |X|^2 on the 1025 rfft bins;
+//   3. the Slaney mel projection (128 bands) over each band's nonzero bins;
+//   4. 10*log10(max(., 1e-10)), then the clamp at peak - top_db, with the
+//      peak over all frames and bands of the clip;
+//   5. the mean over frames, then one orthonormal DCT-II. The DCT commutes
 //      with the mean, so it runs once per clip instead of once per frame.
 //
-// What bounds it: the clamp needs the whole clip's mel image before any
-// coefficient can be formed, so one block owns one clip. Per clip the 11
-// real-input FFTs need 0.62 M fp32 flops (run here as complex transforms,
-// twice that) against 22 KB read and 256 B written, so its roofline
-// bound is the fp32 operation rate. Like K1 it keeps everything
-// in shared memory and is held back further by latency (the FFT stages'
-// __syncthreads and the frames in sequence).
+// What bounds it: per clip the 11 real-input FFTs need 0.62 M fp32 flops
+// against 22 KB read and 256 B written, so its roofline bound is the fp32
+// operation rate. The clamp needs the whole clip's mel image before any
+// coefficient can be formed, so one block of 256 threads owns one clip.
+// Steps 2 and 3 are K1's round loop (mel_rounds.cuh): two adjacent frames
+// per complex FFT as register Stockham passes, four frames in flight, the
+// mel spread over all threads; the clip is read through L1, never copied
+// to shared memory. An 11-frame clip takes 3 rounds: (0,1)(2,3),
+// (4,5)(6,7), (8,9)(10,-). The epilogue keeps the 11 x 128 dB image in
+// shared memory; each thread folds the values it writes into a running
+// max, so the peak costs one block reduction at the end. The mean over
+// frames takes one thread per band, and the DCT (4 parts of the bands for
+// each coefficient) all 256 threads. Shared memory: the rounds' 2 x 2 x
+// 2048 floats of exchange and 128 x 36 of partial sums, and the image,
+// 56,832 bytes for 11 frames, so four blocks fit on an SM with
+// __launch_bounds__(256, 4).
 #include <cmath>
 
-#include "dsp_common.cuh"
+#include "mel_rounds.cuh"
 
 using namespace gat;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kDctParts = 4;  // parts of the bands per DCT coefficient
+
+static size_t mfcc_smem_bytes(int n_mels, int n_frames) {
+  return sizeof(float) *
+         (size_t)(mel_rounds_floats(n_mels) + n_frames * n_mels);
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
 mfcc_frontend_kernel(const float* __restrict__ clips,
                      float* __restrict__ out,
-                     const float* __restrict__ hann_g,
-                     const float* __restrict__ tw_g,
+                     const float* __restrict__ hann,
+                     const float* __restrict__ tw,
                      const float* __restrict__ fb,
                      const int* __restrict__ lo, const int* __restrict__ hi,
                      const float* __restrict__ dct, int n_samples, int hop,
                      int n_frames, int n_mels, int n_mfcc, int normalize,
                      float top_db) {
   extern __shared__ float smem[];
-  float* re = smem;                          // kFFT
-  float* im = re + kFFT;                     // kFFT
-  float* tw_re = im + kFFT;                  // kFFT / 2
-  float* tw_im = tw_re + kFFT / 2;           // kFFT / 2
-  float* hann = tw_im + kFFT / 2;            // kFFT
-  float* power = hann + kFFT;                // kBins
-  float* scratch = power + kBins;            // kThreads
-  float* img = scratch + kThreads;           // n_frames * n_mels
-  float* mean_db = img + n_frames * n_mels;  // n_mels
-  float* padded = mean_db + n_mels;          // n_samples + kFFT
+  float* img = smem + mel_rounds_floats(n_mels);  // n_frames x n_mels
+  // after the rounds, over the exchange buffer:
+  float* scratch = smem;                 // kThreads
+  float* mean_db = scratch + kThreads;   // n_mels
+  float* part = mean_db + n_mels;        // kDctParts x n_mfcc
 
-  for (int k = threadIdx.x; k < kFFT / 2; k += kThreads) {
-    tw_re[k] = tw_g[k];
-    tw_im[k] = tw_g[kFFT / 2 + k];
-  }
-  for (int k = threadIdx.x; k < kFFT; k += kThreads) hann[k] = hann_g[k];
-  load_padded_clip(clips + (size_t)blockIdx.x * n_samples, n_samples,
-                   kFFT / 2, /*reflect=*/false, normalize != 0, padded,
-                   scratch);
-
-  for (int t = 0; t < n_frames; ++t) {
-    load_windowed_frame(padded, t * hop, hann, re, im);
-    fft2048(re, im, tw_re, tw_im);
-    power_bins(re, im, power);
-    for (int m = threadIdx.x; m < n_mels; m += kThreads) {
-      float v = mel_band(fb, lo, hi, power, m);
-      img[t * n_mels + m] = 10.0f * log10f(fmaxf(v, 1e-10f));
-    }
-  }
-  __syncthreads();
+  const float* clip = clips + (size_t)blockIdx.x * n_samples;
+  const float scale = power_scale(clip, n_samples, normalize, smem);
 
   float peak = -INFINITY;
-  for (int i = threadIdx.x; i < n_frames * n_mels; i += kThreads)
-    peak = fmaxf(peak, img[i]);
+  mel_rounds</*kReflect=*/false>(
+      clip, n_samples, hop, n_frames, n_mels, hann, tw, fb, lo, hi, smem,
+      [&](int m, int t, float v) {
+        const float db = 10.0f * log10f(fmaxf(v * scale, 1e-10f));
+        img[t * n_mels + m] = db;
+        peak = fmaxf(peak, db);
+      });
+  // block_max's first barrier also publishes the image
   const float floor_db = block_max(peak, scratch) - top_db;
+
   for (int m = threadIdx.x; m < n_mels; m += kThreads) {
     float s = 0.0f;
     for (int t = 0; t < n_frames; ++t)
@@ -79,11 +81,29 @@ mfcc_frontend_kernel(const float* __restrict__ clips,
     mean_db[m] = s / (float)n_frames;
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < n_mfcc; k += kThreads) {
+
+  // DCT-II of the mean: item i is (coefficient k, part p of the bands)
+  const int len = (n_mels + kDctParts - 1) / kDctParts;
+  for (int i = threadIdx.x; i < n_mfcc * kDctParts; i += kThreads) {
+    const int k = i % n_mfcc, p = i / n_mfcc;
+    const int m1 = (p + 1) * len < n_mels ? (p + 1) * len : n_mels;
     float acc = 0.0f;
-    for (int m = 0; m < n_mels; ++m) acc += mean_db[m] * dct[m * n_mfcc + k];
+    for (int m = p * len; m < m1; ++m) acc += mean_db[m] * dct[m * n_mfcc + k];
+    part[p * n_mfcc + k] = acc;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n_mfcc; k += kThreads) {
+    float acc = part[k];
+#pragma unroll
+    for (int p = 1; p < kDctParts; ++p) acc += part[p * n_mfcc + k];
     out[(size_t)blockIdx.x * n_mfcc + k] = acc;
   }
+}
+
+static cudaError_t mfcc_set_attributes(int n_mels, int n_frames) {
+  return cudaFuncSetAttribute(
+      mfcc_frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)mfcc_smem_bytes(n_mels, n_frames));
 }
 
 extern "C" int gat_mfcc_frontend(const float* clips, float* out,
@@ -93,15 +113,24 @@ extern "C" int gat_mfcc_frontend(const float* clips, float* out,
                                  int n_clips, int n_samples, int hop,
                                  int n_frames, int n_mels, int n_mfcc,
                                  int normalize, float top_db, void* stream) {
-  size_t smem = sizeof(float) * (size_t)(5 * kFFT + kBins + kThreads +
-                                         n_frames * n_mels + n_mels +
-                                         n_samples);
-  cudaError_t err = cudaFuncSetAttribute(
-      mfcc_frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (kThreads + n_mels + kDctParts * n_mfcc > 4 * kFFT)
+    return (int)cudaErrorInvalidValue;  // the epilogue's buffers
+  cudaError_t err = mfcc_set_attributes(n_mels, n_frames);
   if (err != cudaSuccess) return (int)err;
-  mfcc_frontend_kernel<<<n_clips, kThreads, smem, (cudaStream_t)stream>>>(
+  mfcc_frontend_kernel<<<n_clips, kThreads, mfcc_smem_bytes(n_mels, n_frames),
+                         (cudaStream_t)stream>>>(
       clips, out, hann, tw, fb, lo, hi, dct, n_samples, hop, n_frames,
       n_mels, n_mfcc, normalize, top_db);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM at these sizes, as the CUDA runtime computes it
+// from the kernel's registers and shared memory.
+extern "C" int gat_mfcc_blocks_per_sm(int n_mels, int n_frames,
+                                      int* blocks) {
+  cudaError_t err = mfcc_set_attributes(n_mels, n_frames);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mfcc_frontend_kernel, kThreads,
+      mfcc_smem_bytes(n_mels, n_frames));
 }

@@ -18,17 +18,42 @@
 //
 // What bounds it: the ACF is frames * (max_p + 1) * W multiply-adds, about
 // 2.5 M per 0.5 s clip at 11025 Hz, against 22 KB read per clip: it is
-// bound by operations. The design computes the ACF directly in the time
-// domain from the padded clip in shared memory, one (frame, lag) pair per
-// thread at a time, so each lag sum reads a broadcast x[i] and contiguous
-// x[i + tau] across a warp. The energies cost O(W + max_p) per frame:
-// e(0) is acf(0) (the same products), and e(tau) - e(0) is the prefix sum
-// over s = 1..tau of x[s + W]^2 - x[s]^2, the entering minus the leaving
-// square. It is kept in fp64, so that its max_p steps add no drift to
-// d(tau), a small difference of large terms near a trough, and scanned in
-// kChunks chunks of lags per frame, so that no thread walks all max_p
-// steps alone. The sequential parts (cumulative mean, trough walk,
-// median) run one thread per frame.
+// bound by operations. One block of 256 threads owns one clip, staged in
+// shared memory with its zero pad. The ACF is tiled in registers:
+//   - Each thread computes kTile = 7 consecutive lags tau0 .. tau0 + 6 of
+//     one frame over one segment of i, and keeps the window x[i + tau0 ..
+//     i + tau0 + 6] in registers. A step loads x[i] and one new window
+//     sample and does 7 FMAs: 2 shared-memory loads per 7 multiply-adds
+//     instead of 2 per one. The i loop is unrolled by 7, so the window
+//     rotates by register index and no register moves.
+//   - A warp covers 32 * 7 = 224 lags (tau0 = 224 b + 7 * lane); the 8
+//     warps of the block take the 8 segments of 128 i of one frame, one
+//     unit (frame, lag block) per round. 11 frames of 222 lags are 11
+//     rounds with no thread idle but lags 222 and 223.
+//   - No bank conflicts, with no skew or stagger: every lane of a warp
+//     loads the same x[i] (one broadcast), and lane l loads its window
+//     sample at i + 7 l + const, a stride of 7 words. 7 is odd, so the 32
+//     lanes hit 32 distinct banks. The partial-sum stores (stride 7) and
+//     the reduction's loads (stride 1) are conflict-free for the same
+//     reasons.
+//   - Precision: one running fp32 sum over W = 1024 products drifts enough
+//     to swap near-equal CMND troughs on clean periodic frames, where the
+//     FFT route of the plain version does not. Each lag's sum is formed
+//     from 8 independent chains of 128 products (one per segment), summed
+//     afterwards in a fixed order through a double-buffered shared-memory
+//     table, so a round needs one barrier.
+// The energies cost O(W + max_p) per frame: e(0) is acf(0) (the same
+// products), and e(tau) - e(0) is the prefix sum over s = 1..tau of
+// x[s + W]^2 - x[s]^2, the entering minus the leaving square. It is kept
+// in fp64, so that its max_p steps add no drift to d(tau), a small
+// difference of large terms near a trough. The lags of a frame are cut
+// into kChunks chunks, and each pass over them is a scan in two steps:
+// every (frame, chunk) thread first sums its chunk's terms, then walks
+// its chunk from the sum of the chunks before it. So no thread walks all
+// max_p lags: the energy prefix and d(tau), then the cumulative mean and
+// the CMND, both in place over the ACF. The trough walk and the median
+// run one thread per frame and one per clip. Shared memory at 11 frames
+// of 222 lags: 50,680 bytes, so four blocks fit on an SM.
 #include <cmath>
 
 #include "dsp_common.cuh"
@@ -37,6 +62,30 @@ using namespace gat;
 
 constexpr float kTiny = 1.1754944e-38f;  // np.finfo(np.float32).tiny
 constexpr int kChunks = 8;               // energy scan chunks per frame
+constexpr int kTile = 7;                 // lags per thread, odd
+constexpr int kWarp = 32;
+constexpr int kBlockLags = kWarp * kTile;  // lags per unit: 224
+constexpr int kSegs = kThreads / kWarp;    // segments of i: one per warp
+
+// The shared-memory layout of one block: byte offsets, doubles first.
+struct YinLayout {
+  int n_lags, lag_blocks, padded_len;
+  size_t chunk, dchunk, acf, red, f0, padded, bytes;
+  __host__ __device__ YinLayout(int win, int hop, int n_frames, int max_p) {
+    n_lags = max_p + 1;
+    lag_blocks = (n_lags + kBlockLags - 1) / kBlockLags;
+    // up to the highest sample read, x[win + lag_blocks * kBlockLags] of
+    // the last frame (the window refill after the ACF's last step)
+    padded_len = (n_frames - 1) * hop + win + lag_blocks * kBlockLags + 1;
+    chunk = 0;  // fp64 energy sum per (frame, chunk)
+    dchunk = chunk + sizeof(double) * n_frames * kChunks;
+    acf = dchunk + sizeof(float) * n_frames * kChunks;
+    red = acf + sizeof(float) * n_frames * n_lags;
+    f0 = red + sizeof(float) * 2 * kSegs * kBlockLags;
+    padded = f0 + sizeof(float) * n_frames;
+    bytes = padded + sizeof(float) * padded_len;
+  }
+};
 
 // The energy scan's term at lag tau: the square entering the window
 // minus the square leaving it.
@@ -46,28 +95,62 @@ __device__ __forceinline__ double energy_step(const float* x, int tau,
   return enter * enter - leave * leave;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// acc[r] += sum_{i0 <= i < i1} x[i] x[i + tau0 + r], r < kTile, with the
+// window x[i + tau0 + r] in registers.
+__device__ __forceinline__ void acf_tile(const float* x, int i0, int i1,
+                                         int tau0, float* acc) {
+  const float* xw = x + tau0;
+  float w[kTile];  // slot (s + r) % kTile holds xw[i + s + r] at step s
+#pragma unroll
+  for (int r = 0; r < kTile; ++r) w[r] = xw[i0 + r];
+  int i = i0;
+  for (; i + kTile <= i1; i += kTile) {
+#pragma unroll
+    for (int s = 0; s < kTile; ++s) {
+      const float xi = x[i + s];
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) acc[r] += xi * w[(s + r) % kTile];
+      w[s] = xw[i + s + kTile];  // slot s is done with xw[i + s]
+    }
+  }
+  for (; i < i1; ++i) {  // the rest, fewer than kTile steps
+    const float xi = x[i];
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) acc[r] += xi * w[r];
+#pragma unroll
+    for (int r = 0; r + 1 < kTile; ++r) w[r] = w[r + 1];
+    w[kTile - 1] = xw[i + kTile];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
 yin_pitch_kernel(const float* __restrict__ clips, float* __restrict__ out,
                  int n_samples, int frame_length, int win, int hop,
                  int n_frames, int min_p, int max_p, float threshold,
                  float sr) {
-  const int n_lags = max_p + 1;
+  const YinLayout lay(win, hop, n_frames, max_p);
+  const int n_lags = lay.n_lags;
   const int n_cmnd = max_p - min_p + 1;
   extern __shared__ float smem[];
-  double* energy = reinterpret_cast<double*>(smem);  // n_frames * n_lags
-  double* chunk = energy + n_frames * n_lags;        // n_frames * kChunks
-  float* scratch = reinterpret_cast<float*>(chunk + n_frames * kChunks);
-  float* acf = scratch + kThreads;                // n_frames * n_lags
-  float* cmnd = acf + n_frames * n_lags;          // n_frames * n_lags
-  float* f0 = cmnd + n_frames * n_lags;           // n_frames
-  float* padded = f0 + n_frames;                  // n_samples + frame_length
+  char* base = reinterpret_cast<char*>(smem);
+  double* chunk = reinterpret_cast<double*>(base + lay.chunk);
+  float* dchunk = reinterpret_cast<float*>(base + lay.dchunk);
+  float* acf = reinterpret_cast<float*>(base + lay.acf);  // then d, CMND
+  float* red = reinterpret_cast<float*>(base + lay.red);
+  float* f0 = reinterpret_cast<float*>(base + lay.f0);
+  float* padded = reinterpret_cast<float*>(base + lay.padded);
 
-  load_padded_clip(clips + (size_t)blockIdx.x * n_samples, n_samples,
-                   frame_length / 2, /*reflect=*/false, /*normalize=*/false,
-                   padded, scratch);
+  // the clip with its zero center pad, up to the last sample read
+  const float* clip = clips + (size_t)blockIdx.x * n_samples;
+  const int pad = frame_length / 2;
+  for (int p = threadIdx.x; p < lay.padded_len; p += kThreads) {
+    const int i = p - pad;
+    padded[p] = (i >= 0 && i < n_samples) ? clip[i] : 0.0f;
+  }
+  __syncthreads();
 
-  // The energy scan, first pass: each chunk's sum of terms. The barrier
-  // after the ACF loop publishes them.
+  // The energy scan's first step: each chunk's sum of terms. The
+  // barriers of the ACF rounds publish them.
   const int chunk_len = (max_p + kChunks - 1) / kChunks;
   for (int w = threadIdx.x; w < n_frames * kChunks; w += kThreads) {
     const int t = w / kChunks;
@@ -80,32 +163,40 @@ yin_pitch_kernel(const float* __restrict__ clips, float* __restrict__ out,
     chunk[w] = s;
   }
 
-  // kParts interleaved partial sums per lag: one running fp32 sum over
-  // W = 1024 products drifts enough to swap near-equal CMND troughs on
-  // clean periodic frames, where the FFT route of the plain version does
-  // not; the partials also give each thread independent FMA chains. The
-  // sums are stored unzeroed: acf(0) seeds the energies below.
-  constexpr int kParts = 8;
-  for (int w = threadIdx.x; w < n_frames * n_lags; w += kThreads) {
-    const int t = w / n_lags;
-    const int tau = w - t * n_lags;
-    const float* x = padded + t * hop;
-    float a[kParts] = {};
-    int i = 1;
-    for (; i + kParts - 1 <= win; i += kParts) {
+  // The ACF, one unit (frame t, lag block b) per round: warp `seg` sums
+  // i in its segment for its lane's kTile lags, then the block adds the
+  // kSegs partial sums of each lag in order. The sums are stored
+  // unzeroed: acf(0) seeds the energies below.
+  const int lane = threadIdx.x % kWarp, seg = threadIdx.x / kWarp;
+  const int seg_len = (win + kSegs - 1) / kSegs;
+  const int i0 = 1 + seg * seg_len;
+  const int i1 = i0 + seg_len < win + 1 ? i0 + seg_len : win + 1;
+  for (int u = 0; u < n_frames * lay.lag_blocks; ++u) {
+    const int t = u / lay.lag_blocks, b = u - t * lay.lag_blocks;
+    float acc[kTile] = {};
+    acf_tile(padded + t * hop, i0, i1, b * kBlockLags + kTile * lane, acc);
+    float* part = red + (u & 1) * kSegs * kBlockLags;
 #pragma unroll
-      for (int k = 0; k < kParts; ++k) a[k] += x[i + k] * x[i + k + tau];
+    for (int r = 0; r < kTile; ++r)
+      part[seg * kBlockLags + kTile * lane + r] = acc[r];
+    __syncthreads();  // one barrier per round: the next round writes the
+                      // other half of the table
+    for (int k = threadIdx.x; k < kBlockLags; k += kThreads) {
+      const int tau = b * kBlockLags + k;
+      if (tau >= n_lags) continue;
+      float s = part[k];
+#pragma unroll
+      for (int q = 1; q < kSegs; ++q) s += part[q * kBlockLags + k];
+      acf[t * n_lags + tau] = s;
     }
-    for (int k = 0; i <= win; ++i, ++k) a[k] += x[i] * x[i + tau];
-    float as = a[0];
-#pragma unroll
-    for (int k = 1; k < kParts; ++k) as += a[k];
-    acf[w] = as;
   }
   __syncthreads();
 
-  // Second pass: each chunk's running sums from the chunks before it,
-  // energy[t][tau] = e(tau) - e(0).
+  // Chunk by chunk, in place in acf[t]: d(tau) = e(0) + e(tau) -
+  // 2 acf(tau), with e(tau) = acf(0) + the energy prefix in fp64 (the
+  // chunks before this one, then its own terms), and each chunk's sum of
+  // d; then the cumulative mean from those sums and the CMND. Slot 0
+  // keeps acf(0).
   for (int w = threadIdx.x; w < n_frames * kChunks; w += kThreads) {
     const int t = w / kChunks;
     const int c = w - t * kChunks;
@@ -113,29 +204,44 @@ yin_pitch_kernel(const float* __restrict__ clips, float* __restrict__ out,
     const int last = first + chunk_len - 1 < max_p ? first + chunk_len - 1
                                                    : max_p;
     const float* x = padded + t * hop;
+    float* ac = acf + t * n_lags;
+    const float a0 = ac[0];
+    const float e0 = fabsf(a0) < 1e-6f ? 0.0f : a0;
     double s = 0.0;
     for (int k = 0; k < c; ++k) s += chunk[t * kChunks + k];
+    float dsum = 0.0f;
     for (int tau = first; tau <= last; ++tau) {
       s += energy_step(x, tau, win);
-      energy[t * n_lags + tau] = s;
+      const float e = (float)(a0 + s);
+      const float et = fabsf(e) < 1e-6f ? 0.0f : e;
+      const float at = fabsf(ac[tau]) < 1e-6f ? 0.0f : ac[tau];
+      const float d = e0 + et - 2.0f * at;
+      ac[tau] = d;
+      dsum += d;
+    }
+    dchunk[w] = dsum;
+  }
+  __syncthreads();
+  for (int w = threadIdx.x; w < n_frames * kChunks; w += kThreads) {
+    const int t = w / kChunks;
+    const int c = w - t * kChunks;
+    const int first = 1 + c * chunk_len;
+    const int last = first + chunk_len - 1 < max_p ? first + chunk_len - 1
+                                                   : max_p;
+    float* ac = acf + t * n_lags;
+    float cum = 0.0f;
+    for (int k = 0; k < c; ++k) cum += dchunk[t * kChunks + k];
+    for (int tau = first; tau <= last; ++tau) {
+      const float d = ac[tau];
+      cum += d;
+      if (tau >= min_p) ac[tau] = d / (cum / (float)tau + kTiny);
     }
   }
   __syncthreads();
 
+  // one thread per frame: the trough walk over c[j] = CMND(min_p + j)
   for (int t = threadIdx.x; t < n_frames; t += kThreads) {
-    const float* ac = acf + t * n_lags;
-    const double* en = energy + t * n_lags;
-    float* c = cmnd + t * n_lags;
-    const float e0 = fabsf(ac[0]) < 1e-6f ? 0.0f : ac[0];
-    float cum = 0.0f;
-    for (int tau = 1; tau <= max_p; ++tau) {
-      const float e = (float)(ac[0] + en[tau]);
-      const float et = fabsf(e) < 1e-6f ? 0.0f : e;
-      const float at = fabsf(ac[tau]) < 1e-6f ? 0.0f : ac[tau];
-      const float d = e0 + et - 2.0f * at;
-      cum += d;
-      if (tau >= min_p) c[tau - min_p] = d / (cum / (float)tau + kTiny);
-    }
+    const float* c = acf + t * n_lags + min_p;
     int idx = -1;
     for (int j = 0; j < n_cmnd && idx < 0; ++j) {
       bool trough;
@@ -178,21 +284,32 @@ yin_pitch_kernel(const float* __restrict__ clips, float* __restrict__ out,
   }
 }
 
+static cudaError_t yin_set_attributes(const YinLayout& lay) {
+  return cudaFuncSetAttribute(yin_pitch_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)lay.bytes);
+}
+
 extern "C" int gat_yin_pitch(const float* clips, float* out, int n_clips,
                              int n_samples, int frame_length, int win,
                              int hop, int n_frames, int min_p, int max_p,
                              float threshold, float sr, void* stream) {
-  const int n_lags = max_p + 1;
-  size_t smem = sizeof(double) * (size_t)(n_frames * (n_lags + kChunks)) +
-                sizeof(float) * (size_t)(kThreads + 2 * n_frames * n_lags +
-                                         n_frames + n_samples +
-                                         2 * (frame_length / 2));
-  cudaError_t err = cudaFuncSetAttribute(
-      yin_pitch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const YinLayout lay(win, hop, n_frames, max_p);
+  cudaError_t err = yin_set_attributes(lay);
   if (err != cudaSuccess) return (int)err;
-  yin_pitch_kernel<<<n_clips, kThreads, smem, (cudaStream_t)stream>>>(
+  yin_pitch_kernel<<<n_clips, kThreads, lay.bytes, (cudaStream_t)stream>>>(
       clips, out, n_samples, frame_length, win, hop, n_frames, min_p, max_p,
       threshold, sr);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM at these sizes, as the CUDA runtime computes it
+// from the kernel's registers and shared memory.
+extern "C" int gat_yin_blocks_per_sm(int win, int hop, int n_frames,
+                                     int max_p, int* blocks) {
+  const YinLayout lay(win, hop, n_frames, max_p);
+  cudaError_t err = yin_set_attributes(lay);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, yin_pitch_kernel, kThreads, lay.bytes);
 }

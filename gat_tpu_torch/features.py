@@ -49,11 +49,10 @@ def _kernel_tables(sr: int, n_mels: int, htk: bool, device: torch.device
                    ) -> tuple[torch.Tensor, ...]:
     """(hann, twiddles, filterbank, lo, hi) for a front-end kernel: the
     periodic Hann window, the twiddle table of `csrc/fft_stockham.cuh`
-    (e^(-2πik/n_fft) for k < n_fft/2 as [cos | -sin], which K2's radix-2
-    FFT reads, then K1's Stockham pass tables W_256^(r·m), r, m < 16, and
-    W_2048^(r·b), r < 8, b < 256, each as [re | im]), the dense
-    (n_mels, n_fft/2 + 1) filterbank and each band's nonzero bin range
-    [lo, hi). Computed in float64, rounded to float32."""
+    (its Stockham pass tables W_256^(r·m), r, m < 16, and W_2048^(r·b),
+    r < 8, b < 256, each as [re | im]), the dense (n_mels, n_fft/2 + 1)
+    filterbank and each band's nonzero bin range [lo, hi). Computed in
+    float64, rounded to float32."""
     n = _KERNEL_N_FFT
     fb = (mel_filterbank_torchaudio(sr, n, n_mels) if htk
           else mel_filterbank_librosa(sr, n, n_mels))
@@ -62,14 +61,19 @@ def _kernel_tables(sr: int, n_mels: int, htk: bool, device: torch.device
     lo = np.where(any_nz, nz.argmax(axis=1), 0).astype(np.int32)
     hi = np.where(any_nz, fb.shape[1] - nz[:, ::-1].argmax(axis=1),
                   0).astype(np.int32)
-    ang = [2.0 * np.pi * np.arange(n // 2) / n,
-           2.0 * np.pi * np.outer(np.arange(16), np.arange(16)).ravel() / 256,
+    ang = [2.0 * np.pi * np.outer(np.arange(16), np.arange(16)).ravel() / 256,
            2.0 * np.pi * np.outer(np.arange(8), np.arange(256)).ravel() / n]
     tw = np.concatenate([x for a in ang for x in (np.cos(a), -np.sin(a))]
                         ).astype(np.float32)
     hann = spectral._hann_np(n)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (hann, tw, fb, lo, hi))
+
+
+@functools.lru_cache(maxsize=16)
+def _dct_table(n_mfcc: int, device: torch.device) -> torch.Tensor:
+    """K2's (128, n_mfcc) orthonormal DCT-II matrix, on its device once."""
+    return spectral.dct_ii_matrix(_MFCC_N_MELS, n_mfcc, device)
 
 
 # ---------------------------------------------------------------------------
@@ -168,9 +172,11 @@ def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     `gat_tpu/features.py::mfcc_feature_vectors`). The per-clip top_db
     clamp needs the clip's whole mel image, so one block owns one clip;
     the roofline bound is the fp32 rate of its 11 FFTs (0.62 M flops per
-    clip for real-input FFTs, against 22 KB read). The mean over frames
-    runs before the DCT, which commutes with it. CPU tensor:
-    `mfcc_frontend_plain`."""
+    clip for real-input FFTs, against 22 KB read). It runs K1's round
+    loop (`csrc/mel_rounds.cuh`: two adjacent frames per complex FFT,
+    register Stockham passes, four frames in flight) over a zero pad, then
+    the clamp, the mean over frames and the DCT, which commutes with the
+    mean. CPU tensor: `mfcc_frontend_plain`."""
     if clips.device.type == "cpu":
         return mfcc_frontend_plain(clips, sr, n_mfcc, normalize_audio_volume)
     if clips.device.type != "cuda":
@@ -183,7 +189,7 @@ def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
         return out
     hann, tw, fb, lo, hi = _kernel_tables(sr, _MFCC_N_MELS, False,
                                           clips.device)
-    dct = spectral.dct_ii_matrix(_MFCC_N_MELS, n_mfcc, clips.device)
+    dct = _dct_table(n_mfcc, clips.device)
     fn = kernels.function("mfcc_frontend", "gat_mfcc_frontend", _MFCC_ARGS)
     with torch.cuda.device(clips.device):
         status = fn(clips.data_ptr(), out.data_ptr(), hann.data_ptr(),

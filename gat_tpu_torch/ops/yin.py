@@ -146,9 +146,11 @@ def yin_pitch(clips: torch.Tensor, sr: int, fmin: float = 50.0,
     JAX package's XLA YIN (`gat_tpu/ops/yin.py::yin_pitch`). It is bound
     by operations: the direct time-domain ACF is n_frames·(max_p+1)·W
     multiply-adds per clip (2.5 M at 11025 Hz) against 22 KB read. It
-    keeps each padded clip in shared memory and gives each thread whole
-    (frame, lag) sums; the sliding energies are a running fp64 sum of
-    the entering minus the leaving square, O(W + max_p) per frame.
+    keeps each padded clip in shared memory and tiles the ACF in
+    registers: a thread sums 7 lags of one frame over one of 8 segments
+    of the window, with the 7 window samples in registers (2 loads per 7
+    multiply-adds); the sliding energies are a running fp64 sum of the
+    entering minus the leaving square, O(W + max_p) per frame.
     CPU tensor: `yin_pitch_plain`."""
     if clips.device.type == "cpu":
         return yin_pitch_plain(clips, sr, fmin=fmin, fmax=fmax,

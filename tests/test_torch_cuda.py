@@ -11,7 +11,10 @@ import torch
 
 from gat_tpu_torch import features
 from gat_tpu_torch.ops import spectral, yin
-from test_torch_kernels_emulated import check_mel_image, level_step_clip
+from test_torch_kernels_emulated import (check_mel_image,
+                                         check_mfcc_level_step,
+                                         level_step_clip,
+                                         mfcc_level_step_clip)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,10 +68,29 @@ def test_melspec_kernel_level_step():
     check_mel_image(got, ref, True)
 
 
+@pytest.mark.parametrize("length", [5512, 4608, 1100])
 @pytest.mark.parametrize("normalize", [True, False])
-def test_mfcc_kernel(clips, normalize):
-    got = features.mfcc_frontend(clips, SR, 64, normalize)
-    ref = features.mfcc_frontend_plain(clips, SR, 64, normalize)
+def test_mfcc_kernel(clips, normalize, length):
+    """11, 10 and 3 frames: the odd counts run the last frame with a zero
+    partner in its FFT."""
+    x = clips[:, :length].contiguous()
+    before = features.mfcc_frontend.launches
+    got = features.mfcc_frontend(x, SR, 64, normalize)
+    ref = features.mfcc_frontend_plain(x, SR, 64, normalize)
+    torch.cuda.synchronize()
+    assert features.mfcc_frontend.launches == before + 1
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+
+
+def test_mfcc_kernel_level_step():
+    """A near-silent frame sharing its FFT with a loud one, below the
+    clip's top_db clamp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = torch.from_numpy(mfcc_level_step_clip()).cuda()
+    check_mfcc_level_step(x)
+    got = features.mfcc_frontend(x, SR)
+    ref = features.mfcc_frontend_plain(x, SR)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
 
@@ -79,6 +101,16 @@ def test_yin_kernel(noise, length):
     x = _tones(noise)[:, :length].contiguous()
     got = yin.yin_pitch(x, SR)
     ref = yin.yin_pitch_plain(x, SR)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=0)
+
+
+@pytest.mark.parametrize("length", [5512, 4608])
+def test_yin_kernel_22050(length):
+    """At 22050 Hz: lags 0..441, two lag blocks of the ACF."""
+    x = _tones(0.1)[:, :length].contiguous()
+    got = yin.yin_pitch(x, 22050)
+    ref = yin.yin_pitch_plain(x, 22050)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=2e-3, atol=0)
 

@@ -3,7 +3,8 @@ CUDA subset they use, against their plain PyTorch versions.
 
 There is no nvcc on a CPU-only machine, but the kernels of
 `gat_tpu_torch/csrc/` use only thread/block indices, shared memory,
-`__syncthreads` and `__brev`. The header below maps those onto C++: one
+register arrays, device lambdas and `__syncthreads`. The header below
+maps those onto C++: one
 std::thread per CUDA thread, the blocks of a launch one after another,
 and a barrier for `__syncthreads`. Each `.cu` is compiled by g++ with the
 header forced in and its `<<<grid, block, smem, stream>>>` launch turned
@@ -37,20 +38,17 @@ EMULATION_HEADER = r"""
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 inline pthread_barrier_t emu_barrier;
 inline void __syncthreads() { pthread_barrier_wait(&emu_barrier); }
-inline unsigned __brev(unsigned x) {
-  unsigned r = 0;
-  for (int i = 0; i < 32; ++i) { r = (r << 1) | (x & 1u); x >>= 1; }
-  return r;
-}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <class F> int cudaFuncSetAttribute(F, int, int bytes) {
   return bytes > 232448 ? 1 : 0;  // an H100 block's shared-memory limit
@@ -131,9 +129,10 @@ def _clips(length: int) -> torch.Tensor:
 
 def level_step_clip(length: int = 5512, onset: int = 2560) -> np.ndarray:
     """(1, length): 1e-4 noise, then from `onset` a Karplus-Strong pluck of
-    peak 2. With the onset at 1024 + 256 t for an even t, frame t is all
-    noise and frame t + 1, its partner in one FFT of K1, holds the pluck:
-    their mel bands differ by up to about 60 dB."""
+    peak 2. With the onset at 1024 + hop t for an even t, frame t is all
+    noise and frame t + 1, its partner in one FFT of K1 (hop 256) or K2
+    (hop 512), holds the pluck: their mel bands differ by up to about 60
+    dB (K1, onset 2560) or 77 dB (K2, onset 3072)."""
     rng = np.random.default_rng(5)
     x = rng.normal(0.0, 1e-4, length)
     period = round(SR / 196.0)
@@ -196,11 +195,8 @@ def test_melspec_kernel_emulated_level_step(libs):
     check_mel_image(_melspec_emulated(libs, x, True, True), ref, True)
 
 
-@pytest.mark.parametrize("normalize", [True, False])
-def test_mfcc_kernel_emulated(libs, normalize):
-    x = _clips(5512)
+def _mfcc_emulated(libs, x: torch.Tensor, normalize: bool) -> torch.Tensor:
     n, length = x.shape
-    n_fr = spectral.n_frames(length, 2048, 512)
     out = torch.empty((n, 64))
     hann, tw, fb, lo, hi = features._kernel_tables(SR, 128, False, CPU)
     dct = spectral.dct_ii_matrix(128, 64)
@@ -208,24 +204,62 @@ def test_mfcc_kernel_emulated(libs, normalize):
              features._MFCC_ARGS)
     assert fn(x.data_ptr(), out.data_ptr(), hann.data_ptr(), tw.data_ptr(),
               fb.data_ptr(), lo.data_ptr(), hi.data_ptr(), dct.data_ptr(),
-              n, length, 512, n_fr, 128, 64, int(normalize), 80.0,
-              None) == 0
+              n, length, 512, spectral.n_frames(length, 2048, 512), 128, 64,
+              int(normalize), 80.0, None) == 0
+    return out
+
+
+def mfcc_level_step_clip() -> np.ndarray:
+    """`level_step_clip` with its onset at 3072: frames 4 (noise) and 5
+    (the pluck) share one FFT of K2."""
+    return level_step_clip(onset=3072)
+
+
+def check_mfcc_level_step(x: torch.Tensor) -> None:
+    """The level step is as steep as `mfcc_level_step_clip` says, and the
+    clip's clamp at peak - 80 dB binds."""
+    S = spectral.melspectrogram_librosa(features.normalize_volume(x.cpu()),
+                                        SR)[0]
+    db = 10.0 * torch.log10(torch.clamp(S, min=1e-10))
+    assert float((db[5] - db[4]).max()) >= 55.0
+    assert bool((db < db.max() - 80.0).any())
+
+
+@pytest.mark.parametrize("length", [5512, 4608, 1100])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_mfcc_kernel_emulated(libs, normalize, length):
+    """11, 10 and 3 frames: the odd counts run the last frame with a zero
+    partner in its FFT."""
+    x = _clips(length)
     ref = features.mfcc_frontend_plain(x, SR, 64, normalize)
-    torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
+    torch.testing.assert_close(_mfcc_emulated(libs, x, normalize), ref,
+                               atol=1e-3, rtol=0)
 
 
+def test_mfcc_kernel_emulated_level_step(libs):
+    """A near-silent frame sharing its FFT with a loud one, below the
+    clip's top_db clamp."""
+    x = torch.from_numpy(mfcc_level_step_clip())
+    check_mfcc_level_step(x)
+    torch.testing.assert_close(_mfcc_emulated(libs, x, True),
+                               features.mfcc_frontend_plain(x, SR),
+                               atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("sr", [11025, 22050])
 @pytest.mark.parametrize("length", [5512, 4608, 1500])
-def test_yin_kernel_emulated(libs, length):
-    """11, 10 and 3 frames: odd and even medians."""
+def test_yin_kernel_emulated(libs, length, sr):
+    """11, 10 and 3 frames: odd and even medians. At 22050 Hz the lags
+    0..441 take two lag blocks of the ACF, the second one partly."""
     x = _clips(length)
     n = x.shape[0]
-    min_p, max_p = yin.yin_periods(SR, 50.0, 1000.0, 2048, 1024)
+    min_p, max_p = yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)
     out = torch.empty(n)
     fn = _fn(libs["yin_pitch"], "gat_yin_pitch", yin._YIN_ARGS)
     assert fn(x.data_ptr(), out.data_ptr(), n, length, 2048, 1024, 512,
               spectral.n_frames(length, 2048, 512), min_p, max_p, 0.1,
-              float(SR), None) == 0
-    torch.testing.assert_close(out, yin.yin_pitch_plain(x, SR), rtol=2e-3,
+              float(sr), None) == 0
+    torch.testing.assert_close(out, yin.yin_pitch_plain(x, sr), rtol=2e-3,
                                atol=0)
 
 
@@ -260,3 +294,20 @@ def test_shared_memory_limit_refused(libs):
     assert fn(x.data_ptr(), out.data_ptr(), 1, 60000, 2048, 1024, 512,
               spectral.n_frames(60000, 2048, 512), 11, 221, 0.1, float(SR),
               None) != 0
+
+
+@pytest.mark.parametrize("name, symbol, args, too_big", [
+    ("melspec_frontend", "gat_melspec_blocks_per_sm", (64, 22), (64, 2000)),
+    ("mfcc_frontend", "gat_mfcc_blocks_per_sm", (128, 11), (128, 2000)),
+    ("yin_pitch", "gat_yin_blocks_per_sm", (1024, 512, 11, 221),
+     (1024, 512, 2000, 221)),
+])
+def test_occupancy_entry_points(libs, name, symbol, args, too_big):
+    """Each kernel's occupancy query takes the main path's sizes (the
+    emulation has no occupancy to report, so it writes 0), and refuses
+    sizes whose shared memory exceeds a block's (2000 frames)."""
+    fn = _fn(libs[name], symbol, [ctypes.c_int] * len(args)
+             + [ctypes.c_void_p])
+    blocks = ctypes.c_int(-1)
+    assert fn(*args, ctypes.addressof(blocks)) == 0 and blocks.value == 0
+    assert fn(*too_big, ctypes.addressof(blocks)) != 0
