@@ -7,20 +7,30 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits
 non-zero:
 
 1. the card: name and power limit (nvidia-smi);
-2. build the three CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
+2. build the five CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
    source, in parallel), print nvcc's register/spill report and each
    kernel's resident blocks per SM as the CUDA runtime computes them;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (1024 clips of 0.5 s at 11025 Hz: Karplus-Strong
-   plucks over the 47 classes plus noise, from a seed; the mel kernel
-   also at 1100 samples, the MFCC kernel also at 4608 and 1100, so odd
-   and even frame counts), and time both with CUDA events over distinct
-   input buffers;
-4. drive the main path, `Transcriber(device="cuda").transcribe_clips`, at
-   the shipped checkpoints: every kernel's launch count must rise, the
-   labels must equal those of the plain versions fed to the same models,
-   and a small batch must agree with the plain path on the CPU;
-5. print the `{"kernels": [...]}` line, the card line, and last
+3. hold each kernel against its plain PyTorch version on the card, at its
+   path's shapes, and time both with CUDA events over distinct input
+   buffers: the clip kernels K1-K3 at 1024 clips of 0.5 s at 11025 Hz
+   (Karplus-Strong plucks over the 47 classes plus noise, from a seed;
+   the mel kernel also at 1100 samples, the MFCC kernel also at 4608 and
+   1100, so odd and even frame counts), the file kernels K4 (onset
+   envelope) and K5 (onset pick) at 64 riffs of 8 s at 22050 Hz (plucks
+   from 0.4 s, 0.7 s apart, over the 47 classes, plus noise; one file
+   with a zero tail), K5 also from K4's envelopes and with three
+   candidate budgets;
+4. drive the clip path, `Transcriber(device="cuda").transcribe_clips`, at
+   the shipped checkpoints: K1-K3's launch counts must rise, the labels
+   must equal those of the plain versions fed to the same models, and a
+   small batch must agree with the plain path on the CPU;
+5. drive the file path, `Transcriber(device="cuda").transcribe(path)` on
+   riff WAVs at 22050, 44100 and 48000 Hz, two-stage and fused: all five
+   kernels must launch, the labels must be the planted notes but the last
+   (the reference slicer drops it), and labels, onsets and times must
+   equal the CPU plain path's; per-file wall time and the device's busy
+   share of one call;
+6. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package.
@@ -32,6 +42,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,7 +51,11 @@ import numpy as np
 SR = 11025
 N_CLIPS = 1024            # MAX_CLIPS_PER_BATCH of the serving path
 CLIP_LEN = SR // 2        # 5512 samples, 0.5 s
+FILE_SR = 22050           # slicing rate of the file path
+N_RIFFS, RIFF_SECONDS = 64, 8.0
+FILE_MIDI = [45, 50, 55, 59, 64]  # A2 D3 G3 B3 E4: the file phase's riff
 SEED = 0
+T_RIFF = 1 + int(RIFF_SECONDS * FILE_SR) // 512  # 345 envelope frames
 POOL = 6                  # distinct input buffers per timing repetition
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
@@ -60,11 +75,12 @@ def card_line() -> str:
 
 
 def karplus_strong_batch(midi: np.ndarray, rng: np.random.Generator,
-                         n: int, damping: float = 0.996) -> np.ndarray:
+                         n: int, damping: float = 0.996,
+                         sr: int = SR) -> np.ndarray:
     """(len(midi), n) plucked strings, one delay line per lane, each
     normalized to peak 1."""
     periods = np.maximum(2, np.round(
-        SR / (440.0 * 2.0 ** ((midi - 69.0) / 12.0)))).astype(np.int64)
+        sr / (440.0 * 2.0 ** ((midi - 69.0) / 12.0)))).astype(np.int64)
     lanes = np.arange(len(midi))
     buf = rng.uniform(-1.0, 1.0, (len(midi), periods.max()))
     out = np.empty((len(midi), n))
@@ -86,6 +102,26 @@ def make_clips(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     clips = karplus_strong_batch(midi.astype(np.float64), rng, CLIP_LEN)
     clips += rng.normal(0.0, 0.1, clips.shape)
     return clips.astype(np.float32), midi
+
+
+def make_riffs(midi: np.ndarray, seconds: float, sr: int, seed: int,
+               noise: float) -> np.ndarray:
+    """(files, seconds·sr) riffs: row f plays midi[f, j] from 0.4 + 0.7·j
+    s, plucks of 0.45 s at peak 0.5 with the last 30 % faded out (an
+    abrupt cut reads as an onset), plus Gaussian noise of sigma `noise`."""
+    rng = np.random.default_rng(seed)
+    n_files, k = midi.shape
+    note_len = int(0.45 * sr)
+    notes = 0.5 * karplus_strong_batch(midi.ravel().astype(np.float64), rng,
+                                       note_len, sr=sr)
+    fade = int(0.3 * note_len)
+    notes[:, -fade:] *= np.linspace(1.0, 0.0, fade)
+    notes = notes.reshape(n_files, k, note_len)
+    y = rng.normal(0.0, noise, (n_files, int(seconds * sr)))
+    for j in range(k):
+        s = int((0.4 + 0.7 * j) * sr)
+        y[:, s:s + note_len] += notes[:, j, :y.shape[1] - s]
+    return y.astype(np.float32)
 
 
 def time_ms(fn, pool, reps: int) -> float:
@@ -150,6 +186,176 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def check_file_kernels(dev, failures: list) -> list[dict]:
+    """K4 and K5 against their plain versions at 64 riffs of 8 s, timed;
+    returns their rows of the kernels line (launches filled in later)."""
+    import torch
+    from gat_tpu_torch import features
+    from gat_tpu_torch.ops import onset, spectral
+    t0 = time.perf_counter()
+    k = len(np.arange(0.4, RIFF_SECONDS - 0.45, 0.7))  # notes per riff
+    midi = 40 + np.arange(N_RIFFS * k).reshape(N_RIFFS, k) % 47
+    riffs = make_riffs(midi, RIFF_SECONDS, FILE_SR, SEED + 1, noise=0.01)
+    n = riffs.shape[1]
+    nv = np.full(N_RIFFS, n)
+    nv[-1] = int(6.0 * FILE_SR)   # one file with a zero-padded tail
+    riffs[-1, nv[-1]:] = 0.0
+    log(f"[data] {N_RIFFS} riffs x {n} samples at {FILE_SR} Hz "
+        f"({riffs.nbytes / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s")
+    y = torch.from_numpy(riffs).to(dev)
+    nvf = (1 + torch.from_numpy(nv) // 512).to(dev)
+    t = spectral.n_frames(n, 2048, 512)
+    pool = [y] + [
+        (y + 0.001 * torch.randn(y.shape, device=dev,
+                                 generator=torch.Generator(dev)
+                                 .manual_seed(SEED + 10 + i))).contiguous()
+        for i in range(1, POOL)]
+
+    def envelope(x):
+        return onset.onset_strength(x, FILE_SR, n_valid_frames=nvf)
+
+    def envelope_plain(x):
+        return onset.onset_strength_plain(x, FILE_SR, n_valid_frames=nvf)
+
+    def pick(e, cand_budget=None):
+        return onset.pick_onsets(e, FILE_SR, 512, 0.3, 64,
+                                 n_valid_frames=nvf, cand_budget=cand_budget)
+
+    def pick_plain(e, cand_budget=None):
+        return onset.pick_onsets_plain(e, FILE_SR, 512, 0.3, 64,
+                                       n_valid_frames=nvf,
+                                       cand_budget=cand_budget)
+
+    # K4, and the onsets K5 picks from each envelope
+    env, env_ref = envelope(y), envelope_plain(y)
+    torch.cuda.synchronize()
+    err4 = float((env - env_ref).abs().max())
+    from_kernel, from_plain = pick(env), pick(env_ref)
+    files_differ = int((from_kernel[0] != from_plain[0]).any(-1).sum()
+                       + (from_kernel[1] != from_plain[1]).any(-1).sum())
+    ok4 = (err4 <= 1e-3 and bool(torch.isfinite(env).all())
+           and files_differ == 0)
+    log(f"[check] onset_envelope: shape {tuple(env.shape)} max abs err "
+        f"{err4:.6g} (atol 1e-3); files whose K5 onsets differ between the "
+        f"kernel's and the plain envelope: {files_differ} -> "
+        f"{'ok' if ok4 else 'FAIL'}")
+    if not ok4:
+        failures.append("onset_envelope")
+
+    # K5 against its plain version on the same envelopes
+    err5, ok5 = 0.0, True
+    for cand_budget in (None, 0, 4):
+        got, ref = pick(env, cand_budget), pick_plain(env, cand_budget)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        err5 = max(err5, float((got[0] - ref[0]).abs().max()))
+        ok5 = ok5 and same
+        log(f"[check] onset_pick cand_budget={cand_budget}: outputs "
+            f"identical {same}; onsets kept {int(ref[1].sum())}, files "
+            f"flagged {int(ref[2].sum())}, capped {int(ref[3].sum())}")
+    n_kept = pick_plain(env)[4].cpu().numpy()
+    log(f"[check] onset_pick: onsets per riff {n_kept.min()}..{n_kept.max()}"
+        f" -> {'ok' if ok5 else 'FAIL'}")
+    if not ok5:
+        failures.append("onset_pick")
+
+    # bounds: the FFT work of every frame for K4, one read of the
+    # envelopes for K5
+    hann, tw, fb, lo, hi = features._kernel_tables(FILE_SR, 128, False, dev)
+    nnz = int((hi - lo).sum())
+    tables = sum(a.numel() * a.element_size() for a in (hann, tw, fb, lo, hi))
+    b4 = bound(N_RIFFS * t * (fft_flops(nnz, 128) + 4 * 128),
+               4 * N_RIFFS * (n + t + 1) + tables)
+    pre_max, post_max, _, _, _ = onset.peak_pick_params(FILE_SR, 512)
+    b5 = bound(N_RIFFS * t * (pre_max + post_max + 16),
+               4 * N_RIFFS * (t + 1) + N_RIFFS * (64 * 5 + 6))
+    env_pool = [envelope(x) for x in pool]
+    rows = []
+    for name, fn, plain, data, b, err, reps, src, line in (
+            ("onset_envelope", envelope, envelope_plain, pool, b4, err4, 10,
+             "onset_envelope.cu", 34),
+            ("onset_pick", pick, pick_plain, env_pool, b5, err5, 3,
+             "onset_pick.cu", 178)):
+        ms = time_ms(fn, data, reps=10)
+        plain_ms = time_ms(plain, data, reps=reps)
+        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b[0]:.4f} ms ({b[1]})")
+        rows.append(dict(name=name, route="cuda",
+                         source=f"gat_tpu_torch/csrc/{src}",
+                         replaces=f"gat_tpu/ops/onset.py:{line}", launches=0,
+                         max_abs_err=err,
+                         tolerance=("atol 1e-3 on the envelope; K5's onsets "
+                                    "from it identical"
+                                    if name == "onset_envelope" else
+                                    "all five outputs identical"),
+                         ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                         bound_by=b[1], library_ms=None))
+    torch.cuda.synchronize()
+    return rows
+
+
+def file_phase(rows: list, card: str, failures: list) -> None:
+    """`transcribe` on riff WAVs at three rates, on the card (two-stage
+    and fused) and on the CPU; fills in K4's and K5's launches per call."""
+    import torch
+    from gat_tpu_torch import features
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.ops import onset, yin
+    from gat_tpu_torch.ops.pitch import midi_to_note
+    from gat_tpu_torch.utils.wavio import write_wav
+    wrappers = [features.melspec_features, features.mfcc_frontend,
+                yin.yin_pitch, onset.onset_strength, onset.pick_onsets]
+    expected = [midi_to_note(m, unicode=False) for m in FILE_MIDI[:-1]]
+    card_t, cpu_t = Transcriber(device="cuda"), Transcriber(device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        paths = {}
+        for sr in (22050, 44100, 48000):
+            paths[sr] = Path(d) / f"riff_{sr}.wav"
+            write_wav(paths[sr], make_riffs(np.array([FILE_MIDI]), 3.9, sr,
+                                            SEED + 2, noise=0.0)[0], sr)
+        card_t.transcribe(paths[FILE_SR])  # first call: library handles
+        for fused in (False, True):
+            torch.cuda.synchronize()
+            for w in wrappers:
+                w.launches = 0
+            card_t.transcribe(paths[FILE_SR], fused=fused)
+            torch.cuda.synchronize()
+            launches = [w.launches for w in wrappers]
+            log(f"[file] launches per transcribe(fused={fused}) call, "
+                f"K1..K5: {launches}")
+            if min(launches) < 1:
+                failures.append(f"a kernel was not launched on the file "
+                                f"path (fused={fused}): {launches}")
+            if not fused:
+                rows[3]["launches"], rows[4]["launches"] = launches[3:5]
+        for sr, path in paths.items():
+            ref = cpu_t.transcribe(path)
+            for fused in (False, True):
+                got = card_t.transcribe(path, fused=fused)
+                err = float(np.abs(got["probs"] - ref["probs"]).max())
+                same = (got["labels"] == ref["labels"] == expected
+                        and got["onsets_s"] == ref["onsets_s"]
+                        and got["times"] == ref["times"] and err <= 1e-2)
+                log(f"[file] {sr} Hz fused={fused}: labels {got['labels']}, "
+                    f"onsets {got['onsets_s']}; equal to the CPU plain path "
+                    f"{same} (max prob err {err:.3g})")
+                if not same:
+                    failures.append(f"file path at {sr} Hz (fused={fused})")
+            for fused in (False, True):
+                reps = 5
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    card_t.transcribe(path, fused=fused)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) / reps
+                log(f"[file] transcribe(3.9 s at {sr} Hz, fused={fused}): "
+                    f"{dt * 1e3:.3f} ms/file on {card}")
+                if sr == FILE_SR:
+                    profile_call(lambda: card_t.transcribe(path, fused=fused),
+                                 dt * 1e3)
 
 
 def main() -> int:
@@ -221,7 +427,11 @@ def main() -> int:
             ("mfcc_frontend", "gat_mfcc_blocks_per_sm", (128, t_mfcc),
              f"128 mels x {t_mfcc} frames"),
             ("yin_pitch", "gat_yin_blocks_per_sm", (1024, 512, t_mfcc, max_p),
-             f"{t_mfcc} frames x {max_p + 1} lags")):
+             f"{t_mfcc} frames x {max_p + 1} lags"),
+            ("onset_envelope", "gat_onset_envelope_blocks_per_sm", (128,),
+             "128 mels, pass 1"),
+            ("onset_pick", "gat_onset_pick_blocks_per_sm", (T_RIFF,),
+             f"{T_RIFF} envelope frames")):
         blocks = ctypes.c_int(0)
         status = kernels.function(
             name, symbol, [ctypes.c_int] * len(args) + [ctypes.c_void_p])(
@@ -309,7 +519,9 @@ def main() -> int:
                          library_ms=None))
         torch.cuda.synchronize()
 
-    # ---- 4. the main path -------------------------------------------------
+    rows += check_file_kernels(dev, failures)
+
+    # ---- 4. the clip path -------------------------------------------------
     t = Transcriber(device="cuda")
     for s in specs:
         s["fn"].launches = 0
@@ -322,7 +534,7 @@ def main() -> int:
         if s["fn"].launches < 1:
             failures.append(f"{s['name']} not launched on the main path")
     log(f"[main] transcribe_clips({N_CLIPS}) first call {first_s:.3f} s, "
-        f"launches {[r['launches'] for r in rows]}")
+        f"launches {[r['launches'] for r in rows[:len(specs)]]}")
 
     probs = np.asarray(res["probs"])
     pitch = np.asarray([p for p, _ in res["dsp_info"]])
@@ -387,6 +599,9 @@ def main() -> int:
         failures.append("entry step output malformed")
     log(f"[entry] step(32 clips) -> probs {tuple(p_out.shape)}, "
         f"pitch {tuple(hz_out.shape)}")
+
+    # ---- 5. the file path -------------------------------------------------
+    file_phase(rows, card, failures)
 
     if failures:
         log(f"[fail] {failures}")

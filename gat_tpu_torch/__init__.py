@@ -1,9 +1,12 @@
 """gat_tpu_torch — the PyTorch and CUDA port of gat_tpu for NVIDIA Hopper.
 
-The clip-ensemble path of `gat_tpu` (MFCC + YIN features into the MLP,
-the mel image into the CNN, a weighted softmax vote, and the YIN pitch
-baseline) rebuilt on PyTorch, with the two spectral front-ends and YIN as
-hand-written CUDA kernels (`csrc/`). Entry points run on the card unless
+The single-file path of `gat_tpu` (a WAV resampled to 22050 Hz, noise
+gates, spectral-flux onsets, slicing, clips re-rated to the checkpoint
+rate) and its clip-ensemble path (MFCC + YIN features into the MLP, the
+mel image into the CNN, a weighted softmax vote, and the YIN pitch
+baseline) rebuilt on PyTorch, with the two spectral front-ends, YIN, the
+onset envelope and the onset pick as hand-written CUDA kernels
+(`csrc/`). Entry points run on the card unless
 the caller passes device="cpu", which runs the plain PyTorch versions of
 the kernels. `gat_tpu` stays the reference the port is tested against.
 """

@@ -19,11 +19,14 @@ PROJECT_ROOT = Path(__file__).resolve().parent.parent
 # JAX package, so both read one tree).
 DATA_ROOT = Path(os.environ.get("GAT_TPU_DATA_ROOT", PROJECT_ROOT / "data"))
 CHECKPOINTS_ROOT = DATA_ROOT / "checkpoints"
+# `Transcriber.transcribe(save_clips=True)` writes the sliced clips here.
+INFERENCE_OUTPUT_ROOT = DATA_ROOT / "inference" / "output"
 # Hand-written CUDA kernels are compiled here at first use.
 KERNEL_BUILD_DIR = PROJECT_ROOT / "build" / "gat_tpu_torch"
 
 TARGET_SR = 11025 * 2  # 22050 Hz: slicing rate of the file path
 CLIP_DURATION = 0.50   # seconds per note clip
+DEFAULT_MAX_ONSETS = 64  # onset slots per file of the file path
 
 
 @dataclass(frozen=True)
@@ -72,7 +75,18 @@ class CNNConfig:
     DROPOUT: float = 0.1
 
 
+@dataclass(frozen=True)
+class AudioSlicerConfig:
+    """Noise gating and onset slicing of the file path."""
+    MIN_IN_DB_THRESHOLD: float = -32.5  # per-sample amplitude gate
+    MIN_SLICE_RMS_DB: float = -37.0     # per-slice loudness gate
+    HOP_LEN: int = 512
+    MIN_SEP: float = 0.3                # minimum onset separation (s)
+    ATTACK_SKIP_SEC: float = 0.1        # note attack skipped when slicing
+
+
 MFCC_CONFIG = MFCCConfig()
 MELSPEC_CONFIG = MelSpecConfig()
 MLP_CONFIG = MLPConfig()
 CNN_CONFIG = CNNConfig()
+SLICER_CONFIG = AudioSlicerConfig()

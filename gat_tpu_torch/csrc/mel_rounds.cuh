@@ -56,16 +56,18 @@ __device__ __forceinline__ float power_scale(const float* __restrict__ clip,
   return 0.25f / (d * d);
 }
 
-// Runs every frame of `clip` through the rounds; frame t reads samples
-// t * hop + n - kFFT / 2, n < kFFT, of the clip. For each band m and frame
-// t, one thread calls emit(m, t, v) with v the band's mel sum of |X|^2,
-// times 4 (the split's (1/2)^2 is the caller's to apply). Every thread of
-// the block calls this. On return the exchange buffer is free again, and
-// the last emit may still be running in other threads.
+// Runs frames first_frame .. end_frame - 1 of `clip` through the rounds;
+// frame t reads samples t * hop + n - kFFT / 2, n < kFFT, of the clip.
+// For each band m and frame t, one thread calls emit(m, t, v) with v the
+// band's mel sum of |X|^2, times 4 (the split's (1/2)^2 is the caller's
+// to apply). Every thread of the block calls this. On return the exchange
+// buffer is free again, and the last emit may still be running in other
+// threads.
 template <bool kReflect, class Emit>
 __device__ __forceinline__ void mel_rounds(const float* __restrict__ clip,
                                            int n_samples, int hop,
-                                           int n_frames, int n_mels,
+                                           int first_frame, int end_frame,
+                                           int n_mels,
                                            const float* __restrict__ hann,
                                            const float* __restrict__ tw,
                                            const float* __restrict__ fb,
@@ -82,9 +84,9 @@ __device__ __forceinline__ void mel_rounds(const float* __restrict__ clip,
   float* re = xre + g * kFFT;
   float* im = xim + g * kFFT;
 
-  for (int t0 = 0; t0 < n_frames; t0 += kInFlight) {
+  for (int t0 = first_frame; t0 < end_frame; t0 += kInFlight) {
     const int ta = t0 + 2 * g;  // frames ta (real part), ta + 1 (imaginary)
-    const bool has_a = ta < n_frames, has_b = ta + 1 < n_frames;
+    const bool has_a = ta < end_frame, has_b = ta + 1 < end_frame;
     float vr[16], vi[16];
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
@@ -125,7 +127,7 @@ __device__ __forceinline__ void mel_rounds(const float* __restrict__ clip,
     // one thread per (band, frame) sums the parts
     for (int i = threadIdx.x; i < n_mels * kInFlight; i += kThreads) {
       const int f = i % kInFlight, m = i / kInFlight;
-      if (t0 + f >= n_frames) continue;
+      if (t0 + f >= end_frame) continue;
       const float* q = partial + m * kPartStride + f;
       float v = 0.0f;
 #pragma unroll

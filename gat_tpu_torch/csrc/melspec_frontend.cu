@@ -71,7 +71,7 @@ melspec_frontend_kernel(const float* __restrict__ clips,
   const float scale = power_scale(clip, n_samples, normalize, smem);
 
   mel_rounds</*kReflect=*/true>(
-      clip, n_samples, hop, n_frames, n_mels, hann, tw, fb, lo, hi, smem,
+      clip, n_samples, hop, 0, n_frames, n_mels, hann, tw, fb, lo, hi, smem,
       [&](int m, int t, float v) {
         v *= scale;
         img[m * n_frames + t] = to_db ? 10.0f * log10f(fmaxf(v, 1e-10f)) : v;

@@ -65,7 +65,7 @@ mfcc_frontend_kernel(const float* __restrict__ clips,
 
   float peak = -INFINITY;
   mel_rounds</*kReflect=*/false>(
-      clip, n_samples, hop, n_frames, n_mels, hann, tw, fb, lo, hi, smem,
+      clip, n_samples, hop, 0, n_frames, n_mels, hann, tw, fb, lo, hi, smem,
       [&](int m, int t, float v) {
         const float db = 10.0f * log10f(fmaxf(v * scale, 1e-10f));
         img[t * n_mels + m] = db;

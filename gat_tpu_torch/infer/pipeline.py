@@ -1,34 +1,36 @@
-"""The one ensemble forward: clips → blended class probabilities, the twin
-of `gat_tpu/infer/pipeline.py::build_clip_ensemble_fn`. The entry point
-and the Transcriber both build their function here, so the recipe
-(feature params from the checkpoints, scaler, softmax blend, pitch prior)
+"""The ensemble forward and the batched file body, the twins of
+`gat_tpu/infer/pipeline.py`. The entry point, the Transcriber's clip and
+file paths all build their functions here, so the recipe (feature params
+from the checkpoints, scaler, softmax blend, pitch prior, re-rating)
 exists once."""
 from __future__ import annotations
 
 import torch
 
 from ..features import mfcc_feature_vectors, melspec_features
+from ..ops.resample import fix_length, resample
 from ..ops.yin import yin_pitch
 from .predictor import apply_pitch_prior, class_midi_values
 
-__all__ = ["build_clip_ensemble_fn"]
+__all__ = ["build_clip_ensemble_fn", "build_files_fn"]
 
 
 def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
                            mfcc_params: dict, melspec_params: dict | None,
-                           in_sr: int | None = None):
+                           in_sr: int | None = None,
+                           clip_len: int | None = None,
+                           pitch_on_normalized: bool = False):
     """Returns fn(clips (N, L), raw_pitch_hz=None) → (blended probs (N, C),
     mlp_probs, cnn_probs | None).
 
-    Clips arrive at the checkpoint rate. `raw_pitch_hz`, the YIN pitch of
-    the raw clips when the caller has computed it for its own output, is
-    reused for the pitch feature and the pitch prior. With
-    `melspec_params` None (no CNN) the mel front-end and the CNN are
-    skipped."""
-    if in_sr is not None and in_sr != ckpt_sr:
-        raise NotImplementedError(
-            f"[build_clip_ensemble_fn] clips at {in_sr} Hz need resampling "
-            f"to {ckpt_sr} Hz, which the PyTorch port does not have yet")
+    Clips arrive at `in_sr` (default: the checkpoint rate) and are
+    re-rated to the checkpoint rate, then cut or zero-padded to `clip_len`
+    samples when it is given. `raw_pitch_hz`, the YIN pitch of the
+    (re-rated) raw clips when the caller has it for its own output, is
+    reused for the pitch feature and the pitch prior;
+    `pitch_on_normalized` takes the pitch feature from the volume-
+    normalized clips instead. With `melspec_params` None (no CNN) the mel
+    front-end and the CNN are skipped."""
     use_cnn = melspec_params is not None and predictor.cnn is not None
     use_prior = predictor.pitch_prior_weight > 0 and predictor.reverse_map
     class_midi = (class_midi_values(predictor.reverse_map) if use_prior
@@ -36,10 +38,16 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
 
     @torch.no_grad()
     def run(clips: torch.Tensor, raw_pitch_hz: torch.Tensor | None = None):
+        if in_sr is not None and in_sr != ckpt_sr:
+            clips = resample(clips, in_sr, ckpt_sr)
+        if clip_len is not None:
+            clips = fix_length(clips, clip_len)
+        clips = clips.contiguous()
         mf = mfcc_feature_vectors(
             clips, ckpt_sr, n_mfcc=mfcc_params["N_MFCC"],
             normalize_audio_volume=mfcc_params["NORMALIZE_AUDIO_VOLUME"],
             add_pitch_features=mfcc_params["ADD_PITCH_FEATURES"],
+            pitch_on_normalized=pitch_on_normalized,
             raw_pitch_hz=raw_pitch_hz)
         if scaler is not None:
             mf = scaler.transform(mf)
@@ -62,5 +70,97 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
                                       weight=predictor.pitch_prior_weight,
                                       sigma=predictor.pitch_prior_sigma)
         return probs, mlp_probs, cnn_probs
+
+    return run
+
+
+def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
+                   melspec_params: dict | None, target_sr: int,
+                   clip_duration: float, max_onsets: int,
+                   wave_clip_budget: int | None = None,
+                   cand_budget: int | None = None):
+    """The batched file body: fn(ys (B, n), n_valids (B,)) → per-file
+    (probs (B, K, C), mlp_probs, cnn_probs | None, pitch (B, K), kept
+    (B, K), onsets (B, K), times (B, K, 2), overflow (B,), fixable (B,),
+    n_detected (B,)), K = max_onsets.
+
+    Segmentation runs over the B files at once; the B·K budget slots then
+    go through re-rating, the ensemble and YIN as one flat clip batch.
+
+    `wave_clip_budget` (< B·K) computes only that many slots: the kept
+    slots first, in slot-major order (every file's slot 0, then slot 1,
+    ...), so under overflow each file keeps its earliest clips and the
+    files degrade together; results scatter back to their (file, slot)
+    places, and a file that lost a kept clip is flagged. None computes
+    every slot. `cand_budget` sizes the onset candidate walk
+    (`ops.onset.candidate_limit`).
+
+    `overflow`: a budget truncated the file's results. `fixable`: an
+    exact re-run (cand_budget 0, wave_clip_budget None) could change
+    them; the two differ on a `max_onsets`-only truncation, which no
+    larger candidate walk repairs. `n_detected`: the onsets the walk
+    accepted before the cap (exact when the candidate bits are clean)."""
+    from ..segment.slicing import segment_waveform
+
+    if wave_clip_budget is not None and wave_clip_budget < 1:
+        raise ValueError(f"wave_clip_budget must be >= 1 (None = every "
+                         f"slot computed); got {wave_clip_budget}")
+    ensemble = build_clip_ensemble_fn(predictor, scaler, ckpt_sr,
+                                      mfcc_params, melspec_params)
+    clip_len = int(ckpt_sr * clip_duration)
+
+    def classify(clips):
+        comp = fix_length(resample(clips, target_sr, ckpt_sr),
+                          clip_len).contiguous()
+        pitch = yin_pitch(comp, ckpt_sr)
+        return (*ensemble(comp, raw_pitch_hz=pitch), pitch)
+
+    @torch.no_grad()
+    def run(ys: torch.Tensor, n_valids: torch.Tensor):
+        n_valids = n_valids.to(device=ys.device, dtype=torch.int64)
+        # exact zeros past each file's true length: the whole-second host
+        # pad goes through the resampler, whose edge leaks into the tail,
+        # and a clip window crossing the end must see what the unpadded
+        # signal would
+        ys = torch.where(torch.arange(ys.shape[-1], device=ys.device)[None]
+                         < n_valids[:, None], ys, 0.0)
+        (clips, kept, onsets, _, times, overflow, cap,
+         n_detected) = segment_waveform(
+            ys, sr=target_sr, length_sec=clip_duration,
+            max_onsets=max_onsets, n_valid=n_valids, cand_budget=cand_budget)
+        fixable = overflow & ~cap
+        b, k, length = clips.shape
+        flat = clips.reshape(b * k, length)
+        budget = wave_clip_budget
+        if budget is not None and budget < b * k:
+            # kept slots first, slot-major: file-major index of
+            # slot-major position p is (p % b)·k + p // b
+            keptt = kept.T.reshape(b * k)
+            ordert = torch.argsort((~keptt).to(torch.uint8),
+                                   stable=True)[:budget]
+            sel = (ordert % b) * k + ordert // b
+            parts = classify(flat[sel])
+
+            def scatter(x):
+                if x is None:
+                    return None
+                out = x.new_zeros((b * k,) + x.shape[1:])
+                out[sel] = x
+                return out
+            probs, mlp_p, cnn_p, pitch = (scatter(x) for x in parts)
+            computed = torch.zeros(b * k, dtype=torch.bool, device=ys.device)
+            computed[sel] = True
+            dropped = (kept.reshape(b * k) & ~computed).reshape(b, k).any(-1)
+            kept = kept & computed.reshape(b, k)
+            overflow = overflow | dropped
+            fixable = fixable | dropped
+        else:
+            probs, mlp_p, cnn_p, pitch = classify(flat)
+
+        def perfile(x):
+            return None if x is None else x.reshape((b, k) + x.shape[1:])
+        return (perfile(probs), perfile(mlp_p), perfile(cnn_p),
+                perfile(pitch), kept, onsets, times, overflow, fixable,
+                n_detected)
 
     return run

@@ -1,23 +1,66 @@
-"""Transcriber: the array-level inference API of the port, the twin of
-`gat_tpu/infer/transcriber.py` for clips already cut and at the
-checkpoint rate. Checkpoints are the source of truth: feature params,
-scaler, target rate and clip length all come from their embedded config.
-The file-level paths (slicing, resampling) are not ported yet.
+"""Transcriber: the inference API of the port, the twin of
+`gat_tpu/infer/transcriber.py`. Checkpoints are the source of truth:
+feature params, scaler, target rate and clip length all come from their
+embedded config.
+
+* `transcribe(path)`: one WAV file → slicing at 22050 Hz → clips
+  re-rated to the checkpoint rate → ensemble and YIN baseline per note,
+  two-stage by default, or as the batched file body at B=1
+  (`fused=True`);
+* `transcribe_clips(clips)`: clips already cut and at the checkpoint
+  rate;
+* `transcribe_note(audio)`: one in-memory note.
+
+The many-file path (`transcribe_files`) is not ported yet.
 """
 from __future__ import annotations
 
+from datetime import datetime
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from ..config import CLIP_DURATION, CNN_CONFIG, MLP_CONFIG
+from ..config import (CLIP_DURATION, CNN_CONFIG, DEFAULT_MAX_ONSETS,
+                      INFERENCE_OUTPUT_ROOT, MLP_CONFIG, TARGET_SR)
+from ..ops.resample import fix_length, resample
 from ..ops.yin import estimate_note, yin_pitch
+from ..segment.slicing import save_clip, segment_waveform
 from ..train.checkpoint import load_checkpoint
 from ..utils.scaler import FeatureScaler
-from .pipeline import build_clip_ensemble_fn
+from ..utils.wavio import read_wav
+from .pipeline import build_clip_ensemble_fn, build_files_fn
 from .predictor import NotePredictor
 
-__all__ = ["Transcriber"]
+__all__ = ["Transcriber", "bucket_seconds"]
+
+
+def bucket_seconds(duration_s: float) -> int:
+    """The power-of-two duration bucket, in whole seconds, of a file."""
+    sec = max(1, int(-(-float(duration_s) // 1)))
+    return 1 << (sec - 1).bit_length()
+
+
+def _next_onset_cap(n_detected: int, prev_cap: int,
+                    ceiling: int | None) -> int | None:
+    """The next `max_onsets` of a cap auto-scaling re-run: the power of
+    two that fits the detected count (strictly above the previous cap),
+    clamped to the ceiling; None when no larger cap is allowed."""
+    if not ceiling:
+        return None
+    m = 1 << (max(int(n_detected), prev_cap + 1) - 1).bit_length()
+    m = min(m, int(ceiling))
+    return m if m > prev_cap else None
+
+
+def _to_host(outs: tuple) -> tuple:
+    """Every tensor of `outs` on the host after one synchronisation of
+    the device (a bool() or .item() per flag would each wait)."""
+    host = tuple(None if x is None else x.to("cpu", non_blocking=True)
+                 for x in outs)
+    if any(x is not None and x.is_cuda for x in outs):
+        torch.cuda.current_stream().synchronize()
+    return tuple(None if x is None else x.numpy() for x in host)
 
 
 class Transcriber:
@@ -73,13 +116,81 @@ class Transcriber:
         self.scaler = FeatureScaler.from_dict(sc) if sc is not None else None
         self.predictor.load_models(self.model_ckpts.get("mlp"),
                                    self.model_ckpts.get("cnn"))
-        mfcc_params = self.model_configs["mlp"]["features"]["params"]
+        self.mfcc_params = self.model_configs["mlp"]["features"]["params"]
         cnn_cfg = self.model_configs.get("cnn")
-        melspec_params = cnn_cfg["features"]["params"] if cnn_cfg else None
+        self.melspec_params = (cnn_cfg["features"]["params"] if cnn_cfg
+                               else None)
         # clips → (probs, mlp_probs, cnn_probs), shared with entry.entry
         self.ensemble = build_clip_ensemble_fn(
-            self.predictor, self.scaler, self.ckpt_sr, mfcc_params,
-            melspec_params)
+            self.predictor, self.scaler, self.ckpt_sr, self.mfcc_params,
+            self.melspec_params)
+        # transcribe_note's features take the pitch from the normalized note
+        self._note_ensemble = build_clip_ensemble_fn(
+            self.predictor, self.scaler, self.ckpt_sr, self.mfcc_params,
+            self.melspec_params, pitch_on_normalized=True)
+        self._files_fns: dict = {}
+
+    # ------------------------------------------------------------------
+    def _files_fn(self, target_sr: int, clip_duration: float,
+                  max_onsets: int, cand_budget: int | None):
+        """The batched file body for one parameter set, built once."""
+        key = (target_sr, clip_duration, max_onsets, cand_budget)
+        if key not in self._files_fns:
+            self._files_fns[key] = build_files_fn(
+                self.predictor, self.scaler, self.ckpt_sr, self.mfcc_params,
+                self.melspec_params, target_sr, clip_duration, max_onsets,
+                cand_budget=cand_budget)
+        return self._files_fns[key]
+
+    def _dsp_info(self, pitch) -> list:
+        out = []
+        for hz in np.asarray(pitch):
+            midi, name, midi_f = estimate_note(float(hz))
+            out.append((float(hz), {"midi": midi, "note_name": name,
+                                    "midi_float": midi_f}))
+        return out
+
+    def _build_result(self, probs, mlp_p, cnn_p, pitch, kept, onsets,
+                      times, target_sr: int, empty_ok: bool = False,
+                      overflow=False) -> dict:
+        """The per-file result dict from the file body's host outputs
+        (budget-slot arrays and the kept mask), in transcribe_clips'
+        schema plus `onsets_s`, `times` and `onset_overflow`."""
+        overflow = bool(overflow)
+        kept = np.asarray(kept)
+        if not kept.any():
+            if not empty_ok:
+                raise ValueError("[transcribe] No clips survived slicing.")
+            c = np.asarray(probs).shape[1:]
+            return {"indices": np.zeros(0, np.int64), "labels": [],
+                    "confidences": np.zeros(0, np.float32),
+                    "probs": np.zeros((0,) + c, np.float32),
+                    "per_model_probs": {
+                        "mlp": np.zeros((0,) + c, np.float32),
+                        "cnn": (np.zeros((0,) + c, np.float32)
+                                if cnn_p is not None else None)},
+                    "dsp_info": [], "onsets_s": [], "times": [],
+                    "onset_overflow": overflow}
+        probs = np.asarray(probs)[kept]
+        idx = probs.argmax(axis=1)
+        rm = self.predictor.reverse_map
+        result = {
+            "indices": idx,
+            "labels": ([rm[int(i)] for i in idx] if rm
+                       else [int(i) for i in idx]),
+            "confidences": probs[np.arange(len(idx)), idx],
+            "probs": probs,
+            "per_model_probs": {
+                "mlp": np.asarray(mlp_p)[kept],
+                "cnn": np.asarray(cnn_p)[kept] if cnn_p is not None
+                else None},
+            "dsp_info": self._dsp_info(np.asarray(pitch)[kept]),
+        }
+        result["onsets_s"] = (np.asarray(onsets)[kept]
+                              / float(target_sr)).tolist()
+        result["times"] = np.asarray(times)[kept].tolist()
+        result["onset_overflow"] = overflow
+        return result
 
     @torch.no_grad()
     def transcribe_clips(self, clips_ckpt_sr) -> dict:
@@ -92,9 +203,126 @@ class Transcriber:
         pitch = yin_pitch(clips, self.ckpt_sr)
         probs, mlp_p, cnn_p = self.ensemble(clips, raw_pitch_hz=pitch)
         result = self.predictor._result_dict(probs, mlp_p, cnn_p)
-        result["dsp_info"] = []
-        for hz in pitch.cpu().numpy():
-            midi, name, midi_f = estimate_note(float(hz))
-            result["dsp_info"].append((float(hz), {
-                "midi": midi, "note_name": name, "midi_float": midi_f}))
+        result["dsp_info"] = self._dsp_info(pitch.cpu().numpy())
         return result
+
+    @torch.no_grad()
+    def transcribe(self, audio_path, out_root=INFERENCE_OUTPUT_ROOT,
+                   audio_name: str = "transcribe_audio",
+                   target_sr: int = TARGET_SR,
+                   clip_duration: float | None = None,
+                   save_clips: bool = False,
+                   max_onsets: int = DEFAULT_MAX_ONSETS,
+                   fused: bool = False,
+                   exact_fallback: bool = True,
+                   cand_budget: int | None = None,
+                   max_onsets_ceiling: int | None = 1024) -> dict:
+        """Transcription of one WAV file: slice at `target_sr`, re-rate
+        the clips to the checkpoint rate, features with the checkpoint's
+        params, ensemble, YIN baseline.
+
+        Two stages by default: segmentation, then the kept clips only.
+        `fused=True` runs the batched file body at B=1 instead, which
+        computes every one of the `max_onsets` slots; `save_clips` always
+        takes the two-stage path (the clips go to the host anyway).
+
+        `exact_fallback`: when the candidate budget truncated the onsets
+        and could have changed them, the file is segmented again with the
+        full-length walk (cand_budget 0); a flag that survives is a
+        `max_onsets` truncation, repaired by one re-run at the power of
+        two that fits the detected count, up to `max_onsets_ceiling`
+        (None or 0 keeps the flag). Raises ValueError when no clip
+        survives slicing."""
+        if clip_duration is None:
+            clip_duration = self.clip_length
+        y, sr_in = read_wav(audio_path)
+        # whole seconds on the host before resampling; n is the true
+        # resampled length, and everything past it is masked
+        y_np = np.asarray(y, np.float32)
+        n_raw = int(y_np.shape[-1])
+        sec = max(1, -(-n_raw // sr_in))
+        if n_raw < sec * sr_in:
+            y_np = np.pad(y_np, (0, sec * sr_in - n_raw))
+        n = -(-n_raw * target_sr // sr_in)
+        y_dev = resample(torch.from_numpy(y_np).to(self.device), sr_in,
+                         target_sr).contiguous()
+        nv = torch.tensor([n], dtype=torch.int64, device=self.device)
+
+        if fused and not save_clips:
+            def run(m, cb):
+                outs = self._files_fn(target_sr, clip_duration, m, cb)(
+                    y_dev[None], nv)
+                return tuple(None if x is None else x[0]
+                             for x in _to_host(outs))
+            (probs, mlp_p, cnn_p, pitch, kept, onsets, times, ovf, fix,
+             nd) = run(max_onsets, cand_budget)
+            if exact_fallback and fix:
+                (probs, mlp_p, cnn_p, pitch, kept, onsets, times, ovf, _,
+                 nd) = run(max_onsets, 0)
+            m_prev = max_onsets
+            while exact_fallback and ovf:
+                m = _next_onset_cap(int(nd), m_prev, max_onsets_ceiling)
+                if m is None:
+                    break
+                (probs, mlp_p, cnn_p, pitch, kept, onsets, times, ovf, _,
+                 nd) = run(m, 0)
+                m_prev = m
+            return self._build_result(probs, mlp_p, cnn_p, pitch, kept,
+                                      onsets, times, target_sr,
+                                      overflow=ovf)
+
+        def segment(m, cb):
+            clips, *small = segment_waveform(
+                y_dev[None], sr=target_sr, length_sec=clip_duration,
+                max_onsets=m, n_valid=nv, cand_budget=cb)
+            kept, onsets, _, times, ovf, cap, nd = (
+                x[0] for x in _to_host(tuple(small)))
+            return clips[0], kept, onsets, times, ovf, cap, nd
+
+        clips, kept, onsets, times, overflow, cap, nd = segment(
+            max_onsets, cand_budget)
+        if exact_fallback and overflow and not cap:
+            clips, kept, onsets, times, overflow, _, nd = segment(
+                max_onsets, 0)
+        m_prev = max_onsets
+        while exact_fallback and overflow:
+            m = _next_onset_cap(int(nd), m_prev, max_onsets_ceiling)
+            if m is None:
+                break
+            clips, kept, onsets, times, overflow, _, nd = segment(m, 0)
+            m_prev = m
+        idx_kept = np.flatnonzero(kept)
+        if idx_kept.size == 0:
+            raise ValueError("[transcribe] No clips survived slicing.")
+        clips_kept = clips[torch.from_numpy(idx_kept).to(clips.device)]
+
+        if save_clips:
+            stamp = datetime.now().strftime("%m-%d_%H-%M-%S")
+            out_dir = Path(out_root) / f"{audio_name}_{stamp}" / audio_name
+            for i, clip in zip(idx_kept, clips_kept.cpu().numpy()):
+                save_clip(clip, target_sr, out_dir, int(i),
+                          onsets[i] / target_sr)
+
+        # adopt the checkpoint's sample rate
+        clips_ckpt = fix_length(resample(clips_kept, target_sr, self.ckpt_sr),
+                                int(self.ckpt_sr * clip_duration))
+        result = self.transcribe_clips(clips_ckpt)
+        result["onsets_s"] = (onsets[kept] / float(target_sr)).tolist()
+        result["times"] = times[kept].tolist()
+        result["onset_overflow"] = bool(overflow)
+        return result
+
+    @torch.no_grad()
+    def transcribe_note(self, audio, clip_duration: float | None = None,
+                        sr_in: int = TARGET_SR) -> dict:
+        """One in-memory note: re-rated to the checkpoint rate, cut or
+        zero-padded to the clip length, a batch of one through the
+        ensemble (pitch feature from the normalized note)."""
+        if clip_duration is None:
+            clip_duration = self.clip_length
+        audio = torch.as_tensor(np.asarray(audio, np.float32),
+                                device=self.device)
+        audio = fix_length(resample(audio, sr_in, self.ckpt_sr),
+                           int(clip_duration * self.ckpt_sr))
+        return self.predictor._result_dict(
+            *self._note_ensemble(audio[None].contiguous()))

@@ -27,7 +27,8 @@ __all__ = ["KERNELS", "build", "function", "check_input", "check",
            "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("melspec_frontend", "mfcc_frontend", "yin_pitch")
+KERNELS = ("melspec_frontend", "mfcc_frontend", "yin_pitch", "onset_envelope",
+           "onset_pick")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,2 +1,2 @@
-"""DSP ops of the port: mel filterbanks, pitch names, spectral front-end
-and YIN."""
+"""DSP ops of the port: mel filterbanks, pitch names, spectral front-end,
+YIN, resampling, windowed filters and onset detection."""

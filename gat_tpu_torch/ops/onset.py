@@ -1,0 +1,369 @@
+"""Spectral-flux onset detection of the file path, the twin of
+`gat_tpu/ops/onset.py` with the batch written out: envelopes are (B, T)
+with an optional (B,) count of valid frames, `n_valid_frames`, for
+zero-padded batch slots.
+
+Two hand-written CUDA kernels, each with its plain PyTorch version here:
+
+* `onset_strength` (K4, `csrc/onset_envelope.cu`): the mel-dB flux
+  envelope of whole files;
+* `pick_onsets` (K5, `csrc/onset_pick.cu`): normalization, librosa's peak
+  pick, energy-minimum backtracking, the greedy wait and min-separation
+  walk, and compaction into a fixed onset budget.
+
+A wrapper launches its kernel for a CUDA tensor and runs the plain
+version for a CPU tensor. The plain pick walks its candidates in a Python
+loop on the host, so on the card it is a yardstick, not a path.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+from ..features import _kernel_tables
+from .spectral import (TINY32, melspectrogram_librosa, n_frames,
+                       power_to_db_librosa)
+
+__all__ = ["onset_strength", "onset_strength_plain", "backtrack_indices",
+           "greedy_walk", "pick_onsets", "pick_onsets_plain",
+           "detect_onsets", "peak_pick_params", "candidate_limit"]
+
+_N_FFT = 2048      # the FFT size compiled into K4
+_TOP_DB = 80.0     # power_to_db's clamp below the file's peak
+_DELTA = 0.07      # librosa onset_detect's peak-pick threshold
+ONSET_CHUNK = 32   # frames per block of K4 (kChunk in onset_envelope.cu)
+
+
+def _valid_mask(n_valid_frames: torch.Tensor | None, b: int, t: int,
+                device) -> torch.Tensor:
+    """(B, T) prefix mask of the valid frames (all when None)."""
+    frames = torch.arange(t, device=device)[None, :]
+    if n_valid_frames is None:
+        return frames.expand(b, t) < t
+    return frames < n_valid_frames.to(device=device)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# K4: onset envelope
+# ---------------------------------------------------------------------------
+def onset_strength_plain(y: torch.Tensor, sr: int, hop_length: int = 512,
+                         n_fft: int = 2048, n_mels: int = 128, lag: int = 1,
+                         n_valid_frames: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """(B, n) → (B, T) mel-spectral flux, librosa.onset.onset_strength:
+    mel power → power_to_db → positive lag difference → mean over mels →
+    shifted right by lag + n_fft // (2·hop) frames and cut to T. The
+    top_db peak is taken over the valid frames only. Plain PyTorch."""
+    S = melspectrogram_librosa(y, sr, n_fft=n_fft, hop_length=hop_length,
+                               n_mels=n_mels)
+    b, t = S.shape[0], S.shape[-2]
+    mask = (None if n_valid_frames is None
+            else _valid_mask(n_valid_frames, b, t, y.device)[..., None])
+    S = power_to_db_librosa(S, top_db=_TOP_DB, spec_axes=2, peak_mask=mask)
+    env = torch.clamp(S[..., lag:, :] - S[..., :-lag, :], min=0.0).mean(-1)
+    return F.pad(env, (lag + n_fft // (2 * hop_length), 0))[
+        ..., :t].contiguous()
+
+
+_ENVELOPE_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
+                   n_fft: int = 2048, n_mels: int = 128, lag: int = 1,
+                   n_valid_frames: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """(B, n) → (B, T = 1 + n // hop) onset envelope.
+
+    CUDA tensor: the kernel `csrc/onset_envelope.cu` (K4), which replaces
+    the JAX package's XLA `gat_tpu/ops/onset.py::onset_strength`. Bound by
+    the fp32 rate of its FFTs (one real 2048-point FFT per frame against
+    8 KB of samples read per four frames). A first pass runs K2's round
+    loop over chunks of a file's frames, writes the pre-clamp mel dB to a
+    (B, T, n_mels) scratch and each chunk's maximum over the valid
+    frames; a second pass takes the file's peak from those maxima, then
+    clamps, differences and averages, so the (B, T, 1025) spectrum never
+    reaches device memory. CPU tensor: `onset_strength_plain`."""
+    if y.device.type == "cpu":
+        return onset_strength_plain(y, sr, hop_length, n_fft, n_mels, lag,
+                                    n_valid_frames)
+    if y.device.type != "cuda":
+        raise ValueError(f"[onset_strength] unsupported device {y.device}")
+    kernels.check_input(y, "onset_strength")
+    if n_fft != _N_FFT:
+        raise ValueError(f"[onset_strength] kernel is built for n_fft "
+                         f"{_N_FFT}, got {n_fft}")
+    b, n = y.shape
+    t = n_frames(n, n_fft, hop_length)
+    if lag < 1 or lag >= t:
+        raise ValueError(f"[onset_strength] lag {lag} needs 1 <= lag < "
+                         f"{t} frames")
+    env = torch.empty((b, t), dtype=torch.float32, device=y.device)
+    if b == 0:
+        return env
+    nvf = (torch.full((b,), t, dtype=torch.int32, device=y.device)
+           if n_valid_frames is None
+           else n_valid_frames.to(device=y.device,
+                                  dtype=torch.int32).contiguous())
+    hann, tw, fb, lo, hi = _kernel_tables(sr, n_mels, False, y.device)
+    n_chunks = -(-t // ONSET_CHUNK)
+    db = torch.empty((b, t, n_mels), dtype=torch.float32, device=y.device)
+    chunk_max = torch.empty((b, n_chunks), dtype=torch.float32,
+                            device=y.device)
+    fn = kernels.function("onset_envelope", "gat_onset_envelope",
+                          _ENVELOPE_ARGS)
+    with torch.cuda.device(y.device):
+        status = fn(y.data_ptr(), env.data_ptr(), db.data_ptr(),
+                    chunk_max.data_ptr(), hann.data_ptr(), tw.data_ptr(),
+                    fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                    nvf.data_ptr(), b, n, hop_length, t, n_mels, lag,
+                    lag + n_fft // (2 * hop_length), _TOP_DB,
+                    torch.cuda.current_stream().cuda_stream)
+    kernels.check(status, "onset_envelope")
+    onset_strength.launches += 1
+    return env
+
+
+onset_strength.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: onset pick
+# ---------------------------------------------------------------------------
+def peak_pick_params(sr: int, hop_length: int) -> tuple[int, ...]:
+    """librosa onset_detect's peak-pick windows in frames: (pre_max,
+    post_max, pre_avg, post_avg, wait)."""
+    return (int(0.03 * sr // hop_length), int(0.00 * sr // hop_length + 1),
+            int(0.10 * sr // hop_length), int(0.10 * sr // hop_length + 1),
+            int(0.03 * sr // hop_length))
+
+
+def candidate_limit(t: int, max_onsets: int, cand_budget: int | None) -> int:
+    """How many of the earliest raw candidates the greedy walk reads: all
+    for cand_budget 0, else cand_budget, or max(4·max_onsets, T/4) for
+    None, capped at T."""
+    if cand_budget is not None and cand_budget < 0:
+        raise ValueError(f"cand_budget must be >= 0 (0 = full-length scan, "
+                         f"None = proportional default); got {cand_budget}")
+    if cand_budget == 0:
+        return t
+    return min(t, cand_budget or max(4 * max_onsets, t // 4))
+
+
+def _max_window(pre_max: int, post_max: int) -> tuple[int, int]:
+    """(size, left) of librosa's moving max: output i is the max over
+    x[i - left : i - left + size]."""
+    size = int(pre_max + post_max)
+    left = size // 2 + int(math.ceil(0.5 * (pre_max - post_max)))
+    if left < 0 or size - 1 - left < 0:
+        raise ValueError(f"[peak_pick] unsupported windows pre_max "
+                         f"{pre_max}, post_max {post_max}")
+    return size, left
+
+
+def _peak_candidates(env: torch.Tensor, pre_max: int, post_max: int,
+                     pre_avg: int, post_avg: int, delta: float,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """(B, T) candidate mask, the data-parallel half of
+    librosa.util.peak_pick: a frame equals the moving max (padded with
+    the valid minimum), is at least the moving average (librosa's
+    truncated window, from one prefix sum of the mean-centred envelope)
+    plus delta, and is nonzero. The valid end acts as the array's end."""
+    b, t = env.shape
+    nvf = valid.sum(-1)
+    x_min = torch.where(valid, env, torch.inf).amin(-1, keepdim=True)
+    x_sub = torch.where(valid, env, x_min)
+    x_sum = torch.where(valid, env, 0.0)
+    size, left = _max_window(pre_max, post_max)
+    x_ext = torch.cat([x_min.expand(b, left), x_sub,
+                       x_min.expand(b, size - 1 - left)], dim=-1)
+    mov_max = x_ext.unfold(-1, size, 1).amax(-1)
+    # centred, the prefix sum stays near zero however long the file
+    x_mean = x_sum.sum(-1, keepdim=True) / torch.clamp(nvf, min=1).to(
+        env.dtype)[:, None]
+    x_c = torch.where(valid, x_sum - x_mean, 0.0)
+    csum = torch.cat([torch.zeros_like(x_c[:, :1]),
+                      torch.cumsum(x_c, dim=-1)], dim=-1)
+    idx = torch.arange(t, device=env.device)[None, :]
+    hi = nvf[:, None]
+    a = torch.minimum(torch.clamp(idx - pre_avg, min=0), hi)
+    bb = torch.minimum(torch.clamp(idx + post_avg, min=0), hi)
+    mov_avg = x_mean + (torch.gather(csum, 1, bb) - torch.gather(csum, 1, a)
+                        ) / torch.clamp(bb - a, min=1).to(env.dtype)
+    det = torch.where(env == mov_max, env, 0.0)
+    return (det != 0.0) & (det >= mov_avg + delta) & valid
+
+
+def backtrack_indices(energy: torch.Tensor, valid: torch.Tensor
+                      ) -> torch.Tensor:
+    """(B, T) → (B, T) int32: for each frame the nearest energy minimum
+    at or before it (librosa.onset.onset_backtrack: e[i] <= e[i-1] and
+    e[i] < e[i+1], frame 0 always a minimum). The last valid frame cannot
+    be a minimum, as the last frame of an unpadded array cannot."""
+    inner = ((energy[:, 1:-1] <= energy[:, :-2])
+             & (energy[:, 1:-1] < energy[:, 2:]) & valid[:, 2:])
+    ones = torch.ones_like(valid[:, :1])
+    mask = torch.cat([ones, inner, ~ones], dim=-1)
+    idx = torch.arange(energy.shape[-1], device=energy.device)
+    cand = torch.where(mask, idx, -1)
+    return torch.cummax(cand, dim=-1).values.to(torch.int32)
+
+
+def greedy_walk(cand_frames, samples, wait: int, min_samples: int):
+    """The greedy `wait` spacing and min-separation over candidate frames
+    in time order. Returns (kept samples in walk order, last kept frame,
+    last kept sample)."""
+    last_frame, last_sample = -(10 ** 9), -999999
+    kept = []
+    for i, s in zip(cand_frames, samples):
+        if i > last_frame + wait:
+            last_frame = i
+            if s - last_sample >= min_samples:
+                kept.append(s)
+                last_sample = s
+    return kept, last_frame, last_sample
+
+
+def _normalized(env: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Min-max normalization over the valid frames."""
+    emin = torch.where(valid, env, torch.inf).amin(-1, keepdim=True)
+    emax = torch.where(valid, env, -torch.inf).amax(-1, keepdim=True)
+    return (env - emin) / (emax - emin + TINY32)
+
+
+def pick_onsets_plain(env: torch.Tensor, sr: int, hop_length: int,
+                      min_sep: float, max_onsets: int,
+                      backtrack: bool = True,
+                      n_valid_frames: torch.Tensor | None = None,
+                      cand_budget: int | None = None):
+    """(B, T) envelopes → (onsets (B, max_onsets) int32 samples, valid
+    (B, max_onsets) bool, overflow (B,) bool, cap_overflow (B,) bool,
+    n_kept (B,) int32), as `gat_tpu/ops/onset.py::
+    pick_onsets_from_envelope` computes them per file.
+
+    The greedy walk reads the earliest `candidate_limit` raw candidates.
+    `overflow` is set when a budget truncated the result and could have
+    changed it: more kept onsets than `max_onsets` (`cap_overflow`), or
+    more raw candidates than the limit with the latest of them not
+    provably rejected by the walk's final state. `n_kept` counts the
+    onsets the walk accepted before the cap. Plain PyTorch, with the walk
+    a Python loop over host copies."""
+    b, t = env.shape
+    c = candidate_limit(t, max_onsets, cand_budget)
+    valid = _valid_mask(n_valid_frames, b, t, env.device)
+    env_n = _normalized(env, valid)
+    pre_max, post_max, pre_avg, post_avg, wait = peak_pick_params(
+        sr, hop_length)
+    cand = _peak_candidates(env_n, pre_max, post_max, pre_avg, post_avg,
+                            _DELTA, valid)
+    bt = (backtrack_indices(env_n, valid) if backtrack
+          else torch.arange(t, dtype=torch.int32,
+                            device=env.device).expand(b, t))
+    cand_h, bt_h = cand.cpu().numpy(), bt.cpu().numpy().astype(np.int64)
+    min_samples = int(min_sep * sr)
+    onsets = np.zeros((b, max_onsets), np.int32)
+    n_kept = np.zeros(b, np.int32)
+    overflow = np.zeros(b, bool)
+    for f in range(b):
+        frames = np.flatnonzero(cand_h[f])
+        scan = frames[:c]
+        kept, last_frame, last_sample = greedy_walk(
+            scan.tolist(), (bt_h[f, scan] * hop_length).tolist(), wait,
+            min_samples)
+        n_kept[f] = len(kept)
+        onsets[f, :min(len(kept), max_onsets)] = kept[:max_onsets]
+        # the latest raw candidate dominates every dropped one: if it
+        # fails the walk's final state, so do they all
+        i_max = int(frames[-1]) if len(frames) else -1
+        s_max = int(bt_h[f, max(i_max, 0)]) * hop_length
+        could_differ = (i_max > last_frame + wait
+                        and s_max - last_sample >= min_samples)
+        overflow[f] = len(frames) > c and could_differ
+    cap = n_kept > max_onsets
+    valid_out = np.arange(max_onsets)[None, :] < n_kept[:, None]
+    dev = env.device
+    return (torch.from_numpy(onsets).to(dev),
+            torch.from_numpy(valid_out).to(dev),
+            torch.from_numpy(overflow | cap).to(dev),
+            torch.from_numpy(cap).to(dev),
+            torch.from_numpy(n_kept).to(dev))
+
+
+_PICK_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def pick_onsets(env: torch.Tensor, sr: int, hop_length: int, min_sep: float,
+                max_onsets: int, backtrack: bool = True,
+                n_valid_frames: torch.Tensor | None = None,
+                cand_budget: int | None = None):
+    """(B, T) envelopes → (onsets, valid, overflow, cap_overflow, n_kept),
+    as `pick_onsets_plain` defines them.
+
+    CUDA tensor: the kernel `csrc/onset_pick.cu` (K5), which replaces the
+    JAX package's XLA `gat_tpu/ops/onset.py::pick_onsets_from_envelope`
+    (a `lax.scan` over the candidates). One block per file: the
+    data-parallel steps (normalization, moving max, moving average from a
+    block prefix sum, backtrack as a block max-scan, candidate
+    compaction) over all threads from shared memory, then one thread
+    walks the compacted candidates. Bound by latency, not by the card's
+    rates: a few KB per file and a walk of a few hundred steps.
+    CPU tensor: `pick_onsets_plain`."""
+    if env.device.type == "cpu":
+        return pick_onsets_plain(env, sr, hop_length, min_sep, max_onsets,
+                                 backtrack, n_valid_frames, cand_budget)
+    if env.device.type != "cuda":
+        raise ValueError(f"[pick_onsets] unsupported device {env.device}")
+    kernels.check_input(env, "pick_onsets")
+    b, t = env.shape
+    if t < 2:
+        raise ValueError(f"[pick_onsets] needs 2 or more frames, got {t}")
+    c = candidate_limit(t, max_onsets, cand_budget)
+    pre_max, post_max, pre_avg, post_avg, wait = peak_pick_params(
+        sr, hop_length)
+    size, left = _max_window(pre_max, post_max)
+    dev = env.device
+    onsets = torch.empty((b, max_onsets), dtype=torch.int32, device=dev)
+    valid = torch.empty((b, max_onsets), dtype=torch.bool, device=dev)
+    overflow = torch.empty(b, dtype=torch.bool, device=dev)
+    cap = torch.empty(b, dtype=torch.bool, device=dev)
+    n_kept = torch.empty(b, dtype=torch.int32, device=dev)
+    if b == 0:
+        return onsets, valid, overflow, cap, n_kept
+    nvf = (torch.full((b,), t, dtype=torch.int32, device=dev)
+           if n_valid_frames is None
+           else n_valid_frames.to(device=dev, dtype=torch.int32).contiguous())
+    fn = kernels.function("onset_pick", "gat_onset_pick", _PICK_ARGS)
+    with torch.cuda.device(dev):
+        status = fn(env.data_ptr(), nvf.data_ptr(), onsets.data_ptr(),
+                    valid.data_ptr(), overflow.data_ptr(), cap.data_ptr(),
+                    n_kept.data_ptr(), b, t, size, left, pre_avg, post_avg,
+                    _DELTA, wait, hop_length, int(min_sep * sr), max_onsets,
+                    c, int(backtrack), torch.cuda.current_stream().cuda_stream)
+    kernels.check(status, "onset_pick")
+    pick_onsets.launches += 1
+    return onsets, valid, overflow, cap, n_kept
+
+
+pick_onsets.launches = 0
+
+
+def detect_onsets(y: torch.Tensor, sr: int = 22050, hop_length: int = 512,
+                  min_sep: float = 0.3, max_onsets: int = 64,
+                  backtrack: bool = True,
+                  n_valid: torch.Tensor | None = None,
+                  cand_budget: int | None = None):
+    """(B, n) → (onset samples (B, max_onsets) int32, valid, overflow,
+    cap_overflow, n_kept): onset_strength → pick_onsets. `n_valid` (B,)
+    masks each row's zero-padded tail: its frames are 1 + nv // hop."""
+    nvf = (None if n_valid is None
+           else 1 + n_valid.to(device=y.device, dtype=torch.int64)
+           // hop_length)
+    env = onset_strength(y, sr, hop_length=hop_length, n_valid_frames=nvf)
+    return pick_onsets(env, sr, hop_length, min_sep, max_onsets, backtrack,
+                       nvf, cand_budget)

@@ -86,13 +86,20 @@ def power_spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
 
 def power_to_db_librosa(S: torch.Tensor, ref: float = 1.0,
                         amin: float = 1e-10, top_db: float | None = 80.0,
-                        spec_axes: int = 2) -> torch.Tensor:
+                        spec_axes: int = 2,
+                        peak_mask: torch.Tensor | None = None
+                        ) -> torch.Tensor:
     """librosa.power_to_db: 10·log10 with a top_db clamp below the peak
-    over the trailing `spec_axes` axes (one clip's spectrogram)."""
+    over the trailing `spec_axes` axes (one clip's spectrogram).
+    `peak_mask` (broadcastable to S, True = takes part) restricts the
+    peak to those entries: the frames of a zero-padded batch slot that
+    straddle its valid end must not move the clamp of the valid ones."""
     log_spec = 10.0 * torch.log10(torch.clamp(S, min=amin))
     log_spec = log_spec - 10.0 * np.log10(max(amin, ref))
     if top_db is not None:
-        peak = torch.amax(log_spec, dim=tuple(range(-spec_axes, 0)),
+        ls = (log_spec if peak_mask is None
+              else torch.where(peak_mask, log_spec, -torch.inf))
+        peak = torch.amax(ls, dim=tuple(range(-spec_axes, 0)),
                           keepdim=True)
         log_spec = torch.maximum(log_spec, peak - top_db)
     return log_spec

@@ -10,11 +10,12 @@ import pytest
 import torch
 
 from gat_tpu_torch import features
-from gat_tpu_torch.ops import spectral, yin
-from test_torch_kernels_emulated import (check_mel_image,
+from gat_tpu_torch.ops import onset, spectral, yin
+from test_torch_kernels_emulated import (FILE_SR, check_mel_image,
                                          check_mfcc_level_step,
                                          level_step_clip,
-                                         mfcc_level_step_clip)
+                                         mfcc_level_step_clip, pluck_riff,
+                                         random_envelopes, riffs)
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +133,85 @@ def test_transcribe_clips_card_vs_cpu(clips):
     ref = Transcriber(device="cpu").transcribe_clips(clips.cpu())
     assert got["labels"] == ref["labels"]
     np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [22050, 45000, 176400])
+@pytest.mark.parametrize("padded", [False, True])
+def test_onset_envelope_kernel(n, padded):
+    """44, 88 and 345 frames (one to eleven chunks of 32), with and
+    without a valid prefix."""
+    dev = _card()
+    y = torch.from_numpy(riffs(n)).to(dev)
+    t = spectral.n_frames(n, 2048, 512)
+    nvf = (torch.tensor([t, t - 5, 1 + int(0.6 * n) // 512], device=dev)
+           if padded else None)
+    before = onset.onset_strength.launches
+    got = onset.onset_strength(y, FILE_SR, n_valid_frames=nvf)
+    ref = onset.onset_strength_plain(y, FILE_SR, n_valid_frames=nvf)
+    torch.cuda.synchronize()
+    assert onset.onset_strength.launches == before + 1
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("cand_budget", [None, 0, 3])
+@pytest.mark.parametrize("backtrack", [True, False])
+@pytest.mark.parametrize("t", [300, 2584])
+def test_onset_pick_kernel(cand_budget, backtrack, t):
+    """All five outputs identical to the plain version, for a 7 s and a
+    60 s envelope."""
+    dev = _card()
+    env = torch.from_numpy(random_envelopes(t, 0)).to(dev)
+    nvf = torch.tensor([t, t - 89, 40], device=dev)
+    for max_onsets in (4, 64):
+        before = onset.pick_onsets.launches
+        got = onset.pick_onsets(env, FILE_SR, 512, 0.3, max_onsets,
+                                backtrack, nvf, cand_budget)
+        ref = onset.pick_onsets_plain(env, FILE_SR, 512, 0.3, max_onsets,
+                                      backtrack, nvf, cand_budget)
+        torch.cuda.synchronize()
+        assert onset.pick_onsets.launches == before + 1
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+def test_onset_wrappers_check_inputs():
+    dev = _card()
+    env = torch.from_numpy(random_envelopes(300, 0)).to(dev)
+    for call in (lambda x: onset.onset_strength(x, FILE_SR),
+                 lambda x: onset.pick_onsets(x, FILE_SR, 512, 0.3, 64)):
+        with pytest.raises(ValueError, match="float32"):
+            call(env.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            call(env.t().contiguous().t())
+
+
+def test_transcribe_card_vs_cpu(tmp_path):
+    """The whole-file path on the card, both routes, against the plain
+    path on the CPU; all five kernels launch."""
+    _card()
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.utils.wavio import write_wav
+    path = tmp_path / "riff.wav"
+    write_wav(path, pluck_riff(44100, 3.9), 44100)
+    ref = Transcriber(device="cpu").transcribe(path)
+    card = Transcriber(device="cuda")
+    for fused in (False, True):
+        counts = [f.launches for f in (features.melspec_features,
+                                       features.mfcc_frontend, yin.yin_pitch,
+                                       onset.onset_strength,
+                                       onset.pick_onsets)]
+        got = card.transcribe(path, fused=fused)
+        after = [f.launches for f in (features.melspec_features,
+                                      features.mfcc_frontend, yin.yin_pitch,
+                                      onset.onset_strength, onset.pick_onsets)]
+        assert all(a > b for a, b in zip(after, counts))
+        assert got["labels"] == ref["labels"] == ["A2", "D3", "G3", "B3"]
+        assert got["onsets_s"] == ref["onsets_s"]
+        assert got["times"] == ref["times"]
+        np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)

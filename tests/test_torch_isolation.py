@@ -11,15 +11,20 @@ import pytest
 import torch
 
 from gat_tpu_torch import features, kernels
-from gat_tpu_torch.ops import yin
+from gat_tpu_torch.ops import onset, yin
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gat_tpu")
 PORT_FILES = sorted((REPO / "gat_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
-WRAPPERS = [(features.melspec_features, features.melspec_features_plain),
-            (features.mfcc_frontend, features.mfcc_frontend_plain),
-            (yin.yin_pitch, yin.yin_pitch_plain)]
+# (wrapper, its plain version, the arguments after the tensor)
+WRAPPERS = [(features.melspec_features, features.melspec_features_plain,
+             (11025,)),
+            (features.mfcc_frontend, features.mfcc_frontend_plain, (11025,)),
+            (yin.yin_pitch, yin.yin_pitch_plain, (11025,)),
+            (onset.onset_strength, onset.onset_strength_plain, (22050,)),
+            (onset.pick_onsets, onset.pick_onsets_plain,
+             (22050, 512, 0.3, 64))]
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -70,7 +75,7 @@ def test_entry_points_refuse_cuda_without_a_card():
 def test_kernels_not_built_at_import():
     assert kernels._libs == {}
     assert kernels.KERNELS == ("melspec_frontend", "mfcc_frontend",
-                               "yin_pitch")
+                               "yin_pitch", "onset_envelope", "onset_pick")
     for name in kernels.KERNELS:
         assert (kernels.CSRC / f"{name}.cu").is_file()
 
@@ -94,7 +99,7 @@ def test_library_name_follows_sources(monkeypatch, tmp_path):
         (tmp_path / "dsp_common.cuh").read_text() + "\n// edit\n")
     after = {n: kernels._library_path(n) for n in kernels.KERNELS}
     assert all(before[n] != after[n] for n in kernels.KERNELS)
-    assert len(set(after.values())) == 3
+    assert len(set(after.values())) == len(kernels.KERNELS)
 
 
 def test_check_input_refuses_what_the_kernels_do_not_take():
@@ -112,19 +117,23 @@ def test_check_raises_on_cuda_error():
         kernels.check(1, "x")
 
 
-@pytest.mark.parametrize("wrapper,plain", WRAPPERS,
-                         ids=lambda f: getattr(f, "__name__", ""))
-def test_cpu_tensor_runs_plain_version(wrapper, plain):
+WRAPPER_PARAMS = [pytest.param(w, p, a, id=f"{w.__name__}-{p.__name__}")
+                  for w, p, a in WRAPPERS]
+
+
+@pytest.mark.parametrize("wrapper,plain,args", WRAPPER_PARAMS)
+def test_cpu_tensor_runs_plain_version(wrapper, plain, args):
     x = torch.from_numpy(np.random.default_rng(0).normal(
         0, 0.1, (3, 5512)).astype(np.float32))
     before = wrapper.launches
-    np.testing.assert_array_equal(wrapper(x, 11025).numpy(),
-                                  plain(x, 11025).numpy())
+    got, ref = wrapper(x, *args), plain(x, *args)
+    for g, r in zip(*((got, ref) if isinstance(got, tuple)
+                      else ((got,), (ref,)))):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("wrapper,plain", WRAPPERS,
-                         ids=lambda f: getattr(f, "__name__", ""))
-def test_other_devices_raise(wrapper, plain):
+@pytest.mark.parametrize("wrapper,plain,args", WRAPPER_PARAMS)
+def test_other_devices_raise(wrapper, plain, args):
     with pytest.raises(ValueError, match="unsupported device"):
-        wrapper(torch.empty(2, 5512, device="meta"), 11025)
+        wrapper(torch.empty(2, 5512, device="meta"), *args)

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from gat_tpu_torch import features, kernels
-from gat_tpu_torch.ops import spectral, yin
+from gat_tpu_torch.ops import onset, spectral, yin
 
 SR = 11025
 CPU = torch.device("cpu")
@@ -76,11 +76,12 @@ inline void emu_launch(int grid, int block, std::function<void()> fn) {
 
 _LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),[^>]*>>>\((.*?)\);",
                      re.S)
+LAUNCHES = {"onset_envelope": 2}  # kernel launches per C entry point
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """The three kernels compiled by g++ under the emulation header."""
+    """The kernels compiled by g++ under the emulation header."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -93,7 +94,7 @@ def libs(tmp_path_factory):
         src, n = _LAUNCH.subn(
             lambda m: (f"emu_launch({m[2]}, {m[3]}, [&]() "
                        f"{{ {m[1]}({m[4]}); }});"), src)
-        assert n == 1, name
+        assert n == LAUNCHES.get(name, 1), name
         (out / f"{name}.cpp").write_text(src)
         procs[name] = subprocess.Popen(
             [gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-pthread",
@@ -301,13 +302,149 @@ def test_shared_memory_limit_refused(libs):
     ("mfcc_frontend", "gat_mfcc_blocks_per_sm", (128, 11), (128, 2000)),
     ("yin_pitch", "gat_yin_blocks_per_sm", (1024, 512, 11, 221),
      (1024, 512, 2000, 221)),
+    ("onset_envelope", "gat_onset_envelope_blocks_per_sm", (128,), (2000,)),
+    ("onset_pick", "gat_onset_pick_blocks_per_sm", (345,), (20000,)),
 ])
 def test_occupancy_entry_points(libs, name, symbol, args, too_big):
     """Each kernel's occupancy query takes the main path's sizes (the
     emulation has no occupancy to report, so it writes 0), and refuses
-    sizes whose shared memory exceeds a block's (2000 frames)."""
+    sizes whose shared memory exceeds a block's (2000 frames or bands,
+    20000 envelope frames)."""
     fn = _fn(libs[name], symbol, [ctypes.c_int] * len(args)
              + [ctypes.c_void_p])
     blocks = ctypes.c_int(-1)
     assert fn(*args, ctypes.addressof(blocks)) == 0 and blocks.value == 0
     assert fn(*too_big, ctypes.addressof(blocks)) != 0
+
+
+FILE_SR = 22050
+
+
+def riffs(n: int, seed: int = 0) -> np.ndarray:
+    """(3, n) at 22050 Hz: decaying tones every 0.35 s from 0.2 s plus
+    noise; the third row is silent past 60 % of its length."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / FILE_SR
+    y = rng.normal(0.0, 0.01, (3, n))
+    for row, f0 in enumerate((110.0, 196.0, 330.0)):
+        for k, t0 in enumerate(np.arange(0.2, n / FILE_SR, 0.35)):
+            env = np.where(t >= t0, np.exp(-8.0 * (t - t0)), 0.0)
+            y[row] += env * np.sin(2 * np.pi * f0 * (1 + 0.1 * k) * t)
+    y[2, int(0.6 * n):] = 0.0
+    return y.astype(np.float32)
+
+
+RIFF_NOTES = ((0.4, 110.0), (1.1, 146.83), (1.8, 196.0), (2.5, 246.94),
+              (3.2, 329.63))  # A2 D3 G3 B3 E4
+
+
+def pluck_riff(sr: int, dur: float, notes=RIFF_NOTES) -> np.ndarray:
+    """Karplus-Strong plucks (start s, Hz), 0.45 s long at peak 0.5 with
+    the last 30 % faded out (an abrupt cut reads as an onset); numpy only,
+    for the card's tests too."""
+    y = np.zeros(int(dur * sr), np.float32)
+    for t0, f in notes:
+        if t0 >= dur:
+            continue
+        period = max(2, int(round(sr / f)))
+        buf = np.random.default_rng(int(f)).uniform(-1.0, 1.0, period)
+        n = np.empty(int(0.45 * sr))
+        for i in range(len(n)):
+            n[i] = buf[i % period]
+            buf[i % period] = 0.498 * (buf[i % period]
+                                       + buf[(i + 1) % period])
+        n *= 0.5 / np.abs(n).max()
+        fade = int(0.3 * len(n))
+        n[-fade:] *= np.linspace(1, 0, fade)
+        s = int(t0 * sr)
+        y[s:s + len(n)] += n[:len(y) - s].astype(np.float32)
+    return y
+
+
+def onset_envelope_emulated(libs, y: torch.Tensor, nvf: torch.Tensor
+                            ) -> torch.Tensor:
+    """K4's C entry point with the arguments `onset.onset_strength`
+    passes."""
+    b, n = y.shape
+    t = spectral.n_frames(n, 2048, 512)
+    n_chunks = -(-t // onset.ONSET_CHUNK)
+    env = torch.empty(b, t)
+    db = torch.empty(b, t, 128)
+    chunk_max = torch.empty(b, n_chunks)
+    hann, tw, fb, lo, hi = features._kernel_tables(FILE_SR, 128, False, CPU)
+    nvf = nvf.to(torch.int32).contiguous()
+    fn = _fn(libs["onset_envelope"], "gat_onset_envelope",
+             onset._ENVELOPE_ARGS)
+    assert fn(y.data_ptr(), env.data_ptr(), db.data_ptr(),
+              chunk_max.data_ptr(), hann.data_ptr(), tw.data_ptr(),
+              fb.data_ptr(), lo.data_ptr(), hi.data_ptr(), nvf.data_ptr(),
+              b, n, 512, t, 128, 1, 3, 80.0, None) == 0
+    return env
+
+
+@pytest.mark.parametrize("n", [22050, 45000])
+@pytest.mark.parametrize("padded", [False, True])
+def test_onset_envelope_emulated(libs, n, padded):
+    """44 and 88 frames, two and three chunks of 32; with a valid prefix
+    the top_db peak reads the valid frames only."""
+    y = torch.from_numpy(riffs(n))
+    t = spectral.n_frames(n, 2048, 512)
+    nvf = (torch.tensor([t, t - 5, 1 + int(0.6 * n) // 512]) if padded
+           else torch.full((3,), t))
+    got = onset_envelope_emulated(libs, y, nvf)
+    ref = onset.onset_strength_plain(y, FILE_SR,
+                                     n_valid_frames=nvf if padded else None)
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+    assert float(ref.max()) > 1.0  # the tones give the flux real peaks
+
+
+def onset_pick_emulated(libs, env: torch.Tensor, nvf: torch.Tensor,
+                        max_onsets: int, cand_budget, backtrack: bool = True):
+    """K5's C entry point with the arguments `onset.pick_onsets` passes."""
+    b, t = env.shape
+    pre_max, post_max, pre_avg, post_avg, wait = onset.peak_pick_params(
+        FILE_SR, 512)
+    size, left = onset._max_window(pre_max, post_max)
+    outs = (torch.empty(b, max_onsets, dtype=torch.int32),
+            torch.empty(b, max_onsets, dtype=torch.bool),
+            torch.empty(b, dtype=torch.bool), torch.empty(b, dtype=torch.bool),
+            torch.empty(b, dtype=torch.int32))
+    nvf = nvf.to(torch.int32).contiguous()
+    fn = _fn(libs["onset_pick"], "gat_onset_pick", onset._PICK_ARGS)
+    assert fn(env.data_ptr(), nvf.data_ptr(), *(o.data_ptr() for o in outs),
+              b, t, size, left, pre_avg, post_avg, 0.07, wait, 512,
+              int(0.3 * FILE_SR), max_onsets,
+              onset.candidate_limit(t, max_onsets, cand_budget),
+              int(backtrack), None) == 0
+    return outs
+
+
+def random_envelopes(t: int, seed: int) -> np.ndarray:
+    """(3, t) onset-envelope-like rows: sparse bursts with decays on a
+    noise floor."""
+    rng = np.random.default_rng(seed)
+    x = rng.exponential(0.05, (3, t))
+    for row in range(3):
+        for i in rng.choice(t, size=max(1, t // 12), replace=False):
+            x[row, i:i + 4] += rng.uniform(0.5, 3.0) * np.array(
+                [1.0, 0.5, 0.25, 0.1])[:t - i]
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("cand_budget", [None, 0, 3])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("backtrack", [True, False])
+def test_onset_pick_emulated(libs, cand_budget, seed, backtrack):
+    """All five outputs identical to the plain version, over full and
+    short valid prefixes, with budgets that truncate (3 candidates, a
+    4-onset cap) and that do not."""
+    env = torch.from_numpy(random_envelopes(300, seed))
+    nvf = torch.tensor([300, 211, 40])
+    for max_onsets in (4, 64):
+        got = onset_pick_emulated(libs, env, nvf, max_onsets, cand_budget,
+                                  backtrack)
+        ref = onset.pick_onsets_plain(env, FILE_SR, 512, 0.3, max_onsets,
+                                      backtrack, nvf, cand_budget)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        assert bool(ref[1].any())

@@ -139,8 +139,26 @@ def test_checkpoint_validation(tmp_path):
     assert t.clip_length == 0.5
 
 
-def test_resample_branch_not_ported(port_t):
-    mfcc = port_t.model_configs["mlp"]["features"]["params"]
-    with pytest.raises(NotImplementedError, match="resampling"):
-        build_clip_ensemble_fn(port_t.predictor, port_t.scaler, 11025, mfcc,
-                               None, in_sr=22050)
+def test_resample_branch_not_ported(jax_t, port_t):
+    """The re-rate branch, now ported: clips at 22050 Hz of 0.6 s are
+    re-rated to the checkpoint's 11025 Hz and cut to 5512 samples, with
+    the pitch feature from the raw and from the normalized clips; probs
+    as test_transcribe_clips_matches holds them."""
+    from gat_tpu.infer.pipeline import build_clip_ensemble_fn as jbuild
+    from gat_tpu.data.synth import karplus_strong
+    from gat_tpu.ops.pitch import midi_to_hz
+    clips = np.stack([karplus_strong(float(midi_to_hz(40 + 5 * i)), 22050,
+                                     0.6, seed=i)[0] for i in range(9)])
+    mfcc, mel = jax_t._feature_params()
+    for pitch_on_normalized in (False, True):
+        ref, _, _ = jbuild(jax_t.predictor, jax_t.scaler, 11025, mfcc, mel,
+                           in_sr=22050, clip_len=5512,
+                           pitch_on_normalized=pitch_on_normalized,
+                           return_parts=True)(clips)
+        fn = build_clip_ensemble_fn(port_t.predictor, port_t.scaler, 11025,
+                                    mfcc, mel, in_sr=22050, clip_len=5512,
+                                    pitch_on_normalized=pitch_on_normalized)
+        got, _, _ = fn(torch.from_numpy(clips))
+        ref = np.asarray(ref)
+        np.testing.assert_array_equal(got.numpy().argmax(1), ref.argmax(1))
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-2)
