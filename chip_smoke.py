@@ -19,7 +19,10 @@ non-zero:
    envelope) and K5 (onset pick) at 64 riffs of 8 s at 22050 Hz (plucks
    from 0.4 s, 0.7 s apart, over the 47 classes, plus noise; one file
    with a zero tail), K5 also from K4's envelopes and with three
-   candidate budgets;
+   candidate budgets; K4 also at the file path's own shapes, one 4 s
+   file and a wave of 4, with its device time from the profiler beside
+   the CUDA-event time, and K5's device time apart from its wrapper's
+   host time;
 4. drive the clip path, `Transcriber(device="cuda").transcribe_clips`, at
    the shipped checkpoints: K1-K3's launch counts must rise, the labels
    must equal those of the plain versions fed to the same models, and a
@@ -56,6 +59,11 @@ N_RIFFS, RIFF_SECONDS = 64, 8.0
 FILE_MIDI = [45, 50, 55, 59, 64]  # A2 D3 G3 B3 E4: the file phase's riff
 SEED = 0
 T_RIFF = 1 + int(RIFF_SECONDS * FILE_SR) // 512  # 345 envelope frames
+# K4's shapes as (files, seconds): one 4 s file, as `transcribe` runs it
+# (173 frames); a wave of 4 such files (the many-file path's default
+# wave); the 64 riffs of 8 s of the timing phase
+ENVELOPE_SHAPES = ((1, 4.0), (4, 4.0), (N_RIFFS, RIFF_SECONDS))
+K4_KERNELS = ("onset_mel_db_kernel", "onset_flux_kernel")
 POOL = 6                  # distinct input buffers per timing repetition
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
@@ -144,6 +152,125 @@ def time_ms(fn, pool, reps: int) -> float:
     return statistics.median(times)
 
 
+def kernel_device_ms(fn, pool, names: tuple[str, ...]) -> float | None:
+    """Device time per call of the kernels whose names start with one of
+    `names`, from torch.profiler over one call on every buffer of the
+    pool; None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for x in pool:
+        fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in pool:
+            fn(x)
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.key.startswith(names))
+    return total / 1e3 / len(pool) if total > 0 else None
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def host_us(fn, pool, reps: int) -> float:
+    """Host time per call of a wrapper, in µs: the calls are enqueued with
+    no synchronisation inside the timed loop, so this is its Python,
+    allocations and launches, not the device's work."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for x in pool:
+            fn(x)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / (reps * len(pool)) * 1e6
+
+
+def noisy_pool(x, seed: int, sigma: float) -> list:
+    """x and POOL - 1 copies of it with Gaussian noise of `sigma` added,
+    copy i from the seed `seed + i`, on x's device."""
+    import torch
+    return [x] + [
+        (x + sigma * torch.randn(x.shape, device=x.device,
+                                 generator=torch.Generator(x.device)
+                                 .manual_seed(seed + i))).contiguous()
+        for i in range(1, POOL)]
+
+
+def file_inputs(dev, files: int, seconds: float):
+    """(files, seconds·FILE_SR) riffs on the card and their valid frames
+    (B,): plucks from 0.4 s, 0.7 s apart, over the 47 classes, noise of
+    sigma 0.01; with several files, the last is zero past 75 % of its
+    length (6 s of 8 s)."""
+    import torch
+    k = len(np.arange(0.4, seconds - 0.45, 0.7))  # notes per riff
+    midi = 40 + np.arange(files * k).reshape(files, k) % 47
+    riffs = make_riffs(midi, seconds, FILE_SR, SEED + 1, noise=0.01)
+    n = riffs.shape[1]
+    nv = np.full(files, n)
+    if files > 1:
+        nv[-1] = int(0.75 * n)
+        riffs[-1, nv[-1]:] = 0.0
+    return (torch.from_numpy(riffs).to(dev),
+            (1 + torch.from_numpy(nv) // 512).to(dev))
+
+
+def envelope_bound(files: int, n: int, dev) -> tuple[float, str]:
+    """K4's bound: the FFT and mel work of every frame; each sample read
+    and each envelope value written once, with the valid counts, the
+    window, the twiddles and the filterbank's nonzero weights and their
+    bin ranges."""
+    from gat_tpu_torch import features
+    t = 1 + n // 512
+    hann, tw, _, lo, hi = features._kernel_tables(FILE_SR, 128, False, dev)
+    nnz = int((hi - lo).sum())
+    tables = 4 * (hann.numel() + tw.numel() + nnz + 2 * 128)
+    return bound(files * t * (fft_flops(nnz, 128) + 4 * 128),
+                 4 * files * (n + t + 1) + tables)
+
+
+def time_envelope(onset, dev, failures: list) -> list[dict]:
+    """K4 (`onset.onset_strength` of the package imported as `onset`)
+    against its plain version at each of ENVELOPE_SHAPES: max abs error
+    (atol 1e-3), kernel ms in CUDA events over POOL distinct buffers, its
+    two kernels' device ms per call in the profiler, plain ms, bound."""
+    import torch
+    rows = []
+    for files, seconds in ENVELOPE_SHAPES:
+        y, nvf = file_inputs(dev, files, seconds)
+        n = y.shape[1]
+        pool = noisy_pool(y, SEED + 10, 0.001)
+
+        def fn(x):
+            return onset.onset_strength(x, FILE_SR, n_valid_frames=nvf)
+
+        def plain(x):
+            return onset.onset_strength_plain(x, FILE_SR, n_valid_frames=nvf)
+
+        got, ref = fn(y), plain(y)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = err <= 1e-3 and bool(torch.isfinite(got).all())
+        if not ok:
+            failures.append(f"onset_envelope at {files} x {seconds:g} s")
+        row = dict(files=files, frames=1 + n // 512, max_abs_err=err,
+                   ms=time_ms(fn, pool, reps=10),
+                   device_ms=kernel_device_ms(fn, pool, K4_KERNELS),
+                   plain_ms=time_ms(plain, pool, reps=10))
+        row["bound_ms"], row["bound_by"] = envelope_bound(files, n, dev)
+        log(f"[time] onset_envelope at {files} x {seconds:g} s "
+            f"({row['frames']} frames): kernel {row['ms']:.4f} ms (events), "
+            f"{fmt_ms(row['device_ms'])} device (profiler), plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); max abs err {err:.3g} (atol 1e-3) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        rows.append(row)
+    return rows
+
+
 def profile_call(fn, wall_ms: float) -> None:
     """Device time by kernel over one call under torch.profiler, and the
     device's busy share of the call's unprofiled wall time."""
@@ -189,29 +316,16 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def check_file_kernels(dev, failures: list) -> list[dict]:
-    """K4 and K5 against their plain versions at 64 riffs of 8 s, timed;
-    returns their rows of the kernels line (launches filled in later)."""
+    """K4 and K5 against their plain versions at 64 riffs of 8 s, timed,
+    and K4 at the file path's shapes; returns their rows of the kernels
+    line (launches filled in later)."""
     import torch
-    from gat_tpu_torch import features
-    from gat_tpu_torch.ops import onset, spectral
+    from gat_tpu_torch.ops import onset
     t0 = time.perf_counter()
-    k = len(np.arange(0.4, RIFF_SECONDS - 0.45, 0.7))  # notes per riff
-    midi = 40 + np.arange(N_RIFFS * k).reshape(N_RIFFS, k) % 47
-    riffs = make_riffs(midi, RIFF_SECONDS, FILE_SR, SEED + 1, noise=0.01)
-    n = riffs.shape[1]
-    nv = np.full(N_RIFFS, n)
-    nv[-1] = int(6.0 * FILE_SR)   # one file with a zero-padded tail
-    riffs[-1, nv[-1]:] = 0.0
-    log(f"[data] {N_RIFFS} riffs x {n} samples at {FILE_SR} Hz "
-        f"({riffs.nbytes / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s")
-    y = torch.from_numpy(riffs).to(dev)
-    nvf = (1 + torch.from_numpy(nv) // 512).to(dev)
-    t = spectral.n_frames(n, 2048, 512)
-    pool = [y] + [
-        (y + 0.001 * torch.randn(y.shape, device=dev,
-                                 generator=torch.Generator(dev)
-                                 .manual_seed(SEED + 10 + i))).contiguous()
-        for i in range(1, POOL)]
+    y, nvf = file_inputs(dev, N_RIFFS, RIFF_SECONDS)
+    log(f"[data] {N_RIFFS} riffs x {y.shape[1]} samples at {FILE_SR} Hz "
+        f"({y.numel() * 4 / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s")
+    pool = noisy_pool(y, SEED + 10, 0.001)
 
     def envelope(x):
         return onset.onset_strength(x, FILE_SR, n_valid_frames=nvf)
@@ -243,6 +357,14 @@ def check_file_kernels(dev, failures: list) -> list[dict]:
         f"{'ok' if ok4 else 'FAIL'}")
     if not ok4:
         failures.append("onset_envelope")
+    # the envelope must not depend on the first pass's grid
+    same = all(torch.equal(onset.onset_strength(y, FILE_SR, n_valid_frames=nvf,
+                                                grid=g), env)
+               for g in (1, 97, 10 ** 6))
+    log(f"[check] onset_envelope with grids 1, 97 and one above the rounds: "
+        f"bit-identical {same}")
+    if not same:
+        failures.append("onset_envelope depends on its grid")
 
     # K5 against its plain version on the same envelopes
     err5, ok5 = 0.0, True
@@ -261,37 +383,41 @@ def check_file_kernels(dev, failures: list) -> list[dict]:
     if not ok5:
         failures.append("onset_pick")
 
-    # bounds: the FFT work of every frame for K4, one read of the
-    # envelopes for K5
-    hann, tw, fb, lo, hi = features._kernel_tables(FILE_SR, 128, False, dev)
-    nnz = int((hi - lo).sum())
-    tables = sum(a.numel() * a.element_size() for a in (hann, tw, fb, lo, hi))
-    b4 = bound(N_RIFFS * t * (fft_flops(nnz, 128) + 4 * 128),
-               4 * N_RIFFS * (n + t + 1) + tables)
+    # K4 at every shape (its 64-riff numbers make its kernels-line row);
+    # K5's bound is one read of the envelopes
+    shapes = time_envelope(onset, dev, failures)
+    t = env.shape[1]
     pre_max, post_max, _, _, _ = onset.peak_pick_params(FILE_SR, 512)
     b5 = bound(N_RIFFS * t * (pre_max + post_max + 16),
                4 * N_RIFFS * (t + 1) + N_RIFFS * (64 * 5 + 6))
     env_pool = [envelope(x) for x in pool]
-    rows = []
-    for name, fn, plain, data, b, err, reps, src, line in (
-            ("onset_envelope", envelope, envelope_plain, pool, b4, err4, 10,
-             "onset_envelope.cu", 34),
-            ("onset_pick", pick, pick_plain, env_pool, b5, err5, 3,
-             "onset_pick.cu", 178)):
-        ms = time_ms(fn, data, reps=10)
-        plain_ms = time_ms(plain, data, reps=reps)
-        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b[0]:.4f} ms ({b[1]})")
-        rows.append(dict(name=name, route="cuda",
-                         source=f"gat_tpu_torch/csrc/{src}",
-                         replaces=f"gat_tpu/ops/onset.py:{line}", launches=0,
-                         max_abs_err=err,
-                         tolerance=("atol 1e-3 on the envelope; K5's onsets "
-                                    "from it identical"
-                                    if name == "onset_envelope" else
-                                    "all five outputs identical"),
-                         ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-                         bound_by=b[1], library_ms=None))
+    k5 = dict(ms=time_ms(pick, env_pool, reps=10),
+              plain_ms=time_ms(pick_plain, env_pool, reps=3),
+              device_ms=kernel_device_ms(pick, env_pool,
+                                         ("onset_pick_kernel",)),
+              host_us=host_us(pick, env_pool, reps=20))
+    log(f"[time] onset_pick: kernel {k5['ms']:.4f} ms (events), "
+        f"{fmt_ms(k5['device_ms'])} device (profiler), wrapper host "
+        f"{k5['host_us']:.1f} us per call, plain {k5['plain_ms']:.4f} ms, "
+        f"bound {b5[0]:.4f} ms ({b5[1]})")
+    big = shapes[-1]
+    rows = [dict(name="onset_envelope", route="cuda",
+                 source="gat_tpu_torch/csrc/onset_envelope.cu",
+                 replaces="gat_tpu/ops/onset.py:34", launches=0,
+                 max_abs_err=err4,
+                 tolerance="atol 1e-3 on the envelope; K5's onsets from it "
+                           "identical",
+                 ms=big["ms"], plain_ms=big["plain_ms"],
+                 bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+                 library_ms=None, device_ms=big["device_ms"],
+                 shapes=shapes),
+            dict(name="onset_pick", route="cuda",
+                 source="gat_tpu_torch/csrc/onset_pick.cu",
+                 replaces="gat_tpu/ops/onset.py:178", launches=0,
+                 max_abs_err=err5, tolerance="all five outputs identical",
+                 ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=b5[0],
+                 bound_by=b5[1], library_ms=None,
+                 device_ms=k5["device_ms"], host_us=k5["host_us"])]
     torch.cuda.synchronize()
     return rows
 
@@ -325,9 +451,10 @@ def file_phase(rows: list, card: str, failures: list) -> None:
             launches = [w.launches for w in wrappers]
             log(f"[file] launches per transcribe(fused={fused}) call, "
                 f"K1..K5: {launches}")
-            if min(launches) < 1:
+            if min(launches) < 1 or launches[3] != 1:
                 failures.append(f"a kernel was not launched on the file "
-                                f"path (fused={fused}): {launches}")
+                                f"path, or K4 more than once "
+                                f"(fused={fused}): {launches}")
             if not fused:
                 rows[3]["launches"], rows[4]["launches"] = launches[3:5]
         for sr, path in paths.items():
@@ -375,7 +502,7 @@ def main() -> int:
     from gat_tpu_torch import features, kernels
     from gat_tpu_torch.entry import entry
     from gat_tpu_torch.infer import Transcriber
-    from gat_tpu_torch.ops import spectral, yin
+    from gat_tpu_torch.ops import onset, spectral, yin
     from gat_tpu_torch.ops.pitch import midi_to_note
 
     # ---- 1. the card ------------------------------------------------------
@@ -401,11 +528,7 @@ def main() -> int:
     log(f"[data] {N_CLIPS} clips x {CLIP_LEN} in "
         f"{time.perf_counter() - t0:.1f} s")
     clips = torch.from_numpy(clips_np).to(dev)
-    pool = [clips] + [
-        (clips + 0.01 * torch.randn(clips.shape, device=dev,
-                                    generator=torch.Generator(dev)
-                                    .manual_seed(SEED + i))).contiguous()
-        for i in range(1, POOL)]
+    pool = noisy_pool(clips, SEED, 0.01)
     torch.cuda.synchronize()
 
     n, length = clips.shape
@@ -418,6 +541,7 @@ def main() -> int:
     nnz64 = int((hi64 - lo64).sum())
     nnz128 = int((hi128 - lo128).sum())
     min_p, max_p = yin.yin_periods(SR, 50.0, 1000.0, 2048, 1024)
+    n_items = onset._mel_items(FILE_SR, 128, dev)[2]
     table_bytes_64 = sum(a.numel() * a.element_size() for a in tables64)
     table_bytes_128 = (sum(a.numel() * a.element_size() for a in tables128)
                        + 4 * 128 * 64)  # and the DCT matrix
@@ -428,8 +552,9 @@ def main() -> int:
              f"128 mels x {t_mfcc} frames"),
             ("yin_pitch", "gat_yin_blocks_per_sm", (1024, 512, t_mfcc, max_p),
              f"{t_mfcc} frames x {max_p + 1} lags"),
-            ("onset_envelope", "gat_onset_envelope_blocks_per_sm", (128,),
-             "128 mels, pass 1"),
+            ("onset_envelope", "gat_onset_envelope_blocks_per_sm",
+             (n_items, 512), f"128 mels ({n_items} mel items), hop 512, "
+             f"pass 1"),
             ("onset_pick", "gat_onset_pick_blocks_per_sm", (T_RIFF,),
              f"{T_RIFF} envelope frames")):
         blocks = ctypes.c_int(0)

@@ -5,158 +5,305 @@
 // onset_strength (librosa.onset.onset_strength). Per file:
 //   1. zero center pad of n_fft / 2, hop-`hop` periodic-Hann frames, a
 //      2048-point DFT, |X|^2 on the 1025 rfft bins;
-//   2. the Slaney mel projection (n_mels bands, K2's tables at the file's
-//      rate);
+//   2. the Slaney mel projection (n_mels bands at the file's rate);
 //   3. 10*log10(max(., 1e-10)), clamped at peak - top_db, with the peak
 //      over the file's valid frames t < nvf only;
 //   4. the positive lag difference, averaged over the bands;
 //   5. shifted right by `shift` = lag + n_fft / (2 hop) frames with zeros
 //      in front, cut to T.
 //
-// What bounds it: each frame needs one real-input 2048-point FFT (about
-// 70 k fp32 flops with the mel) against 2 KB of new samples, so the fp32
-// operation rate bounds it. K2's round loop (mel_rounds.cuh: two frames
-// per complex FFT, register Stockham passes, four frames in flight) does
-// that work; the spectrum never leaves the block. K2 owns a clip with one
-// block, but a file of 60 s has 2584 frames, which one block would walk
-// alone. So the grid runs over (file, chunk of kChunk frames), and the
-// peak, which needs the whole file, takes a second pass:
-//   pass 1 (one block per chunk): the rounds over the chunk's frames, the
-//     pre-clamp dB into a (B, T, n_mels) scratch, and the chunk's maximum
-//     over its valid frames into a (B, n_chunks) scratch;
-//   pass 2 (one block per chunk): the file's peak from its chunk maxima,
-//     then clamp, difference and mean for the chunk's output frames.
-// The scratch costs T * n_mels * 8 bytes of traffic per file, about 6 %
-// of the samples' FFT work in time. Shared memory of pass 1 is K2's
-// rounds (51,200 bytes at 128 bands), so four blocks fit on an SM.
+// What bounds it: fp32 operations. Each frame needs one real-input
+// 2048-point FFT and a sparse 128-band mel (about 70 k flops) against
+// 2 KB of new samples. The transform is K1's and K2's (fft_stockham.cuh:
+// two frames per complex FFT, register Stockham passes; kInFlight = 4
+// frames a round, mel_rounds.cuh), and the spectrum never leaves the
+// block.
+//
+// What the design does about it:
+//   - The grid is sized to the card, not to the files. The unit of work is
+//     a round: kInFlight frames of one file. The caller passes the grid
+//     (the SMs times the resident blocks per SM); each block takes an
+//     equal, contiguous share of all (file, round) pairs. One 4 s file (44
+//     rounds) spreads over 44 blocks, and 64 files of 8 s (5,568 rounds)
+//     over one wave of blocks of 14 or 15 rounds instead of a wave and a
+//     third of 8-round blocks.
+//   - A block's rounds are consecutive frames, so it copies the next
+//     round's samples into shared memory (cp.async) while it computes the
+//     current one; read at the start of a round, they would stall it for
+//     a trip to device memory. With that stage, 80 registers (3 blocks per
+//     SM) ran faster than 64 (4 blocks per SM), which spilled.
+//   - The file's peak needs every frame, so pass 1 writes the pre-clamp
+//     dB to a (B, T, n_mels) scratch and folds each block's maximum over
+//     its valid frames into a (B,) buffer by atomicMax on an order-
+//     preserving integer key. A max is exact in any order, so the result
+//     does not depend on the grid. Pass 2, one warp per output frame,
+//     clamps, differences and averages.
+//   - The mel stage is balanced by nonzeros. Slaney band widths at 128
+//     bands run from 4 to 53 bins; the host cuts the 2,018 nonzero
+//     weights into kThreads runs of equal length (ops/onset.py::
+//     _mel_items), so no thread sums more than ceil(nnz / kThreads) = 8
+//     weights for the four frames, in a loop unrolled over kMelRun.
+//   - The shared-memory attribute is set once, by the occupancy entry
+//     point the wrapper calls once per process to size the grid, not on
+//     every launch.
+#include <cuda_pipeline.h>
+
 #include <cmath>
 
 #include "mel_rounds.cuh"
 
 using namespace gat;
 
-constexpr int kChunk = 32;  // frames per block (ONSET_CHUNK in ops/onset.py)
+constexpr int kFluxFrames = kThreads / 32;  // output frames per pass-2 block
+constexpr int kMelRun = 8;  // most mel weights a thread sums (_MEL_RUN)
 
-static size_t mel_db_smem_bytes(int n_mels) {
-  return sizeof(float) * (size_t)mel_rounds_floats(n_mels);
+// An int whose signed order is the float's order, and back; the key of
+// -inf is what the caller fills the peak buffer with.
+__device__ __forceinline__ int order_key(float v) {
+  const int i = __float_as_int(v);
+  return i >= 0 ? i : i ^ 0x7fffffff;
 }
 
-static size_t flux_smem_bytes(int n_mels) {
-  return sizeof(float) * (size_t)(kThreads + kChunk * n_mels);
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
 }
 
-__global__ void __launch_bounds__(kThreads, 4)
+// The samples a round reads: kInFlight frames of kFFT, hop apart.
+__host__ __device__ constexpr int round_span(int hop) {
+  return (kInFlight - 1) * hop + kFFT;
+}
+
+static size_t mel_db_smem_bytes(int n_items, int hop) {
+  return sizeof(float) *
+         (size_t)(4 * kFFT + kInFlight * n_items + round_span(hop));
+}
+
+// Starts copying the samples of the round at frame t0 of `clip` into
+// `stage`: sample t0 * hop - kFFT / 2 + s at stage[s], zeros outside the
+// clip. The copies (cp.async) land while the block computes; every
+// thread waits for its own with __pipeline_wait_prior(0), then the block
+// synchronizes before reading.
+__device__ __forceinline__ void stage_round(const float* __restrict__ clip,
+                                            int n_samples, int hop, int t0,
+                                            float* stage) {
+  const int first = t0 * hop - kFFT / 2;
+  for (int s = threadIdx.x; s < round_span(hop); s += kThreads) {
+    const int i = first + s;
+    if (i >= 0 && i < n_samples)
+      __pipeline_memcpy_async(stage + s, clip + i, sizeof(float));
+    else
+      stage[s] = 0.0f;
+  }
+  __pipeline_commit();
+}
+
+// tab: thread_first[kThreads + 1] (the first mel item of thread i),
+// band_first[n_mels + 1] (band m's items, in order), then per nonzero
+// weight e, band after band, its bin plus 2^16 where its band ends.
+// Thread i sums weights [i * run, (i + 1) * run), run = ceil(nnz /
+// kThreads); an item is a piece of that run within one band.
+__global__ void __launch_bounds__(kThreads, 3)
 onset_mel_db_kernel(const float* __restrict__ y, float* __restrict__ db,
-                    float* __restrict__ chunk_max,
+                    int* __restrict__ peak_key,
                     const float* __restrict__ hann,
                     const float* __restrict__ tw,
-                    const float* __restrict__ fb,
-                    const int* __restrict__ lo, const int* __restrict__ hi,
-                    const int* __restrict__ nvf, int n_samples, int hop,
-                    int n_frames, int n_mels, int n_chunks) {
+                    const int* __restrict__ tab,
+                    const float* __restrict__ weights, int nnz,
+                    int n_items, const int* __restrict__ nvf,
+                    int n_samples, int hop, int n_frames, int n_mels,
+                    int n_files) {
   extern __shared__ float smem[];
-  const int file = blockIdx.x / n_chunks, chunk = blockIdx.x % n_chunks;
-  const int t_begin = chunk * kChunk;
-  const int t_end = t_begin + kChunk < n_frames ? t_begin + kChunk : n_frames;
-  const int valid_end = nvf[file];
-  const float* clip = y + (size_t)file * n_samples;
-  float* out = db + (size_t)file * n_frames * n_mels;
+  float* xre = smem;                  // 2 transforms x kFFT
+  float* xim = xre + 2 * kFFT;        // 2 transforms x kFFT
+  float* power = smem;                // kInFlight x kBins, over xre / xim
+  float* partial = xim + 2 * kFFT;    // kInFlight x n_items
+  float* stage = partial + kInFlight * n_items;  // round_span(hop)
+  const int* band_first = tab + kThreads + 1;
+  const int* codes = band_first + n_mels + 1;
+  const int item_begin = tab[threadIdx.x];
+  const int run = (nnz + kThreads - 1) / kThreads;
+  const int e0 = threadIdx.x * run;
+  const int my_run = nnz - e0 < run ? nnz - e0 : run;  // <= 0: idle
 
+  const int g = threadIdx.x / kFFTThreads;  // transform of this thread
+  const int j = threadIdx.x % kFFTThreads;
+  float* re = xre + g * kFFT;
+  float* im = xim + g * kFFT;
+
+  // this block's share of the (file, round) pairs, file-major
+  const int rounds = (n_frames + kInFlight - 1) / kInFlight;
+  const long long total = (long long)n_files * rounds;
+  const int w_begin = (int)(total * blockIdx.x / gridDim.x);
+  const int w_end = (int)(total * (blockIdx.x + 1) / gridDim.x);
+  int file = w_begin / rounds;
   float peak = -INFINITY;
-  mel_rounds</*kReflect=*/false>(
-      clip, n_samples, hop, t_begin, t_end, n_mels, hann, tw, fb, lo, hi,
-      smem, [&](int m, int t, float v) {
-        // the split's (1/2)^2: power_scale(..., normalize = 0)
-        const float d = 10.0f * log10f(fmaxf(v * 0.25f, 1e-10f));
-        out[(size_t)t * n_mels + m] = d;
-        if (t < valid_end) peak = fmaxf(peak, d);
-      });
-  // the exchange buffer is free once the rounds return
-  const float p = block_max(peak, smem);
-  if (threadIdx.x == 0) chunk_max[blockIdx.x] = p;
+  if (w_begin < w_end)
+    stage_round(y + (size_t)file * n_samples, n_samples, hop,
+                (w_begin - file * rounds) * kInFlight, stage);
+  for (int w = w_begin; w < w_end; ++w) {
+    if (w / rounds != file) {  // block-uniform: every thread is here
+      const float p = block_max(peak, smem);
+      if (threadIdx.x == 0) atomicMax(peak_key + file, order_key(p));
+      file = w / rounds;
+      peak = -INFINITY;
+    }
+    const int t0 = (w - file * rounds) * kInFlight;
+    const int end = t0 + kInFlight < n_frames ? t0 + kInFlight : n_frames;
+    const int valid_end = nvf ? nvf[file] : n_frames;
+    float* out = db + (size_t)file * n_frames * n_mels;
+
+    // frames t0 + 2g (real part) and t0 + 2g + 1 (imaginary), from the
+    // staged samples
+    const bool has_a = t0 + 2 * g < end, has_b = t0 + 2 * g + 1 < end;
+    const float* sa = stage + 2 * g * hop;
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    float vr[16], vi[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int n = j + kFFTThreads * r;
+      const float wn = hann[n];
+      vr[r] = has_a ? sa[n] * wn : 0.0f;
+      vi[r] = has_b ? sa[hop + n] * wn : 0.0f;
+    }
+    fft2048_stockham(vr, vi, re, im, tw, j);
+    // the transform's first barrier follows every read of the stage:
+    // the next round's samples may land there now
+    if (w + 1 < w_end) {
+      const int f1 = (w + 1) / rounds;
+      stage_round(y + (size_t)f1 * n_samples, n_samples, hop,
+                  (w + 1 - f1 * rounds) * kInFlight, stage);
+    }
+    __syncthreads();  // the last pass has read the exchange buffer
+    split_power_bins(vr, vi, j, power + 2 * g * kBins,
+                     power + (2 * g + 1) * kBins);
+    __syncthreads();
+
+    // mel partial sums: this thread's run of weights for the four frames
+    // at once, unrolled so that its loads are in flight together; a
+    // partial sum closes where a band ends and where the run ends
+    {
+      int code[kMelRun];
+      float wk[kMelRun];
+#pragma unroll
+      for (int q = 0; q < kMelRun; ++q) {
+        code[q] = q < my_run ? codes[e0 + q] : 0;
+        wk[q] = q < my_run ? weights[e0 + q] : 0.0f;
+      }
+      float acc[kInFlight] = {};
+      int it = item_begin;
+#pragma unroll
+      for (int q = 0; q < kMelRun; ++q) {
+        const int k = code[q] & 0xffff;
+#pragma unroll
+        for (int f = 0; f < kInFlight; ++f)
+          acc[f] += wk[q] * power[f * kBins + k];
+        if (q < my_run && ((code[q] >> 16) || q == my_run - 1)) {
+#pragma unroll
+          for (int f = 0; f < kInFlight; ++f) {
+            partial[f * n_items + it] = acc[f];
+            acc[f] = 0.0f;
+          }
+          ++it;
+        }
+      }
+    }
+    __syncthreads();
+
+    // one thread per (band, frame) sums the band's items in order; the
+    // bands of one frame go to neighbouring threads and addresses
+    for (int i = threadIdx.x; i < n_mels * kInFlight; i += kThreads) {
+      const int m = i % n_mels, f = i / n_mels, t = t0 + f;
+      if (t >= end) continue;
+      const float* q = partial + f * n_items;
+      float v = 0.0f;
+      for (int it = band_first[m]; it < band_first[m + 1]; ++it) v += q[it];
+      // the split's (1/2)^2, as power_scale(..., normalize = 0) applies it
+      const float d = 10.0f * log10f(fmaxf(v * 0.25f, 1e-10f));
+      out[(size_t)t * n_mels + m] = d;
+      if (t < valid_end) peak = fmaxf(peak, d);
+    }
+  }
+  if (w_begin < w_end) {
+    // the exchange buffer is free: the rounds' last reads of it are done
+    const float p = block_max(peak, smem);
+    if (threadIdx.x == 0) atomicMax(peak_key + file, order_key(p));
+  }
 }
 
+// One warp per output frame t: lane l sums the bands l, l + 32, ... of
+// the clamped positive difference, then one lane adds the 32 sums in
+// order.
 __global__ void __launch_bounds__(kThreads)
 onset_flux_kernel(const float* __restrict__ db,
-                  const float* __restrict__ chunk_max,
-                  float* __restrict__ env, int n_frames, int n_mels,
-                  int n_chunks, int lag, int shift, float top_db) {
-  extern __shared__ float smem[];
-  float* scratch = smem;            // kThreads
-  float* part = smem + kThreads;    // kChunk x n_mels
-  const int file = blockIdx.x / n_chunks, chunk = blockIdx.x % n_chunks;
-  const int t_begin = chunk * kChunk;
-  const int n_out = (t_begin + kChunk < n_frames ? t_begin + kChunk
-                                                 : n_frames) - t_begin;
-
-  float m = -INFINITY;
-  for (int i = threadIdx.x; i < n_chunks; i += kThreads)
-    m = fmaxf(m, chunk_max[(size_t)file * n_chunks + i]);
-  const float floor_db = block_max(m, scratch) - top_db;
-
+                  const int* __restrict__ peak_key, float* __restrict__ env,
+                  int n_frames, int n_mels, int lag, int shift,
+                  float top_db) {
+  extern __shared__ float smem[];  // kThreads lane sums
+  const int blocks_per_file = (n_frames + kFluxFrames - 1) / kFluxFrames;
+  const int file = blockIdx.x / blocks_per_file;
+  const int lane = threadIdx.x % 32;
+  const int t = (blockIdx.x % blocks_per_file) * kFluxFrames +
+                threadIdx.x / 32;
   // output frame t >= shift is the flux from frame j = t - shift to j + lag
-  const float* s = db + (size_t)file * n_frames * n_mels;
-  for (int i = threadIdx.x; i < n_out * n_mels; i += kThreads) {
-    const int f = i / n_mels, band = i % n_mels;
-    const int j = t_begin + f - shift;
-    float d = 0.0f;
-    if (j >= 0) {
-      const float a = fmaxf(s[(size_t)j * n_mels + band], floor_db);
-      const float b = fmaxf(s[(size_t)(j + lag) * n_mels + band], floor_db);
-      d = fmaxf(b - a, 0.0f);
-    }
-    part[i] = d;
+  const int j = t - shift;
+  float acc = 0.0f;
+  if (t < n_frames && j >= 0) {
+    const float floor_db = key_value(peak_key[file]) - top_db;
+    const float* a = db + ((size_t)file * n_frames + j) * n_mels;
+    const float* b = a + (size_t)lag * n_mels;
+    for (int m = lane; m < n_mels; m += 32)
+      acc += fmaxf(fmaxf(b[m], floor_db) - fmaxf(a[m], floor_db), 0.0f);
   }
+  smem[threadIdx.x] = acc;
   __syncthreads();
-  for (int f = threadIdx.x; f < n_out; f += kThreads) {
-    const float* row = part + f * n_mels;
-    float acc = 0.0f;
-    for (int band = 0; band < n_mels; ++band) acc += row[band];
-    env[(size_t)file * n_frames + t_begin + f] =
-        t_begin + f < shift ? 0.0f : acc / (float)n_mels;
+  if (lane == 0 && t < n_frames) {
+    float s = 0.0f;
+    for (int l = 0; l < 32; ++l) s += smem[threadIdx.x + l];
+    env[(size_t)file * n_frames + t] = j < 0 ? 0.0f : s / (float)n_mels;
   }
 }
 
-static cudaError_t onset_set_attributes(int n_mels) {
-  cudaError_t err = cudaFuncSetAttribute(
-      onset_mel_db_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)mel_db_smem_bytes(n_mels));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(onset_flux_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)flux_smem_bytes(n_mels));
-}
-
+// peak_key (B,) must hold the key of -inf (ops/onset.py::_NEG_INF_KEY);
+// `grid` is the number of pass-1 blocks (at most one per round).
 extern "C" int gat_onset_envelope(const float* y, float* env, float* db,
-                                  float* chunk_max, const float* hann,
-                                  const float* tw, const float* fb,
-                                  const int* lo, const int* hi,
-                                  const int* nvf, int n_files, int n_samples,
+                                  int* peak_key, const float* hann,
+                                  const float* tw, const int* tab,
+                                  const float* weights, int nnz,
+                                  int n_items, const int* nvf, int n_files,
+                                  int n_samples,
                                   int hop, int n_frames, int n_mels, int lag,
-                                  int shift, float top_db, void* stream) {
+                                  int shift, float top_db, int grid,
+                                  void* stream) {
   // pass 2 reads frames j + lag <= T - 1 - shift + lag
-  if (lag < 1 || shift < lag || lag >= n_frames)
+  if (lag < 1 || shift < lag || lag >= n_frames || grid < 1 ||
+      nnz > kMelRun * kThreads)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = onset_set_attributes(n_mels);
+  const long long rounds =
+      (long long)n_files * ((n_frames + kInFlight - 1) / kInFlight);
+  if (rounds < grid) grid = (int)rounds;
+  onset_mel_db_kernel<<<grid, kThreads, mel_db_smem_bytes(n_items, hop),
+                        (cudaStream_t)stream>>>(
+      y, db, peak_key, hann, tw, tab, weights, nnz, n_items, nvf, n_samples,
+      hop, n_frames, n_mels, n_files);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_chunks = (n_frames + kChunk - 1) / kChunk;
-  onset_mel_db_kernel<<<n_files * n_chunks, kThreads,
-                        mel_db_smem_bytes(n_mels), (cudaStream_t)stream>>>(
-      y, db, chunk_max, hann, tw, fb, lo, hi, nvf, n_samples, hop, n_frames,
-      n_mels, n_chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  onset_flux_kernel<<<n_files * n_chunks, kThreads, flux_smem_bytes(n_mels),
-                      (cudaStream_t)stream>>>(
-      db, chunk_max, env, n_frames, n_mels, n_chunks, lag, shift, top_db);
+  const int flux_blocks = (n_frames + kFluxFrames - 1) / kFluxFrames;
+  onset_flux_kernel<<<n_files * flux_blocks, kThreads,
+                      sizeof(float) * kThreads, (cudaStream_t)stream>>>(
+      db, peak_key, env, n_frames, n_mels, lag, shift, top_db);
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM of the first pass (the FFT work) at these sizes,
-// as the CUDA runtime computes it from registers and shared memory.
-extern "C" int gat_onset_envelope_blocks_per_sm(int n_mels, int* blocks) {
-  cudaError_t err = onset_set_attributes(n_mels);
+// Resident blocks per SM of pass 1 (the FFT work) for n_items mel items
+// and this hop, as the CUDA runtime computes it from registers and shared
+// memory. Sets pass 1's shared-memory attribute, which a launch does not.
+extern "C" int gat_onset_envelope_blocks_per_sm(int n_items, int hop,
+                                                int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      onset_mel_db_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)mel_db_smem_bytes(n_items, hop));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, onset_mel_db_kernel, kThreads, mel_db_smem_bytes(n_mels));
+      blocks, onset_mel_db_kernel, kThreads, mel_db_smem_bytes(n_items, hop));
 }

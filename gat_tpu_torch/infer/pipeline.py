@@ -10,7 +10,6 @@ import torch
 from ..features import mfcc_feature_vectors, melspec_features
 from ..ops.resample import fix_length, resample
 from ..ops.yin import yin_pitch
-from .predictor import apply_pitch_prior, class_midi_values
 
 __all__ = ["build_clip_ensemble_fn", "build_files_fn"]
 
@@ -30,11 +29,11 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
     reused for the pitch feature and the pitch prior;
     `pitch_on_normalized` takes the pitch feature from the volume-
     normalized clips instead. With `melspec_params` None (no CNN) the mel
-    front-end and the CNN are skipped."""
-    use_cnn = melspec_params is not None and predictor.cnn is not None
-    use_prior = predictor.pitch_prior_weight > 0 and predictor.reverse_map
-    class_midi = (class_midi_values(predictor.reverse_map) if use_prior
-                  else None)
+    front-end and the CNN are skipped.
+
+    Nothing of the predictor is read here: each call reads its models,
+    blend weight and prior settings (`NotePredictor.ensemble_probs`), so
+    a function built once never serves a stale one."""
 
     @torch.no_grad()
     def run(clips: torch.Tensor, raw_pitch_hz: torch.Tensor | None = None):
@@ -52,7 +51,7 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
         if scaler is not None:
             mf = scaler.transform(mf)
         ms = None
-        if use_cnn:
+        if melspec_params is not None and predictor.cnn is not None:
             ms = melspec_features(
                 clips, ckpt_sr, n_mels=melspec_params["N_MELS"],
                 n_fft=melspec_params["N_FFT"],
@@ -62,14 +61,11 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
                 # checkpoint-embedded TO_DB wins (absent key = legacy
                 # checkpoint, dB on)
                 to_db=bool(melspec_params.get("TO_DB", True)))
-        probs, mlp_probs, cnn_probs = predictor.ensemble_probs(mf, ms)
-        if use_prior:
-            hz = raw_pitch_hz if raw_pitch_hz is not None else yin_pitch(
-                clips, ckpt_sr)
-            probs = apply_pitch_prior(probs, hz, class_midi,
-                                      weight=predictor.pitch_prior_weight,
-                                      sigma=predictor.pitch_prior_sigma)
-        return probs, mlp_probs, cnn_probs
+        hz = raw_pitch_hz
+        if (hz is None and predictor.pitch_prior_weight > 0
+                and predictor.reverse_map):
+            hz = yin_pitch(clips, ckpt_sr)
+        return predictor.ensemble_probs(mf, ms, pitch_hz=hz)
 
     return run
 

@@ -65,16 +65,25 @@ def _to_host(outs: tuple) -> tuple:
 
 class Transcriber:
     def __init__(self, mlp_ckpt=None, cnn_ckpt=None, mlp_root=None,
-                 cnn_root=None, require_cnn: bool = True,
+                 cnn_root=None, cnn_weight: float = 0.80,
+                 require_cnn: bool = True,
                  pitch_prior_weight: float = 0.0,
+                 cnn_dtype: torch.dtype | None = None,
                  use_cnn: bool = True, device=None):
         """Resolve and load both checkpoints, check that their embedded
         configs agree, and build the ensemble on `device` (default the
-        card; 'cpu' runs the plain PyTorch path). `require_cnn=False`
-        permits MLP-only operation when the CNN checkpoint is missing;
-        `use_cnn=False` skips the CNN altogether."""
-        self.predictor = NotePredictor(pitch_prior_weight=pitch_prior_weight,
-                                       device=device)
+        card; 'cpu' runs the plain PyTorch path). `cnn_weight` is the
+        CNN's share of the blend. `require_cnn=False` permits MLP-only
+        operation when the CNN checkpoint is missing; `use_cnn=False`
+        skips the CNN altogether. `pitch_prior_weight` > 0 mixes the YIN
+        pitch prior into the blend. `cnn_dtype=torch.bfloat16` runs the
+        CNN's forward in bf16 with its weights kept in float32; the
+        default float32 route runs without TF32. The predictor's
+        settings may be changed after construction: every call reads
+        them."""
+        self.predictor = NotePredictor(cnn_weight=cnn_weight,
+                                       pitch_prior_weight=pitch_prior_weight,
+                                       cnn_dtype=cnn_dtype, device=device)
         self.device = self.predictor.device
 
         mlp_root = Path(mlp_root) if mlp_root else MLP_CONFIG.CHECKPOINTS_DIR
@@ -133,7 +142,8 @@ class Transcriber:
     # ------------------------------------------------------------------
     def _files_fn(self, target_sr: int, clip_duration: float,
                   max_onsets: int, cand_budget: int | None):
-        """The batched file body for one parameter set, built once."""
+        """The batched file body for one parameter set, built once (it
+        holds no predictor state: `build_clip_ensemble_fn`)."""
         key = (target_sr, clip_duration, max_onsets, cand_budget)
         if key not in self._files_fns:
             self._files_fns[key] = build_files_fn(

@@ -10,6 +10,11 @@ The public input stays NHWC (N, n_mels, T, 1), as in the JAX package; the
 forward moves it to NCHW for cuDNN. `F.adaptive_avg_pool2d` uses the bins
 [floor(i·n/o), ceil((i+1)·n/o)) of the JAX `_adaptive_pool_matrix`,
 overlapping ones included (tested).
+
+`dtype` is the compute type, as flax's `dtype` is: the parameters stay
+float32 and are cast per layer, BatchNorm normalizes in float32 and
+rounds its output, the adaptive pool runs in float32 (the JAX pool is a
+float32 matmul), and the logits come back as float32.
 """
 from __future__ import annotations
 
@@ -27,8 +32,10 @@ class CNN(nn.Module):
                  hidden_dim: int = 256, dropout: float = 0.1,
                  kernel_size: int = 3, use_batchnorm: bool = True,
                  use_maxpool: bool = True,
-                 adaptive_pool: tuple[int, int] = (4, 4)):
+                 adaptive_pool: tuple[int, int] = (4, 4),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_blocks = num_blocks
         self.use_batchnorm = use_batchnorm
         self.use_maxpool = use_maxpool
@@ -49,21 +56,35 @@ class CNN(nn.Module):
             flat = hidden_dim
         self.out = nn.Linear(flat, num_classes)
 
+    def _layer(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """A conv or dense layer in the compute dtype. Below float32 it
+        runs as flax's does: input, weight and bias in that dtype, the
+        bias added to the rounded product."""
+        layer = getattr(self, name)
+        if self.dtype == torch.float32:
+            return layer(x)
+        w = layer.weight.to(self.dtype)
+        y = (F.conv2d(x, w, padding=layer.padding)
+             if isinstance(layer, nn.Conv2d) else F.linear(x, w))
+        return y + layer.bias.to(self.dtype).view(-1, *[1] * (y.ndim - 2))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, H=n_mels, W=T, C) NHWC → logits (N, num_classes)."""
-        x = x.permute(0, 3, 1, 2)
+        """x: (N, H=n_mels, W=T, C) NHWC → float32 logits (N,
+        num_classes)."""
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
         for b in range(self.num_blocks):
-            x = getattr(self, f"conv_{b}")(x)
+            x = self._layer(f"conv_{b}", x)
             if self.use_batchnorm:
-                x = getattr(self, f"bn_{b}")(x)
+                x = getattr(self, f"bn_{b}")(x.float()).to(self.dtype)
             x = F.leaky_relu(x, 0.01)
             if self.use_maxpool:
                 x = F.max_pool2d(x, 2)
             x = self.dropout(x)
-        x = F.adaptive_avg_pool2d(x, self.adaptive_pool).flatten(1)
+        x = F.adaptive_avg_pool2d(x.float(), self.adaptive_pool).flatten(1)
         if self.hidden_dim:
-            x = self.dropout(F.leaky_relu(self.fc(x), 0.01))
-        return self.out(x)
+            x = self.dropout(F.leaky_relu(
+                self._layer("fc", x.to(self.dtype)), 0.01))
+        return self._layer("out", x.to(self.dtype)).float()
 
 
 def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:

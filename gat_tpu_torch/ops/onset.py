@@ -18,6 +18,7 @@ loop on the host, so on the card it is a yardstick, not a path.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..features import _kernel_tables
+from .mel import mel_filterbank_librosa
 from .spectral import (TINY32, melspectrogram_librosa, n_frames,
                        power_to_db_librosa)
 
@@ -36,7 +38,11 @@ __all__ = ["onset_strength", "onset_strength_plain", "backtrack_indices",
 _N_FFT = 2048      # the FFT size compiled into K4
 _TOP_DB = 80.0     # power_to_db's clamp below the file's peak
 _DELTA = 0.07      # librosa onset_detect's peak-pick threshold
-ONSET_CHUNK = 32   # frames per block of K4 (kChunk in onset_envelope.cu)
+_THREADS = 256     # threads per block of K4 (kThreads in dsp_common.cuh)
+_MEL_RUN = 8       # most mel weights a thread of K4 sums (kMelRun)
+# the order-preserving int key of -inf (order_key in onset_envelope.cu),
+# which K4's peak buffer starts from
+_NEG_INF_KEY = int(np.float32(-np.inf).view(np.int32)) ^ 0x7FFFFFFF
 
 
 def _valid_mask(n_valid_frames: torch.Tensor | None, b: int, t: int,
@@ -70,25 +76,82 @@ def onset_strength_plain(y: torch.Tensor, sr: int, hop_length: int = 512,
         ..., :t].contiguous()
 
 
-_ENVELOPE_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_void_p]
+@functools.lru_cache(maxsize=16)
+def _mel_items(sr: int, n_mels: int, device: torch.device
+               ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """K4's mel stage balanced by nonzeros: (table int32, weights float32,
+    item count). The Slaney filterbank's nonzero weights, band after band,
+    are cut into `_THREADS` runs of ceil(nnz / _THREADS) <= `_MEL_RUN`;
+    a run's partial sums close where a band ends and where the run ends,
+    and each such piece is an item, with one partial sum per frame.
+    Table: each thread's first item (_THREADS + 1 entries), each band's
+    first item (n_mels + 1), then per nonzero weight its bin, plus 2^16
+    where its band ends."""
+    fb = mel_filterbank_librosa(sr, _N_FFT, n_mels)
+    nnz = int((fb != 0).sum())
+    run = -(-nnz // _THREADS)
+    if run > _MEL_RUN:
+        raise ValueError(f"[onset_strength] {nnz} mel weights need runs of "
+                         f"{run} > {_MEL_RUN}")
+    codes, weights, band_first, thread_first = [], [], [], []
+    n_items = 0
+    for m in range(n_mels):
+        band_first.append(n_items)
+        (nz,) = np.nonzero(fb[m])
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if len(nz) else (0, 0)
+        for k in range(lo, hi):
+            e = len(codes)
+            if e % run == 0:
+                thread_first.append(n_items)
+            last = k == hi - 1
+            codes.append(k | (last << 16))
+            weights.append(fb[m, k])
+            n_items += last or e % run == run - 1 or e == nnz - 1
+    band_first.append(n_items)
+    thread_first += [n_items] * (_THREADS + 1 - len(thread_first))
+    tab = np.asarray(thread_first + band_first + codes, np.int32)
+    return (torch.from_numpy(tab).to(device),
+            torch.from_numpy(np.asarray(weights, np.float32)).to(device),
+            n_items)
+
+
+@functools.lru_cache(maxsize=16)
+def _envelope_grid(device: torch.device, n_items: int, hop: int) -> int:
+    """K4's first-pass grid that fills the card once: its SMs times the
+    blocks of the pass resident on one SM. The occupancy query also sets
+    the pass's shared-memory attribute, so this runs once per process,
+    item count and hop."""
+    blocks = ctypes.c_int(0)
+    fn = kernels.function("onset_envelope", "gat_onset_envelope_blocks_per_sm",
+                          [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        kernels.check(fn(n_items, hop, ctypes.addressof(blocks)),
+                      "onset_envelope occupancy")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * max(1, blocks.value)
+
+
+_ENVELOPE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p] + [ctypes.c_int] * 7
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
                    n_fft: int = 2048, n_mels: int = 128, lag: int = 1,
-                   n_valid_frames: torch.Tensor | None = None
-                   ) -> torch.Tensor:
+                   n_valid_frames: torch.Tensor | None = None,
+                   grid: int | None = None) -> torch.Tensor:
     """(B, n) → (B, T = 1 + n // hop) onset envelope.
 
     CUDA tensor: the kernel `csrc/onset_envelope.cu` (K4), which replaces
     the JAX package's XLA `gat_tpu/ops/onset.py::onset_strength`. Bound by
-    the fp32 rate of its FFTs (one real 2048-point FFT per frame against
-    8 KB of samples read per four frames). A first pass runs K2's round
-    loop over chunks of a file's frames, writes the pre-clamp mel dB to a
-    (B, T, n_mels) scratch and each chunk's maximum over the valid
-    frames; a second pass takes the file's peak from those maxima, then
-    clamps, differences and averages, so the (B, T, 1025) spectrum never
-    reaches device memory. CPU tensor: `onset_strength_plain`."""
+    the fp32 rate of its FFTs (one real 2048-point FFT and a sparse mel
+    per frame). Its first pass spreads rounds of four frames of a file
+    over a grid sized to the card (`grid` blocks, default the SMs times
+    the resident blocks per SM; the envelope does not depend on it),
+    writes the pre-clamp mel dB to a (B, T, n_mels) scratch and folds
+    each file's peak over its valid frames into a (B,) buffer; a second
+    pass clamps, differences and averages, so the (B, T, 1025) spectrum
+    never reaches device memory. CPU tensor: `onset_strength_plain`."""
     if y.device.type == "cpu":
         return onset_strength_plain(y, sr, hop_length, n_fft, n_mels, lag,
                                     n_valid_frames)
@@ -103,26 +166,28 @@ def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
     if lag < 1 or lag >= t:
         raise ValueError(f"[onset_strength] lag {lag} needs 1 <= lag < "
                          f"{t} frames")
-    env = torch.empty((b, t), dtype=torch.float32, device=y.device)
+    dev = y.device
+    env = torch.empty((b, t), dtype=torch.float32, device=dev)
     if b == 0:
         return env
-    nvf = (torch.full((b,), t, dtype=torch.int32, device=y.device)
-           if n_valid_frames is None
-           else n_valid_frames.to(device=y.device,
-                                  dtype=torch.int32).contiguous())
-    hann, tw, fb, lo, hi = _kernel_tables(sr, n_mels, False, y.device)
-    n_chunks = -(-t // ONSET_CHUNK)
-    db = torch.empty((b, t, n_mels), dtype=torch.float32, device=y.device)
-    chunk_max = torch.empty((b, n_chunks), dtype=torch.float32,
-                            device=y.device)
+    nvf = (None if n_valid_frames is None
+           else n_valid_frames.to(device=dev, dtype=torch.int32).contiguous())
+    hann, tw, *_ = _kernel_tables(sr, n_mels, False, dev)
+    tab, weights, n_items = _mel_items(sr, n_mels, dev)
+    if grid is None:
+        grid = _envelope_grid(dev, n_items, hop_length)
+    db = torch.empty((b, t, n_mels), dtype=torch.float32, device=dev)
+    peak = torch.full((b,), _NEG_INF_KEY, dtype=torch.int32, device=dev)
     fn = kernels.function("onset_envelope", "gat_onset_envelope",
                           _ENVELOPE_ARGS)
-    with torch.cuda.device(y.device):
+    with torch.cuda.device(dev):
         status = fn(y.data_ptr(), env.data_ptr(), db.data_ptr(),
-                    chunk_max.data_ptr(), hann.data_ptr(), tw.data_ptr(),
-                    fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                    nvf.data_ptr(), b, n, hop_length, t, n_mels, lag,
-                    lag + n_fft // (2 * hop_length), _TOP_DB,
+                    peak.data_ptr(), hann.data_ptr(), tw.data_ptr(),
+                    tab.data_ptr(), weights.data_ptr(), weights.numel(),
+                    n_items,
+                    None if nvf is None else nvf.data_ptr(), b, n,
+                    hop_length, t, n_mels, lag,
+                    lag + n_fft // (2 * hop_length), _TOP_DB, grid,
                     torch.cuda.current_stream().cuda_stream)
     kernels.check(status, "onset_envelope")
     onset_strength.launches += 1

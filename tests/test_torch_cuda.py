@@ -12,7 +12,7 @@ import torch
 from gat_tpu_torch import features
 from gat_tpu_torch.ops import onset, spectral, yin
 from test_torch_kernels_emulated import (FILE_SR, check_mel_image,
-                                         check_mfcc_level_step,
+                                         check_mfcc_level_step, file_batch,
                                          level_step_clip,
                                          mfcc_level_step_clip, pluck_riff,
                                          random_envelopes, riffs)
@@ -144,8 +144,8 @@ def _card():
 @pytest.mark.parametrize("n", [22050, 45000, 176400])
 @pytest.mark.parametrize("padded", [False, True])
 def test_onset_envelope_kernel(n, padded):
-    """44, 88 and 345 frames (one to eleven chunks of 32), with and
-    without a valid prefix."""
+    """44, 88 and 345 frames (11 to 87 rounds of four per file), with
+    and without a valid prefix."""
     dev = _card()
     y = torch.from_numpy(riffs(n)).to(dev)
     t = spectral.n_frames(n, 2048, 512)
@@ -157,6 +157,34 @@ def test_onset_envelope_kernel(n, padded):
     torch.cuda.synchronize()
     assert onset.onset_strength.launches == before + 1
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("n", [88200, 22562])
+def test_onset_envelope_kernel_batches(b, n):
+    """One file and a wave of four: 4 s files (173 frames, the file
+    path's shape) and 45 frames (a last round of one frame)."""
+    dev = _card()
+    y, nvf = file_batch(n, b)
+    y, nvf = y.to(dev), nvf.to(dev)
+    before = onset.onset_strength.launches
+    got = onset.onset_strength(y, FILE_SR, n_valid_frames=nvf)
+    ref = onset.onset_strength_plain(y, FILE_SR, n_valid_frames=nvf)
+    torch.cuda.synchronize()
+    assert onset.onset_strength.launches == before + 1
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+
+
+def test_onset_envelope_kernel_grid_invariant():
+    """Bit-identical envelopes for first-pass grids of 1 and 3 blocks, the
+    card-sized default, and more blocks than rounds."""
+    dev = _card()
+    y, nvf = file_batch(88200, 4)
+    y, nvf = y.to(dev), nvf.to(dev)
+    ref = onset.onset_strength(y, FILE_SR, n_valid_frames=nvf)
+    for grid in (1, 3, 4 * 44 + 1):
+        got = onset.onset_strength(y, FILE_SR, n_valid_frames=nvf, grid=grid)
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("cand_budget", [None, 0, 3])
@@ -215,3 +243,14 @@ def test_transcribe_card_vs_cpu(tmp_path):
         assert got["onsets_s"] == ref["onsets_s"]
         assert got["times"] == ref["times"]
         np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)
+
+
+def test_transcribe_clips_card_bf16(clips):
+    """The bf16 CNN on the card gives the labels of the CPU's bf16 CNN."""
+    from gat_tpu_torch.infer import Transcriber
+    got = Transcriber(cnn_dtype=torch.bfloat16,
+                      device="cuda").transcribe_clips(clips)
+    ref = Transcriber(cnn_dtype=torch.bfloat16,
+                      device="cpu").transcribe_clips(clips.cpu())
+    assert got["labels"] == ref["labels"]
+    np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)

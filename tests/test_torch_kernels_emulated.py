@@ -3,10 +3,12 @@ CUDA subset they use, against their plain PyTorch versions.
 
 There is no nvcc on a CPU-only machine, but the kernels of
 `gat_tpu_torch/csrc/` use only thread/block indices, shared memory,
-register arrays, device lambdas and `__syncthreads`. The header below
-maps those onto C++: one
-std::thread per CUDA thread, the blocks of a launch one after another,
-and a barrier for `__syncthreads`. Each `.cu` is compiled by g++ with the
+register arrays, device lambdas, `__syncthreads`, an integer atomicMax,
+the float/int bit casts and asynchronous copies into shared memory. The
+header below maps those onto C++: one std::thread per CUDA thread, the
+blocks of a launch one after another, a barrier for `__syncthreads`, a
+compare-and-swap for the atomic and a plain copy for the asynchronous
+one. Each `.cu` is compiled by g++ with the
 header forced in and its `<<<grid, block, smem, stream>>>` launch turned
 into a call of `emu_launch`; the C entry points are then called through
 ctypes with CPU pointers, with the argument lists the wrappers use. This
@@ -32,6 +34,7 @@ EMULATION_HEADER = r"""
 #pragma once
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <functional>
 #include <pthread.h>
 #include <thread>
@@ -43,8 +46,23 @@ EMULATION_HEADER = r"""
 #define __launch_bounds__(...)
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline dim3 gridDim;
 inline pthread_barrier_t emu_barrier;
 inline void __syncthreads() { pthread_barrier_wait(&emu_barrier); }
+inline int atomicMax(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(
+             p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
@@ -61,6 +79,7 @@ int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
 inline int cudaGetLastError() { return 0; }
 alignas(16) inline float smem[232448 / sizeof(float)];
 inline void emu_launch(int grid, int block, std::function<void()> fn) {
+  gridDim.x = grid;
   for (int b = 0; b < grid; ++b) {
     pthread_barrier_init(&emu_barrier, nullptr, block);
     std::vector<std::thread> ts;
@@ -87,6 +106,7 @@ def libs(tmp_path_factory):
         pytest.skip("needs g++")
     out = tmp_path_factory.mktemp("emulated_kernels")
     (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
+    (out / "cuda_pipeline.h").write_text("#pragma once\n")
     procs = {}
     for name in kernels.KERNELS:
         src = (kernels.CSRC / f"{name}.cu").read_text()
@@ -302,14 +322,15 @@ def test_shared_memory_limit_refused(libs):
     ("mfcc_frontend", "gat_mfcc_blocks_per_sm", (128, 11), (128, 2000)),
     ("yin_pitch", "gat_yin_blocks_per_sm", (1024, 512, 11, 221),
      (1024, 512, 2000, 221)),
-    ("onset_envelope", "gat_onset_envelope_blocks_per_sm", (128,), (2000,)),
+    ("onset_envelope", "gat_onset_envelope_blocks_per_sm", (365, 512),
+     (60000, 512)),
     ("onset_pick", "gat_onset_pick_blocks_per_sm", (345,), (20000,)),
 ])
 def test_occupancy_entry_points(libs, name, symbol, args, too_big):
     """Each kernel's occupancy query takes the main path's sizes (the
     emulation has no occupancy to report, so it writes 0), and refuses
     sizes whose shared memory exceeds a block's (2000 frames or bands,
-    20000 envelope frames)."""
+    60000 mel items, 20000 envelope frames)."""
     fn = _fn(libs[name], symbol, [ctypes.c_int] * len(args)
              + [ctypes.c_void_p])
     blocks = ctypes.c_int(-1)
@@ -361,41 +382,114 @@ def pluck_riff(sr: int, dur: float, notes=RIFF_NOTES) -> np.ndarray:
     return y
 
 
-def onset_envelope_emulated(libs, y: torch.Tensor, nvf: torch.Tensor
-                            ) -> torch.Tensor:
+def onset_envelope_emulated(libs, y: torch.Tensor, nvf: torch.Tensor | None,
+                            grid: int = 5) -> torch.Tensor:
     """K4's C entry point with the arguments `onset.onset_strength`
-    passes."""
+    passes, and `grid` first-pass blocks (the emulation has no occupancy
+    to size it from)."""
     b, n = y.shape
     t = spectral.n_frames(n, 2048, 512)
-    n_chunks = -(-t // onset.ONSET_CHUNK)
     env = torch.empty(b, t)
     db = torch.empty(b, t, 128)
-    chunk_max = torch.empty(b, n_chunks)
-    hann, tw, fb, lo, hi = features._kernel_tables(FILE_SR, 128, False, CPU)
-    nvf = nvf.to(torch.int32).contiguous()
+    peak = torch.full((b,), onset._NEG_INF_KEY, dtype=torch.int32)
+    hann, tw, *_ = features._kernel_tables(FILE_SR, 128, False, CPU)
+    tab, weights, n_items = onset._mel_items(FILE_SR, 128, CPU)
+    if nvf is not None:
+        nvf = nvf.to(torch.int32).contiguous()
     fn = _fn(libs["onset_envelope"], "gat_onset_envelope",
              onset._ENVELOPE_ARGS)
-    assert fn(y.data_ptr(), env.data_ptr(), db.data_ptr(),
-              chunk_max.data_ptr(), hann.data_ptr(), tw.data_ptr(),
-              fb.data_ptr(), lo.data_ptr(), hi.data_ptr(), nvf.data_ptr(),
-              b, n, 512, t, 128, 1, 3, 80.0, None) == 0
+    assert fn(y.data_ptr(), env.data_ptr(), db.data_ptr(), peak.data_ptr(),
+              hann.data_ptr(), tw.data_ptr(), tab.data_ptr(),
+              weights.data_ptr(), weights.numel(), n_items,
+              None if nvf is None else nvf.data_ptr(), b, n, 512, t, 128, 1,
+              3, 80.0, grid, None) == 0
     return env
 
 
 @pytest.mark.parametrize("n", [22050, 45000])
 @pytest.mark.parametrize("padded", [False, True])
 def test_onset_envelope_emulated(libs, n, padded):
-    """44 and 88 frames, two and three chunks of 32; with a valid prefix
-    the top_db peak reads the valid frames only."""
+    """44 and 88 frames (11 and 22 rounds of four per file); with a valid
+    prefix the top_db peak reads the valid frames only."""
     y = torch.from_numpy(riffs(n))
     t = spectral.n_frames(n, 2048, 512)
     nvf = (torch.tensor([t, t - 5, 1 + int(0.6 * n) // 512]) if padded
-           else torch.full((3,), t))
+           else None)
     got = onset_envelope_emulated(libs, y, nvf)
-    ref = onset.onset_strength_plain(y, FILE_SR,
-                                     n_valid_frames=nvf if padded else None)
+    ref = onset.onset_strength_plain(y, FILE_SR, n_valid_frames=nvf)
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
     assert float(ref.max()) > 1.0  # the tones give the flux real peaks
+
+
+def file_batch(n: int, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(b, n) files and their valid frames, b <= 4: `riffs` (the third
+    zero past 60 % of its length) and a fourth file zero past 75 %, each
+    with a valid end that the top_db peak must respect."""
+    y = np.concatenate([riffs(n), riffs(n, seed=1)[:1]])[:b]
+    y[3:, int(0.75 * n):] = 0.0
+    t = spectral.n_frames(n, 2048, 512)
+    nvf = torch.tensor([t, t - 5, 1 + int(0.6 * n) // 512,
+                        1 + int(0.75 * n) // 512][:b])
+    return torch.from_numpy(y), nvf
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("n", [22562, 23586])
+def test_onset_envelope_emulated_batches(libs, b, n):
+    """One file and four, at 45 and 47 frames: the last round of each
+    file holds one or three frames, so an FFT runs with a zero partner,
+    and a block's share of rounds crosses from one file to the next."""
+    y, nvf = file_batch(n, b)
+    got = onset_envelope_emulated(libs, y, nvf, grid=7)
+    ref = onset.onset_strength_plain(y, FILE_SR, n_valid_frames=nvf)
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+
+
+def test_onset_envelope_emulated_grid_invariant(libs):
+    """The envelope is the same, bit for bit, whatever the first pass's
+    grid: one block for all rounds, three, and more blocks than rounds
+    (cut to one round each)."""
+    y, nvf = file_batch(22562, 4)
+    rounds = 4 * -(-spectral.n_frames(22562, 2048, 512) // 4)  # 4 files
+    envs = [onset_envelope_emulated(libs, y, nvf, grid=g)
+            for g in (1, 3, rounds + 1)]
+    assert torch.equal(envs[0], envs[1]) and torch.equal(envs[0], envs[2])
+
+
+def test_mel_items_cover_the_filterbank():
+    """K4's mel table gives every band exactly its nonzero bins and
+    weights, in order, cut into runs of at most ceil(nnz / threads); each
+    thread's items close where a band or its run ends."""
+    _, _, fb, lo, hi = features._kernel_tables(FILE_SR, 128, False, CPU)
+    tab, weights, n_items = onset._mel_items(FILE_SR, 128, CPU)
+    tab, weights = tab.numpy(), weights.numpy()
+    nnz = int((hi - lo).sum())
+    run = -(-nnz // onset._THREADS)
+    thread_first = tab[:onset._THREADS + 1]
+    band_first = tab[onset._THREADS + 1:onset._THREADS + 130]
+    codes = tab[onset._THREADS + 130:]
+    assert len(codes) == len(weights) == nnz and run <= onset._MEL_RUN
+    bins, ends = codes & 0xFFFF, codes >> 16
+    edges = np.cumsum((hi - lo).numpy())
+    np.testing.assert_array_equal(np.flatnonzero(ends) + 1, edges)
+    for m in range(128):
+        a = edges[m - 1] if m else 0
+        np.testing.assert_array_equal(bins[a:edges[m]],
+                                      np.arange(int(lo[m]), int(hi[m])))
+        np.testing.assert_array_equal(weights[a:edges[m]],
+                                      fb[m, lo[m]:hi[m]].numpy())
+    # items: pieces of each thread's run split at band ends
+    closes = ends.astype(bool) | (np.arange(nnz) % run == run - 1)
+    closes[-1] = True
+    assert n_items == int(closes.sum()) == thread_first[-1]
+    np.testing.assert_array_equal(
+        thread_first[:-(-nnz // run)],
+        np.concatenate([[0], np.cumsum(closes)])[::run][:-(-nnz // run)])
+    assert band_first[0] == 0 and band_first[-1] == n_items
+    np.testing.assert_array_equal(np.diff(band_first),
+                                  [int(closes[(edges[m - 1] if m else 0):
+                                              edges[m]].sum())
+                                   for m in range(128)])
 
 
 def onset_pick_emulated(libs, env: torch.Tensor, nvf: torch.Tensor,
