@@ -19,10 +19,10 @@ non-zero:
    envelope) and K5 (onset pick) at 64 riffs of 8 s at 22050 Hz (plucks
    from 0.4 s, 0.7 s apart, over the 47 classes, plus noise; one file
    with a zero tail), K5 also from K4's envelopes and with three
-   candidate budgets; K4 also at the file path's own shapes, one 4 s
-   file and a wave of 4, with its device time from the profiler beside
-   the CUDA-event time, and K5's device time apart from its wrapper's
-   host time;
+   candidate budgets; K4 and K5 also at the file path's own shapes, one
+   4 s file and a wave of 4, and K5 at one 400 s file (17,227 frames),
+   with their device time from the profiler beside the CUDA-event time,
+   and K5's wrapper host time split into its parts;
 4. drive the clip path, `Transcriber(device="cuda").transcribe_clips`, at
    the shipped checkpoints: K1-K3's launch counts must rise, the labels
    must equal those of the plain versions fed to the same models, and a
@@ -33,7 +33,11 @@ non-zero:
    (the reference slicer drops it), and labels, onsets and times must
    equal the CPU plain path's; per-file wall time and the device's busy
    share of one call;
-6. print the `{"kernels": [...]}` line, the card line, and last
+6. `[long]`: `transcribe` of a 400 s riff WAV at 22050 Hz, a pluck every
+   2.5 s, on the card and on the CPU: K4 and K5 must launch, the labels
+   must be the planted notes but the last, and labels, onsets and times
+   must be equal;
+7. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package.
@@ -58,11 +62,14 @@ FILE_SR = 22050           # slicing rate of the file path
 N_RIFFS, RIFF_SECONDS = 64, 8.0
 FILE_MIDI = [45, 50, 55, 59, 64]  # A2 D3 G3 B3 E4: the file phase's riff
 SEED = 0
-T_RIFF = 1 + int(RIFF_SECONDS * FILE_SR) // 512  # 345 envelope frames
 # K4's shapes as (files, seconds): one 4 s file, as `transcribe` runs it
 # (173 frames); a wave of 4 such files (the many-file path's default
 # wave); the 64 riffs of 8 s of the timing phase
 ENVELOPE_SHAPES = ((1, 4.0), (4, 4.0), (N_RIFFS, RIFF_SECONDS))
+# K5's: the same, and one file of 400 s (17,227 frames), which the first
+# K5 refused
+LONG_SECONDS = 400.0
+PICK_SHAPES = ENVELOPE_SHAPES + ((1, LONG_SECONDS),)
 K4_KERNELS = ("onset_mel_db_kernel", "onset_flux_kernel")
 POOL = 6                  # distinct input buffers per timing repetition
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
@@ -113,10 +120,11 @@ def make_clips(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def make_riffs(midi: np.ndarray, seconds: float, sr: int, seed: int,
-               noise: float) -> np.ndarray:
-    """(files, seconds·sr) riffs: row f plays midi[f, j] from 0.4 + 0.7·j
-    s, plucks of 0.45 s at peak 0.5 with the last 30 % faded out (an
-    abrupt cut reads as an onset), plus Gaussian noise of sigma `noise`."""
+               noise: float, spacing: float = 0.7) -> np.ndarray:
+    """(files, seconds·sr) riffs: row f plays midi[f, j] from 0.4 +
+    spacing·j s, plucks of 0.45 s at peak 0.5 with the last 30 % faded out
+    (an abrupt cut reads as an onset), plus Gaussian noise of sigma
+    `noise`."""
     rng = np.random.default_rng(seed)
     n_files, k = midi.shape
     note_len = int(0.45 * sr)
@@ -127,7 +135,7 @@ def make_riffs(midi: np.ndarray, seconds: float, sr: int, seed: int,
     notes = notes.reshape(n_files, k, note_len)
     y = rng.normal(0.0, noise, (n_files, int(seconds * sr)))
     for j in range(k):
-        s = int((0.4 + 0.7 * j) * sr)
+        s = int((0.4 + spacing * j) * sr)
         y[:, s:s + note_len] += notes[:, j, :y.shape[1] - s]
     return y.astype(np.float32)
 
@@ -175,18 +183,20 @@ def fmt_ms(ms: float | None) -> str:
 
 
 def host_us(fn, pool, reps: int) -> float:
-    """Host time per call of a wrapper, in µs: the calls are enqueued with
-    no synchronisation inside the timed loop, so this is its Python,
-    allocations and launches, not the device's work."""
+    """Host time per call of a wrapper, in µs: the median over `reps`
+    repetitions of one call on every buffer of the pool, enqueued with no
+    synchronisation, so this is its Python, allocations and launches, not
+    the device's work (the median keeps a stall of the shared host out)."""
     import torch
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    times = []
     for _ in range(reps):
+        t0 = time.perf_counter()
         for x in pool:
             fn(x)
-    dt = time.perf_counter() - t0
+        times.append((time.perf_counter() - t0) / len(pool) * 1e6)
     torch.cuda.synchronize()
-    return dt / (reps * len(pool)) * 1e6
+    return statistics.median(times)
 
 
 def noisy_pool(x, seed: int, sigma: float) -> list:
@@ -271,6 +281,128 @@ def time_envelope(onset, dev, failures: list) -> list[dict]:
     return rows
 
 
+def pick_steps(onset, env, counts) -> dict:
+    """The steps of one K5 wrapper call at max_onsets 64, as the tree of
+    the package imported as `onset` takes them, each a callable: `alloc`
+    the outputs, `cast` the valid counts, `call` the entry point's
+    resolve and the ctypes call (the launch). A tree without the lean
+    launch path (no `_pick_outputs`) takes five torch.empty, a cast to
+    int32 and a resolve that sets the argument types on every call."""
+    import torch
+    b, t = env.shape
+    dev = env.device
+    if hasattr(onset, "_pick_outputs"):
+        def alloc():
+            return onset._pick_outputs(b, 64, dev)
+
+        def cast():
+            return onset._frame_counts(counts, dev)
+    else:
+        def alloc():
+            return tuple(torch.empty(shape, dtype=dtype, device=dev)
+                         for shape, dtype in (((b, 64), torch.int32),
+                                              ((b, 64), torch.bool),
+                                              (b, torch.bool), (b, torch.bool),
+                                              (b, torch.int32)))
+
+        def cast():
+            return counts.to(device=dev, dtype=torch.int32).contiguous()
+    outs, nvf = alloc(), cast()
+    pre_max, post_max, pre_avg, post_avg, wait = onset.peak_pick_params(
+        FILE_SR, 512)
+    size, left = onset._max_window(pre_max, post_max)
+    args = (env.data_ptr(), nvf.data_ptr(), *(o.data_ptr() for o in outs),
+            b, t, size, left, pre_avg, post_avg, 0.07, wait, 512,
+            int(0.3 * FILE_SR), 64, onset.candidate_limit(t, 64, None), 1,
+            torch.cuda.current_stream().cuda_stream)
+
+    def call(keep=(outs, nvf)):  # the pointers' tensors live with it
+        return onset.kernels.function("onset_pick", "gat_onset_pick",
+                                      onset._PICK_ARGS)(*args)
+    return dict(alloc=alloc, cast=cast, call=call)
+
+
+def pick_bound(files: int, t: int, onset) -> tuple[float, str]:
+    """K5's bound: one read of the envelopes and the valid counts, one
+    write of the outputs at 64 onsets, and the peak pick's compares."""
+    pre_max, post_max, _, _, _ = onset.peak_pick_params(FILE_SR, 512)
+    return bound(files * t * (pre_max + post_max + 16),
+                 4 * files * (t + 1) + files * (64 * 5 + 6))
+
+
+def time_pick(onset, dev, failures: list) -> list[dict]:
+    """K5 (`onset.pick_onsets` of the package imported as `onset`) at each
+    of PICK_SHAPES, on K4's envelopes of the riffs: all five outputs
+    identical to the plain version's for cand_budget None, 0 and 4; then
+    kernel ms in CUDA events over POOL distinct envelopes, device ms in
+    the profiler, plain ms, the wrapper's host µs per call and its parts,
+    bound. The valid counts are what the tree's `detect_onsets` hands
+    K5: int32 with the lean launch path, int64 before it. A shape the
+    kernel refuses is a row with `refused` and a failure."""
+    import torch
+    counts_dtype = (torch.int32 if hasattr(onset, "_frame_counts")
+                    else torch.int64)
+    rows = []
+    for files, seconds in PICK_SHAPES:
+        y, nvf = file_inputs(dev, files, seconds)
+        counts = nvf.to(counts_dtype)
+        env_pool = [onset.onset_strength(x, FILE_SR, n_valid_frames=nvf)
+                    for x in noisy_pool(y, SEED + 10, 0.001)]
+        t = env_pool[0].shape[1]
+        row = dict(files=files, frames=t)
+        tag = f"onset_pick at {files} x {seconds:g} s ({t} frames)"
+
+        def pick(e, cand_budget=None):
+            return onset.pick_onsets(e, FILE_SR, 512, 0.3, 64,
+                                     n_valid_frames=counts,
+                                     cand_budget=cand_budget)
+
+        def pick_plain(e, cand_budget=None):
+            return onset.pick_onsets_plain(e, FILE_SR, 512, 0.3, 64,
+                                           n_valid_frames=counts,
+                                           cand_budget=cand_budget)
+        try:
+            same, err, kept = True, 0.0, None
+            for cand_budget in (None, 0, 4):
+                got = pick(env_pool[0], cand_budget)
+                ref = pick_plain(env_pool[0], cand_budget)
+                torch.cuda.synchronize()
+                same = same and all(torch.equal(a, b) for a, b in zip(got, ref))
+                err = max(err, float((got[0] - ref[0]).abs().max()))
+                kept = int(ref[4].sum()) if kept is None else kept
+        except RuntimeError as exc:
+            row["refused"] = str(exc)
+            failures.append(f"{tag}: {exc}")
+            log(f"[time] {tag}: refused ({exc})")
+            rows.append(row)
+            continue
+        if not same:
+            failures.append(tag)
+        steps = pick_steps(onset, env_pool[0], counts)
+        parts = {k: host_us(lambda _, f=f: f(), env_pool, reps=30)
+                 for k, f in steps.items()}
+        row.update(identical=same, max_abs_err=err,
+                   onsets_kept=kept,
+                   ms=time_ms(pick, env_pool, reps=10),
+                   device_ms=kernel_device_ms(pick, env_pool,
+                                              ("onset_pick_kernel",)),
+                   plain_ms=time_ms(pick_plain, env_pool, reps=3),
+                   host_us=host_us(pick, env_pool, reps=30))
+        parts["rest"] = row["host_us"] - sum(parts.values())
+        row["host_parts_us"] = parts
+        row["bound_ms"], row["bound_by"] = pick_bound(files, t, onset)
+        log(f"[time] {tag}: kernel {row['ms']:.4f} ms (events), "
+            f"{fmt_ms(row['device_ms'])} device (profiler), wrapper host "
+            f"{row['host_us']:.1f} us per call (alloc {parts['alloc']:.1f}, "
+            f"cast {parts['cast']:.1f}, call {parts['call']:.1f}, rest "
+            f"{parts['rest']:.1f}), plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}); outputs "
+            f"identical {same} for cand_budget None, 0, 4 "
+            f"({row['onsets_kept']} onsets) -> {'ok' if same else 'FAIL'}")
+        rows.append(row)
+    return rows
+
+
 def profile_call(fn, wall_ms: float) -> None:
     """Device time by kernel over one call under torch.profiler, and the
     device's busy share of the call's unprofiled wall time."""
@@ -316,16 +448,15 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def check_file_kernels(dev, failures: list) -> list[dict]:
-    """K4 and K5 against their plain versions at 64 riffs of 8 s, timed,
-    and K4 at the file path's shapes; returns their rows of the kernels
-    line (launches filled in later)."""
+    """K4 and K5 against their plain versions at 64 riffs of 8 s, and
+    both timed at the file path's shapes; returns their rows of the
+    kernels line (launches filled in later)."""
     import torch
     from gat_tpu_torch.ops import onset
     t0 = time.perf_counter()
     y, nvf = file_inputs(dev, N_RIFFS, RIFF_SECONDS)
     log(f"[data] {N_RIFFS} riffs x {y.shape[1]} samples at {FILE_SR} Hz "
         f"({y.numel() * 4 / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s")
-    pool = noisy_pool(y, SEED + 10, 0.001)
 
     def envelope(x):
         return onset.onset_strength(x, FILE_SR, n_valid_frames=nvf)
@@ -333,14 +464,8 @@ def check_file_kernels(dev, failures: list) -> list[dict]:
     def envelope_plain(x):
         return onset.onset_strength_plain(x, FILE_SR, n_valid_frames=nvf)
 
-    def pick(e, cand_budget=None):
-        return onset.pick_onsets(e, FILE_SR, 512, 0.3, 64,
-                                 n_valid_frames=nvf, cand_budget=cand_budget)
-
-    def pick_plain(e, cand_budget=None):
-        return onset.pick_onsets_plain(e, FILE_SR, 512, 0.3, 64,
-                                       n_valid_frames=nvf,
-                                       cand_budget=cand_budget)
+    def pick(e):
+        return onset.pick_onsets(e, FILE_SR, 512, 0.3, 64, n_valid_frames=nvf)
 
     # K4, and the onsets K5 picks from each envelope
     env, env_ref = envelope(y), envelope_plain(y)
@@ -366,40 +491,12 @@ def check_file_kernels(dev, failures: list) -> list[dict]:
     if not same:
         failures.append("onset_envelope depends on its grid")
 
-    # K5 against its plain version on the same envelopes
-    err5, ok5 = 0.0, True
-    for cand_budget in (None, 0, 4):
-        got, ref = pick(env, cand_budget), pick_plain(env, cand_budget)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, ref))
-        err5 = max(err5, float((got[0] - ref[0]).abs().max()))
-        ok5 = ok5 and same
-        log(f"[check] onset_pick cand_budget={cand_budget}: outputs "
-            f"identical {same}; onsets kept {int(ref[1].sum())}, files "
-            f"flagged {int(ref[2].sum())}, capped {int(ref[3].sum())}")
-    n_kept = pick_plain(env)[4].cpu().numpy()
-    log(f"[check] onset_pick: onsets per riff {n_kept.min()}..{n_kept.max()}"
-        f" -> {'ok' if ok5 else 'FAIL'}")
-    if not ok5:
-        failures.append("onset_pick")
-
-    # K4 at every shape (its 64-riff numbers make its kernels-line row);
-    # K5's bound is one read of the envelopes
+    # K4 and K5 at every shape, K5 checked there (their 64-riff numbers
+    # make their kernels-line rows)
     shapes = time_envelope(onset, dev, failures)
-    t = env.shape[1]
-    pre_max, post_max, _, _, _ = onset.peak_pick_params(FILE_SR, 512)
-    b5 = bound(N_RIFFS * t * (pre_max + post_max + 16),
-               4 * N_RIFFS * (t + 1) + N_RIFFS * (64 * 5 + 6))
-    env_pool = [envelope(x) for x in pool]
-    k5 = dict(ms=time_ms(pick, env_pool, reps=10),
-              plain_ms=time_ms(pick_plain, env_pool, reps=3),
-              device_ms=kernel_device_ms(pick, env_pool,
-                                         ("onset_pick_kernel",)),
-              host_us=host_us(pick, env_pool, reps=20))
-    log(f"[time] onset_pick: kernel {k5['ms']:.4f} ms (events), "
-        f"{fmt_ms(k5['device_ms'])} device (profiler), wrapper host "
-        f"{k5['host_us']:.1f} us per call, plain {k5['plain_ms']:.4f} ms, "
-        f"bound {b5[0]:.4f} ms ({b5[1]})")
+    k5_shapes = time_pick(onset, dev, failures)
+    k5 = next(r for r in k5_shapes
+              if r["files"] == N_RIFFS and "refused" not in r)
     big = shapes[-1]
     rows = [dict(name="onset_envelope", route="cuda",
                  source="gat_tpu_torch/csrc/onset_envelope.cu",
@@ -414,10 +511,14 @@ def check_file_kernels(dev, failures: list) -> list[dict]:
             dict(name="onset_pick", route="cuda",
                  source="gat_tpu_torch/csrc/onset_pick.cu",
                  replaces="gat_tpu/ops/onset.py:178", launches=0,
-                 max_abs_err=err5, tolerance="all five outputs identical",
-                 ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=b5[0],
-                 bound_by=b5[1], library_ms=None,
-                 device_ms=k5["device_ms"], host_us=k5["host_us"])]
+                 max_abs_err=max(r.get("max_abs_err", 0.0)
+                                 for r in k5_shapes),
+                 tolerance="all five outputs identical",
+                 ms=k5["ms"], plain_ms=k5["plain_ms"],
+                 bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
+                 library_ms=None, device_ms=k5["device_ms"],
+                 host_us=k5["host_us"], host_parts_us=k5["host_parts_us"],
+                 shapes=k5_shapes)]
     torch.cuda.synchronize()
     return rows
 
@@ -483,6 +584,55 @@ def file_phase(rows: list, card: str, failures: list) -> None:
                 if sr == FILE_SR:
                     profile_call(lambda: card_t.transcribe(path, fused=fused),
                                  dt * 1e3)
+
+
+def long_phase(card: str, failures: list) -> None:
+    """`[long]`: `transcribe` of a 400 s riff WAV at 22050 Hz, a pluck of
+    the file phase's five notes in turn every 2.5 s from 0.4 s, on the
+    card and on the CPU: the labels must be the planted notes but the
+    last, labels, onsets and times must be equal, and K4
+    and K5 must launch in the card's call (with 160 plucks over the 64
+    default onset slots, `transcribe` re-runs the segmentation at a
+    larger cap, so each launches more than once)."""
+    import torch
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.ops import onset
+    from gat_tpu_torch.ops.pitch import midi_to_note
+    from gat_tpu_torch.utils.wavio import write_wav
+    spacing = 2.5
+    k = len(np.arange(0.4, LONG_SECONDS - 0.45, spacing))
+    midi = np.resize(FILE_MIDI, k)[None]
+    planted = [midi_to_note(int(m), unicode=False) for m in midi[0][:-1]]
+    card_t, cpu_t = Transcriber(device="cuda"), Transcriber(device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "riff_400s.wav"
+        write_wav(path, make_riffs(midi, LONG_SECONDS, FILE_SR, SEED + 3,
+                                   noise=0.0, spacing=spacing)[0], FILE_SR)
+        card_t.transcribe(path)  # first call at this length
+        torch.cuda.synchronize()
+        for w in (onset.onset_strength, onset.pick_onsets):
+            w.launches = 0
+        t0 = time.perf_counter()
+        got = card_t.transcribe(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [onset.onset_strength.launches, onset.pick_onsets.launches]
+        t0 = time.perf_counter()
+        ref = cpu_t.transcribe(path)
+        cpu_wall = time.perf_counter() - t0
+    err = float(np.abs(got["probs"] - ref["probs"]).max())
+    same = (got["labels"] == ref["labels"] == planted
+            and got["onsets_s"] == ref["onsets_s"]
+            and got["times"] == ref["times"] and err <= 1e-2)
+    log(f"[long] transcribe({LONG_SECONDS:g} s at {FILE_SR} Hz, {k} plucks): "
+        f"{len(got['labels'])} labels, {wall * 1e3:.3f} ms on {card} "
+        f"(CPU plain path {cpu_wall:.1f} s); K4, K5 launches {launches}; "
+        f"labels the planted notes but the last, and labels, onsets and "
+        f"times equal to the CPU's: {same} (max prob err {err:.3g})")
+    if not same:
+        failures.append("[long] card and CPU disagree on the 400 s file")
+    if min(launches) < 1:
+        failures.append(f"[long] K4 or K5 not launched: {launches}")
 
 
 def main() -> int:
@@ -555,8 +705,8 @@ def main() -> int:
             ("onset_envelope", "gat_onset_envelope_blocks_per_sm",
              (n_items, 512), f"128 mels ({n_items} mel items), hop 512, "
              f"pass 1"),
-            ("onset_pick", "gat_onset_pick_blocks_per_sm", (T_RIFF,),
-             f"{T_RIFF} envelope frames")):
+            ("onset_pick", "gat_onset_pick_blocks_per_sm", (),
+             "any envelope length (fixed shared memory)")):
         blocks = ctypes.c_int(0)
         status = kernels.function(
             name, symbol, [ctypes.c_int] * len(args) + [ctypes.c_void_p])(
@@ -727,6 +877,9 @@ def main() -> int:
 
     # ---- 5. the file path -------------------------------------------------
     file_phase(rows, card, failures)
+
+    # ---- 6. a long file --------------------------------------------------
+    long_phase(card, failures)
 
     if failures:
         log(f"[fail] {failures}")

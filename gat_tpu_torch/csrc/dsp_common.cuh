@@ -1,9 +1,9 @@
 // Constants and device helpers shared by the kernels of this directory:
 // the FFT size, the reflect pad index and block reductions.
 //
-// Every kernel of this directory runs one thread block per clip, with
-// blockDim.x == kThreads. Reductions go through shared memory and
-// __syncthreads only (no warp shuffles).
+// Every kernel of this directory runs blocks of blockDim.x == kThreads.
+// The block reductions here go through shared memory and __syncthreads;
+// the onset pick (onset_pick.cu) reduces and scans with warp shuffles.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -132,12 +132,12 @@ def melspec_features(clips: torch.Tensor, sr: int, n_mels: int = 64,
     hann, tw, fb, lo, hi = _kernel_tables(sr, n_mels, True, clips.device)
     fn = kernels.function("melspec_frontend", "gat_melspec_frontend",
                           _MELSPEC_ARGS)
-    with torch.cuda.device(clips.device):
+    with kernels.device_guard(clips.device):
         status = fn(clips.data_ptr(), out.data_ptr(), hann.data_ptr(),
                     tw.data_ptr(), fb.data_ptr(), lo.data_ptr(),
                     hi.data_ptr(), n, length, hop_length, n_fr, n_mels,
                     int(normalize_audio_volume), int(to_db),
-                    torch.cuda.current_stream().cuda_stream)
+                    kernels.stream(clips.device))
     kernels.check(status, "melspec_frontend")
     melspec_features.launches += 1
     return out
@@ -191,12 +191,12 @@ def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
                                           clips.device)
     dct = _dct_table(n_mfcc, clips.device)
     fn = kernels.function("mfcc_frontend", "gat_mfcc_frontend", _MFCC_ARGS)
-    with torch.cuda.device(clips.device):
+    with kernels.device_guard(clips.device):
         status = fn(clips.data_ptr(), out.data_ptr(), hann.data_ptr(),
                     tw.data_ptr(), fb.data_ptr(), lo.data_ptr(),
                     hi.data_ptr(), dct.data_ptr(), n, length, _MFCC_HOP,
                     n_fr, _MFCC_N_MELS, n_mfcc, int(normalize_audio_volume),
-                    _TOP_DB, torch.cuda.current_stream().cuda_stream)
+                    _TOP_DB, kernels.stream(clips.device))
     kernels.check(status, "mfcc_frontend")
     mfcc_frontend.launches += 1
     return out

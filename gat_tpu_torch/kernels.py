@@ -8,10 +8,15 @@ at once. A library's file name carries a hash of its sources and flags, so
 an edited source is rebuilt and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `check` raises on anything but 0.
+`cudaGetLastError()`; `check` raises on anything but 0. A wrapper's
+launch costs little host time: `function` resolves an entry point and
+sets its argument types once, `device_guard` switches the current device
+only when the tensor is on another one, and `stream` reads the current
+stream's handle without building a `torch.cuda.Stream`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,8 +28,8 @@ import torch
 
 from .config import KERNEL_BUILD_DIR
 
-__all__ = ["KERNELS", "build", "function", "check_input", "check",
-           "nvcc_path"]
+__all__ = ["KERNELS", "build", "function", "device_guard", "stream",
+           "check_input", "check", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("melspec_frontend", "mfcc_frontend", "yin_pitch", "onset_envelope",
@@ -34,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -91,16 +97,39 @@ def build(names=KERNELS) -> dict[str, str]:
 
 def function(name: str, symbol: str, argtypes: list):
     """The C entry point `symbol` of kernel `name`, building and loading
-    its library on first use. Pointers and the stream are c_void_p."""
+    its library on first use. Its argument types are set at the first
+    resolve and the entry point is cached, so every later call is one
+    dict lookup. Pointers and the stream are c_void_p."""
+    fn = _functions.get((name, symbol))
+    if fn is not None:
+        return fn
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            build([name])
-            lib = _libs[name] = ctypes.CDLL(str(_library_path(name)))
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        fn = _functions.get((name, symbol))
+        if fn is None:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = _libs[name] = ctypes.CDLL(str(_library_path(name)))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _functions[(name, symbol)] = fn
     return fn
+
+
+def device_guard(device: torch.device):
+    """`torch.cuda.device(device)` when `device` is not the current CUDA
+    device, else a context that does nothing."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream(device: torch.device) -> int:
+    """The handle of `device`'s current CUDA stream, as PyTorch's own
+    generated kernels read it (`torch.cuda.current_stream().cuda_stream`
+    builds a Stream object on every call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_input(clips, name: str) -> None:

@@ -43,6 +43,8 @@ _MEL_RUN = 8       # most mel weights a thread of K4 sums (kMelRun)
 # the order-preserving int key of -inf (order_key in onset_envelope.cu),
 # which K4's peak buffer starts from
 _NEG_INF_KEY = int(np.float32(-np.inf).view(np.int32)) ^ 0x7FFFFFFF
+_PICK_TILE = 1024  # frames K5 loads per tile (kTile in onset_pick.cu)
+_PICK_HALO = 64    # frames of halo K5 keeps each side (kHalo)
 
 
 def _valid_mask(n_valid_frames: torch.Tensor | None, b: int, t: int,
@@ -52,6 +54,17 @@ def _valid_mask(n_valid_frames: torch.Tensor | None, b: int, t: int,
     if n_valid_frames is None:
         return frames.expand(b, t) < t
     return frames < n_valid_frames.to(device=device)[:, None]
+
+
+def _frame_counts(n_valid_frames: torch.Tensor | None, device
+                  ) -> torch.Tensor | None:
+    """The (B,) valid frame counts as K4 and K5 take them, contiguous
+    int32 on `device`; a tensor that is so already is passed as it is."""
+    if n_valid_frames is None or (n_valid_frames.dtype == torch.int32
+                                  and n_valid_frames.device == device
+                                  and n_valid_frames.is_contiguous()):
+        return n_valid_frames
+    return n_valid_frames.to(device=device, dtype=torch.int32).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +183,7 @@ def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
     env = torch.empty((b, t), dtype=torch.float32, device=dev)
     if b == 0:
         return env
-    nvf = (None if n_valid_frames is None
-           else n_valid_frames.to(device=dev, dtype=torch.int32).contiguous())
+    nvf = _frame_counts(n_valid_frames, dev)
     hann, tw, *_ = _kernel_tables(sr, n_mels, False, dev)
     tab, weights, n_items = _mel_items(sr, n_mels, dev)
     if grid is None:
@@ -180,7 +192,7 @@ def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
     peak = torch.full((b,), _NEG_INF_KEY, dtype=torch.int32, device=dev)
     fn = kernels.function("onset_envelope", "gat_onset_envelope",
                           _ENVELOPE_ARGS)
-    with torch.cuda.device(dev):
+    with kernels.device_guard(dev):
         status = fn(y.data_ptr(), env.data_ptr(), db.data_ptr(),
                     peak.data_ptr(), hann.data_ptr(), tw.data_ptr(),
                     tab.data_ptr(), weights.data_ptr(), weights.numel(),
@@ -188,7 +200,7 @@ def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
                     None if nvf is None else nvf.data_ptr(), b, n,
                     hop_length, t, n_mels, lag,
                     lag + n_fft // (2 * hop_length), _TOP_DB, grid,
-                    torch.cuda.current_stream().cuda_stream)
+                    kernels.stream(dev))
     kernels.check(status, "onset_envelope")
     onset_strength.launches += 1
     return env
@@ -363,6 +375,32 @@ _PICK_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
     ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
+@functools.lru_cache(maxsize=16)
+def _pick_windows(sr: int, hop_length: int) -> tuple[int, ...]:
+    """K5's windows (size, left, pre_avg, post_avg, wait); raises when
+    they reach past the halo compiled into the kernel."""
+    pre_max, post_max, pre_avg, post_avg, wait = peak_pick_params(
+        sr, hop_length)
+    size, left = _max_window(pre_max, post_max)
+    if max(left, size - 1 - left, pre_avg + 1, post_avg - 1) > _PICK_HALO:
+        raise ValueError(f"[pick_onsets] the peak-pick windows at sr {sr}, "
+                         f"hop {hop_length} (max {left}+{size - 1 - left}, "
+                         f"avg {pre_avg}+{post_avg} frames) exceed the "
+                         f"kernel's halo of {_PICK_HALO} frames")
+    return size, left, pre_avg, post_avg, wait
+
+
+def _pick_outputs(b: int, max_onsets: int, device) -> tuple:
+    """K5's five outputs: onsets (B, M) int32, valid (B, M), overflow
+    (B,) and cap (B,) bool, n_kept (B,) int32. Five allocations cost less
+    host time than one carved into five views (PERF.md, K5)."""
+    return (torch.empty((b, max_onsets), dtype=torch.int32, device=device),
+            torch.empty((b, max_onsets), dtype=torch.bool, device=device),
+            torch.empty(b, dtype=torch.bool, device=device),
+            torch.empty(b, dtype=torch.bool, device=device),
+            torch.empty(b, dtype=torch.int32, device=device))
+
+
 def pick_onsets(env: torch.Tensor, sr: int, hop_length: int, min_sep: float,
                 max_onsets: int, backtrack: bool = True,
                 n_valid_frames: torch.Tensor | None = None,
@@ -372,47 +410,42 @@ def pick_onsets(env: torch.Tensor, sr: int, hop_length: int, min_sep: float,
 
     CUDA tensor: the kernel `csrc/onset_pick.cu` (K5), which replaces the
     JAX package's XLA `gat_tpu/ops/onset.py::pick_onsets_from_envelope`
-    (a `lax.scan` over the candidates). One block per file: the
-    data-parallel steps (normalization, moving max, moving average from a
-    block prefix sum, backtrack as a block max-scan, candidate
-    compaction) over all threads from shared memory, then one thread
-    walks the compacted candidates. Bound by latency, not by the card's
-    rates: a few KB per file and a walk of a few hundred steps.
-    CPU tensor: `pick_onsets_plain`."""
-    if env.device.type == "cpu":
+    (a `lax.scan` over the candidates). One block per file walks it in
+    tiles of `_PICK_TILE` frames with a halo of `_PICK_HALO`, so any
+    length fits its fixed shared memory: warp-level scans for the prefix
+    sum, the backtrack cummax and the candidate ranks, then one thread
+    walks the tile's compacted candidates. Bound by latency, not by the
+    card's rates. `n_valid_frames` None means all T frames, and int32
+    counts on the card are passed as they are. CPU tensor:
+    `pick_onsets_plain`."""
+    if not env.is_cuda:
+        if env.device.type != "cpu":
+            raise ValueError(f"[pick_onsets] unsupported device {env.device}")
         return pick_onsets_plain(env, sr, hop_length, min_sep, max_onsets,
                                  backtrack, n_valid_frames, cand_budget)
-    if env.device.type != "cuda":
-        raise ValueError(f"[pick_onsets] unsupported device {env.device}")
     kernels.check_input(env, "pick_onsets")
     b, t = env.shape
     if t < 2:
         raise ValueError(f"[pick_onsets] needs 2 or more frames, got {t}")
     c = candidate_limit(t, max_onsets, cand_budget)
-    pre_max, post_max, pre_avg, post_avg, wait = peak_pick_params(
-        sr, hop_length)
-    size, left = _max_window(pre_max, post_max)
+    size, left, pre_avg, post_avg, wait = _pick_windows(sr, hop_length)
     dev = env.device
-    onsets = torch.empty((b, max_onsets), dtype=torch.int32, device=dev)
-    valid = torch.empty((b, max_onsets), dtype=torch.bool, device=dev)
-    overflow = torch.empty(b, dtype=torch.bool, device=dev)
-    cap = torch.empty(b, dtype=torch.bool, device=dev)
-    n_kept = torch.empty(b, dtype=torch.int32, device=dev)
+    outs = _pick_outputs(b, max_onsets, dev)
     if b == 0:
-        return onsets, valid, overflow, cap, n_kept
-    nvf = (torch.full((b,), t, dtype=torch.int32, device=dev)
-           if n_valid_frames is None
-           else n_valid_frames.to(device=dev, dtype=torch.int32).contiguous())
+        return outs
+    onsets, valid, overflow, cap, n_kept = outs
+    nvf = _frame_counts(n_valid_frames, dev)
     fn = kernels.function("onset_pick", "gat_onset_pick", _PICK_ARGS)
-    with torch.cuda.device(dev):
-        status = fn(env.data_ptr(), nvf.data_ptr(), onsets.data_ptr(),
-                    valid.data_ptr(), overflow.data_ptr(), cap.data_ptr(),
-                    n_kept.data_ptr(), b, t, size, left, pre_avg, post_avg,
-                    _DELTA, wait, hop_length, int(min_sep * sr), max_onsets,
-                    c, int(backtrack), torch.cuda.current_stream().cuda_stream)
+    with kernels.device_guard(dev):
+        status = fn(env.data_ptr(), None if nvf is None else nvf.data_ptr(),
+                    onsets.data_ptr(), valid.data_ptr(), overflow.data_ptr(),
+                    cap.data_ptr(), n_kept.data_ptr(), b, t, size, left,
+                    pre_avg, post_avg, _DELTA, wait, hop_length,
+                    int(min_sep * sr), max_onsets, c, int(backtrack),
+                    kernels.stream(dev))
     kernels.check(status, "onset_pick")
     pick_onsets.launches += 1
-    return onsets, valid, overflow, cap, n_kept
+    return outs
 
 
 pick_onsets.launches = 0
@@ -425,10 +458,11 @@ def detect_onsets(y: torch.Tensor, sr: int = 22050, hop_length: int = 512,
                   cand_budget: int | None = None):
     """(B, n) → (onset samples (B, max_onsets) int32, valid, overflow,
     cap_overflow, n_kept): onset_strength → pick_onsets. `n_valid` (B,)
-    masks each row's zero-padded tail: its frames are 1 + nv // hop."""
+    masks each row's zero-padded tail: its frames are 1 + nv // hop,
+    computed once as the int32 counts both kernels take."""
     nvf = (None if n_valid is None
-           else 1 + n_valid.to(device=y.device, dtype=torch.int64)
-           // hop_length)
+           else n_valid.to(device=y.device, dtype=torch.int32)
+           // hop_length + 1)
     env = onset_strength(y, sr, hop_length=hop_length, n_valid_frames=nvf)
     return pick_onsets(env, sr, hop_length, min_sep, max_onsets, backtrack,
                        nvf, cand_budget)

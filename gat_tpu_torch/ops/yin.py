@@ -169,8 +169,8 @@ def yin_pitch(clips: torch.Tensor, sr: int, fmin: float = 50.0,
     if n == 0:
         return out
     fn = kernels.function("yin_pitch", "gat_yin_pitch", _YIN_ARGS)
-    with torch.cuda.device(clips.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with kernels.device_guard(clips.device):
+        stream = kernels.stream(clips.device)
         status = fn(clips.data_ptr(), out.data_ptr(), n, length,
                     frame_length, win, hop, n_fr, min_p, max_p,
                     _TROUGH_THRESHOLD, float(sr), stream)

@@ -12,7 +12,8 @@ import torch
 from gat_tpu_torch import features
 from gat_tpu_torch.ops import onset, spectral, yin
 from test_torch_kernels_emulated import (FILE_SR, check_mel_image,
-                                         check_mfcc_level_step, file_batch,
+                                         check_mfcc_level_step,
+                                         edge_envelopes, file_batch,
                                          level_step_clip,
                                          mfcc_level_step_clip, pluck_riff,
                                          random_envelopes, riffs)
@@ -189,10 +190,10 @@ def test_onset_envelope_kernel_grid_invariant():
 
 @pytest.mark.parametrize("cand_budget", [None, 0, 3])
 @pytest.mark.parametrize("backtrack", [True, False])
-@pytest.mark.parametrize("t", [300, 2584])
+@pytest.mark.parametrize("t", [300, 2584, 17227])
 def test_onset_pick_kernel(cand_budget, backtrack, t):
-    """All five outputs identical to the plain version, for a 7 s and a
-    60 s envelope."""
+    """All five outputs identical to the plain version, for a 7 s, a 60 s
+    and a 400 s envelope (17 tiles; the first K5 refused it)."""
     dev = _card()
     env = torch.from_numpy(random_envelopes(t, 0)).to(dev)
     nvf = torch.tensor([t, t - 89, 40], device=dev)
@@ -206,6 +207,29 @@ def test_onset_pick_kernel(cand_budget, backtrack, t):
         assert onset.pick_onsets.launches == before + 1
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_onset_pick_kernel_batches(b):
+    """One 4 s file and a wave of four (173 frames), from the plain
+    envelope, with int32 counts as `detect_onsets` gives them and with
+    none; the planted tile-edge onsets too."""
+    dev = _card()
+    y, nvf = file_batch(88200, b)
+    env = onset.onset_strength_plain(y, FILE_SR, n_valid_frames=nvf).to(dev)
+    for counts in (nvf.to(device=dev, dtype=torch.int32), None):
+        got = onset.pick_onsets(env, FILE_SR, 512, 0.3, 64,
+                                n_valid_frames=counts)
+        ref = onset.pick_onsets_plain(env, FILE_SR, 512, 0.3, 64,
+                                      n_valid_frames=counts)
+        torch.cuda.synchronize()
+        assert bool(ref[1].any())
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    edges = torch.from_numpy(edge_envelopes(1025)).to(dev)
+    for g, r in zip(onset.pick_onsets(edges, FILE_SR, 512, 0.3, 64),
+                    onset.pick_onsets_plain(edges, FILE_SR, 512, 0.3, 64)):
+        assert torch.equal(g, r)
 
 
 def test_onset_wrappers_check_inputs():

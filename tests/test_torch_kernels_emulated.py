@@ -3,12 +3,14 @@ CUDA subset they use, against their plain PyTorch versions.
 
 There is no nvcc on a CPU-only machine, but the kernels of
 `gat_tpu_torch/csrc/` use only thread/block indices, shared memory,
-register arrays, device lambdas, `__syncthreads`, an integer atomicMax,
-the float/int bit casts and asynchronous copies into shared memory. The
-header below maps those onto C++: one std::thread per CUDA thread, the
-blocks of a launch one after another, a barrier for `__syncthreads`, a
-compare-and-swap for the atomic and a plain copy for the asynchronous
-one. Each `.cu` is compiled by g++ with the
+register arrays, device lambdas, `__syncthreads`, warp shuffles, ballots
+and `__popc`, an integer atomicMax, the float/int bit casts and
+asynchronous copies into shared memory. The header below maps those onto
+C++: one std::thread per CUDA thread, the blocks of a launch one after
+another, a barrier for `__syncthreads`, a barrier per warp and an
+exchange slot per lane for the warp intrinsics, a compare-and-swap for
+the atomic and a plain copy for the asynchronous one. Each `.cu` is
+compiled by g++ with the
 header forced in and its `<<<grid, block, smem, stream>>>` launch turned
 into a call of `emu_launch`; the C entry points are then called through
 ctypes with CPU pointers, with the argument lists the wrappers use. This
@@ -49,6 +51,44 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim;
 inline dim3 gridDim;
 inline pthread_barrier_t emu_barrier;
 inline void __syncthreads() { pthread_barrier_wait(&emu_barrier); }
+#define __shared__ static
+// warps: a barrier and an exchange slot per lane; a shuffle stores, waits,
+// loads its source lane's slot and waits again before the slot is reused
+inline pthread_barrier_t emu_warp_barrier[32];
+alignas(8) inline unsigned char emu_lane_slot[1024][8];
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  pthread_barrier_wait(&emu_warp_barrier[threadIdx.x / 32]);
+}
+template <class T> T emu_from_lane(T v, unsigned src) {
+  static_assert(sizeof(T) <= 8, "a lane slot holds 8 bytes");
+  std::memcpy(emu_lane_slot[threadIdx.x], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  std::memcpy(&r, emu_lane_slot[(threadIdx.x & ~31u) + (src & 31u)],
+              sizeof(T));
+  __syncwarp();
+  return r;
+}
+template <class T> T __shfl_sync(unsigned, T v, int src, int = 32) {
+  return emu_from_lane(v, src);
+}
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned d, int = 32) {
+  const unsigned lane = threadIdx.x & 31u;
+  return emu_from_lane(v, lane >= d ? lane - d : lane);
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int mask, int = 32) {
+  return emu_from_lane(v, (threadIdx.x & 31u) ^ mask);
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  emu_lane_slot[threadIdx.x][0] = pred != 0;
+  __syncwarp();
+  unsigned m = 0;
+  for (unsigned l = 0; l < 32; ++l)
+    m |= (unsigned)emu_lane_slot[(threadIdx.x & ~31u) + l][0] << l;
+  __syncwarp();
+  return m;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicMax(int* p, int v) {
   int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (old < v && !__atomic_compare_exchange_n(
@@ -61,6 +101,8 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
+struct int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 typedef void* cudaStream_t;
@@ -82,6 +124,8 @@ inline void emu_launch(int grid, int block, std::function<void()> fn) {
   gridDim.x = grid;
   for (int b = 0; b < grid; ++b) {
     pthread_barrier_init(&emu_barrier, nullptr, block);
+    for (int w = 0; w < block / 32; ++w)
+      pthread_barrier_init(&emu_warp_barrier[w], nullptr, 32);
     std::vector<std::thread> ts;
     for (int t = 0; t < block; ++t)
       ts.emplace_back([=]() {
@@ -89,6 +133,8 @@ inline void emu_launch(int grid, int block, std::function<void()> fn) {
       });
     for (auto& th : ts) th.join();
     pthread_barrier_destroy(&emu_barrier);
+    for (int w = 0; w < block / 32; ++w)
+      pthread_barrier_destroy(&emu_warp_barrier[w]);
   }
 }
 """
@@ -324,13 +370,13 @@ def test_shared_memory_limit_refused(libs):
      (1024, 512, 2000, 221)),
     ("onset_envelope", "gat_onset_envelope_blocks_per_sm", (365, 512),
      (60000, 512)),
-    ("onset_pick", "gat_onset_pick_blocks_per_sm", (345,), (20000,)),
 ])
 def test_occupancy_entry_points(libs, name, symbol, args, too_big):
     """Each kernel's occupancy query takes the main path's sizes (the
     emulation has no occupancy to report, so it writes 0), and refuses
     sizes whose shared memory exceeds a block's (2000 frames or bands,
-    60000 mel items, 20000 envelope frames)."""
+    60000 mel items). K5's shared memory does not depend on the length:
+    `test_onset_pick_emulated_any_length`."""
     fn = _fn(libs[name], symbol, [ctypes.c_int] * len(args)
              + [ctypes.c_void_p])
     blocks = ctypes.c_int(-1)
@@ -492,25 +538,30 @@ def test_mel_items_cover_the_filterbank():
                                    for m in range(128)])
 
 
-def onset_pick_emulated(libs, env: torch.Tensor, nvf: torch.Tensor,
+def onset_pick_emulated(libs, env: torch.Tensor, nvf: torch.Tensor | None,
                         max_onsets: int, cand_budget, backtrack: bool = True):
-    """K5's C entry point with the arguments `onset.pick_onsets` passes."""
+    """K5's C entry point with the arguments `onset.pick_onsets` passes
+    (outputs carved from one allocation, no counts for None)."""
     b, t = env.shape
-    pre_max, post_max, pre_avg, post_avg, wait = onset.peak_pick_params(
-        FILE_SR, 512)
-    size, left = onset._max_window(pre_max, post_max)
-    outs = (torch.empty(b, max_onsets, dtype=torch.int32),
-            torch.empty(b, max_onsets, dtype=torch.bool),
-            torch.empty(b, dtype=torch.bool), torch.empty(b, dtype=torch.bool),
-            torch.empty(b, dtype=torch.int32))
-    nvf = nvf.to(torch.int32).contiguous()
+    size, left, pre_avg, post_avg, wait = onset._pick_windows(FILE_SR, 512)
+    outs = onset._pick_outputs(b, max_onsets, CPU)
+    nvf = onset._frame_counts(nvf, CPU)
     fn = _fn(libs["onset_pick"], "gat_onset_pick", onset._PICK_ARGS)
-    assert fn(env.data_ptr(), nvf.data_ptr(), *(o.data_ptr() for o in outs),
-              b, t, size, left, pre_avg, post_avg, 0.07, wait, 512,
-              int(0.3 * FILE_SR), max_onsets,
+    assert fn(env.data_ptr(), None if nvf is None else nvf.data_ptr(),
+              *(o.data_ptr() for o in outs), b, t, size, left, pre_avg,
+              post_avg, 0.07, wait, 512, int(0.3 * FILE_SR), max_onsets,
               onset.candidate_limit(t, max_onsets, cand_budget),
               int(backtrack), None) == 0
     return outs
+
+
+def check_pick(got, env, nvf, max_onsets, cand_budget, backtrack) -> tuple:
+    """All five outputs identical to the plain version's; returns those."""
+    ref = onset.pick_onsets_plain(env, FILE_SR, 512, 0.3, max_onsets,
+                                  backtrack, nvf, cand_budget)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r.cpu())
+    return ref
 
 
 def random_envelopes(t: int, seed: int) -> np.ndarray:
@@ -537,8 +588,119 @@ def test_onset_pick_emulated(libs, cand_budget, seed, backtrack):
     for max_onsets in (4, 64):
         got = onset_pick_emulated(libs, env, nvf, max_onsets, cand_budget,
                                   backtrack)
-        ref = onset.pick_onsets_plain(env, FILE_SR, 512, 0.3, max_onsets,
-                                      backtrack, nvf, cand_budget)
-        for g, r in zip(got, ref):
-            assert torch.equal(g, r)
+        ref = check_pick(got, env, nvf, max_onsets, cand_budget, backtrack)
         assert bool(ref[1].any())
+
+
+LONG_FRAMES = 1 + 400 * FILE_SR // 512  # a 400 s file: 17,227 frames
+
+
+@pytest.mark.parametrize("cand_budget", [None, 0, 3])
+@pytest.mark.parametrize("backtrack", [True, False])
+def test_onset_pick_emulated_long(libs, cand_budget, backtrack):
+    """A 400 s envelope (17 tiles), over full and short valid prefixes:
+    all five outputs identical to the plain version."""
+    t = LONG_FRAMES
+    env = torch.from_numpy(random_envelopes(t, 3))
+    nvf = torch.tensor([t, t - 1500, 40])
+    for max_onsets in (4, 64):
+        got = onset_pick_emulated(libs, env, nvf, max_onsets, cand_budget,
+                                  backtrack)
+        check_pick(got, env, nvf, max_onsets, cand_budget, backtrack)
+
+
+def test_onset_pick_emulated_any_length(libs):
+    """20,000 frames, beyond what the first K5 could hold in a block's
+    shared memory, are taken and picked as the plain version picks them;
+    the occupancy query takes no length."""
+    t = 20000
+    env = torch.from_numpy(random_envelopes(t, 4))
+    nvf = torch.tensor([t, 12345, 1])
+    got = onset_pick_emulated(libs, env, nvf, 256, 0)
+    assert bool(check_pick(got, env, nvf, 256, 0, True)[1].any())
+    blocks = ctypes.c_int(-1)
+    fn = _fn(libs["onset_pick"], "gat_onset_pick_blocks_per_sm",
+             [ctypes.c_void_p])
+    assert fn(ctypes.addressof(blocks)) == 0 and blocks.value == 0
+
+
+def edge_envelopes(t: int) -> np.ndarray:
+    """(3, t) envelopes with planted onsets at K5's tile edges, over a
+    noise floor with a burst about every 30 frames. E = tile - halo is the
+    first frame the second tile evaluates. Row 0: a backtrack minimum at
+    E - 1, a burst at E. Row 1: the minimum at E - 140, in another warp's
+    frames, then a slow rise with no minimum to a burst at E + 1, so its
+    backtrack is carried across warps and tiles. Row 2: the minimum at
+    t - 4 and a burst at t - 3, whose moving average reads across the
+    first tile's load edge. Each sits in a flat stretch."""
+    rng = np.random.default_rng(t)
+    x = rng.exponential(0.05, (3, t))
+    for row in range(3):
+        for i in rng.choice(t, size=t // 30, replace=False):
+            x[row, i:i + 3] += rng.uniform(0.5, 3.0) * np.array(
+                [1.0, 0.5, 0.25])[:t - i]
+    for row, (dip, burst) in enumerate(edge_onsets(t)):
+        x[row, dip - 15:burst + 15] = 0.01
+        x[row, dip] = 0.0
+        x[row, dip + 1:burst] = np.linspace(0.011, 0.03, burst - dip - 1)
+        x[row, burst] = 5.0
+    return x.astype(np.float32)
+
+
+def edge_onsets(t: int) -> tuple:
+    """(backtrack minimum, burst) frames that `edge_envelopes` plants."""
+    edge = onset._PICK_TILE - onset._PICK_HALO
+    return (edge - 1, edge), (edge - 140, edge + 1), (t - 4, t - 3)
+
+
+@pytest.mark.parametrize("t", [onset._PICK_TILE - 1, onset._PICK_TILE,
+                               onset._PICK_TILE + 1])
+@pytest.mark.parametrize("cand_budget", [None, 0, 3])
+@pytest.mark.parametrize("backtrack", [True, False])
+def test_onset_pick_emulated_tile_edges(libs, t, cand_budget, backtrack):
+    """T at the tile size and one either side (one tile or two), with a
+    candidate and a backtrack minimum on each side of a tile edge and no
+    valid counts (all T frames): identical to the plain version, and the
+    planted onsets are picked where the budget lets them be."""
+    env = torch.from_numpy(edge_envelopes(t))
+    for max_onsets in (4, 64):
+        got = onset_pick_emulated(libs, env, None, max_onsets, cand_budget,
+                                  backtrack)
+        ref = check_pick(got, env, None, max_onsets, cand_budget, backtrack)
+        if max_onsets == 64 and cand_budget != 3:
+            for row, (dip, burst) in enumerate(edge_onsets(t)):
+                frame = dip if backtrack else burst
+                assert 512 * frame in ref[0][row][ref[1][row]].tolist()
+
+
+def test_onset_pick_refuses_windows_past_halo(libs):
+    """Peak-pick windows wider than the compiled halo are refused: the
+    wrapper raises and the C entry point returns an error."""
+    assert onset._pick_windows(FILE_SR, 512)[2] + 1 <= onset._PICK_HALO
+    with pytest.raises(ValueError, match="halo"):
+        onset._pick_windows(384000, 128)
+    env = torch.zeros(1, 500)
+    outs = onset._pick_outputs(1, 4, CPU)
+    fn = _fn(libs["onset_pick"], "gat_onset_pick", onset._PICK_ARGS)
+    assert fn(env.data_ptr(), None, *(o.data_ptr() for o in outs), 1, 500,
+              2, 1, onset._PICK_HALO, 5, 0.07, 1, 512, 6615, 4, 500, 1,
+              None) != 0
+
+
+def test_pick_constants_match_kernel():
+    """The wrapper's tile and halo are the kernel's."""
+    src = (kernels.CSRC / "onset_pick.cu").read_text()
+    assert re.search(rf"kTile = {onset._PICK_TILE};", src)
+    assert re.search(rf"kHalo = {onset._PICK_HALO};", src)
+
+
+def test_function_resolves_once(libs, monkeypatch):
+    """`kernels.function` sets an entry point's argument types at its
+    first resolve and hands the same object back after that."""
+    monkeypatch.setitem(kernels._libs, "onset_pick", libs["onset_pick"])
+    monkeypatch.setattr(kernels, "_functions", {})
+    first = kernels.function("onset_pick", "gat_onset_pick", onset._PICK_ARGS)
+    again = kernels.function("onset_pick", "gat_onset_pick", [])
+    assert again is first and list(first.argtypes) == onset._PICK_ARGS
+    assert first.restype is ctypes.c_int
+    assert kernels._functions == {("onset_pick", "gat_onset_pick"): first}

@@ -131,6 +131,25 @@ def test_pick_onsets_matches(cand_budget, seed):
             np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
+@pytest.mark.parametrize("backtrack", [True, False])
+def test_pick_onsets_matches_long(backtrack):
+    """A 400 s envelope, 17,227 frames: the length the first K5 refused.
+    The mean-centred prefix sum keeps the moving average exact there."""
+    t = 1 + 400 * SR // 512
+    env = random_envelopes(t, 5)
+    nvf = np.array([t, t - 2000, 500])
+    valid = np.arange(t)[None, :] < nvf[:, None]
+    pick = jax.jit(jax.vmap(functools.partial(
+        jo.pick_onsets_from_envelope, sr=SR, hop_length=512, min_sep=0.3,
+        max_onsets=512, backtrack=backtrack, cand_budget=0)))
+    ref = pick(jnp.asarray(env), valid_frames=jnp.asarray(valid))
+    got = to.pick_onsets(torch.from_numpy(env), SR, 512, 0.3, 512, backtrack,
+                         n_valid_frames=torch.from_numpy(nvf), cand_budget=0)
+    assert int(np.asarray(ref[4]).min()) >= 20
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
 def test_greedy_walk_keeps_samples_in_order():
     """The kept samples leave the walk nondecreasing (bt is a cummax and
     min_samples >= 0), which is why K5 writes them without a sort."""

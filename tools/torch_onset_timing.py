@@ -1,0 +1,66 @@
+#!/usr/bin/env python3
+"""K4 and K5, the PyTorch port's onset-envelope and onset-pick kernels,
+checked and timed at the file path's shapes for one checkout of the port,
+on one CUDA card.
+
+    python3 tools/torch_onset_timing.py TREE [envelope] [pick]
+
+TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
+another commit unpacked with `git archive`; its kernels are built there.
+Without a kernel named, both are timed. Shapes, inputs, checks and
+timings are `chip_smoke.py`'s own (`time_envelope`: one 4 s file, 4 files
+of 4 s, 64 riffs of 8 s; `time_pick`: the same and one 400 s file, with
+the wrapper's host time split into its parts), so two checkouts timed in
+turns within one run compare like with like. Prints one JSON line per
+kernel and shape, then the card's name and power limit; exits 1 without
+a card, when a check fails or when a kernel refuses a shape. Imports
+nothing of JAX.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
+           "pick": ("onset_pick", "time_pick")}
+
+
+def main(argv: list[str]) -> int:
+    names = argv[2:] or list(TIMINGS)
+    if len(argv) < 2 or any(n not in TIMINGS for n in names):
+        print(__doc__, file=sys.stderr)
+        return 2
+    tree = Path(argv[1]).resolve()
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_onset_timing: torch.cuda is not available",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(tree))
+    from gat_tpu_torch import kernels
+    from gat_tpu_torch.ops import onset
+    if not Path(onset.__file__).resolve().is_relative_to(tree):
+        print(f"torch_onset_timing: gat_tpu_torch came from "
+              f"{onset.__file__}, not {tree}", file=sys.stderr)
+        return 1
+    kernels.build(["onset_envelope", "onset_pick"])  # K5 reads K4's output
+    dev = torch.device("cuda")
+    failures: list = []
+    for n in names:
+        kernel, timing = TIMINGS[n]
+        for row in getattr(smoke, timing)(onset, dev, failures):
+            print(json.dumps({"tree": str(tree), "kernel": kernel, **row}),
+                  flush=True)
+    print(smoke.card_line(), flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
