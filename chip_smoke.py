@@ -37,8 +37,27 @@ non-zero:
    2.5 s, on the card and on the CPU: K4 and K5 must launch, the labels
    must be the planted notes but the last, and labels, onsets and times
    must be equal;
-7. print the `{"kernels": [...]}` line, the card line, and last
+7. `[files]`: the many-file path, `transcribe_files`, over 25 WAVs in four
+   duration buckets (16 riffs of 3.9 s at 22050 Hz, 4 of 9.5 s at 44100,
+   3 of 1.9 s at 48000, one of 300 s and one silent file), in a shuffled
+   order: all five kernels must launch, labels, onsets and times must
+   equal the CPU plain path's, and an exact-fallback call must equal the
+   exact run; first the kernels against their plain versions at the
+   waves' shapes, padding rows of n_valid 0 among them (which must give
+   no onset); then ms per call, files/s, audio-s/s, the device's busy
+   share, host transfers and launches per call, and the threaded WAV
+   decode timed on its own;
+8. `[serve]`: the watch folder, `serve(once=True, batch=4)`, and the HTTP
+   endpoint, `serve_http(port=0, batch=4)` answering 8 concurrent POSTs
+   on localhost, both with the card's Transcriber: every file's labels
+   must be the CPU's, and all five kernels must launch in each;
+9. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
+
+Each path's kernel launches are counted from zero just before it is
+driven and read just after (`launches_by_path` in the kernels line);
+`launches` stays the clip path's count for K1-K3 and the file path's for
+K4/K5.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -71,6 +90,14 @@ ENVELOPE_SHAPES = ((1, 4.0), (4, 4.0), (N_RIFFS, RIFF_SECONDS))
 LONG_SECONDS = 400.0
 PICK_SHAPES = ENVELOPE_SHAPES + ((1, LONG_SECONDS),)
 K4_KERNELS = ("onset_mel_db_kernel", "onset_flux_kernel")
+# the [files] phase's WAVs as (files, seconds, rate, pluck spacing), one
+# group per duration bucket of `transcribe_files` (max_batch 4)
+FILES_SET = ((16, 3.9, 22050, 0.7),   # bucket 4: one chunk of K = 4 waves
+             (4, 9.5, 44100, 0.7),    # bucket 16: one wave of 4
+             (3, 1.9, 48000, 0.7),    # bucket 2: 3 files padded to B = 4
+             (1, 300.0, 22050, 2.5))  # bucket 512: B = 2, 120 plucks
+SILENT_SECONDS = 2.5  # bucket 4's 17th file: a wave of one, B = 2
+SERVE_FILES = 8       # riffs of 3.9 s for the [serve] phase
 POOL = 6                  # distinct input buffers per timing repetition
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
@@ -403,9 +430,10 @@ def time_pick(onset, dev, failures: list) -> list[dict]:
     return rows
 
 
-def profile_call(fn, wall_ms: float) -> None:
+def profile_call(fn, wall_ms: float) -> float | None:
     """Device time by kernel over one call under torch.profiler, and the
-    device's busy share of the call's unprofiled wall time."""
+    device's busy share of the call's unprofiled wall time; returns the
+    busy ms, None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -417,12 +445,13 @@ def profile_call(fn, wall_ms: float) -> None:
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     if busy <= 0:
         log("[profile] device time not measured (no kernel events)")
-        return
+        return None
     log(f"[profile] device busy {busy:.3f} ms of {wall_ms:.3f} ms per call "
         f"({100 * busy / wall_ms:.1f}%)")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<3d} {e.key[:100]}")
+    return busy
 
 
 def fft_flops(n_mels_nnz: int, n_mels: int) -> int:
@@ -523,17 +552,57 @@ def check_file_kernels(dev, failures: list) -> list[dict]:
     return rows
 
 
+def kernel_wrappers() -> list:
+    """The wrappers of K1..K5, each counting the launches of its kernel."""
+    from gat_tpu_torch import features
+    from gat_tpu_torch.ops import onset, yin
+    return [features.melspec_features, features.mfcc_frontend,
+            yin.yin_pitch, onset.onset_strength, onset.pick_onsets]
+
+
+def driven(fn) -> tuple:
+    """fn() run once with every kernel's launch count set to 0 just before
+    and read just after, once the card is idle: (its result, launches
+    K1..K5, wall seconds)."""
+    import torch
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, [w.launches for w in wrappers], wall
+
+
+def record_launches(rows: list, path: str, launches: list) -> None:
+    """Each kernel's launches on one path, into its kernels-line row."""
+    for row, n in zip(rows, launches):
+        row.setdefault("launches_by_path", {})[path] = n
+
+
+def same_result(got: dict, ref: dict) -> tuple[bool, float]:
+    """Labels, onsets, times and the overflow flag identical and probs
+    within 1e-2 (the tests' bounds); returns (same, max prob error)."""
+    if got["probs"].shape != ref["probs"].shape:
+        return False, float("inf")
+    err = (float(np.abs(got["probs"] - ref["probs"]).max())
+           if got["probs"].size else 0.0)
+    return (got["labels"] == ref["labels"]
+            and got["onsets_s"] == ref["onsets_s"]
+            and got["times"] == ref["times"]
+            and got["onset_overflow"] == ref["onset_overflow"]
+            and err <= 1e-2), err
+
+
 def file_phase(rows: list, card: str, failures: list) -> None:
     """`transcribe` on riff WAVs at three rates, on the card (two-stage
     and fused) and on the CPU; fills in K4's and K5's launches per call."""
     import torch
-    from gat_tpu_torch import features
     from gat_tpu_torch.infer import Transcriber
-    from gat_tpu_torch.ops import onset, yin
     from gat_tpu_torch.ops.pitch import midi_to_note
     from gat_tpu_torch.utils.wavio import write_wav
-    wrappers = [features.melspec_features, features.mfcc_frontend,
-                yin.yin_pitch, onset.onset_strength, onset.pick_onsets]
     expected = [midi_to_note(m, unicode=False) for m in FILE_MIDI[:-1]]
     card_t, cpu_t = Transcriber(device="cuda"), Transcriber(device="cpu")
     with tempfile.TemporaryDirectory() as d:
@@ -544,12 +613,8 @@ def file_phase(rows: list, card: str, failures: list) -> None:
                                             SEED + 2, noise=0.0)[0], sr)
         card_t.transcribe(paths[FILE_SR])  # first call: library handles
         for fused in (False, True):
-            torch.cuda.synchronize()
-            for w in wrappers:
-                w.launches = 0
-            card_t.transcribe(paths[FILE_SR], fused=fused)
-            torch.cuda.synchronize()
-            launches = [w.launches for w in wrappers]
+            _, launches, _ = driven(
+                lambda: card_t.transcribe(paths[FILE_SR], fused=fused))
             log(f"[file] launches per transcribe(fused={fused}) call, "
                 f"K1..K5: {launches}")
             if min(launches) < 1 or launches[3] != 1:
@@ -558,14 +623,13 @@ def file_phase(rows: list, card: str, failures: list) -> None:
                                 f"(fused={fused}): {launches}")
             if not fused:
                 rows[3]["launches"], rows[4]["launches"] = launches[3:5]
+                record_launches(rows, "file", launches)
         for sr, path in paths.items():
             ref = cpu_t.transcribe(path)
             for fused in (False, True):
                 got = card_t.transcribe(path, fused=fused)
-                err = float(np.abs(got["probs"] - ref["probs"]).max())
-                same = (got["labels"] == ref["labels"] == expected
-                        and got["onsets_s"] == ref["onsets_s"]
-                        and got["times"] == ref["times"] and err <= 1e-2)
+                same, err = same_result(got, ref)
+                same = same and got["labels"] == expected
                 log(f"[file] {sr} Hz fused={fused}: labels {got['labels']}, "
                     f"onsets {got['onsets_s']}; equal to the CPU plain path "
                     f"{same} (max prob err {err:.3g})")
@@ -586,7 +650,7 @@ def file_phase(rows: list, card: str, failures: list) -> None:
                                  dt * 1e3)
 
 
-def long_phase(card: str, failures: list) -> None:
+def long_phase(rows: list, card: str, failures: list) -> None:
     """`[long]`: `transcribe` of a 400 s riff WAV at 22050 Hz, a pluck of
     the file phase's five notes in turn every 2.5 s from 0.4 s, on the
     card and on the CPU: the labels must be the planted notes but the
@@ -594,9 +658,7 @@ def long_phase(card: str, failures: list) -> None:
     and K5 must launch in the card's call (with 160 plucks over the 64
     default onset slots, `transcribe` re-runs the segmentation at a
     larger cap, so each launches more than once)."""
-    import torch
     from gat_tpu_torch.infer import Transcriber
-    from gat_tpu_torch.ops import onset
     from gat_tpu_torch.ops.pitch import midi_to_note
     from gat_tpu_torch.utils.wavio import write_wav
     spacing = 2.5
@@ -609,21 +671,14 @@ def long_phase(card: str, failures: list) -> None:
         write_wav(path, make_riffs(midi, LONG_SECONDS, FILE_SR, SEED + 3,
                                    noise=0.0, spacing=spacing)[0], FILE_SR)
         card_t.transcribe(path)  # first call at this length
-        torch.cuda.synchronize()
-        for w in (onset.onset_strength, onset.pick_onsets):
-            w.launches = 0
-        t0 = time.perf_counter()
-        got = card_t.transcribe(path)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = [onset.onset_strength.launches, onset.pick_onsets.launches]
+        got, launches, wall = driven(lambda: card_t.transcribe(path))
+        record_launches(rows, "long", launches)
+        launches = launches[3:]
         t0 = time.perf_counter()
         ref = cpu_t.transcribe(path)
         cpu_wall = time.perf_counter() - t0
-    err = float(np.abs(got["probs"] - ref["probs"]).max())
-    same = (got["labels"] == ref["labels"] == planted
-            and got["onsets_s"] == ref["onsets_s"]
-            and got["times"] == ref["times"] and err <= 1e-2)
+    same, err = same_result(got, ref)
+    same = same and got["labels"] == planted
     log(f"[long] transcribe({LONG_SECONDS:g} s at {FILE_SR} Hz, {k} plucks): "
         f"{len(got['labels'])} labels, {wall * 1e3:.3f} ms on {card} "
         f"(CPU plain path {cpu_wall:.1f} s); K4, K5 launches {launches}; "
@@ -633,6 +688,334 @@ def long_phase(card: str, failures: list) -> None:
         failures.append("[long] card and CPU disagree on the 400 s file")
     if min(launches) < 1:
         failures.append(f"[long] K4 or K5 not launched: {launches}")
+
+
+def wave(rows_s: list, seconds: float, spacing: float, seed: int):
+    """A wave as `transcribe_files` pads it, on the card: one riff of
+    FILE_MIDI's notes in turn per entry of `rows_s` (its valid seconds; 0
+    is a padding row of zeros), each zero past its valid end and
+    `seconds` long; with the valid frames `detect_onsets` hands K4 and K5
+    (n_valid // 512 + 1, int32: one frame for a padding row)."""
+    import torch
+    n = int(seconds * FILE_SR)
+    y = np.zeros((len(rows_s), n), np.float32)
+    n_valid = np.array([int(s * FILE_SR) for s in rows_s])
+    for i, s in enumerate(rows_s):
+        if s:
+            k = len(np.arange(0.4, s - 0.45, spacing))
+            midi = np.roll(np.resize(FILE_MIDI, k), -i)[None]
+            y[i, :n_valid[i]] = make_riffs(midi, s, FILE_SR, seed + i,
+                                           noise=0.0, spacing=spacing)[0]
+    nvf = torch.from_numpy(n_valid // 512 + 1).to(torch.int32)
+    return torch.from_numpy(y).cuda(), nvf.cuda()
+
+
+def check_wave_kernels(clips, failures: list) -> None:
+    """The kernels at the shapes the many-file path gives them, against
+    their plain versions on the card: K1-K3 at the 192 clips of a wave of
+    4 under its automatic clip budget (3/4 of 4 files x 64 slots); K4 and
+    K5 on a wave of 4 in the 4 s bucket whose last row is padding, and on
+    the 512 s bucket's B = 2, a 300 s riff and a padding row. A padding
+    row must give no onset and no flag."""
+    import torch
+    from gat_tpu_torch import features
+    from gat_tpu_torch.ops import onset, yin
+    x = clips[:192].contiguous()
+    err1, ok1 = mel_error(features.melspec_features(x, SR),
+                          features.melspec_features_plain(x, SR))
+    err2 = float((features.mfcc_frontend(x, SR)
+                  - features.mfcc_frontend_plain(x, SR)).abs().max())
+    hz, hz_ref = yin.yin_pitch(x, SR), yin.yin_pitch_plain(x, SR)
+    rel3 = float(((hz - hz_ref).abs() / hz_ref.abs()).max())
+    ok = ok1 and err2 <= 1e-3 and rel3 <= 2e-3
+    log(f"[wave] K1-K3 at 192 clips: mel max abs err {err1:.3g} dB, MFCC "
+        f"{err2:.3g} (atol 1e-3), YIN max rel err {rel3:.3g} (rtol 2e-3) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("K1-K3 at the wave's 192 clips")
+    for rows_s, seconds, spacing in (([3.9, 3.9, 3.9, 0.0], 4.0, 0.7),
+                                     ([300.0, 0.0], 512.0, 2.5)):
+        y, nvf = wave(rows_s, seconds, spacing, SEED + 7)
+        pad = torch.tensor([s == 0 for s in rows_s], device=y.device)
+        env = onset.onset_strength(y, FILE_SR, n_valid_frames=nvf)
+        ref = onset.onset_strength_plain(y, FILE_SR, n_valid_frames=nvf)
+        err4 = float((env - ref).abs().max())
+        ok = err4 <= 1e-3 and bool(torch.isfinite(env).all())
+        for cand_budget in (None, 0):
+            got = onset.pick_onsets(env, FILE_SR, 512, 0.3, 64,
+                                    n_valid_frames=nvf,
+                                    cand_budget=cand_budget)
+            want = onset.pick_onsets_plain(env, FILE_SR, 512, 0.3, 64,
+                                           n_valid_frames=nvf,
+                                           cand_budget=cand_budget)
+            _, valid, overflow, _, n_kept = got
+            ok = (ok and all(torch.equal(a, b) for a, b in zip(got, want))
+                  and not bool(valid[pad].any())
+                  and not bool(overflow[pad].any())
+                  and not bool(n_kept[pad].any())
+                  and bool(valid[~pad].any(-1).all()))
+        torch.cuda.synchronize()
+        tag = f"{len(rows_s)} x {seconds:g} s (valid {rows_s} s)"
+        log(f"[wave] K4 at {tag}: max abs err {err4:.3g} (atol 1e-3); K5 "
+            f"outputs identical for cand_budget None, 0; the padding row: "
+            f"no onset, no flag -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"K4/K5 on the wave {tag}")
+
+
+def write_files_set(d: Path) -> tuple[list, Path, float]:
+    """FILES_SET's riffs and the silent file as 16-bit WAVs under d: file
+    i of a group plays FILE_MIDI in turn from its (i+1)-th note, from 0.4
+    s at the group's spacing. Returns ([[(path, planted labels but the
+    last)] per group], the silent file, audio seconds)."""
+    from gat_tpu_torch.ops.pitch import midi_to_note
+    from gat_tpu_torch.utils.wavio import write_wav
+    groups, audio_s = [], SILENT_SECONDS
+    for g, (files, seconds, sr, spacing) in enumerate(FILES_SET):
+        k = len(np.arange(0.4, seconds - 0.45, spacing))
+        midi = np.stack([np.roll(np.resize(FILE_MIDI, k), -i)
+                         for i in range(files)])
+        riffs = make_riffs(midi, seconds, sr, SEED + 4 + g, noise=0.0,
+                           spacing=spacing)
+        group = []
+        for i, y in enumerate(riffs):
+            path = d / f"g{g}_{i}.wav"
+            write_wav(path, y, sr)
+            group.append((path, [midi_to_note(int(m), unicode=False)
+                                 for m in midi[i][:-1]]))
+        groups.append(group)
+        audio_s += files * seconds
+    silent = d / "silent.wav"
+    write_wav(silent, np.zeros(int(SILENT_SECONDS * FILE_SR), np.float32),
+              FILE_SR)
+    return groups, silent, audio_s
+
+
+def files_phase(rows: list, card: str, failures: list,
+                device: str = "cuda") -> None:
+    """`[files]`: `transcribe_files` over FILES_SET and the silent file in
+    a shuffled order, on the card and on the CPU: labels, onsets and times
+    equal, the riffs labelled with their planted notes but the last, the
+    silent file empty, all five kernels launched; the host transfers
+    (`_to_host` calls) per call counted; an exact-fallback call on the 16
+    riffs (clip budget 3, candidate budget 1) equal to their exact run.
+    Then wall ms per call of one wave of 4 riffs, of the 16 (one chunk of
+    K = 4 waves), of the whole set, and of `transcribe` per riff; the
+    device's busy share of the chunk and of the set; the threaded WAV
+    decode of the set on its own, and all of these numbers as one JSON
+    line."""
+    import torch
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.infer import transcriber as ttr
+    from gat_tpu_torch.utils import native_wav
+    card_t, cpu_t = Transcriber(device=device), Transcriber(device="cpu")
+    transfers = [0]
+    to_host = ttr._to_host
+
+    def counted(outs):
+        transfers[0] += 1
+        return to_host(outs)
+
+    def call(fn) -> tuple:
+        """driven(fn), and the host transfers it made."""
+        transfers[0] = 0
+        return (*driven(fn), transfers[0])
+
+    def wall_ms(fn, reps: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out = {}
+    ttr._to_host = counted
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            groups, silent, audio_s = write_files_set(Path(d))
+            entries = [e for g in groups for e in g] + [(silent, [])]
+            order = np.random.default_rng(SEED).permutation(len(entries))
+            paths = [entries[i][0] for i in order]
+            planted = [entries[i][1] for i in order]
+            riffs = [p for p, _ in groups[0]]
+            t0 = time.perf_counter()
+            ref = cpu_t.transcribe_files(paths)
+            cpu_s = time.perf_counter() - t0
+            card_t.transcribe_files(paths)  # first call at these shapes
+            got, launches, wall, n_host = call(
+                lambda: card_t.transcribe_files(paths))
+            record_launches(rows, "files", launches)
+            checks = [same_result(g, r) for g, r in zip(got, ref)]
+            n_same = sum(s for s, _ in checks)
+            n_planted = sum(g["labels"] == p for g, p in zip(got, planted))
+            empty = got[paths.index(silent)]
+            ok = (n_same == len(paths) == len(got)
+                  and n_planted == len(paths)
+                  and empty["probs"].shape == (0, 47))
+            log(f"[files] transcribe_files({len(paths)} files, "
+                f"{audio_s:g} audio-s, buckets 2/4/16/512 s): {wall * 1e3:.3f} "
+                f"ms on {card} (CPU plain path {cpu_s:.1f} s); launches "
+                f"K1..K5 {launches}, host transfers {n_host}; equal to the "
+                f"CPU's {n_same}/{len(paths)} (max prob err "
+                f"{max(e for _, e in checks):.3g}), planted labels "
+                f"{n_planted}/{len(paths)}, silent file empty "
+                f"{empty['probs'].shape == (0, 47)} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("[files] card and CPU disagree, or a file "
+                                "lost its planted labels")
+            if min(launches) < 1:
+                failures.append(f"[files] a kernel was not launched: "
+                                f"{launches}")
+
+            fb, _, _, fb_host = call(lambda: card_t.transcribe_files(
+                riffs, wave_clip_budget=3, cand_budget=1))
+            raw = card_t.transcribe_files(riffs, wave_clip_budget=3,
+                                          cand_budget=1, exact_fallback=False)
+            exact = card_t.transcribe_files(riffs, wave_clip_budget=None,
+                                            cand_budget=0,
+                                            exact_fallback=False)
+            ok = (all(same_result(a, b)[0] for a, b in zip(fb, exact))
+                  and all(r["onset_overflow"] for r in raw)
+                  and not any(r["onset_overflow"] for r in fb))
+            log(f"[files] exact fallback (16 riffs, clip budget 3, "
+                f"candidate budget 1; host transfers {fb_host}): every "
+                f"file flagged without it, and with it equal to the exact "
+                f"run, no flag -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("[files] the exact fallback differs from "
+                                "the exact run")
+
+            # wall time per call, host work included
+            for name, fn, n_files, reps in (
+                    ("1 wave of 4 riffs", lambda: card_t.transcribe_files(
+                        riffs[:4]), 4, 5),
+                    ("16 riffs, one chunk of K = 4 waves",
+                     lambda: card_t.transcribe_files(riffs), 16, 5),
+                    ("the set", lambda: card_t.transcribe_files(paths),
+                     len(paths), 3)):
+                _, launches, _, n_host = call(fn)
+                ms = wall_ms(fn, reps)
+                secs = (audio_s if n_files == len(paths)
+                        else n_files * FILES_SET[0][1])
+                out[name] = dict(ms=ms, files=n_files, audio_s=secs,
+                                 launches=launches, host_transfers=n_host)
+                log(f"[files] transcribe_files({name}): {ms:.3f} ms/call, "
+                    f"{ms / n_files:.3f} ms/file, {n_files / ms * 1e3:.1f} "
+                    f"files/s, {secs / ms * 1e3:.1f} audio-s/s; launches "
+                    f"K1..K5 {launches}, host transfers {n_host}; on {card}")
+                if n_files >= 16:
+                    out[name]["busy_ms"] = profile_call(fn, ms)
+            ms = wall_ms(lambda: [card_t.transcribe(p) for p in riffs], 1)
+            out["transcribe per riff"] = dict(ms=ms / len(riffs))
+            log(f"[files] transcribe() of each of the 16 riffs: "
+                f"{ms / len(riffs):.3f} ms/file on {card}")
+            decode = [wall_ms(lambda: native_wav.read_wav_batch(paths), 1)
+                      for _ in range(5)]
+            out["decode_ms"] = statistics.median(decode)
+            log(f"[files] read_wav_batch({len(paths)} files) alone: median "
+                f"{out['decode_ms']:.3f} ms of 5 (native codec "
+                f"{native_wav.native_available()})")
+    finally:
+        ttr._to_host = to_host
+    log(f"[files] numbers {json.dumps(out)}")
+
+
+def serve_phase(rows: list, card: str, failures: list,
+                device: str = "cuda") -> None:
+    """`[serve]`: SERVE_FILES riffs through the watch folder,
+    `serve(once=True, batch=4)`, and through the HTTP endpoint,
+    `serve_http(port=0, batch=4)` on localhost with one dispatcher, all
+    posted at once; both with the card's Transcriber. Every file's labels
+    must equal the CPU's `transcribe_files`, and all five kernels must
+    launch in each."""
+    import http.client
+    import threading
+    from gat_tpu_torch import serve
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.utils.wavio import write_wav
+    card_t, cpu_t = Transcriber(device=device), Transcriber(device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        in_dir = d / "in"
+        in_dir.mkdir()
+        midi = np.stack([np.roll(FILE_MIDI, -i) for i in range(SERVE_FILES)])
+        paths = []
+        for i, y in enumerate(make_riffs(midi, 3.9, FILE_SR, SEED + 9,
+                                         noise=0.0)):
+            paths.append(in_dir / f"riff{i}.wav")
+            write_wav(paths[-1], y, FILE_SR)
+        want = {p.stem: r["labels"]
+                for p, r in zip(paths, cpu_t.transcribe_files(paths))}
+        bodies = {p.stem: p.read_bytes() for p in paths}
+
+        n, launches, wall = driven(lambda: serve.serve(
+            in_dir, d / "out", once=True, transcriber=card_t, batch=4,
+            verbose=False))
+        record_launches(rows, "serve", launches)
+        got = {s: json.loads((d / "out" / f"{s}.json").read_text())["labels"]
+               for s in want}
+        ok = n == SERVE_FILES and got == want and min(launches) >= 1
+        log(f"[serve] serve(once=True, batch=4) over {SERVE_FILES} riffs: "
+            f"{wall * 1e3:.3f} ms, launches K1..K5 {launches}; labels equal "
+            f"to the CPU's {got == want} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[serve] the watch folder's labels or launches")
+
+        holder: list = []
+        server = threading.Thread(target=serve.serve_http, kwargs=dict(
+            port=0, transcriber=card_t, batch=4, window_s=0.5,
+            verbose=False, server_holder=holder), daemon=True)
+        server.start()
+        for _ in range(600):
+            if holder:
+                break
+            time.sleep(0.05)
+        port = holder[0].server_address[1]
+        answers: dict = {}
+
+        def request(method: str, path: str, body: bytes | None = None):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            try:
+                conn.request(method, path, body=body)
+                resp = conn.getresponse()
+                return resp.status, resp.read()
+            finally:
+                conn.close()
+
+        def post(stem: str) -> None:
+            status, body = request("POST", "/transcribe", bodies[stem])
+            answers[stem] = (status, json.loads(body))
+
+        def burst() -> None:
+            threads = [threading.Thread(target=post, args=(s,)) for s in want]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+
+        try:
+            _, launches, wall = driven(burst)
+            metrics = dict(
+                ln.rsplit(" ", 1)
+                for ln in request("GET", "/metrics")[1].decode().splitlines()
+                if ln and not ln.startswith("#"))
+        finally:
+            holder[0].shutdown()
+            server.join(timeout=120)
+        record_launches(rows, "http", launches)
+        same = all(answers.get(s, (0, {}))[0] == 200
+                   and answers[s][1]["labels"] == want[s] for s in want)
+        ok = same and min(launches) >= 1 and not server.is_alive()
+        log(f"[serve] serve_http(batch=4): {SERVE_FILES} concurrent POSTs in "
+            f"{wall * 1e3:.3f} ms, {metrics['gat_device_dispatches_total']} "
+            f"dispatches carrying {metrics['gat_dispatch_files_sum']} files, "
+            f"launches K1..K5 {launches}; every answer 200 with the CPU's "
+            f"labels {same}; server stopped {not server.is_alive()} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[serve] the HTTP endpoint's answers or launches")
 
 
 def main() -> int:
@@ -798,16 +1181,12 @@ def main() -> int:
 
     # ---- 4. the clip path -------------------------------------------------
     t = Transcriber(device="cuda")
-    for s in specs:
-        s["fn"].launches = 0
-    t0 = time.perf_counter()
-    res = t.transcribe_clips(clips)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    for row, s in zip(rows, specs):
-        row["launches"] = s["fn"].launches
-        if s["fn"].launches < 1:
-            failures.append(f"{s['name']} not launched on the main path")
+    res, launches, first_s = driven(lambda: t.transcribe_clips(clips))
+    record_launches(rows, "clips", launches)
+    for row, n in zip(rows[:len(specs)], launches):
+        row["launches"] = n
+        if n < 1:
+            failures.append(f"{row['name']} not launched on the main path")
     log(f"[main] transcribe_clips({N_CLIPS}) first call {first_s:.3f} s, "
         f"launches {[r['launches'] for r in rows[:len(specs)]]}")
 
@@ -879,7 +1258,14 @@ def main() -> int:
     file_phase(rows, card, failures)
 
     # ---- 6. a long file --------------------------------------------------
-    long_phase(card, failures)
+    long_phase(rows, card, failures)
+
+    # ---- 7. the many-file path --------------------------------------------
+    check_wave_kernels(clips, failures)
+    files_phase(rows, card, failures)
+
+    # ---- 8. the server ----------------------------------------------------
+    serve_phase(rows, card, failures)
 
     if failures:
         log(f"[fail] {failures}")

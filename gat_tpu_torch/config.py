@@ -27,6 +27,9 @@ KERNEL_BUILD_DIR = PROJECT_ROOT / "build" / "gat_tpu_torch"
 TARGET_SR = 11025 * 2  # 22050 Hz: slicing rate of the file path
 CLIP_DURATION = 0.50   # seconds per note clip
 DEFAULT_MAX_ONSETS = 64  # onset slots per file of the file path
+# files per wave of the many-file path (`transcribe_files`); the server's
+# warmup derives its shapes from it, so both stay one family
+DEFAULT_MAX_BATCH = 4
 
 
 @dataclass(frozen=True)

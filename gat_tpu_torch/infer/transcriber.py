@@ -7,22 +7,26 @@ embedded config.
   re-rated to the checkpoint rate → ensemble and YIN baseline per note,
   two-stage by default, or as the batched file body at B=1
   (`fused=True`);
+* `transcribe_files(paths)`: many WAV files, the serving path: a
+  threaded decode, power-of-two duration buckets, waves of `max_batch`
+  files through the batched file body, the exact fallback and the
+  onset-cap auto-scaling;
 * `transcribe_clips(clips)`: clips already cut and at the checkpoint
   rate;
 * `transcribe_note(audio)`: one in-memory note.
-
-The many-file path (`transcribe_files`) is not ported yet.
 """
 from __future__ import annotations
 
+import threading
 from datetime import datetime
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..config import (CLIP_DURATION, CNN_CONFIG, DEFAULT_MAX_ONSETS,
-                      INFERENCE_OUTPUT_ROOT, MLP_CONFIG, TARGET_SR)
+from ..config import (CLIP_DURATION, CNN_CONFIG, DEFAULT_MAX_BATCH,
+                      DEFAULT_MAX_ONSETS, INFERENCE_OUTPUT_ROOT, MLP_CONFIG,
+                      TARGET_SR)
 from ..ops.resample import fix_length, resample
 from ..ops.yin import estimate_note, yin_pitch
 from ..segment.slicing import save_clip, segment_waveform
@@ -32,11 +36,13 @@ from ..utils.wavio import read_wav
 from .pipeline import build_clip_ensemble_fn, build_files_fn
 from .predictor import NotePredictor
 
-__all__ = ["Transcriber", "bucket_seconds"]
+__all__ = ["Transcriber", "bucket_seconds", "DEFAULT_MAX_BATCH",
+           "DEFAULT_MAX_ONSETS"]
 
 
 def bucket_seconds(duration_s: float) -> int:
-    """The power-of-two duration bucket, in whole seconds, of a file."""
+    """The power-of-two duration bucket, in whole seconds, of a file:
+    the one definition `transcribe_files` and the server's warmup share."""
     sec = max(1, int(-(-float(duration_s) // 1)))
     return 1 << (sec - 1).bit_length()
 
@@ -55,12 +61,25 @@ def _next_onset_cap(n_detected: int, prev_cap: int,
 
 def _to_host(outs: tuple) -> tuple:
     """Every tensor of `outs` on the host after one synchronisation of
-    the device (a bool() or .item() per flag would each wait)."""
+    the device (a bool() or .item() per flag would each wait).
+
+    It waits on the calling thread's current stream, which is the
+    default stream in every thread that sets none: two threads serving
+    waves on one Transcriber enqueue on that one stream, so the wait
+    covers all of this thread's work, and each thread reads only its own
+    outputs."""
     host = tuple(None if x is None else x.to("cpu", non_blocking=True)
                  for x in outs)
     if any(x is not None and x.is_cuda for x in outs):
         torch.cuda.current_stream().synchronize()
     return tuple(None if x is None else x.numpy() for x in host)
+
+
+def _stack_outputs(outs: list[tuple]) -> tuple:
+    """K output tuples of the file body, stacked on the device into one
+    tuple of (K, ...) tensors (None stays None)."""
+    return tuple(None if parts[0] is None else torch.stack(parts)
+                 for parts in zip(*outs))
 
 
 class Transcriber:
@@ -137,20 +156,53 @@ class Transcriber:
         self._note_ensemble = build_clip_ensemble_fn(
             self.predictor, self.scaler, self.ckpt_sr, self.mfcc_params,
             self.melspec_params, pitch_on_normalized=True)
+        # check-then-build under a lock: the HTTP server's dispatcher
+        # threads share one Transcriber
         self._files_fns: dict = {}
+        self._files_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     def _files_fn(self, target_sr: int, clip_duration: float,
-                  max_onsets: int, cand_budget: int | None):
-        """The batched file body for one parameter set, built once (it
-        holds no predictor state: `build_clip_ensemble_fn`)."""
-        key = (target_sr, clip_duration, max_onsets, cand_budget)
-        if key not in self._files_fns:
-            self._files_fns[key] = build_files_fn(
-                self.predictor, self.scaler, self.ckpt_sr, self.mfcc_params,
-                self.melspec_params, target_sr, clip_duration, max_onsets,
-                cand_budget=cand_budget)
-        return self._files_fns[key]
+                  max_onsets: int, wave_clip_budget: int | None = None,
+                  cand_budget: int | None = None):
+        """(run, run_scan) of the batched file body for one parameter
+        set, built once (it holds no predictor state:
+        `build_clip_ensemble_fn`). `run(ys (B, n), n_valids (B,))` is the
+        body (`pipeline.build_files_fn`); `run_scan(ys (K, B, n),
+        n_valids (K, B))` runs it on the K waves in turn with no host
+        synchronisation between them and stacks the outputs on the device,
+        (K, B, ...)."""
+        key = (target_sr, clip_duration, max_onsets, wave_clip_budget,
+               cand_budget)
+        with self._files_lock:
+            if key not in self._files_fns:
+                run = build_files_fn(
+                    self.predictor, self.scaler, self.ckpt_sr,
+                    self.mfcc_params, self.melspec_params, target_sr,
+                    clip_duration, max_onsets,
+                    wave_clip_budget=wave_clip_budget,
+                    cand_budget=cand_budget)
+
+                def run_scan(yss, nvss, run=run):
+                    return _stack_outputs([run(ys, nvs)
+                                           for ys, nvs in zip(yss, nvss)])
+                self._files_fns[key] = (run, run_scan)
+            return self._files_fns[key]
+
+    @staticmethod
+    def _dispatch_pow2_wave(run, entries, n_bucket: int) -> tuple:
+        """One wave of (y (n_bucket,), n_valid) entries through the file
+        body: stacked, padded to a power of two B >= 2 with zero rows of
+        n_valid 0 (no onsets, so padding never changes a result), and
+        brought to the host in one transfer. The floor of 2 keeps a lone
+        file on the B = 2 shape the server's warmup runs."""
+        b = max(2, 1 << (len(entries) - 1).bit_length())
+        y0 = entries[0][0]
+        ys = torch.stack([y for y, _ in entries]
+                         + [y0.new_zeros(n_bucket)] * (b - len(entries)))
+        nv = torch.tensor([n for _, n in entries] + [0] * (b - len(entries)),
+                          dtype=torch.int64, device=y0.device)
+        return _to_host(run(ys, nv))
 
     def _dsp_info(self, pitch) -> list:
         out = []
@@ -201,6 +253,158 @@ class Transcriber:
         result["times"] = np.asarray(times)[kept].tolist()
         result["onset_overflow"] = overflow
         return result
+
+    @torch.no_grad()
+    def transcribe_files(self, paths, target_sr: int = TARGET_SR,
+                         clip_duration: float | None = None,
+                         max_onsets: int = DEFAULT_MAX_ONSETS,
+                         max_batch: int = DEFAULT_MAX_BATCH,
+                         wave_clip_budget: int | None | str = "auto",
+                         cand_budget: int | None | str = "auto",
+                         exact_fallback: bool = True,
+                         max_onsets_ceiling: int | None = 1024
+                         ) -> list[dict]:
+        """Transcription of many WAV files, the serving path. Returns one
+        result dict per path, in input order; a file with no surviving
+        clip gets an empty result instead of raising.
+
+        The files are decoded in parallel threads (`read_wav_batch`),
+        padded on the host to whole seconds, resampled on the device to
+        `target_sr` and grouped into power-of-two duration buckets (1, 2,
+        4, ... s), so a long file never pads a wave of short ones and the
+        (B, n) shapes stay a small family. Each bucket runs in waves of
+        `max_batch` files through the batched file body: full waves in
+        power-of-two chunks of K waves, each chunk run back to back on the
+        device and brought to the host in one transfer, and the rest as
+        one wave padded to a power of two B with silent rows.
+
+        `wave_clip_budget` caps the clip slots per wave that run the
+        ensemble (the kept slots first, slot-major; a file that loses one
+        is flagged); None computes every slot. `cand_budget` sizes the
+        onset candidate walk (`ops.onset.candidate_limit`). Both default
+        to "auto": 3/4 of the wave's `max_batch · max_onsets` slots, and
+        the proportional candidate default.
+
+        `exact_fallback`: every file whose truncation an exact run could
+        change (the body's `fixable` flag) runs again through the exact
+        body (full candidate walk, every slot computed), regrouped per
+        bucket through the same waves; a cap-only truncation skips that
+        run, since the exact walk returns the same first `max_onsets`
+        onsets. A file still flagged then runs once more at the power of
+        two `max_onsets` that fits its detected count, grouped per cap,
+        up to `max_onsets_ceiling` (None or 0 keeps the flag), so a flag
+        that survives means more onsets than the ceiling.
+        `exact_fallback=False` keeps the raw budget semantics."""
+        if clip_duration is None:
+            clip_duration = self.clip_length
+        if isinstance(wave_clip_budget, str):
+            if wave_clip_budget != "auto":
+                raise ValueError(f"wave_clip_budget must be an int, None, "
+                                 f"or 'auto'; got {wave_clip_budget!r}")
+            wave_clip_budget = max(1, (max_batch * max_onsets * 3) // 4)
+        if isinstance(cand_budget, str):
+            if cand_budget != "auto":
+                raise ValueError(f"cand_budget must be an int, None, or "
+                                 f"'auto'; got {cand_budget!r}")
+            cand_budget = None
+        paths = list(paths)
+        if not paths:
+            return []
+        from ..utils.native_wav import read_wav_batch
+        buckets: dict[int, list[tuple[int, torch.Tensor, int]]] = {}
+        for idx, (y_raw, sr_in) in enumerate(read_wav_batch(paths)):
+            y_np = np.asarray(y_raw, np.float32)
+            n_raw = int(y_np.shape[-1])
+            sec = max(1, -(-n_raw // sr_in))
+            bsec = bucket_seconds(sec)
+            # whole seconds on the host, so the resampler sees one length
+            # per (seconds, rate); n_valid masks the pad afterwards
+            if n_raw < sec * sr_in:
+                y_np = np.pad(y_np, (0, sec * sr_in - n_raw))
+            y = resample(torch.from_numpy(y_np).to(self.device), sr_in,
+                         target_sr)
+            y = fix_length(y, bsec * target_sr)
+            nv = -(-n_raw * target_sr // sr_in)
+            buckets.setdefault(bsec, []).append((idx, y, nv))
+
+        results: list[dict | None] = [None] * len(paths)
+        fixable = [False] * len(paths)
+        n_det = [0] * len(paths)
+
+        def emit(idx, o):
+            # o: one file's (probs, mlp, cnn | None, pitch, kept, onsets,
+            # times, overflow, fixable, n_detected) on the host
+            results[idx] = self._build_result(
+                o[0], o[1], o[2], o[3], o[4], o[5], o[6], target_sr,
+                empty_ok=True, overflow=o[7])
+            fixable[idx] = bool(o[8])
+            n_det[idx] = int(o[9])
+
+        def run_bucket(fns, group, n_bucket):
+            """One bucket's files through a (run, run_scan) pair: full
+            waves in power-of-two chunks of K waves (one host transfer a
+            chunk), then the rest as one padded wave each."""
+            run, run_scan = fns
+            k_full = len(group) // max_batch
+            off = 0
+            while k_full >= 2:
+                kc = 1 << (k_full.bit_length() - 1)
+                chunk = group[off:off + kc * max_batch]
+                ys = torch.stack([y for _, y, _ in chunk]).reshape(
+                    kc, max_batch, n_bucket)
+                nvs = torch.tensor([nv for _, _, nv in chunk],
+                                   dtype=torch.int64,
+                                   device=self.device).reshape(kc, max_batch)
+                outs = _to_host(run_scan(ys, nvs))
+                for j, (idx, _, _) in enumerate(chunk):
+                    kk, jj = divmod(j, max_batch)
+                    emit(idx, tuple(None if o is None else o[kk][jj]
+                                    for o in outs))
+                off += kc * max_batch
+                k_full -= kc
+            for w0 in range(off, len(group), max_batch):
+                wave = group[w0:w0 + max_batch]
+                outs = self._dispatch_pow2_wave(
+                    run, [(y, nv) for _, y, nv in wave], n_bucket)
+                for j, (idx, _, _) in enumerate(wave):
+                    emit(idx, tuple(None if o is None else o[j]
+                                    for o in outs))
+
+        def rerun(fns, chosen):
+            for bsec, group in buckets.items():
+                again = [e for e in group if e[0] in chosen]
+                if again:
+                    run_bucket(fns, again, bsec * target_sr)
+
+        fns = self._files_fn(target_sr, clip_duration, max_onsets,
+                             wave_clip_budget, cand_budget)
+        for bsec in sorted(buckets):
+            run_bucket(fns, buckets[bsec], bsec * target_sr)
+
+        if exact_fallback:
+            flagged = {i for i, f in enumerate(fixable) if f}
+            if flagged:
+                rerun(self._files_fn(target_sr, clip_duration, max_onsets,
+                                     None, 0), flagged)
+            if max_onsets_ceiling:
+                caps = [max_onsets] * len(paths)
+                while True:
+                    todo: dict[int, set[int]] = {}
+                    for i, r in enumerate(results):
+                        if not r["onset_overflow"]:
+                            continue
+                        m = _next_onset_cap(n_det[i], caps[i],
+                                            max_onsets_ceiling)
+                        if m is not None:
+                            todo.setdefault(m, set()).add(i)
+                    if not todo:
+                        break
+                    for m, chosen in sorted(todo.items()):
+                        rerun(self._files_fn(target_sr, clip_duration, m,
+                                             None, 0), chosen)
+                        for i in chosen:
+                            caps[i] = m
+        return results
 
     @torch.no_grad()
     def transcribe_clips(self, clips_ckpt_sr) -> dict:
@@ -260,8 +464,9 @@ class Transcriber:
 
         if fused and not save_clips:
             def run(m, cb):
-                outs = self._files_fn(target_sr, clip_duration, m, cb)(
-                    y_dev[None], nv)
+                run_m, _ = self._files_fn(target_sr, clip_duration, m,
+                                          None, cb)
+                outs = run_m(y_dev[None], nv)
                 return tuple(None if x is None else x[0]
                              for x in _to_host(outs))
             (probs, mlp_p, cnn_p, pitch, kept, onsets, times, ovf, fix,

@@ -11,12 +11,13 @@ import torch
 
 from gat_tpu_torch import features
 from gat_tpu_torch.ops import onset, spectral, yin
-from test_torch_kernels_emulated import (FILE_SR, check_mel_image,
+from test_torch_kernels_emulated import (FILE_SR, RIFF_NOTES,
+                                         check_mel_image,
                                          check_mfcc_level_step,
-                                         edge_envelopes, file_batch,
-                                         level_step_clip,
-                                         mfcc_level_step_clip, pluck_riff,
-                                         random_envelopes, riffs)
+                                         check_zero_row, edge_envelopes,
+                                         file_batch, level_step_clip,
+                                         mfcc_level_step_clip, padded_wave,
+                                         pluck_riff, random_envelopes, riffs)
 
 pytestmark = pytest.mark.cuda
 
@@ -232,6 +233,22 @@ def test_onset_pick_kernel_batches(b):
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("n", [45000, 88200])
+def test_onset_kernels_zero_row(n):
+    """A wave padded as `transcribe_files` pads it, a zero row of n_valid
+    0 among two riffs: K4 and K5 equal their plain versions, and the zero
+    row gives no onset and no flag."""
+    dev = _card()
+    y, nvf = padded_wave(n)
+    y, nvf = y.to(dev), nvf.to(dev)
+    before = [onset.onset_strength.launches, onset.pick_onsets.launches]
+    env = onset.onset_strength(y, FILE_SR, n_valid_frames=nvf)
+    check_zero_row(y, nvf, env, lambda e, v, c: onset.pick_onsets(
+        e, FILE_SR, 512, 0.3, 64, n_valid_frames=v, cand_budget=c))
+    assert onset.onset_strength.launches == before[0] + 1
+    assert onset.pick_onsets.launches == before[1] + 2
+
+
 def test_onset_wrappers_check_inputs():
     dev = _card()
     env = torch.from_numpy(random_envelopes(300, 0)).to(dev)
@@ -267,6 +284,38 @@ def test_transcribe_card_vs_cpu(tmp_path):
         assert got["onsets_s"] == ref["onsets_s"]
         assert got["times"] == ref["times"]
         np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)
+
+
+def test_transcribe_files_card_vs_cpu(tmp_path):
+    """The many-file path on the card against the CPU's: three buckets at
+    three rates, a silent file, six same-bucket files at max_batch=2 (a
+    chunk of K = 2 waves and a remainder), the exact fallback; all five
+    kernels launch."""
+    _card()
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.utils.wavio import write_wav
+    specs = [(22050, 2.6, RIFF_NOTES[:3]), (44100, 9.5, RIFF_NOTES),
+             (22050, 2.5, ()), (48000, 1.9, RIFF_NOTES[:2])]
+    specs += [(22050, 3.5, RIFF_NOTES[i:i + 4]) for i in (0, 1)] * 3
+    paths = []
+    for i, (sr, dur, notes) in enumerate(specs):
+        paths.append(tmp_path / f"f{i}.wav")
+        write_wav(paths[-1], pluck_riff(sr, dur, notes), sr)
+    cpu, card = Transcriber(device="cpu"), Transcriber(device="cuda")
+    wrappers = (features.melspec_features, features.mfcc_frontend,
+                yin.yin_pitch, onset.onset_strength, onset.pick_onsets)
+    for kwargs in (dict(), dict(max_batch=2),
+                   dict(wave_clip_budget=3, cand_budget=1)):
+        before = [f.launches for f in wrappers]
+        got = card.transcribe_files(paths, **kwargs)
+        assert all(f.launches > b for f, b in zip(wrappers, before))
+        ref = cpu.transcribe_files(paths, **kwargs)
+        assert [g["labels"] for g in got] == [r["labels"] for r in ref]
+        assert got[2]["labels"] == [] and got[2]["probs"].shape == (0, 47)
+        for g, r in zip(got, ref):
+            assert g["onsets_s"] == r["onsets_s"] and g["times"] == r["times"]
+            assert g["onset_overflow"] == r["onset_overflow"]
+            np.testing.assert_allclose(g["probs"], r["probs"], atol=1e-2)
 
 
 def test_transcribe_clips_card_bf16(clips):

@@ -491,6 +491,43 @@ def test_onset_envelope_emulated_batches(libs, b, n):
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
 
 
+def padded_wave(n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A wave as `transcribe_files` pads it: two riffs (the second valid
+    to 60 %) and a zero row of n_valid 0, with the valid frames
+    `detect_onsets` gives them (the zero row: 0 // 512 + 1 = 1)."""
+    y = np.concatenate([riffs(n)[:2], np.zeros((1, n), np.float32)])
+    n_valid = torch.tensor([n, int(0.6 * n), 0], dtype=torch.int32)
+    return torch.from_numpy(y), n_valid // 512 + 1
+
+
+def check_zero_row(y, nvf, env, pick) -> None:
+    """K4's envelope `env` of a `padded_wave` (y, nvf) against the plain
+    one, and K5's onsets from it (`pick(env, nvf, cand_budget)`)
+    identical to the plain pick's, with no onset and no flag in the zero
+    row."""
+    ref = onset.onset_strength_plain(y.cpu(), FILE_SR,
+                                     n_valid_frames=nvf.cpu())
+    assert bool(torch.isfinite(env).all())
+    torch.testing.assert_close(env.cpu(), ref, atol=1e-3, rtol=0)
+    for cand_budget in (None, 0):
+        got = pick(env, nvf, cand_budget)
+        _, valid, overflow, _, n_kept = check_pick(got, env, nvf, 64,
+                                                   cand_budget, True)
+        assert bool(valid[0].any()) and bool(valid[1].any())
+        assert not bool(valid[2].any()) and not bool(overflow[2])
+        assert int(n_kept[2]) == 0
+
+
+@pytest.mark.parametrize("n", [45000, 88200])
+def test_onset_kernels_emulated_zero_row(libs, n):
+    """A padding row of n_valid 0 (one valid frame, its min equal to its
+    max): K4 and K5 agree with their plain versions and give no onset."""
+    y, nvf = padded_wave(n)
+    env = onset_envelope_emulated(libs, y, nvf)
+    check_zero_row(y, nvf, env, lambda e, v, c: onset_pick_emulated(
+        libs, e, v, 64, c))
+
+
 def test_onset_envelope_emulated_grid_invariant(libs):
     """The envelope is the same, bit for bit, whatever the first pass's
     grid: one block for all rounds, three, and more blocks than rounds
