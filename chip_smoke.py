@@ -51,13 +51,27 @@ non-zero:
    endpoint, `serve_http(port=0, batch=4)` answering 8 concurrent POSTs
    on localhost, both with the card's Transcriber: every file's labels
    must be the CPU's, and all five kernels must launch in each;
-9. print the `{"kernels": [...]}` line, the card line, and last
+9. streaming: `[stream-kernels]`, K4 and K5 against their plain versions
+   at the live engine's ring (1 x 33,075 samples, hop 1024) and the scan
+   engine's window (256 rings, hop 512, 8 slots) in the order hop 1024,
+   512, 1024 from a cold grid cache, and timed at both; `[stream]`,
+   `ScanStreamer.transcribe_stream` of a 20 s riff (a pluck every 0.55
+   s) on the card and the CPU: the same per-chunk slots and notes, every
+   planted note found, all five kernels launched and two host transfers
+   per window; then a 300 s riff (602 chunks, 3 windows), equal to the
+   CPU's and timed; `[live]`, `LiveTranscriber.run_on_source` of the 20 s
+   riff on the card and the CPU, the same notes, K4/K5 once per detecting
+   poll;
+10. `[cli]`: `gat_tpu_torch.cli.main` in-process on the card and with
+   `--device cpu`, for one WAV, two WAVs and `--stream`: the saved
+   results must agree;
+11. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Each path's kernel launches are counted from zero just before it is
-driven and read just after (`launches_by_path` in the kernels line);
-`launches` stays the clip path's count for K1-K3 and the file path's for
-K4/K5.
+driven and read just after (`launches_by_path` in the kernels line:
+clips, file, long, files, serve, http, stream, live, cli); `launches`
+stays the clip path's count for K1-K3 and the file path's for K4/K5.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -98,6 +112,12 @@ FILES_SET = ((16, 3.9, 22050, 0.7),   # bucket 4: one chunk of K = 4 waves
              (1, 300.0, 22050, 2.5))  # bucket 512: B = 2, 120 plucks
 SILENT_SECONDS = 2.5  # bucket 4's 17th file: a wave of one, B = 2
 SERVE_FILES = 8       # riffs of 3.9 s for the [serve] phase
+# the streaming phases' riffs: a pluck every 0.55 s, one or two notes per
+# 0.5 s chunk of the scan engine
+STREAM_SPACING = 0.55
+STREAM_SECONDS = 20.0        # [stream] and [live], card against the CPU
+STREAM_LONG_SECONDS = 300.0  # [stream] timing: 602 chunks, 3 windows
+LIVE_RING = 33075            # the live engine's 1.5 s ring at 22050 Hz
 POOL = 6                  # distinct input buffers per timing repetition
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
@@ -255,13 +275,14 @@ def file_inputs(dev, files: int, seconds: float):
             (1 + torch.from_numpy(nv) // 512).to(dev))
 
 
-def envelope_bound(files: int, n: int, dev) -> tuple[float, str]:
+def envelope_bound(files: int, n: int, dev, hop: int = 512
+                   ) -> tuple[float, str]:
     """K4's bound: the FFT and mel work of every frame; each sample read
     and each envelope value written once, with the valid counts, the
     window, the twiddles and the filterbank's nonzero weights and their
     bin ranges."""
     from gat_tpu_torch import features
-    t = 1 + n // 512
+    t = 1 + n // hop
     hann, tw, _, lo, hi = features._kernel_tables(FILE_SR, 128, False, dev)
     nnz = int((hi - lo).sum())
     tables = 4 * (hann.numel() + tw.numel() + nnz + 2 * 128)
@@ -349,12 +370,14 @@ def pick_steps(onset, env, counts) -> dict:
     return dict(alloc=alloc, cast=cast, call=call)
 
 
-def pick_bound(files: int, t: int, onset) -> tuple[float, str]:
+def pick_bound(files: int, t: int, onset, hop: int = 512,
+               max_onsets: int = 64) -> tuple[float, str]:
     """K5's bound: one read of the envelopes and the valid counts, one
-    write of the outputs at 64 onsets, and the peak pick's compares."""
-    pre_max, post_max, _, _, _ = onset.peak_pick_params(FILE_SR, 512)
+    write of the outputs at `max_onsets` onsets, and the peak pick's
+    compares."""
+    pre_max, post_max, _, _, _ = onset.peak_pick_params(FILE_SR, hop)
     return bound(files * t * (pre_max + post_max + 16),
-                 4 * files * (t + 1) + files * (64 * 5 + 6))
+                 4 * files * (t + 1) + files * (max_onsets * 5 + 6))
 
 
 def time_pick(onset, dev, failures: list) -> list[dict]:
@@ -1018,6 +1041,345 @@ def serve_phase(rows: list, card: str, failures: list,
             failures.append("[serve] the HTTP endpoint's answers or launches")
 
 
+def stream_riff(seconds: float, seed: int) -> tuple[np.ndarray, list]:
+    """One riff at FILE_SR of FILE_MIDI's notes in turn, a pluck every
+    STREAM_SPACING s from 0.4 s, no noise; and its planted (onset s,
+    label) pairs."""
+    from gat_tpu_torch.ops.pitch import midi_to_note
+    k = len(np.arange(0.4, seconds - 0.45, STREAM_SPACING))
+    midi = np.resize(FILE_MIDI, k)[None]
+    y = make_riffs(midi, seconds, FILE_SR, seed, noise=0.0,
+                   spacing=STREAM_SPACING)[0]
+    return y, [(0.4 + STREAM_SPACING * j, midi_to_note(int(m), unicode=False))
+               for j, m in enumerate(midi[0])]
+
+
+def stream_kernels_phase(rows: list, failures: list,
+                         device: str = "cuda") -> None:
+    """`[stream-kernels]`: K4 and K5 against their plain versions at the
+    stream engines' shapes, in the order hop 1024, 512, 1024 from a cold
+    grid cache (the order in which the parent's K4 failed its third
+    launch): the live engine's ring (1 x 33,075 samples at hop 1024, 33
+    frames; 64 slots at its min separation), the scan engine's window
+    (256 rings x 33,075 at hop 512, 65 frames; 8 slots, min_sep 0), the
+    live ring again. Then each kernel timed at both shapes (CUDA events
+    over POOL inputs, the profiler's device ms, the plain version, the
+    bound), into `stream_shapes` of its kernels-line row."""
+    import types
+
+    import torch
+    from gat_tpu_torch.ops import onset
+    from gat_tpu_torch.stream import LiveTranscriber, scan
+    dev = torch.device(device)
+    live_sep = LiveTranscriber(types.SimpleNamespace(clip_length=0.5),
+                               verbose=False)._min_sep_s
+    w, chunk = scan._WINDOW_CHUNKS, FILE_SR // 2
+    y, _ = stream_riff(w * 0.5 + 1.0, SEED + 13)
+    stream = torch.from_numpy(np.pad(y, (FILE_SR, 0))).to(dev)
+    rings = stream[:(w - 1) * chunk + LIVE_RING].unfold(
+        0, LIVE_RING, chunk).contiguous()
+    shapes = {"live": (rings[40:41].contiguous(), 1024, live_sep, 64),
+              "scan": (rings, 512, 0.0, 8)}
+    onset._envelope_grid.cache_clear()
+    for name in ("live", "scan", "live"):
+        x, hop, sep, slots = shapes[name]
+        tag = (f"{x.shape[0]} x {x.shape[1]} samples at hop {hop}, "
+               f"{slots} slots, min_sep {sep:.4f} s")
+        try:
+            env = onset.onset_strength(x, FILE_SR, hop_length=hop)
+            ref = onset.onset_strength_plain(x, FILE_SR, hop_length=hop)
+            got = onset.pick_onsets(env, FILE_SR, hop, sep, slots)
+            want = onset.pick_onsets_plain(env, FILE_SR, hop, sep, slots)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            log(f"[stream-kernels] {name} ({tag}): launch failed ({exc})")
+            failures.append(f"[stream-kernels] {name} at hop {hop}: {exc}")
+            continue
+        err = float((env - ref).abs().max())
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        n_on = int(want[1].sum())
+        ok = (err <= 1e-3 and same and n_on > 0
+              and bool(torch.isfinite(env).all()))
+        log(f"[stream-kernels] {name} ({tag}): K4 {tuple(env.shape)} max "
+            f"abs err {err:.3g} (atol 1e-3); K5 outputs identical {same} "
+            f"({n_on} onsets, {int(want[2].sum())} rows flagged) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[stream-kernels] {name} at hop {hop}")
+    for name, (x, hop, sep, slots) in shapes.items():
+        files, n = x.shape
+        pool = noisy_pool(x, SEED + 14, 0.001)
+
+        def env_fn(z, hop=hop):
+            return onset.onset_strength(z, FILE_SR, hop_length=hop)
+
+        def env_plain(z, hop=hop):
+            return onset.onset_strength_plain(z, FILE_SR, hop_length=hop)
+
+        def pick(e, hop=hop, sep=sep, slots=slots):
+            return onset.pick_onsets(e, FILE_SR, hop, sep, slots)
+
+        def pick_plain(e, hop=hop, sep=sep, slots=slots):
+            return onset.pick_onsets_plain(e, FILE_SR, hop, sep, slots)
+
+        t = 1 + n // hop
+        k4 = dict(shape=name, files=files, hop=hop, frames=t,
+                  ms=time_ms(env_fn, pool, reps=10),
+                  device_ms=kernel_device_ms(env_fn, pool, K4_KERNELS),
+                  plain_ms=time_ms(env_plain, pool, reps=3))
+        k4["bound_ms"], k4["bound_by"] = envelope_bound(files, n, dev, hop)
+        envs = [env_fn(z) for z in pool]
+        k5 = dict(shape=name, files=files, hop=hop, frames=t,
+                  max_onsets=slots, ms=time_ms(pick, envs, reps=10),
+                  device_ms=kernel_device_ms(pick, envs,
+                                             ("onset_pick_kernel",)),
+                  plain_ms=time_ms(pick_plain, envs, reps=3),
+                  host_us=host_us(pick, envs, reps=30))
+        k5["bound_ms"], k5["bound_by"] = pick_bound(files, t, onset, hop,
+                                                    slots)
+        for row, r, what in ((rows[3], k4, "onset_envelope"),
+                             (rows[4], k5, "onset_pick")):
+            row.setdefault("stream_shapes", []).append(r)
+            log(f"[stream-kernels] {what} at the {name} shape ({files} x "
+                f"{t} frames, hop {hop}): kernel {r['ms']:.4f} ms (events), "
+                f"{fmt_ms(r['device_ms'])} device (profiler), plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})"
+                + (f", wrapper host {r['host_us']:.1f} us" if "host_us" in r
+                   else ""))
+
+
+def same_notes(got: list, ref: list) -> tuple[bool, float]:
+    """Onset times, labels and overflow flags of two note lists identical
+    and probs within 1e-2; returns (same, max prob error)."""
+    def key(notes):
+        return [(r.get("onset_s"), r["labels"], r.get("onset_overflow"))
+                for r in notes]
+    if key(got) != key(ref):
+        return False, float("inf")
+    err = max((float(np.abs(g["probs"] - r["probs"]).max())
+               for g, r in zip(got, ref)), default=0.0)
+    return err <= 1e-2, err
+
+
+def counting(module, counts: list):
+    """`module._to_host` wrapped to add one to counts[0] per transfer;
+    returns the original, to put back."""
+    original = module._to_host
+
+    def counted(outs):
+        counts[0] += 1
+        return original(outs)
+    module._to_host = counted
+    return original
+
+
+def sync_warnings(fn) -> tuple:
+    """fn() under torch's sync debug mode "warn": (its result, the
+    synchronizing CUDA calls it made as torch warns of them, counted by
+    the file:line of the Python call that made each)."""
+    import collections
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def stream_phase(rows: list, card: str, failures: list,
+                 device: str = "cuda") -> None:
+    """`[stream]`: `ScanStreamer.transcribe_stream` on the card and on the
+    CPU over a STREAM_SECONDS riff (a pluck every STREAM_SPACING s): the
+    per-chunk slots identical, the notes identical (onsets, labels,
+    flags; probs within 1e-2), every planted note found within 0.1 s;
+    K1-K5 launched, two host transfers per window. Then the
+    STREAM_LONG_SECONDS riff (602 chunks, 3 windows): equal to the CPU's,
+    ms per call (median of 3), audio-s/s, transfers, launches and
+    synchronizing calls per call, the device's busy share, and the taken
+    notes against the 8 slots a chunk that the JAX engine computes."""
+    import torch
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.stream import ScanStreamer, scan
+    card_st = ScanStreamer(Transcriber(device=device))
+    cpu_st = ScanStreamer(Transcriber(device="cpu"))
+    transfers = [0]
+    original = counting(scan, transfers)
+    try:
+        for seconds, seed in ((STREAM_SECONDS, SEED + 11),
+                              (STREAM_LONG_SECONDS, SEED + 12)):
+            y, planted = stream_riff(seconds, seed)
+            n_chunks = -(-(len(y) + FILE_SR) // (FILE_SR // 2))
+            windows = -(-n_chunks // scan._WINDOW_CHUNKS)
+            card_st.transcribe_stream(y)  # first call at these shapes
+            transfers[0] = 0
+            got, launches, wall = driven(lambda: card_st.transcribe_stream(y))
+            n_host = transfers[0]
+            # before the CPU's run, which inserts its own keys into the
+            # device-table caches
+            _, n_sync = sync_warnings(lambda: card_st.transcribe_stream(y))
+            t0 = time.perf_counter()
+            ref = cpu_st.transcribe_stream(y)
+            cpu_s = time.perf_counter() - t0
+            slots_same = all(np.array_equal(a, b) for a, b in zip(
+                card_st.segment_stream(y), cpu_st.segment_stream(y)))
+            same, err = same_notes(got, ref)
+            found = sum(any(abs(r["onset_s"] - t) <= 0.1
+                            and r["labels"][0] == lab for r in got)
+                        for t, lab in planted)
+            ok = (slots_same and same and found == len(planted)
+                  and min(launches) >= 1 and n_host == 2 * windows)
+            tag = f"transcribe_stream({seconds:g} s, {n_chunks} chunks, " \
+                  f"{windows} windows)"
+            log(f"[stream] {tag}: {len(got)} notes, planted found "
+                f"{found}/{len(planted)}; slots identical to the CPU's "
+                f"{slots_same}, notes equal {same} (max prob err "
+                f"{err:.3g}); launches K1..K5 {launches}, host transfers "
+                f"{n_host} (2 per window), synchronizing calls "
+                f"{sum(n_sync.values())} {dict(n_sync)}; "
+                f"{wall * 1e3:.3f} ms on {card} (CPU plain path "
+                f"{cpu_s:.1f} s) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[stream] {tag}")
+            if seconds == STREAM_SECONDS:
+                record_launches(rows, "stream", launches)
+                continue
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                card_st.transcribe_stream(y)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            ms = statistics.median(walls)
+            busy = profile_call(lambda: card_st.transcribe_stream(y), ms)
+            numbers = dict(ms=ms, ms_each=walls, audio_s_per_s=seconds / ms
+                           * 1e3, host_transfers=n_host, launches=launches,
+                           sync_calls=sum(n_sync.values()), busy_ms=busy,
+                           notes=len(got), slots=n_chunks * 8,
+                           chunks=n_chunks, windows=windows)
+            log(f"[stream] {tag}: median {ms:.3f} ms of 3 ({walls}), "
+                f"{numbers['audio_s_per_s']:.1f} audio-s/s, {len(got)} "
+                f"taken notes through the ensemble against the "
+                f"{n_chunks * 8} slots the JAX engine computes; on {card}")
+            log(f"[stream] numbers {json.dumps(numbers)}")
+    finally:
+        scan._to_host = original
+
+
+def live_phase(rows: list, card: str, failures: list,
+               device: str = "cuda") -> None:
+    """`[live]`: `LiveTranscriber.run_on_source` over the STREAM_SECONDS
+    riff in blocks of 1024, on the card and on the CPU: the same labels
+    (probs within 1e-2), the planted sequence once same-label echoes are
+    collapsed; K4 and K5 launched once per detecting poll (hop 1024);
+    wall ms per poll (process_buffer + drain_queue), host transfers per
+    detecting poll, and the synchronizing calls of a run by source
+    line."""
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.stream import ArraySource, LiveTranscriber, live
+    card_t, cpu_t = Transcriber(device=device), Transcriber(device="cpu")
+    y, planted = stream_riff(STREAM_SECONDS, SEED + 11)
+    polls = len(range(0, len(y), 1024)) + 1  # the blocks and the flush
+    LiveTranscriber(card_t, verbose=False).run_on_source(ArraySource(y))
+    transfers = [0]
+    original = counting(live, transfers)
+    try:
+        got, launches, wall = driven(lambda: LiveTranscriber(
+            card_t, verbose=False).run_on_source(ArraySource(y)))
+    finally:
+        live._to_host = original
+    record_launches(rows, "live", launches)
+    _, n_sync = sync_warnings(lambda: LiveTranscriber(
+        card_t, verbose=False).run_on_source(ArraySource(y)))
+    ref = LiveTranscriber(cpu_t, verbose=False).run_on_source(
+        ArraySource(y))
+    same, err = same_notes(got, ref)
+    labels = [r["labels"][0] for r in got]
+    seq = [lab for i, lab in enumerate(labels)
+           if not i or labels[i - 1] != lab]  # same-label echoes collapsed
+    detecting = launches[3]
+    ok = (same and seq == [lab for _, lab in planted]
+          and detecting == launches[4] > 0 and transfers[0] == detecting)
+    log(f"[live] run_on_source({STREAM_SECONDS:g} s riff, {len(planted)} "
+        f"plucks, {polls} polls): {len(got)} notes transcribed, labels "
+        f"equal to the CPU's {same} (max prob err {err:.3g}), the planted "
+        f"sequence {seq == [lab for _, lab in planted]}; launches K1..K5 "
+        f"{launches} ({detecting} detecting polls, K4/K5 once each), onset "
+        f"transfers {transfers[0]}, synchronizing calls "
+        f"{sum(n_sync.values())} {dict(n_sync)}; {wall * 1e3:.3f} ms, "
+        f"{wall * 1e3 / polls:.3f} ms per poll, "
+        f"{wall * 1e3 / max(detecting, 1):.3f} ms per detecting poll on "
+        f"{card} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[live] card and CPU disagree, or a planted note or "
+                        "a launch is missing")
+
+
+def cli_phase(rows: list, card: str, failures: list,
+              device: str = "cuda") -> None:
+    """`[cli]`: `gat_tpu_torch.cli.main` in-process on the card and with
+    `--device cpu`, for one WAV, two WAVs (one `transcribe_files` call)
+    and `--stream`, each with `--save_results`: the same result files,
+    their rows the same indices or onsets and labels, confidences within
+    1e-2; all five kernels launch in the card's runs."""
+    import contextlib
+    import io
+
+    from gat_tpu_torch import cli
+    from gat_tpu_torch.utils.wavio import write_wav
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        a, b = d / "riff.wav", d / "riff44.wav"
+        write_wav(a, make_riffs(np.array([FILE_MIDI]), 3.9, FILE_SR,
+                                SEED + 15, noise=0.0)[0], FILE_SR)
+        write_wav(b, make_riffs(np.array([np.roll(FILE_MIDI, -1)]), 3.9,
+                                44100, SEED + 16, noise=0.0)[0], 44100)
+        cases = {"one WAV": [str(a)], "two WAVs": [str(a), str(b)],
+                 "--stream": [str(a), "--stream"]}
+
+        def run_all(out: Path, device_args: list) -> None:
+            for i, args in enumerate(cases.values()):
+                cli.main(["--audio", *args, "--save_results", "--out",
+                          str(out / str(i)), *device_args])
+
+        with contextlib.redirect_stdout(io.StringIO()):  # the CLI's tables
+            _, launches, wall = driven(lambda: run_all(
+                d / "card", [] if device == "cuda" else ["--device", device]))
+            run_all(d / "cpu", ["--device", "cpu"])
+        record_launches(rows, "cli", launches)
+        for i, name in enumerate(cases):
+            files = sorted(p.name for p in (d / "card" / str(i)).glob("*"))
+            ok = files == sorted(p.name for p in
+                                 (d / "cpu" / str(i)).glob("*")) and files
+            n_rows = 0
+            for f in files:
+                rows_card, rows_cpu = (
+                    [ln.split(",") for ln in
+                     (d / side / str(i) / f).read_text().split("\n\n")[0]
+                     .splitlines()] for side in ("card", "cpu"))
+                n_rows += len(rows_card)
+                ok = (ok and len(rows_card) == len(rows_cpu) > 0
+                      and all(g[:2] == r[:2]
+                              and abs(float(g[2]) - float(r[2])) <= 1e-2
+                              for g, r in zip(rows_card, rows_cpu)))
+            log(f"[cli] {name}: {files}, {n_rows} result rows equal to "
+                f"--device cpu's -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[cli] {name}: the card's results differ")
+    log(f"[cli] the three card runs: {wall * 1e3:.3f} ms with checkpoint "
+        f"loads, launches K1..K5 {launches} on {card}")
+    if min(launches) < 1:
+        failures.append(f"[cli] a kernel was not launched: {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -1266,6 +1628,14 @@ def main() -> int:
 
     # ---- 8. the server ----------------------------------------------------
     serve_phase(rows, card, failures)
+
+    # ---- 9. streaming -----------------------------------------------------
+    stream_kernels_phase(rows, failures)
+    stream_phase(rows, card, failures)
+    live_phase(rows, card, failures)
+
+    # ---- 10. the CLI ------------------------------------------------------
+    cli_phase(rows, card, failures)
 
     if failures:
         log(f"[fail] {failures}")

@@ -3,13 +3,16 @@
 The single-file path of `gat_tpu` (a WAV resampled to 22050 Hz, noise
 gates, spectral-flux onsets, slicing, clips re-rated to the checkpoint
 rate), its many-file serving path (`transcribe_files`, and the watch-folder
-and HTTP server in `serve.py`) and its clip-ensemble path (MFCC + YIN
-features into the MLP, the mel image into the CNN, a weighted softmax
-vote, and the YIN pitch baseline) rebuilt on PyTorch, with the two
-spectral front-ends, YIN, the onset envelope and the onset pick as
-hand-written CUDA kernels (`csrc/`). Entry points run on the card unless
-the caller passes device="cpu", which runs the plain PyTorch versions of
-the kernels. `gat_tpu` stays the reference the port is tested against.
+and HTTP server in `serve.py`), its two streaming engines (`stream`: the
+chunked `ScanStreamer` and the ring-buffer `LiveTranscriber`), its CLI
+(`cli.py`) and its clip-ensemble path (MFCC + YIN features into the MLP,
+the mel image into the CNN, a weighted softmax vote, and the YIN pitch
+baseline) rebuilt on PyTorch, with the two spectral front-ends, YIN, the
+onset envelope and the onset pick as hand-written CUDA kernels (`csrc/`).
+Entry points run on the card unless the caller passes device="cpu" (the
+CLI and the server: `--device cpu`), which runs the plain PyTorch
+versions of the kernels. `gat_tpu` stays the reference the port is tested
+against.
 """
 
 __version__ = "1.0.0"

@@ -43,9 +43,11 @@
 //     weights into kThreads runs of equal length (ops/onset.py::
 //     _mel_items), so no thread sums more than ceil(nnz / kThreads) = 8
 //     weights for the four frames, in a loop unrolled over kMelRun.
-//   - The shared-memory attribute is set once, by the occupancy entry
-//     point the wrapper calls once per process to size the grid, not on
-//     every launch.
+//   - The shared-memory attribute is not set on every launch. It is one
+//     value per kernel and device, so the occupancy entry point, which
+//     the wrapper calls once per device, item count and hop before the
+//     first launch there, raises it to that hop's bytes and never lowers
+//     it: a launch at any hop finds room, whatever hops ran before.
 #include <cuda_pipeline.h>
 
 #include <cmath>
@@ -297,13 +299,20 @@ extern "C" int gat_onset_envelope(const float* y, float* env, float* db,
 
 // Resident blocks per SM of pass 1 (the FFT work) for n_items mel items
 // and this hop, as the CUDA runtime computes it from registers and shared
-// memory. Sets pass 1's shared-memory attribute, which a launch does not.
+// memory. Raises pass 1's shared-memory attribute to this hop's bytes when
+// it holds less, and never lowers it; a launch does not set it.
 extern "C" int gat_onset_envelope_blocks_per_sm(int n_items, int hop,
                                                 int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      onset_mel_db_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)mel_db_smem_bytes(n_items, hop));
+  const int bytes = (int)mel_db_smem_bytes(n_items, hop);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, onset_mel_db_kernel);
   if (err != cudaSuccess) return (int)err;
+  if (attr.maxDynamicSharedSizeBytes < bytes) {
+    err = cudaFuncSetAttribute(onset_mel_db_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, onset_mel_db_kernel, kThreads, mel_db_smem_bytes(n_items, hop));
+      blocks, onset_mel_db_kernel, kThreads, bytes);
 }

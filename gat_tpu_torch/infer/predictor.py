@@ -19,7 +19,7 @@ import torch
 from ..models import cnn as cnn_mod
 from ..models import mlp as mlp_mod
 from ..ops.pitch import note_to_midi
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_host
 
 __all__ = ["NotePredictor", "class_midi_values", "apply_pitch_prior"]
 
@@ -175,12 +175,13 @@ class NotePredictor:
     # ----- public prediction API -----------------------------------------
     def _result_dict(self, probs, mlp_probs, cnn_probs) -> dict:
         """indices, labels, confidences, blended probs and per-model probs,
-        as numpy on the host (tensors or numpy arrays in)."""
-        def host(x):
-            if x is None or isinstance(x, np.ndarray):
-                return x
-            return x.detach().cpu().numpy()
-        probs = host(probs)
+        as numpy on the host (tensors or numpy arrays in); the tensors
+        come over in one transfer."""
+        parts = (probs, mlp_probs, cnn_probs)
+        moved = to_host(tuple(x.detach() if isinstance(x, torch.Tensor)
+                              else None for x in parts))
+        probs, mlp_probs, cnn_probs = (x if m is None else m
+                                       for x, m in zip(parts, moved))
         idx = probs.argmax(axis=1)
         labels = ([self.reverse_map[int(i)] for i in idx]
                   if self.reverse_map else [int(i) for i in idx])
@@ -189,8 +190,7 @@ class NotePredictor:
             "labels": labels,
             "confidences": probs[np.arange(len(idx)), idx],
             "probs": probs,
-            "per_model_probs": {"mlp": host(mlp_probs),
-                                "cnn": host(cnn_probs)},
+            "per_model_probs": {"mlp": mlp_probs, "cnn": cnn_probs},
         }
 
     def predict(self, mfcc_features=None, melspec_features=None,

@@ -31,6 +31,7 @@ from ..ops.resample import fix_length, resample
 from ..ops.yin import estimate_note, yin_pitch
 from ..segment.slicing import save_clip, segment_waveform
 from ..train.checkpoint import load_checkpoint
+from ..utils.device import to_host as _to_host
 from ..utils.scaler import FeatureScaler
 from ..utils.wavio import read_wav
 from .pipeline import build_clip_ensemble_fn, build_files_fn
@@ -57,22 +58,6 @@ def _next_onset_cap(n_detected: int, prev_cap: int,
     m = 1 << (max(int(n_detected), prev_cap + 1) - 1).bit_length()
     m = min(m, int(ceiling))
     return m if m > prev_cap else None
-
-
-def _to_host(outs: tuple) -> tuple:
-    """Every tensor of `outs` on the host after one synchronisation of
-    the device (a bool() or .item() per flag would each wait).
-
-    It waits on the calling thread's current stream, which is the
-    default stream in every thread that sets none: two threads serving
-    waves on one Transcriber enqueue on that one stream, so the wait
-    covers all of this thread's work, and each thread reads only its own
-    outputs."""
-    host = tuple(None if x is None else x.to("cpu", non_blocking=True)
-                 for x in outs)
-    if any(x is not None and x.is_cuda for x in outs):
-        torch.cuda.current_stream().synchronize()
-    return tuple(None if x is None else x.numpy() for x in host)
 
 
 def _stack_outputs(outs: list[tuple]) -> tuple:

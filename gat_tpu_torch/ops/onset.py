@@ -131,9 +131,12 @@ def _mel_items(sr: int, n_mels: int, device: torch.device
 @functools.lru_cache(maxsize=16)
 def _envelope_grid(device: torch.device, n_items: int, hop: int) -> int:
     """K4's first-pass grid that fills the card once: its SMs times the
-    blocks of the pass resident on one SM. The occupancy query also sets
-    the pass's shared-memory attribute, so this runs once per process,
-    item count and hop."""
+    blocks of the pass resident on one SM. The occupancy query also raises
+    the pass's shared-memory attribute to this hop's bytes and never
+    lowers it, so every launch calls this first: the query runs once per
+    process, device, item count and hop, before the first launch there,
+    and a cached hop finds the attribute at least its bytes whatever
+    hops were queried since."""
     blocks = ctypes.c_int(0)
     fn = kernels.function("onset_envelope", "gat_onset_envelope_blocks_per_sm",
                           [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -186,8 +189,9 @@ def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
     nvf = _frame_counts(n_valid_frames, dev)
     hann, tw, *_ = _kernel_tables(sr, n_mels, False, dev)
     tab, weights, n_items = _mel_items(sr, n_mels, dev)
+    card_grid = _envelope_grid(dev, n_items, hop_length)
     if grid is None:
-        grid = _envelope_grid(dev, n_items, hop_length)
+        grid = card_grid
     db = torch.empty((b, t, n_mels), dtype=torch.float32, device=dev)
     peak = torch.full((b,), _NEG_INF_KEY, dtype=torch.int32, device=dev)
     fn = kernels.function("onset_envelope", "gat_onset_envelope",

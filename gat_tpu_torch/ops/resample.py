@@ -79,6 +79,24 @@ def _decimation_band_np(up: int, down: int, zeros: int, beta: float,
     return mband
 
 
+@functools.lru_cache(maxsize=64)
+def _decimation_band(up: int, down: int, zeros: int, beta: float, g: int,
+                     device: torch.device) -> torch.Tensor:
+    """`_decimation_band_np` on `device`, uploaded once: an upload in
+    every call would make each resample wait for the device's queue."""
+    return torch.from_numpy(_decimation_band_np(up, down, zeros, beta,
+                                                g)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_taps(up: int, down: int, zeros: int, beta: float,
+                device: torch.device) -> torch.Tensor:
+    """The (up, 1, K) phase taps of `_polyphase_plan` on `device`,
+    uploaded once (they do not depend on the signal's length)."""
+    hp = _polyphase_plan(1, up, down, zeros, beta)[0]
+    return torch.from_numpy(hp)[:, None, :].to(device)
+
+
 @contextlib.contextmanager
 def _full_fp32():
     """TF32 off for matmuls and cuDNN convolutions, restored on exit."""
@@ -123,8 +141,7 @@ def resample(y: torch.Tensor, orig_sr: int, target_sr: int,
         frames = torch.cat(
             [x2[:, b * hopg:b * hopg + n_g * hopg].reshape(-1, n_g, hopg)
              for b in range(k_blocks)], dim=-1)[..., :flen]
-        mband = torch.from_numpy(
-            _decimation_band_np(up, down, zeros, beta, sf)).to(dev)
+        mband = _decimation_band(up, down, zeros, beta, sf, dev)
         with _full_fp32():
             out = torch.matmul(frames, mband)
         return out.reshape(-1, n_g * sf)[:, :m].reshape(batch_shape + (m,))
@@ -135,7 +152,7 @@ def resample(y: torch.Tensor, orig_sr: int, target_sr: int,
     need = need_z + hp.shape[1] - 1
     x = F.pad(x[:, None, :], (lpad, max(rpad, need - n - lpad)))
     with _full_fp32():
-        z = F.conv1d(x, torch.from_numpy(hp)[:, None, :].to(dev))
+        z = F.conv1d(x, _phase_taps(up, down, zeros, beta, dev))
     stop = (t_len - 1) * down + 1
     out = torch.stack([z[:, int(delta[s]), int(pos[s]):int(pos[s]) + stop:down]
                        for s in range(phases)], dim=-1)

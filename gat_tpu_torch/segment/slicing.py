@@ -12,9 +12,15 @@
 Every clip of the onset budget is gathered at once as whole hop-long
 rows (onsets are multiples of the onset hop), with a `kept` mask in place
 of the reference's per-clip drop logic.
+
+`AudioSlicer` keeps the reference class's surface (load_wav,
+apply_db_threshold, apply_rms_threshold, detect_onsets,
+is_slice_loud_enough, save_clip, slice_and_save and its alias sliceNsave)
+on top of these ops, on the card unless it is given device="cpu".
 """
 from __future__ import annotations
 
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -23,10 +29,12 @@ import torch.nn.functional as F
 
 from ..config import CLIP_DURATION, SLICER_CONFIG, TARGET_SR
 from ..ops.onset import detect_onsets
-from ..utils.wavio import write_wav
+from ..ops.resample import resample
+from ..utils.device import resolve_device, to_host
+from ..utils.wavio import read_wav, write_wav
 from . import gating
 
-__all__ = ["slice_at_onsets", "segment_waveform", "save_clip"]
+__all__ = ["slice_at_onsets", "segment_waveform", "save_clip", "AudioSlicer"]
 
 _ONSET_HOP = 512  # onset detection's own hop (the reference's default)
 
@@ -127,3 +135,106 @@ def save_clip(clip, sr: int, out_dir, idx: int, onset_s: float,
         clip = clip.detach().cpu().numpy()
     write_wav(out_dir / f"{idx:04d}_{audio_name}__{onset_s:.3f}s.wav",
               np.asarray(clip), sr)
+
+
+class AudioSlicer:
+    """File-level slicer with the reference class's surface, computing on
+    `device` (default the card; 'cpu' runs the plain PyTorch path). Each
+    method takes and returns numpy, with one transfer from the device per
+    call."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    def _tensor(self, y) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(
+            self.device)
+
+    def load_wav(self, path, sr: int = 11025):
+        """(mono float32 samples, rate), resampled to `sr` unless it is
+        None."""
+        wav, sr_in = read_wav(path)
+        if sr is not None and sr_in != sr:
+            (wav,) = to_host((resample(self._tensor(wav), sr_in, sr),))
+            sr_in = sr
+        return np.asarray(wav, np.float32), sr_in
+
+    def apply_db_threshold(self, y, min_db: float = -45.0):
+        return to_host((gating.sample_db_gate(self._tensor(y), min_db),))[0]
+
+    def apply_rms_threshold(self, y, hop_len: int = 512):
+        return to_host((gating.rms_gate(self._tensor(y)[None],
+                                        hop_length=hop_len)[0],))[0]
+
+    def detect_onsets(self, y, sr: int = 11025, hop_len: int = 512,
+                      min_sep: float = 0.25, max_onsets: int = 64):
+        """Onset samples of one signal, its three outputs in one transfer;
+        warns when the onset budget truncated the detections."""
+        onsets, valid, overflow, *_ = to_host(detect_onsets(
+            self._tensor(y)[None], sr=sr, hop_length=hop_len,
+            min_sep=min_sep, max_onsets=max_onsets))
+        if overflow[0]:
+            warnings.warn(
+                f"[detect_onsets] onset budget truncated detections "
+                f"(max_onsets={max_onsets}; earliest kept) — raise the "
+                f"budget for exhaustive results", stacklevel=2)
+        return [int(s) for s in onsets[0][valid[0]]]
+
+    def is_slice_loud_enough(self, clip, min_rms_db: float = -40.0) -> bool:
+        (db,) = to_host((gating.slice_rms_db(self._tensor(clip)),))
+        return bool(db > min_rms_db)
+
+    @staticmethod
+    def save_clip(clip, sr, out_dir, idx, onset_s, audio_name="clip"):
+        save_clip(clip, sr, out_dir, idx, onset_s, audio_name)
+
+    def slice_and_save(self, audio_path, out_dir,
+                       target_sr: int = TARGET_SR,
+                       hop_len: int = SLICER_CONFIG.HOP_LEN,
+                       length_sec: float = CLIP_DURATION,
+                       min_sep: float = SLICER_CONFIG.MIN_SEP,
+                       min_db_threshold: float =
+                       SLICER_CONFIG.MIN_IN_DB_THRESHOLD,
+                       min_slice_rms_db: float =
+                       SLICER_CONFIG.MIN_SLICE_RMS_DB,
+                       attack_skip_sec: float =
+                       SLICER_CONFIG.ATTACK_SKIP_SEC,
+                       max_onsets: int = 64, verbose: bool = True):
+        """Segment a file and write its kept clips to out_dir as
+        `<i:04d>_clip__<onset:.3f>s.wav`, the reference's names; returns
+        the detected onset samples. One transfer brings the segmentation
+        to the host."""
+        y, sr = self.load_wav(audio_path, target_sr)
+        clips, kept, onsets, ovalid, times, overflow, *_ = (
+            x[0] for x in to_host(segment_waveform(
+                self._tensor(y)[None], sr=sr, hop_length=hop_len,
+                length_sec=length_sec, min_sep=min_sep,
+                min_db=min_db_threshold, min_slice_rms_db=min_slice_rms_db,
+                attack_skip_sec=attack_skip_sec, max_onsets=max_onsets)))
+        if overflow:
+            warnings.warn(
+                f"[slice_and_save] onset budget truncated detections for "
+                f"{audio_path} (max_onsets={max_onsets}; earliest kept) — "
+                f"later notes were NOT sliced", stacklevel=2)
+        total = 0
+        for i in range(len(onsets)):
+            if not ovalid[i]:
+                break
+            onset_s = onsets[i] / sr
+            if not kept[i]:
+                if verbose:
+                    print(f"[slice_and_save] dropped clip at {onset_s:.2f}s;"
+                          " [is_slice_loud_enough]")
+                continue
+            self.save_clip(clips[i], sr, out_dir, i, onset_s)
+            total += 1
+            if verbose:
+                print(f"[slice_and_save] saved clip from: {times[i][0]:.3f}s"
+                      f" to {times[i][1]:.3f}s")
+        if verbose:
+            print(f"[slice_and_save] total clips saved: {total}")
+            print(f"audio sr: {sr}")
+        return [int(s) for s in onsets[ovalid]]
+
+    # the reference's spelling
+    sliceNsave = slice_and_save

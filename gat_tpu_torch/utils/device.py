@@ -1,10 +1,11 @@
-"""Device selection of the port's entry points: the card unless the caller
-asks for the CPU, and never the CPU on its own."""
+"""Device selection of the port's entry points (the card unless the caller
+asks for the CPU, and never the CPU on its own), and the one way results
+come back to the host."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_host"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -18,3 +19,19 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"[gat_tpu_torch] unsupported device {dev}")
     return dev
+
+
+def to_host(outs: tuple) -> tuple:
+    """Every tensor of `outs` on the host after one synchronisation of
+    the device (a bool() or .item() per flag would each wait).
+
+    It waits on the calling thread's current stream, which is the
+    default stream in every thread that sets none: two threads serving
+    waves on one Transcriber enqueue on that one stream, so the wait
+    covers all of this thread's work, and each thread reads only its own
+    outputs."""
+    host = tuple(None if x is None else x.to("cpu", non_blocking=True)
+                 for x in outs)
+    if any(x is not None and x.is_cuda for x in outs):
+        torch.cuda.current_stream().synchronize()
+    return tuple(None if x is None else x.numpy() for x in host)

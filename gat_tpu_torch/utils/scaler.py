@@ -13,10 +13,17 @@ class FeatureScaler:
     def __init__(self, mean, scale):
         self.mean_ = np.asarray(mean, np.float32)
         self.scale_ = np.asarray(scale, np.float32)
+        self._on_device: dict[torch.device, tuple] = {}
 
     def transform(self, x: torch.Tensor) -> torch.Tensor:
-        mean = torch.as_tensor(self.mean_, device=x.device)
-        scale = torch.as_tensor(self.scale_, device=x.device)
+        # mean and scale go to each device once: an upload in every call
+        # would make each transform wait for the device's queue
+        pair = self._on_device.get(x.device)
+        if pair is None:
+            pair = self._on_device[x.device] = (
+                torch.from_numpy(self.mean_).to(x.device),
+                torch.from_numpy(self.scale_).to(x.device))
+        mean, scale = pair
         return (x - mean) / scale
 
     @classmethod

@@ -11,13 +11,14 @@ import torch
 
 from gat_tpu_torch import features
 from gat_tpu_torch.ops import onset, spectral, yin
-from test_torch_kernels_emulated import (FILE_SR, RIFF_NOTES,
-                                         check_mel_image,
+from test_torch_kernels_emulated import (FILE_SR, LIVE_MIN_SEP, LIVE_RING,
+                                         RIFF_NOTES, check_mel_image,
                                          check_mfcc_level_step,
                                          check_zero_row, edge_envelopes,
                                          file_batch, level_step_clip,
                                          mfcc_level_step_clip, padded_wave,
-                                         pluck_riff, random_envelopes, riffs)
+                                         pluck_riff, random_envelopes, riffs,
+                                         scan_envelopes)
 
 pytestmark = pytest.mark.cuda
 
@@ -327,3 +328,121 @@ def test_transcribe_clips_card_bf16(clips):
                       device="cpu").transcribe_clips(clips.cpu())
     assert got["labels"] == ref["labels"]
     np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)
+
+
+def test_onset_envelope_kernel_hops_1024_512_1024():
+    """K4 at hop 1024, 512, then 1024 again in one process from a cold
+    grid cache (the live engine's hop, the file path's, the live one's):
+    every launch runs and equals its plain version. The parent's third
+    launch failed: its cached hop-1024 grid never set the 59,088 B
+    shared-memory attribute again after the hop-512 query set 52,944 B."""
+    dev = _card()
+    onset._envelope_grid.cache_clear()
+    y = torch.from_numpy(riffs(LIVE_RING)).to(dev)
+    for hop in (1024, 512, 1024):
+        before = onset.onset_strength.launches
+        got = onset.onset_strength(y, FILE_SR, hop_length=hop)
+        ref = onset.onset_strength_plain(y, FILE_SR, hop_length=hop)
+        torch.cuda.synchronize()
+        assert onset.onset_strength.launches == before + 1
+        torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("cand_budget", [None, 0])
+def test_onset_pick_kernel_stream_windows(cand_budget):
+    """K5 at the live engine's windows (22050 Hz, hop 1024: a moving max
+    of size 1, wait 0; 33 frames, its min separation) on K4's envelopes
+    of live rings and random ones, and at the scan engine's budget (8
+    slots, min_sep 0, 65 frames, 32 candidates walked)."""
+    dev = _card()
+    rings = torch.from_numpy(riffs(LIVE_RING)).to(dev)
+    env = torch.cat([onset.onset_strength(rings, FILE_SR, hop_length=1024),
+                     torch.from_numpy(random_envelopes(33, 5)).to(dev)])
+    nvf = torch.tensor([33, 33, 20, 33, 25, 3], dtype=torch.int32,
+                       device=dev)
+    scan_env = torch.from_numpy(scan_envelopes()).to(dev)
+    for args, env, counts in (((FILE_SR, 1024, LIVE_MIN_SEP, 64), env, nvf),
+                              ((FILE_SR, 512, 0.0, 8), scan_env, None)):
+        got = onset.pick_onsets(env, *args, n_valid_frames=counts,
+                                cand_budget=cand_budget)
+        ref = onset.pick_onsets_plain(env, *args, n_valid_frames=counts,
+                                      cand_budget=cand_budget)
+        torch.cuda.synchronize()
+        assert bool(ref[1].any())
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+def _stream_riff(seconds: float) -> np.ndarray:
+    """RIFF_NOTES' five notes in turn, a pluck every 0.55 s from 0.4 s."""
+    freqs = [f for _, f in RIFF_NOTES]
+    notes = [(0.4 + 0.55 * i, freqs[i % 5])
+             for i in range(int((seconds - 0.85) / 0.55) + 1)]
+    return pluck_riff(FILE_SR, seconds, notes)
+
+
+def test_scan_streamer_card_vs_cpu():
+    """ScanStreamer on the card against the CPU on a 5 s riff: the same
+    slots, takes and flags, the same notes; K1-K5 launch."""
+    _card()
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.stream import ScanStreamer
+    y = _stream_riff(5.0)
+    card = ScanStreamer(Transcriber(device="cuda"))
+    cpu = ScanStreamer(Transcriber(device="cpu"))
+    for a, b in zip(card.segment_stream(y), cpu.segment_stream(y)):
+        np.testing.assert_array_equal(a, b)
+    wrappers = (features.melspec_features, features.mfcc_frontend,
+                yin.yin_pitch, onset.onset_strength, onset.pick_onsets)
+    before = [f.launches for f in wrappers]
+    got = card.transcribe_stream(y)
+    assert all(f.launches > b for f, b in zip(wrappers, before))
+    ref = cpu.transcribe_stream(y)
+    assert [(r["onset_s"], r["labels"]) for r in got] == \
+        [(r["onset_s"], r["labels"]) for r in ref]
+    assert len(got) >= 8
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g["probs"], r["probs"], atol=1e-2)
+
+
+def test_live_transcriber_card_vs_cpu():
+    """LiveTranscriber.run_on_source on the card against the CPU: the same
+    notes; K4 and K5 launch at hop 1024 once per poll."""
+    _card()
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.stream import ArraySource, LiveTranscriber
+    y = _stream_riff(4.0)
+    card = LiveTranscriber(Transcriber(device="cuda"), verbose=False)
+    before = [onset.onset_strength.launches, onset.pick_onsets.launches]
+    got = card.run_on_source(ArraySource(y))
+    launches = [onset.onset_strength.launches - before[0],
+                onset.pick_onsets.launches - before[1]]
+    ref = LiveTranscriber(Transcriber(device="cpu"),
+                          verbose=False).run_on_source(ArraySource(y))
+    assert [r["labels"] for r in got] == [r["labels"] for r in ref]
+    assert len(got) >= 5 and launches[0] == launches[1] > 0
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g["probs"], r["probs"], atol=1e-2)
+
+
+def test_audio_slicer_card_vs_cpu(tmp_path):
+    """AudioSlicer.slice_and_save on the card: the CPU's onsets and clip
+    files, their samples within one step of 16-bit PCM (the files are
+    16-bit, and the card's resample differs from the CPU's in the last
+    float32 bits, which can move a sample across a rounding edge)."""
+    _card()
+    from gat_tpu_torch.segment.slicing import AudioSlicer
+    from gat_tpu_torch.utils.wavio import read_wav, write_wav
+    path = tmp_path / "riff.wav"
+    write_wav(path, pluck_riff(44100, 3.0, RIFF_NOTES[:4]), 44100)
+    got = AudioSlicer().slice_and_save(path, tmp_path / "card",
+                                       verbose=False)
+    ref = AudioSlicer(device="cpu").slice_and_save(path, tmp_path / "cpu",
+                                                   verbose=False)
+    assert got == ref and len(got) == 4
+    names = sorted(p.name for p in (tmp_path / "card").glob("*.wav"))
+    assert names == sorted(p.name for p in (tmp_path / "cpu").glob("*.wav"))
+    for name in names:
+        np.testing.assert_allclose(read_wav(tmp_path / "card" / name)[0],
+                                   read_wav(tmp_path / "cpu" / name)[0],
+                                   atol=1 / 32768)

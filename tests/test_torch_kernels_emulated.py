@@ -110,8 +110,18 @@ typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+// the dynamic shared-memory attribute, one per library (each holds one
+// kernel that sets it), readable from the test
+extern "C" { inline int emu_smem_attr = 48 * 1024; }
 template <class F> int cudaFuncSetAttribute(F, int, int bytes) {
-  return bytes > 232448 ? 1 : 0;  // an H100 block's shared-memory limit
+  if (bytes > 232448) return 1;  // an H100 block's shared-memory limit
+  emu_smem_attr = bytes;
+  return 0;
+}
+struct cudaFuncAttributes { int maxDynamicSharedSizeBytes; };
+template <class F> int cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+  a->maxDynamicSharedSizeBytes = emu_smem_attr;
+  return 0;
 }
 template <class F>
 int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
@@ -429,12 +439,12 @@ def pluck_riff(sr: int, dur: float, notes=RIFF_NOTES) -> np.ndarray:
 
 
 def onset_envelope_emulated(libs, y: torch.Tensor, nvf: torch.Tensor | None,
-                            grid: int = 5) -> torch.Tensor:
+                            grid: int = 5, hop: int = 512) -> torch.Tensor:
     """K4's C entry point with the arguments `onset.onset_strength`
     passes, and `grid` first-pass blocks (the emulation has no occupancy
     to size it from)."""
     b, n = y.shape
-    t = spectral.n_frames(n, 2048, 512)
+    t = spectral.n_frames(n, 2048, hop)
     env = torch.empty(b, t)
     db = torch.empty(b, t, 128)
     peak = torch.full((b,), onset._NEG_INF_KEY, dtype=torch.int32)
@@ -447,8 +457,8 @@ def onset_envelope_emulated(libs, y: torch.Tensor, nvf: torch.Tensor | None,
     assert fn(y.data_ptr(), env.data_ptr(), db.data_ptr(), peak.data_ptr(),
               hann.data_ptr(), tw.data_ptr(), tab.data_ptr(),
               weights.data_ptr(), weights.numel(), n_items,
-              None if nvf is None else nvf.data_ptr(), b, n, 512, t, 128, 1,
-              3, 80.0, grid, None) == 0
+              None if nvf is None else nvf.data_ptr(), b, n, hop, t, 128, 1,
+              1 + 2048 // (2 * hop), 80.0, grid, None) == 0
     return env
 
 
@@ -539,6 +549,45 @@ def test_onset_envelope_emulated_grid_invariant(libs):
     assert torch.equal(envs[0], envs[1]) and torch.equal(envs[0], envs[2])
 
 
+LIVE_RING = 33075  # the live engine's 1.5 s ring at 22050 Hz
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("padded", [False, True])
+def test_onset_envelope_emulated_hop_1024(libs, b, padded):
+    """The live path's shape: rings of 33,075 samples at hop 1024 (33
+    frames, the first lag + 2048 / (2 * 1024) = 2 of them zero), one ring
+    and a batch of 3, with and without valid prefixes."""
+    y = torch.from_numpy(riffs(LIVE_RING)[:b])
+    t = spectral.n_frames(LIVE_RING, 2048, 1024)
+    nvf = torch.tensor([t, t - 5, 20][:b]) if padded else None
+    got = onset_envelope_emulated(libs, y, nvf, hop=1024)
+    ref = onset.onset_strength_plain(y, FILE_SR, hop_length=1024,
+                                     n_valid_frames=nvf)
+    assert got.shape == (b, 33)
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+    assert float(ref.max()) > 1.0 and not bool(got[:, :2].any())
+
+
+def test_onset_envelope_attribute_only_grows(libs):
+    """K4's occupancy query raises the first pass's shared-memory
+    attribute and never lowers it: after hop 1024 (59,088 B at 365 mel
+    items) a query at hop 512 (52,944 B) leaves 59,088 B, so a later
+    launch at hop 1024, whose query is cached, still fits."""
+    lib = libs["onset_envelope"]
+    attr = ctypes.c_int.in_dll(lib, "emu_smem_attr")
+    attr.value = 48 * 1024
+    fn = _fn(lib, "gat_onset_envelope_blocks_per_sm",
+             [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    n_items = onset._mel_items(FILE_SR, 128, CPU)[2]
+    blocks = ctypes.c_int(-1)
+    held = []
+    for hop in (1024, 512, 1024):
+        assert fn(n_items, hop, ctypes.addressof(blocks)) == 0
+        held.append(attr.value)
+    assert n_items == 365 and held == [59088] * 3
+
+
 def test_mel_items_cover_the_filterbank():
     """K4's mel table gives every band exactly its nonzero bins and
     weights, in order, cut into runs of at most ceil(nnz / threads); each
@@ -576,25 +625,27 @@ def test_mel_items_cover_the_filterbank():
 
 
 def onset_pick_emulated(libs, env: torch.Tensor, nvf: torch.Tensor | None,
-                        max_onsets: int, cand_budget, backtrack: bool = True):
+                        max_onsets: int, cand_budget, backtrack: bool = True,
+                        hop: int = 512, min_sep: float = 0.3):
     """K5's C entry point with the arguments `onset.pick_onsets` passes
-    (outputs carved from one allocation, no counts for None)."""
+    (no counts for None)."""
     b, t = env.shape
-    size, left, pre_avg, post_avg, wait = onset._pick_windows(FILE_SR, 512)
+    size, left, pre_avg, post_avg, wait = onset._pick_windows(FILE_SR, hop)
     outs = onset._pick_outputs(b, max_onsets, CPU)
     nvf = onset._frame_counts(nvf, CPU)
     fn = _fn(libs["onset_pick"], "gat_onset_pick", onset._PICK_ARGS)
     assert fn(env.data_ptr(), None if nvf is None else nvf.data_ptr(),
               *(o.data_ptr() for o in outs), b, t, size, left, pre_avg,
-              post_avg, 0.07, wait, 512, int(0.3 * FILE_SR), max_onsets,
+              post_avg, 0.07, wait, hop, int(min_sep * FILE_SR), max_onsets,
               onset.candidate_limit(t, max_onsets, cand_budget),
               int(backtrack), None) == 0
     return outs
 
 
-def check_pick(got, env, nvf, max_onsets, cand_budget, backtrack) -> tuple:
+def check_pick(got, env, nvf, max_onsets, cand_budget, backtrack,
+               hop: int = 512, min_sep: float = 0.3) -> tuple:
     """All five outputs identical to the plain version's; returns those."""
-    ref = onset.pick_onsets_plain(env, FILE_SR, 512, 0.3, max_onsets,
+    ref = onset.pick_onsets_plain(env, FILE_SR, hop, min_sep, max_onsets,
                                   backtrack, nvf, cand_budget)
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and torch.equal(g.cpu(), r.cpu())
@@ -659,6 +710,55 @@ def test_onset_pick_emulated_any_length(libs):
     fn = _fn(libs["onset_pick"], "gat_onset_pick_blocks_per_sm",
              [ctypes.c_void_p])
     assert fn(ctypes.addressof(blocks)) == 0 and blocks.value == 0
+
+
+# the live engine's min separation at 22050 Hz: its 0.3 s floor lifted
+# to min_slice_t plus one hop of 1024 (stream/live.py)
+LIVE_MIN_SEP = 0.3 + 1024 / FILE_SR
+
+
+@pytest.mark.parametrize("cand_budget", [None, 0])
+def test_onset_pick_emulated_live_windows(libs, cand_budget):
+    """K5 at the live path's windows, 22050 Hz at hop 1024: a moving max
+    of size 1 (left 0), averages over 2 + 3 frames and a wait of 0, at
+    the live min separation and 64 slots; 33-frame envelopes of live
+    rings (K4's plain version) and random ones, with short valid
+    prefixes."""
+    assert onset._pick_windows(FILE_SR, 1024) == (1, 0, 2, 3, 0)
+    rings = torch.from_numpy(riffs(LIVE_RING))
+    env = torch.cat([onset.onset_strength_plain(rings, FILE_SR,
+                                                hop_length=1024),
+                     torch.from_numpy(random_envelopes(33, 5))])
+    nvf = torch.tensor([33, 33, 20, 33, 25, 3])
+    got = onset_pick_emulated(libs, env, nvf, 64, cand_budget, hop=1024,
+                              min_sep=LIVE_MIN_SEP)
+    ref = check_pick(got, env, nvf, 64, cand_budget, True, hop=1024,
+                     min_sep=LIVE_MIN_SEP)
+    assert bool(ref[1][0].any()) and bool(ref[1][1].any())
+
+
+def scan_envelopes() -> np.ndarray:
+    """(4, 65) envelopes of the scan engine's rings (33,075 samples at
+    hop 512): three random rows, and a row of (0, 1, 1) repeats whose 43
+    candidates pass the 32 that the scan's budget walks."""
+    dense = np.tile(np.array([0.0, 1.0, 1.0], np.float32), 22)[:65]
+    return np.concatenate([random_envelopes(65, 6), dense[None]])
+
+
+@pytest.mark.parametrize("cand_budget", [None, 0])
+def test_onset_pick_emulated_scan_budget(libs, cand_budget):
+    """K5 at the scan engine's budget: 8 slots, min_sep 0, 65 frames, so
+    candidate_limit(65, 8, None) = 32; the dense row's walk is cut by
+    both the candidate limit and the cap, and flags it."""
+    assert onset.candidate_limit(65, 8, None) == 32
+    env = torch.from_numpy(scan_envelopes())
+    got = onset_pick_emulated(libs, env, None, 8, cand_budget, min_sep=0.0)
+    ref = check_pick(got, env, None, 8, cand_budget, True, min_sep=0.0)
+    assert bool(ref[2][-1]) and bool(ref[3][-1])
+    if cand_budget is None:  # the limit truncated the dense row's walk
+        full = onset.pick_onsets_plain(env, FILE_SR, 512, 0.0, 8,
+                                       cand_budget=0)
+        assert int(ref[4][-1]) < int(full[4][-1])
 
 
 def edge_envelopes(t: int) -> np.ndarray:

@@ -222,3 +222,52 @@ def test_slice_skip_past_the_end():
 def test_save_clip_names(tmp_path):
     ts.save_clip(torch.zeros(100), SR, tmp_path, 3, 1.23456, "riff")
     assert [p.name for p in tmp_path.iterdir()] == ["0003_riff__1.235s.wav"]
+
+
+def test_audio_slicer_slice_and_save_matches(tmp_path):
+    """`AudioSlicer.slice_and_save` of a 44.1 kHz WAV (resampled to 22050
+    Hz on load): the same onsets, the same clip file names, and clips
+    within 1e-5 of the JAX slicer's; the last onset's clip is dropped in
+    both (the reference slicer's rule)."""
+    from gat_tpu_torch.utils.wavio import read_wav, write_wav
+    path = tmp_path / "riff.wav"
+    write_wav(path, pluck_riff(44100, 3.0, NOTES[:4]), 44100)
+    got = ts.AudioSlicer(device="cpu").slice_and_save(
+        path, tmp_path / "port", verbose=False)
+    ref = js.AudioSlicer().slice_and_save(path, tmp_path / "jax",
+                                          verbose=False)
+    assert got == ref and len(got) == 4
+    names = sorted(p.name for p in (tmp_path / "port").glob("*.wav"))
+    assert names == sorted(p.name for p in (tmp_path / "jax").glob("*.wav"))
+    assert len(names) == 3 and names[0].startswith("0000_clip__")
+    for name in names:
+        a, _ = read_wav(tmp_path / "port" / name)
+        b, _ = read_wav(tmp_path / "jax" / name)
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    assert ts.AudioSlicer.sliceNsave is ts.AudioSlicer.slice_and_save
+
+
+def test_audio_slicer_methods_match(tmp_path):
+    """load_wav, both gates, detect_onsets (with its overflow warning) and
+    the loudness check against the JAX slicer's."""
+    from gat_tpu_torch.utils.wavio import write_wav
+    path = tmp_path / "riff.wav"
+    write_wav(path, pluck_riff(22050, 3.0, NOTES[:4]), 22050)
+    port, ref = ts.AudioSlicer(device="cpu"), js.AudioSlicer()
+    y, sr = port.load_wav(path)
+    y_ref, sr_ref = ref.load_wav(path)
+    assert sr == sr_ref == 11025 and y.dtype == np.float32
+    np.testing.assert_allclose(y, y_ref, atol=1e-5)
+    np.testing.assert_allclose(port.apply_db_threshold(y),
+                               ref.apply_db_threshold(y), atol=1e-6)
+    np.testing.assert_allclose(port.apply_rms_threshold(y),
+                               ref.apply_rms_threshold(y), atol=1e-6)
+    assert port.detect_onsets(y) == ref.detect_onsets(y)
+    with pytest.warns(UserWarning, match="budget"):
+        capped = port.detect_onsets(y, max_onsets=2)
+    with pytest.warns(UserWarning, match="budget"):
+        capped_ref = ref.detect_onsets(y, max_onsets=2)
+    assert capped == capped_ref == ref.detect_onsets(y)[:2]
+    for clip in (y[:5512], 1e-4 * y[:5512]):
+        assert (port.is_slice_loud_enough(clip)
+                == ref.is_slice_loud_enough(clip))
