@@ -65,12 +65,21 @@ non-zero:
 10. `[cli]`: `gat_tpu_torch.cli.main` in-process on the card and with
    `--device cpu`, for one WAV, two WAVs and `--stream`: the saved
    results must agree;
-11. print the `{"kernels": [...]}` line, the card line, and last
+11. `[train]`: the training path on a dataset synthesized with the
+   shipped recipe (all3, noise, stressors 0.5, channel 0.25, seed 42) at
+   16 variants per class, 752 clips: K1-K3 against their plain versions
+   at that shape, the FeatureBuilder's features against the CPU plain
+   path's, one dropout-0 step on the card against the CPU (fp32 MLP and
+   CNN, bf16 CNN), `TrainingManager(device="cuda").train_all` for 3
+   epochs at full width (K1-K3 launched, finite losses, one host transfer
+   per epoch), ms per epoch, steps/s, examples/s and busy share per
+   family, and the saved checkpoints through `Transcriber`;
+12. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after (`launches_by_path` in the kernels line:
-clips, file, long, files, serve, http, stream, live, cli); `launches`
+clips, file, long, files, serve, http, stream, live, cli, train); `launches`
 stays the clip path's count for K1-K3 and the file path's for K4/K5.
 
 Imports nothing of JAX or of the JAX package.
@@ -118,6 +127,9 @@ STREAM_SPACING = 0.55
 STREAM_SECONDS = 20.0        # [stream] and [live], card against the CPU
 STREAM_LONG_SECONDS = 300.0  # [stream] timing: 602 chunks, 3 windows
 LIVE_RING = 33075            # the live engine's 1.5 s ring at 22050 Hz
+# the [train] phase: the shipped recipe with 16 variants per class (752
+# clips), 3 epochs of each family
+TRAIN_VARIANTS, TRAIN_EPOCHS = 16, 3
 POOL = 6                  # distinct input buffers per timing repetition
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
@@ -453,18 +465,29 @@ def time_pick(onset, dev, failures: list) -> list[dict]:
     return rows
 
 
-def profile_call(fn, wall_ms: float) -> float | None:
+def profile_call(fn, wall_ms: float, host_ops: int = 0) -> float | None:
     """Device time by kernel over one call under torch.profiler, and the
     device's busy share of the call's unprofiled wall time; returns the
-    busy ms, None when the profiler saw no device time."""
+    busy ms, None when the profiler saw no device time. User annotations
+    on the device (a `record_function` range such as the optimizer's
+    step) span kernels already counted and are left out. `host_ops` > 0
+    also prints that many host ops by their self CPU time (profiled, so
+    inflated by the profiler's own cost per op)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_ops]:
+        log(f"[profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     if busy <= 0:
         log("[profile] device time not measured (no kernel events)")
@@ -1380,6 +1403,246 @@ def cli_phase(rows: list, card: str, failures: list,
         failures.append(f"[cli] a kernel was not launched: {launches}")
 
 
+def grad_errors(a, b) -> dict:
+    """Per parameter, max |card − CPU| over max |CPU| of two trainers'
+    gradients after one step; the conv biases ahead of BatchNorm are left
+    out (their true gradient is 0, so both hold rounding noise)."""
+    out = {}
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        if name.startswith("conv_") and name.endswith(".bias"):
+            continue
+        ref = q.grad.float()
+        out[name] = float((p.grad.float().cpu() - ref).abs().max()
+                          / ref.abs().max().clamp_min(1e-30))
+    return out
+
+
+def host_parts(t) -> dict:
+    """One epoch of `t.train` with its optimizer steps and its `_step`
+    calls wrapped in host clocks: µs per step, µs per AdamW.step, and the
+    epoch's ms outside the steps. The card is host-bound here, so host
+    time is wall time."""
+    import torch
+    acc = {"step": 0.0, "optimizer": 0.0, "n": 0}
+
+    def clocked(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            acc[key] += time.perf_counter() - t0
+            acc["n"] += key == "step"
+            return out
+        return run
+    t._step = clocked(t._step, "step")
+    t.optimizer.step = clocked(t.optimizer.step, "optimizer")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train(epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del t._step, t.optimizer.step
+    n = max(acc["n"], 1)
+    return {"step": acc["step"] / n * 1e6,
+            "optimizer": acc["optimizer"] / n * 1e6,
+            "rest_ms": (wall - acc["step"]) * 1e3}
+
+
+def train_phase(rows: list, card: str, failures: list,
+                device: str = "cuda") -> None:
+    """`[train]`: the training path at the shipped recipe's settings with
+    TRAIN_VARIANTS variants per class (752 clips at 11025 Hz, 601 train /
+    151 val), full width (MLP 65→128→64→47, bf16 CNN 32/64/128, hidden
+    256): K1-K3 against their plain versions at the dataset's shape, the
+    FeatureBuilder's features on the card against the CPU plain path's,
+    one dropout-0 step on the card against the CPU (fp32 MLP and CNN, bf16
+    CNN), `TrainingManager.train_all` for TRAIN_EPOCHS epochs (K1-K3
+    launched, losses finite, one host transfer per epoch), ms per epoch,
+    optimizer steps/s, examples/s and the device's busy share per family,
+    and a saved pair of checkpoints through `Transcriber`: labels equal to
+    the trainers' predictions, arrays of the shipped files' keys and
+    shapes."""
+    import torch
+    from gat_tpu_torch import features
+    from gat_tpu_torch.config import CHECKPOINTS_ROOT
+    from gat_tpu_torch.data.loader import AudioDatasetLoader
+    from gat_tpu_torch.data.synth import synthesize_note_dataset
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.models import CNN, MLP
+    from gat_tpu_torch.ops import yin
+    from gat_tpu_torch.train import ArrayDataLoader, TrainingManager
+    from gat_tpu_torch.train import trainer as trainer_mod
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        ds = d / "synthetic" / "recipe"
+        t0 = time.perf_counter()
+        synthesize_note_dataset(ds, variants_per_class=TRAIN_VARIANTS,
+                                seed=42, verbose=False,
+                                noise_snr_db=(8.0, 40.0), family="all3",
+                                stressor="mix", stressor_prob=0.5,
+                                channel="mix", channel_prob=0.25)
+        synth_s = time.perf_counter() - t0
+
+        # K1-K3 at the dataset's shape, and the FeatureBuilder on the card
+        # against the CPU plain path
+        loader = AudioDatasetLoader([ds], target_sr=SR, duration=0.5,
+                                    device=device)
+        wavs = np.stack(loader.load_audio_dataset()[0])
+        clips = torch.as_tensor(wavs).to(device)
+        err_mel, ok_mel = mel_error(features.melspec_features(clips, SR),
+                                    features.melspec_features_plain(clips,
+                                                                    SR))
+        err_mfcc = float((features.mfcc_frontend(clips, SR)
+                          - features.mfcc_frontend_plain(clips, SR))
+                         .abs().max())
+        hz, hz_ref = yin.yin_pitch(clips, SR), yin.yin_pitch_plain(clips, SR)
+        rel_yin = float(((hz - hz_ref).abs() / hz_ref).max())
+        ok = ok_mel and err_mfcc <= 1e-3 and rel_yin <= 2e-3
+        log(f"[train] kernels at {tuple(clips.shape)}: melspec_frontend max "
+            f"abs err {err_mel:.6g} dB (0.1 where > -60 dB), mfcc_frontend "
+            f"{err_mfcc:.6g} (1e-3), yin_pitch max rel err {rel_yin:.3g} "
+            f"(2e-3) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[train] a kernel disagrees at the dataset shape")
+        fb = features.FeatureBuilder(device=device)
+        (mf, y, _, _), l_mf, _ = driven(lambda: fb.extract_mfcc_features(
+            loader))
+        (mel, _, _, _), l_mel, _ = driven(
+            lambda: fb.extract_melspec_features(loader))
+        cpu_loader = AudioDatasetLoader([ds], target_sr=SR, duration=0.5,
+                                        device="cpu")
+        cpu_fb = features.FeatureBuilder(device="cpu")
+        t0 = time.perf_counter()
+        mf_ref = cpu_fb.extract_mfcc_features(cpu_loader)[0]
+        mel_ref = cpu_fb.extract_melspec_features(cpu_loader)[0]
+        cpu_s = time.perf_counter() - t0
+        e_mfcc = float(np.abs(mf[:, :64] - mf_ref[:, :64]).max())
+        e_pitch = float(np.abs(10.0 ** (mf[:, 64] - mf_ref[:, 64]) - 1).max())
+        e_mel = float(np.abs(mel - mel_ref)[mel_ref > -60.0].max())
+        ok = (l_mf[1:3] == [1, 1] and l_mel[0] == 1 and e_mfcc <= 1e-3
+              and e_pitch <= 2e-3 and e_mel <= 0.1
+              and np.isfinite(mf).all() and np.isfinite(mel).all())
+        log(f"[train] FeatureBuilder on {len(y)} clips: X {mf.shape} and "
+            f"{mel.shape}; launches K1..K5 {l_mf} (MFCC) and {l_mel} (mel); "
+            f"vs the CPU plain path ({cpu_s:.1f} s): MFCC max abs err "
+            f"{e_mfcc:.3g} (1e-3), pitch rel {e_pitch:.3g} (2e-3), mel "
+            f"{e_mel:.3g} dB (0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[train] FeatureBuilder: launches or features")
+
+        # one dropout-0 step from the same weights on the card and the CPU
+        xb_mf = (mf[:32] - mf[:32].mean(0)) / (mf[:32].std(0) + 1e-6)
+        for name, make, xb, bound_rel in (
+                ("MLP fp32", lambda: MLP(65, 128, 2, 47, 0.0), xb_mf, 1e-3),
+                ("CNN fp32", lambda: CNN(47, dropout=0.0), mel[:32], 1e-3),
+                ("CNN bf16", lambda: CNN(47, dropout=0.0,
+                                         dtype=torch.bfloat16), mel[:32],
+                 5e-2)):
+            pair = [trainer_mod.Trainer(make(), ArrayDataLoader(xb, y[:32]),
+                                        seed=0, device=dev)
+                    for dev in (device, "cpu")]
+            losses = [float(t._step(torch.as_tensor(xb).to(t.device),
+                                    torch.as_tensor(y[:32]).long()
+                                    .to(t.device))[0]) for t in pair]
+            errs = grad_errors(*pair)
+            worst = max(errs, key=errs.get)
+            ok = (errs[worst] <= bound_rel
+                  and abs(losses[0] - losses[1]) <= bound_rel * losses[1])
+            log(f"[train] one step, {name}: loss card {losses[0]:.6f} CPU "
+                f"{losses[1]:.6f}; gradients max |card - CPU| / max |CPU| "
+                f"{errs[worst]:.3g} ({worst}; bound {bound_rel:g}) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[train] one step {name}: card and CPU")
+
+        # train_all at full width, then the steady-state epoch
+        mgr = TrainingManager(datasets_root=d, target_sr=SR, device=device)
+        transfers = [0]
+        original = counting(trainer_mod, transfers)
+        try:
+            (mlp_t, cnn_t), launches, wall = driven(lambda: mgr.train_all(
+                ds, epochs=TRAIN_EPOCHS, save=False, verbose=False))
+            n_host = transfers[0]
+        finally:
+            trainer_mod._to_host = original
+        record_launches(rows, "train", launches)
+        finite = all(np.isfinite(t.train_loss_history + t.val_loss_history)
+                     .all() for t in (mlp_t, cnn_t))
+        ok = (min(launches[:3]) >= 1 and finite
+              and mlp_t.epoch == cnn_t.epoch == TRAIN_EPOCHS
+              and n_host == 2 * TRAIN_EPOCHS)
+        log(f"[train] train_all({len(y)} clips, {TRAIN_EPOCHS} epochs) in "
+            f"{wall:.2f} s (synthesis {synth_s:.1f} s before it): launches "
+            f"K1..K5 {launches}, host transfers {n_host} (one per epoch), "
+            f"losses finite {finite} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[train] train_all: launches, transfers or "
+                            "losses")
+        numbers = {}
+        for fam, t in (("mlp", mlp_t), ("cnn", cnn_t)):
+            n_tr = len(t.train_dl.y)
+            steps = -(-n_tr // t.train_dl.batch_size)
+            t.train(epochs=1, verbose=False)  # warm: cuDNN plans, caches
+            _, n_sync = sync_warnings(lambda: t.train(epochs=1,
+                                                      verbose=False))
+            host = host_parts(t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train(epochs=TRAIN_EPOCHS, verbose=False)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / TRAIN_EPOCHS
+            busy = profile_call(lambda: t.train(epochs=1, verbose=False), ms,
+                                host_ops=10)
+            numbers[fam] = dict(
+                ms_per_epoch=ms, steps_per_s=steps / ms * 1e3,
+                examples_per_s=n_tr / ms * 1e3, busy_ms=busy,
+                sync_calls=sum(n_sync.values()), host_us=host,
+                stage_seconds=t.stage_seconds,
+                val_acc=t.val_accuracy_history[-1])
+            log(f"[train] {fam}: {ms:.3f} ms per epoch ({steps} steps of "
+                f"{t.train_dl.batch_size}, {n_tr} examples, validation "
+                f"included), {steps / ms * 1e3:.1f} optimizer steps/s, "
+                f"{n_tr / ms * 1e3:.1f} examples/s; host µs per step "
+                f"{host['step']:.0f}, of which AdamW.step "
+                f"{host['optimizer']:.0f}, and {host['rest_ms']:.3f} ms an "
+                f"epoch outside the steps (validation, the transfer); "
+                f"synchronizing calls in a 1-epoch train() "
+                f"{sum(n_sync.values())} {dict(n_sync)}, val acc "
+                f"{t.val_accuracy_history[-1]:.4f} after "
+                f"{t.epoch} epochs, on {card}")
+        log(f"[train] numbers {json.dumps(numbers)}")
+
+        # the checkpoints through the Transcriber
+        paths = {fam: t.save(root=d / "ckpt" / fam, target_sr=SR)
+                 for fam, t in (("mlp", mlp_t), ("cnn", cnn_t))}
+        x_mlp = mlp_t.scaler.transform(mf)
+        for w, t, x in ((0.0, mlp_t, x_mlp), (1.0, cnn_t, mel)):
+            tr = Transcriber(mlp_ckpt=paths["mlp"], cnn_ckpt=paths["cnn"],
+                             cnn_weight=w, cnn_dtype=torch.bfloat16,
+                             device=device)
+            got = tr.transcribe_clips(wavs)["labels"]
+            want = [t.reverse_map[int(i)] for i in t.predict(x)]
+            n_diff = sum(a != b for a, b in zip(got, want))
+            log(f"[train] Transcriber(cnn_weight={w:g}) on the saved "
+                f"checkpoints: {n_diff} of {len(want)} labels differ from "
+                f"the {t.model_type} trainer's predict")
+            if n_diff or len(got) != len(want):
+                failures.append(f"[train] {t.model_type} checkpoint labels")
+        for fam, shipped in (("mlp", CHECKPOINTS_ROOT / "mlp" /
+                              "mlp_synth_v1.0.0.gtckpt.npz"),
+                             ("cnn", CHECKPOINTS_ROOT / "cnn" /
+                              "cnn_v1.0.0.gtckpt.npz")):
+            with np.load(paths[fam]) as a, np.load(shipped) as b:
+                shapes = [{k: z[k].shape for k in z.files if k != "__meta__"}
+                          for z in (a, b)]
+            same = shapes[0] == shapes[1]
+            log(f"[train] {paths[fam].name}: {len(shapes[0])} arrays, keys "
+                f"and shapes equal to the shipped file's {same}")
+            if not same:
+                failures.append(f"[train] {fam} checkpoint layout")
+
+
 def main() -> int:
     import torch
 
@@ -1636,6 +1899,9 @@ def main() -> int:
 
     # ---- 10. the CLI ------------------------------------------------------
     cli_phase(rows, card, failures)
+
+    # ---- 11. training -----------------------------------------------------
+    train_phase(rows, card, failures)
 
     if failures:
         log(f"[fail] {failures}")

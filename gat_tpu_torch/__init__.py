@@ -9,6 +9,8 @@ chunked `ScanStreamer` and the ring-buffer `LiveTranscriber`), its CLI
 the mel image into the CNN, a weighted softmax vote, and the YIN pitch
 baseline) rebuilt on PyTorch, with the two spectral front-ends, YIN, the
 onset envelope and the onset pick as hand-written CUDA kernels (`csrc/`).
+`train` trains the MLP and CNN on the synthetic dataset (`data`) and
+writes checkpoints that both packages read.
 Entry points run on the card unless the caller passes device="cpu" (the
 CLI and the server: `--device cpu`), which runs the plain PyTorch
 versions of the kernels. `gat_tpu` stays the reference the port is tested

@@ -8,7 +8,7 @@ defaults a checkpoint falls back on and the names of the shipped files.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from pathlib import Path
 
 CONFIG_VERSION = "1.0.0"
@@ -18,7 +18,12 @@ PROJECT_ROOT = Path(__file__).resolve().parent.parent
 # installed package at a checkout's data/ directory (same variable as the
 # JAX package, so both read one tree).
 DATA_ROOT = Path(os.environ.get("GAT_TPU_DATA_ROOT", PROJECT_ROOT / "data"))
+DATASETS_ROOT = DATA_ROOT / "datasets"
 CHECKPOINTS_ROOT = DATA_ROOT / "checkpoints"
+# The port's trainer writes its checkpoints under a root of its own, so a
+# training run never overwrites the shipped files of CHECKPOINTS_ROOT/mlp
+# and /cnn (the JAX trainer's defaults).
+TORCH_CHECKPOINTS_ROOT = CHECKPOINTS_ROOT / "torch"
 # `Transcriber.transcribe(save_clips=True)` writes the sliced clips here.
 INFERENCE_OUTPUT_ROOT = DATA_ROOT / "inference" / "output"
 # Hand-written CUDA kernels are compiled here at first use.
@@ -55,27 +60,43 @@ class MelSpecConfig:
 
 @dataclass(frozen=True)
 class MLPConfig:
-    """MLP checkpoints and topology. DEFAULT_CKPT_NAME is the shipped
-    synthetic-trained MLP; REFERENCE_CKPT_NAME the imported reference
-    weights."""
+    """MLP checkpoints, topology and training recipe. DEFAULT_CKPT_NAME is
+    the shipped synthetic-trained MLP; REFERENCE_CKPT_NAME the imported
+    reference weights."""
     CHECKPOINTS_DIR: Path = CHECKPOINTS_ROOT / "mlp"
     DEFAULT_CKPT_NAME: str = f"mlp_synth_v{CONFIG_VERSION}.gtckpt.npz"
     REFERENCE_CKPT_NAME: str = f"mlp_v{CONFIG_VERSION}.gtckpt.npz"
+    SAVE_CHECKPOINT: bool = True
     HIDDEN_DIM: int = 128
     NUM_HIDDEN_LAYERS: int = 2
     DROPOUT: float = 0.1
+    LR: float = 1e-3
+    DECAY: float = 1e-4
+    EPOCHS: int = 10
+    MAX_CLIP_NORM: float = 1.0
+    ES_WINDOW_LEN: int = 4
+    ES_SLOPE_LIMIT: float = -0.00015
 
 
 @dataclass(frozen=True)
 class CNNConfig:
-    """CNN checkpoints and topology."""
+    """CNN checkpoints, topology and training recipe. USE_AMP trains the
+    CNN in bf16 compute with float32 weights."""
     CHECKPOINTS_DIR: Path = CHECKPOINTS_ROOT / "cnn"
     DEFAULT_CKPT_NAME: str = f"cnn_v{CONFIG_VERSION}.gtckpt.npz"
+    SAVE_CHECKPOINT: bool = True
     BASE_CHANNELS: int = 32
     NUM_BLOCKS: int = 3
     KERNEL_SIZE: int = 3
     HIDDEN_DIM: int = 256
     DROPOUT: float = 0.1
+    LR: float = 1e-3
+    DECAY: float = 1e-4
+    EPOCHS: int = 3
+    MAX_CLIP_NORM: float = 1.0
+    ES_WINDOW_LEN: int = 4
+    ES_SLOPE_LIMIT: float = -0.00015
+    USE_AMP: bool = True
 
 
 @dataclass(frozen=True)
@@ -93,3 +114,9 @@ MELSPEC_CONFIG = MelSpecConfig()
 MLP_CONFIG = MLPConfig()
 CNN_CONFIG = CNNConfig()
 SLICER_CONFIG = AudioSlicerConfig()
+
+
+def config_dict(cfg) -> dict:
+    """JSON-safe asdict (Paths → str), as a checkpoint embeds it."""
+    return {k: (str(v) if isinstance(v, Path) else v)
+            for k, v in asdict(cfg).items()}

@@ -1,1 +1,1 @@
-"""Synthetic audio of the port."""
+"""Synthetic audio, dataset writers and dataset loading of the port."""

@@ -5,6 +5,9 @@
   semantics MFCC (64) → mean over frames → append log10(YIN pitch Hz).
 * Mel path (CNN input): torchaudio-semantics MelSpectrogram +
   AmplitudeToDB, as an NHWC image (N, n_mels, T, 1).
+* `FeatureBuilder`: both front-ends over a whole dataset, each in one
+  call on the builder's device, with the labels encoded as the sorted
+  folder names.
 
 Each front-end is one hand-written CUDA kernel on the card
 (`csrc/melspec_frontend.cu`, `csrc/mfcc_frontend.cu`) with its plain
@@ -22,16 +25,31 @@ import numpy as np
 import torch
 
 from . import kernels
+from .config import MELSPEC_CONFIG, MFCC_CONFIG
 from .ops import spectral
 from .ops.mel import mel_filterbank_librosa, mel_filterbank_torchaudio
 from .ops.yin import yin_pitch
+from .utils.device import resolve_device
 
-__all__ = ["normalize_volume", "mfcc_feature_vectors", "melspec_features",
-           "melspec_features_plain", "mfcc_frontend", "mfcc_frontend_plain"]
+__all__ = ["encode_labels", "normalize_volume", "mfcc_feature_vectors",
+           "melspec_features", "melspec_features_plain", "mfcc_frontend",
+           "mfcc_frontend_plain", "to_reference_layout", "FeatureBuilder"]
 
 _VOLUME_EPS = 1e-9
 _KERNEL_N_FFT = 2048   # the FFT size compiled into both front-end kernels
 _MFCC_HOP, _MFCC_N_MELS, _TOP_DB = 512, 128, 80.0  # spectral.mfcc defaults
+# K1-K3 keep a clip's frames in shared memory and refuse this many or more
+_KERNEL_MAX_FRAMES = 2000
+
+
+def encode_labels(labels):
+    """Sorted-unique string labels → int codes. Returns (encoded,
+    num_classes, reverse_map)."""
+    classes = sorted(set(labels))
+    label_to_idx = {c: i for i, c in enumerate(classes)}
+    encoded = np.array([label_to_idx[l] for l in labels], dtype=np.int32)
+    reverse_map = {i: c for i, c in enumerate(classes)}
+    return encoded, len(classes), reverse_map
 
 
 def normalize_volume(y: torch.Tensor, eps: float = _VOLUME_EPS
@@ -225,3 +243,89 @@ def mfcc_feature_vectors(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     else:
         hz = yin_pitch(clips, sr)
     return torch.cat([vec, torch.log10(hz)[..., None]], dim=-1)
+
+
+def to_reference_layout(x):
+    """NHWC (N, M, T, 1) → the reference's NCHW (N, 1, M, T), numpy or
+    tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.permute(0, 3, 1, 2)
+    return np.transpose(np.asarray(x), (0, 3, 1, 2))
+
+
+class FeatureBuilder:
+    """Dataset-level feature extraction, the twin of
+    `gat_tpu/features.py::FeatureBuilder`'s dataset extractors. Every
+    clip of the dataset goes through one front-end call on `device`
+    (default the card, where that call is the kernels K2 + K3, or K1);
+    'cpu' runs the plain versions. None defaults resolve to
+    MFCC_CONFIG / MELSPEC_CONFIG."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self.scaler = None
+
+    def _clips(self, audio_loader, hop_length: int):
+        """(clips on the device, labels). The kernels hold a clip's frames
+        in shared memory: longer clips raise here, before any launch,
+        instead of running another version."""
+        wavs, _, labels, _ = audio_loader.load_audio_dataset(pad_to_max=True)
+        clips = np.stack(wavs).astype(np.float32, copy=False)
+        if self.device.type == "cuda":
+            frames = spectral.n_frames(clips.shape[-1], _KERNEL_N_FFT,
+                                       hop_length)
+            if clips.ndim != 2 or frames >= _KERNEL_MAX_FRAMES:
+                raise ValueError(
+                    f"[FeatureBuilder] clips of shape {clips.shape} give "
+                    f"{frames} frames at hop {hop_length}; the card's "
+                    f"front-end kernels take mono clips of fewer than "
+                    f"{_KERNEL_MAX_FRAMES} frames. Give the loader a clip "
+                    f"`duration` (TrainingManager does).")
+        return torch.as_tensor(clips).to(self.device), labels
+
+    def extract_mfcc_features(self, audio_loader, n_mfcc: int | None = None,
+                              normalize_audio_volume: bool | None = None,
+                              add_pitch_features: bool | None = None):
+        """Returns (X (N, D) np, y_encoded, num_classes, reverse_map)."""
+        if n_mfcc is None:
+            n_mfcc = MFCC_CONFIG.N_MFCC
+        if normalize_audio_volume is None:
+            normalize_audio_volume = MFCC_CONFIG.NORMALIZE_AUDIO_VOLUME
+        if add_pitch_features is None:
+            add_pitch_features = MFCC_CONFIG.ADD_PITCH_FEATURES
+        clips, labels = self._clips(audio_loader, _MFCC_HOP)
+        X = mfcc_feature_vectors(
+            clips, audio_loader.target_sr, n_mfcc=n_mfcc,
+            normalize_audio_volume=normalize_audio_volume,
+            add_pitch_features=add_pitch_features).cpu().numpy()
+        y_encoded, num_classes, reverse_map = encode_labels(labels)
+        print(f"Extracted MFCC features for {len(X)} samples.")
+        return X, y_encoded, num_classes, reverse_map
+
+    def extract_melspec_features(self, audio_loader, n_mels: int | None = None,
+                                 n_fft: int | None = None,
+                                 hop_length: int | None = None,
+                                 normalize_audio_volume: bool | None = None,
+                                 to_db: bool | None = None):
+        """Returns (X (N, M, T, 1) np NHWC, y_encoded, num_classes,
+        reverse_map)."""
+        if n_mels is None:
+            n_mels = MELSPEC_CONFIG.N_MELS
+        if n_fft is None:
+            n_fft = MELSPEC_CONFIG.N_FFT
+        if hop_length is None:
+            hop_length = MELSPEC_CONFIG.HOP_LENGTH
+        if normalize_audio_volume is None:
+            normalize_audio_volume = MELSPEC_CONFIG.NORMALIZE_AUDIO_VOLUME
+        if to_db is None:
+            to_db = MELSPEC_CONFIG.TO_DB
+        clips, labels = self._clips(audio_loader, hop_length)
+        X = melspec_features(
+            clips, audio_loader.target_sr, n_mels=n_mels, n_fft=n_fft,
+            hop_length=hop_length,
+            normalize_audio_volume=normalize_audio_volume,
+            to_db=to_db).cpu().numpy()
+        y_encoded, num_classes, reverse_map = encode_labels(labels)
+        print(f"Extracted Mel-spectrogram features for {X.shape[0]} "
+              f"samples. X shape: {tuple(X.shape)}")
+        return X, y_encoded, num_classes, reverse_map

@@ -19,7 +19,7 @@ import torch
 from ..models import cnn as cnn_mod
 from ..models import mlp as mlp_mod
 from ..ops.pitch import note_to_midi
-from ..utils.device import resolve_device, to_host
+from ..utils.device import fp32_reference_math, resolve_device, to_host
 
 __all__ = ["NotePredictor", "class_midi_values", "apply_pitch_prior"]
 
@@ -42,14 +42,6 @@ def apply_pitch_prior(probs: torch.Tensor, pitch_hz: torch.Tensor,
     p_yin = torch.softmax(-0.5 * (d / sigma) ** 2, dim=-1)
     post = (1.0 - weight) * probs + weight * p_yin
     return torch.where(valid[..., None], post, probs)
-
-
-def _fp32_reference_math() -> None:
-    """The reference is fp32. cuDNN's default TF32 on the CNN's
-    convolutions would keep about three decimal digits, so TF32 is off for
-    both matmuls and convolutions wherever the models run."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 class NotePredictor:
@@ -149,7 +141,7 @@ class NotePredictor:
         if not has_mlp and not has_cnn:
             raise ValueError("[predict] Must provide either mfcc_features "
                              "or melspec_features")
-        _fp32_reference_math()
+        fp32_reference_math()
         mlp_probs = cnn_probs = None
         if has_mlp:
             x = torch.as_tensor(mfcc_features, dtype=torch.float32,

@@ -15,6 +15,11 @@ overlapping ones included (tested).
 float32 and are cast per layer, BatchNorm normalizes in float32 and
 rounds its output, the adaptive pool runs in float32 (the JAX pool is a
 float32 matmul), and the logits come back as float32.
+
+In train mode BatchNorm follows flax, not `nn.BatchNorm2d`: it normalizes
+with the batch's biased variance, E[x²] − E[x]² in float32, and moves the
+running statistics by momentum 0.1 toward the batch mean and the *biased*
+variance (torch would take the unbiased one).
 """
 from __future__ import annotations
 
@@ -23,7 +28,11 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-__all__ = ["CNN", "params_from_flax"]
+from .mlp import Dropout
+
+__all__ = ["CNN", "params_from_flax", "params_to_flax"]
+
+_BN_MOMENTUM = 0.9  # flax's: running = 0.9 · running + 0.1 · batch
 
 
 class CNN(nn.Module):
@@ -35,6 +44,15 @@ class CNN(nn.Module):
                  adaptive_pool: tuple[int, int] = (4, 4),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.init_args = {"num_classes": num_classes,
+                          "in_channels": in_channels,
+                          "base_channels": base_channels,
+                          "num_blocks": num_blocks, "hidden_dim": hidden_dim,
+                          "dropout": dropout, "kernel_size": kernel_size,
+                          "use_batchnorm": use_batchnorm,
+                          "use_maxpool": use_maxpool,
+                          "adaptive_pool": tuple(adaptive_pool)}
+        self.num_classes = num_classes
         self.dtype = dtype
         self.num_blocks = num_blocks
         self.use_batchnorm = use_batchnorm
@@ -49,7 +67,7 @@ class CNN(nn.Module):
             if use_batchnorm:
                 self.add_module(f"bn_{b}", nn.BatchNorm2d(ch_out, eps=1e-5))
             ch_in = ch_out
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         flat = ch_in * self.adaptive_pool[0] * self.adaptive_pool[1]
         if hidden_dim:
             self.fc = nn.Linear(flat, hidden_dim)
@@ -68,6 +86,24 @@ class CNN(nn.Module):
              if isinstance(layer, nn.Conv2d) else F.linear(x, w))
         return y + layer.bias.to(self.dtype).view(-1, *[1] * (y.ndim - 2))
 
+    def _batch_norm(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """BatchNorm in float32, rounded to the compute dtype: the running
+        statistics in eval mode, flax's batch statistics in train mode."""
+        bn = getattr(self, name)
+        x = x.float()
+        if not self.training:
+            return bn(x).to(self.dtype)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(_BN_MOMENTUM * bn.running_mean
+                                  + (1.0 - _BN_MOMENTUM) * mean)
+            bn.running_var.copy_(_BN_MOMENTUM * bn.running_var
+                                 + (1.0 - _BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None]
+        return (y + bn.bias[:, None, None]).to(self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, H=n_mels, W=T, C) NHWC → float32 logits (N,
         num_classes)."""
@@ -75,7 +111,7 @@ class CNN(nn.Module):
         for b in range(self.num_blocks):
             x = self._layer(f"conv_{b}", x)
             if self.use_batchnorm:
-                x = getattr(self, f"bn_{b}")(x.float()).to(self.dtype)
+                x = self._batch_norm(f"bn_{b}", x)
             x = F.leaky_relu(x, 0.01)
             if self.use_maxpool:
                 x = F.max_pool2d(x, 2)
@@ -90,21 +126,51 @@ class CNN(nn.Module):
 def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     """flax CNN variables (numpy trees) → CNN state_dict: conv kernels
     HWIO → OIHW, dense kernels (in, out) → (out, in), BatchNorm
-    scale/bias → weight/bias and batch_stats mean/var → running stats."""
+    scale/bias → weight/bias and batch_stats mean/var → running stats
+    (left out when `variables` has no batch_stats, as for a tree of
+    optimizer moments)."""
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a))
+        return torch.from_numpy(np.array(a))  # a writable copy
 
     sd = {}
+    stats_all = variables.get("batch_stats", {})
     for name, p in variables["params"].items():
         if name.startswith("conv_"):
             sd[f"{name}.weight"] = t(np.transpose(p["kernel"], (3, 2, 0, 1)))
         elif name.startswith("bn_"):
             sd[f"{name}.weight"] = t(p["scale"])
-            stats = variables["batch_stats"][name]
-            sd[f"{name}.running_mean"] = t(stats["mean"])
-            sd[f"{name}.running_var"] = t(stats["var"])
-            sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+            if name in stats_all:
+                sd[f"{name}.running_mean"] = t(stats_all[name]["mean"])
+                sd[f"{name}.running_var"] = t(stats_all[name]["var"])
+                sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
         else:
             sd[f"{name}.weight"] = t(np.asarray(p["kernel"]).T)
         sd[f"{name}.bias"] = t(p["bias"])
     return sd
+
+
+def params_to_flax(state_dict: dict) -> dict:
+    """CNN state_dict (or any subset of its parameters) → flax variables
+    as numpy trees, the inverse of `params_from_flax`: conv weights OIHW →
+    HWIO, Linear weights (out, in) → (in, out), BatchNorm weight → scale,
+    running stats → batch_stats."""
+    params: dict = {}
+    stats: dict = {}
+    for key, t in state_dict.items():
+        name, field = key.rsplit(".", 1)
+        if field == "num_batches_tracked":
+            continue
+        a = t.detach().cpu().numpy()
+        if field in ("running_mean", "running_var"):
+            stats.setdefault(name, {})[field.removeprefix("running_")] = a
+        elif field == "bias":
+            params.setdefault(name, {})["bias"] = a
+        elif name.startswith("bn_"):
+            params.setdefault(name, {})["scale"] = a
+        elif name.startswith("conv_"):
+            params.setdefault(name, {})["kernel"] = np.ascontiguousarray(
+                np.transpose(a, (2, 3, 1, 0)))
+        else:
+            params.setdefault(name, {})["kernel"] = np.ascontiguousarray(a.T)
+    return {"params": params, "batch_stats": stats} if stats else {
+        "params": params}

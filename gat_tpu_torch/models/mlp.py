@@ -5,7 +5,7 @@
     Linear(dims[-1] → num_classes)
 
 Submodules carry the flax layer names (`dense_0`, `ln_0`, …, `out`), so
-`params_from_flax` is a rename plus layout changes.
+`params_from_flax` and `params_to_flax` are a rename plus layout changes.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-__all__ = ["MLP", "mlp_dims", "params_from_flax"]
+__all__ = ["Dropout", "MLP", "mlp_dims", "params_from_flax",
+           "params_to_flax"]
 
 
 def mlp_dims(hidden_dim: int, num_hidden_layers: int) -> list[int]:
@@ -28,11 +29,32 @@ def mlp_dims(hidden_dim: int, num_hidden_layers: int) -> list[int]:
     return dims
 
 
+class Dropout(nn.Dropout):
+    """Dropout in flax's form (kept inputs divided by the keep rate, the
+    rest 0), its mask drawn from `generator` when one is set: the trainer
+    sets a seeded generator on its device."""
+    generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
 class MLP(nn.Module):
     def __init__(self, num_features: int, hidden_dim: int = 128,
                  num_hidden_layers: int = 2, num_classes: int = 47,
                  dropout: float = 0.1):
         super().__init__()
+        self.num_features = num_features
+        self.init_args = {"num_features": num_features,
+                          "hidden_dim": hidden_dim,
+                          "num_hidden_layers": num_hidden_layers,
+                          "num_classes": num_classes, "dropout": dropout}
         self.n_hidden = 0
         width_in = num_features
         for i, width in enumerate(mlp_dims(hidden_dim, num_hidden_layers)):
@@ -40,7 +62,7 @@ class MLP(nn.Module):
             self.add_module(f"ln_{i}", nn.LayerNorm(width, eps=1e-5))
             self.n_hidden += 1
             width_in = width
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.out = nn.Linear(width_in, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -55,10 +77,24 @@ def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     are (in, out), Linear weights (out, in); LayerNorm scale → weight."""
     sd = {}
     for name, p in variables["params"].items():
-        if "kernel" in p:
-            sd[f"{name}.weight"] = torch.from_numpy(
-                np.ascontiguousarray(np.asarray(p["kernel"]).T))
-        else:
-            sd[f"{name}.weight"] = torch.from_numpy(np.asarray(p["scale"]))
-        sd[f"{name}.bias"] = torch.from_numpy(np.asarray(p["bias"]))
+        w = np.asarray(p["kernel"]).T if "kernel" in p else p["scale"]
+        sd[f"{name}.weight"] = torch.from_numpy(np.array(w))
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(p["bias"]))
     return sd
+
+
+def params_to_flax(state_dict: dict) -> dict:
+    """MLP state_dict (or any {'<layer>.weight|bias': tensor} of its
+    parameters) → flax variables as numpy trees: Linear weights
+    (out, in) → kernels (in, out), LayerNorm weight → scale."""
+    params: dict = {}
+    for key, t in state_dict.items():
+        name, field = key.rsplit(".", 1)
+        a = t.detach().cpu().numpy()
+        if field == "bias":
+            params.setdefault(name, {})["bias"] = a
+        elif name.startswith("ln_"):
+            params.setdefault(name, {})["scale"] = a
+        else:
+            params.setdefault(name, {})["kernel"] = np.ascontiguousarray(a.T)
+    return {"params": params}

@@ -5,12 +5,20 @@ Dataset labels use the ASCII '#'; `midi_to_note` gives librosa's Unicode
 """
 from __future__ import annotations
 
-__all__ = ["midi_to_note", "note_to_midi"]
+import numpy as np
+
+__all__ = ["midi_to_hz", "midi_to_note", "note_to_midi"]
 
 _PITCH_CLASSES_UNICODE = ["C", "C♯", "D", "D♯", "E", "F", "F♯", "G", "G♯",
                           "A", "A♯", "B"]
 _PITCH_CLASSES_ASCII = ["C", "C#", "D", "D#", "E", "F", "F#", "G", "G#",
                         "A", "A#", "B"]
+
+
+def midi_to_hz(midi):
+    """440 · 2^((midi − 69) / 12), in float64 (the synthesizers' pitch)."""
+    return 440.0 * 2.0 ** ((np.asarray(midi, dtype=np.float64) - 69.0)
+                           / 12.0)
 
 
 def midi_to_note(midi: int, unicode: bool = True) -> str:

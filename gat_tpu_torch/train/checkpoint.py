@@ -1,4 +1,5 @@
-"""Reader of the `.gtckpt.npz` checkpoint schema.
+"""Reader and writer of the `.gtckpt.npz` checkpoint schema, which both
+packages read and write.
 
 A checkpoint is one npz file: a `__meta__` entry holding a JSON header
 (config, model init args, label map, histories) and one array per
@@ -14,9 +15,23 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load_checkpoint", "unflatten_tree"]
+__all__ = ["save_checkpoint", "load_checkpoint", "flatten_tree",
+           "unflatten_tree"]
 
 _SEP = "/"
+_ARRAY_FIELDS = ("variables", "scaler", "opt_state")
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """{'a': {'b': {'c': x}}} → {'a/b/c': np.asarray(x)}."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}{_SEP}{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, key))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
 
 
 def unflatten_tree(flat: dict[str, np.ndarray]) -> dict:
@@ -29,6 +44,29 @@ def unflatten_tree(flat: dict[str, np.ndarray]) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return tree
+
+
+def save_checkpoint(path, ckpt: dict) -> Path:
+    """Write a checkpoint dict: the array subtrees (variables, scaler,
+    opt_state) as npz entries, everything else in the JSON header.
+    Returns the path written: np.savez appends '.npz' to any other
+    suffix, so the name is normalized first."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        path = path.with_name(path.name + ".npz")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays: dict[str, np.ndarray] = {}
+    header: dict = {}
+    for k, v in ckpt.items():
+        if k in _ARRAY_FIELDS and v is not None:
+            arrays.update(flatten_tree({k: v}))
+        else:
+            header[k] = v
+    payload = {"__meta__": json.dumps(header, default=str)}
+    payload.update(arrays)
+    np.savez_compressed(path, **payload)
+    print(f"[save_checkpoint] Checkpoint saved to {path}")
+    return path
 
 
 def load_checkpoint(path) -> dict:

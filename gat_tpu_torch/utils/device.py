@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "to_host"]
+__all__ = ["fp32_reference_math", "resolve_device", "to_host"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -19,6 +19,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"[gat_tpu_torch] unsupported device {dev}")
     return dev
+
+
+def fp32_reference_math() -> None:
+    """The reference is fp32. cuDNN's default TF32 on the CNN's
+    convolutions would keep about three decimal digits, so TF32 is off for
+    both matmuls and convolutions wherever the models run (inference and
+    training alike)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def to_host(outs: tuple) -> tuple:

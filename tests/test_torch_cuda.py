@@ -446,3 +446,134 @@ def test_audio_slicer_card_vs_cpu(tmp_path):
         np.testing.assert_allclose(read_wav(tmp_path / "card" / name)[0],
                                    read_wav(tmp_path / "cpu" / name)[0],
                                    atol=1 / 32768)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def recipe_dataset(tmp_path_factory):
+    """The shipped recipe at 16 variants per class: 752 clips."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gat_tpu_torch.data.synth import synthesize_note_dataset
+    root = tmp_path_factory.mktemp("train") / "synthetic" / "recipe"
+    synthesize_note_dataset(root, variants_per_class=16, seed=42,
+                            verbose=False, noise_snr_db=(8.0, 40.0),
+                            family="all3", stressor="mix", stressor_prob=0.5,
+                            channel="mix", channel_prob=0.25)
+    return root
+
+
+def test_feature_builder_752_clips_kernels_vs_plain(recipe_dataset):
+    """K1-K3 through the FeatureBuilder at the dataset's shape, each
+    launched once, against the CPU plain path."""
+    from gat_tpu_torch.data.loader import AudioDatasetLoader
+    loaders = {dev: AudioDatasetLoader([recipe_dataset], target_sr=SR,
+                                       duration=0.5, device=dev)
+               for dev in ("cuda", "cpu")}
+    before = [features.melspec_features.launches,
+              features.mfcc_frontend.launches, yin.yin_pitch.launches]
+    out = {dev: (features.FeatureBuilder(device=dev)
+                 .extract_mfcc_features(loaders[dev])[0],
+                 features.FeatureBuilder(device=dev)
+                 .extract_melspec_features(loaders[dev])[0])
+           for dev in ("cuda", "cpu")}
+    after = [features.melspec_features.launches,
+             features.mfcc_frontend.launches, yin.yin_pitch.launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    (mf, mel), (mf_ref, mel_ref) = out["cuda"], out["cpu"]
+    assert mf.shape == (752, 65) and mel.shape == (752, 64, 22, 1)
+    np.testing.assert_allclose(mf[:, :64], mf_ref[:, :64], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(10.0 ** (mf[:, 64] - mf_ref[:, 64]), 1.0,
+                               atol=2e-3, rtol=0)
+    mask = mel_ref > -60.0
+    np.testing.assert_allclose(mel[mask], mel_ref[mask], atol=0.1, rtol=0)
+
+
+def _step_pair(make, x, y):
+    from gat_tpu_torch.train import ArrayDataLoader, Trainer
+    pair = [Trainer(make(), ArrayDataLoader(x, y), seed=0, device=dev)
+            for dev in ("cuda", "cpu")]
+    for t in pair:
+        t._step(torch.as_tensor(x).to(t.device),
+                torch.as_tensor(y).long().to(t.device))
+    return pair
+
+
+@pytest.mark.parametrize("kind", ["mlp", "cnn", "cnn_bf16"])
+def test_one_step_card_vs_cpu(kind, clips):
+    """One dropout-0 step from the same weights on the mel images (CNN) or
+    MFCC features (MLP) of 32 tones: fp32 gradients within 1e-3 of their
+    largest CPU element; bf16 gradients within 2e-2 of the CPU's in norm
+    (cuDNN's and the CPU's bf16 convolutions round differently, element
+    by element). The conv biases ahead of BatchNorm (true gradient 0) are
+    left out."""
+    from gat_tpu_torch.models import CNN, MLP
+    y = np.arange(32)
+    if kind == "mlp":
+        x = features.mfcc_feature_vectors(clips[:32], SR).cpu().numpy()
+        x = (x - x.mean(0)) / x.std(0)
+        make = lambda: MLP(65, 128, 2, 47, 0.0)  # noqa: E731
+    else:
+        x = features.melspec_features(clips[:32], SR).cpu().numpy()
+        dtype = torch.bfloat16 if kind == "cnn_bf16" else torch.float32
+        make = lambda: CNN(47, dropout=0.0, dtype=dtype)  # noqa: E731
+    card, cpu = _step_pair(make, x, y)
+    for (name, p), q in zip(card.model.named_parameters(),
+                            cpu.model.parameters()):
+        if name.startswith("conv_") and name.endswith(".bias"):
+            continue
+        got, ref = p.grad.cpu(), q.grad
+        if kind == "cnn_bf16":
+            assert float((got - ref).norm() / ref.norm()) <= 2e-2, name
+        else:
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                       err_msg=name,
+                                       atol=1e-3 * float(ref.abs().max()))
+
+
+def test_batchnorm_biased_running_variance_on_card():
+    """Train mode moves the running variance toward the biased batch
+    variance (flax), by momentum 0.1, on the card as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gat_tpu_torch.models import CNN
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(4, 2, 3, 5)).astype(np.float32))
+    var = x.var(dim=(0, 2, 3), unbiased=False)
+    for dev in ("cuda", "cpu"):
+        m = CNN(in_channels=2, base_channels=2, num_blocks=1).to(dev).train()
+        m._batch_norm("bn_0", x.to(dev))
+        np.testing.assert_allclose(m.bn_0.running_var.cpu().numpy(),
+                                   (0.9 + 0.1 * var).numpy(), rtol=1e-6)
+
+
+def test_saved_checkpoint_loads_in_transcriber(tmp_path):
+    """A card-trained pair saved and loaded back: transcribe_clips with all
+    weight on one model gives that trainer's predictions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gat_tpu_torch.data.synth import DEFAULT_CLASS_NAMES
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.models import CNN, MLP
+    from gat_tpu_torch.train import ArrayDataLoader, Trainer
+    from gat_tpu_torch.utils.scaler import FeatureScaler
+    clips = _tones(0.05)
+    y = np.arange(47)
+    rm = dict(enumerate(sorted(DEFAULT_CLASS_NAMES)))
+    mf = features.mfcc_feature_vectors(clips, SR).cpu().numpy()
+    mel = features.melspec_features(clips, SR).cpu().numpy()
+    scaler = FeatureScaler().fit(mf)
+    mlp = Trainer(MLP(65), ArrayDataLoader(scaler.transform(mf), y),
+                  reverse_map=rm, scaler=scaler, model_type="mlp")
+    cnn = Trainer(CNN(47), ArrayDataLoader(mel, y), reverse_map=rm,
+                  model_type="cnn")
+    for t in (mlp, cnn):
+        t.train(epochs=2, verbose=False)
+    paths = [t.save(root=tmp_path, target_sr=SR) for t in (mlp, cnn)]
+    for w, t, x in ((0.0, mlp, scaler.transform(mf)), (1.0, cnn, mel)):
+        tr = Transcriber(mlp_ckpt=paths[0], cnn_ckpt=paths[1], cnn_weight=w,
+                         device="cuda")
+        got = tr.transcribe_clips(clips)["labels"]
+        assert got == [rm[int(i)] for i in t.predict(x)]

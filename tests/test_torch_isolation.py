@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package, its entry points never fall back to the CPU on their own, and its
-CUDA kernels are built at first launch, never at import."""
+"""The PyTorch port stands alone: it imports nothing of JAX, of the JAX
+package or of sklearn (the H100 installation has none), matplotlib only
+inside a function, its entry points never fall back to the CPU on their
+own, and its CUDA kernels are built at first launch, never at import."""
 import ast
 import subprocess
 import sys
@@ -14,7 +15,7 @@ from gat_tpu_torch import features, kernels
 from gat_tpu_torch.ops import onset, yin
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gat_tpu", "sklearn")
 PORT_FILES = sorted((REPO / "gat_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 # (wrapper, its plain version, the arguments after the tensor)
@@ -45,9 +46,22 @@ def test_no_jax_or_gat_tpu_import(path):
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_matplotlib_only_inside_functions(path):
+    """matplotlib (not in the H100 installation) is imported only where a
+    plot is drawn, so every module imports without it."""
+    tree = ast.parse(path.read_text(), str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    for node in top:
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""])
+        assert all(n.split(".")[0] != "matplotlib" for n in names), path.name
+
+
 def test_port_imports_with_jax_blocked():
-    """Every port module imports with jax, flax, optax and gat_tpu made
-    unimportable, in a fresh interpreter."""
+    """Every port module imports with jax, flax, optax, sklearn and
+    gat_tpu made unimportable, in a fresh interpreter."""
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   .removesuffix(".__init__")
                   for p in (REPO / "gat_tpu_torch").rglob("*.py"))

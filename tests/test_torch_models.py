@@ -49,6 +49,22 @@ def test_config_mirrors_gat_tpu():
     assert (tc.TARGET_SR, tc.CLIP_DURATION) == (jc.TARGET_SR,
                                                 jc.CLIP_DURATION)
     assert tc.CHECKPOINTS_ROOT == jc.CHECKPOINTS_ROOT
+    assert tc.DATASETS_ROOT == jc.DATASETS_ROOT
+    # the training fields, and the embedded form checkpoints carry
+    for name, fields in (("MLP_CONFIG", ("SAVE_CHECKPOINT", "LR", "DECAY",
+                                         "EPOCHS", "MAX_CLIP_NORM",
+                                         "ES_WINDOW_LEN", "ES_SLOPE_LIMIT")),
+                         ("CNN_CONFIG", ("SAVE_CHECKPOINT", "LR", "DECAY",
+                                         "EPOCHS", "MAX_CLIP_NORM",
+                                         "ES_WINDOW_LEN", "ES_SLOPE_LIMIT",
+                                         "USE_AMP"))):
+        for f in fields:
+            assert (getattr(getattr(tc, name), f)
+                    == getattr(getattr(jc, name), f)), (name, f)
+    for name in ("MFCC_CONFIG", "MELSPEC_CONFIG", "MLP_CONFIG",
+                 "CNN_CONFIG"):
+        assert (tc.config_dict(getattr(tc, name))
+                == jc.config_dict(getattr(jc, name))), name
 
 
 def test_all_shipped_checkpoints_found():
