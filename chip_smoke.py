@@ -74,13 +74,27 @@ non-zero:
    epochs at full width (K1-K3 launched, finite losses, one host transfer
    per epoch), ms per epoch, steps/s, examples/s and busy share per
    family, and the saved checkpoints through `Transcriber`;
-12. print the `{"kernels": [...]}` line, the card line, and last
+12. `[api]`: the public API added over the main path, on the card:
+   `pick_onsets_from_envelope` at the 64-riff shape (K5 launched, its
+   outputs identical to `pick_onsets_plain`'s), the FeatureBuilder's
+   three inference extractors at the 1024 clips (K1-K3 launched, against
+   the CPU's at K1-K3's tolerances) and the lazy top-level names;
+13. `[eval]`: the note-accuracy harness, `tools/torch_evaluate.py`, with
+   the shipped pair and the witness checkpoint, on the card and on the
+   CPU: `evaluate_set` on `mixed` at 8 variants (376 clips) and on
+   `modal_unseen_family`, `fm_vibrato` and `modal_full_chain` at 4
+   (188 each), per-system correct counts equal (a label flipped by a
+   near-tie passes only with a top-2 margin below 1e-3, printed), and
+   `evaluate_wav_dir` over SPN-named riff WAVs, reports equal; K1-K5
+   launched; each set's stages timed on the card, synthesis apart;
+14. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after (`launches_by_path` in the kernels line:
-clips, file, long, files, serve, http, stream, live, cli, train); `launches`
-stays the clip path's count for K1-K3 and the file path's for K4/K5.
+clips, file, long, files, serve, http, stream, live, cli, train, eval);
+`launches` stays the clip path's count for K1-K3 and the file path's for
+K4/K5.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -130,6 +144,12 @@ LIVE_RING = 33075            # the live engine's 1.5 s ring at 22050 Hz
 # the [train] phase: the shipped recipe with 16 variants per class (752
 # clips), 3 epochs of each family
 TRAIN_VARIANTS, TRAIN_EPOCHS = 16, 3
+# [eval]: tools/torch_evaluate.py's sets (name, variants per class) and seed
+EVAL_SETS = (("mixed", 8), ("modal_unseen_family", 4), ("fm_vibrato", 4),
+             ("modal_full_chain", 4))
+EVAL_SEED = 777
+# the model columns of evaluate_set, whose labels come from probabilities
+MODEL_SYSTEMS = ("default", "ensemble", "ensemble_prior", "mlp", "cnn")
 POOL = 6                  # distinct input buffers per timing repetition
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
@@ -1643,6 +1663,224 @@ def train_phase(rows: list, card: str, failures: list,
                 failures.append(f"[train] {fam} checkpoint layout")
 
 
+def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
+              failures: list, device: str = "cuda") -> None:
+    """`[api]`: the public API this port adds over the main path, on the
+    card: `pick_onsets_from_envelope` at the 64-riff shape (K5, outputs
+    identical to `pick_onsets_plain`'s), the FeatureBuilder's three
+    inference extractors at 1024 clips (K1-K3, against the CPU's at
+    K1-K3's tolerances) and the lazy top-level names."""
+    import torch
+    import gat_tpu_torch
+    from gat_tpu_torch import features
+    from gat_tpu_torch.data.loader import AudioDatasetLoader
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.ops import onset
+    from gat_tpu_torch.ops.pitch import midi_to_note
+    from gat_tpu_torch.utils.native_wav import write_wav_batch
+
+    lazy = {n: getattr(gat_tpu_torch, n) for n in gat_tpu_torch._LAZY}
+    ok = len(lazy) == 11 and lazy["Transcriber"] is Transcriber
+    t = gat_tpu_torch.Transcriber(device=device)
+    log(f"[api] gat_tpu_torch's {len(lazy)} lazy names resolve, "
+        f"gat_tpu_torch.Transcriber is infer.Transcriber: {ok}")
+    if not ok:
+        failures.append("[api] lazy top-level names")
+
+    y, nvf = file_inputs(device, N_RIFFS, RIFF_SECONDS)
+    env = onset.onset_strength(y, FILE_SR, n_valid_frames=nvf)
+    valid = torch.arange(env.shape[-1], device=env.device)[None] < nvf[:, None]
+    got, launches, _ = driven(lambda: onset.pick_onsets_from_envelope(
+        env, FILE_SR, 512, 0.3, 64, True, valid))
+    ref = onset.pick_onsets_plain(env, FILE_SR, 512, 0.3, 64, True, nvf)
+    same = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, ref))
+    one = onset.pick_onsets_from_envelope(env[0], FILE_SR, 512, 0.3, 64)
+    same = same and all(torch.equal(a.cpu(), b[0].cpu())
+                        for a, b in zip(one, ref))
+    ok = same and launches[4] == 1
+    log(f"[api] pick_onsets_from_envelope at {tuple(env.shape)}: launches "
+        f"K1..K5 {launches}; outputs identical to pick_onsets_plain's "
+        f"{same} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[api] pick_onsets_from_envelope")
+
+    fb, cpu_fb = t.feature_builder, features.FeatureBuilder(device="cpu")
+    mfcc, mel, sc = t.mfcc_params, t.melspec_params, t.scaler
+    clips = torch.from_numpy(clips_np).to(fb.device)
+    with tempfile.TemporaryDirectory() as d:
+        items = [(Path(d) / midi_to_note(int(m), unicode=False) / f"{i}.wav",
+                  clip, SR) for i, (clip, m) in enumerate(zip(clips_np,
+                                                              midi))]
+        for path, _, _ in items:
+            path.parent.mkdir(exist_ok=True)
+        write_wav_batch(items)
+        loaders = [AudioDatasetLoader([d], target_sr=SR, duration=0.5,
+                                      device=dev) for dev in (device, "cpu")]
+        calls = (("extract_inference_features", (loaders[0],),
+                  (loaders[1],), False),
+                 ("extract_inference_features_from_clips",
+                  (clips, SR, mfcc, mel, sc), (clips_np, SR, mfcc, mel, sc),
+                  True),
+                 ("extract_inference_features_from_audio",
+                  (clips[7], SR, mfcc, mel, sc), (clips_np[7], SR, mfcc, mel,
+                                                  sc), True))
+        for name, args, cpu_args, scaled in calls:
+            (mf, ms), launches, _ = driven(
+                lambda: getattr(fb, name)(*args))
+            rmf, rms = getattr(cpu_fb, name)(*cpu_args)
+            mf, ms, rmf, rms = (x.cpu().numpy() for x in (mf, ms, rmf, rms))
+            if scaled:  # compare unscaled: the scale amplifies the error
+                mf, rmf = (x * sc.scale_ + sc.mean_ for x in (mf, rmf))
+            e_mfcc = float(np.abs(mf[:, :64] - rmf[:, :64]).max())
+            e_pitch = float(np.abs(10.0 ** (mf[:, 64] - rmf[:, 64]) - 1).max())
+            e_mel = float(np.abs(ms - rms)[rms > -60.0].max())
+            ok = (launches[:3] == [1, 1, 1] and e_mfcc <= 1e-3
+                  and e_pitch <= 2e-3 and e_mel <= 0.1
+                  and np.isfinite(mf).all() and np.isfinite(ms).all())
+            log(f"[api] {name}: {mf.shape} and {ms.shape}; launches K1..K5 "
+                f"{launches}; vs the CPU: MFCC max abs err {e_mfcc:.3g} "
+                f"(1e-3), pitch rel {e_pitch:.3g} (2e-3), mel {e_mel:.3g} dB "
+                f"(0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[api] {name}")
+
+
+def write_eval_wavs(root: Path) -> Path:
+    """The folder harness's input: SPN-named folders (A2, D3, G3) each
+    with a riff of four plucks of its note at 22050 Hz, and a riff of A2
+    D3 G3 B3 E4 at 44100 Hz in an unlabeled folder."""
+    from gat_tpu_torch.ops.pitch import midi_to_note
+    from gat_tpu_torch.utils.wavio import write_wav
+    for i, m in enumerate(FILE_MIDI[:3]):
+        folder = root / midi_to_note(m, unicode=False)
+        folder.mkdir(parents=True)
+        write_wav(folder / "riff.wav", make_riffs(
+            np.full((1, 4), m), 3.5, FILE_SR, SEED + 10 + i, noise=0.0)[0],
+            FILE_SR)
+    (root / "mixed").mkdir()
+    write_wav(root / "mixed" / "riff.wav", make_riffs(
+        np.array([FILE_MIDI]), 3.9, 44100, SEED + 13, noise=0.0)[0], 44100)
+    return root
+
+
+def flipped_clips(card: dict, cpu: dict) -> list[tuple]:
+    """(system, clip, top-2 margin on the card, on the CPU) of every clip
+    whose label differs between the card and the CPU, for the systems
+    whose labels come from the models' probabilities."""
+    out = []
+    for system, get in (("default", lambda r: r["probs"]),
+                        ("mlp", lambda r: r["per_model_probs"]["mlp"]),
+                        ("cnn", lambda r: r["per_model_probs"]["cnn"])):
+        a, b = get(card["_result"]), get(cpu["_result"])
+        for i in np.flatnonzero(a.argmax(1) != b.argmax(1)):
+            margins = [float(np.diff(np.sort(p[i])[-2:])[0]) for p in (a, b)]
+            out.append((system, int(i), *margins))
+    return out
+
+
+def same_wav_reports(got: dict, ref: dict) -> bool:
+    """The folder harness's reports equal, per-clip confidences within
+    1e-2 (the probs' bound)."""
+    if {k: v for k, v in got.items() if k != "files"} != \
+            {k: v for k, v in ref.items() if k != "files"}:
+        return False
+    for g, r in zip(got["files"], ref["files"], strict=True):
+        if "error" in r or "error" in g:
+            if g != r:
+                return False
+            continue
+        strip = [[{k: v for k, v in c.items() if k != "confidence"}
+                  for c in f["clips"]] for f in (g, r)]
+        if strip[0] != strip[1] or any(
+                abs(a["confidence"] - b["confidence"]) > 1e-2
+                for a, b in zip(g["clips"], r["clips"])):
+            return False
+    return True
+
+
+def eval_phase(rows: list, card: str, failures: list,
+               device: str = "cuda") -> None:
+    """`[eval]`: the note-accuracy harness, tools/torch_evaluate.py, with
+    the shipped pair and the witness on the card and on the CPU: its
+    `evaluate_set` on EVAL_SETS and its `evaluate_wav_dir` over
+    SPN-named riff WAVs. Per-system correct counts equal between card and
+    CPU (a label flipped by a near-tie passes only with a top-2 margin
+    below 1e-3, printed), the folder reports equal, K1-K5 launched; each
+    set's stages timed on the card, synthesis apart from the card's
+    work."""
+    import importlib.util
+    from gat_tpu_torch.config import MLP_CONFIG
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.utils.profiling import StageTimer
+    spec = importlib.util.spec_from_file_location(
+        "torch_evaluate", Path(__file__).resolve().parent / "tools"
+        / "torch_evaluate.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    witness = str(MLP_CONFIG.CHECKPOINTS_DIR / MLP_CONFIG.REFERENCE_CKPT_NAME)
+    pairs = {dev: (Transcriber(device=dev),
+                   Transcriber(mlp_ckpt=witness, use_cnn=False, device=dev))
+             for dev in (device, "cpu")}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        wav_dir = write_eval_wavs(d / "wavs")
+        timers = {name: StageTimer() for name, _ in EVAL_SETS}
+
+        def run(dev, timed):
+            t, w = pairs[dev]
+            sets = {name: tool.evaluate_set(
+                t, d / dev / name, variants, EVAL_SEED, witness=w,
+                timer=timers[name] if timed else None,
+                **dict(tool.FULL_SUITE[name])) for name, variants in EVAL_SETS}
+            return sets, tool.evaluate_wav_dir(t, wav_dir)
+
+        (card_sets, card_wav), launches, wall = driven(
+            lambda: run(device, True))
+        record_launches(rows, "eval", launches)
+        t0 = time.perf_counter()
+        cpu_sets, cpu_wav = run("cpu", False)
+        cpu_s = time.perf_counter() - t0
+    synth_s = sum(tm.totals["synthesis"] for tm in timers.values())
+    log(f"[eval] evaluate_set on {len(EVAL_SETS)} sets and evaluate_wav_dir "
+        f"on {card_wav['n_files']} files: {wall:.2f} s on the card side, of "
+        f"which synthesis {synth_s:.2f} s (host); CPU plain path {cpu_s:.1f} "
+        f"s; launches K1..K5 {launches} on {card}")
+    if min(launches) < 1:
+        failures.append(f"[eval] a kernel was not launched: {launches}")
+    for name, _ in EVAL_SETS:
+        got, ref = card_sets[name], cpu_sets[name]
+        tm = timers[name]
+        ms = {k: v * 1e3 for k, v in tm.totals.items()}
+        same = got["_correct"] == ref["_correct"]
+        flips = [] if same else flipped_clips(got, ref)
+        explained = (bool(flips) and all(
+            k in MODEL_SYSTEMS for k in got["_correct"]
+            if got["_correct"][k] != ref["_correct"][k])
+            and all(max(m_card, m_cpu) < 1e-3
+                    for _, _, m_card, m_cpu in flips))
+        ok = same or explained
+        log(f"[eval] {name} ({got['n_clips']} clips): correct on the card "
+            f"{got['_correct']}, equal to the CPU's {same}"
+            + ("" if same else f" (CPU {ref['_correct']}; flipped clips "
+               f"(system, clip, top-2 margin card, CPU) {flips})")
+            + f"; accuracy default {got['default_accuracy']}, mlp "
+            f"{got['mlp_accuracy']}, cnn {got['cnn_accuracy']}, yin "
+            f"{got['yin_accuracy']}, witness {got['witness_accuracy']}; "
+            f"synthesis {ms['synthesis']:.1f} ms, load {ms['load']:.1f} ms, "
+            f"transcribe_clips {ms['transcribe_clips']:.3f} ms, yin "
+            f"{ms['yin']:.3f} ms, witness {ms['witness']:.3f} ms, domain_z "
+            f"{ms['domain_z']:.3f} ms -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[eval] {name}: card and CPU correct counts")
+    ok = same_wav_reports(card_wav, cpu_wav)
+    log(f"[eval] evaluate_wav_dir: {card_wav['n_clips']} clips, folder "
+        f"accuracy {card_wav.get('folder_label_accuracy')}, YIN agreement "
+        f"{card_wav['yin_agreement']}; equal to the CPU's {ok} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[eval] evaluate_wav_dir: card and CPU reports")
+
+
 def main() -> int:
     import torch
 
@@ -1902,6 +2140,12 @@ def main() -> int:
 
     # ---- 11. training -----------------------------------------------------
     train_phase(rows, card, failures)
+
+    # ---- 12. the rest of the public API -----------------------------------
+    api_phase(rows, clips_np, midi, failures)
+
+    # ---- 13. the note-accuracy harness ------------------------------------
+    eval_phase(rows, card, failures)
 
     if failures:
         log(f"[fail] {failures}")

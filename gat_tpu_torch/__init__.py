@@ -18,3 +18,34 @@ against.
 """
 
 __version__ = "1.0.0"
+
+from .config import (  # noqa: F401
+    CONFIG_VERSION, TARGET_SR, CLIP_DURATION,
+    MFCC_CONFIG, MELSPEC_CONFIG, MLP_CONFIG, CNN_CONFIG, SLICER_CONFIG,
+    PARALLEL_CONFIG,
+    MFCCConfig, MelSpecConfig, MLPConfig, CNNConfig, AudioSlicerConfig,
+)
+
+# The top-level API, imported when first read: `import gat_tpu_torch` for
+# the config alone does not load torch's models or the kernels' wrappers.
+_LAZY = {
+    "Transcriber": ".infer",
+    "NotePredictor": ".infer",
+    "FeatureBuilder": ".features",
+    "AudioSlicer": ".segment.slicing",
+    "AudioDatasetLoader": ".data.loader",
+    "TrainingManager": ".train",
+    "Trainer": ".train",
+    "LiveTranscriber": ".stream",
+    "ScanStreamer": ".stream",
+    "MLP": ".models",
+    "CNN": ".models",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        module = importlib.import_module(_LAZY[name], __name__)
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

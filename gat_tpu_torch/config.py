@@ -19,13 +19,17 @@ PROJECT_ROOT = Path(__file__).resolve().parent.parent
 # JAX package, so both read one tree).
 DATA_ROOT = Path(os.environ.get("GAT_TPU_DATA_ROOT", PROJECT_ROOT / "data"))
 DATASETS_ROOT = DATA_ROOT / "datasets"
+PERSONAL_DATASETS_ROOT = DATASETS_ROOT / "personal"
+INFERENCE_ROOT = DATA_ROOT / "inference"
+INFERENCE_CLIPS_ROOT = INFERENCE_ROOT / "sliced_clips"
+INFERENCE_AUDIO_ROOT = INFERENCE_ROOT / "in_audio"
 CHECKPOINTS_ROOT = DATA_ROOT / "checkpoints"
 # The port's trainer writes its checkpoints under a root of its own, so a
 # training run never overwrites the shipped files of CHECKPOINTS_ROOT/mlp
 # and /cnn (the JAX trainer's defaults).
 TORCH_CHECKPOINTS_ROOT = CHECKPOINTS_ROOT / "torch"
 # `Transcriber.transcribe(save_clips=True)` writes the sliced clips here.
-INFERENCE_OUTPUT_ROOT = DATA_ROOT / "inference" / "output"
+INFERENCE_OUTPUT_ROOT = INFERENCE_ROOT / "output"
 # Hand-written CUDA kernels are compiled here at first use.
 KERNEL_BUILD_DIR = PROJECT_ROOT / "build" / "gat_tpu_torch"
 
@@ -109,11 +113,22 @@ class AudioSlicerConfig:
     ATTACK_SKIP_SEC: float = 0.1        # note attack skipped when slicing
 
 
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The JAX package's mesh layout and static padding budgets, kept as
+    data: the port runs on one card and has no mesh code yet."""
+    DATA_AXIS: str = "data"
+    MODEL_AXIS: str = "model"
+    MAX_ONSETS: int = 64        # max onsets per file-level transcription
+    MAX_CLIPS_PER_BATCH: int = 1024
+
+
 MFCC_CONFIG = MFCCConfig()
 MELSPEC_CONFIG = MelSpecConfig()
 MLP_CONFIG = MLPConfig()
 CNN_CONFIG = CNNConfig()
 SLICER_CONFIG = AudioSlicerConfig()
+PARALLEL_CONFIG = ParallelConfig()
 
 
 def config_dict(cfg) -> dict:

@@ -7,7 +7,8 @@
   AmplitudeToDB, as an NHWC image (N, n_mels, T, 1).
 * `FeatureBuilder`: both front-ends over a whole dataset, each in one
   call on the builder's device, with the labels encoded as the sorted
-  folder names.
+  folder names; and the inference extractors, which take their params
+  from a checkpoint's embedded config.
 
 Each front-end is one hand-written CUDA kernel on the card
 (`csrc/melspec_frontend.cu`, `csrc/mfcc_frontend.cu`) with its plain
@@ -19,6 +20,7 @@ amplitude-invariant, so both agree up to rounding).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -40,6 +42,9 @@ _KERNEL_N_FFT = 2048   # the FFT size compiled into both front-end kernels
 _MFCC_HOP, _MFCC_N_MELS, _TOP_DB = 512, 128, 80.0  # spectral.mfcc defaults
 # K1-K3 keep a clip's frames in shared memory and refuse this many or more
 _KERNEL_MAX_FRAMES = 2000
+# "the caller gave nothing: use the config's params", apart from an
+# explicit None, which skips the mel branch (MLP-only operation)
+_USE_CONFIG = object()
 
 
 def encode_labels(labels):
@@ -265,23 +270,28 @@ class FeatureBuilder:
         self.device = resolve_device(device)
         self.scaler = None
 
-    def _clips(self, audio_loader, hop_length: int):
-        """(clips on the device, labels). The kernels hold a clip's frames
-        in shared memory: longer clips raise here, before any launch,
-        instead of running another version."""
-        wavs, _, labels, _ = audio_loader.load_audio_dataset(pad_to_max=True)
-        clips = np.stack(wavs).astype(np.float32, copy=False)
+    def _on_device(self, clips, hop_length: int) -> torch.Tensor:
+        """Clips as a contiguous float32 tensor on the builder's device.
+        The kernels hold a clip's frames in shared memory: on the card,
+        longer clips raise here, before any launch, instead of running
+        another version."""
+        clips = torch.as_tensor(clips, dtype=torch.float32)
         if self.device.type == "cuda":
             frames = spectral.n_frames(clips.shape[-1], _KERNEL_N_FFT,
                                        hop_length)
             if clips.ndim != 2 or frames >= _KERNEL_MAX_FRAMES:
                 raise ValueError(
-                    f"[FeatureBuilder] clips of shape {clips.shape} give "
-                    f"{frames} frames at hop {hop_length}; the card's "
+                    f"[FeatureBuilder] clips of shape {tuple(clips.shape)} "
+                    f"give {frames} frames at hop {hop_length}; the card's "
                     f"front-end kernels take mono clips of fewer than "
                     f"{_KERNEL_MAX_FRAMES} frames. Give the loader a clip "
                     f"`duration` (TrainingManager does).")
-        return torch.as_tensor(clips).to(self.device), labels
+        return clips.to(self.device).contiguous()
+
+    def _clips(self, audio_loader, hop_length: int):
+        """(the loader's clips on the device, labels)."""
+        wavs, _, labels, _ = audio_loader.load_audio_dataset(pad_to_max=True)
+        return self._on_device(np.stack(wavs), hop_length), labels
 
     def extract_mfcc_features(self, audio_loader, n_mfcc: int | None = None,
                               normalize_audio_volume: bool | None = None,
@@ -329,3 +339,70 @@ class FeatureBuilder:
         print(f"Extracted Mel-spectrogram features for {X.shape[0]} "
               f"samples. X shape: {tuple(X.shape)}")
         return X, y_encoded, num_classes, reverse_map
+
+    # ----- inference paths ----------------------------------------------
+    def extract_inference_features(self, audio_loader, mfcc_params=None,
+                                   melspec_params=_USE_CONFIG, scaler=None):
+        """A directory of clips with a checkpoint's params → (mfcc (N, D),
+        mel NHWC (N, M, T, 1) or None), tensors on the builder's device.
+        None params resolve to MFCC_CONFIG / MELSPEC_CONFIG, but an
+        explicit `melspec_params=None` skips the mel branch."""
+        mfcc_params = mfcc_params or dataclasses.asdict(MFCC_CONFIG)
+        if melspec_params is _USE_CONFIG:
+            melspec_params = dataclasses.asdict(MELSPEC_CONFIG)
+        wavs, _, _, _ = audio_loader.load_audio_dataset(pad_to_max=True)
+        return self.extract_inference_features_from_clips(
+            np.stack(wavs), audio_loader.target_sr, mfcc_params,
+            melspec_params, scaler)
+
+    def extract_inference_features_from_clips(self, clips, sr,
+                                              mfcc_params, melspec_params,
+                                              scaler=None,
+                                              pitch_on_normalized=False):
+        """Clips (N, L), numpy or tensor → (mfcc (N, D), mel NHWC or
+        None) on the builder's device: K2 + K3 and K1 on the card.
+        `scaler` standardizes the MFCC vector; `melspec_params` None
+        skips the mel branch; the params' TO_DB wins when present
+        (absent: a legacy checkpoint, dB on)."""
+        return self._inference_features(clips, sr, mfcc_params,
+                                         melspec_params, scaler,
+                                         pitch_on_normalized, True)
+
+    def extract_inference_features_from_audio(self, audio, target_sr,
+                                              mfcc_params=None,
+                                              melspec_params=_USE_CONFIG,
+                                              scaler=None,
+                                              melspec_to_db: bool = True):
+        """One clip (L,) → batch-of-one features, as
+        `extract_inference_features_from_clips` gives them, with the pitch
+        feature from the normalized clip. `melspec_to_db` applies only
+        when the mel params carry no TO_DB."""
+        mfcc_params = mfcc_params or dataclasses.asdict(MFCC_CONFIG)
+        if melspec_params is _USE_CONFIG:
+            melspec_params = dataclasses.asdict(MELSPEC_CONFIG)
+        clips = torch.as_tensor(audio, dtype=torch.float32)[None]
+        return self._inference_features(clips, target_sr, mfcc_params,
+                                        melspec_params, scaler, True,
+                                        melspec_to_db)
+
+    def _inference_features(self, clips, sr, mfcc_params, melspec_params,
+                            scaler, pitch_on_normalized, default_to_db):
+        hops = [_MFCC_HOP] + ([] if melspec_params is None
+                              else [melspec_params["HOP_LENGTH"]])
+        clips = self._on_device(clips, min(hops))
+        mf = mfcc_feature_vectors(
+            clips, sr, n_mfcc=mfcc_params["N_MFCC"],
+            normalize_audio_volume=mfcc_params["NORMALIZE_AUDIO_VOLUME"],
+            add_pitch_features=mfcc_params["ADD_PITCH_FEATURES"],
+            pitch_on_normalized=pitch_on_normalized)
+        if scaler is not None:
+            mf = scaler.transform(mf)
+        if melspec_params is None:
+            return mf, None
+        ms = melspec_features(
+            clips, sr, n_mels=melspec_params["N_MELS"],
+            n_fft=melspec_params["N_FFT"],
+            hop_length=melspec_params["HOP_LENGTH"],
+            normalize_audio_volume=melspec_params["NORMALIZE_AUDIO_VOLUME"],
+            to_db=bool(melspec_params.get("TO_DB", default_to_db)))
+        return mf, ms

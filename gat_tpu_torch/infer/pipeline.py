@@ -18,9 +18,10 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
                            mfcc_params: dict, melspec_params: dict | None,
                            in_sr: int | None = None,
                            clip_len: int | None = None,
-                           pitch_on_normalized: bool = False):
-    """Returns fn(clips (N, L), raw_pitch_hz=None) → (blended probs (N, C),
-    mlp_probs, cnn_probs | None).
+                           pitch_on_normalized: bool = False,
+                           return_parts: bool = False):
+    """Returns fn(clips (N, L), raw_pitch_hz=None) → blended probs (N, C),
+    or (blended, mlp_probs, cnn_probs | None) when `return_parts`.
 
     Clips arrive at `in_sr` (default: the checkpoint rate) and are
     re-rated to the checkpoint rate, then cut or zero-padded to `clip_len`
@@ -65,7 +66,8 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
         if (hz is None and predictor.pitch_prior_weight > 0
                 and predictor.reverse_map):
             hz = yin_pitch(clips, ckpt_sr)
-        return predictor.ensemble_probs(mf, ms, pitch_hz=hz)
+        parts = predictor.ensemble_probs(mf, ms, pitch_hz=hz)
+        return parts if return_parts else parts[0]
 
     return run
 
@@ -102,7 +104,8 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
         raise ValueError(f"wave_clip_budget must be >= 1 (None = every "
                          f"slot computed); got {wave_clip_budget}")
     ensemble = build_clip_ensemble_fn(predictor, scaler, ckpt_sr,
-                                      mfcc_params, melspec_params)
+                                      mfcc_params, melspec_params,
+                                      return_parts=True)
     clip_len = int(ckpt_sr * clip_duration)
 
     def classify(clips):

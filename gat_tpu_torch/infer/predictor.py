@@ -61,6 +61,11 @@ class NotePredictor:
         self.cnn_dtype = cnn_dtype
         self._class_midi: tuple | None = None  # (label map items, tensor)
 
+    @property
+    def mlp_weight(self) -> float:
+        """The MLP's share of the blend, always 1 - `cnn_weight`."""
+        return 1.0 - self.cnn_weight
+
     # ----- loading -------------------------------------------------------
     def _build(self, module_cls, params_from_flax, args, variables):
         model = module_cls(**args)

@@ -27,6 +27,7 @@ import torch
 from ..config import (CLIP_DURATION, CNN_CONFIG, DEFAULT_MAX_BATCH,
                       DEFAULT_MAX_ONSETS, INFERENCE_OUTPUT_ROOT, MLP_CONFIG,
                       TARGET_SR)
+from ..features import FeatureBuilder
 from ..ops.resample import fix_length, resample
 from ..ops.yin import estimate_note, yin_pitch
 from ..segment.slicing import save_clip, segment_waveform
@@ -89,6 +90,7 @@ class Transcriber:
                                        pitch_prior_weight=pitch_prior_weight,
                                        cnn_dtype=cnn_dtype, device=device)
         self.device = self.predictor.device
+        self.feature_builder = FeatureBuilder(device=self.device)
 
         mlp_root = Path(mlp_root) if mlp_root else MLP_CONFIG.CHECKPOINTS_DIR
         cnn_root = Path(cnn_root) if cnn_root else CNN_CONFIG.CHECKPOINTS_DIR
@@ -136,11 +138,7 @@ class Transcriber:
         # clips → (probs, mlp_probs, cnn_probs), shared with entry.entry
         self.ensemble = build_clip_ensemble_fn(
             self.predictor, self.scaler, self.ckpt_sr, self.mfcc_params,
-            self.melspec_params)
-        # transcribe_note's features take the pitch from the normalized note
-        self._note_ensemble = build_clip_ensemble_fn(
-            self.predictor, self.scaler, self.ckpt_sr, self.mfcc_params,
-            self.melspec_params, pitch_on_normalized=True)
+            self.melspec_params, return_parts=True)
         # check-then-build under a lock: the HTTP server's dispatcher
         # threads share one Transcriber
         self._files_fns: dict = {}
@@ -516,13 +514,19 @@ class Transcriber:
     def transcribe_note(self, audio, clip_duration: float | None = None,
                         sr_in: int = TARGET_SR) -> dict:
         """One in-memory note: re-rated to the checkpoint rate, cut or
-        zero-padded to the clip length, a batch of one through the
-        ensemble (pitch feature from the normalized note)."""
+        zero-padded to the clip length, then the feature builder's
+        batch-of-one features (pitch feature from the normalized note)
+        through the ensemble; the pitch prior, when on, reads the raw
+        note's pitch."""
         if clip_duration is None:
             clip_duration = self.clip_length
         audio = torch.as_tensor(np.asarray(audio, np.float32),
                                 device=self.device)
         audio = fix_length(resample(audio, sr_in, self.ckpt_sr),
                            int(clip_duration * self.ckpt_sr))
-        return self.predictor._result_dict(
-            *self._note_ensemble(audio[None].contiguous()))
+        mf, ms = self.feature_builder.extract_inference_features_from_audio(
+            audio, self.ckpt_sr, self.mfcc_params, self.melspec_params,
+            self.scaler)
+        hz = (yin_pitch(audio[None].contiguous(), self.ckpt_sr)
+              if self.predictor.pitch_prior_weight > 0 else None)
+        return self.predictor.predict(mf, ms, pitch_hz=hz)

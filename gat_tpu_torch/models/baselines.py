@@ -17,9 +17,14 @@ class SoftmaxRegression(nn.Module):
     def __init__(self, num_features: int, num_classes: int):
         super().__init__()
         self.num_features = num_features
-        self.init_args = {"num_features": num_features,
+        self._init_args = {"num_features": num_features,
                           "num_classes": num_classes}
         self.out = nn.Linear(num_features, num_classes)
+
+    @property
+    def init_args(self) -> dict:
+        """The constructor's arguments, as a checkpoint records them."""
+        return dict(self._init_args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(x)

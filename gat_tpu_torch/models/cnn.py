@@ -30,9 +30,18 @@ import torch.nn.functional as F
 
 from .mlp import Dropout
 
-__all__ = ["CNN", "params_from_flax", "params_to_flax"]
+__all__ = ["CNN", "adaptive_avg_pool_2d", "params_from_flax",
+           "params_to_flax"]
 
 _BN_MOMENTUM = 0.9  # flax's: running = 0.9 · running + 0.1 · batch
+
+
+def adaptive_avg_pool_2d(x: torch.Tensor, out_hw: tuple[int, int]
+                         ) -> torch.Tensor:
+    """NHWC adaptive average pooling, (N, H, W, C) → (N, oh, ow, C), with
+    torch's bins [floor(i·n/o), ceil((i+1)·n/o))."""
+    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2),
+                                 tuple(out_hw)).permute(0, 2, 3, 1)
 
 
 class CNN(nn.Module):
@@ -44,7 +53,7 @@ class CNN(nn.Module):
                  adaptive_pool: tuple[int, int] = (4, 4),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.init_args = {"num_classes": num_classes,
+        self._init_args = {"num_classes": num_classes,
                           "in_channels": in_channels,
                           "base_channels": base_channels,
                           "num_blocks": num_blocks, "hidden_dim": hidden_dim,
@@ -73,6 +82,11 @@ class CNN(nn.Module):
             self.fc = nn.Linear(flat, hidden_dim)
             flat = hidden_dim
         self.out = nn.Linear(flat, num_classes)
+
+    @property
+    def init_args(self) -> dict:
+        """The constructor's arguments, as a checkpoint records them."""
+        return dict(self._init_args)
 
     def _layer(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """A conv or dense layer in the compute dtype. Below float32 it

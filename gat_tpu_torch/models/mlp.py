@@ -51,7 +51,7 @@ class MLP(nn.Module):
                  dropout: float = 0.1):
         super().__init__()
         self.num_features = num_features
-        self.init_args = {"num_features": num_features,
+        self._init_args = {"num_features": num_features,
                           "hidden_dim": hidden_dim,
                           "num_hidden_layers": num_hidden_layers,
                           "num_classes": num_classes, "dropout": dropout}
@@ -64,6 +64,11 @@ class MLP(nn.Module):
             width_in = width
         self.dropout = Dropout(dropout)
         self.out = nn.Linear(width_in, num_classes)
+
+    @property
+    def init_args(self) -> dict:
+        """The constructor's arguments, as a checkpoint records them."""
+        return dict(self._init_args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_hidden):

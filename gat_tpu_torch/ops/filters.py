@@ -4,15 +4,19 @@
 * `rms_frames`        — librosa.feature.rms (center, reflect pad);
 * `median_filter1d`   — scipy.ndimage.median_filter (mode 'reflect', which
   is numpy's 'symmetric': the edge sample repeats);
+* `maximum_filter1d`  — scipy.ndimage.maximum_filter1d (mode 'constant');
+* `uniform_filter1d`  — scipy.ndimage.uniform_filter1d (mode 'nearest');
 * `masked_percentile` — np.percentile (linear) over a masked prefix.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .spectral import _pad_center, frame
 
-__all__ = ["rms_frames", "median_filter1d", "masked_percentile"]
+__all__ = ["rms_frames", "median_filter1d", "maximum_filter1d",
+           "uniform_filter1d", "masked_percentile"]
 
 
 def rms_frames(y: torch.Tensor, frame_length: int = 2048,
@@ -35,6 +39,24 @@ def _pad_symmetric(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
     return x[..., idx]
 
 
+def _window_view(x: torch.Tensor, size: int, left: int, right: int,
+                 mode: str, cval: float = 0.0) -> torch.Tensor:
+    """The last axis padded by (left, right) in scipy's `mode`, as
+    size-windows at every original position: (..., n) → (..., n, size)."""
+    if mode == "constant":
+        xp = F.pad(x, (left, right), value=cval)
+    elif mode == "nearest":
+        n = x.shape[-1]
+        idx = torch.clamp(torch.arange(-left, n + right, device=x.device),
+                          0, n - 1)
+        xp = x[..., idx]
+    elif mode == "reflect":
+        xp = _pad_symmetric(x, left, right)
+    else:
+        raise ValueError(mode)
+    return frame(xp, size, 1)
+
+
 def median_filter1d(x: torch.Tensor, size: int = 5) -> torch.Tensor:
     """scipy.ndimage.median_filter with mode 'reflect'. An even size takes
     the upper-middle order statistic, as scipy's rank filter does
@@ -42,6 +64,24 @@ def median_filter1d(x: torch.Tensor, size: int = 5) -> torch.Tensor:
     left = size // 2
     w = frame(_pad_symmetric(x, left, size - 1 - left), size, 1)
     return torch.sort(w, dim=-1).values[..., size // 2]
+
+
+def maximum_filter1d(x: torch.Tensor, size: int, origin: int = 0,
+                     mode: str = "constant", cval: float = 0.0
+                     ) -> torch.Tensor:
+    """scipy.ndimage.maximum_filter1d: output i is the max over
+    input[i - size//2 - origin : i - size//2 - origin + size]."""
+    left = size // 2 + origin
+    return _window_view(x, size, left, size - 1 - left, mode,
+                        cval).amax(dim=-1)
+
+
+def uniform_filter1d(x: torch.Tensor, size: int, origin: int = 0,
+                     mode: str = "nearest") -> torch.Tensor:
+    """scipy.ndimage.uniform_filter1d, the moving average over the same
+    window as `maximum_filter1d`."""
+    left = size // 2 + origin
+    return _window_view(x, size, left, size - 1 - left, mode).mean(dim=-1)
 
 
 def masked_percentile(x: torch.Tensor, q: float, mask: torch.Tensor

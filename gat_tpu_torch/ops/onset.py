@@ -32,7 +32,8 @@ from .spectral import (TINY32, melspectrogram_librosa, n_frames,
                        power_to_db_librosa)
 
 __all__ = ["onset_strength", "onset_strength_plain", "backtrack_indices",
-           "greedy_walk", "pick_onsets", "pick_onsets_plain",
+           "peak_pick_mask", "greedy_walk", "pick_onsets",
+           "pick_onsets_plain", "pick_onsets_from_envelope",
            "detect_onsets", "peak_pick_params", "candidate_limit"]
 
 _N_FFT = 2048      # the FFT size compiled into K4
@@ -280,15 +281,44 @@ def _peak_candidates(env: torch.Tensor, pre_max: int, post_max: int,
     return (det != 0.0) & (det >= mov_avg + delta) & valid
 
 
-def backtrack_indices(energy: torch.Tensor, valid: torch.Tensor
-                      ) -> torch.Tensor:
-    """(B, T) → (B, T) int32: for each frame the nearest energy minimum
-    at or before it (librosa.onset.onset_backtrack: e[i] <= e[i-1] and
-    e[i] < e[i+1], frame 0 always a minimum). The last valid frame cannot
-    be a minimum, as the last frame of an unpadded array cannot."""
-    inner = ((energy[:, 1:-1] <= energy[:, :-2])
-             & (energy[:, 1:-1] < energy[:, 2:]) & valid[:, 2:])
-    ones = torch.ones_like(valid[:, :1])
+def peak_pick_mask(env: torch.Tensor, pre_max: int, post_max: int,
+                   pre_avg: int, post_avg: int, delta: float, wait: int,
+                   valid: torch.Tensor | None = None) -> torch.Tensor:
+    """librosa.util.peak_pick as a boolean frame mask, (..., T) → (...,
+    T): a frame is a peak iff it equals the moving max, is at least the
+    moving average plus delta, and comes more than `wait` frames after
+    the previous peak. `valid` (a prefix mask of the frames, None for
+    all) makes the valid end act as the array's end. The greedy `wait`
+    walk runs on the host; plain PyTorch."""
+    t = env.shape[-1]
+    env2 = env.reshape(-1, t)
+    valid2 = (torch.ones_like(env2, dtype=torch.bool) if valid is None
+              else valid.to(device=env.device, dtype=torch.bool)
+              .expand(env.shape).reshape(-1, t))
+    cand = _peak_candidates(env2, pre_max, post_max, pre_avg, post_avg,
+                            delta, valid2).cpu().numpy()
+    keep = np.zeros_like(cand)
+    for row, c in zip(keep, cand):
+        last = -(10 ** 9)
+        for i in np.flatnonzero(c):
+            if i > last + wait:
+                row[i] = True
+                last = i
+    return torch.from_numpy(keep).to(env.device).reshape(env.shape)
+
+
+def backtrack_indices(energy: torch.Tensor,
+                      valid: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., T) → (..., T) int32: for each frame the nearest energy
+    minimum at or before it (librosa.onset.onset_backtrack: e[i] <=
+    e[i-1] and e[i] < e[i+1], frame 0 always a minimum). With `valid`, a
+    prefix mask of the frames (None: all), the last valid frame cannot be
+    a minimum, as the last frame of an unpadded array cannot."""
+    inner = ((energy[..., 1:-1] <= energy[..., :-2])
+             & (energy[..., 1:-1] < energy[..., 2:]))
+    if valid is not None:
+        inner = inner & valid[..., 2:]
+    ones = torch.ones_like(energy[..., :1], dtype=torch.bool)
     mask = torch.cat([ones, inner, ~ones], dim=-1)
     idx = torch.arange(energy.shape[-1], device=energy.device)
     cand = torch.where(mask, idx, -1)
@@ -453,6 +483,27 @@ def pick_onsets(env: torch.Tensor, sr: int, hop_length: int, min_sep: float,
 
 
 pick_onsets.launches = 0
+
+
+def pick_onsets_from_envelope(env: torch.Tensor, sr: int, hop_length: int,
+                              min_sep: float, max_onsets: int,
+                              backtrack: bool = True,
+                              valid_frames: torch.Tensor | None = None,
+                              cand_budget: int | None = None):
+    """The reference's signature of the onset pick: env (T,) → (onsets
+    (max_onsets,) int32 samples, valid (max_onsets,) bool, overflow ()
+    bool, cap_overflow () bool, n_kept () int32), as `pick_onsets`
+    defines them; a batch (B, T) gives (B, ...) outputs. `valid_frames`
+    is a prefix mask of the frames (None: all valid), taken as its count.
+    Goes through `pick_onsets`: K5 on a CUDA tensor, `pick_onsets_plain`
+    on a CPU tensor."""
+    batch = env if env.ndim == 2 else env[None]
+    nvf = (None if valid_frames is None
+           else valid_frames.to(batch.device).expand(batch.shape)
+           .sum(-1, dtype=torch.int32))
+    outs = pick_onsets(batch.contiguous(), sr, hop_length, min_sep,
+                       max_onsets, backtrack, nvf, cand_budget)
+    return outs if env.ndim == 2 else tuple(x[0] for x in outs)
 
 
 def detect_onsets(y: torch.Tensor, sr: int = 22050, hop_length: int = 512,

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from .mel import mel_filterbank_librosa, mel_filterbank_torchaudio
 
-__all__ = ["TINY32", "hann_window", "n_frames", "frame", "power_spectrogram",
+__all__ = ["TINY32", "hann_window", "n_frames", "frame", "stft",
+           "power_spectrogram",
            "power_to_db_librosa", "amplitude_to_db_torchaudio",
            "dct_ii_matrix", "melspectrogram_librosa",
            "melspectrogram_torchaudio", "mfcc"]
@@ -65,6 +66,26 @@ def _pad_center(y: torch.Tensor, pad: int, pad_mode: str) -> torch.Tensor:
     shape = y.shape
     return F.pad(y.reshape(-1, 1, shape[-1]), (pad, pad),
                  mode=pad_mode).reshape(shape[:-1] + (shape[-1] + 2 * pad,))
+
+
+def stft(y: torch.Tensor, n_fft: int = 2048, hop_length: int | None = None,
+         win_length: int | None = None, center: bool = True,
+         pad_mode: str = "constant") -> torch.Tensor:
+    """Complex STFT, time-major: (..., n_frames, 1 + n_fft // 2), complex64.
+    pad_mode 'constant' is librosa.stft's default, 'reflect' torch.stft's.
+    A window shorter than n_fft is zero-padded to it on both sides, as
+    librosa does."""
+    if win_length is None:
+        win_length = n_fft
+    if hop_length is None:
+        hop_length = win_length // 4
+    if center:
+        y = _pad_center(y, n_fft // 2, pad_mode)
+    win = hann_window(win_length, y.device)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        win = F.pad(win, (lpad, n_fft - win_length - lpad))
+    return torch.fft.rfft(frame(y, n_fft, hop_length) * win, n=n_fft, dim=-1)
 
 
 def power_spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,

@@ -90,7 +90,7 @@ class ScanStreamer:
             t.predictor, t.scaler, t.ckpt_sr, t.mfcc_params,
             t.melspec_params, in_sr=sr,
             clip_len=round(self.clip_n * t.ckpt_sr / sr),
-            pitch_on_normalized=True)
+            pitch_on_normalized=True, return_parts=True)
 
     def _stream(self, y) -> tuple[torch.Tensor, int]:
         """(the padded stream on the device: `context` zeros, y, zeros up

@@ -69,14 +69,26 @@ def _approximate_mode(class_counts: np.ndarray, n_draws: int,
     return floored.astype(int)
 
 
-def _stratified_indices(y, val_size: float, seed: int):
-    """(train, test) indices of sklearn's StratifiedShuffleSplit with
-    test_size = ceil(val_size·n), random_state = seed, first split."""
+def _stratified_indices(y, val_size: float | int, seed: int):
+    """(train, test) indices of sklearn's StratifiedShuffleSplit, first
+    split, random_state = seed. `val_size` is sklearn's test_size: a
+    float in (0, 1) is a fraction, test_size = ceil(val_size·n); an
+    integer in [1, n) is the count itself."""
     y = np.asarray(y)
     n = len(y)
-    if not 0.0 < val_size < 1.0:
-        raise ValueError(f"val_size must be in (0, 1), got {val_size}")
-    n_test = math.ceil(val_size * n)
+    kind = np.asarray(val_size).dtype.kind
+    if kind == "i":
+        if not 0 < val_size < n:
+            raise ValueError(f"val_size={val_size} must be a count in "
+                             f"[1, {n}) or a fraction in (0, 1)")
+        n_test = int(val_size)
+    elif kind == "f":
+        if not 0.0 < val_size < 1.0:
+            raise ValueError(f"val_size={val_size} must be a fraction in "
+                             f"(0, 1) or a count in [1, {n})")
+        n_test = math.ceil(val_size * n)
+    else:
+        raise ValueError(f"Invalid value for val_size: {val_size!r}")
     n_train = n - n_test
     classes, y_indices, class_counts = np.unique(
         y, return_inverse=True, return_counts=True)
@@ -102,10 +114,11 @@ def _stratified_indices(y, val_size: float, seed: int):
     return rng.permutation(train), rng.permutation(test)
 
 
-def stratified_split(X, y, val_size: float = 0.2, seed: int = 42):
+def stratified_split(X, y, val_size: float | int = 0.2, seed: int = 42):
     """Stratified split → (X_train, X_val, y_train, y_val), the same
     indices as `sklearn.model_selection.train_test_split(X, y,
-    test_size=val_size, stratify=y, random_state=seed)`."""
+    test_size=val_size, stratify=y, random_state=seed)`: a float
+    `val_size` is a fraction, an integer a count."""
     train, test = _stratified_indices(y, val_size, seed)
     X, y = np.asarray(X), np.asarray(y)
     return X[train], X[test], y[train], y[test]

@@ -289,11 +289,12 @@ class Trainer:
 
     def train(self, epochs: int = 20, train_dl=None, es_window_len: int = 4,
               es_slope_limit: float = 1e-5, plot_metrics: bool = False,
-              verbose: bool = True):
+              verbose: bool = True, scan_epoch: bool = True):
         """Epoch loop with per-epoch validation, plateau LR and slope
-        early stop. A plain ArrayDataLoader trains from device-resident
-        X, y; any other iterable of batches is uploaded batch by batch
-        (the same math)."""
+        early stop. With `scan_epoch` a plain ArrayDataLoader trains from
+        device-resident X, y; `scan_epoch=False`, or any other iterable
+        of batches, uploads the loader's batches one by one (the same
+        math)."""
         # `is None`, not truthiness: a zero-length drop_last loader is
         # falsy via __len__
         train_dl = self.train_dl if train_dl is None else train_dl
@@ -310,9 +311,10 @@ class Trainer:
         # caller may mutate X/y in place between train() calls
         self._dev_data = None
         self._val_data = None
+        resident = scan_epoch and type(train_dl) is ArrayDataLoader
         self._in_train = True
         try:
-            self._train_epochs(epochs, train_dl, es_window_len,
+            self._train_epochs(epochs, train_dl, resident, es_window_len,
                                es_slope_limit, verbose)
         finally:
             self._in_train = False
@@ -328,9 +330,8 @@ class Trainer:
             print(f"\n[train] Training complete. "
                   f"({time.time() - t0:.1f}s)\n")
 
-    def _train_epochs(self, epochs, train_dl, es_window_len, es_slope_limit,
-                      verbose):
-        resident = type(train_dl) is ArrayDataLoader
+    def _train_epochs(self, epochs, train_dl, resident, es_window_len,
+                      es_slope_limit, verbose):
         for ep in range(1, epochs + 1):
             if verbose:
                 print(f"[train] EPOCH {ep}/{epochs}")

@@ -577,3 +577,120 @@ def test_saved_checkpoint_loads_in_transcriber(tmp_path):
                          device="cuda")
         got = tr.transcribe_clips(clips)["labels"]
         assert got == [rm[int(i)] for i in t.predict(x)]
+
+
+# ---------------------------------------------------------------------------
+# the rest of the public API, and the note-accuracy harness
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("valid_end", [None, 200])
+def test_pick_onsets_from_envelope_card_vs_plain(valid_end):
+    """The reference's signature on the card: K5 launched once per call,
+    every output identical to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    y = torch.from_numpy(riffs(8 * FILE_SR, seed=4)).cuda()
+    env = onset.onset_strength(y, FILE_SR)
+    valid = (None if valid_end is None
+             else torch.arange(env.shape[-1], device="cuda") < valid_end)
+    for e in (env, env[1]):
+        before = onset.pick_onsets.launches
+        got = onset.pick_onsets_from_envelope(e, FILE_SR, 512, 0.3, 16,
+                                              True, valid)
+        ref = onset.pick_onsets_from_envelope(
+            e.cpu(), FILE_SR, 512, 0.3, 16, True,
+            None if valid is None else valid.cpu())
+        assert onset.pick_onsets.launches == before + 1
+        for g, r in zip(got, ref):
+            assert g.is_cuda
+            np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())
+
+
+def test_inference_features_card_vs_cpu(clips):
+    """FeatureBuilder's three inference extractors on the card: K1-K3
+    launched, features held to the CPU plain path as the kernels are
+    (MFCC 1e-3, pitch rel 2e-3, mel 0.1 dB where > -60 dB)."""
+    from gat_tpu_torch.infer import Transcriber
+    t = Transcriber(device="cuda")
+    cpu = features.FeatureBuilder(device="cpu")
+    mfcc, mel = t.mfcc_params, t.melspec_params
+    calls = (
+        ("extract_inference_features_from_clips",
+         (clips, SR, mfcc, mel, t.scaler), (clips.cpu(), SR, mfcc, mel,
+                                            t.scaler)),
+        ("extract_inference_features_from_audio",
+         (clips[5], SR, mfcc, mel), (clips[5].cpu(), SR, mfcc, mel)))
+    for name, args, cpu_args in calls:
+        before = [w.launches for w in (features.melspec_features,
+                                       features.mfcc_frontend,
+                                       yin.yin_pitch)]
+        mf, ms = getattr(t.feature_builder, name)(*args)
+        after = [w.launches for w in (features.melspec_features,
+                                      features.mfcc_frontend, yin.yin_pitch)]
+        assert [a - b for a, b in zip(after, before)] == [1, 1, 1], name
+        rmf, rms = getattr(cpu, name)(*cpu_args)
+        mf, ms = mf.cpu().numpy(), ms.cpu().numpy()
+        rmf, rms = rmf.numpy(), rms.numpy()
+        if name.endswith("clips"):   # unscaled: the scale amplifies
+            mf = mf * t.scaler.scale_ + t.scaler.mean_
+            rmf = rmf * t.scaler.scale_ + t.scaler.mean_
+        np.testing.assert_allclose(mf[:, :64], rmf[:, :64], atol=1e-3,
+                                   rtol=0)
+        np.testing.assert_allclose(10.0 ** (mf[:, 64] - rmf[:, 64]), 1.0,
+                                   atol=2e-3, rtol=0)
+        mask = rms > -60.0
+        np.testing.assert_allclose(ms[mask], rms[mask], atol=0.1, rtol=0)
+
+
+def test_feature_builder_refuses_long_clips_on_the_card(tmp_path):
+    """Clips past K1-K3's shared memory are refused before any launch, by
+    the dataset and the inference extractors alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from gat_tpu_torch.data.loader import AudioDatasetLoader
+    from gat_tpu_torch.utils.wavio import write_wav
+    (tmp_path / "E2").mkdir()
+    write_wav(tmp_path / "E2" / "long.wav",
+              np.zeros(11025 * 100, np.float32), 11025)
+    fb = features.FeatureBuilder(device="cuda")
+    loader = AudioDatasetLoader([tmp_path], target_sr=11025, device="cuda")
+    mfcc = dataclasses.asdict(features.MFCC_CONFIG)
+    mel = dataclasses.asdict(features.MELSPEC_CONFIG)
+    long = torch.zeros(2, 256 * 2000, device="cuda")
+    before = [features.melspec_features.launches,
+              features.mfcc_frontend.launches, yin.yin_pitch.launches]
+    for call in (lambda: fb.extract_mfcc_features(loader),
+                 lambda: fb.extract_melspec_features(loader),
+                 lambda: fb.extract_inference_features(loader),
+                 lambda: fb.extract_inference_features_from_clips(
+                     long, 11025, mfcc, mel),
+                 lambda: fb.extract_inference_features_from_audio(
+                     long[0], 11025, mfcc, mel)):
+        with pytest.raises(ValueError, match="fewer than 2000 frames"):
+            call()
+    assert before == [features.melspec_features.launches,
+                      features.mfcc_frontend.launches, yin.yin_pitch.launches]
+
+
+def test_evaluate_set_card_vs_cpu(tmp_path):
+    """tools/torch_evaluate.py's evaluate_set at 2 variants with the
+    witness: the card's correct counts equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import importlib.util
+    from pathlib import Path
+    from gat_tpu_torch.config import MLP_CONFIG
+    from gat_tpu_torch.infer import Transcriber
+    tools = Path(__file__).resolve().parent.parent / "tools"
+    spec = importlib.util.spec_from_file_location(
+        "torch_evaluate", tools / "torch_evaluate.py")
+    teval = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(teval)
+    witness = str(MLP_CONFIG.CHECKPOINTS_DIR / MLP_CONFIG.REFERENCE_CKPT_NAME)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = Transcriber(device=dev)
+        w = Transcriber(mlp_ckpt=witness, use_cnn=False, device=dev)
+        out[dev] = teval.evaluate_set(t, tmp_path / dev, 2, 777, witness=w)
+    assert out["cuda"]["_correct"] == out["cpu"]["_correct"]
+    assert out["cuda"]["_disagree"] == out["cpu"]["_disagree"]

@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: it imports nothing of JAX, of the JAX
-package or of sklearn (the H100 installation has none), matplotlib only
-inside a function, its entry points never fall back to the CPU on their
-own, and its CUDA kernels are built at first launch, never at import."""
+"""The PyTorch port stands alone: it and its tools (`tools/torch_*.py`)
+import nothing of JAX, of the JAX package or of sklearn (the H100
+installation has none), matplotlib only inside a function, its entry
+points never fall back to the CPU on their own, and its CUDA kernels are
+built at first launch, never at import."""
 import ast
 import subprocess
 import sys
@@ -16,8 +17,8 @@ from gat_tpu_torch.ops import onset, yin
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gat_tpu", "sklearn")
-PORT_FILES = sorted((REPO / "gat_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "gat_tpu_torch").rglob("*.py")) + sorted(
+    (REPO / "tools").glob("torch_*.py")) + [REPO / "chip_smoke.py"]
 # (wrapper, its plain version, the arguments after the tensor)
 WRAPPERS = [(features.melspec_features, features.melspec_features_plain,
              (11025,)),
@@ -73,6 +74,50 @@ def test_port_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _run_blocked(code: str) -> str:
+    """`code` in a fresh interpreter with jax, flax, optax, sklearn and
+    gat_tpu made unimportable; returns its standard output."""
+    pre = f"import sys\nfor m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+    out = subprocess.run([sys.executable, "-c", pre + code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+def test_lazy_top_level_names_resolve_without_jax():
+    out = _run_blocked(
+        "import gat_tpu_torch\n"
+        "print(sorted(type(getattr(gat_tpu_torch, n)).__name__\n"
+        "             for n in gat_tpu_torch._LAZY))\n")
+    assert out == str(["type"] * 11)
+
+
+def test_torch_tools_import_without_jax():
+    out = _run_blocked(
+        "import importlib.util\n"
+        "for name in ('torch_evaluate', 'torch_onset_timing'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'tools/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print('ok')\n")
+    assert out == "ok"
+
+
+def test_reference_checkpoint_loads_without_sklearn(tmp_path):
+    """A reference checkpoint holding a fitted sklearn StandardScaler,
+    written here where sklearn is installed, loads where it is not."""
+    from sklearn.preprocessing import StandardScaler
+    x = np.random.default_rng(0).normal(size=(20, 3))
+    torch.save({"scaler": StandardScaler().fit(x), "epoch": 3},
+               tmp_path / "r.ckpt")
+    out = _run_blocked(
+        "from gat_tpu_torch.models.torch_import import load_reference_ckpt\n"
+        f"ck = load_reference_ckpt({str(tmp_path / 'r.ckpt')!r})\n"
+        "print(type(ck['scaler']).__name__, list(ck['scaler'].mean_.round(6)),"
+        " 'sklearn' in sys.modules and sys.modules['sklearn'] is not None)\n")
+    assert out == (f"ReferenceScaler {list(x.mean(0).round(6))} False")
 
 
 def test_entry_points_refuse_cuda_without_a_card():

@@ -65,6 +65,14 @@ def test_config_mirrors_gat_tpu():
                  "CNN_CONFIG"):
         assert (tc.config_dict(getattr(tc, name))
                 == jc.config_dict(getattr(jc, name))), name
+    # the data and inference roots, and the mesh layout kept as data
+    for name in ("PERSONAL_DATASETS_ROOT", "INFERENCE_ROOT",
+                 "INFERENCE_CLIPS_ROOT", "INFERENCE_AUDIO_ROOT",
+                 "INFERENCE_OUTPUT_ROOT"):
+        assert getattr(tc, name) == getattr(jc, name), name
+    assert (tc.config_dict(tc.PARALLEL_CONFIG)
+            == jc.config_dict(jc.PARALLEL_CONFIG))
+    assert tc.ParallelConfig() == tc.PARALLEL_CONFIG
 
 
 def test_all_shipped_checkpoints_found():

@@ -157,7 +157,8 @@ def test_resample_branch_not_ported(jax_t, port_t):
                            return_parts=True)(clips)
         fn = build_clip_ensemble_fn(port_t.predictor, port_t.scaler, 11025,
                                     mfcc, mel, in_sr=22050, clip_len=5512,
-                                    pitch_on_normalized=pitch_on_normalized)
+                                    pitch_on_normalized=pitch_on_normalized,
+                                    return_parts=True)
         got, _, _ = fn(torch.from_numpy(clips))
         ref = np.asarray(ref)
         np.testing.assert_array_equal(got.numpy().argmax(1), ref.argmax(1))
