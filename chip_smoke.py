@@ -87,12 +87,28 @@ non-zero:
    near-tie passes only with a top-2 margin below 1e-3, printed), and
    `evaluate_wav_dir` over SPN-named riff WAVs, reports equal; K1-K5
    launched; each set's stages timed on the card, synthesis apart;
-14. print the `{"kernels": [...]}` line, the card line, and last
+14. `[tools]`: the twins of the JAX package's tools on the card:
+   `torch_inspect_ckpt` on the five shipped checkpoints; `slice-all` of
+   `torch_dataset_creator` on four riff recordings at 44100 Hz, and
+   `torch_eda`'s `dataset`, `slices` and `features`, each against the
+   CPU (names and onsets equal, samples within 1e-5, the MFCC matrix
+   element by element within 1e-3, pitch 2e-3 relative, feature-report
+   numbers within 1e-3; K4/K5 and K2/K3 launched);
+   `torch_cross_family_eval` at 5 variants and 2 epochs for both models
+   (K1-K3 launched, the report's schema, finite accuracies), and the
+   raw features of its fm evaluation set, card against CPU (MFCC as
+   eda's, mel 0.1 dB where above -60 dB);
+   `torch_train_wall` at 16 variants; `torch_profile_trace` on the clip
+   batch and the serving wave (the top table names every kernel
+   launched); `torch_roofline_files` on the serving wave (no stage
+   measured below its floor);
+15. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after (`launches_by_path` in the kernels line:
-clips, file, long, files, serve, http, stream, live, cli, train, eval);
+clips, file, long, files, serve, http, stream, live, cli, train, eval,
+tools);
 `launches` stays the clip path's count for K1-K3 and the file path's for
 K4/K5.
 
@@ -101,6 +117,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -126,7 +143,6 @@ ENVELOPE_SHAPES = ((1, 4.0), (4, 4.0), (N_RIFFS, RIFF_SECONDS))
 # K5 refused
 LONG_SECONDS = 400.0
 PICK_SHAPES = ENVELOPE_SHAPES + ((1, LONG_SECONDS),)
-K4_KERNELS = ("onset_mel_db_kernel", "onset_flux_kernel")
 # the [files] phase's WAVs as (files, seconds, rate, pluck spacing), one
 # group per duration bucket of `transcribe_files` (max_batch 4)
 FILES_SET = ((16, 3.9, 22050, 0.7),   # bucket 4: one chunk of K = 4 waves
@@ -150,10 +166,14 @@ EVAL_SETS = (("mixed", 8), ("modal_unseen_family", 4), ("fm_vibrato", 4),
 EVAL_SEED = 777
 # the model columns of evaluate_set, whose labels come from probabilities
 MODEL_SYSTEMS = ("default", "ensemble", "ensemble_prior", "mlp", "cnn")
+# [tools]: the slicer's recordings as (string, fret), at 44100 Hz; the
+# cross-family run's training variants (the least that leaves every one
+# of the 47 classes in the 20 % validation split); the profile's top rows
+TOOLS_FRETS = ((6, 0), (5, 2), (3, 4), (1, 5))
+TOOLS_SR = 44100
+CROSS_VARIANTS = 5
+PROFILE_TOP = 60
 POOL = 6                  # distinct input buffers per timing repetition
-# H100 SXM published peaks (dense, no sparsity) at a 700 W limit
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -239,12 +259,14 @@ def time_ms(fn, pool, reps: int) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, pool, names: tuple[str, ...]) -> float | None:
-    """Device time per call of the kernels whose names start with one of
-    `names`, from torch.profiler over one call on every buffer of the
-    pool; None when the profiler saw no device time."""
+def kernel_device_ms(fn, pool, kernel: str) -> float | None:
+    """Device time per call of the device functions of `kernel` (K1..K5,
+    `load_roofline().KERNEL_SYMBOLS`), from torch.profiler over one
+    call on every buffer of the pool; None when the profiler saw no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    names = load_roofline().KERNEL_SYMBOLS[kernel]
     for x in pool:
         fn(x)
     torch.cuda.synchronize()
@@ -309,17 +331,10 @@ def file_inputs(dev, files: int, seconds: float):
 
 def envelope_bound(files: int, n: int, dev, hop: int = 512
                    ) -> tuple[float, str]:
-    """K4's bound: the FFT and mel work of every frame; each sample read
-    and each envelope value written once, with the valid counts, the
-    window, the twiddles and the filterbank's nonzero weights and their
-    bin ranges."""
-    from gat_tpu_torch import features
-    t = 1 + n // hop
-    hann, tw, _, lo, hi = features._kernel_tables(FILE_SR, 128, False, dev)
-    nnz = int((hi - lo).sum())
-    tables = 4 * (hann.numel() + tw.numel() + nnz + 2 * 128)
-    return bound(files * t * (fft_flops(nnz, 128) + 4 * 128),
-                 4 * files * (n + t + 1) + tables)
+    """K4's bound (`utils/roofline.py::envelope_cost`)."""
+    roofline = load_roofline()
+    return roofline.bound(*roofline.envelope_cost(files, n, FILE_SR, dev,
+                                                  hop))
 
 
 def time_envelope(onset, dev, failures: list) -> list[dict]:
@@ -348,7 +363,7 @@ def time_envelope(onset, dev, failures: list) -> list[dict]:
             failures.append(f"onset_envelope at {files} x {seconds:g} s")
         row = dict(files=files, frames=1 + n // 512, max_abs_err=err,
                    ms=time_ms(fn, pool, reps=10),
-                   device_ms=kernel_device_ms(fn, pool, K4_KERNELS),
+                   device_ms=kernel_device_ms(fn, pool, "K4"),
                    plain_ms=time_ms(plain, pool, reps=10))
         row["bound_ms"], row["bound_by"] = envelope_bound(files, n, dev)
         log(f"[time] onset_envelope at {files} x {seconds:g} s "
@@ -402,14 +417,12 @@ def pick_steps(onset, env, counts) -> dict:
     return dict(alloc=alloc, cast=cast, call=call)
 
 
-def pick_bound(files: int, t: int, onset, hop: int = 512,
+def pick_bound(files: int, t: int, hop: int = 512,
                max_onsets: int = 64) -> tuple[float, str]:
-    """K5's bound: one read of the envelopes and the valid counts, one
-    write of the outputs at `max_onsets` onsets, and the peak pick's
-    compares."""
-    pre_max, post_max, _, _, _ = onset.peak_pick_params(FILE_SR, hop)
-    return bound(files * t * (pre_max + post_max + 16),
-                 4 * files * (t + 1) + files * (max_onsets * 5 + 6))
+    """K5's bound (`utils/roofline.py::pick_cost`)."""
+    roofline = load_roofline()
+    return roofline.bound(*roofline.pick_cost(files, t, FILE_SR, hop,
+                                              max_onsets))
 
 
 def time_pick(onset, dev, failures: list) -> list[dict]:
@@ -466,13 +479,12 @@ def time_pick(onset, dev, failures: list) -> list[dict]:
         row.update(identical=same, max_abs_err=err,
                    onsets_kept=kept,
                    ms=time_ms(pick, env_pool, reps=10),
-                   device_ms=kernel_device_ms(pick, env_pool,
-                                              ("onset_pick_kernel",)),
+                   device_ms=kernel_device_ms(pick, env_pool, "K5"),
                    plain_ms=time_ms(pick_plain, env_pool, reps=3),
                    host_us=host_us(pick, env_pool, reps=30))
         parts["rest"] = row["host_us"] - sum(parts.values())
         row["host_parts_us"] = parts
-        row["bound_ms"], row["bound_by"] = pick_bound(files, t, onset)
+        row["bound_ms"], row["bound_by"] = pick_bound(files, t)
         log(f"[time] {tag}: kernel {row['ms']:.4f} ms (events), "
             f"{fmt_ms(row['device_ms'])} device (profiler), wrapper host "
             f"{row['host_us']:.1f} us per call (alloc {parts['alloc']:.1f}, "
@@ -520,13 +532,6 @@ def profile_call(fn, wall_ms: float, host_ops: int = 0) -> float | None:
     return busy
 
 
-def fft_flops(n_mels_nnz: int, n_mels: int) -> int:
-    """Flops one frame of the front-ends needs: window, a real-input FFT
-    of 2048 points (2.5·N·log2 N, half a complex one), power of 1025
-    bins, sparse mel, log."""
-    return 2048 + 5 * 2048 * 11 // 2 + 3 * 1025 + 2 * n_mels_nnz + n_mels
-
-
 def mel_error(got, ref) -> tuple[float, bool]:
     """K1's max error in dB where the plain image is above -60 dB, and
     whether the image is within K1's tolerance."""
@@ -534,12 +539,6 @@ def mel_error(got, ref) -> tuple[float, bool]:
     err = float((got - ref).abs()[ref > -60.0].max())
     return err, (err <= 0.1 and bool(torch.isfinite(got).all())
                  and float(got.min()) >= -100.0)
-
-
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
 def check_file_kernels(dev, failures: list) -> list[dict]:
@@ -1168,18 +1167,16 @@ def stream_kernels_phase(rows: list, failures: list,
         t = 1 + n // hop
         k4 = dict(shape=name, files=files, hop=hop, frames=t,
                   ms=time_ms(env_fn, pool, reps=10),
-                  device_ms=kernel_device_ms(env_fn, pool, K4_KERNELS),
+                  device_ms=kernel_device_ms(env_fn, pool, "K4"),
                   plain_ms=time_ms(env_plain, pool, reps=3))
         k4["bound_ms"], k4["bound_by"] = envelope_bound(files, n, dev, hop)
         envs = [env_fn(z) for z in pool]
         k5 = dict(shape=name, files=files, hop=hop, frames=t,
                   max_onsets=slots, ms=time_ms(pick, envs, reps=10),
-                  device_ms=kernel_device_ms(pick, envs,
-                                             ("onset_pick_kernel",)),
+                  device_ms=kernel_device_ms(pick, envs, "K5"),
                   plain_ms=time_ms(pick_plain, envs, reps=3),
                   host_us=host_us(pick, envs, reps=30))
-        k5["bound_ms"], k5["bound_by"] = pick_bound(files, t, onset, hop,
-                                                    slots)
+        k5["bound_ms"], k5["bound_by"] = pick_bound(files, t, hop, slots)
         for row, r, what in ((rows[3], k4, "onset_envelope"),
                              (rows[4], k5, "onset_pick")):
             row.setdefault("stream_shapes", []).append(r)
@@ -1745,6 +1742,31 @@ def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
                 failures.append(f"[api] {name}")
 
 
+@functools.cache
+def load_roofline():
+    """`gat_tpu_torch/utils/roofline.py` of this script's checkout, loaded
+    by path: the peaks, kernel symbols and cost formulas behind every
+    bound and kernel device time here, also when another checkout's
+    package is the one on sys.path (`tools/torch_onset_timing.py`)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_roofline", Path(__file__).resolve().parent
+        / "gat_tpu_torch" / "utils" / "roofline.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_tool(name: str):
+    """tools/<name>.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "tools" / f"{name}.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
 def write_eval_wavs(root: Path) -> Path:
     """The folder harness's input: SPN-named folders (A2, D3, G3) each
     with a riff of four plucks of its note at 22050 Hz, and a riff of A2
@@ -1808,15 +1830,10 @@ def eval_phase(rows: list, card: str, failures: list,
     below 1e-3, printed), the folder reports equal, K1-K5 launched; each
     set's stages timed on the card, synthesis apart from the card's
     work."""
-    import importlib.util
     from gat_tpu_torch.config import MLP_CONFIG
     from gat_tpu_torch.infer import Transcriber
     from gat_tpu_torch.utils.profiling import StageTimer
-    spec = importlib.util.spec_from_file_location(
-        "torch_evaluate", Path(__file__).resolve().parent / "tools"
-        / "torch_evaluate.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = load_tool("torch_evaluate")
     witness = str(MLP_CONFIG.CHECKPOINTS_DIR / MLP_CONFIG.REFERENCE_CKPT_NAME)
     pairs = {dev: (Transcriber(device=dev),
                    Transcriber(mlp_ckpt=witness, use_cnn=False, device=dev))
@@ -1881,6 +1898,270 @@ def eval_phase(rows: list, card: str, failures: list,
         failures.append("[eval] evaluate_wav_dir: card and CPU reports")
 
 
+def write_raw_recordings(root: Path) -> Path:
+    """`String_<s>/Fret_<f>/take.wav` recordings at TOOLS_SR: for each
+    (string, fret) a riff of five plucks of its note."""
+    from gat_tpu_torch.ops.pitch import STANDARD_TUNING_MIDI
+    from gat_tpu_torch.utils.wavio import write_wav
+    for i, (string, fret) in enumerate(TOOLS_FRETS):
+        folder = root / f"String_{string}" / f"Fret_{fret}"
+        folder.mkdir(parents=True)
+        midi = np.full((1, 5), STANDARD_TUNING_MIDI[string] + fret)
+        write_wav(folder / "take.wav", make_riffs(
+            midi, 4.5, TOOLS_SR, SEED + 20 + i, noise=0.001)[0], TOOLS_SR)
+    return root
+
+
+def same_wav_trees(card: Path, cpu: Path) -> tuple[bool, float, int]:
+    """(the same relative file names, max abs sample difference, files
+    whose bytes are identical) of two trees of WAVs."""
+    from gat_tpu_torch.utils.wavio import read_wav
+    names = sorted(p.relative_to(card) for p in card.rglob("*.wav"))
+    if names != sorted(p.relative_to(cpu) for p in cpu.rglob("*.wav")):
+        return False, float("inf"), 0
+    err, same_bytes = 0.0, 0
+    for name in names:
+        a, b = read_wav(card / name)[0], read_wav(cpu / name)[0]
+        err = max(err, float(np.abs(a - b).max()) if a.size else 0.0)
+        same_bytes += (card / name).read_bytes() == (cpu / name).read_bytes()
+    return True, err, same_bytes
+
+
+def same_features(kind: str, x, ref) -> tuple[bool, str]:
+    """(within bounds, what was held) for a feature matrix of the card
+    against the CPU's, element by element: the MLP's 64 MFCCs within 1e-3
+    and its pitch column (log10 Hz) within 2e-3 relative, the CNN's mel
+    images within 0.1 dB where the CPU's read above -60 dB."""
+    if x.shape != ref.shape or not np.isfinite(x).all():
+        return False, f"shape {x.shape} against {ref.shape} or not finite"
+    if kind == "mlp":
+        e_mfcc = float(np.abs(x[:, :64] - ref[:, :64]).max())
+        e_pitch = float(np.abs(10.0 ** (x[:, 64] - ref[:, 64]) - 1).max())
+        return (e_mfcc <= 1e-3 and e_pitch <= 2e-3,
+                f"MFCC max abs err {e_mfcc:.3g} (1e-3), pitch max rel err "
+                f"{e_pitch:.3g} (2e-3)")
+    e_mel = float(np.abs(x - ref)[ref > -60.0].max())
+    return e_mel <= 0.1, f"mel max abs err {e_mel:.3g} dB (0.1 where > -60 dB)"
+
+
+def tools_phase(rows: list, card: str, failures: list,
+                device: str = "cuda") -> None:
+    """`[tools]`: the twins of the JAX package's tools on the card:
+    `torch_inspect_ckpt` on the five shipped checkpoints;
+    `torch_dataset_creator slice-all` on `String_<s>/Fret_<f>` riffs at
+    44100 Hz and `torch_eda dataset`, `slices` and `features` on a
+    synthesized set, each against the CPU (onsets and names equal,
+    samples within 1e-5, the feature matrix element by element within
+    `same_features`' bounds, the report's numbers within 1e-3);
+    `torch_cross_family_eval` at a smoke size, and its raw features of
+    the fm evaluation set (K1 for the CNN, K2 and K3 for the MLP) against
+    the CPU's as eda's; `torch_train_wall` at TRAIN_VARIANTS;
+    `torch_profile_trace` on the clip batch and the serving wave (its
+    top table must name every kernel launched); `torch_roofline_files`
+    on the serving wave (no stage below its floor). Each tool's launches
+    are counted; their sum is the `tools` path's."""
+    from gat_tpu_torch.config import CNN_CONFIG, MLP_CONFIG
+    from gat_tpu_torch.data.synth import synthesize_note_dataset
+    from gat_tpu_torch.ops.pitch import string_fret_to_note
+    from gat_tpu_torch.utils.reports import feature_report
+    tool = {name: load_tool(f"torch_{name}") for name in (
+        "inspect_ckpt", "dataset_creator", "eda", "cross_family_eval",
+        "train_wall", "profile_trace", "roofline_files")}
+    total = [0] * 5
+
+    def run(what, fn, need=()):
+        """fn() driven; fails unless each kernel index in `need`
+        launched."""
+        out, launches, wall = driven(fn)
+        for i, n in enumerate(launches):
+            total[i] += n
+        ok = all(launches[i] >= 1 for i in need)
+        log(f"[tools] {what}: {wall:.2f} s, launches K1..K5 {launches}"
+            + ("" if ok else " -> FAIL (a kernel was not launched)"))
+        if not ok:
+            failures.append(f"[tools] {what}: launches {launches}")
+        return out
+
+    # inspect: host only
+    ckpts = sorted(MLP_CONFIG.CHECKPOINTS_DIR.glob("*.gtckpt.npz")) + sorted(
+        CNN_CONFIG.CHECKPOINTS_DIR.glob("*.gtckpt.npz"))
+    infos = {p.name: tool["inspect_ckpt"].summarize(p, histories=h)
+             for h in (False, True) for p in ckpts}
+    for name, info in infos.items():
+        log(f"[tools] inspect {name}: {info['n_params']} params, "
+            f"{info['num_classes']} classes, epoch {info['epoch']}, "
+            f"opt state {info['has_opt_state']}, scaler "
+            f"{info['has_scaler']}")
+    ok = (len(ckpts) == 5
+          and infos["mlp_synth_v1.0.0.gtckpt.npz"]["n_params"] == 20143
+          and infos["mlp_v1.0.0.gtckpt.npz"]["epoch"] == 7)
+    if not ok:
+        failures.append("[tools] inspect_ckpt")
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        raw = write_raw_recordings(d / "raw")
+        creator = tool["dataset_creator"]
+        totals = {dev: run(f"dataset_creator slice-all ({dev})",
+                           lambda dev=dev: creator.slice_all_clips(
+                               raw, d / f"clips_{dev}", device=dev),
+                           need=(3, 4) if dev == device else ())
+                  for dev in (device, "cpu")}
+        same, err, same_bytes = same_wav_trees(d / f"clips_{device}",
+                                               d / "clips_cpu")
+        n_clips = len(list((d / "clips_cpu").rglob("*.wav")))
+        ok = same and totals[device] == totals["cpu"] and err <= 1e-5
+        log(f"[tools] slice-all of {len(TOOLS_FRETS)} recordings at "
+            f"{TOOLS_SR} Hz: {totals[device]} onsets, {n_clips} clips; "
+            f"names equal to the CPU's {same}, max sample err {err:.3g} "
+            f"(1e-5), byte-identical files {same_bytes} of {n_clips} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[tools] dataset_creator slice-all")
+        creator.create_pitch_dataset(d / f"clips_{device}", d / "pitch")
+        counts = creator.count_clips(d / "pitch")
+        expect = sorted(string_fret_to_note(s, f) for s, f in TOOLS_FRETS)
+        if sorted(counts) != expect or sum(counts.values()) != n_clips:
+            failures.append(f"[tools] pitch-dataset folders {counts}")
+
+        eda = tool["eda"]
+        ds = synthesize_note_dataset(d / "eda", variants_per_class=4,
+                                     seed=SEED, verbose=False)
+        got = {dev: run(f"eda dataset ({dev})",
+                        lambda dev=dev: eda.dataset_analysis(ds, device=dev))
+               for dev in (device, "cpu")}
+        ok = (got[device]["counts"] == got["cpu"]["counts"]
+              and got[device]["report"] == got["cpu"]["report"]
+              and got[device]["stats"] == got["cpu"]["stats"])
+        log(f"[tools] eda dataset: {sum(got['cpu']['counts'].values())} "
+            f"WAVs, counts, report and per-WAV stats equal to the CPU's "
+            f"{ok}")
+        if not ok:
+            failures.append("[tools] eda dataset")
+        wav = next(raw.rglob("*.wav"))
+        got = {dev: run(f"eda slices ({dev})",
+                        lambda dev=dev: eda.slice_analysis(wav, device=dev),
+                        need=(3, 4) if dev == device else ())
+               for dev in (device, "cpu")}
+        ok = ([c["clip"] for c in got[device]]
+              == [c["clip"] for c in got["cpu"]]
+              and all(abs(a[k] - b[k]) <= 1e-5 for a, b in
+                      zip(got[device], got["cpu"]) for k in ("rms", "peak")))
+        log(f"[tools] eda slices: {len(got['cpu'])} clips, names equal and "
+            f"rms/peak within 1e-5 of the CPU's {ok}")
+        if not ok:
+            failures.append("[tools] eda slices")
+        mats = {dev: run(f"eda features ({dev})",
+                         lambda dev=dev: eda.feature_matrix(ds, device=dev),
+                         need=(1, 2) if dev == device else ())
+                for dev in (device, "cpu")}
+        (x, y, rmap), (x_ref, y_ref, rmap_ref) = mats[device], mats["cpu"]
+        ok_x, errs = same_features("mlp", x, x_ref)
+        a, b = (feature_report(*mats[dev]) for dev in (device, "cpu"))
+        keys = ("X_min", "X_max", "X_mean", "X_std")
+        err = max(abs(a[k] - b[k]) for k in keys)
+        ok = (ok_x and np.array_equal(y, y_ref) and rmap == rmap_ref
+              and err <= 1e-3
+              and all(a[k] == b[k] for k in a if k not in keys))
+        log(f"[tools] eda features: X {x.shape} against the CPU's element "
+            f"by element: {errs}; labels and classes equal; report numbers "
+            f"within {err:.3g} (1e-3), the rest equal -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[tools] eda features")
+
+    rep = run("cross_family_eval", lambda: tool["cross_family_eval"].main(
+        ["--variants", str(CROSS_VARIANTS), "--eval_variants", "2",
+         "--epochs", "2", "--device", device]), need=(0, 1, 2))
+    accs = [v for r in rep["results"].values() for v in r.values()]
+    ok = (set(rep) == {"variants", "epochs", "eval_seed", "results",
+                       "wall_s"}
+          and set(rep["results"]) == {f"{m}_trained_on_{f}"
+                                      for m in ("cnn", "mlp")
+                                      for f in ("ks", "additive")}
+          and all(set(r) == {"ks", "additive", "fm"}
+                  for r in rep["results"].values())
+          and all(np.isfinite(accs)) and all(0.0 <= x <= 1.0 for x in accs))
+    log(f"[tools] cross_family_eval at {CROSS_VARIANTS} variants, 2 epochs: "
+        f"{rep['results']}; schema and finite accuracies {ok}")
+    if not ok:
+        failures.append("[tools] cross_family_eval report")
+    cross = tool["cross_family_eval"]
+    with tempfile.TemporaryDirectory() as d:
+        fm = synthesize_note_dataset(Path(d) / "eval_fm", family="fm",
+                                     variants_per_class=2, seed=EVAL_SEED,
+                                     verbose=False)
+        for kind, need in (("mlp", (1, 2)), ("cnn", (0,))):
+            raws = {dev: run(f"cross_family_eval {kind} features of the fm "
+                             f"evaluation set ({dev})",
+                             lambda dev=dev: cross.raw_features(
+                                 kind, fm, SR, dev),
+                             need=need if dev == device else ())
+                    for dev in (device, "cpu")}
+            (x, y, rmap), (x_ref, y_ref, rmap_ref) = raws[device], raws["cpu"]
+            ok_x, errs = same_features(kind, x, x_ref)
+            ok = ok_x and np.array_equal(y, y_ref) and rmap == rmap_ref
+            log(f"[tools] cross_family_eval {kind} features of fm: X "
+                f"{x.shape} against the CPU's element by element: {errs}; "
+                f"labels and classes equal -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[tools] cross_family_eval {kind} features")
+
+    wall = run(f"train_wall at {TRAIN_VARIANTS} variants",
+               lambda: tool["train_wall"].run(variants=TRAIN_VARIANTS,
+                                              device=device),
+               need=(0, 1, 2))
+    ok = all(np.isfinite(wall[k]) for k in ("cnn_val_acc", "mlp_val_acc"))
+    log(f"[tools] train_wall: synth {wall['synth_s']:.2f} s, cnn "
+        f"{wall['cnn_s']:.2f} s ({wall['cnn_epochs']} epochs, val acc "
+        f"{wall['cnn_val_acc']:.4f}), mlp {wall['mlp_s']:.2f} s "
+        f"({wall['mlp_epochs']} epochs, val acc {wall['mlp_val_acc']:.4f}),"
+        f" total {wall['total_s']:.2f} s on {card}")
+    if not ok:
+        failures.append("[tools] train_wall")
+
+    KERNEL_SYMBOLS = load_roofline().KERNEL_SYMBOLS
+    prof = tool["profile_trace"]
+    for graph, need in (("clip", (0, 1, 2)), ("files", (0, 1, 2, 3, 4))):
+        with tempfile.TemporaryDirectory() as d:
+            fn, pool = prof.trace_inputs(graph, N_CLIPS, 60.0, 4, 384, 1,
+                                         112, 448, device)
+            run(f"profile_trace {graph}",
+                lambda: prof.trace(fn, pool, 8, d), need=need)
+            (_, top, shares), = prof.parse_trace(d, PROFILE_TOP)
+        names = [name for name, _ in top]
+        missing = [k for i, k in enumerate(KERNEL_SYMBOLS) if i in need
+                   and not any(sym in name for sym in KERNEL_SYMBOLS[k]
+                               for name in names)]
+        log(f"[tools] profile_trace {graph}: the port's kernels' device us "
+            f"over 8 calls {({k: round(v, 1) for k, v in shares.items()})}; "
+            f"launched kernels missing from the top {PROFILE_TOP}: "
+            f"{missing} -> {'ok' if not missing else 'FAIL'}")
+        if missing:
+            failures.append(f"[tools] profile_trace {graph}: {missing}")
+
+    roof = tool["roofline_files"]
+    out = run("roofline_files", lambda: roof.report(roof.parse_args(
+        ["--device", device])), need=(0, 1, 2, 3, 4))
+    record_launches(rows, "tools", total)
+    m = out["measured"]
+    if m is None:
+        failures.append("[tools] roofline: the wave was not measured")
+        return
+    log(f"[tools] roofline {out['program']}: wave {m['wave_ms']:.4f} ms "
+        f"(events), floor {out['wave']['floor_ms']:.5f} ms "
+        f"({out['wave']['bound_by']}), roofline share "
+        f"{m['roofline_share']:.4f}, mfu {m['mfu']:.4f}, device busy "
+        f"{m['device_busy_ms']:.4f} ms; clip step at "
+        f"{out['clip_step']['batch']}: {out['clip_step']['measured_ms']:.4f}"
+        f" ms, floor {out['clip_step']['floor_ms']:.5f} ms on {card}")
+    for name, r in out["stages"].items():
+        log(f"[tools] roofline stage {name}: measured {r['measured_ms']:.4f}"
+            f" ms ({r['share']:.1%} of device time), floor "
+            f"{r['floor_ms']:.5f} ms ({r['bound_by']}; {r['flops']:.4g} "
+            f"flops, {r['bytes']:.4g} bytes)")
+
+
 def main() -> int:
     import torch
 
@@ -1900,6 +2181,7 @@ def main() -> int:
     from gat_tpu_torch.infer import Transcriber
     from gat_tpu_torch.ops import onset, spectral, yin
     from gat_tpu_torch.ops.pitch import midi_to_note
+    roofline = load_roofline()
 
     # ---- 1. the card ------------------------------------------------------
     card = card_line()
@@ -1930,17 +2212,8 @@ def main() -> int:
     n, length = clips.shape
     t_mel = spectral.n_frames(length, 2048, 256)
     t_mfcc = spectral.n_frames(length, 2048, 512)
-    tables64 = features._kernel_tables(SR, 64, True, dev)
-    tables128 = features._kernel_tables(SR, 128, False, dev)
-    *_, lo64, hi64 = tables64
-    *_, lo128, hi128 = tables128
-    nnz64 = int((hi64 - lo64).sum())
-    nnz128 = int((hi128 - lo128).sum())
     min_p, max_p = yin.yin_periods(SR, 50.0, 1000.0, 2048, 1024)
     n_items = onset._mel_items(FILE_SR, 128, dev)[2]
-    table_bytes_64 = sum(a.numel() * a.element_size() for a in tables64)
-    table_bytes_128 = (sum(a.numel() * a.element_size() for a in tables128)
-                       + 4 * 128 * 64)  # and the DCT matrix
     for name, symbol, args, at in (
             ("melspec_frontend", "gat_melspec_blocks_per_sm", (64, t_mel),
              f"64 mels x {t_mel} frames"),
@@ -1968,24 +2241,18 @@ def main() -> int:
              replaces="gat_tpu/ops/pallas/melspec_frontend.py:71",
              tolerance="atol 0.1 dB where the plain image > -60 dB; "
                        "finite and >= -100 dB everywhere",
-             flops=n * (t_mel * fft_flops(nnz64, 64) + 3 * length),
-             nbytes=n * length * 4 + n * 64 * t_mel * 4 + table_bytes_64),
+             cost=roofline.melspec_cost(n, length, SR, dev)),
         dict(name="mfcc_frontend", fn=features.mfcc_frontend,
              plain=features.mfcc_frontend_plain,
              source="gat_tpu_torch/csrc/mfcc_frontend.cu",
              replaces="gat_tpu/ops/pallas/mfcc_frontend.py:87",
              tolerance="atol 1e-3 on the 64 coefficients",
-             flops=n * (t_mfcc * (fft_flops(nnz128, 128) + 2 * 128)
-                        + 2 * 128 * 64 + 3 * length),
-             nbytes=n * length * 4 + n * 64 * 4 + table_bytes_128),
+             cost=roofline.mfcc_cost(n, length, SR, dev)),
         dict(name="yin_pitch", fn=yin.yin_pitch, plain=yin.yin_pitch_plain,
              source="gat_tpu_torch/csrc/yin_pitch.cu",
              replaces="gat_tpu/ops/yin.py:267",
              tolerance="rtol 2e-3 on the pitch of every clip",
-             # the ACF's 2·W flops per lag, plus O(max_p) per frame for
-             # the sliding energies and the CMND
-             flops=n * t_mfcc * (2 * 1024 * (max_p + 1) + 9 * max_p),
-             nbytes=n * length * 4 + n * 4),
+             cost=roofline.yin_cost(n, length, SR)),
     ]
     failures = []
     rows = []
@@ -2029,7 +2296,7 @@ def main() -> int:
             failures.append(s["name"])
         ms = time_ms(fn, pool, reps=10)
         plain_ms = time_ms(plain, pool, reps=10)
-        bound_ms, bound_by = bound(s["flops"], s["nbytes"])
+        bound_ms, bound_by = roofline.bound(*s["cost"])
         log(f"[time] {s['name']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by})")
         rows.append(dict(name=s["name"], route="cuda", source=s["source"],
@@ -2146,6 +2413,9 @@ def main() -> int:
 
     # ---- 13. the note-accuracy harness ------------------------------------
     eval_phase(rows, card, failures)
+
+    # ---- 14. the tools ----------------------------------------------------
+    tools_phase(rows, card, failures)
 
     if failures:
         log(f"[fail] {failures}")

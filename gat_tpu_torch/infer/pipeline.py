@@ -2,7 +2,16 @@
 `gat_tpu/infer/pipeline.py`. The entry point, the Transcriber's clip and
 file paths all build their functions here, so the recipe (feature params
 from the checkpoints, scaler, softmax blend, pitch prior, re-rating)
-exists once."""
+exists once.
+
+The file body and what it calls mark their stages with
+`utils/profiling.annotate` ranges (`torch.profiler.record_function`
+while a profiler records) named as
+`tools/torch_roofline_files.py`'s STAGE_TAGS (segmentation_other,
+onset_detect, slicing, compaction, clip_rerate, yin_baseline,
+mfcc_yin_frontend, melspec_frontend, mlp_forward, cnn_forward), so a
+trace attributes each kernel to its stage; they are instrumentation
+only."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +19,7 @@ import torch
 from ..features import mfcc_feature_vectors, melspec_features
 from ..ops.resample import fix_length, resample
 from ..ops.yin import yin_pitch
+from ..utils.profiling import annotate
 
 __all__ = ["build_clip_ensemble_fn", "build_files_fn"]
 
@@ -43,29 +53,32 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
         if clip_len is not None:
             clips = fix_length(clips, clip_len)
         clips = clips.contiguous()
-        mf = mfcc_feature_vectors(
-            clips, ckpt_sr, n_mfcc=mfcc_params["N_MFCC"],
-            normalize_audio_volume=mfcc_params["NORMALIZE_AUDIO_VOLUME"],
-            add_pitch_features=mfcc_params["ADD_PITCH_FEATURES"],
-            pitch_on_normalized=pitch_on_normalized,
-            raw_pitch_hz=raw_pitch_hz)
-        if scaler is not None:
-            mf = scaler.transform(mf)
+        with annotate("mfcc_yin_frontend"):
+            mf = mfcc_feature_vectors(
+                clips, ckpt_sr, n_mfcc=mfcc_params["N_MFCC"],
+                normalize_audio_volume=mfcc_params["NORMALIZE_AUDIO_VOLUME"],
+                add_pitch_features=mfcc_params["ADD_PITCH_FEATURES"],
+                pitch_on_normalized=pitch_on_normalized,
+                raw_pitch_hz=raw_pitch_hz)
+            if scaler is not None:
+                mf = scaler.transform(mf)
         ms = None
         if melspec_params is not None and predictor.cnn is not None:
-            ms = melspec_features(
-                clips, ckpt_sr, n_mels=melspec_params["N_MELS"],
-                n_fft=melspec_params["N_FFT"],
-                hop_length=melspec_params["HOP_LENGTH"],
-                normalize_audio_volume=melspec_params[
-                    "NORMALIZE_AUDIO_VOLUME"],
-                # checkpoint-embedded TO_DB wins (absent key = legacy
-                # checkpoint, dB on)
-                to_db=bool(melspec_params.get("TO_DB", True)))
+            with annotate("melspec_frontend"):
+                ms = melspec_features(
+                    clips, ckpt_sr, n_mels=melspec_params["N_MELS"],
+                    n_fft=melspec_params["N_FFT"],
+                    hop_length=melspec_params["HOP_LENGTH"],
+                    normalize_audio_volume=melspec_params[
+                        "NORMALIZE_AUDIO_VOLUME"],
+                    # checkpoint-embedded TO_DB wins (absent key = legacy
+                    # checkpoint, dB on)
+                    to_db=bool(melspec_params.get("TO_DB", True)))
         hz = raw_pitch_hz
         if (hz is None and predictor.pitch_prior_weight > 0
                 and predictor.reverse_map):
-            hz = yin_pitch(clips, ckpt_sr)
+            with annotate("yin_baseline"):
+                hz = yin_pitch(clips, ckpt_sr)
         parts = predictor.ensemble_probs(mf, ms, pitch_hz=hz)
         return parts if return_parts else parts[0]
 
@@ -109,20 +122,24 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
     clip_len = int(ckpt_sr * clip_duration)
 
     def classify(clips):
-        comp = fix_length(resample(clips, target_sr, ckpt_sr),
-                          clip_len).contiguous()
-        pitch = yin_pitch(comp, ckpt_sr)
+        with annotate("clip_rerate"):
+            comp = fix_length(resample(clips, target_sr, ckpt_sr),
+                              clip_len).contiguous()
+        with annotate("yin_baseline"):
+            pitch = yin_pitch(comp, ckpt_sr)
         return (*ensemble(comp, raw_pitch_hz=pitch), pitch)
 
     @torch.no_grad()
     def run(ys: torch.Tensor, n_valids: torch.Tensor):
-        n_valids = n_valids.to(device=ys.device, dtype=torch.int64)
-        # exact zeros past each file's true length: the whole-second host
-        # pad goes through the resampler, whose edge leaks into the tail,
-        # and a clip window crossing the end must see what the unpadded
-        # signal would
-        ys = torch.where(torch.arange(ys.shape[-1], device=ys.device)[None]
-                         < n_valids[:, None], ys, 0.0)
+        with annotate("segmentation_other"):
+            n_valids = n_valids.to(device=ys.device, dtype=torch.int64)
+            # exact zeros past each file's true length: the whole-second
+            # host pad goes through the resampler, whose edge leaks into
+            # the tail, and a clip window crossing the end must see what
+            # the unpadded signal would
+            ys = torch.where(torch.arange(ys.shape[-1],
+                                          device=ys.device)[None]
+                             < n_valids[:, None], ys, 0.0)
         (clips, kept, onsets, _, times, overflow, cap,
          n_detected) = segment_waveform(
             ys, sr=target_sr, length_sec=clip_duration,
@@ -134,11 +151,13 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
         if budget is not None and budget < b * k:
             # kept slots first, slot-major: file-major index of
             # slot-major position p is (p % b)·k + p // b
-            keptt = kept.T.reshape(b * k)
-            ordert = torch.argsort((~keptt).to(torch.uint8),
-                                   stable=True)[:budget]
-            sel = (ordert % b) * k + ordert // b
-            parts = classify(flat[sel])
+            with annotate("compaction"):
+                keptt = kept.T.reshape(b * k)
+                ordert = torch.argsort((~keptt).to(torch.uint8),
+                                       stable=True)[:budget]
+                sel = (ordert % b) * k + ordert // b
+                picked = flat[sel]
+            parts = classify(picked)
 
             def scatter(x):
                 if x is None:
@@ -146,13 +165,16 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
                 out = x.new_zeros((b * k,) + x.shape[1:])
                 out[sel] = x
                 return out
-            probs, mlp_p, cnn_p, pitch = (scatter(x) for x in parts)
-            computed = torch.zeros(b * k, dtype=torch.bool, device=ys.device)
-            computed[sel] = True
-            dropped = (kept.reshape(b * k) & ~computed).reshape(b, k).any(-1)
-            kept = kept & computed.reshape(b, k)
-            overflow = overflow | dropped
-            fixable = fixable | dropped
+            with annotate("compaction"):
+                probs, mlp_p, cnn_p, pitch = (scatter(x) for x in parts)
+                computed = torch.zeros(b * k, dtype=torch.bool,
+                                       device=ys.device)
+                computed[sel] = True
+                dropped = (kept.reshape(b * k)
+                           & ~computed).reshape(b, k).any(-1)
+                kept = kept & computed.reshape(b, k)
+                overflow = overflow | dropped
+                fixable = fixable | dropped
         else:
             probs, mlp_p, cnn_p, pitch = classify(flat)
 

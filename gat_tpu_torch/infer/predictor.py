@@ -20,6 +20,7 @@ from ..models import cnn as cnn_mod
 from ..models import mlp as mlp_mod
 from ..ops.pitch import note_to_midi
 from ..utils.device import fp32_reference_math, resolve_device, to_host
+from ..utils.profiling import annotate
 
 __all__ = ["NotePredictor", "class_midi_values", "apply_pitch_prior"]
 
@@ -151,11 +152,14 @@ class NotePredictor:
         if has_mlp:
             x = torch.as_tensor(mfcc_features, dtype=torch.float32,
                                 device=self.device)
-            mlp_probs = torch.softmax(self.mlp(x), dim=-1)
+            with annotate("mlp_forward"):
+                mlp_probs = torch.softmax(self.mlp(x), dim=-1)
         if has_cnn:
             x = torch.as_tensor(melspec_features, dtype=torch.float32,
                                 device=self.device)
-            cnn_probs = torch.softmax(self.cnn(self._to_nhwc(x)), dim=-1)
+            with annotate("cnn_forward"):
+                cnn_probs = torch.softmax(self.cnn(self._to_nhwc(x)),
+                                          dim=-1)
         if has_mlp and has_cnn:
             w = self.cnn_weight if cnn_weight is None else cnn_weight
             probs = (1.0 - w) * mlp_probs + w * cnn_probs

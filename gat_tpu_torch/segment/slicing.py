@@ -31,6 +31,7 @@ from ..config import CLIP_DURATION, SLICER_CONFIG, TARGET_SR
 from ..ops.onset import detect_onsets
 from ..ops.resample import resample
 from ..utils.device import resolve_device, to_host
+from ..utils.profiling import annotate
 from ..utils.wavio import read_wav, write_wav
 from . import gating
 
@@ -111,17 +112,22 @@ def segment_waveform(y: torch.Tensor, sr: int = TARGET_SR,
     Returns (clips (B, K, L), kept, onsets, onsets_valid, times, overflow
     (B,), cap_overflow (B,), n_detected (B,)); the flags and count are
     `ops.onset.pick_onsets_plain`'s."""
-    # the gates take the slicer's hop; onset detection keeps its own 512
-    y_gated = gating.gate_waveform(y, min_db, hop_length=hop_length,
-                                   n_valid=n_valid)
-    onsets, ovalid, overflow, cap, n_detected = detect_onsets(
-        y_gated, sr=sr, hop_length=_ONSET_HOP, min_sep=min_sep,
-        max_onsets=max_onsets, n_valid=n_valid, cand_budget=cand_budget)
-    clips, kept, times = slice_at_onsets(
-        y, onsets, ovalid, sr=sr, length_sec=length_sec,
-        attack_skip_sec=attack_skip_sec, min_slice_rms_db=min_slice_rms_db,
-        strict_reference_compat=strict_reference_compat, n_valid=n_valid,
-        onset_hop=_ONSET_HOP)
+    # the gates take the slicer's hop; onset detection keeps its own 512.
+    # The ranges name the stages of a profiler trace (infer/pipeline.py)
+    with annotate("segmentation_other"):
+        y_gated = gating.gate_waveform(y, min_db, hop_length=hop_length,
+                                       n_valid=n_valid)
+    with annotate("onset_detect"):
+        onsets, ovalid, overflow, cap, n_detected = detect_onsets(
+            y_gated, sr=sr, hop_length=_ONSET_HOP, min_sep=min_sep,
+            max_onsets=max_onsets, n_valid=n_valid, cand_budget=cand_budget)
+    with annotate("slicing"):
+        clips, kept, times = slice_at_onsets(
+            y, onsets, ovalid, sr=sr, length_sec=length_sec,
+            attack_skip_sec=attack_skip_sec,
+            min_slice_rms_db=min_slice_rms_db,
+            strict_reference_compat=strict_reference_compat,
+            n_valid=n_valid, onset_hop=_ONSET_HOP)
     return clips, kept, onsets, ovalid, times, overflow, cap, n_detected
 
 

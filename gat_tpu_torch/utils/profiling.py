@@ -5,8 +5,11 @@
 waits for the card's work only where the caller says which results to
 wait for (`block_on`): PyTorch returns before the device finishes, so a
 stage timed without it records the enqueue only. `device_trace` records
-the CPU and, with a card, the CUDA activity of a block into a trace that
-TensorBoard or ui.perfetto.dev opens; `annotate` labels a region in it.
+the CPU and, with a card, the CUDA activity of a block into a gzipped
+Chrome trace (`*.pt.trace.json.gz`, as jax.profiler writes its traces)
+that TensorBoard or ui.perfetto.dev opens; `annotate` labels a region in
+it. DEVICE_CATEGORIES are the categories of the card's work in such a
+trace.
 """
 from __future__ import annotations
 
@@ -17,7 +20,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["StageTimer", "stage", "device_trace", "annotate"]
+__all__ = ["StageTimer", "stage", "device_trace", "annotate",
+           "DEVICE_CATEGORIES"]
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def _wait_for(x) -> None:
@@ -102,10 +108,15 @@ def device_trace(log_dir=None):
     with torch.profiler.profile(
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                log_dir)):
+                log_dir, use_gzip=True)):
         yield log_dir
 
 
 def annotate(name: str):
-    """A labelled region inside a trace (torch.profiler.record_function)."""
-    return torch.profiler.record_function(name)
+    """A labelled region inside a trace (torch.profiler.record_function)
+    while a profiler records, and nothing otherwise: a range costs
+    microseconds of host time even with no profiler running, and the
+    wave body enters a dozen on every call."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()

@@ -1,0 +1,168 @@
+"""Roofline accounting of the port on one H100: the card's published
+peaks and the least work of each kernel and stage, counted from shapes.
+
+A cost is (flops, bytes): the operations the function needs on these
+inputs and the least memory traffic, each input read once and each output
+written once. `bound` turns a cost into the least time the card could
+take, the larger of bytes over the memory rate and flops over the fp32
+rate, and says which of the two bounds it. `chip_smoke.py` (the kernels
+line's `bound_ms`) and `tools/torch_roofline_files.py` (the per-stage
+floors of the serving wave) count with these functions, so the two share
+one denominator.
+
+K1-K3 are counted per clip batch (N clips of `length` samples at `sr`),
+K4 per batch of files (B files of n samples), K5 per batch of envelopes
+(B envelopes of T frames).
+
+`chip_smoke.py` loads this file by path from its own checkout, so that
+another checkout timed by it (`tools/torch_onset_timing.py`) is held to
+the same formulas; the package's helpers it counts with (frame counts,
+the kernels' tables) are imported absolutely, from whichever
+`gat_tpu_torch` is on `sys.path`.
+"""
+from __future__ import annotations
+
+import math
+
+__all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS", "bound",
+           "fft_flops", "melspec_cost", "mfcc_cost", "yin_cost",
+           "envelope_cost", "pick_cost", "resample_cost", "module_cost"]
+
+# H100 SXM published peaks (dense, no sparsity) at a 700 W limit
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# the device functions of K1-K5, as the profiler names them
+KERNEL_SYMBOLS = {
+    "K1": ("melspec_frontend_kernel",),
+    "K2": ("mfcc_frontend_kernel",),
+    "K3": ("yin_pitch_kernel",),
+    "K4": ("onset_mel_db_kernel", "onset_flux_kernel"),
+    "K5": ("onset_pick_kernel",),
+}
+
+_N_FFT = 2048
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms, "operations" or "bytes") of a cost on the card."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def fft_flops(n_mels_nnz: int, n_mels: int) -> int:
+    """Flops one frame of the front-ends needs: window, a real-input FFT
+    of 2048 points (2.5·N·log2 N, half a complex one), power of 1025
+    bins, sparse mel, log."""
+    return 2048 + 5 * 2048 * 11 // 2 + 3 * 1025 + 2 * n_mels_nnz + n_mels
+
+
+def _tables(sr: int, n_mels: int, htk: bool, device) -> tuple[int, int]:
+    """(nonzero filterbank weights, bytes of the tables) of a front-end
+    kernel: window, twiddles, dense filterbank and its bin ranges."""
+    import torch
+    from gat_tpu_torch.features import _kernel_tables
+    tables = _kernel_tables(sr, n_mels, htk, torch.device(device))
+    *_, lo, hi = tables
+    return (int((hi - lo).sum()),
+            sum(a.numel() * a.element_size() for a in tables))
+
+
+def melspec_cost(n: int, length: int, sr: int, device="cpu"
+                 ) -> tuple[int, int]:
+    """K1 at (n, length): every frame's FFT and 64-band mel, the volume
+    normalization; the clips read once, the image and tables once."""
+    from gat_tpu_torch.ops import spectral
+    t = spectral.n_frames(length, _N_FFT, 256)
+    nnz, table_bytes = _tables(sr, 64, True, device)
+    return (n * (t * fft_flops(nnz, 64) + 3 * length),
+            n * length * 4 + n * 64 * t * 4 + table_bytes)
+
+
+def mfcc_cost(n: int, length: int, sr: int, device="cpu"
+              ) -> tuple[int, int]:
+    """K2 at (n, length): every frame's FFT, 128-band mel and dB, the
+    64-coefficient DCT of the mean, the volume normalization; the clips
+    read once, the 64 means written once, the tables and the DCT matrix
+    read once."""
+    from gat_tpu_torch.ops import spectral
+    t = spectral.n_frames(length, _N_FFT, 512)
+    nnz, table_bytes = _tables(sr, 128, False, device)
+    return (n * (t * (fft_flops(nnz, 128) + 2 * 128) + 2 * 128 * 64
+                 + 3 * length),
+            n * length * 4 + n * 64 * 4 + table_bytes + 4 * 128 * 64)
+
+
+def yin_cost(n: int, length: int, sr: int) -> tuple[int, int]:
+    """K3 at (n, length): the ACF's 2·W flops per lag, plus O(max_p) per
+    frame for the sliding energies and the CMND; the clips read once,
+    one pitch written per clip."""
+    from gat_tpu_torch.ops import spectral
+    from gat_tpu_torch.ops.yin import yin_periods
+    t = spectral.n_frames(length, _N_FFT, 512)
+    _, max_p = yin_periods(sr, 50.0, 1000.0, _N_FFT, 1024)
+    return (n * t * (2 * 1024 * (max_p + 1) + 9 * max_p),
+            n * length * 4 + n * 4)
+
+
+def envelope_cost(files: int, n: int, sr: int, device="cpu",
+                  hop: int = 512) -> tuple[int, int]:
+    """K4 at (files, n): the FFT and 128-band mel of every frame, the
+    flux; each sample read and each envelope value written once, with
+    the valid counts, the window, the twiddles and the filterbank's
+    nonzero weights and their bin ranges."""
+    import torch
+    from gat_tpu_torch.features import _kernel_tables
+    t = 1 + n // hop
+    hann, tw, _, lo, hi = _kernel_tables(sr, 128, False,
+                                         torch.device(device))
+    nnz = int((hi - lo).sum())
+    tables = 4 * (hann.numel() + tw.numel() + nnz + 2 * 128)
+    return (files * t * (fft_flops(nnz, 128) + 4 * 128),
+            4 * files * (n + t + 1) + tables)
+
+
+def pick_cost(files: int, t: int, sr: int, hop: int = 512,
+              max_onsets: int = 64) -> tuple[int, int]:
+    """K5 at (files, t): the peak pick's compares; one read of the
+    envelopes and the valid counts, one write of the outputs at
+    `max_onsets` onsets."""
+    from gat_tpu_torch.ops.onset import peak_pick_params
+    pre_max, post_max, _, _, _ = peak_pick_params(sr, hop)
+    return (files * t * (pre_max + post_max + 16),
+            4 * files * (t + 1) + files * (max_onsets * 5 + 6))
+
+
+def resample_cost(rows: int, n_in: int, sr_in: int, sr_out: int
+                  ) -> tuple[int, int]:
+    """The polyphase Kaiser filter from `sr_in` to `sr_out` over `rows`
+    signals of `n_in` samples: a multiply-add per tap of each output
+    sample's phase; the signals read and the outputs written once."""
+    if sr_in == sr_out:
+        return 0, 0
+    from gat_tpu_torch.ops.resample import resample_filter
+    g = math.gcd(sr_in, sr_out)
+    up, down = sr_out // g, sr_in // g
+    n_out = -(-n_in * up // down)
+    taps = -(-resample_filter(up, down).size // up)
+    return 2 * taps * rows * n_out, 4 * rows * (n_in + n_out)
+
+
+def module_cost(module, example_shape: tuple) -> tuple[int, int]:
+    """A model's forward on a batch of `example_shape`: the flops of its
+    matmuls and convolutions (torch's shape formulas, run on the meta
+    device, so nothing is computed), the parameters and buffers read
+    once, the input read and the logits written once."""
+    import copy
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    meta = copy.deepcopy(module).to("meta").eval()
+    x = torch.empty(example_shape, device="meta")
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        out = meta(x)
+    weights = sum(p.numel() * p.element_size()
+                  for p in (*module.parameters(), *module.buffers()))
+    return (int(counter.get_total_flops()),
+            weights + 4 * math.prod(example_shape) + 4 * out.numel())

@@ -694,3 +694,123 @@ def test_evaluate_set_card_vs_cpu(tmp_path):
         out[dev] = teval.evaluate_set(t, tmp_path / dev, 2, 777, witness=w)
     assert out["cuda"]["_correct"] == out["cpu"]["_correct"]
     assert out["cuda"]["_disagree"] == out["cpu"]["_disagree"]
+
+
+# ---------------------------------------------------------------------------
+# the tools' twins
+# ---------------------------------------------------------------------------
+def _tool(name: str):
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent.parent / "tools"
+        / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_dataset_creator_slice_all_card_vs_cpu(tmp_path):
+    """tools/torch_dataset_creator.py slice-all on 44100 Hz recordings:
+    K4 and K5 launched once per recording, the CPU's onsets and file
+    names, samples within 1e-5 (no resample at 44100 Hz)."""
+    _card()
+    from gat_tpu_torch.utils.wavio import read_wav, write_wav
+    creator = _tool("torch_dataset_creator")
+    for i, (s, f) in enumerate(((6, 0), (2, 3), (1, 5))):
+        d = tmp_path / "raw" / f"String_{s}" / f"Fret_{f}"
+        d.mkdir(parents=True)
+        write_wav(d / "take.wav", pluck_riff(44100, 3.0 + 0.4 * i,
+                                             RIFF_NOTES[:4]), 44100)
+    before = (onset.onset_strength.launches, onset.pick_onsets.launches)
+    n_card = creator.slice_all_clips(tmp_path / "raw", tmp_path / "card")
+    assert (onset.onset_strength.launches - before[0],
+            onset.pick_onsets.launches - before[1]) == (3, 3)
+    n_cpu = creator.slice_all_clips(tmp_path / "raw", tmp_path / "cpu",
+                                    device="cpu")
+    assert n_card == n_cpu > 0
+    names = sorted(p.relative_to(tmp_path / "card")
+                   for p in (tmp_path / "card").rglob("*.wav"))
+    assert names and names == sorted(p.relative_to(tmp_path / "cpu")
+                                     for p in (tmp_path / "cpu").rglob(
+                                         "*.wav"))
+    for name in names:
+        np.testing.assert_allclose(read_wav(tmp_path / "card" / name)[0],
+                                   read_wav(tmp_path / "cpu" / name)[0],
+                                   rtol=0, atol=1e-5)
+
+
+def test_eda_card_vs_cpu(tmp_path):
+    """tools/torch_eda.py's three analyses on the card against the CPU:
+    dataset counts, report and per-WAV stats equal; slices' names equal,
+    rms and peak within 1e-5; the feature matrix element by element (MFCC
+    1e-3, pitch 2e-3 relative; K2 and K3 launched once), the feature
+    report's statistics within 1e-3, the rest equal."""
+    _card()
+    from gat_tpu_torch.data.synth import synthesize_note_dataset
+    from gat_tpu_torch.utils.reports import feature_report
+    from gat_tpu_torch.utils.wavio import write_wav
+    eda = _tool("torch_eda")
+    root = synthesize_note_dataset(tmp_path / "ds", variants_per_class=2,
+                                   seed=1, verbose=False)
+    got, ref = (eda.dataset_analysis(root, device=d) for d in ("cuda", "cpu"))
+    assert got["counts"] == ref["counts"] and got["report"] == ref["report"]
+    assert got["stats"] == ref["stats"]
+    wav = tmp_path / "riff.wav"
+    write_wav(wav, pluck_riff(44100, 3.0, RIFF_NOTES[:4]), 44100)
+    got, ref = (eda.slice_analysis(wav, device=d) for d in ("cuda", "cpu"))
+    assert [c["clip"] for c in got] == [c["clip"] for c in ref] and got
+    for a, b in zip(got, ref):
+        assert abs(a["rms"] - b["rms"]) <= 1e-5
+        assert abs(a["peak"] - b["peak"]) <= 1e-5
+    before = (features.mfcc_frontend.launches, yin.yin_pitch.launches)
+    mats = eda.feature_matrix(root, device="cuda")
+    assert (features.mfcc_frontend.launches - before[0],
+            yin.yin_pitch.launches - before[1]) == (1, 1)
+    mats_ref = eda.feature_matrix(root, device="cpu")
+    _same_mfcc(mats[0], mats_ref[0])
+    np.testing.assert_array_equal(mats[1], mats_ref[1])
+    assert mats[2] == mats_ref[2]
+    got, ref = (feature_report(*m) for m in (mats, mats_ref))
+    stats = ("X_min", "X_max", "X_mean", "X_std")
+    for k in ref:
+        if k in stats:
+            assert abs(got[k] - ref[k]) <= 1e-3, k
+        else:
+            assert got[k] == ref[k], k
+
+
+def _same_mfcc(x, ref):
+    """MFCC-and-pitch vectors of the card against the CPU's: the MFCCs
+    within 1e-3, the pitch (log10 Hz) within 2e-3 relative."""
+    np.testing.assert_allclose(x[:, :64], ref[:, :64], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(10.0 ** (x[:, 64] - ref[:, 64]), 1.0,
+                               atol=2e-3, rtol=0)
+
+
+def test_cross_family_features_card_vs_cpu(tmp_path):
+    """tools/torch_cross_family_eval.py's raw features of an fm evaluation
+    set on the card against the CPU: the MLP's vectors as eda's (K2 and
+    K3 launched once), the CNN's mel images within 0.1 dB where the CPU's
+    read above -60 dB (K1 launched once); labels and classes equal."""
+    _card()
+    from gat_tpu_torch.data.synth import synthesize_note_dataset
+    cross = _tool("torch_cross_family_eval")
+    fm = synthesize_note_dataset(tmp_path / "fm", family="fm",
+                                 variants_per_class=2, seed=777,
+                                 verbose=False)
+    wrappers = (features.melspec_features, features.mfcc_frontend,
+                yin.yin_pitch)
+    for kind, launched in (("mlp", [0, 1, 1]), ("cnn", [1, 0, 0])):
+        before = [w.launches for w in wrappers]
+        x, y, rmap = cross.raw_features(kind, fm, 11025, "cuda")
+        assert [w.launches - b for w, b in zip(wrappers, before)] == launched
+        x_ref, y_ref, rmap_ref = cross.raw_features(kind, fm, 11025, "cpu")
+        np.testing.assert_array_equal(y, y_ref)
+        assert rmap == rmap_ref and x.shape == x_ref.shape
+        if kind == "mlp":
+            _same_mfcc(x, x_ref)
+        else:
+            mask = x_ref > -60.0
+            np.testing.assert_allclose(x[mask], x_ref[mask], atol=0.1,
+                                       rtol=0)

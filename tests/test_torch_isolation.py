@@ -95,9 +95,11 @@ def test_lazy_top_level_names_resolve_without_jax():
 
 
 def test_torch_tools_import_without_jax():
+    names = tuple(p.stem for p in sorted((REPO / "tools").glob("torch_*.py")))
+    assert len(names) == 11
     out = _run_blocked(
         "import importlib.util\n"
-        "for name in ('torch_evaluate', 'torch_onset_timing'):\n"
+        f"for name in {names!r}:\n"
         "    spec = importlib.util.spec_from_file_location(\n"
         "        name, f'tools/{name}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -129,6 +131,33 @@ def test_entry_points_refuse_cuda_without_a_card():
                  NotePredictor, entry):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    # the tools' twins: --device cuda is their default
+    import importlib.util
+
+    def tool(name):
+        spec = importlib.util.spec_from_file_location(
+            f"_refuse_{name}", REPO / "tools" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    d = str(REPO / "tools")  # any existing path: nothing is read
+    calls = [("torch_dataset_creator", ["slice-all", "--raw", d,
+                                        "--clips", d]),
+             ("torch_eda", ["dataset", "--root", d]),
+             ("torch_eda", ["slices", "--audio", d]),
+             ("torch_eda", ["features", "--root", d]),
+             ("torch_cross_family_eval", []),
+             ("torch_train_wall", []),
+             ("torch_profile_trace", ["--graph", "clip"]),
+             ("torch_profile_trace", ["--graph", "files"]),
+             ("torch_roofline_files", []),
+             ("torch_evaluate", []),
+             ("torch_serve", ["--in_dir", d, "--out_dir", d, "--once"]),
+             ("torch_train_synthetic", ["--model", "mlp"])]
+    for name, argv in calls:
+        for extra in ([], ["--device", "cuda"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tool(name).main(argv + extra)
 
 
 def test_kernels_not_built_at_import():

@@ -1,0 +1,391 @@
+"""The port's measuring tools on the CPU: `tools/torch_profile_trace.py`
+(its trace parser on synthetic traces in torch's Chrome-trace format, as
+tests/test_perf_tools.py holds the JAX parser, and one traced run) and
+`tools/torch_roofline_files.py` (the stage attribution of a trace, the
+report's schema, the stage counts against the wave's, K1-K5's counts
+against the formulas `chip_smoke.py` used before they moved into
+`gat_tpu_torch/utils/roofline.py`, and the record_function ranges of the
+wave body). Counts are integers and held exactly; floors and shares
+within 1e-12 relative.
+"""
+import gzip
+import importlib.util
+import json
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gat_tpu_torch import features
+from gat_tpu_torch.ops import onset, spectral, yin
+from gat_tpu_torch.utils import roofline
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _tool(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"_tool_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+prof = _tool("torch_profile_trace")
+roof = _tool("torch_roofline_files")
+
+
+def _write_trace(dirpath: Path, events, name="host.pt.trace.json.gz"):
+    p = dirpath / name
+    with gzip.open(p, "wt") as fh:
+        json.dump({"traceEvents": events}, fh)
+    return p
+
+
+def _x(cat, name, ts, dur, tid=1, **args):
+    return {"ph": "X", "cat": cat, "name": name, "pid": 7, "tid": tid,
+            "ts": ts, "dur": dur, "args": args}
+
+
+TRACE = [
+    {"ph": "M", "name": "process_name", "pid": 7,
+     "args": {"name": "python"}},
+    # host lanes: ranges, ops and launches must not reach the table
+    _x("user_annotation", "onset_detect", 0, 100),
+    _x("user_annotation", "slicing", 100, 50),
+    _x("cpu_op", "aten::mul", 110, 10),
+    _x("cuda_runtime", "cudaLaunchKernel", 10, 2, correlation=1),
+    _x("cuda_runtime", "cudaLaunchKernel", 20, 2, correlation=2),
+    _x("cuda_runtime", "cudaLaunchKernel", 112, 2, correlation=3),
+    _x("cuda_runtime", "cudaMemcpyAsync", 130, 2, correlation=4),
+    _x("cuda_runtime", "cudaLaunchKernel", 200, 2, correlation=5),
+    # device lanes: one kernel name split over two events sums
+    _x("kernel", "onset_mel_db_kernel(float const*, float*, int)", 30, 7.0,
+       tid=13, correlation=1),
+    _x("kernel", "onset_pick_kernel(float const*, int const*)", 40, 3.0,
+       tid=13, correlation=2),
+    _x("kernel", "void at::native::vectorized_elementwise_kernel<4>()",
+       120, 5.0, tid=13, correlation=3),
+    _x("gpu_memcpy", "Memcpy DtoH (Device -> Pinned)", 140, 4.0, tid=13,
+       correlation=4),
+    _x("kernel", "void at::native::vectorized_elementwise_kernel<4>()",
+       210, 6.0, tid=13, correlation=5),
+    _x("gpu_user_annotation", "onset_detect", 30, 13.0, tid=13),
+]
+
+
+def test_parse_trace_keeps_device_lanes_and_sums(tmp_path, capsys):
+    _write_trace(tmp_path, TRACE)
+    (f, rows, shares), = prof.parse_trace(str(tmp_path), top=10)
+    assert dict(rows) == {
+        "void at::native::vectorized_elementwise_kernel<4>()": 11.0,
+        "onset_mel_db_kernel(float const*, float*, int)": 7.0,
+        "Memcpy DtoH (Device -> Pinned)": 4.0,
+        "onset_pick_kernel(float const*, int const*)": 3.0}
+    assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 7.0, "K5": 3.0}
+    out = capsys.readouterr().out
+    assert "top 10 by total us (device lanes)" in out
+    assert "cudaLaunchKernel" not in out and "aten::mul" not in out
+    assert "by category (0.025 ms)" in out
+    assert "84.0%  kernel" in out and "16.0%  gpu_memcpy" in out
+    assert "28.0%  K4" in out and "12.0%  K5" in out
+
+
+def test_parse_trace_without_device_lanes_keeps_all(tmp_path, capsys):
+    _write_trace(tmp_path, [_x("cpu_op", "opA", 0, 3.0),
+                            _x("cpu_op", "opB", 5, 4.0, tid=2),
+                            {"ph": "M", "name": "thread_name", "pid": 7}])
+    (_, rows, shares), = prof.parse_trace(str(tmp_path), top=10)
+    assert dict(rows) == {"opB": 4.0, "opA": 3.0}
+    assert sum(shares.values()) == 0
+    out = capsys.readouterr().out
+    assert "all lanes (no device lane found)" in out
+    assert "the port's kernels" not in out
+
+
+def test_parse_trace_reads_every_file(tmp_path):
+    _write_trace(tmp_path, TRACE[:1], "a.pt.trace.json.gz")
+    (tmp_path / "sub").mkdir()
+    _write_trace(tmp_path / "sub", TRACE, "b.pt.trace.json.gz")
+    (tmp_path / "c.json").write_text("{}")
+    assert [Path(f).name for f, _, _ in prof.parse_trace(str(tmp_path))] \
+        == ["a.pt.trace.json.gz", "b.pt.trace.json.gz"]
+
+
+def test_stage_attribution_innermost_range():
+    """A kernel goes to the innermost stage range around its launch on
+    the launching thread; the rest is 'other'."""
+    events = TRACE + [
+        # a nested range and a launch inside it
+        _x("user_annotation", "mlp_forward", 300, 100),
+        _x("user_annotation", "mfcc_yin_frontend", 320, 10),
+        _x("cuda_runtime", "cudaLaunchKernel", 325, 1, correlation=6),
+        _x("kernel", "mfcc_frontend_kernel(float const*)", 330, 8.0,
+           tid=13, correlation=6),
+        # a range on another thread does not hold this thread's launch
+        _x("user_annotation", "cnn_forward", 0, 1000, tid=2),
+        # a range with another name is not a stage
+        _x("user_annotation", "Optimizer.step", 500, 100),
+        _x("cuda_runtime", "cudaLaunchKernel", 550, 1, correlation=7),
+        _x("gpu_memset", "Memset (Device)", 560, 2.0, tid=13,
+           correlation=7),
+    ]
+    us = roof.stage_device_us(events)
+    assert us == {"onset_detect": 10.0, "slicing": 9.0, "other": 8.0,
+                  "mfcc_yin_frontend": 8.0}
+
+
+def test_profile_trace_cpu_run(tmp_path, capsys):
+    tables = prof.main(["--graph", "clip", "--batch", "4", "--iters", "2",
+                        "--device", "cpu", "--trace_dir", str(tmp_path),
+                        "--top", "5"])
+    (f, rows, _), = tables
+    assert f.endswith(".pt.trace.json.gz") and len(rows) == 5
+    assert "all lanes (no device lane found)" in capsys.readouterr().out
+    assert prof.main(["--parse_only", "--trace_dir", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# the roofline
+# ---------------------------------------------------------------------------
+def _former_k1_k3(n, length, sr):
+    """chip_smoke.py's K1-K3 bounds as they were written there."""
+    def fft_flops(nnz, n_mels):
+        return 2048 + 5 * 2048 * 11 // 2 + 3 * 1025 + 2 * nnz + n_mels
+    dev = torch.device("cpu")
+    t_mel = spectral.n_frames(length, 2048, 256)
+    t_mfcc = spectral.n_frames(length, 2048, 512)
+    tables64 = features._kernel_tables(sr, 64, True, dev)
+    tables128 = features._kernel_tables(sr, 128, False, dev)
+    *_, lo64, hi64 = tables64
+    *_, lo128, hi128 = tables128
+    nnz64 = int((hi64 - lo64).sum())
+    nnz128 = int((hi128 - lo128).sum())
+    _, max_p = yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)
+    tb64 = sum(a.numel() * a.element_size() for a in tables64)
+    tb128 = sum(a.numel() * a.element_size() for a in tables128) + 4 * 128 * 64
+    return ((n * (t_mel * fft_flops(nnz64, 64) + 3 * length),
+             n * length * 4 + n * 64 * t_mel * 4 + tb64),
+            (n * (t_mfcc * (fft_flops(nnz128, 128) + 2 * 128)
+                  + 2 * 128 * 64 + 3 * length),
+             n * length * 4 + n * 64 * 4 + tb128),
+            (n * t_mfcc * (2 * 1024 * (max_p + 1) + 9 * max_p),
+             n * length * 4 + n * 4))
+
+
+def _former_k4_k5(files, n, hop, max_onsets, sr=22050):
+    def fft_flops(nnz, n_mels):
+        return 2048 + 5 * 2048 * 11 // 2 + 3 * 1025 + 2 * nnz + n_mels
+    t = 1 + n // hop
+    hann, tw, _, lo, hi = features._kernel_tables(sr, 128, False,
+                                                  torch.device("cpu"))
+    nnz = int((hi - lo).sum())
+    tables = 4 * (hann.numel() + tw.numel() + nnz + 2 * 128)
+    pre_max, post_max, _, _, _ = onset.peak_pick_params(sr, hop)
+    return ((files * t * (fft_flops(nnz, 128) + 4 * 128),
+             4 * files * (n + t + 1) + tables),
+            (files * t * (pre_max + post_max + 16),
+             4 * files * (t + 1) + files * (max_onsets * 5 + 6)))
+
+
+@pytest.mark.parametrize("n,length", [(1024, 5512), (384, 5512), (7, 1100)])
+def test_k1_k3_counts_equal_the_former_formulas(n, length):
+    k1, k2, k3 = _former_k1_k3(n, length, 11025)
+    assert roofline.melspec_cost(n, length, 11025) == k1
+    assert roofline.mfcc_cost(n, length, 11025) == k2
+    assert roofline.yin_cost(n, length, 11025) == k3
+
+
+@pytest.mark.parametrize("files,seconds,hop,max_onsets",
+                         [(1, 4.0, 512, 64), (64, 8.0, 512, 64),
+                          (4, 60.0, 512, 112), (256, 1.5, 1024, 8)])
+def test_k4_k5_counts_equal_the_former_formulas(files, seconds, hop,
+                                                max_onsets):
+    n = int(seconds * 22050)
+    k4, k5 = _former_k4_k5(files, n, hop, max_onsets)
+    assert roofline.envelope_cost(files, n, 22050, hop=hop) == k4
+    assert roofline.pick_cost(files, 1 + n // hop, 22050, hop,
+                              max_onsets) == k5
+
+
+def test_bound_picks_the_larger_time():
+    ms, by = roofline.bound(67e9, 1.0)
+    assert (ms, by) == (pytest.approx(1.0, rel=1e-12), "operations")
+    ms, by = roofline.bound(1.0, 3.35e9)
+    assert (ms, by) == (pytest.approx(1.0, rel=1e-12), "bytes")
+
+
+def test_module_cost_counts_matmuls():
+    from gat_tpu_torch.models import MLP
+    m = MLP(num_features=65, hidden_dim=128, num_hidden_layers=2,
+            num_classes=47, dropout=0.0)
+    flops, nbytes = roofline.module_cost(m, (10, 65))
+    assert flops == 2 * 10 * (65 * 128 + 128 * 64 + 64 * 47)
+    weights = sum(p.numel() * 4 for p in (*m.parameters(), *m.buffers()))
+    assert nbytes == weights + 4 * 10 * 65 + 4 * 10 * 47
+    assert next(m.parameters()).device.type == "cpu"
+
+
+def test_stage_tags_keep_the_jax_names():
+    jroof = _tool("roofline_files")
+    assert [n for n, _ in roof.STAGE_TAGS] == [n for n, _ in
+                                                jroof.STAGE_TAGS]
+    assert roof.STAGES[-1] == "other"
+
+
+ARGS = ["--device", "cpu", "--files", "2", "--seconds", "4", "--onsets",
+        "16", "--budget", "24", "--cand", "64", "--clip_batch", "8",
+        "--measured_wave_ms", "5.0"]
+
+
+@pytest.fixture(scope="module")
+def report():
+    return roof.report(roof.parse_args(ARGS))
+
+
+def test_roofline_report_schema(report):
+    assert set(report) == {"program", "card", "wave", "measured", "stages",
+                           "clip_step"}
+    prog = report["program"]
+    assert (prog["files"], prog["seconds"], prog["max_onsets"],
+            prog["wave_clip_budget"], prog["cand_budget"]) == (2, 4.0, 16,
+                                                               24, 64)
+    assert prog["bucket_samples"] == 4 * 22050
+    assert report["card"] == {"name_power_limit": None,
+                              "peak_fp32_flops": 67e12,
+                              "peak_bytes_per_s": 3.35e12}
+    assert list(report["stages"]) == list(roof.STAGES)
+    for name, row in report["stages"].items():
+        assert set(row) == {"flops", "bytes", "floor_ms", "bound_by",
+                            "measured_ms", "share"}
+        assert row["measured_ms"] is None and row["share"] is None
+        assert row["flops"] > 0 and row["bytes"] > 0, name
+    clip = report["clip_step"]
+    assert clip["batch"] == 8 and clip["measured_ms"] is None
+    assert clip["flops"] > 0 and clip["bound_by"] in ("bytes", "operations")
+
+
+def test_stage_counts_sum_to_the_wave(report):
+    wave, stages = report["wave"], report["stages"]
+    assert wave["flops"] == sum(r["flops"] for r in stages.values())
+    assert wave["bytes"] == sum(r["bytes"] for r in stages.values())
+    ms, by = roofline.bound(wave["flops"], wave["bytes"])
+    assert (wave["floor_ms"], wave["bound_by"]) == (ms, by)
+    assert wave["t_flops_ms_floor"] == pytest.approx(
+        wave["flops"] / 67e12 * 1e3, rel=1e-12)
+
+
+def test_stage_counts_use_the_kernel_formulas(report):
+    """The kernel stages are K1-K5's counts at the wave's shapes (K2 with
+    the scaler's two operations per feature)."""
+    stages = report["stages"]
+    n = 4 * 22050
+    k4, k5 = _former_k4_k5(2, n, 512, 16)
+    assert (stages["onset_detect"]["flops"], stages["onset_detect"]["bytes"]) \
+        == (k4[0] + k5[0], k4[1] + k5[1])
+    k1, k2, k3 = _former_k1_k3(24, 5512, 11025)
+    assert (stages["melspec_frontend"]["flops"],
+            stages["melspec_frontend"]["bytes"]) == k1
+    assert (stages["yin_baseline"]["flops"],
+            stages["yin_baseline"]["bytes"]) == k3
+    assert (stages["mfcc_yin_frontend"]["flops"],
+            stages["mfcc_yin_frontend"]["bytes"]) == (k2[0] + 2 * 65 * 24,
+                                                      k2[1] + 8 * 65 * 24)
+    slots = 2 * 16
+    assert stages["compaction"]["flops"] == slots * math.ceil(
+        math.log2(slots))
+
+
+def test_mfu_is_the_flops_floor_over_the_measured_wave(report):
+    wave, m = report["wave"], report["measured"]
+    assert m["wave_ms"] == 5.0
+    assert m["mfu"] == pytest.approx(wave["t_flops_ms_floor"] / 5.0,
+                                     rel=1e-12)
+    assert m["bw_util"] == pytest.approx(wave["t_bytes_ms_floor"] / 5.0,
+                                         rel=1e-12)
+    assert m["roofline_share"] == pytest.approx(wave["floor_ms"] / 5.0,
+                                                rel=1e-12)
+    assert m["audio_s_per_s"] == pytest.approx(8.0 / 5e-3, rel=1e-12)
+    assert m["device_busy_ms"] is None
+
+
+def test_no_budget_means_no_compaction():
+    args = roof.parse_args(ARGS[:8] + ["--budget", "64", "--clip_batch",
+                                       "0"])
+    rep = roof.report(args)
+    assert (rep["stages"]["compaction"]["flops"],
+            rep["stages"]["compaction"]["bytes"]) == (0, 0)
+    assert "clip_step" not in rep and rep["measured"] is None
+
+
+def test_a_stage_below_its_floor_raises():
+    stages = {"slicing": {"measured_ms": 0.5, "floor_ms": 0.25},
+              "other": {"measured_ms": None, "floor_ms": 1.0}}
+    roof.check_floors(stages)
+    stages["slicing"]["measured_ms"] = 0.125
+    with pytest.raises(RuntimeError, match="slicing 0.12500 ms < 0.25000"):
+        roof.check_floors(stages)
+
+
+def test_wave_body_marks_every_stage():
+    """One wave under torch.profiler on the CPU: each stage of STAGE_TAGS
+    is a range of the trace."""
+    from torch.profiler import ProfilerActivity, profile
+    from gat_tpu_torch.infer import Transcriber
+    t = Transcriber(device="cpu")
+    run, _ = t._files_fn(22050, 0.5, 8, 6, 32)
+    y = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.05, (2, 3 * 22050)).astype(np.float32))
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        run(y, torch.tensor([3 * 22050, 2 * 22050]))
+    names = {e.key for e in p.key_averages()}
+    assert {n for n, _ in roof.STAGE_TAGS} <= names
+
+
+# the stage ranges one call enters, in order: the two-stage path's
+# segmentation and ensemble, the fused body's, and the serving wave's
+# (the fused body with the budget's gather and scatter)
+_SEGMENT = ["segmentation_other", "onset_detect", "slicing"]
+_ENSEMBLE = ["mfcc_yin_frontend", "melspec_frontend", "mlp_forward",
+             "cnn_forward"]
+RANGES_A_CALL = {
+    "transcribe": _SEGMENT + _ENSEMBLE,
+    "transcribe_fused": ["segmentation_other", *_SEGMENT, "clip_rerate",
+                         "yin_baseline", *_ENSEMBLE],
+    "wave": ["segmentation_other", *_SEGMENT, "compaction", "clip_rerate",
+             "yin_baseline", *_ENSEMBLE, "compaction"],
+}
+
+
+@pytest.mark.parametrize("call", ["transcribe", "transcribe_fused", "wave"])
+def test_ranges_a_call_enters_and_none_open_without_a_profiler(
+        call, tmp_path, monkeypatch):
+    """The stage ranges one call enters (`annotate` in the three modules
+    that open them), a fixed property of the code, and that with no
+    profiler recording not one of them opens a record_function."""
+    from gat_tpu_torch.infer import Transcriber, pipeline, predictor
+    from gat_tpu_torch.segment import slicing
+    from gat_tpu_torch.utils import profiling
+    from gat_tpu_torch.utils.wavio import write_wav
+    from tests.test_torch_segment import riff
+
+    entered, opened = [], []
+    for mod in (pipeline, predictor, slicing):
+        monkeypatch.setattr(mod, "annotate", lambda name: (
+            entered.append(name), profiling.annotate(name))[1])
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name))
+    t = Transcriber(device="cpu")
+    path = tmp_path / "riff.wav"
+    write_wav(path, riff(22050, dur=3.7), 22050)
+    if call == "wave":
+        run, _ = t._files_fn(22050, 0.5, 8, 6, 32)
+        y = torch.from_numpy(np.random.default_rng(0).normal(
+            0, 0.05, (2, 3 * 22050)).astype(np.float32))
+        run(y, torch.tensor([3 * 22050, 2 * 22050]))
+    else:
+        t.transcribe(path, fused=call == "transcribe_fused")
+    assert entered == RANGES_A_CALL[call]
+    assert opened == []
