@@ -102,13 +102,30 @@ non-zero:
    batch and the serving wave (the top table names every kernel
    launched); `torch_roofline_files` on the serving wave (no stage
    measured below its floor);
-15. print the `{"kernels": [...]}` line, the card line, and last
+15. `[parallel]`: multi-device (`gat_tpu_torch/parallel/`) at world 1
+   on NCCL (cuda:0, a FileStore rendezvous, torn down at the phase's
+   end): K4's two passes as entry points of their own,
+   `gat_onset_mel_db` and `gat_onset_flux`, against their plain versions
+   and timed at the 400 s riff's shape, and a 4-shard stitch in one
+   process (the shards' first passes with their halos from origin 0,
+   stitched, then the second pass) against `gat_onset_envelope` on the
+   whole file, dB and envelope within 1e-3; then, driven with every
+   count at 0: `make_sharded_transcribe` on the 1024 clips against the
+   single-device `entry` step (probs and pitch within 1e-5; both timed),
+   `Transcriber(mesh=).transcribe_files` on the `[files]` set against the
+   single-device call (labels, onsets, times and flags equal), and
+   `detect_onsets_timesharded` on the 400 s riff against `detect_onsets`
+   (onsets equal): K1-K5 and both passes must launch; then
+   `TrainingManager(mesh=)` against the single-device manager, 2 epochs
+   of each family at the shipped widths on a 16-variant dataset
+   (histories and parameters), and `dryrun_multichip(1)`;
+16. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after (`launches_by_path` in the kernels line:
 clips, file, long, files, serve, http, stream, live, cli, train, eval,
-tools);
+tools, parallel; the two K4 pass rows launch on `parallel` only);
 `launches` stays the clip path's count for K1-K3 and the file path's for
 K4/K5.
 
@@ -119,6 +136,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2162,6 +2180,314 @@ def tools_phase(rows: list, card: str, failures: list,
             f"flops, {r['bytes']:.4g} bytes)")
 
 
+PARALLEL_EPOCHS = 2
+
+
+def k4_entry_envelope(onset, y):
+    """`gat_onset_envelope` called as `onset.onset_strength` calls it, with
+    a dB scratch of our own: (env, pre-clamp dB (B, T, 128), peak keys)."""
+    import torch
+    from gat_tpu_torch import features, kernels
+    dev = y.device
+    b, n = y.shape
+    t = 1 + n // 512
+    env = torch.empty((b, t), device=dev)
+    db = torch.empty((b, t, 128), device=dev)
+    peak = torch.full((b,), onset._NEG_INF_KEY, dtype=torch.int32,
+                      device=dev)
+    hann, tw, *_ = features._kernel_tables(FILE_SR, 128, False, dev)
+    tab, weights, n_items = onset._mel_items(FILE_SR, 128, dev)
+    grid = onset._envelope_grid(dev, n_items, 512)
+    fn = kernels.function("onset_envelope", "gat_onset_envelope",
+                          onset._ENVELOPE_ARGS)
+    kernels.check(fn(y.data_ptr(), env.data_ptr(), db.data_ptr(),
+                     peak.data_ptr(), hann.data_ptr(), tw.data_ptr(),
+                     tab.data_ptr(), weights.data_ptr(), weights.numel(),
+                     n_items, None, b, n, 512, t, 128, 1, 1 + 2048 // 1024,
+                     80.0, grid, kernels.stream(dev)), "onset_envelope")
+    return env, db, peak
+
+
+def shard_inputs(y: np.ndarray, d: int, dev) -> list:
+    """One file cut over d ranks as the time-sharded envelope cuts it
+    (`parallel.timeshard.TimeShards`): [(shard (1, owned + halo), frames,
+    real frames)] on the card."""
+    import torch
+    from gat_tpu_torch.parallel.timeshard import TimeShards
+    cut = TimeShards(len(y), d)
+    yt = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+    return [(cut.shard(yt, r)[None].contiguous(), cut.frames,
+             torch.tensor([cut.real(r)], dtype=torch.int32, device=dev))
+            for r in range(d)]
+
+
+def parallel_phase(rows: list, card: str, failures: list,
+                   clips_np: np.ndarray) -> None:
+    """`[parallel]`: the multi-device path at world 1 on NCCL (module
+    docstring, phase 15). Appends the kernels-line rows of K4's two
+    passes and records `launches_by_path["parallel"]` for all seven."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from gat_tpu_torch.entry import dryrun_multichip, entry
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.ops import onset
+    from gat_tpu_torch.parallel import make_mesh, make_sharded_transcribe
+    from gat_tpu_torch.parallel.timeshard import detect_onsets_timesharded
+    roofline = load_roofline()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    d = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(d, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(1)
+        log(f"[parallel] NCCL world {dist.get_world_size()} "
+            f"({dist.get_backend()}), mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names} on {mesh.device_type}")
+
+        # K4's two passes alone, and the 4-shard stitch, on the 400 s riff
+        spacing = 2.5
+        k = len(np.arange(0.4, LONG_SECONDS - 0.45, spacing))
+        ylong = make_riffs(np.resize(FILE_MIDI, k)[None], LONG_SECONDS,
+                           FILE_SR, SEED + 3, noise=0.0, spacing=spacing)[0]
+        whole = torch.from_numpy(ylong)[None].to(dev)
+        t = 1 + len(ylong) // 512
+        env_ref, db_ref, key_ref = k4_entry_envelope(onset, whole)
+        parts = [onset.onset_mel_db(ext, FILE_SR, origin=0, frames=fr,
+                                    n_valid_frames=nv)
+                 for ext, fr, nv in shard_inputs(ylong, 4, dev)]
+        db_st = torch.cat([p[0] for p in parts], dim=1)[:, :t].contiguous()
+        key_st = torch.stack([p[1] for p in parts]).amax(0)
+        env_st = onset.onset_flux(db_st, key_st)
+        torch.cuda.synchronize()
+        e_db = float((db_st - db_ref).abs().max())
+        e_env = float((env_st - env_ref).abs().max())
+        ok = (e_db <= 1e-3 and e_env <= 1e-3
+              and torch.equal(key_st, key_ref))
+        log(f"[parallel] 4-shard stitch of the {LONG_SECONDS:g} s riff ({t} "
+            f"frames, shards of {parts[0][0].shape[1]}): gat_onset_mel_db "
+            f"(origin 0) stitched vs gat_onset_envelope's dB max abs err "
+            f"{e_db:.3g}, peak keys equal {torch.equal(key_st, key_ref)}; "
+            f"gat_onset_flux vs its envelope {e_env:.3g} (1e-3) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[parallel] the 4-shard stitch")
+
+        # each pass against its plain version at the path's shape (one
+        # shard of the whole file at world 1), and timed
+        ext = shard_inputs(ylong, 1, dev)[0]
+        pool = noisy_pool(ext[0], SEED + 20, 0.001)
+
+        def mel_db(x):
+            return onset.onset_mel_db(x, FILE_SR, origin=0, frames=t,
+                                      n_valid_frames=ext[2])
+
+        def mel_db_plain(x):
+            return onset.onset_mel_db_plain(x, FILE_SR, origin=0, frames=t,
+                                            n_valid_frames=ext[2])
+        (db, key), (db_p, key_p) = mel_db(ext[0]), mel_db_plain(ext[0])
+        loud = db_p > -60.0
+        err_db = float((db - db_p)[loud].abs().max())
+        err_key = abs(float(onset.key_value(key)[0])
+                      - float(onset.key_value(key_p)[0]))
+        ok_db = (err_db <= 0.1 and err_key <= 1e-3
+                 and bool(torch.isfinite(db).all()))
+        db_pool = [mel_db_plain(x)[0] for x in pool]
+        key_pool = [onset.order_key(x.amax(dim=(1, 2))) for x in db_pool]
+        flux_in = list(zip(db_pool, key_pool))
+        env_k = onset.onset_flux(*flux_in[0])
+        env_p = onset.onset_flux_plain(*flux_in[0])
+        err_env = float((env_k - env_p).abs().max())
+        ok_env = err_env <= 1e-4
+        torch.cuda.synchronize()
+        costs = {"onset_mel_db": roofline.mel_db_cost(
+                     1, ext[0].shape[1], t, FILE_SR, dev),
+                 "onset_flux": roofline.flux_cost(1, t)}
+        times = {"onset_mel_db": (time_ms(lambda x: mel_db(x), pool, 10),
+                                  time_ms(lambda x: mel_db_plain(x), pool,
+                                          10)),
+                 "onset_flux": (time_ms(lambda a: onset.onset_flux(*a),
+                                        flux_in, 10),
+                                time_ms(lambda a: onset.onset_flux_plain(*a),
+                                        flux_in, 10))}
+        new_rows = []
+        for name, err, ok_k, tol, replaces in (
+                ("onset_mel_db", err_db, ok_db,
+                 "atol 0.1 dB where the plain dB > -60 (the mel bound of "
+                 "the front-ends), peak 1e-3 dB",
+                 "gat_tpu/parallel/timeshard.py:34"),
+                ("onset_flux", err_env, ok_env,
+                 "atol 1e-4 (the same dB rows; a band mean in another "
+                 "order)", "gat_tpu/parallel/timeshard.py:103")):
+            bound_ms, bound_by = roofline.bound(*costs[name])
+            ms, plain_ms = times[name]
+            log(f"[time] {name} (K4 pass {1 if name == 'onset_mel_db' else 2}"
+                f" alone) at 1 x {t} frames: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                f"max abs err {err:.3g} ({tol}) -> "
+                f"{'ok' if ok_k else 'FAIL'} on {card}")
+            if not ok_k:
+                failures.append(f"[parallel] {name} vs its plain version")
+            new_rows.append(dict(
+                name=name, route="cuda",
+                source="gat_tpu_torch/csrc/onset_envelope.cu",
+                replaces=replaces, launches=0, max_abs_err=err,
+                tolerance=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                shapes=[dict(files=1, frames=t)]))
+
+        # the path, driven: every count at 0 before, read after
+        clips = torch.from_numpy(clips_np).to(dev)
+        t_single = Transcriber(device="cuda")
+        run = make_sharded_transcribe(t_single.predictor, t_single.scaler,
+                                      mesh, t_single.ckpt_sr,
+                                      t_single.mfcc_params,
+                                      t_single.melspec_params)
+        step, _ = entry(batch=32, device="cuda")
+        tm = Transcriber(mesh=mesh)
+        with tempfile.TemporaryDirectory() as fd:
+            groups, silent, _ = write_files_set(Path(fd))
+            paths = [p for g in groups for p, _ in g] + [silent]
+            ref_files = t_single.transcribe_files(paths)
+            tm.transcribe_files(paths)  # first call at these shapes
+            run(clips)
+            detect_onsets_timesharded(ylong, mesh, sr=FILE_SR)
+            wrappers = kernel_wrappers() + [onset.onset_mel_db,
+                                            onset.onset_flux]
+            torch.cuda.synchronize()
+            for w in wrappers:
+                w.launches = 0
+            (probs, pitch) = run(clips)
+            got_files = tm.transcribe_files(paths)
+            o_sp, v_sp, *_ = detect_onsets_timesharded(ylong, mesh,
+                                                       sr=FILE_SR)
+            torch.cuda.synchronize()
+            launches = [w.launches for w in wrappers]
+        for row, n in zip(rows, launches[:5]):
+            row.setdefault("launches_by_path", {})["parallel"] = n
+        for row, n in zip(new_rows, launches[5:]):
+            row["launches"] = n
+            row["launches_by_path"] = {"parallel": n}
+        rows += new_rows
+        log(f"[parallel] launches K1..K5 {launches[:5]}, onset_mel_db "
+            f"{launches[5]}, onset_flux {launches[6]}")
+        if min(launches) < 1:
+            failures.append(f"[parallel] a kernel was not launched: "
+                            f"{launches}")
+
+        probs_1, pitch_1 = step(clips)
+        e_p = float((probs - probs_1).abs().max())
+        e_h = float(((pitch - pitch_1).abs() / pitch_1).max())
+        ok = e_p <= 1e-5 and e_h <= 1e-5
+        log(f"[parallel] make_sharded_transcribe({N_CLIPS}) vs the entry "
+            f"step: probs max abs err {e_p:.3g}, pitch max rel err "
+            f"{e_h:.3g} (1e-5) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[parallel] sharded clips differ from entry")
+        pool_c = noisy_pool(clips, SEED + 30, 0.01)
+        for name, fn in (("make_sharded_transcribe (world 1)", run),
+                         ("entry step (single device)", step)):
+            reps = 10
+            fn(pool_c[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(reps):
+                fn(pool_c[i % POOL])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / reps
+            log(f"[parallel] {name} on {N_CLIPS} clips: {dt * 1e3:.3f} "
+                f"ms/call, {N_CLIPS / dt:.1f} clips/s on {card}")
+
+        same = all(
+            g["labels"] == r["labels"] and g["onsets_s"] == r["onsets_s"]
+            and g["times"] == r["times"]
+            and g["onset_overflow"] == r["onset_overflow"]
+            for g, r in zip(got_files, ref_files))
+        conf = max((float(np.abs(np.asarray(g["confidences"])
+                                 - np.asarray(r["confidences"])).max())
+                    for g, r in zip(got_files, ref_files)
+                    if len(r["labels"])), default=0.0)
+        log(f"[parallel] Transcriber(mesh=).transcribe_files on the "
+            f"{len(paths)} files of [files]: labels, onsets, times and flags "
+            f"equal to the single-device call {same} (max confidence diff "
+            f"{conf:.3g})")
+        if not same or len(got_files) != len(ref_files):
+            failures.append("[parallel] Transcriber(mesh=) files differ")
+        o_1, v_1, *_ = onset.detect_onsets(whole, sr=FILE_SR,
+                                           max_onsets=256)
+        got_o, ref_o = o_sp[v_sp].cpu(), o_1[0][v_1[0]].cpu()
+        ok = torch.equal(got_o, ref_o)
+        log(f"[parallel] detect_onsets_timesharded({LONG_SECONDS:g} s): "
+            f"{len(got_o)} onsets, equal to detect_onsets' {len(ref_o)}: "
+            f"{ok}")
+        if not ok:
+            failures.append("[parallel] time-sharded onsets differ")
+
+        parallel_train(mesh, failures)
+        line = dryrun_multichip(1)
+        if "ok on 1 devices" not in line:
+            failures.append("[parallel] dryrun_multichip(1)")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+
+
+def parallel_train(mesh, failures: list) -> None:
+    """`TrainingManager(mesh=)` against the single-device manager:
+    PARALLEL_EPOCHS epochs of each family at the shipped widths (the MLP
+    fp32, the CNN bf16) on TRAIN_VARIANTS variants per class, the same
+    seed. Bounds: the MLP's histories rtol 1e-4, accuracies equal and
+    parameters atol 1e-4; the bf16 CNN's histories rtol 5e-3 and
+    parameters atol 2e-2 but the conv biases ahead of BatchNorm (true
+    gradient 0, Adam's ±lr steps), as tests/test_torch_train.py bounds
+    the bf16 CNN (its accuracies are printed, not held: a bf16 near-tie
+    may flip a clip)."""
+    from gat_tpu_torch.data.synth import synthesize_note_dataset
+    from gat_tpu_torch.train import TrainingManager
+    with tempfile.TemporaryDirectory() as d:
+        ds = Path(d) / "synthetic" / "recipe"
+        synthesize_note_dataset(ds, variants_per_class=TRAIN_VARIANTS,
+                                seed=42, verbose=False,
+                                noise_snr_db=(8.0, 40.0), family="all3",
+                                stressor="mix", stressor_prob=0.5,
+                                channel="mix", channel_prob=0.25)
+        single = TrainingManager(target_sr=SR, device="cuda")
+        meshed = TrainingManager(target_sr=SR, mesh=mesh)
+        for family, rtol, atol in (("mlp", 1e-4, 1e-4),
+                                   ("cnn", 5e-3, 2e-2)):
+            trs = [getattr(m, f"train_{family}")(
+                dataset=ds, epochs=PARALLEL_EPOCHS, save=False,
+                verbose=False) for m in (single, meshed)]
+            a, b = trs
+            err_h = max(float(np.max(np.abs(np.subtract(x, y))
+                                     / np.maximum(np.abs(y), 1e-12)))
+                        for x, y in ((b.train_loss_history,
+                                      a.train_loss_history),
+                                     (b.val_loss_history,
+                                      a.val_loss_history)))
+            sa, sb = a.model.state_dict(), b.model.state_dict()
+            err_p = max(float((sb[k].float() - sa[k].float()).abs().max())
+                        for k in sa if not k.endswith("num_batches_tracked")
+                        and not (k.startswith("conv_")
+                                 and k.endswith(".bias")))
+            acc_ok = (a.train_accuracy_history == b.train_accuracy_history
+                      and a.val_accuracy_history == b.val_accuracy_history)
+            ok = err_h <= rtol and err_p <= atol and (
+                acc_ok or family == "cnn")
+            log(f"[parallel] Trainer(mesh=) {family} {PARALLEL_EPOCHS} "
+                f"epochs vs single device: histories max rel err "
+                f"{err_h:.3g} ({rtol:g}), accuracies equal {acc_ok}, "
+                f"parameters max abs err {err_p:.3g} ({atol:g}) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[parallel] Trainer(mesh=) {family}")
+
+
 def main() -> int:
     import torch
 
@@ -2416,6 +2742,9 @@ def main() -> int:
 
     # ---- 14. the tools ----------------------------------------------------
     tools_phase(rows, card, failures)
+
+    # ---- 15. multi-device at world 1 --------------------------------------
+    parallel_phase(rows, card, failures, clips_np)
 
     if failures:
         log(f"[fail] {failures}")

@@ -115,8 +115,8 @@ class AudioSlicerConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The JAX package's mesh layout and static padding budgets, kept as
-    data: the port runs on one card and has no mesh code yet."""
+    """The mesh layout and static padding budgets: the axis names of
+    `parallel.make_mesh`'s (data, model) DeviceMesh, one rank per card."""
     DATA_AXIS: str = "data"
     MODEL_AXIS: str = "model"
     MAX_ONSETS: int = 64        # max onsets per file-level transcription

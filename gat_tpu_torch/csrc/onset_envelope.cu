@@ -12,6 +12,14 @@
 //   5. shifted right by `shift` = lag + n_fft / (2 hop) frames with zeros
 //      in front, cut to T.
 //
+// Three C entry points: gat_onset_envelope runs both passes over centred
+// files; gat_onset_mel_db runs pass 1 alone (steps 1-2, the pre-clamp dB
+// and each file's peak key) with frame 0 at a given sample `origin`, and
+// gat_onset_flux pass 2 alone (steps 3-5) over given dB rows and peak
+// keys. The time-sharded envelope (parallel/timeshard.py) runs pass 1 on
+// each shard, takes the peak over all of them, and pass 2 on the
+// gathered rows.
+//
 // What bounds it: fp32 operations. Each frame needs one real-input
 // 2048-point FFT and a sparse 128-band mel (about 70 k flops) against
 // 2 KB of new samples. The transform is K1's and K2's (fft_stockham.cuh:
@@ -81,14 +89,15 @@ static size_t mel_db_smem_bytes(int n_items, int hop) {
 }
 
 // Starts copying the samples of the round at frame t0 of `clip` into
-// `stage`: sample t0 * hop - kFFT / 2 + s at stage[s], zeros outside the
+// `stage`: sample origin + t0 * hop + s at stage[s], zeros outside the
 // clip. The copies (cp.async) land while the block computes; every
 // thread waits for its own with __pipeline_wait_prior(0), then the block
 // synchronizes before reading.
 __device__ __forceinline__ void stage_round(const float* __restrict__ clip,
-                                            int n_samples, int hop, int t0,
+                                            int n_samples, int hop,
+                                            int origin, int t0,
                                             float* stage) {
-  const int first = t0 * hop - kFFT / 2;
+  const int first = origin + t0 * hop;
   for (int s = threadIdx.x; s < round_span(hop); s += kThreads) {
     const int i = first + s;
     if (i >= 0 && i < n_samples)
@@ -112,8 +121,8 @@ onset_mel_db_kernel(const float* __restrict__ y, float* __restrict__ db,
                     const int* __restrict__ tab,
                     const float* __restrict__ weights, int nnz,
                     int n_items, const int* __restrict__ nvf,
-                    int n_samples, int hop, int n_frames, int n_mels,
-                    int n_files) {
+                    int n_samples, int hop, int origin, int n_frames,
+                    int n_mels, int n_files) {
   extern __shared__ float smem[];
   float* xre = smem;                  // 2 transforms x kFFT
   float* xim = xre + 2 * kFFT;        // 2 transforms x kFFT
@@ -140,7 +149,7 @@ onset_mel_db_kernel(const float* __restrict__ y, float* __restrict__ db,
   int file = w_begin / rounds;
   float peak = -INFINITY;
   if (w_begin < w_end)
-    stage_round(y + (size_t)file * n_samples, n_samples, hop,
+    stage_round(y + (size_t)file * n_samples, n_samples, hop, origin,
                 (w_begin - file * rounds) * kInFlight, stage);
   for (int w = w_begin; w < w_end; ++w) {
     if (w / rounds != file) {  // block-uniform: every thread is here
@@ -173,7 +182,7 @@ onset_mel_db_kernel(const float* __restrict__ y, float* __restrict__ db,
     // the next round's samples may land there now
     if (w + 1 < w_end) {
       const int f1 = (w + 1) / rounds;
-      stage_round(y + (size_t)f1 * n_samples, n_samples, hop,
+      stage_round(y + (size_t)f1 * n_samples, n_samples, hop, origin,
                   (w + 1 - f1 * rounds) * kInFlight, stage);
     }
     __syncthreads();  // the last pass has read the exchange buffer
@@ -266,6 +275,45 @@ onset_flux_kernel(const float* __restrict__ db,
   }
 }
 
+// Pass 1 alone: frame t of file f starts at sample origin + t * hop of
+// its row (zeros outside it), its pre-clamp dB goes to db (B, T, n_mels)
+// and the maximum over its valid frames t < nvf[f] to peak_key[f], which
+// must hold the key of -inf (ops/onset.py::_NEG_INF_KEY); `grid` is the
+// number of blocks (at most one per round).
+static int launch_mel_db(const float* y, float* db, int* peak_key,
+                         const float* hann, const float* tw, const int* tab,
+                         const float* weights, int nnz, int n_items,
+                         const int* nvf, int n_files, int n_samples, int hop,
+                         int origin, int n_frames, int n_mels, int grid,
+                         cudaStream_t stream) {
+  if (n_frames < 1 || grid < 1 || nnz > kMelRun * kThreads)
+    return (int)cudaErrorInvalidValue;
+  const long long rounds =
+      (long long)n_files * ((n_frames + kInFlight - 1) / kInFlight);
+  if (rounds < grid) grid = (int)rounds;
+  onset_mel_db_kernel<<<grid, kThreads, mel_db_smem_bytes(n_items, hop),
+                        stream>>>(y, db, peak_key, hann, tw, tab, weights,
+                                  nnz, n_items, nvf, n_samples, hop, origin,
+                                  n_frames, n_mels, n_files);
+  return (int)cudaGetLastError();
+}
+
+// Pass 2 alone: the clamped, lagged, band-averaged flux of db (B, T,
+// n_mels) under each file's peak key, shifted right by `shift` frames.
+static int launch_flux(const float* db, const int* peak_key, float* env,
+                       int n_files, int n_frames, int n_mels, int lag,
+                       int shift, float top_db, cudaStream_t stream) {
+  // pass 2 reads frames j + lag <= T - 1 - shift + lag
+  if (lag < 1 || shift < lag || lag >= n_frames)
+    return (int)cudaErrorInvalidValue;
+  const int flux_blocks = (n_frames + kFluxFrames - 1) / kFluxFrames;
+  onset_flux_kernel<<<n_files * flux_blocks, kThreads,
+                      sizeof(float) * kThreads, stream>>>(
+      db, peak_key, env, n_frames, n_mels, lag, shift, top_db);
+  return (int)cudaGetLastError();
+}
+
+// Both passes over centred files (frame t starts at t * hop - n_fft / 2).
 // peak_key (B,) must hold the key of -inf (ops/onset.py::_NEG_INF_KEY);
 // `grid` is the number of pass-1 blocks (at most one per round).
 extern "C" int gat_onset_envelope(const float* y, float* env, float* db,
@@ -277,24 +325,39 @@ extern "C" int gat_onset_envelope(const float* y, float* env, float* db,
                                   int hop, int n_frames, int n_mels, int lag,
                                   int shift, float top_db, int grid,
                                   void* stream) {
-  // pass 2 reads frames j + lag <= T - 1 - shift + lag
-  if (lag < 1 || shift < lag || lag >= n_frames || grid < 1 ||
-      nnz > kMelRun * kThreads)
+  if (lag < 1 || shift < lag || lag >= n_frames)
     return (int)cudaErrorInvalidValue;
-  const long long rounds =
-      (long long)n_files * ((n_frames + kInFlight - 1) / kInFlight);
-  if (rounds < grid) grid = (int)rounds;
-  onset_mel_db_kernel<<<grid, kThreads, mel_db_smem_bytes(n_items, hop),
-                        (cudaStream_t)stream>>>(
-      y, db, peak_key, hann, tw, tab, weights, nnz, n_items, nvf, n_samples,
-      hop, n_frames, n_mels, n_files);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int flux_blocks = (n_frames + kFluxFrames - 1) / kFluxFrames;
-  onset_flux_kernel<<<n_files * flux_blocks, kThreads,
-                      sizeof(float) * kThreads, (cudaStream_t)stream>>>(
-      db, peak_key, env, n_frames, n_mels, lag, shift, top_db);
-  return (int)cudaGetLastError();
+  const int err = launch_mel_db(y, db, peak_key, hann, tw, tab, weights, nnz,
+                                n_items, nvf, n_files, n_samples, hop,
+                                -kFFT / 2, n_frames, n_mels, grid,
+                                (cudaStream_t)stream);
+  if (err != 0) return err;
+  return launch_flux(db, peak_key, env, n_files, n_frames, n_mels, lag,
+                     shift, top_db, (cudaStream_t)stream);
+}
+
+// Pass 1 alone, with frame 0 at sample `origin` of each row: -n_fft / 2
+// for a centred file, 0 for a time shard that carries its own left
+// context and its right halo (parallel/timeshard.py).
+extern "C" int gat_onset_mel_db(const float* y, float* db, int* peak_key,
+                                const float* hann, const float* tw,
+                                const int* tab, const float* weights, int nnz,
+                                int n_items, const int* nvf, int n_files,
+                                int n_samples, int hop, int n_frames,
+                                int n_mels, int origin, int grid,
+                                void* stream) {
+  return launch_mel_db(y, db, peak_key, hann, tw, tab, weights, nnz, n_items,
+                       nvf, n_files, n_samples, hop, origin, n_frames, n_mels,
+                       grid, (cudaStream_t)stream);
+}
+
+// Pass 2 alone, over given dB rows and peak keys.
+extern "C" int gat_onset_flux(const float* db, const int* peak_key,
+                              float* env, int n_files, int n_frames,
+                              int n_mels, int lag, int shift, float top_db,
+                              void* stream) {
+  return launch_flux(db, peak_key, env, n_files, n_frames, n_mels, lag, shift,
+                     top_db, (cudaStream_t)stream);
 }
 
 // Resident blocks per SM of pass 1 (the FFT work) for n_items mel items

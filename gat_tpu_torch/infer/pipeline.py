@@ -89,7 +89,7 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
                    melspec_params: dict | None, target_sr: int,
                    clip_duration: float, max_onsets: int,
                    wave_clip_budget: int | None = None,
-                   cand_budget: int | None = None):
+                   cand_budget: int | None = None, rows=None):
     """The batched file body: fn(ys (B, n), n_valids (B,)) → per-file
     (probs (B, K, C), mlp_probs, cnn_probs | None, pitch (B, K), kept
     (B, K), onsets (B, K), times (B, K, 2), overflow (B,), fixable (B,),
@@ -110,7 +110,13 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
     exact re-run (cand_budget 0, wave_clip_budget None) could change
     them; the two differ on a `max_onsets`-only truncation, which no
     larger candidate walk repairs. `n_detected`: the onsets the walk
-    accepted before the cap (exact when the candidate bits are clean)."""
+    accepted before the cap (exact when the candidate bits are clean).
+
+    `rows` (a `parallel.mesh.RowSharding` over the mesh's `data` axis):
+    every rank passes the whole wave, runs its own block of the files and
+    gets the whole wave's gathered outputs. The budget's slot-major order
+    is taken over the whole wave's kept slots, so each rank computes the
+    slots of its files that the single-device body computes."""
     from ..segment.slicing import segment_waveform
 
     if wave_clip_budget is not None and wave_clip_budget < 1:
@@ -131,6 +137,16 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
 
     @torch.no_grad()
     def run(ys: torch.Tensor, n_valids: torch.Tensor):
+        if rows is None:
+            return body(ys, n_valids, ys.shape[0], 0)
+        n_files = ys.shape[0]
+        outs = body(rows.local(ys), rows.local(n_valids), n_files,
+                    rows.span(n_files)[0])
+        return tuple(None if o is None else rows.gather(o, n_files)
+                     for o in outs)
+
+    def body(ys, n_valids, n_files: int, first: int):
+        # files [first, first + len(ys)) of a wave of n_files
         with annotate("segmentation_other"):
             n_valids = n_valids.to(device=ys.device, dtype=torch.int64)
             # exact zeros past each file's true length: the whole-second
@@ -148,22 +164,31 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
         b, k, length = clips.shape
         flat = clips.reshape(b * k, length)
         budget = wave_clip_budget
-        if budget is not None and budget < b * k:
-            # kept slots first, slot-major: file-major index of
-            # slot-major position p is (p % b)·k + p // b
+        if budget is not None and budget < n_files * k:
+            # kept slots first, slot-major over the whole wave: the
+            # file-major index of slot-major position p is
+            # (p % n_files)·k + p // n_files
             with annotate("compaction"):
-                keptt = kept.T.reshape(b * k)
+                kept_all = (kept if rows is None
+                            else rows.gather(kept, n_files))
+                keptt = kept_all.T.reshape(n_files * k)
                 ordert = torch.argsort((~keptt).to(torch.uint8),
                                        stable=True)[:budget]
-                sel = (ordert % b) * k + ordert // b
-                picked = flat[sel]
+                sel = (ordert % n_files) * k + ordert // n_files
+                if rows is not None:  # this rank's files' slots
+                    sel = sel[(sel >= first * k)
+                              & (sel < (first + b) * k)] - first * k
+                n_sel = sel.numel()
+                # a rank none of whose slots is picked classifies one
+                # slot that nothing reads, so no kernel sees 0 clips
+                picked = flat[sel if n_sel else sel.new_zeros(1)]
             parts = classify(picked)
 
             def scatter(x):
                 if x is None:
                     return None
                 out = x.new_zeros((b * k,) + x.shape[1:])
-                out[sel] = x
+                out[sel] = x[:n_sel]
                 return out
             with annotate("compaction"):
                 probs, mlp_p, cnn_p, pitch = (scatter(x) for x in parts)

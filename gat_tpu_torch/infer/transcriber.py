@@ -42,6 +42,12 @@ __all__ = ["Transcriber", "bucket_seconds", "DEFAULT_MAX_BATCH",
            "DEFAULT_MAX_ONSETS"]
 
 
+class WaveReadError(RuntimeError):
+    """Under a mesh, a wave's files failed to decode on some rank. Raised
+    on every rank alike before any of the wave's collectives, so the
+    ranks may go on to the next call."""
+
+
 def bucket_seconds(duration_s: float) -> int:
     """The power-of-two duration bucket, in whole seconds, of a file:
     the one definition `transcribe_files` and the server's warmup share."""
@@ -74,7 +80,7 @@ class Transcriber:
                  require_cnn: bool = True,
                  pitch_prior_weight: float = 0.0,
                  cnn_dtype: torch.dtype | None = None,
-                 use_cnn: bool = True, device=None):
+                 use_cnn: bool = True, device=None, mesh=None):
         """Resolve and load both checkpoints, check that their embedded
         configs agree, and build the ensemble on `device` (default the
         card; 'cpu' runs the plain PyTorch path). `cnn_weight` is the
@@ -85,7 +91,24 @@ class Transcriber:
         CNN's forward in bf16 with its weights kept in float32; the
         default float32 route runs without TF32. The predictor's
         settings may be changed after construction: every call reads
-        them."""
+        them.
+
+        `mesh` (a DeviceMesh from `parallel.make_mesh`, every rank making
+        the same calls) runs the batch serving path, `transcribe_files`
+        (so `serve --mesh N`), data-parallel over its `data` axis: the
+        weights are broadcast from rank 0 once, each wave's files split
+        over `data` (each rank segments and transcribes its own files
+        through the file body, K1-K5 on the card), `max_batch` rounds up
+        to the data size and every wave pads to a multiple of it, and the
+        outputs are gathered, so every rank returns the single-device
+        results. The device is then the rank's. `transcribe` of one file
+        ignores the mesh: one file has no batch axis to split."""
+        self.mesh = mesh
+        self._data_par = 1
+        if mesh is not None:
+            from ..parallel.mesh import axis_size, mesh_device
+            device = mesh_device(mesh) if device is None else device
+            self._data_par = axis_size(mesh)
         self.predictor = NotePredictor(cnn_weight=cnn_weight,
                                        pitch_prior_weight=pitch_prior_weight,
                                        cnn_dtype=cnn_dtype, device=device)
@@ -131,6 +154,9 @@ class Transcriber:
         self.scaler = FeatureScaler.from_dict(sc) if sc is not None else None
         self.predictor.load_models(self.model_ckpts.get("mlp"),
                                    self.model_ckpts.get("cnn"))
+        if mesh is not None:
+            from ..parallel.sharded import replicate_predictor
+            replicate_predictor(self.predictor, mesh)
         self.mfcc_params = self.model_configs["mlp"]["features"]["params"]
         cnn_cfg = self.model_configs.get("cnn")
         self.melspec_params = (cnn_cfg["features"]["params"] if cnn_cfg
@@ -147,24 +173,31 @@ class Transcriber:
     # ------------------------------------------------------------------
     def _files_fn(self, target_sr: int, clip_duration: float,
                   max_onsets: int, wave_clip_budget: int | None = None,
-                  cand_budget: int | None = None):
+                  cand_budget: int | None = None, sharded: bool = True):
         """(run, run_scan) of the batched file body for one parameter
         set, built once (it holds no predictor state:
         `build_clip_ensemble_fn`). `run(ys (B, n), n_valids (B,))` is the
         body (`pipeline.build_files_fn`); `run_scan(ys (K, B, n),
         n_valids (K, B))` runs it on the K waves in turn with no host
         synchronisation between them and stacks the outputs on the device,
-        (K, B, ...)."""
+        (K, B, ...). Under a mesh each wave splits B over its `data`
+        axis and gathers its outputs (`pipeline.build_files_fn`'s `rows`)
+        unless `sharded` is False."""
+        sharded = sharded and self.mesh is not None
         key = (target_sr, clip_duration, max_onsets, wave_clip_budget,
-               cand_budget)
+               cand_budget, sharded)
         with self._files_lock:
             if key not in self._files_fns:
+                rows = None
+                if sharded:
+                    from ..parallel.mesh import data_sharding
+                    rows = data_sharding(self.mesh)
                 run = build_files_fn(
                     self.predictor, self.scaler, self.ckpt_sr,
                     self.mfcc_params, self.melspec_params, target_sr,
                     clip_duration, max_onsets,
                     wave_clip_budget=wave_clip_budget,
-                    cand_budget=cand_budget)
+                    cand_budget=cand_budget, rows=rows)
 
                 def run_scan(yss, nvss, run=run):
                     return _stack_outputs([run(ys, nvs)
@@ -173,13 +206,16 @@ class Transcriber:
             return self._files_fns[key]
 
     @staticmethod
-    def _dispatch_pow2_wave(run, entries, n_bucket: int) -> tuple:
+    def _dispatch_pow2_wave(run, entries, n_bucket: int,
+                            b_floor: int = 1) -> tuple:
         """One wave of (y (n_bucket,), n_valid) entries through the file
         body: stacked, padded to a power of two B >= 2 with zero rows of
         n_valid 0 (no onsets, so padding never changes a result), and
         brought to the host in one transfer. The floor of 2 keeps a lone
-        file on the B = 2 shape the server's warmup runs."""
+        file on the B = 2 shape the server's warmup runs; `b_floor` (the
+        mesh's data size) rounds B up to a multiple of it."""
         b = max(2, 1 << (len(entries) - 1).bit_length())
+        b = -(-b // b_floor) * b_floor
         y0 = entries[0][0]
         ys = torch.stack([y for y, _ in entries]
                          + [y0.new_zeros(n_bucket)] * (b - len(entries)))
@@ -280,6 +316,10 @@ class Transcriber:
         `exact_fallback=False` keeps the raw budget semantics."""
         if clip_duration is None:
             clip_duration = self.clip_length
+        if self._data_par > 1 and max_batch % self._data_par:
+            # each wave's files split over the data axis: waves of a
+            # multiple of its size
+            max_batch = -(-max_batch // self._data_par) * self._data_par
         if isinstance(wave_clip_budget, str):
             if wave_clip_budget != "auto":
                 raise ValueError(f"wave_clip_budget must be an int, None, "
@@ -295,20 +335,37 @@ class Transcriber:
             return []
         from ..utils.native_wav import read_wav_batch
         buckets: dict[int, list[tuple[int, torch.Tensor, int]]] = {}
-        for idx, (y_raw, sr_in) in enumerate(read_wav_batch(paths)):
-            y_np = np.asarray(y_raw, np.float32)
-            n_raw = int(y_np.shape[-1])
-            sec = max(1, -(-n_raw // sr_in))
-            bsec = bucket_seconds(sec)
-            # whole seconds on the host, so the resampler sees one length
-            # per (seconds, rate); n_valid masks the pad afterwards
-            if n_raw < sec * sr_in:
-                y_np = np.pad(y_np, (0, sec * sr_in - n_raw))
-            y = resample(torch.from_numpy(y_np).to(self.device), sr_in,
-                         target_sr)
-            y = fix_length(y, bsec * target_sr)
-            nv = -(-n_raw * target_sr // sr_in)
-            buckets.setdefault(bsec, []).append((idx, y, nv))
+
+        def decode():
+            for idx, (y_raw, sr_in) in enumerate(read_wav_batch(paths)):
+                y_np = np.asarray(y_raw, np.float32)
+                n_raw = int(y_np.shape[-1])
+                sec = max(1, -(-n_raw // sr_in))
+                bsec = bucket_seconds(sec)
+                # whole seconds on the host, so the resampler sees one
+                # length per (seconds, rate); n_valid masks the pad
+                if n_raw < sec * sr_in:
+                    y_np = np.pad(y_np, (0, sec * sr_in - n_raw))
+                y = resample(torch.from_numpy(y_np).to(self.device), sr_in,
+                             target_sr)
+                y = fix_length(y, bsec * target_sr)
+                nv = -(-n_raw * target_sr // sr_in)
+                buckets.setdefault(bsec, []).append((idx, y, nv))
+        if self.mesh is None:
+            decode()
+        else:
+            # the ranks agree that every one decoded the files before the
+            # first collective: a bad file raises on all of them alike
+            from ..parallel.mesh import all_ranks_ok
+            err = None
+            try:
+                decode()
+            except Exception as e:  # noqa: BLE001 - raised below
+                err = e
+            if not all_ranks_ok(err is None, self.mesh):
+                raise WaveReadError(
+                    f"[Transcriber] the wave's files failed to decode on a "
+                    f"rank of the mesh: {err!r}") from err
 
         results: list[dict | None] = [None] * len(paths)
         fixable = [False] * len(paths)
@@ -348,7 +405,8 @@ class Transcriber:
             for w0 in range(off, len(group), max_batch):
                 wave = group[w0:w0 + max_batch]
                 outs = self._dispatch_pow2_wave(
-                    run, [(y, nv) for _, y, nv in wave], n_bucket)
+                    run, [(y, nv) for _, y, nv in wave], n_bucket,
+                    self._data_par)
                 for j, (idx, _, _) in enumerate(wave):
                     emit(idx, tuple(None if o is None else o[j]
                                     for o in outs))
@@ -448,7 +506,7 @@ class Transcriber:
         if fused and not save_clips:
             def run(m, cb):
                 run_m, _ = self._files_fn(target_sr, clip_duration, m,
-                                          None, cb)
+                                          None, cb, sharded=False)
                 outs = run_m(y_dev[None], nv)
                 return tuple(None if x is None else x[0]
                              for x in _to_host(outs))

@@ -20,6 +20,10 @@ In train mode BatchNorm follows flax, not `nn.BatchNorm2d`: it normalizes
 with the batch's biased variance, E[x²] − E[x]² in float32, and moves the
 running statistics by momentum 0.1 toward the batch mean and the *biased*
 variance (torch would take the unbiased one).
+`bn_reduce`, set by a data-parallel step (`parallel/sharded.py`), turns
+a rank's batch moments E[x], E[x²] over its rows into the global batch's
+(a differentiable weighted sum over the ranks of the `data` axis): the
+batch statistics are then those of the global batch.
 """
 from __future__ import annotations
 
@@ -77,6 +81,7 @@ class CNN(nn.Module):
                 self.add_module(f"bn_{b}", nn.BatchNorm2d(ch_out, eps=1e-5))
             ch_in = ch_out
         self.dropout = Dropout(dropout)
+        self.bn_reduce = None
         flat = ch_in * self.adaptive_pool[0] * self.adaptive_pool[1]
         if hidden_dim:
             self.fc = nn.Linear(flat, hidden_dim)
@@ -107,8 +112,18 @@ class CNN(nn.Module):
         x = x.float()
         if not self.training:
             return bn(x).to(self.dtype)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.bn_reduce is None:
+            mean = x.mean(dim=(0, 2, 3))
+            sq = (x * x).mean(dim=(0, 2, 3))
+        else:
+            # a data-parallel step: the global batch's moments from every
+            # rank's own (its rows' share of the batch weighs them)
+            if x.shape[0]:
+                mean, sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            else:
+                mean = sq = x.new_zeros(x.shape[1])
+            mean, sq = self.bn_reduce(mean, sq, x.shape[0])
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(_BN_MOMENTUM * bn.running_mean
                                   + (1.0 - _BN_MOMENTUM) * mean)

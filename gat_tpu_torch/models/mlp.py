@@ -32,8 +32,15 @@ def mlp_dims(hidden_dim: int, num_hidden_layers: int) -> list[int]:
 class Dropout(nn.Dropout):
     """Dropout in flax's form (kept inputs divided by the keep rate, the
     rest 0), its mask drawn from `generator` when one is set: the trainer
-    sets a seeded generator on its device."""
+    sets a seeded generator on its device.
+
+    `rows` (n, start, stop), set by a data-parallel step, says that x is
+    rows [start, stop) of a global batch of n: the mask of the whole
+    batch is drawn, as one device would draw it, and these rows kept, so
+    that every rank's generator stays in step and the masks are the
+    single-device run's."""
     generator: torch.Generator | None = None
+    rows: tuple[int, int, int] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
@@ -41,7 +48,18 @@ class Dropout(nn.Dropout):
         if self.p >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.p
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        if self.rows is None or self.rows[0] == x.shape[0]:
+            mask = torch.empty_like(x)
+        else:
+            n, start, stop = self.rows
+            # the memory order the whole batch's activation would have
+            fmt = (torch.channels_last if x.ndim == 4 and x.shape[1] > 1
+                   and x.stride(1) == 1 else torch.contiguous_format)
+            mask = torch.empty((n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                               device=x.device, memory_format=fmt)
+        mask.bernoulli_(keep, generator=self.generator)
+        if self.rows is not None and self.rows[0] != x.shape[0]:
+            mask = mask[self.rows[1]:self.rows[2]]
         return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 

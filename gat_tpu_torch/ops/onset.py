@@ -6,7 +6,10 @@ zero-padded batch slots.
 Two hand-written CUDA kernels, each with its plain PyTorch version here:
 
 * `onset_strength` (K4, `csrc/onset_envelope.cu`): the mel-dB flux
-  envelope of whole files;
+  envelope of whole files; its two passes are also entry points of their
+  own, `onset_mel_db` (the pre-clamp mel dB and each file's peak, frame 0
+  at any sample) and `onset_flux` (the clamped flux of given dB rows),
+  which the time-sharded envelope (`parallel/timeshard.py`) runs;
 * `pick_onsets` (K5, `csrc/onset_pick.cu`): normalization, librosa's peak
   pick, energy-minimum backtracking, the greedy wait and min-separation
   walk, and compaction into a fixed onset budget.
@@ -28,10 +31,12 @@ import torch.nn.functional as F
 from .. import kernels
 from ..features import _kernel_tables
 from .mel import mel_filterbank_librosa
-from .spectral import (TINY32, melspectrogram_librosa, n_frames,
-                       power_to_db_librosa)
+from .spectral import (TINY32, _last_nonzero_bin, melspectrogram_librosa,
+                       n_frames, power_spectrogram, power_to_db_librosa)
 
-__all__ = ["onset_strength", "onset_strength_plain", "backtrack_indices",
+__all__ = ["onset_strength", "onset_strength_plain", "onset_mel_db",
+           "onset_mel_db_plain", "onset_flux", "onset_flux_plain",
+           "order_key", "key_value", "backtrack_indices",
            "peak_pick_mask", "greedy_walk", "pick_onsets",
            "pick_onsets_plain", "pick_onsets_from_envelope",
            "detect_onsets", "peak_pick_params", "candidate_limit"]
@@ -212,6 +217,173 @@ def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
 
 
 onset_strength.launches = 0
+
+
+def order_key(v: torch.Tensor) -> torch.Tensor:
+    """float32 → int32 whose signed order is the float's (K4's
+    `order_key`): a max over keys is the max over the floats."""
+    i = v.to(torch.float32).contiguous().view(torch.int32)
+    return torch.where(i >= 0, i, i ^ 0x7FFFFFFF)
+
+
+def key_value(k: torch.Tensor) -> torch.Tensor:
+    """The float32 of an `order_key` (K4's `key_value`)."""
+    k = k.to(torch.int32).contiguous()
+    return torch.where(k >= 0, k, k ^ 0x7FFFFFFF).view(torch.float32)
+
+
+def _mel_db_frames(n: int, hop_length: int, origin: int | None,
+                   frames: int | None) -> tuple[int, int]:
+    """(origin, frames) of `onset_mel_db`: a centred file by default,
+    1 + n // hop frames from sample -n_fft / 2; from another origin, the
+    frames that fit in the row unless `frames` says."""
+    if origin is None:
+        origin = -(_N_FFT // 2)
+    if frames is None:
+        frames = (1 + n // hop_length if origin == -(_N_FFT // 2)
+                  else 1 + (n - origin - _N_FFT) // hop_length)
+    if frames < 1:
+        raise ValueError(f"[onset_mel_db] no frame of {_N_FFT} samples "
+                         f"from sample {origin} of a row of {n}")
+    return origin, frames
+
+
+def onset_mel_db_plain(y: torch.Tensor, sr: int, hop_length: int = 512,
+                       n_mels: int = 128, origin: int | None = None,
+                       frames: int | None = None,
+                       n_valid_frames: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, n) → (db (B, T, n_mels), peak_key (B,) int32): the first half
+    of `onset_strength_plain`. Frame t of a row covers samples origin +
+    t·hop + [0, n_fft), zeros outside the row (origin -n_fft / 2 by
+    default: librosa's centre pad); db is 10·log10(max(mel power,
+    1e-10)) before the top_db clamp, and peak_key the `order_key` of each
+    row's largest dB over its valid frames (the key of -inf without
+    one). Plain PyTorch."""
+    b, n = y.shape
+    origin, t = _mel_db_frames(n, hop_length, origin, frames)
+    left = max(0, -origin)
+    span = (t - 1) * hop_length + _N_FFT
+    right = max(0, origin + span - n)
+    yp = F.pad(y, (left, right))[:, origin + left:origin + left + span]
+    fb_np = mel_filterbank_librosa(sr, _N_FFT, n_mels)
+    f_keep = _last_nonzero_bin(fb_np) + 1
+    power = power_spectrogram(yp, _N_FFT, hop_length, center=False,
+                              n_freqs=f_keep)
+    mel = torch.einsum("btf,mf->btm", power,
+                       torch.from_numpy(fb_np[:, :f_keep]).to(y.device))
+    db = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
+    valid = _valid_mask(n_valid_frames, b, t, y.device)
+    peak = torch.where(valid[..., None], db, -torch.inf).amax(dim=(1, 2))
+    return db, order_key(peak)
+
+
+def onset_flux_plain(db: torch.Tensor, peak_key: torch.Tensor,
+                     hop_length: int = 512, lag: int = 1) -> torch.Tensor:
+    """(db (B, T, n_mels), peak_key (B,)) → (B, T) envelope: the second
+    half of `onset_strength_plain`. Each row's dB clamped at its peak
+    minus top_db, the positive lag difference averaged over the bands,
+    shifted right by lag + n_fft // (2·hop) frames and cut to T. Plain
+    PyTorch."""
+    floor = (key_value(peak_key) - _TOP_DB)[:, None, None]
+    s = torch.maximum(db, floor)
+    env = torch.clamp(s[:, lag:] - s[:, :-lag], min=0.0).mean(-1)
+    return F.pad(env, (lag + _N_FFT // (2 * hop_length), 0))[
+        :, :db.shape[1]].contiguous()
+
+
+_MEL_DB_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] + [ctypes.c_int] * 7
+                + [ctypes.c_void_p])
+_FLUX_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+              + [ctypes.c_float, ctypes.c_void_p])
+
+
+def onset_mel_db(y: torch.Tensor, sr: int, hop_length: int = 512,
+                 n_mels: int = 128, origin: int | None = None,
+                 frames: int | None = None,
+                 n_valid_frames: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, n) → (db (B, T, n_mels), peak_key (B,) int32), as
+    `onset_mel_db_plain` defines them.
+
+    CUDA tensor: K4's first pass alone, the C entry point
+    `gat_onset_mel_db` of `csrc/onset_envelope.cu`, with frame 0 at
+    sample `origin` of each row (0 for a time shard that carries its own
+    context, `parallel/timeshard.py`); it replaces the framing, DFT and
+    mel of the JAX package's `gat_tpu/parallel/timeshard.py::
+    _local_log_mel` and the peak of its `power_to_db_librosa`. Same grid
+    and occupancy as `onset_strength`. CPU tensor: `onset_mel_db_plain`."""
+    if y.device.type == "cpu":
+        return onset_mel_db_plain(y, sr, hop_length, n_mels, origin, frames,
+                                  n_valid_frames)
+    if y.device.type != "cuda":
+        raise ValueError(f"[onset_mel_db] unsupported device {y.device}")
+    kernels.check_input(y, "onset_mel_db")
+    b, n = y.shape
+    origin, t = _mel_db_frames(n, hop_length, origin, frames)
+    dev = y.device
+    db = torch.empty((b, t, n_mels), dtype=torch.float32, device=dev)
+    peak = torch.full((b,), _NEG_INF_KEY, dtype=torch.int32, device=dev)
+    if b == 0:
+        return db, peak
+    nvf = _frame_counts(n_valid_frames, dev)
+    hann, tw, *_ = _kernel_tables(sr, n_mels, False, dev)
+    tab, weights, n_items = _mel_items(sr, n_mels, dev)
+    grid = _envelope_grid(dev, n_items, hop_length)
+    fn = kernels.function("onset_envelope", "gat_onset_mel_db", _MEL_DB_ARGS)
+    with kernels.device_guard(dev):
+        status = fn(y.data_ptr(), db.data_ptr(), peak.data_ptr(),
+                    hann.data_ptr(), tw.data_ptr(), tab.data_ptr(),
+                    weights.data_ptr(), weights.numel(), n_items,
+                    None if nvf is None else nvf.data_ptr(), b, n,
+                    hop_length, t, n_mels, origin, grid, kernels.stream(dev))
+    kernels.check(status, "onset_mel_db")
+    onset_mel_db.launches += 1
+    return db, peak
+
+
+onset_mel_db.launches = 0
+
+
+def onset_flux(db: torch.Tensor, peak_key: torch.Tensor,
+               hop_length: int = 512, lag: int = 1) -> torch.Tensor:
+    """(db (B, T, n_mels), peak_key (B,)) → (B, T) envelope, as
+    `onset_flux_plain` defines it.
+
+    CUDA tensor: K4's second pass alone, the C entry point
+    `gat_onset_flux` of `csrc/onset_envelope.cu` (one warp per output
+    frame); it replaces the clamp, lag difference and band mean of the
+    JAX package's `gat_tpu/parallel/timeshard.py::
+    onset_envelope_timesharded`. CPU tensor: `onset_flux_plain`."""
+    if db.device.type == "cpu":
+        return onset_flux_plain(db, peak_key, hop_length, lag)
+    if db.device.type != "cuda":
+        raise ValueError(f"[onset_flux] unsupported device {db.device}")
+    if db.dtype != torch.float32 or db.ndim != 3 or not db.is_contiguous():
+        raise ValueError(f"[onset_flux] kernel takes contiguous float32 dB "
+                         f"rows (B, T, n_mels), got {db.dtype} "
+                         f"{tuple(db.shape)}")
+    b, t, n_mels = db.shape
+    if lag < 1 or lag >= t:
+        raise ValueError(f"[onset_flux] lag {lag} needs 1 <= lag < {t} "
+                         f"frames")
+    dev = db.device
+    env = torch.empty((b, t), dtype=torch.float32, device=dev)
+    if b == 0:
+        return env
+    keys = peak_key.to(device=dev, dtype=torch.int32).contiguous()
+    fn = kernels.function("onset_envelope", "gat_onset_flux", _FLUX_ARGS)
+    with kernels.device_guard(dev):
+        status = fn(db.data_ptr(), keys.data_ptr(), env.data_ptr(), b, t,
+                    n_mels, lag, lag + _N_FFT // (2 * hop_length), _TOP_DB,
+                    kernels.stream(dev))
+    kernels.check(status, "onset_flux")
+    onset_flux.launches += 1
+    return env
+
+
+onset_flux.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,6 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
-from scipy.signal import firwin
 
 __all__ = ["resample", "resample_filter", "fix_length"]
 
@@ -34,7 +33,10 @@ _SUPER_FRAME = 128  # outputs per super-frame of the decimation matmul
 def resample_filter(up: int, down: int, zeros: int = 24,
                     beta: float = 9.58) -> np.ndarray:
     """Lowpass at the tighter of the two Nyquists relative to the
-    up-sampled rate, gain `up` to keep the pass-band amplitude."""
+    up-sampled rate, gain `up` to keep the pass-band amplitude. scipy.signal
+    is imported here, at the first design: its import takes seconds, which
+    every process that only imports the package would pay."""
+    from scipy.signal import firwin
     max_rate = max(up, down)
     half_len = zeros * max_rate
     h = firwin(2 * half_len + 1, 1.0 / max_rate, window=("kaiser", beta))

@@ -22,6 +22,14 @@ from a checkout):
     python -m gat_tpu_torch.serve --in_dir incoming/ --out_dir results/
     python -m gat_tpu_torch.serve --in_dir incoming/ --out_dir results/ --once
     python -m gat_tpu_torch.serve --http 8080 --http_batch 4 --warmup 4,60
+    torchrun --nproc-per-node 4 -m gat_tpu_torch.serve --mesh 4 --batch 8 \
+        --in_dir incoming/ --out_dir results/
+
+`--mesh N` serves data-parallel over N ranks (`Transcriber(mesh=)`):
+rank 0 owns the watch folder or the HTTP front and broadcasts each wave's
+paths; every rank transcribes its share of the wave's files and all get
+the gathered results, the single-device ones. Without torchrun, N ranks
+are started here.
 """
 from __future__ import annotations
 
@@ -112,6 +120,10 @@ def warmup(t, durations_s, batch: int = 1, cand_budget: int | None = None,
                 yb = np.zeros(bsec * sr, np.float32)
                 yb[: len(y)] = y
                 mb = 1 << (DEFAULT_MAX_BATCH - 1).bit_length()
+                # under a mesh every wave is a multiple of the data size
+                # (transcribe_files rounds max_batch and pads B up to it)
+                dp = max(1, int(getattr(t, "_data_par", 1)))
+                mb = -(-mb // dp) * dp
 
                 def wave(n_files: int, *lead: int):
                     ys = torch.from_numpy(np.stack([yb] * n_files)).to(dev)
@@ -123,7 +135,7 @@ def warmup(t, durations_s, batch: int = 1, cand_budget: int | None = None,
                     sr, t.clip_length, DEFAULT_MAX_ONSETS, None, 0)
                 # transcribe_files caps each wave at max_batch: a larger B
                 # never reaches the exact body outside a chunk of waves
-                for b in sorted(warmed_bs):
+                for b in sorted({-(-b // dp) * dp for b in warmed_bs}):
                     if b <= mb:
                         exact_run(*wave(b))
                 k = 2
@@ -133,7 +145,9 @@ def warmup(t, durations_s, batch: int = 1, cand_budget: int | None = None,
                 m = 128
                 while warm_onset_caps and m <= int(warm_onset_caps):
                     cap_run, _ = t._files_fn(sr, t.clip_length, m, None, 0)
-                    cap_run(*wave(2))  # B = 2 is the floor a lone file rides
+                    # B = 2 (or the data size) is the floor a lone file
+                    # rides
+                    cap_run(*wave(-(-2 // dp) * dp))
                     m *= 2
                 _sync(device)
             try:
@@ -715,6 +729,14 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default=None,
                     help="the Transcriber's device: the CUDA card by "
                          "default, 'cpu' for the plain PyTorch path")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="run the batch serving path data-parallel over N "
+                         "ranks, one per card (Transcriber(mesh=)): rank 0 "
+                         "watches the folder or answers HTTP, and every "
+                         "wave's files split over the ranks; under torchrun "
+                         "it joins the world torchrun started, otherwise it "
+                         "starts N ranks. Pair with --batch/--http_batch "
+                         ">= N so waves fill every rank")
     args = ap.parse_args(argv)
     durs = None
     if args.warmup:
@@ -746,12 +768,104 @@ def main(argv=None):
         if args.in_dir is None or args.out_dir is None:
             ap.error("--in_dir and --out_dir are required without --http")
 
+    if args.mesh:
+        from .parallel import launch
+        device = args.device or "cuda"
+        if launch.under_torchrun():
+            launch.init_from_env(device)
+            return _serve_rank(args, durs)
+        return launch.spawn(_serve_rank, args.mesh, args, durs,
+                            device=device, timeout_s=None)[0]
+    return _serve_rank(args, durs)
+
+
+class _MeshFront:
+    """Rank 0's Transcriber under `--mesh`: each `transcribe_files` call
+    first broadcasts its paths and arguments, so that every rank makes
+    the same call (`_follow`); one call at a time, as the collectives of
+    two calls must not interleave. `transcribe` of one file ignores the
+    mesh and runs here alone."""
+
+    def __init__(self, t):
+        import threading
+        self._t = t
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+    def _broadcast(self, msg) -> None:
+        import torch.distributed as dist
+        dist.broadcast_object_list([msg], src=0)
+
+    def transcribe_files(self, paths, **kw):
+        from .infer.transcriber import WaveReadError
+        from .parallel.launch import abort_rank
+        paths = [str(p) for p in paths]
+        with self._lock:
+            self._broadcast(("files", paths, kw))
+            try:
+                return self._t.transcribe_files(paths, **kw)
+            except WaveReadError:
+                raise  # every rank raised it: the caller's fallback runs
+            except Exception:  # noqa: BLE001 - ends the world
+                # the other ranks may wait in this call's collectives
+                abort_rank()
+
+    def close(self) -> None:
+        with self._lock:
+            self._broadcast(("stop",))
+
+
+def _follow(t) -> None:
+    """A rank above 0 under `--mesh`: the `transcribe_files` calls rank 0
+    broadcasts, until it says stop. A wave whose files fail to decode
+    fails alike on rank 0, which reports it; any other fault leaves this
+    function and ends the rank, and with it the world, since rank 0 may
+    wait in one of the call's collectives."""
+    import torch.distributed as dist
+    from .infer.transcriber import WaveReadError
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0][0] == "stop":
+            return
+        _, paths, kw = box[0]
+        try:
+            t.transcribe_files(paths, **kw)
+        except WaveReadError:
+            pass
+
+
+def _serve_rank(args, durs) -> int:
+    """The server on one rank (on its own without `--mesh`)."""
     from .infer import Transcriber
-    t = Transcriber(pitch_prior_weight=args.pitch_prior, device=args.device)
+    mesh = None
+    rank = 0
+    if args.mesh:
+        import torch.distributed as dist
+        from .parallel.mesh import make_mesh
+        mesh = make_mesh(args.mesh, device=args.device)
+        rank = dist.get_rank()
+    t = Transcriber(pitch_prior_weight=args.pitch_prior, device=args.device,
+                    mesh=mesh)
     batch = args.http_batch if args.http is not None else args.batch
     if durs:
         warmup(t, durs, batch=batch, cand_budget=args.cand_budget,
-               warm_onset_caps=args.warm_onset_caps)
+               warm_onset_caps=args.warm_onset_caps, verbose=rank == 0)
+    if rank > 0:
+        _follow(t)
+        return 0
+    if mesh is not None:
+        t = _MeshFront(t)
+    try:
+        return _serve_front(args, t)
+    finally:
+        if mesh is not None:
+            t.close()
+
+
+def _serve_front(args, t) -> int:
     if args.http is not None:
         serve_http(args.http, transcriber=t, batch=args.http_batch,
                    window_s=args.http_window_ms / 1000.0,

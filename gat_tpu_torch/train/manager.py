@@ -41,12 +41,26 @@ class TrainingManager:
     def __init__(self, mlp_cfg=None, cnn_cfg=None,
                  datasets_root=DATASETS_ROOT, target_sr: int = TARGET_SR,
                  clip_duration: float = CLIP_DURATION,
-                 use_bf16_cnn: bool | None = None, device=None):
+                 use_bf16_cnn: bool | None = None, device=None,
+                 mesh_devices: int | None = None, mesh=None):
+        """`mesh_devices=N` (a mesh of the world's N ranks on `device`'s
+        kind, `parallel.make_mesh`) or an explicit `mesh` trains both
+        families data-parallel: every rank makes the same calls, builds
+        the features on its device and runs `Trainer(mesh=)`, whose
+        steps split each batch over `data`; rank 0 writes the
+        checkpoints."""
         self.mlp_cfg = mlp_cfg or MLP_CONFIG
         self.cnn_cfg = cnn_cfg or CNN_CONFIG
         self.datasets_root = Path(datasets_root)
         self.target_sr = target_sr
         self.clip_duration = clip_duration
+        if mesh is None and mesh_devices:
+            from ..parallel.mesh import make_mesh
+            mesh = make_mesh(mesh_devices, device=device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import mesh_device
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         # bf16 CNN compute with float32 weights (the reference's AMP)
         self.use_bf16_cnn = (self.cnn_cfg.USE_AMP if use_bf16_cnn is None
@@ -168,7 +182,8 @@ class TrainingManager:
                           lr=self.mlp_cfg.LR,
                           weight_decay=self.mlp_cfg.DECAY, scaler=scaler,
                           seed=seed, max_clip_norm=self.mlp_cfg.MAX_CLIP_NORM,
-                          model_type="mlp", device=self.device)
+                          model_type="mlp", device=self.device,
+                          mesh=self.mesh)
         t_train = time.time()
         trainer.train(epochs=epochs or self.mlp_cfg.EPOCHS,
                       es_window_len=self.mlp_cfg.ES_WINDOW_LEN,
@@ -221,7 +236,8 @@ class TrainingManager:
                           lr=self.cnn_cfg.LR,
                           weight_decay=self.cnn_cfg.DECAY, seed=seed,
                           max_clip_norm=self.cnn_cfg.MAX_CLIP_NORM,
-                          model_type="cnn", device=self.device)
+                          model_type="cnn", device=self.device,
+                          mesh=self.mesh)
         t_train = time.time()
         trainer.train(epochs=epochs or self.cnn_cfg.EPOCHS,
                       es_window_len=self.cnn_cfg.ES_WINDOW_LEN,

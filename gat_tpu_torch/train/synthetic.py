@@ -12,6 +12,9 @@ the checkpoints under the port's own root, data/checkpoints/torch/
 <family>/: the exact shipped recipe takes the shipped file names there,
 any other recipe a recipe-tagged name. Without `--device` it runs on the
 card. The CNN trains first (40 epochs by default), then the MLP (20).
+`--mesh N` trains data-parallel over N ranks (`torchrun --nproc-per-node
+N -m gat_tpu_torch.train.synthetic --mesh N ...`, or N ranks started
+here), with the single-device run's results.
 """
 from __future__ import annotations
 
@@ -84,22 +87,47 @@ def parse_args(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--target_sr", type=int, default=11025)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="train data-parallel over N ranks, one per device "
+                         "(Trainer(mesh=)): under torchrun it joins the "
+                         "world torchrun started, otherwise it starts N "
+                         "ranks itself; on the card at most one per card")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     """Run the recipe; returns the wall seconds of each stage and each
-    family's epochs and final val accuracy and loss."""
+    family's epochs and final val accuracy and loss (rank 0's under
+    `--mesh`)."""
     args = parse_args(argv)
+    if not args.mesh:
+        return _run(args)
+    from ..parallel import launch
+    device = args.device or "cuda"
+    if launch.under_torchrun():
+        launch.init_from_env(device)
+        return _run(args)
+    return launch.spawn(_run, args.mesh, args, device=device,
+                        timeout_s=None)[0]
+
+
+def _run(args) -> dict:
     from ..config import DATASETS_ROOT
     from ..data.synth import synthesize_note_dataset
     from .manager import TrainingManager
 
-    mgr = TrainingManager(target_sr=args.target_sr, device=args.device)
-    print("device:", mgr.device)
+    rank = 0
+    if args.mesh:
+        import torch.distributed as dist
+        rank = dist.get_rank()
+    mgr = TrainingManager(target_sr=args.target_sr, device=args.device,
+                          mesh_devices=args.mesh)
+    if rank == 0:
+        print("device:", mgr.device, f"(mesh of {args.mesh})" if args.mesh
+              else "")
     out: dict = {"synthesis_s": 0.0}
     ds = DATASETS_ROOT / "synthetic" / _dataset_tag(args)
-    if not ds.exists():
+    if rank == 0 and not ds.exists():
         t0 = time.time()
         synthesize_note_dataset(
             ds, variants_per_class=args.variants, seed=args.seed,
@@ -111,6 +139,8 @@ def main(argv=None) -> dict:
             channel_prob=args.channel_prob)
         out["synthesis_s"] = time.time() - t0
         print(f"dataset synthesis: {out['synthesis_s']:.1f}s")
+    if args.mesh:  # the other ranks read what rank 0 wrote
+        dist.barrier()
 
     canonical = _is_canonical(args)
     runs = []
@@ -124,10 +154,12 @@ def main(argv=None) -> dict:
                      else _recipe_name(args, "mlp_synth")))
     for family, train, epochs, fname in runs:
         t0 = time.time()
-        tr = train(dataset=ds, epochs=epochs, seed=args.seed, save=False)
-        acc, loss = tr.evaluate(report=True)
-        print(f"{family.upper()} final: val acc {acc:.4f}, val loss "
-              f"{loss:.4f}")
+        tr = train(dataset=ds, epochs=epochs, seed=args.seed, save=False,
+                   verbose=rank == 0)
+        acc, loss = tr.evaluate(report=rank == 0)
+        if rank == 0:
+            print(f"{family.upper()} final: val acc {acc:.4f}, val loss "
+                  f"{loss:.4f}")
         path = tr.save(filename=fname, target_sr=args.target_sr)
         out[family] = {"wall_s": time.time() - t0, **tr.stage_seconds,
                        "epochs": tr.epoch, "val_acc": acc,

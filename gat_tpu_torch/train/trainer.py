@@ -118,7 +118,7 @@ def _optax_order(flat: dict) -> list[str]:
 
 class Trainer:
     """Unified MLP/CNN trainer on one device (default the card; 'cpu'
-    runs there)."""
+    runs there), or data-parallel over a mesh's `data` axis."""
 
     # whole-set eval granularity (examples per forward on the fast path);
     # class attributes so tests can shrink them
@@ -131,7 +131,20 @@ class Trainer:
                  lr: float = 1e-3, weight_decay: float = 1e-4,
                  scaler=None, seed: int = 0, label_smoothing: float = 0.05,
                  max_clip_norm: float = 1.0, model_type: str | None = None,
-                 device=None):
+                 device=None, mesh=None):
+        """`mesh` (a DeviceMesh from `parallel.make_mesh`, every rank
+        making the same call) runs every training and evaluation step
+        data-parallel over its `data` axis: each rank holds the data and
+        the model replicated, computes its rows of every global batch, and
+        the gradients, loss and correct counts are summed over `data`
+        (`parallel/sharded.py::data_parallel_backward`), so the histories
+        and weights are the single-device run's up to summation order
+        (the same batches, dropout masks and BatchNorm statistics). The
+        device is then the rank's; only rank 0 writes checkpoints."""
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import mesh_device
+            device = mesh_device(mesh) if device is None else device
         self.device = resolve_device(device)
         fp32_reference_math()
         self.model = model
@@ -160,6 +173,9 @@ class Trainer:
         self._codec = cnn_mod if isinstance(model, cnn_mod.CNN) else mlp_mod
         kaiming_reinit(model, torch.Generator().manual_seed(seed))
         model.to(self.device)
+        if mesh is not None:
+            from ..parallel.mesh import replicated
+            replicated(model, mesh)
         self._dropout_gen = torch.Generator(self.device).manual_seed(seed)
         for m in model.modules():
             if isinstance(m, mlp_mod.Dropout):
@@ -221,15 +237,37 @@ class Trainer:
         return torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm(grads)))
 
-    def _step(self, xb: torch.Tensor, yb: torch.Tensor):
+    def _rows(self, n: int) -> tuple[int, int]:
+        """[start, stop) of this rank's rows of a global batch of n (all
+        of them without a mesh)."""
+        if self.mesh is None:
+            return 0, n
+        from ..parallel.mesh import row_range
+        return row_range(n, self.mesh)
+
+    def _step(self, xb: torch.Tensor, yb: torch.Tensor, n: int | None = None):
         """One optimizer step on a device batch: (mean loss, correct
-        count, pre-clip grad norm), all device scalars."""
+        count, pre-clip grad norm), all device scalars. Under a mesh, xb
+        and yb are this rank's rows (`_rows`) of a global batch of n."""
+        if self.mesh is not None:
+            from ..parallel.sharded import data_parallel_backward
+            loss_sum, correct = data_parallel_backward(
+                self.model, self._params, xb, yb, n, self._rows(n)[0],
+                self.mesh, self.label_smoothing)
+            return loss_sum / n, correct, self._clip_and_update()
         self.model.train()
         logits = self.model(xb)
         loss = F.cross_entropy(logits, yb,
                                label_smoothing=self.label_smoothing)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        gnorm = self._clip_and_update()
+        correct = (logits.argmax(dim=-1) == yb).sum()
+        return loss.detach(), correct, gnorm
+
+    def _clip_and_update(self) -> torch.Tensor:
+        """optax's global-norm clip of the gradients, then the AdamW
+        update; returns the pre-clip norm."""
         grads = [p.grad for p in self._params]
         gnorm = self._global_norm(grads)
         # optax's clip_by_global_norm: g unchanged below max_norm, else
@@ -239,8 +277,7 @@ class Trainer:
                              self.max_clip_norm / gnorm)
         torch._foreach_mul_(grads, factor)
         self.optimizer.step()
-        correct = (logits.argmax(dim=-1) == yb).sum()
-        return loss.detach(), correct, gnorm
+        return gnorm
 
     def _perm_on_device(self, idx: np.ndarray) -> torch.Tensor:
         """The epoch's permutation on the device, copied from pinned
@@ -267,10 +304,13 @@ class Trainer:
         loss_sum = torch.zeros((), device=self.device)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         for i in range(0, end, bs):
-            jdx = perm[i:i + bs]
-            loss, corr, self._gnorm = self._step(X_dev.index_select(0, jdx),
-                                                 Y_dev.index_select(0, jdx))
-            loss_sum += loss * len(jdx)
+            jdx = perm[i:min(i + bs, end)]
+            n = len(jdx)
+            lo, hi = self._rows(n)
+            jdx = jdx[lo:hi]
+            loss, corr, self._gnorm = self._step(
+                X_dev.index_select(0, jdx), Y_dev.index_select(0, jdx), n)
+            loss_sum += loss * n
             correct += corr
         return loss_sum, correct, end
 
@@ -280,8 +320,10 @@ class Trainer:
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         total = 0
         for xb, yb in train_dl:
+            lo, hi = self._rows(len(yb))
             loss, corr, self._gnorm = self._step(
-                self._upload(xb), self._upload(yb, torch.int64))
+                self._upload(xb[lo:hi]), self._upload(yb[lo:hi], torch.int64),
+                len(yb))
             loss_sum += loss * len(yb)
             correct += corr
             total += len(yb)
@@ -425,14 +467,27 @@ class Trainer:
             chunks = ((self._upload(xb), self._upload(yb, torch.int64),
                        np.asarray(yb)) for xb, yb in dl)
         for xb, yb, y_host in chunks:
-            logits = self._eval_logits(xb)
-            loss_sum += F.cross_entropy(
-                logits, yb, label_smoothing=self.label_smoothing) * len(yb)
+            n = len(yb)
+            lo, hi = self._rows(n)
+            logits = self._eval_logits(xb[lo:hi])
+            if hi > lo:  # under a mesh a rank may hold no row of it
+                loss_sum += F.cross_entropy(
+                    logits, yb[lo:hi],
+                    label_smoothing=self.label_smoothing) * (hi - lo)
             p = logits.argmax(dim=-1)
-            correct += (p == yb).sum()
+            correct += (p == yb[lo:hi]).sum()
+            if self.mesh is not None:
+                from ..parallel.mesh import gather_batch
+                p = gather_batch(p, n, self.mesh)
             preds.append(p)
             ys.append(y_host)
-            total += len(yb)
+            total += n
+        if self.mesh is not None:
+            import torch.distributed as dist
+            from ..parallel.mesh import axis_group
+            sums = torch.stack([loss_sum, correct.float()])
+            dist.all_reduce(sums, group=axis_group(self.mesh))
+            loss_sum, correct = sums[0], sums[1].round().to(torch.int64)
         preds = (torch.cat(preds) if preds
                  else torch.zeros(0, dtype=torch.int64, device=self.device))
         y = np.concatenate(ys) if ys else np.zeros(0, np.int64)
@@ -562,7 +617,16 @@ class Trainer:
             ckpt["scheduler"] = {"lr": self.scheduler.lr,
                                  "best": self.scheduler.best,
                                  "num_bad": self.scheduler.num_bad}
-        return save_checkpoint(root / filename, ckpt)
+        if self.mesh is None:
+            return save_checkpoint(root / filename, ckpt)
+        # every rank holds the same weights: rank 0 writes, the others
+        # wait until the file is there
+        import torch.distributed as dist
+        path = (save_checkpoint(root / filename, ckpt)
+                if dist.get_rank() == 0 else None)
+        box = [str(path) if path is not None else None]
+        dist.broadcast_object_list(box, src=0)
+        return Path(box[0])
 
     def _restored_moments(self, opt_tree: dict) -> tuple:
         """(count, lr, mu, nu) from optax leaves, mu and nu as torch

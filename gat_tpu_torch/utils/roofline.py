@@ -26,7 +26,8 @@ import math
 
 __all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS", "bound",
            "fft_flops", "melspec_cost", "mfcc_cost", "yin_cost",
-           "envelope_cost", "pick_cost", "resample_cost", "module_cost"]
+           "envelope_cost", "mel_db_cost", "flux_cost", "pick_cost",
+           "resample_cost", "module_cost"]
 
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
@@ -121,6 +122,36 @@ def envelope_cost(files: int, n: int, sr: int, device="cpu",
     tables = 4 * (hann.numel() + tw.numel() + nnz + 2 * 128)
     return (files * t * (fft_flops(nnz, 128) + 4 * 128),
             4 * files * (n + t + 1) + tables)
+
+
+def _envelope_tables(sr: int, device) -> tuple[int, int]:
+    """(nonzero mel weights, bytes of K4's tables)."""
+    import torch
+    from gat_tpu_torch.features import _kernel_tables
+    hann, tw, _, lo, hi = _kernel_tables(sr, 128, False,
+                                         torch.device(device))
+    nnz = int((hi - lo).sum())
+    return nnz, 4 * (hann.numel() + tw.numel() + nnz + 2 * 128)
+
+
+def mel_db_cost(files: int, n: int, frames: int, sr: int, device="cpu"
+                ) -> tuple[int, int]:
+    """K4's first pass alone (`gat_onset_mel_db`) over (files, n) rows of
+    `frames` frames: every frame's FFT, 128-band mel and dB; each sample
+    read once, the dB rows and the peak keys written once, with the valid
+    counts and the tables."""
+    nnz, tables = _envelope_tables(sr, device)
+    return (files * frames * fft_flops(nnz, 128),
+            4 * files * (n + frames * 128 + 2) + tables)
+
+
+def flux_cost(files: int, frames: int) -> tuple[int, int]:
+    """K4's second pass alone (`gat_onset_flux`) over (files, frames, 128)
+    dB rows: a clamp of both frames, a difference, a max and a sum per
+    band and frame; the rows and peak keys read once, the envelope
+    written once."""
+    return (files * frames * 4 * 128,
+            4 * files * (frames * 128 + 1 + frames))
 
 
 def pick_cost(files: int, t: int, sr: int, hop: int = 512,

@@ -18,7 +18,7 @@ from test_torch_kernels_emulated import (FILE_SR, LIVE_MIN_SEP, LIVE_RING,
                                          file_batch, level_step_clip,
                                          mfcc_level_step_clip, padded_wave,
                                          pluck_riff, random_envelopes, riffs,
-                                         scan_envelopes)
+                                         scan_envelopes, stitch, time_shards)
 
 pytestmark = pytest.mark.cuda
 
@@ -814,3 +814,90 @@ def test_cross_family_features_card_vs_cpu(tmp_path):
             mask = x_ref > -60.0
             np.testing.assert_allclose(x[mask], x_ref[mask], atol=0.1,
                                        rtol=0)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n,loud_tail", [(45000, False), (175616, False),
+                                         (60000, True)])
+def test_onset_mel_db_shards_stitch_on_card(n, loud_tail):
+    """K4's first pass over 4 shards with their halos (origin 0),
+    stitched, gives its first pass over the centred file bit for bit, and
+    its second pass over the stitched rows `onset_strength`'s envelope;
+    one launch of each entry point per call."""
+    dev = _card()
+    y = riffs(n)[0]
+    if loud_tail:
+        y = y * 0.05
+        y[-400:] = 0.9
+    t = spectral.n_frames(n, 2048, 512)
+    whole = torch.from_numpy(y)[None].to(dev)
+    db, key = onset.onset_mel_db(whole, FILE_SR)
+    before = onset.onset_mel_db.launches
+    parts = [onset.onset_mel_db(ext.to(dev), FILE_SR, origin=0,
+                                frames=frames, n_valid_frames=nvf)
+             for ext, frames, nvf in time_shards(y, 4)]
+    assert onset.onset_mel_db.launches == before + 4
+    got_db, got_key = stitch(parts, t)
+    assert torch.equal(got_db, db) and torch.equal(got_key, key)
+    before = onset.onset_flux.launches
+    env = onset.onset_flux(got_db, got_key)
+    torch.cuda.synchronize()
+    assert onset.onset_flux.launches == before + 1
+    ref = onset.onset_strength(whole, FILE_SR)
+    torch.testing.assert_close(env, ref, atol=1e-3, rtol=0)
+    torch.testing.assert_close(
+        env.cpu(), onset.onset_strength_plain(whole.cpu(), FILE_SR),
+        atol=1e-3, rtol=0)
+
+
+def test_onset_passes_card_vs_plain():
+    dev = _card()
+    y, nvf = file_batch(23586, 4)
+    db, key = onset.onset_mel_db(y.to(dev), FILE_SR, n_valid_frames=nvf)
+    ref_db, ref_key = onset.onset_mel_db_plain(y, FILE_SR,
+                                               n_valid_frames=nvf)
+    loud = ref_db > -60.0
+    torch.testing.assert_close(db.cpu()[loud], ref_db[loud], atol=1e-3,
+                               rtol=0)
+    torch.testing.assert_close(onset.key_value(key.cpu()),
+                               onset.key_value(ref_key), atol=1e-3, rtol=0)
+    env = onset.onset_flux(ref_db.to(dev), ref_key.to(dev))
+    torch.testing.assert_close(env.cpu(), onset.onset_flux_plain(
+        ref_db, ref_key), atol=1e-5, rtol=0)
+
+
+def _nccl_rank(y: np.ndarray, clips: np.ndarray) -> dict:
+    import torch.distributed as dist
+    from gat_tpu_torch.parallel import make_mesh, sharded_batch_pitch
+    from gat_tpu_torch.parallel.mesh import gather_batch
+    from gat_tpu_torch.parallel.timeshard import onset_envelope_timesharded
+    mesh = make_mesh(1)
+    flags = torch.tensor([True, False, True], device="cuda")
+    return {"backend": dist.get_backend(), "device": mesh.device_type,
+            "env": onset_envelope_timesharded(y, mesh, FILE_SR).cpu(),
+            "pitch": sharded_batch_pitch(mesh, SR)(
+                torch.from_numpy(clips)).cpu(),
+            "flags": gather_batch(flags, 3, mesh).cpu()}
+
+
+def test_nccl_world_1():
+    """A world of one rank on NCCL (`parallel.launch.spawn`): the mesh is
+    the card's, and the time-sharded envelope and the sharded YIN equal
+    the single-device kernels' results."""
+    from gat_tpu_torch.parallel import launch
+    dev = _card()
+    y = riffs(45000)[0]
+    clips = _tones(0.1).cpu().numpy()
+    got = launch.spawn(_nccl_rank, 1, y, clips, device="cuda",
+                       timeout_s=300)[0]
+    assert got["backend"] == "nccl" and got["device"] == "cuda"
+    ref = onset.onset_strength(torch.from_numpy(y)[None].to(dev), FILE_SR)
+    torch.testing.assert_close(got["env"], ref[0].cpu(), atol=1e-3, rtol=0)
+    torch.testing.assert_close(got["pitch"], yin.yin_pitch(
+        torch.from_numpy(clips).to(dev), SR).cpu())
+    assert got["flags"].tolist() == [True, False, True]

@@ -22,6 +22,7 @@ PORT_FILES = sorted((REPO / "gat_tpu_torch").rglob("*.py")) + sorted(
 # (wrapper, its plain version, the arguments after the tensor)
 WRAPPERS = [(features.melspec_features, features.melspec_features_plain,
              (11025,)),
+            (onset.onset_mel_db, onset.onset_mel_db_plain, (22050,)),
             (features.mfcc_frontend, features.mfcc_frontend_plain, (11025,)),
             (yin.yin_pitch, yin.yin_pitch_plain, (11025,)),
             (onset.onset_strength, onset.onset_strength_plain, (22050,)),
@@ -153,11 +154,32 @@ def test_entry_points_refuse_cuda_without_a_card():
              ("torch_roofline_files", []),
              ("torch_evaluate", []),
              ("torch_serve", ["--in_dir", d, "--out_dir", d, "--once"]),
-             ("torch_train_synthetic", ["--model", "mlp"])]
+             ("torch_train_synthetic", ["--model", "mlp"]),
+             ("torch_serve", ["--in_dir", d, "--out_dir", d, "--once",
+                              "--mesh", "2"]),
+             ("torch_train_synthetic", ["--model", "mlp", "--mesh", "2"])]
     for name, argv in calls:
         for extra in ([], ["--device", "cuda"]):
             with pytest.raises(RuntimeError, match="CUDA"):
                 tool(name).main(argv + extra)
+
+
+def test_multi_device_refuses_cuda_without_a_card():
+    """The mesh, the launcher and the dry run ask for the card by default
+    and raise without one, before any rank starts; `--mesh` of the
+    server and the trainer likewise (above)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from gat_tpu_torch.entry import dryrun_multichip
+    from gat_tpu_torch.parallel import launch, make_mesh
+    from gat_tpu_torch.parallel.mesh import make_mesh as mesh_make_mesh
+    assert make_mesh is mesh_make_mesh
+    for call in (make_mesh, lambda: make_mesh(1, device="cuda"),
+                 lambda: launch.spawn(print, 2),
+                 lambda: launch.spawn(print, 1, device="cuda"),
+                 lambda: dryrun_multichip(2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_kernels_not_built_at_import():
@@ -225,3 +247,15 @@ def test_cpu_tensor_runs_plain_version(wrapper, plain, args):
 def test_other_devices_raise(wrapper, plain, args):
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(torch.empty(2, 5512, device="meta"), *args)
+
+
+def test_onset_flux_runs_plain_on_cpu_and_refuses_other_devices():
+    db = torch.from_numpy(np.random.default_rng(1).normal(
+        -40.0, 10.0, (2, 20, 128)).astype(np.float32))
+    key = onset.order_key(db.amax(dim=(1, 2)))
+    before = onset.onset_flux.launches
+    np.testing.assert_array_equal(onset.onset_flux(db, key).numpy(),
+                                  onset.onset_flux_plain(db, key).numpy())
+    assert onset.onset_flux.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        onset.onset_flux(torch.empty(2, 20, 128, device="meta"), key)

@@ -549,6 +549,142 @@ def test_onset_envelope_emulated_grid_invariant(libs):
     assert torch.equal(envs[0], envs[1]) and torch.equal(envs[0], envs[2])
 
 
+def onset_passes_emulated(libs, y: torch.Tensor, nvf: torch.Tensor | None,
+                          grid: int = 5) -> tuple:
+    """K4's `gat_onset_envelope` on centred files: (env, its pre-clamp dB
+    scratch (B, T, 128), its peak keys (B,))."""
+    b, n = y.shape
+    t = spectral.n_frames(n, 2048, 512)
+    env, db = torch.empty(b, t), torch.empty(b, t, 128)
+    peak = torch.full((b,), onset._NEG_INF_KEY, dtype=torch.int32)
+    hann, tw, *_ = features._kernel_tables(FILE_SR, 128, False, CPU)
+    tab, weights, n_items = onset._mel_items(FILE_SR, 128, CPU)
+    nvf = None if nvf is None else nvf.to(torch.int32).contiguous()
+    fn = _fn(libs["onset_envelope"], "gat_onset_envelope",
+             onset._ENVELOPE_ARGS)
+    assert fn(y.data_ptr(), env.data_ptr(), db.data_ptr(), peak.data_ptr(),
+              hann.data_ptr(), tw.data_ptr(), tab.data_ptr(),
+              weights.data_ptr(), weights.numel(), n_items,
+              None if nvf is None else nvf.data_ptr(), b, n, 512, t, 128, 1,
+              1 + 2048 // (2 * 512), 80.0, grid, None) == 0
+    return env, db, peak
+
+
+def mel_db_emulated(libs, y: torch.Tensor, frames: int, origin: int,
+                    nvf: torch.Tensor | None, grid: int = 3) -> tuple:
+    """`gat_onset_mel_db` with the arguments `onset.onset_mel_db` passes:
+    (db (B, frames, 128), peak keys (B,))."""
+    b, n = y.shape
+    db = torch.empty(b, frames, 128)
+    peak = torch.full((b,), onset._NEG_INF_KEY, dtype=torch.int32)
+    hann, tw, *_ = features._kernel_tables(FILE_SR, 128, False, CPU)
+    tab, weights, n_items = onset._mel_items(FILE_SR, 128, CPU)
+    nvf = None if nvf is None else nvf.to(torch.int32).contiguous()
+    fn = _fn(libs["onset_envelope"], "gat_onset_mel_db", onset._MEL_DB_ARGS)
+    assert fn(y.data_ptr(), db.data_ptr(), peak.data_ptr(), hann.data_ptr(),
+              tw.data_ptr(), tab.data_ptr(), weights.data_ptr(),
+              weights.numel(), n_items,
+              None if nvf is None else nvf.data_ptr(), b, n, 512, frames,
+              128, origin, grid, None) == 0
+    return db, peak
+
+
+def flux_emulated(libs, db: torch.Tensor, peak: torch.Tensor
+                  ) -> torch.Tensor:
+    """`gat_onset_flux` with the arguments `onset.onset_flux` passes."""
+    b, t, m = db.shape
+    env = torch.empty(b, t)
+    fn = _fn(libs["onset_envelope"], "gat_onset_flux", onset._FLUX_ARGS)
+    assert fn(db.contiguous().data_ptr(), peak.contiguous().data_ptr(),
+              env.data_ptr(), b, t, m, 1, 1 + 2048 // (2 * 512), 80.0,
+              None) == 0
+    return env
+
+
+def time_shards(y: np.ndarray, d: int):
+    """One file cut over d ranks as the time-sharded envelope cuts it
+    (`parallel.timeshard.TimeShards`): [(shard (1, owned + halo), frames,
+    real frames)]."""
+    from gat_tpu_torch.parallel.timeshard import TimeShards
+    cut = TimeShards(len(y), d)
+    yt = torch.from_numpy(np.asarray(y, np.float32))
+    return [(cut.shard(yt, r)[None], cut.frames, torch.tensor([cut.real(r)]))
+            for r in range(d)]
+
+
+def stitch(parts: list, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shards' (db, peak key) → the file's (db (1, t, 128), peak key)."""
+    db = torch.cat([p[0] for p in parts], dim=1)[:, :t].contiguous()
+    return db, torch.stack([p[1] for p in parts]).amax(0)
+
+
+@pytest.mark.parametrize("n,loud_tail", [(45000, False), (175616, False),
+                                         (60000, True)])
+def test_onset_mel_db_shards_stitch_to_envelope(libs, n, loud_tail):
+    """`gat_onset_mel_db` over 4 shards that carry their left context and
+    right halo (origin 0), stitched, gives `gat_onset_envelope`'s pre-clamp
+    dB and peak bit for bit, and `gat_onset_flux` over the stitched rows
+    its envelope; the plain halves stitch to `onset_strength_plain`.
+    Each shard holds whole rounds of four frames, so every FFT pairs the
+    frames the whole file's pass pairs: 88 frames in shards of 24, 344 in
+    shards of 88; the loud tail puts the file's peak in its last frames,
+    where the budget frames past the end would move it."""
+    y = riffs(n)[0]
+    if loud_tail:
+        y = y * 0.05
+        y[-400:] = 0.9
+    t = spectral.n_frames(n, 2048, 512)
+    env, db, peak = onset_passes_emulated(libs, torch.from_numpy(y)[None],
+                                          None)
+    shards = time_shards(y, 4)
+    got_db, got_peak = stitch(
+        [mel_db_emulated(libs, ext, frames, 0, nvf)
+         for ext, frames, nvf in shards], t)
+    assert torch.equal(got_db, db) and torch.equal(got_peak, peak)
+    torch.testing.assert_close(flux_emulated(libs, got_db, got_peak), env,
+                               atol=1e-6, rtol=0)
+    ref = onset.onset_strength_plain(torch.from_numpy(y)[None], FILE_SR)
+    torch.testing.assert_close(env, ref, atol=1e-3, rtol=0)
+    plain_db, plain_peak = stitch(
+        [onset.onset_mel_db_plain(ext, FILE_SR, origin=0, frames=frames,
+                                  n_valid_frames=nvf)
+         for ext, frames, nvf in shards], t)
+    torch.testing.assert_close(onset.onset_flux_plain(plain_db, plain_peak),
+                               ref, atol=1e-5, rtol=0)
+
+
+def test_onset_passes_emulated_match_plain(libs):
+    """The two entry points on their own against their plain versions, on
+    centred files with valid prefixes: dB within 1e-3 where the plain dB
+    is above -60, the peak keys' dB within 1e-3, the flux of the same
+    rows within 1e-5."""
+    y, nvf = file_batch(23586, 4)
+    db, peak = mel_db_emulated(libs, y, spectral.n_frames(23586, 2048, 512),
+                               -1024, nvf)
+    ref_db, ref_peak = onset.onset_mel_db_plain(y, FILE_SR,
+                                                n_valid_frames=nvf)
+    loud = ref_db > -60.0
+    torch.testing.assert_close(db[loud], ref_db[loud], atol=1e-3, rtol=0)
+    torch.testing.assert_close(onset.key_value(peak),
+                               onset.key_value(ref_peak), atol=1e-3, rtol=0)
+    torch.testing.assert_close(flux_emulated(libs, ref_db, ref_peak),
+                               onset.onset_flux_plain(ref_db, ref_peak),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(
+        onset.onset_flux_plain(ref_db, ref_peak),
+        onset.onset_strength_plain(y, FILE_SR, n_valid_frames=nvf),
+        atol=1e-5, rtol=0)
+
+
+def test_order_keys_keep_the_order():
+    v = torch.tensor([-np.inf, -3.5, -0.0, 0.0, 1e-30, 2.0, np.inf],
+                     dtype=torch.float32)
+    k = onset.order_key(v)
+    assert torch.equal(k, torch.sort(k).values)
+    assert torch.equal(onset.key_value(k), v)
+    assert int(onset.order_key(v[:1])) == onset._NEG_INF_KEY
+
+
 LIVE_RING = 33075  # the live engine's 1.5 s ring at 22050 Hz
 
 

@@ -660,7 +660,7 @@ def test_warmup_runs_on_the_cpu_transcriber(port_t, capsys):
      "require --http"),
     (["--in_dir", "i"], "are required without --http"),
     (["--http", "0", "--warmup", "4,banana"], "comma-separated seconds"),
-    (["--http", "0", "--mesh", "4"], "unrecognized arguments"),
+    (["--http", "0", "--mesh", "four"], "invalid int value"),
 ])
 def test_main_refuses_flags(argv, message, capsys):
     with pytest.raises(SystemExit) as e:

@@ -460,8 +460,9 @@ def test_train_synthetic_shim_delegates(tmp_path, monkeypatch):
     from gat_tpu_torch.train import trainer as ttrainer
     shim = _tool("torch_train_synthetic")
     assert shim.main is synthetic.main
+    assert synthetic.parse_args(["--mesh", "2"]).mesh == 2
     with pytest.raises(SystemExit):
-        synthetic.parse_args(["--mesh", "2"])
+        synthetic.parse_args(["--mesh", "two"])
     monkeypatch.setattr(tsynth, "DEFAULT_CLASS_NAMES", CLASSES)
     monkeypatch.setattr(config, "DATASETS_ROOT", tmp_path / "datasets")
     monkeypatch.setattr(ttrainer, "TORCH_CHECKPOINTS_ROOT",
@@ -479,4 +480,4 @@ def test_shims_run_as_scripts(name):
                           "--help"], capture_output=True, text=True,
                          timeout=120, cwd=REPO)
     assert out.returncode == 0 and "--device" in out.stdout
-    assert "--mesh" not in out.stdout
+    assert "--mesh" in out.stdout

@@ -208,7 +208,7 @@ def test_trailing_batch_and_host_transfers(monkeypatch):
     _, tt, *_ = _pair("mlp", n=70)
     steps = []
     step = tt._step
-    tt._step = lambda xb, yb: steps.append(len(yb)) or step(xb, yb)
+    tt._step = lambda xb, yb, *n: steps.append(len(yb)) or step(xb, yb, *n)
     tt.train(epochs=2, verbose=False)
     assert calls == [5, 5]
     assert steps == [8] * 8 + [6] + [8] * 8 + [6]

@@ -8,8 +8,9 @@ recipe:
     python tools/torch_train_synthetic.py --model all --noise --variants 48 \\
         --family all3 --stressor_prob 0.5 --channel_prob 0.25
 
-Checkpoints go under data/checkpoints/torch/<family>/. There is no
-`--mesh`: data-parallel training is not ported yet.
+Checkpoints go under data/checkpoints/torch/<family>/. `--mesh N`
+trains data-parallel over N ranks, one per card (or `--device cpu`),
+under torchrun or started here.
 """
 import sys
 from pathlib import Path
