@@ -7,7 +7,7 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits
 non-zero:
 
 1. the card: name and power limit (nvidia-smi);
-2. build the five CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
+2. build the six CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
    source, in parallel), print nvcc's register/spill report and each
    kernel's resident blocks per SM as the CUDA runtime computes them;
 3. hold each kernel against its plain PyTorch version on the card, at its
@@ -15,7 +15,9 @@ non-zero:
    buffers: the clip kernels K1-K3 at 1024 clips of 0.5 s at 11025 Hz
    (Karplus-Strong plucks over the 47 classes plus noise, from a seed;
    the mel kernel also at 1100 samples, the MFCC kernel also at 4608 and
-   1100, so odd and even frame counts), the file kernels K4 (onset
+   1100, so odd and even frame counts; K2 and K3 with their device time
+   from the profiler, by `time_clip_kernels`, which `[shared]` and
+   `tools/torch_onset_timing.py clip` share), the file kernels K4 (onset
    envelope) and K5 (onset pick) at 64 riffs of 8 s at 22050 Hz (plucks
    from 0.4 s, 0.7 s apart, over the 47 classes, plus noise; one file
    with a zero tail), K5 also from K4's envelopes and with three
@@ -79,7 +81,23 @@ non-zero:
    outputs identical to `pick_onsets_plain`'s), the FeatureBuilder's
    three inference extractors at the 1024 clips (K1-K3 launched, against
    the CPU's at K1-K3's tolerances) and the lazy top-level names;
-13. `[eval]`: the note-accuracy harness, `tools/torch_evaluate.py`, with
+13. `[shared]`: the matmul route (`ops.spectral.set_stft_backend
+   ("matmul")`, back to "auto" and float32 at the phase's end whatever
+   happens) and its shared MFCC and YIN front-end, K6
+   (`csrc/mfcc_pitch_frontend.cu`), on `[main]`'s 1024 clips: K6 against
+   the plain shared front-end (the fp32 block DFT; MFCC atol 1e-3 and
+   rtol 2e-6, pitch rtol 2e-3) and against the FFT route's K2 + K3
+   (features atol 5e-3, the JAX package's bound between its routes), for
+   all four flag combinations; `transcribe_clips` driven with every
+   count at 0 (K6 and K1 once, K2 and K3 never; labels equal to the FFT
+   route's, probs within 1e-2); `transcribe` of the 3.9 s riff (two-stage
+   and fused) and `transcribe_files` on the `[files]` set equal to the
+   FFT route's (labels, onsets, times); at bfloat16 operands, for all
+   four flag combinations, K6 equal bit for bit to K6 of the clips
+   rounded to bfloat16 and within the float32 bounds above of the plain
+   float32 front-end of them; K6 checked and timed by
+   `time_clip_kernels`, as K2 and K3 are, with its blocks per SM;
+14. `[eval]`: the note-accuracy harness, `tools/torch_evaluate.py`, with
    the shipped pair and the witness checkpoint, on the card and on the
    CPU: `evaluate_set` on `mixed` at 8 variants (376 clips) and on
    `modal_unseen_family`, `fm_vibrato` and `modal_full_chain` at 4
@@ -87,7 +105,7 @@ non-zero:
    near-tie passes only with a top-2 margin below 1e-3, printed), and
    `evaluate_wav_dir` over SPN-named riff WAVs, reports equal; K1-K5
    launched; each set's stages timed on the card, synthesis apart;
-14. `[tools]`: the twins of the JAX package's tools on the card:
+15. `[tools]`: the twins of the JAX package's tools on the card:
    `torch_inspect_ckpt` on the five shipped checkpoints; `slice-all` of
    `torch_dataset_creator` on four riff recordings at 44100 Hz, and
    `torch_eda`'s `dataset`, `slices` and `features`, each against the
@@ -102,7 +120,7 @@ non-zero:
    batch and the serving wave (the top table names every kernel
    launched); `torch_roofline_files` on the serving wave (no stage
    measured below its floor);
-15. `[parallel]`: multi-device (`gat_tpu_torch/parallel/`) at world 1
+16. `[parallel]`: multi-device (`gat_tpu_torch/parallel/`) at world 1
    on NCCL (cuda:0, a FileStore rendezvous, torn down at the phase's
    end): K4's two passes as entry points of their own,
    `gat_onset_mel_db` and `gat_onset_flux`, against their plain versions
@@ -119,15 +137,15 @@ non-zero:
    `TrainingManager(mesh=)` against the single-device manager, 2 epochs
    of each family at the shipped widths on a 16-variant dataset
    (histories and parameters), and `dryrun_multichip(1)`;
-16. print the `{"kernels": [...]}` line, the card line, and last
+17. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after (`launches_by_path` in the kernels line:
-clips, file, long, files, serve, http, stream, live, cli, train, eval,
-tools, parallel; the two K4 pass rows launch on `parallel` only);
-`launches` stays the clip path's count for K1-K3 and the file path's for
-K4/K5.
+clips, file, long, files, serve, http, stream, live, cli, train,
+shared, eval, tools, parallel; the two K4 pass rows launch on `parallel` only,
+K6 on `shared` only); `launches` stays the clip path's count for K1-K3,
+the file path's for K4/K5 and the shared clip path's for K6.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -278,10 +296,13 @@ def time_ms(fn, pool, reps: int) -> float:
 
 
 def kernel_device_ms(fn, pool, kernel: str) -> float | None:
-    """Device time per call of the device functions of `kernel` (K1..K5,
-    `load_roofline().KERNEL_SYMBOLS`), from torch.profiler over one
-    call on every buffer of the pool; None when the profiler saw no
-    device time."""
+    """Device time per call of the device functions of `kernel` (K1..K6,
+    `load_roofline().KERNEL_SYMBOLS`), each launched once a call, from
+    torch.profiler over one call on every buffer of the pool: each
+    function's mean over the launches the profiler kept, summed (a trace
+    late in a long process has been seen to keep 4 of 6 launches, which
+    a sum over the pool would read as a faster kernel; such a loss is
+    logged). None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     names = load_roofline().KERNEL_SYMBOLS[kernel]
@@ -292,9 +313,17 @@ def kernel_device_ms(fn, pool, kernel: str) -> float | None:
         for x in pool:
             fn(x)
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.key.startswith(names))
-    return total / 1e3 / len(pool) if total > 0 else None
+    events = prof.key_averages()
+    per_call = 0.0
+    for name in names:
+        kept = [e for e in events if e.key.startswith(name)]
+        n = sum(e.count for e in kept)
+        if n:
+            per_call += sum(e.self_device_time_total for e in kept) / n
+        if n != len(pool):
+            log(f"[profile] {name}: the trace kept {n} of {len(pool)} "
+                f"launches")
+    return per_call / 1e3 if per_call > 0 else None
 
 
 def fmt_ms(ms: float | None) -> str:
@@ -391,6 +420,119 @@ def time_envelope(onset, dev, failures: list) -> list[dict]:
             f"({row['bound_by']}); max abs err {err:.3g} (atol 1e-3) -> "
             f"{'ok' if ok else 'FAIL'}")
         rows.append(row)
+    return rows
+
+
+SHARED_FLAGS = ((True, False), (True, True), (False, True), (False, False))
+
+# K2, K3 and K6: kernel, source, the TPU kernel or XLA program replaced,
+# and the tolerance `time_clip_kernels` holds each to
+CLIP_KERNELS = {
+    "mfcc_frontend": (
+        "K2", "gat_tpu_torch/csrc/mfcc_frontend.cu",
+        "gat_tpu/ops/pallas/mfcc_frontend.py:87",
+        "atol 1e-3 on the 64 coefficients, also at 10 and 3 frames"),
+    "yin_pitch": (
+        "K3", "gat_tpu_torch/csrc/yin_pitch.cu", "gat_tpu/ops/yin.py:267",
+        "rtol 2e-3 on the pitch of every clip"),
+    "mfcc_pitch_frontend": (
+        "K6", "gat_tpu_torch/csrc/mfcc_pitch_frontend.cu",
+        "gat_tpu/features.py:67",
+        "MFCC atol 1e-3 and rtol 2e-6, pitch rtol 2e-3 on every clip, "
+        "against the plain shared front-end at the four flag "
+        "combinations"),
+}
+
+
+def check_clip_kernel(name: str, features, yin, clips) -> tuple[float, bool]:
+    """(max abs error, ok) of one of CLIP_KERNELS on `clips` against its
+    plain version, at the tolerance CLIP_KERNELS states; logged."""
+    import torch
+    if name == "mfcc_frontend":
+        def err_of(x):
+            d = features.mfcc_frontend(x, SR) - features.mfcc_frontend_plain(
+                x, SR)
+            return float(d.abs().max())
+        err = err_of(clips)
+        ok = err <= 1e-3
+        # 10 frames, and 3: an odd count runs with a zero partner
+        for short_len in (4608, 1100):
+            e = err_of(clips[:, :short_len].contiguous())
+            log(f"[check] mfcc_frontend at {short_len} samples "
+                f"({1 + short_len // 512} frames): max abs err {e:.6g}")
+            ok = ok and e <= 1e-3
+    elif name == "yin_pitch":
+        got, ref = yin.yin_pitch(clips, SR), yin.yin_pitch_plain(clips, SR)
+        rel = (got - ref).abs() / ref.abs()
+        err = float((got - ref).abs().max())
+        ok = float(rel.max()) <= 2e-3 and bool(torch.isfinite(got).all())
+        log(f"[check] yin_pitch max rel err {float(rel.max()):.3g}, clips "
+            f"over rtol 2e-3: {int((rel > 2e-3).sum())}")
+    else:
+        err, ok = 0.0, True
+        for norm, pon in SHARED_FLAGS:
+            got, hz = features.mfcc_pitch_features(clips, SR, 64, norm, pon)
+            ref, ref_hz = features.mfcc_pitch_features_plain(clips, SR, 64,
+                                                             norm, pon)
+            d = (got[:, :64] - ref[:, :64]).abs()
+            rel = (hz / ref_hz - 1).abs()
+            n_over = int((rel > 2e-3).sum())
+            err = max(err, float(d.max()))
+            ok = (ok and bool((d <= 1e-3 + 2e-6 * ref[:, :64].abs()).all())
+                  and n_over == 0 and bool(torch.isfinite(got).all()))
+            log(f"[check] mfcc_pitch_frontend normalize={norm} "
+                f"pitch_on_normalized={pon}: MFCC max abs err "
+                f"{float(d.max()):.3g}, pitch max rel {float(rel.max()):.3g}"
+                f", clips over rtol 2e-3: {n_over}")
+    log(f"[check] {name}: max abs err {err:.6g} ({CLIP_KERNELS[name][3]}) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    return err, ok
+
+
+def time_clip_kernels(features, yin, clips, failures: list,
+                      names=tuple(CLIP_KERNELS)) -> list[dict]:
+    """The kernels-line rows of `names` among K2, K3 and K6 (CLIP_KERNELS;
+    of the package whose `features` and `yin` are passed, K6 left out
+    where it has none) at `clips`, the clip path's 1024 clips of 0.5 s:
+    each checked against its plain version (`check_clip_kernel`), then
+    timed: kernel ms in CUDA events over POOL distinct buffers, device
+    ms in the profiler, plain ms, and the bound of `utils/roofline.py`.
+    `launches` is 0: the path that drives a kernel fills it in."""
+    import torch
+    roofline = load_roofline()
+    n, length = clips.shape
+    pool = noisy_pool(clips, SEED, 0.01)
+    specs = {"mfcc_frontend": (lambda x: features.mfcc_frontend(x, SR),
+                               lambda x: features.mfcc_frontend_plain(x, SR),
+                               lambda: roofline.mfcc_cost(n, length, SR,
+                                                          clips.device)),
+             "yin_pitch": (lambda x: yin.yin_pitch(x, SR),
+                           lambda x: yin.yin_pitch_plain(x, SR),
+                           lambda: roofline.yin_cost(n, length, SR))}
+    if hasattr(features, "mfcc_pitch_features"):
+        specs["mfcc_pitch_frontend"] = (
+            lambda x: features.mfcc_pitch_features(x, SR),
+            lambda x: features.mfcc_pitch_features_plain(x, SR),
+            lambda: roofline.mfcc_pitch_cost(n, length, SR, clips.device))
+    rows = []
+    for name in (m for m in names if m in specs):
+        fn, plain, cost = specs[name]
+        kernel, source, replaces, tolerance = CLIP_KERNELS[name]
+        err, ok = check_clip_kernel(name, features, yin, clips)
+        if not ok:
+            failures.append(f"{name} against its plain version")
+        bound_ms, bound_by = roofline.bound(*cost())
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   launches=0, max_abs_err=err, tolerance=tolerance,
+                   ms=time_ms(fn, pool, reps=10), plain_ms=time_ms(
+                       plain, pool, reps=10), bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None,
+                   device_ms=kernel_device_ms(fn, pool, kernel))
+        log(f"[time] {name} at {n} x {length}: kernel {row['ms']:.4f} ms "
+            f"(events), {fmt_ms(row['device_ms'])} device (profiler), plain "
+            f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        rows.append(row)
+        torch.cuda.synchronize()
     return rows
 
 
@@ -2224,7 +2366,7 @@ def shard_inputs(y: np.ndarray, d: int, dev) -> list:
 def parallel_phase(rows: list, card: str, failures: list,
                    clips_np: np.ndarray) -> None:
     """`[parallel]`: the multi-device path at world 1 on NCCL (module
-    docstring, phase 15). Appends the kernels-line rows of K4's two
+    docstring, phase 16). Appends the kernels-line rows of K4's two
     passes and records `launches_by_path["parallel"]` for all seven."""
     import datetime
     import os
@@ -2437,6 +2579,138 @@ def parallel_phase(rows: list, card: str, failures: list,
     torch.cuda.synchronize()
 
 
+def shared_phase(rows: list, card: str, failures: list,
+                 clips_np: np.ndarray, device: str = "cuda") -> None:
+    """`[shared]`: the matmul route's shared MFCC and YIN front-end, K6
+    (module docstring, phase 13). Appends K6's kernels-line row and
+    records `launches_by_path["shared"]` for K1-K6."""
+    import torch
+    from gat_tpu_torch import features, kernels
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.ops import spectral, yin
+    from gat_tpu_torch.utils.wavio import write_wav
+    clips = torch.from_numpy(clips_np).to(torch.device(device))
+    n, length = clips.shape
+    t = Transcriber(device=device)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            riff = Path(d) / "riff.wav"
+            write_wav(riff, make_riffs(np.array([FILE_MIDI]), 3.9, FILE_SR,
+                                       SEED + 2, noise=0.0)[0], FILE_SR)
+            groups, silent, _ = write_files_set(Path(d))
+            paths = [p for g in groups for p, _ in g] + [silent]
+
+            def path_results():
+                return ([t.transcribe(riff, fused=f) for f in (False, True)],
+                        t.transcribe_files(paths))
+
+            # the FFT route's results and its K2 + K3 features first
+            fft_clips = t.transcribe_clips(clips)
+            fft_riff, fft_files = path_results()
+            fft_feats = {}
+            for norm, pon in SHARED_FLAGS:
+                hz = yin.yin_pitch(features.normalize_volume(clips)
+                                   if norm and pon else clips, SR)
+                fft_feats[norm, pon] = torch.cat(
+                    [features.mfcc_frontend(clips, SR, 64, norm),
+                     torch.log10(hz)[:, None]], dim=1)
+
+            spectral.set_stft_backend("matmul")
+            # K6 against the plain shared front-end, and timed
+            k6 = time_clip_kernels(features, yin, clips, failures,
+                                   ("mfcc_pitch_frontend",))[0]
+            for norm, pon in SHARED_FLAGS:
+                got, _ = features.mfcc_pitch_features(clips, SR, 64, norm,
+                                                      pon)
+                e_route = float((got - fft_feats[norm, pon]).abs().max())
+                ok = e_route <= 5e-3
+                log(f"[shared] K6 normalize={norm} pitch_on_normalized="
+                    f"{pon}: vs the FFT route's K2 + K3 max abs err "
+                    f"{e_route:.3g} (5e-3) -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"[shared] K6 flags {norm}/{pon}")
+
+            # the clip path, driven: every count at 0 before, read after
+            wrappers = kernel_wrappers() + [features.mfcc_pitch_features]
+            t.transcribe_clips(clips)
+            torch.cuda.synchronize()
+            for w in wrappers:
+                w.launches = 0
+            res = t.transcribe_clips(clips)
+            torch.cuda.synchronize()
+            launches = [w.launches for w in wrappers]
+            record_launches(rows, "shared", launches[:5])
+            err = float(np.abs(res["probs"] - fft_clips["probs"]).max())
+            same = res["labels"] == fft_clips["labels"] and err <= 1e-2
+            ok = same and launches[:3] == [1, 0, 0] and launches[5] == 1
+            log(f"[shared] transcribe_clips({n}) on the shared route: "
+                f"launches K1..K5 {launches[:5]}, K6 {launches[5]}; labels "
+                f"equal to the FFT route's {res['labels'] == fft_clips['labels']}"
+                f", max prob diff {err:.3g} (1e-2) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("[shared] transcribe_clips")
+
+            got_riff, got_files = path_results()
+            same = all(same_result(g, r)[0]
+                       for g, r in zip(got_riff + got_files,
+                                       fft_riff + fft_files))
+            log(f"[shared] transcribe (3.9 s riff, two-stage and fused) and "
+                f"transcribe_files ({len(paths)} files) on the matmul route: "
+                f"labels, onsets and times equal to the FFT route's {same}; "
+                f"riff labels {got_riff[0]['labels']}")
+            if not same or len(got_files) != len(fft_files):
+                failures.append("[shared] file paths differ from the FFT "
+                                "route")
+
+            # bfloat16 operands: the wrapper hands K6 the clips rounded to
+            # bfloat16, so its result is K6's of the rounded clips bit for
+            # bit, and the fp32 plain front-end's of them at fp32's bounds
+            spectral.set_matmul_dtype(torch.bfloat16)
+            xr = clips.to(torch.bfloat16).float()
+            for norm, pon in SHARED_FLAGS:
+                got16, hz16 = features.mfcc_pitch_features(clips, SR, 64,
+                                                           norm, pon)
+                same, same_hz = features.mfcc_pitch_features(
+                    xr, SR, 64, norm, pon, bf16=False)
+                ref, ref_hz = features.mfcc_pitch_features_plain(
+                    xr, SR, 64, norm, pon, bf16=False)
+                bitwise = (torch.equal(got16, same)
+                           and torch.equal(hz16, same_hz))
+                d = (got16[:, :64] - ref[:, :64]).abs()
+                n_over = int(((hz16 / ref_hz - 1).abs() > 2e-3).sum())
+                ok = (bitwise and n_over == 0
+                      and bool((d <= 1e-3 + 2e-6 * ref[:, :64].abs()).all()))
+                log(f"[shared] bfloat16 operands, normalize={norm} "
+                    f"pitch_on_normalized={pon}: K6 equal to K6 of the "
+                    f"clips rounded to bfloat16 {bitwise}; vs the float32 "
+                    f"plain front-end of them MFCC max abs err "
+                    f"{float(d.max()):.3g} (atol 1e-3, rtol 2e-6), clips over "
+                    f"pitch rtol 2e-3: {n_over} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"[shared] K6 at bfloat16 flags "
+                                    f"{norm}/{pon}")
+            spectral.set_matmul_dtype(torch.float32)
+
+        max_p = yin.yin_periods(SR, 50.0, 1000.0, 2048, 1024)[1]
+        blocks = ctypes.c_int(0)
+        args = (length, 512, spectral.n_frames(length, 2048, 512), 128,
+                1024, max_p)
+        kernels.check(kernels.function(
+            "mfcc_pitch_frontend", "gat_mfcc_pitch_frontend_blocks_per_sm",
+            [ctypes.c_int] * len(args) + [ctypes.c_void_p])(
+                *args, ctypes.addressof(blocks)), "mfcc_pitch_frontend")
+        log(f"[occupancy] mfcc_pitch_frontend_kernel: {blocks.value} "
+            f"resident blocks of 256 threads per SM at {n} x {length} on "
+            f"{card}")
+        rows.append(dict(k6, launches=launches[5], blocks_per_sm=blocks.value,
+                         launches_by_path={"shared": launches[5]}))
+    finally:
+        spectral.set_stft_backend("auto")
+        spectral.set_matmul_dtype(torch.float32)
+    torch.cuda.synchronize()
+
+
 def parallel_train(mesh, failures: list) -> None:
     """`TrainingManager(mesh=)` against the single-device manager:
     PARALLEL_EPOCHS epochs of each family at the shipped widths (the MLP
@@ -2560,78 +2834,42 @@ def main() -> int:
         log(f"[occupancy] {name}_kernel: {blocks.value} resident blocks of "
             f"256 threads per SM at {at}")
 
-    specs = [
-        dict(name="melspec_frontend", fn=features.melspec_features,
-             plain=features.melspec_features_plain,
-             source="gat_tpu_torch/csrc/melspec_frontend.cu",
-             replaces="gat_tpu/ops/pallas/melspec_frontend.py:71",
-             tolerance="atol 0.1 dB where the plain image > -60 dB; "
-                       "finite and >= -100 dB everywhere",
-             cost=roofline.melspec_cost(n, length, SR, dev)),
-        dict(name="mfcc_frontend", fn=features.mfcc_frontend,
-             plain=features.mfcc_frontend_plain,
-             source="gat_tpu_torch/csrc/mfcc_frontend.cu",
-             replaces="gat_tpu/ops/pallas/mfcc_frontend.py:87",
-             tolerance="atol 1e-3 on the 64 coefficients",
-             cost=roofline.mfcc_cost(n, length, SR, dev)),
-        dict(name="yin_pitch", fn=yin.yin_pitch, plain=yin.yin_pitch_plain,
-             source="gat_tpu_torch/csrc/yin_pitch.cu",
-             replaces="gat_tpu/ops/yin.py:267",
-             tolerance="rtol 2e-3 on the pitch of every clip",
-             cost=roofline.yin_cost(n, length, SR)),
-    ]
+    def melspec(x):
+        return features.melspec_features(x, SR)
+
+    def melspec_plain(x):
+        return features.melspec_features_plain(x, SR)
+
     failures = []
-    rows = []
-    for s in specs:
-        fn = (lambda x, f=s["fn"]: f(x, SR))
-        plain = (lambda x, f=s["plain"]: f(x, SR))
-        got = fn(clips)
-        ref = plain(clips)
-        torch.cuda.synchronize()
-        if s["name"] == "melspec_frontend":
-            err, ok = mel_error(got, ref)
-            # an odd frame count: the last frame's FFT has a zero partner
-            short = clips[:, :1100].contiguous()
-            err_odd, ok_odd = mel_error(fn(short), plain(short))
-            log(f"[check] melspec_frontend at 1100 samples "
-                f"({spectral.n_frames(1100, 2048, 256)} frames): max abs "
-                f"err {err_odd:.6g} -> {'ok' if ok_odd else 'FAIL'}")
-            ok = ok and ok_odd
-        elif s["name"] == "mfcc_frontend":
-            err = float((got - ref).abs().max())
-            ok = err <= 1e-3 and bool(torch.isfinite(got).all())
-            # 10 frames, and 3: an odd count runs with a zero partner
-            for short_len in (4608, 1100):
-                short = clips[:, :short_len].contiguous()
-                err_short = float((fn(short) - plain(short)).abs().max())
-                ok_short = err_short <= 1e-3
-                log(f"[check] mfcc_frontend at {short_len} samples "
-                    f"({spectral.n_frames(short_len, 2048, 512)} frames): "
-                    f"max abs err {err_short:.6g} -> "
-                    f"{'ok' if ok_short else 'FAIL'}")
-                ok = ok and ok_short
-        else:
-            rel = (got - ref).abs() / ref.abs()
-            err = float((got - ref).abs().max())
-            ok = float(rel.max()) <= 2e-3 and bool(torch.isfinite(got).all())
-            log(f"[check] yin_pitch max rel err {float(rel.max()):.3g}, "
-                f"clips over rtol 2e-3: {int((rel > 2e-3).sum())}")
-        log(f"[check] {s['name']}: shape {tuple(got.shape)} max abs err "
-            f"{err:.6g} ({s['tolerance']}) -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(s["name"])
-        ms = time_ms(fn, pool, reps=10)
-        plain_ms = time_ms(plain, pool, reps=10)
-        bound_ms, bound_by = roofline.bound(*s["cost"])
-        log(f"[time] {s['name']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {bound_ms:.4f} ms ({bound_by})")
-        rows.append(dict(name=s["name"], route="cuda", source=s["source"],
-                         replaces=s["replaces"], launches=0,
-                         max_abs_err=err, tolerance=s["tolerance"],
-                         ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None))
-        torch.cuda.synchronize()
+    err, ok = mel_error(melspec(clips), melspec_plain(clips))
+    # an odd frame count: the last frame's FFT has a zero partner
+    short = clips[:, :1100].contiguous()
+    err_odd, ok_odd = mel_error(melspec(short), melspec_plain(short))
+    log(f"[check] melspec_frontend at 1100 samples "
+        f"({spectral.n_frames(1100, 2048, 256)} frames): max abs "
+        f"err {err_odd:.6g} -> {'ok' if ok_odd else 'FAIL'}")
+    tolerance = ("atol 0.1 dB where the plain image > -60 dB; finite and "
+                 ">= -100 dB everywhere")
+    log(f"[check] melspec_frontend: max abs err {err:.6g} ({tolerance}) -> "
+        f"{'ok' if ok and ok_odd else 'FAIL'}")
+    if not (ok and ok_odd):
+        failures.append("melspec_frontend")
+    ms = time_ms(melspec, pool, reps=10)
+    plain_ms = time_ms(melspec_plain, pool, reps=10)
+    bound_ms, bound_by = roofline.bound(*roofline.melspec_cost(n, length, SR,
+                                                               dev))
+    log(f"[time] melspec_frontend: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+    rows = [dict(name="melspec_frontend", route="cuda",
+                 source="gat_tpu_torch/csrc/melspec_frontend.cu",
+                 replaces="gat_tpu/ops/pallas/melspec_frontend.py:71",
+                 launches=0, max_abs_err=err, tolerance=tolerance, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None)]
+    torch.cuda.synchronize()
+    # K2 and K3, checked and timed as tools/torch_onset_timing.py does
+    rows += time_clip_kernels(features, yin, clips, failures,
+                              ("mfcc_frontend", "yin_pitch"))
 
     rows += check_file_kernels(dev, failures)
 
@@ -2639,12 +2877,12 @@ def main() -> int:
     t = Transcriber(device="cuda")
     res, launches, first_s = driven(lambda: t.transcribe_clips(clips))
     record_launches(rows, "clips", launches)
-    for row, n in zip(rows[:len(specs)], launches):
-        row["launches"] = n
-        if n < 1:
+    for row, k in zip(rows[:3], launches):
+        row["launches"] = k
+        if k < 1:
             failures.append(f"{row['name']} not launched on the main path")
     log(f"[main] transcribe_clips({N_CLIPS}) first call {first_s:.3f} s, "
-        f"launches {[r['launches'] for r in rows[:len(specs)]]}")
+        f"launches {[r['launches'] for r in rows[:3]]}")
 
     probs = np.asarray(res["probs"])
     pitch = np.asarray([p for p, _ in res["dsp_info"]])
@@ -2737,14 +2975,18 @@ def main() -> int:
     # ---- 12. the rest of the public API -----------------------------------
     api_phase(rows, clips_np, midi, failures)
 
-    # ---- 13. the note-accuracy harness ------------------------------------
+    # ---- 13. the matmul route's shared front-end --------------------------
+    shared_phase(rows, card, failures, clips_np)
+
+    # ---- 14. the note-accuracy harness ------------------------------------
     eval_phase(rows, card, failures)
 
-    # ---- 14. the tools ----------------------------------------------------
+    # ---- 15. the tools ----------------------------------------------------
     tools_phase(rows, card, failures)
 
-    # ---- 15. multi-device at world 1 --------------------------------------
+    # ---- 16. multi-device at world 1 --------------------------------------
     parallel_phase(rows, card, failures, clips_np)
+
 
     if failures:
         log(f"[fail] {failures}")

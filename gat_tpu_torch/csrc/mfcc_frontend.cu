@@ -18,9 +18,10 @@
 // against 22 KB read and 256 B written, so its roofline bound is the fp32
 // operation rate. The clamp needs the whole clip's mel image before any
 // coefficient can be formed, so one block of 256 threads owns one clip.
-// Steps 2 and 3 are K1's round loop (mel_rounds.cuh): two adjacent frames
-// per complex FFT as register Stockham passes, four frames in flight, the
-// mel spread over all threads; the clip is read through L1, never copied
+// Steps 2-5 are mfcc_mean.cuh, which K6 shares. Steps 2 and 3 are K1's
+// round loop (mel_rounds.cuh): two adjacent frames per complex FFT as
+// register Stockham passes, four frames in flight, the mel spread over
+// all threads; the clip is read through L1, never copied
 // to shared memory. An 11-frame clip takes 3 rounds: (0,1)(2,3),
 // (4,5)(6,7), (8,9)(10,-). The epilogue keeps the 11 x 128 dB image in
 // shared memory; each thread folds the values it writes into a running
@@ -30,17 +31,12 @@
 // 2048 floats of exchange and 128 x 36 of partial sums, and the image,
 // 56,832 bytes for 11 frames, so four blocks fit on an SM with
 // __launch_bounds__(256, 4).
-#include <cmath>
-
-#include "mel_rounds.cuh"
+#include "mfcc_mean.cuh"
 
 using namespace gat;
 
-constexpr int kDctParts = 4;  // parts of the bands per DCT coefficient
-
 static size_t mfcc_smem_bytes(int n_mels, int n_frames) {
-  return sizeof(float) *
-         (size_t)(mel_rounds_floats(n_mels) + n_frames * n_mels);
+  return sizeof(float) * (size_t)mfcc_mean_floats(n_mels, n_frames);
 }
 
 __global__ void __launch_bounds__(kThreads, 4)
@@ -54,50 +50,11 @@ mfcc_frontend_kernel(const float* __restrict__ clips,
                      int n_frames, int n_mels, int n_mfcc, int normalize,
                      float top_db) {
   extern __shared__ float smem[];
-  float* img = smem + mel_rounds_floats(n_mels);  // n_frames x n_mels
-  // after the rounds, over the exchange buffer:
-  float* scratch = smem;                 // kThreads
-  float* mean_db = scratch + kThreads;   // n_mels
-  float* part = mean_db + n_mels;        // kDctParts x n_mfcc
-
   const float* clip = clips + (size_t)blockIdx.x * n_samples;
   const float scale = power_scale(clip, n_samples, normalize, smem);
-
-  float peak = -INFINITY;
-  mel_rounds</*kReflect=*/false>(
-      clip, n_samples, hop, 0, n_frames, n_mels, hann, tw, fb, lo, hi, smem,
-      [&](int m, int t, float v) {
-        const float db = 10.0f * log10f(fmaxf(v * scale, 1e-10f));
-        img[t * n_mels + m] = db;
-        peak = fmaxf(peak, db);
-      });
-  // block_max's first barrier also publishes the image
-  const float floor_db = block_max(peak, scratch) - top_db;
-
-  for (int m = threadIdx.x; m < n_mels; m += kThreads) {
-    float s = 0.0f;
-    for (int t = 0; t < n_frames; ++t)
-      s += fmaxf(img[t * n_mels + m], floor_db);
-    mean_db[m] = s / (float)n_frames;
-  }
-  __syncthreads();
-
-  // DCT-II of the mean: item i is (coefficient k, part p of the bands)
-  const int len = (n_mels + kDctParts - 1) / kDctParts;
-  for (int i = threadIdx.x; i < n_mfcc * kDctParts; i += kThreads) {
-    const int k = i % n_mfcc, p = i / n_mfcc;
-    const int m1 = (p + 1) * len < n_mels ? (p + 1) * len : n_mels;
-    float acc = 0.0f;
-    for (int m = p * len; m < m1; ++m) acc += mean_db[m] * dct[m * n_mfcc + k];
-    part[p * n_mfcc + k] = acc;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < n_mfcc; k += kThreads) {
-    float acc = part[k];
-#pragma unroll
-    for (int p = 1; p < kDctParts; ++p) acc += part[p * n_mfcc + k];
-    out[(size_t)blockIdx.x * n_mfcc + k] = acc;
-  }
+  mfcc_mean(clip, n_samples, hop, n_frames, n_mels, n_mfcc, scale, top_db,
+            hann, tw, fb, lo, hi, dct, smem,
+            out + (size_t)blockIdx.x * n_mfcc);
 }
 
 static cudaError_t mfcc_set_attributes(int n_mels, int n_frames) {
@@ -113,8 +70,8 @@ extern "C" int gat_mfcc_frontend(const float* clips, float* out,
                                  int n_clips, int n_samples, int hop,
                                  int n_frames, int n_mels, int n_mfcc,
                                  int normalize, float top_db, void* stream) {
-  if (kThreads + n_mels + kDctParts * n_mfcc > 4 * kFFT)
-    return (int)cudaErrorInvalidValue;  // the epilogue's buffers
+  if (!mfcc_epilogue_fits(n_mels, n_mfcc))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = mfcc_set_attributes(n_mels, n_frames);
   if (err != cudaSuccess) return (int)err;
   mfcc_frontend_kernel<<<n_clips, kThreads, mfcc_smem_bytes(n_mels, n_frames),

@@ -1,0 +1,91 @@
+// The MFCC mean of one clip, shared by K2 (mfcc_frontend.cu) and K6
+// (mfcc_pitch_frontend.cu): K1's round loop (mel_rounds.cuh) over a zero
+// centre pad, then the epilogue:
+//   1. 10*log10(max(v * scale, 1e-10)) per (band, frame) into a dB image in
+//      shared memory, each thread folding the values it writes into a
+//      running max, so the clip's peak costs one block reduction;
+//   2. the clamp at peak - top_db and the mean over frames, one thread per
+//      band;
+//   3. one orthonormal DCT-II of the mean (it commutes with the mean), 4
+//      parts of the bands per coefficient over all threads, then the sum
+//      of the parts in order.
+#pragma once
+
+#include <cmath>
+
+#include "mel_rounds.cuh"
+
+namespace gat {
+
+constexpr int kDctParts = 4;  // parts of the bands per DCT coefficient
+
+// Floats of shared memory `mfcc_mean` uses from its `smem`: the rounds'
+// exchange buffer and partial sums, then the n_frames x n_mels dB image.
+__host__ __device__ constexpr int mfcc_mean_floats(int n_mels, int n_frames) {
+  return mel_rounds_floats(n_mels) + n_frames * n_mels;
+}
+
+// Whether the epilogue's buffers (the block reduction's kThreads floats,
+// the n_mels means, kDctParts x n_mfcc parts) fit in the rounds' exchange
+// buffer, which they reuse.
+__host__ __device__ constexpr bool mfcc_epilogue_fits(int n_mels, int n_mfcc) {
+  return kThreads + n_mels + kDctParts * n_mfcc <= 4 * kFFT;
+}
+
+// Writes the n_mfcc coefficients of the clip's mean MFCC to out[0..n_mfcc).
+// `scale` multiplies the rounds' mel sums: the split's (1/2)^2 times the
+// volume scale of the power. `clip` may point into shared memory; frame t
+// reads clip samples t * hop + n - kFFT / 2, zeros outside [0, n_samples).
+// Every thread of the block calls this; on return `smem` is free again
+// once the block has passed a barrier.
+__device__ __forceinline__ void mfcc_mean(
+    const float* __restrict__ clip, int n_samples, int hop, int n_frames,
+    int n_mels, int n_mfcc, float scale, float top_db,
+    const float* __restrict__ hann, const float* __restrict__ tw,
+    const float* __restrict__ fb, const int* __restrict__ lo,
+    const int* __restrict__ hi, const float* __restrict__ dct, float* smem,
+    float* __restrict__ out) {
+  float* img = smem + mel_rounds_floats(n_mels);  // n_frames x n_mels
+  // after the rounds, over the exchange buffer:
+  float* scratch = smem;                 // kThreads
+  float* mean_db = scratch + kThreads;   // n_mels
+  float* part = mean_db + n_mels;        // kDctParts x n_mfcc
+
+  float peak = -INFINITY;
+  mel_rounds</*kReflect=*/false>(
+      clip, n_samples, hop, 0, n_frames, n_mels, hann, tw, fb, lo, hi, smem,
+      [&](int m, int t, float v) {
+        const float db = 10.0f * log10f(fmaxf(v * scale, 1e-10f));
+        img[t * n_mels + m] = db;
+        peak = fmaxf(peak, db);
+      });
+  // block_max's first barrier also publishes the image
+  const float floor_db = block_max(peak, scratch) - top_db;
+
+  for (int m = threadIdx.x; m < n_mels; m += kThreads) {
+    float s = 0.0f;
+    for (int t = 0; t < n_frames; ++t)
+      s += fmaxf(img[t * n_mels + m], floor_db);
+    mean_db[m] = s / (float)n_frames;
+  }
+  __syncthreads();
+
+  // DCT-II of the mean: item i is (coefficient k, part p of the bands)
+  const int len = (n_mels + kDctParts - 1) / kDctParts;
+  for (int i = threadIdx.x; i < n_mfcc * kDctParts; i += kThreads) {
+    const int k = i % n_mfcc, p = i / n_mfcc;
+    const int m1 = (p + 1) * len < n_mels ? (p + 1) * len : n_mels;
+    float acc = 0.0f;
+    for (int m = p * len; m < m1; ++m) acc += mean_db[m] * dct[m * n_mfcc + k];
+    part[p * n_mfcc + k] = acc;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n_mfcc; k += kThreads) {
+    float acc = part[k];
+#pragma unroll
+    for (int p = 1; p < kDctParts; ++p) acc += part[p * n_mfcc + k];
+    out[k] = acc;
+  }
+}
+
+}  // namespace gat

@@ -3,22 +3,13 @@
 // Replaces the TPU-side YIN program gat_tpu/ops/yin.py::yin_pitch
 // (_cmnd / _cmnd_block + _f0_from_cmnd + the median), which the JAX
 // package runs as XLA code (its ACF goes through DFT GEMMs on the TPU).
-// Per clip, with frames of frame_length at hop `hop` over a zero center
-// pad of frame_length/2:
-//   1. acf(tau) = sum_{i=1..W} x[i] x[i+tau] and the sliding energy
-//      e(tau) = sum_{i=1..W} x[i+tau]^2, tau = 0..max_p, both zeroed
-//      below 1e-6;
-//   2. d(tau) = e(0) + e(tau) - 2 acf(tau) and the cumulative-mean-
-//      normalized difference over tau in [min_p, max_p];
-//   3. the first trough below `threshold` (troughs: left-strict, right
-//      non-strict, position 0 a trough iff c0 < c1), else the first global
-//      minimum; a parabolic shift (0 at the edges or when |shift| > 1);
-//   4. f0 = sr / period per frame, then the median over frames (the mean
-//      of the two middle values when the count is even, as jnp.median).
+// Per clip: the median YIN f0 of its frames, steps 1-4 of yin_acf.cuh,
+// whose device code K6 (mfcc_pitch_frontend.cu) shares.
 //
-// What bounds it: the ACF is frames * (max_p + 1) * W multiply-adds, about
-// 2.5 M per 0.5 s clip at 11025 Hz, against 22 KB read per clip: it is
-// bound by operations. One block of 256 threads owns one clip, staged in
+// What bounds it: operations. The function's least work is the ACF from
+// FFTs, 1.9 M flops per 0.5 s clip at 11025 Hz (utils/roofline.py::
+// yin_cost), against 22 KB read; this kernel's direct ACF does frames *
+// (max_p + 1) * W multiply-adds, about 2.5 M, for its precision (below). One block of 256 threads owns one clip, staged in
 // shared memory with its zero pad. The ACF is tiled in registers:
 //   - Each thread computes kTile = 7 consecutive lags tau0 .. tau0 + 6 of
 //     one frame over one segment of i, and keeps the window x[i + tau0 ..
@@ -54,74 +45,9 @@
 // the CMND, both in place over the ACF. The trough walk and the median
 // run one thread per frame and one per clip. Shared memory at 11 frames
 // of 222 lags: 50,680 bytes, so four blocks fit on an SM.
-#include <cmath>
-
-#include "dsp_common.cuh"
+#include "yin_acf.cuh"
 
 using namespace gat;
-
-constexpr float kTiny = 1.1754944e-38f;  // np.finfo(np.float32).tiny
-constexpr int kChunks = 8;               // energy scan chunks per frame
-constexpr int kTile = 7;                 // lags per thread, odd
-constexpr int kWarp = 32;
-constexpr int kBlockLags = kWarp * kTile;  // lags per unit: 224
-constexpr int kSegs = kThreads / kWarp;    // segments of i: one per warp
-
-// The shared-memory layout of one block: byte offsets, doubles first.
-struct YinLayout {
-  int n_lags, lag_blocks, padded_len;
-  size_t chunk, dchunk, acf, red, f0, padded, bytes;
-  __host__ __device__ YinLayout(int win, int hop, int n_frames, int max_p) {
-    n_lags = max_p + 1;
-    lag_blocks = (n_lags + kBlockLags - 1) / kBlockLags;
-    // up to the highest sample read, x[win + lag_blocks * kBlockLags] of
-    // the last frame (the window refill after the ACF's last step)
-    padded_len = (n_frames - 1) * hop + win + lag_blocks * kBlockLags + 1;
-    chunk = 0;  // fp64 energy sum per (frame, chunk)
-    dchunk = chunk + sizeof(double) * n_frames * kChunks;
-    acf = dchunk + sizeof(float) * n_frames * kChunks;
-    red = acf + sizeof(float) * n_frames * n_lags;
-    f0 = red + sizeof(float) * 2 * kSegs * kBlockLags;
-    padded = f0 + sizeof(float) * n_frames;
-    bytes = padded + sizeof(float) * padded_len;
-  }
-};
-
-// The energy scan's term at lag tau: the square entering the window
-// minus the square leaving it.
-__device__ __forceinline__ double energy_step(const float* x, int tau,
-                                              int win) {
-  const double enter = x[tau + win], leave = x[tau];
-  return enter * enter - leave * leave;
-}
-
-// acc[r] += sum_{i0 <= i < i1} x[i] x[i + tau0 + r], r < kTile, with the
-// window x[i + tau0 + r] in registers.
-__device__ __forceinline__ void acf_tile(const float* x, int i0, int i1,
-                                         int tau0, float* acc) {
-  const float* xw = x + tau0;
-  float w[kTile];  // slot (s + r) % kTile holds xw[i + s + r] at step s
-#pragma unroll
-  for (int r = 0; r < kTile; ++r) w[r] = xw[i0 + r];
-  int i = i0;
-  for (; i + kTile <= i1; i += kTile) {
-#pragma unroll
-    for (int s = 0; s < kTile; ++s) {
-      const float xi = x[i + s];
-#pragma unroll
-      for (int r = 0; r < kTile; ++r) acc[r] += xi * w[(s + r) % kTile];
-      w[s] = xw[i + s + kTile];  // slot s is done with xw[i + s]
-    }
-  }
-  for (; i < i1; ++i) {  // the rest, fewer than kTile steps
-    const float xi = x[i];
-#pragma unroll
-    for (int r = 0; r < kTile; ++r) acc[r] += xi * w[r];
-#pragma unroll
-    for (int r = 0; r + 1 < kTile; ++r) w[r] = w[r + 1];
-    w[kTile - 1] = xw[i + kTile];
-  }
-}
 
 __global__ void __launch_bounds__(kThreads, 4)
 yin_pitch_kernel(const float* __restrict__ clips, float* __restrict__ out,
@@ -129,16 +55,9 @@ yin_pitch_kernel(const float* __restrict__ clips, float* __restrict__ out,
                  int n_frames, int min_p, int max_p, float threshold,
                  float sr) {
   const YinLayout lay(win, hop, n_frames, max_p);
-  const int n_lags = lay.n_lags;
-  const int n_cmnd = max_p - min_p + 1;
   extern __shared__ float smem[];
   char* base = reinterpret_cast<char*>(smem);
-  double* chunk = reinterpret_cast<double*>(base + lay.chunk);
-  float* dchunk = reinterpret_cast<float*>(base + lay.dchunk);
-  float* acf = reinterpret_cast<float*>(base + lay.acf);  // then d, CMND
-  float* red = reinterpret_cast<float*>(base + lay.red);
-  float* f0 = reinterpret_cast<float*>(base + lay.f0);
-  float* padded = reinterpret_cast<float*>(base + lay.padded);
+  float* padded = reinterpret_cast<float*>(base + lay.tables);
 
   // the clip with its zero center pad, up to the last sample read
   const float* clip = clips + (size_t)blockIdx.x * n_samples;
@@ -149,145 +68,19 @@ yin_pitch_kernel(const float* __restrict__ clips, float* __restrict__ out,
   }
   __syncthreads();
 
-  // The energy scan's first step: each chunk's sum of terms. The
-  // barriers of the ACF rounds publish them.
-  const int chunk_len = (max_p + kChunks - 1) / kChunks;
-  for (int w = threadIdx.x; w < n_frames * kChunks; w += kThreads) {
-    const int t = w / kChunks;
-    const int first = 1 + (w - t * kChunks) * chunk_len;
-    const int last = first + chunk_len - 1 < max_p ? first + chunk_len - 1
-                                                   : max_p;
-    const float* x = padded + t * hop;
-    double s = 0.0;
-    for (int tau = first; tau <= last; ++tau) s += energy_step(x, tau, win);
-    chunk[w] = s;
-  }
+  const float hz = yin_median_f0(padded, base, lay, n_frames, win, hop,
+                                 min_p, max_p, threshold, sr);
+  if (threadIdx.x == 0) out[blockIdx.x] = hz;
+}
 
-  // The ACF, one unit (frame t, lag block b) per round: warp `seg` sums
-  // i in its segment for its lane's kTile lags, then the block adds the
-  // kSegs partial sums of each lag in order. The sums are stored
-  // unzeroed: acf(0) seeds the energies below.
-  const int lane = threadIdx.x % kWarp, seg = threadIdx.x / kWarp;
-  const int seg_len = (win + kSegs - 1) / kSegs;
-  const int i0 = 1 + seg * seg_len;
-  const int i1 = i0 + seg_len < win + 1 ? i0 + seg_len : win + 1;
-  for (int u = 0; u < n_frames * lay.lag_blocks; ++u) {
-    const int t = u / lay.lag_blocks, b = u - t * lay.lag_blocks;
-    float acc[kTile] = {};
-    acf_tile(padded + t * hop, i0, i1, b * kBlockLags + kTile * lane, acc);
-    float* part = red + (u & 1) * kSegs * kBlockLags;
-#pragma unroll
-    for (int r = 0; r < kTile; ++r)
-      part[seg * kBlockLags + kTile * lane + r] = acc[r];
-    __syncthreads();  // one barrier per round: the next round writes the
-                      // other half of the table
-    for (int k = threadIdx.x; k < kBlockLags; k += kThreads) {
-      const int tau = b * kBlockLags + k;
-      if (tau >= n_lags) continue;
-      float s = part[k];
-#pragma unroll
-      for (int q = 1; q < kSegs; ++q) s += part[q * kBlockLags + k];
-      acf[t * n_lags + tau] = s;
-    }
-  }
-  __syncthreads();
-
-  // Chunk by chunk, in place in acf[t]: d(tau) = e(0) + e(tau) -
-  // 2 acf(tau), with e(tau) = acf(0) + the energy prefix in fp64 (the
-  // chunks before this one, then its own terms), and each chunk's sum of
-  // d; then the cumulative mean from those sums and the CMND. Slot 0
-  // keeps acf(0).
-  for (int w = threadIdx.x; w < n_frames * kChunks; w += kThreads) {
-    const int t = w / kChunks;
-    const int c = w - t * kChunks;
-    const int first = 1 + c * chunk_len;
-    const int last = first + chunk_len - 1 < max_p ? first + chunk_len - 1
-                                                   : max_p;
-    const float* x = padded + t * hop;
-    float* ac = acf + t * n_lags;
-    const float a0 = ac[0];
-    const float e0 = fabsf(a0) < 1e-6f ? 0.0f : a0;
-    double s = 0.0;
-    for (int k = 0; k < c; ++k) s += chunk[t * kChunks + k];
-    float dsum = 0.0f;
-    for (int tau = first; tau <= last; ++tau) {
-      s += energy_step(x, tau, win);
-      const float e = (float)(a0 + s);
-      const float et = fabsf(e) < 1e-6f ? 0.0f : e;
-      const float at = fabsf(ac[tau]) < 1e-6f ? 0.0f : ac[tau];
-      const float d = e0 + et - 2.0f * at;
-      ac[tau] = d;
-      dsum += d;
-    }
-    dchunk[w] = dsum;
-  }
-  __syncthreads();
-  for (int w = threadIdx.x; w < n_frames * kChunks; w += kThreads) {
-    const int t = w / kChunks;
-    const int c = w - t * kChunks;
-    const int first = 1 + c * chunk_len;
-    const int last = first + chunk_len - 1 < max_p ? first + chunk_len - 1
-                                                   : max_p;
-    float* ac = acf + t * n_lags;
-    float cum = 0.0f;
-    for (int k = 0; k < c; ++k) cum += dchunk[t * kChunks + k];
-    for (int tau = first; tau <= last; ++tau) {
-      const float d = ac[tau];
-      cum += d;
-      if (tau >= min_p) ac[tau] = d / (cum / (float)tau + kTiny);
-    }
-  }
-  __syncthreads();
-
-  // one thread per frame: the trough walk over c[j] = CMND(min_p + j)
-  for (int t = threadIdx.x; t < n_frames; t += kThreads) {
-    const float* c = acf + t * n_lags + min_p;
-    int idx = -1;
-    for (int j = 0; j < n_cmnd && idx < 0; ++j) {
-      bool trough;
-      if (j == 0) {
-        trough = c[0] < c[1];
-      } else {
-        const float right = j + 1 < n_cmnd ? c[j + 1] : c[j];
-        trough = c[j] < c[j - 1] && c[j] <= right;
-      }
-      if (trough && c[j] < threshold) idx = j;
-    }
-    if (idx < 0) {
-      idx = 0;
-      for (int j = 1; j < n_cmnd; ++j)
-        if (c[j] < c[idx]) idx = j;
-    }
-    float shift = 0.0f;
-    if (idx > 0 && idx < n_cmnd - 1) {
-      const float a = (c[idx - 1] + c[idx + 1] - 2.0f * c[idx]) / 2.0f;
-      const float b = (c[idx + 1] - c[idx - 1]) / 2.0f;
-      const float inner = -b / (2.0f * a + kTiny);
-      shift = fabsf(inner) > 1.0f ? 0.0f : inner;
-    }
-    f0[t] = sr / ((float)(min_p + idx) + shift);
-  }
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    for (int i = 1; i < n_frames; ++i) {  // insertion sort, n_frames small
-      const float v = f0[i];
-      int j = i - 1;
-      while (j >= 0 && f0[j] > v) {
-        f0[j + 1] = f0[j];
-        --j;
-      }
-      f0[j + 1] = v;
-    }
-    const int h = n_frames / 2;
-    out[blockIdx.x] = (n_frames & 1) ? f0[h] : (f0[h - 1] + f0[h]) * 0.5f;
-  }
+static size_t yin_smem_bytes(const YinLayout& lay) {
+  return lay.tables + sizeof(float) * lay.padded_len;
 }
 
 static cudaError_t yin_set_attributes(const YinLayout& lay) {
   return cudaFuncSetAttribute(yin_pitch_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)lay.bytes);
+                              (int)yin_smem_bytes(lay));
 }
 
 extern "C" int gat_yin_pitch(const float* clips, float* out, int n_clips,
@@ -297,7 +90,8 @@ extern "C" int gat_yin_pitch(const float* clips, float* out, int n_clips,
   const YinLayout lay(win, hop, n_frames, max_p);
   cudaError_t err = yin_set_attributes(lay);
   if (err != cudaSuccess) return (int)err;
-  yin_pitch_kernel<<<n_clips, kThreads, lay.bytes, (cudaStream_t)stream>>>(
+  yin_pitch_kernel<<<n_clips, kThreads, yin_smem_bytes(lay),
+                     (cudaStream_t)stream>>>(
       clips, out, n_samples, frame_length, win, hop, n_frames, min_p, max_p,
       threshold, sr);
   return (int)cudaGetLastError();
@@ -311,5 +105,5 @@ extern "C" int gat_yin_blocks_per_sm(int win, int hop, int n_frames,
   cudaError_t err = yin_set_attributes(lay);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, yin_pitch_kernel, kThreads, lay.bytes);
+      blocks, yin_pitch_kernel, kThreads, yin_smem_bytes(lay));
 }

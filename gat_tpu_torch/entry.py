@@ -13,7 +13,6 @@ import numpy as np
 import torch
 
 from .infer.transcriber import Transcriber
-from .ops.yin import yin_pitch
 
 __all__ = ["entry", "dryrun_multichip"]
 
@@ -25,8 +24,7 @@ def entry(batch: int = 32, device=None):
 
     @torch.no_grad()
     def transcribe_step(clips: torch.Tensor):
-        pitch = yin_pitch(clips, t.ckpt_sr)
-        probs, _, _ = t.ensemble(clips, raw_pitch_hz=pitch)
+        (probs, _, _), pitch = t.ensemble(clips, with_pitch=True)
         return probs, pitch
 
     rng = np.random.default_rng(0)

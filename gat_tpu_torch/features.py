@@ -16,6 +16,12 @@ PyTorch version beside it here: a wrapper runs the kernel for a CUDA tensor
 and the plain version for a CPU tensor. The YIN pitch feature is computed
 on the raw clip unless `pitch_on_normalized` is set (YIN's CMND is
 amplitude-invariant, so both agree up to rounding).
+
+On the matmul route (`ops.spectral.set_stft_backend("matmul")`) with the
+pitch feature on and `SHARED_BLOCK_FRONTEND` true, the MFCC mean and the
+YIN pitch come from one transform of the raw clips
+(`mfcc_pitch_features`): one block DFT in the plain version, one kernel
+that reads each clip once on the card (`csrc/mfcc_pitch_frontend.cu`).
 """
 from __future__ import annotations
 
@@ -30,12 +36,20 @@ from . import kernels
 from .config import MELSPEC_CONFIG, MFCC_CONFIG
 from .ops import spectral
 from .ops.mel import mel_filterbank_librosa, mel_filterbank_torchaudio
-from .ops.yin import yin_pitch
+from .ops.yin import (_TROUGH_THRESHOLD, _cmnd_block, _f0_from_cmnd,
+                      _median, yin_periods, yin_pitch)
 from .utils.device import resolve_device
 
 __all__ = ["encode_labels", "normalize_volume", "mfcc_feature_vectors",
            "melspec_features", "melspec_features_plain", "mfcc_frontend",
-           "mfcc_frontend_plain", "to_reference_layout", "FeatureBuilder"]
+           "mfcc_frontend_plain", "mfcc_pitch_features",
+           "mfcc_pitch_features_plain", "shared_frontend",
+           "SHARED_BLOCK_FRONTEND", "to_reference_layout", "FeatureBuilder"]
+
+# On the matmul route, the MFCC mean and the YIN pitch feature share one
+# transform of the raw clips (`mfcc_pitch_features`); False gives the
+# separate front-ends there too. Read on every call.
+SHARED_BLOCK_FRONTEND = True
 
 _VOLUME_EPS = 1e-9
 _KERNEL_N_FFT = 2048   # the FFT size compiled into both front-end kernels
@@ -132,7 +146,10 @@ def melspec_features(clips: torch.Tensor, sr: int, n_mels: int = 64,
     against 28 KB moved). One block owns one clip and runs two adjacent
     frames per complex FFT (register Stockham passes, four frames in
     flight), then power, mel and dB in shared memory, so the spectrum
-    never reaches device memory. CPU tensor: `melspec_features_plain`."""
+    never reaches device memory. On the matmul route with bfloat16
+    operands it is handed the clips rounded to bfloat16
+    (`spectral.kernel_signal`; its twiddles stay float32). CPU tensor:
+    `melspec_features_plain`."""
     if clips.device.type == "cpu":
         return melspec_features_plain(clips, sr, n_mels, n_fft, hop_length,
                                       normalize_audio_volume, to_db)
@@ -140,6 +157,7 @@ def melspec_features(clips: torch.Tensor, sr: int, n_mels: int = 64,
         raise ValueError(f"[melspec_features] unsupported device "
                          f"{clips.device}")
     kernels.check_input(clips, "melspec_features")
+    clips = spectral.kernel_signal(clips)
     if n_fft != _KERNEL_N_FFT:
         raise ValueError(f"[melspec_features] kernel is built for n_fft "
                          f"{_KERNEL_N_FFT}, got {n_fft}")
@@ -199,12 +217,14 @@ def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     loop (`csrc/mel_rounds.cuh`: two adjacent frames per complex FFT,
     register Stockham passes, four frames in flight) over a zero pad, then
     the clamp, the mean over frames and the DCT, which commutes with the
-    mean. CPU tensor: `mfcc_frontend_plain`."""
+    mean. The same bfloat16 rounding of the clips as K1's on the matmul
+    route. CPU tensor: `mfcc_frontend_plain`."""
     if clips.device.type == "cpu":
         return mfcc_frontend_plain(clips, sr, n_mfcc, normalize_audio_volume)
     if clips.device.type != "cuda":
         raise ValueError(f"[mfcc_frontend] unsupported device {clips.device}")
     kernels.check_input(clips, "mfcc_frontend")
+    clips = spectral.kernel_signal(clips)
     n, length = clips.shape
     n_fr = spectral.n_frames(length, _KERNEL_N_FFT, _MFCC_HOP)
     out = torch.empty((n, n_mfcc), dtype=torch.float32, device=clips.device)
@@ -228,6 +248,146 @@ def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
 mfcc_frontend.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K6: the shared MFCC and YIN front-end of the matmul route
+# ---------------------------------------------------------------------------
+def shared_frontend(add_pitch_features: bool = True) -> bool:
+    """Whether `mfcc_feature_vectors` takes the shared MFCC and YIN
+    front-end: the matmul route, the pitch feature on and
+    `SHARED_BLOCK_FRONTEND` true, as the JAX package decides it."""
+    return (SHARED_BLOCK_FRONTEND and add_pitch_features
+            and spectral.stft_backend() == "matmul")
+
+
+def shared_pitch_is_raw(normalize_audio_volume: bool,
+                        pitch_on_normalized: bool) -> bool:
+    """Whether the shared front-end's pitch is that of the raw clips (it
+    reads the normalized clips only when both flags ask for it)."""
+    return not (pitch_on_normalized and normalize_audio_volume)
+
+
+def mfcc_pitch_features_plain(clips: torch.Tensor, sr: int,
+                              n_mfcc: int = 64,
+                              normalize_audio_volume: bool = True,
+                              pitch_on_normalized: bool = False,
+                              bf16: bool | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, L) → (features (N, n_mfcc + 1), hz (N,)): the MFCC mean and
+    the YIN pitch from one hop-block DFT of the raw clips, the feature's
+    last column log10(hz). The volume scale 1 / (rms + eps) is applied to
+    the shared coefficients by linearity: the MFCC branch's when
+    `normalize_audio_volume`, the YIN branch's only when both flags are
+    on. The block DFT's operands are bfloat16 when `bf16` (None: when
+    `spectral.matmul_dtype()` is). Plain PyTorch, the twin of
+    `gat_tpu/features.py::_fused_mfcc_mean_and_pitch`."""
+    n_fft, hop, n_mels = _KERNEL_N_FFT, _MFCC_HOP, _MFCC_N_MELS
+    win = n_fft // 2                           # librosa yin defaults
+    if bf16 is None:
+        bf16 = spectral.matmul_dtype() == torch.bfloat16
+    dtype = torch.bfloat16 if bf16 else torch.float32
+
+    clips = clips.to(torch.float32)
+    pad = spectral._pad_center(clips, n_fft // 2, "constant")
+    t = 1 + (pad.shape[-1] - n_fft) // hop
+    cre, cim = spectral._block_coeffs(pad, n_fft, hop, t, dtype)
+    rms = torch.sqrt(torch.mean(clips * clips, dim=-1, keepdim=True))
+    s = 1.0 / (rms + _VOLUME_EPS)
+
+    sm = s if normalize_audio_volume else torch.ones_like(s)
+    are, aim = spectral.combine_blocks(cre, cim, n_fft, hop, t)
+    wre, wim = spectral.hann_in_frequency(are * sm[..., None],
+                                          aim * sm[..., None])
+    spec = wre * wre + wim * wim
+    fb = torch.from_numpy(mel_filterbank_librosa(sr, n_fft, n_mels)).to(
+        clips.device)
+    mel = torch.einsum("...tf,mf->...tm", spec, fb)
+    s_db = spectral.power_to_db_librosa(mel, spec_axes=2)
+    dct = spectral.dct_ii_matrix(n_mels, n_mfcc, clips.device)
+    vec = torch.mean(torch.einsum("...tm,mk->...tk", s_db, dct), dim=-2)
+
+    sy = (torch.ones_like(s)
+          if shared_pitch_is_raw(normalize_audio_volume, pitch_on_normalized)
+          else s)
+    min_p, max_p = yin_periods(sr, 50.0, 1000.0, n_fft, win)
+    cmnd = _cmnd_block(pad * sy, n_fft, hop, t, win, min_p, max_p,
+                       coeffs=(cre * sy[..., None], cim * sy[..., None]))
+    hz = _median(_f0_from_cmnd(cmnd, min_p, _TROUGH_THRESHOLD, sr))
+    return torch.cat([vec, torch.log10(hz)[..., None]], dim=-1), hz
+
+
+_MFCC_PITCH_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+
+
+def mfcc_pitch_features(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
+                        normalize_audio_volume: bool = True,
+                        pitch_on_normalized: bool = False,
+                        bf16: bool | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, L) → (features (N, n_mfcc + 1), hz (N,)): the MFCC mean with
+    log10(YIN pitch) appended, and the pitch itself, from one transform.
+
+    CUDA tensor: the kernel `csrc/mfcc_pitch_frontend.cu` (K6), which
+    replaces the JAX package's XLA `gat_tpu/features.py::
+    _fused_mfcc_mean_and_pitch`. One block owns one clip and reads it from
+    device memory once, into shared memory with its zero centre pad; the
+    volume scale is reduced once. The MFCC branch runs K2's rounds
+    (`csrc/mfcc_mean.cuh`), the YIN branch K3's direct ACF
+    (`csrc/yin_acf.cuh`) over the same staged clip, scaled by
+    1 / (rms + eps) only when both flags are on. Its twiddles stay
+    float32; with `bf16` (None: `spectral.matmul_dtype()` is bfloat16) it
+    is handed the clips rounded to bfloat16. Bound by operations: one
+    shared FFT per frame and the ACF from FFTs
+    (`utils/roofline.py::mfcc_pitch_cost`), where the kernel does K2's
+    work and K3's direct ACF. CPU tensor: `mfcc_pitch_features_plain`."""
+    if clips.device.type == "cpu":
+        return mfcc_pitch_features_plain(clips, sr, n_mfcc,
+                                         normalize_audio_volume,
+                                         pitch_on_normalized, bf16)
+    if clips.device.type != "cuda":
+        raise ValueError(f"[mfcc_pitch_features] unsupported device "
+                         f"{clips.device}")
+    kernels.check_input(clips, "mfcc_pitch_features")
+    if bf16 is None:
+        bf16 = spectral.matmul_dtype() == torch.bfloat16
+    if bf16:
+        clips = clips.to(torch.bfloat16).to(torch.float32)
+    n, length = clips.shape
+    n_fr = spectral.n_frames(length, _KERNEL_N_FFT, _MFCC_HOP)
+    if n_fr >= _KERNEL_MAX_FRAMES:
+        raise ValueError(f"[mfcc_pitch_features] {n_fr} frames; the kernel "
+                         f"takes fewer than {_KERNEL_MAX_FRAMES}")
+    win = _KERNEL_N_FFT // 2
+    min_p, max_p = yin_periods(sr, 50.0, 1000.0, _KERNEL_N_FFT, win)
+    if max_p - min_p < 1:
+        raise ValueError(f"[mfcc_pitch_features] period range [{min_p}, "
+                         f"{max_p}] needs at least two periods")
+    out = torch.empty((n, n_mfcc + 1), dtype=torch.float32,
+                      device=clips.device)
+    hz = torch.empty(n, dtype=torch.float32, device=clips.device)
+    if n == 0:
+        return out, hz
+    hann, tw, fb, lo, hi = _kernel_tables(sr, _MFCC_N_MELS, False,
+                                          clips.device)
+    dct = _dct_table(n_mfcc, clips.device)
+    fn = kernels.function("mfcc_pitch_frontend", "gat_mfcc_pitch_frontend",
+                          _MFCC_PITCH_ARGS)
+    with kernels.device_guard(clips.device):
+        status = fn(clips.data_ptr(), out.data_ptr(), hz.data_ptr(),
+                    hann.data_ptr(), tw.data_ptr(), fb.data_ptr(),
+                    lo.data_ptr(), hi.data_ptr(), dct.data_ptr(), n, length,
+                    _MFCC_HOP, n_fr, _MFCC_N_MELS, n_mfcc, win, min_p, max_p,
+                    int(normalize_audio_volume), int(pitch_on_normalized),
+                    _TOP_DB, _TROUGH_THRESHOLD, float(sr),
+                    kernels.stream(clips.device))
+    kernels.check(status, "mfcc_pitch_frontend")
+    mfcc_pitch_features.launches += 1
+    return out, hz
+
+
+mfcc_pitch_features.launches = 0
+
+
 def mfcc_feature_vectors(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
                          normalize_audio_volume: bool = True,
                          add_pitch_features: bool = True,
@@ -235,9 +395,14 @@ def mfcc_feature_vectors(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
                          raw_pitch_hz: torch.Tensor | None = None
                          ) -> torch.Tensor:
     """(N, L) → (N, n_mfcc [+1]): MFCC mean with the optional log10-pitch
-    feature appended. `raw_pitch_hz`, the YIN pitch of the raw clips when
-    the caller already has it, is used whenever the pitch feature reads
-    the raw clips, so YIN runs once for the feature and the baseline."""
+    feature appended. On the shared route (`shared_frontend`) both come
+    from `mfcc_pitch_features` and `raw_pitch_hz` is not read. Else
+    `raw_pitch_hz`, the YIN pitch of the raw clips when the caller already
+    has it, is used whenever the pitch feature reads the raw clips, so
+    YIN runs once for the feature and the baseline."""
+    if shared_frontend(add_pitch_features):
+        return mfcc_pitch_features(clips, sr, n_mfcc, normalize_audio_volume,
+                                   pitch_on_normalized)[0]
     vec = mfcc_frontend(clips, sr, n_mfcc, normalize_audio_volume)
     if not add_pitch_features:
         return vec

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from ..features import mfcc_feature_vectors, melspec_features
+from ..features import (melspec_features, mfcc_feature_vectors,
+                        mfcc_pitch_features, shared_frontend,
+                        shared_pitch_is_raw)
 from ..ops.resample import fix_length, resample
 from ..ops.yin import yin_pitch
 from ..utils.profiling import annotate
@@ -30,8 +32,10 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
                            clip_len: int | None = None,
                            pitch_on_normalized: bool = False,
                            return_parts: bool = False):
-    """Returns fn(clips (N, L), raw_pitch_hz=None) → blended probs (N, C),
-    or (blended, mlp_probs, cnn_probs | None) when `return_parts`.
+    """Returns fn(clips (N, L), raw_pitch_hz=None, with_pitch=False) →
+    blended probs (N, C), or (blended, mlp_probs, cnn_probs | None) when
+    `return_parts`; with `with_pitch`, (that, the YIN pitch (N,) of the
+    re-rated raw clips).
 
     Clips arrive at `in_sr` (default: the checkpoint rate) and are
     re-rated to the checkpoint rate, then cut or zero-padded to `clip_len`
@@ -42,24 +46,46 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
     normalized clips instead. With `melspec_params` None (no CNN) the mel
     front-end and the CNN are skipped.
 
+    The route is read on every call. On the shared route
+    (`features.shared_frontend`) the MFCC front-end gives the pitch too
+    (`mfcc_pitch_features`, K6 on the card), and that pitch is the
+    baseline and the prior's whenever it is the raw clips'; else YIN runs
+    on the raw clips for them (K3), as on the FFT route.
+
     Nothing of the predictor is read here: each call reads its models,
     blend weight and prior settings (`NotePredictor.ensemble_probs`), so
     a function built once never serves a stale one."""
 
     @torch.no_grad()
-    def run(clips: torch.Tensor, raw_pitch_hz: torch.Tensor | None = None):
+    def run(clips: torch.Tensor, raw_pitch_hz: torch.Tensor | None = None,
+            with_pitch: bool = False):
         if in_sr is not None and in_sr != ckpt_sr:
             clips = resample(clips, in_sr, ckpt_sr)
         if clip_len is not None:
             clips = fix_length(clips, clip_len)
         clips = clips.contiguous()
+        normalize = mfcc_params["NORMALIZE_AUDIO_VOLUME"]
+        shared = shared_frontend(mfcc_params["ADD_PITCH_FEATURES"])
+        shared_raw = shared and shared_pitch_is_raw(normalize,
+                                                    pitch_on_normalized)
+        hz = raw_pitch_hz
+        if hz is None and with_pitch and not shared_raw:
+            with annotate("yin_baseline"):
+                hz = yin_pitch(clips, ckpt_sr)
         with annotate("mfcc_yin_frontend"):
-            mf = mfcc_feature_vectors(
-                clips, ckpt_sr, n_mfcc=mfcc_params["N_MFCC"],
-                normalize_audio_volume=mfcc_params["NORMALIZE_AUDIO_VOLUME"],
-                add_pitch_features=mfcc_params["ADD_PITCH_FEATURES"],
-                pitch_on_normalized=pitch_on_normalized,
-                raw_pitch_hz=raw_pitch_hz)
+            if shared:
+                mf, shared_hz = mfcc_pitch_features(
+                    clips, ckpt_sr, mfcc_params["N_MFCC"], normalize,
+                    pitch_on_normalized)
+                if hz is None and shared_raw:
+                    hz = shared_hz
+            else:
+                mf = mfcc_feature_vectors(
+                    clips, ckpt_sr, n_mfcc=mfcc_params["N_MFCC"],
+                    normalize_audio_volume=normalize,
+                    add_pitch_features=mfcc_params["ADD_PITCH_FEATURES"],
+                    pitch_on_normalized=pitch_on_normalized,
+                    raw_pitch_hz=hz)
             if scaler is not None:
                 mf = scaler.transform(mf)
         ms = None
@@ -74,13 +100,13 @@ def build_clip_ensemble_fn(predictor, scaler, ckpt_sr: int,
                     # checkpoint-embedded TO_DB wins (absent key = legacy
                     # checkpoint, dB on)
                     to_db=bool(melspec_params.get("TO_DB", True)))
-        hz = raw_pitch_hz
         if (hz is None and predictor.pitch_prior_weight > 0
                 and predictor.reverse_map):
             with annotate("yin_baseline"):
                 hz = yin_pitch(clips, ckpt_sr)
         parts = predictor.ensemble_probs(mf, ms, pitch_hz=hz)
-        return parts if return_parts else parts[0]
+        out = parts if return_parts else parts[0]
+        return (out, hz) if with_pitch else out
 
     return run
 
@@ -131,9 +157,8 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
         with annotate("clip_rerate"):
             comp = fix_length(resample(clips, target_sr, ckpt_sr),
                               clip_len).contiguous()
-        with annotate("yin_baseline"):
-            pitch = yin_pitch(comp, ckpt_sr)
-        return (*ensemble(comp, raw_pitch_hz=pitch), pitch)
+        parts, pitch = ensemble(comp, with_pitch=True)
+        return (*parts, pitch)
 
     @torch.no_grad()
     def run(ys: torch.Tensor, n_valids: torch.Tensor):

@@ -452,11 +452,11 @@ class Transcriber:
         """Clips at the checkpoint rate, (N, L) numpy or tensor →
         prediction dict plus the YIN baseline per clip (`dsp_info`).
         The pitch feature and the baseline both read the raw clips, so
-        YIN runs once and serves both."""
+        YIN runs once and serves both: K2 + K3 and K1 on the card, or on
+        the shared route (`features.shared_frontend`) K6 and K1."""
         clips = torch.as_tensor(clips_ckpt_sr, dtype=torch.float32,
                                 device=self.device).contiguous()
-        pitch = yin_pitch(clips, self.ckpt_sr)
-        probs, mlp_p, cnn_p = self.ensemble(clips, raw_pitch_hz=pitch)
+        (probs, mlp_p, cnn_p), pitch = self.ensemble(clips, with_pitch=True)
         result = self.predictor._result_dict(probs, mlp_p, cnn_p)
         result["dsp_info"] = self._dsp_info(pitch.cpu().numpy())
         return result

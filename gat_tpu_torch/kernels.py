@@ -33,7 +33,7 @@ __all__ = ["KERNELS", "build", "function", "device_guard", "stream",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("melspec_frontend", "mfcc_frontend", "yin_pitch", "onset_envelope",
-           "onset_pick")
+           "onset_pick", "mfcc_pitch_frontend")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

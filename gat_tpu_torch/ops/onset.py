@@ -31,8 +31,9 @@ import torch.nn.functional as F
 from .. import kernels
 from ..features import _kernel_tables
 from .mel import mel_filterbank_librosa
-from .spectral import (TINY32, _last_nonzero_bin, melspectrogram_librosa,
-                       n_frames, power_spectrogram, power_to_db_librosa)
+from .spectral import (TINY32, _last_nonzero_bin, kernel_signal,
+                       melspectrogram_librosa, n_frames, power_spectrogram,
+                       power_to_db_librosa)
 
 __all__ = ["onset_strength", "onset_strength_plain", "onset_mel_db",
            "onset_mel_db_plain", "onset_flux", "onset_flux_plain",
@@ -173,13 +174,17 @@ def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
     writes the pre-clamp mel dB to a (B, T, n_mels) scratch and folds
     each file's peak over its valid frames into a (B,) buffer; a second
     pass clamps, differences and averages, so the (B, T, 1025) spectrum
-    never reaches device memory. CPU tensor: `onset_strength_plain`."""
+    never reaches device memory. On the matmul route with bfloat16
+    operands it is handed the signal rounded to bfloat16
+    (`spectral.kernel_signal`; its twiddles stay float32). CPU tensor:
+    `onset_strength_plain`."""
     if y.device.type == "cpu":
         return onset_strength_plain(y, sr, hop_length, n_fft, n_mels, lag,
                                     n_valid_frames)
     if y.device.type != "cuda":
         raise ValueError(f"[onset_strength] unsupported device {y.device}")
     kernels.check_input(y, "onset_strength")
+    y = kernel_signal(y)
     if n_fft != _N_FFT:
         raise ValueError(f"[onset_strength] kernel is built for n_fft "
                          f"{_N_FFT}, got {n_fft}")
@@ -313,13 +318,15 @@ def onset_mel_db(y: torch.Tensor, sr: int, hop_length: int = 512,
     context, `parallel/timeshard.py`); it replaces the framing, DFT and
     mel of the JAX package's `gat_tpu/parallel/timeshard.py::
     _local_log_mel` and the peak of its `power_to_db_librosa`. Same grid
-    and occupancy as `onset_strength`. CPU tensor: `onset_mel_db_plain`."""
+    and occupancy as `onset_strength`, and its bfloat16 rounding of the
+    signal on the matmul route. CPU tensor: `onset_mel_db_plain`."""
     if y.device.type == "cpu":
         return onset_mel_db_plain(y, sr, hop_length, n_mels, origin, frames,
                                   n_valid_frames)
     if y.device.type != "cuda":
         raise ValueError(f"[onset_mel_db] unsupported device {y.device}")
     kernels.check_input(y, "onset_mel_db")
+    y = kernel_signal(y)
     b, n = y.shape
     origin, t = _mel_db_frames(n, hop_length, origin, frames)
     dev = y.device

@@ -16,13 +16,14 @@ keeps about three decimal digits.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.device import tf32_off
 
 __all__ = ["resample", "resample_filter", "fix_length"]
 
@@ -99,20 +100,6 @@ def _phase_taps(up: int, down: int, zeros: int, beta: float,
     return torch.from_numpy(hp)[:, None, :].to(device)
 
 
-@contextlib.contextmanager
-def _full_fp32():
-    """TF32 off for matmuls and cuDNN convolutions, restored on exit."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    conv = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = conv
-
-
 def resample(y: torch.Tensor, orig_sr: int, target_sr: int,
              zeros: int = 24, beta: float = 9.58) -> torch.Tensor:
     """Resample the last axis: (..., n) → (..., m), m = ceil(n·target /
@@ -144,7 +131,7 @@ def resample(y: torch.Tensor, orig_sr: int, target_sr: int,
             [x2[:, b * hopg:b * hopg + n_g * hopg].reshape(-1, n_g, hopg)
              for b in range(k_blocks)], dim=-1)[..., :flen]
         mband = _decimation_band(up, down, zeros, beta, sf, dev)
-        with _full_fp32():
+        with tf32_off(dev, convolutions=True):
             out = torch.matmul(frames, mband)
         return out.reshape(-1, n_g * sf)[:, :m].reshape(batch_shape + (m,))
 
@@ -153,7 +140,7 @@ def resample(y: torch.Tensor, orig_sr: int, target_sr: int,
     need_z = max(int(pos[s]) for s in range(phases)) + (t_len - 1) * down + 1
     need = need_z + hp.shape[1] - 1
     x = F.pad(x[:, None, :], (lpad, max(rpad, need - n - lpad)))
-    with _full_fp32():
+    with tf32_off(dev, convolutions=True):
         z = F.conv1d(x, _phase_taps(up, down, zeros, beta, dev))
     stop = (t_len - 1) * down + 1
     out = torch.stack([z[:, int(delta[s]), int(pos[s]):int(pos[s]) + stop:down]

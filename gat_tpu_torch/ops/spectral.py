@@ -12,6 +12,14 @@ conventions are kept apart on purpose:
 
 These are the CPU path and the yardstick of the CUDA front-end kernels in
 `features.py`; on the card the main path runs those kernels instead.
+
+Two routes compute the DFTs, as in the JAX package: "fft" (torch.fft) and
+"matmul" (real-DFT GEMMs with operands in `matmul_dtype()`, float32 or
+bfloat16, accumulated in float32), chosen by `set_stft_backend`; "auto"
+is "fft" on the CPU and on CUDA. The block DFT (`block_coeffs`,
+`combine_blocks`, `block_spectra`, `hann_in_frequency`) is the matmul
+route's shared transform of the MFCC and YIN front-end. Both switches are
+read on every call: nothing built earlier holds a route.
 """
 from __future__ import annotations
 
@@ -22,15 +30,108 @@ import torch
 import torch.nn.functional as F
 
 from .mel import mel_filterbank_librosa, mel_filterbank_torchaudio
+from ..utils.device import tf32_off
 
 __all__ = ["TINY32", "hann_window", "n_frames", "frame", "stft",
            "power_spectrogram",
            "power_to_db_librosa", "amplitude_to_db_torchaudio",
            "dct_ii_matrix", "melspectrogram_librosa",
-           "melspectrogram_torchaudio", "mfcc"]
+           "melspectrogram_torchaudio", "mfcc", "set_stft_backend",
+           "stft_backend", "set_matmul_dtype", "matmul_dtype",
+           "block_coeffs", "combine_blocks", "block_spectra",
+           "hann_in_frequency", "kernel_signal"]
 
 # np.finfo(np.float32).tiny: librosa's denominator guard, shared with YIN
 TINY32 = 1.1754944e-38
+
+_STFT_BACKEND = "auto"
+_MATMUL_DTYPE = torch.float32
+_MATMUL_DTYPES = {torch.float32: torch.float32, "float32": torch.float32,
+                  torch.bfloat16: torch.bfloat16, "bfloat16": torch.bfloat16}
+
+
+def set_stft_backend(name: str) -> None:
+    """Select the DFT route: "auto", "fft" or "matmul"."""
+    global _STFT_BACKEND
+    assert name in ("auto", "fft", "matmul")
+    _STFT_BACKEND = name
+
+
+def stft_backend() -> str:
+    """The route in force: "auto" is "fft" on the CPU and on CUDA, where
+    an FFT library does n / log n fewer operations than a DFT GEMM."""
+    return "fft" if _STFT_BACKEND == "auto" else _STFT_BACKEND
+
+
+def set_matmul_dtype(dtype) -> None:
+    """Operand dtype of the matmul route's DFT GEMMs: torch.float32 or
+    torch.bfloat16 (or their names); the products accumulate in float32."""
+    global _MATMUL_DTYPE
+    if dtype not in _MATMUL_DTYPES:
+        raise ValueError(f"[set_matmul_dtype] float32 or bfloat16, got "
+                         f"{dtype!r}")
+    _MATMUL_DTYPE = _MATMUL_DTYPES[dtype]
+
+
+def matmul_dtype() -> torch.dtype:
+    return _MATMUL_DTYPE
+
+
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to `dtype` and back to float32: a float32 product of
+    such operands is what a bfloat16 GEMM with a float32 result computes,
+    unrounded (a bfloat16 matmul would round its output too)."""
+    x = x.to(torch.float32)
+    return x if dtype == torch.float32 else x.to(dtype).to(torch.float32)
+
+
+def kernel_signal(x: torch.Tensor) -> torch.Tensor:
+    """The signal a front-end kernel is handed: on the matmul route with
+    bfloat16 operands, rounded to bfloat16 (the operand the JAX route
+    rounds on the signal side; the kernels' twiddles stay float32); else
+    x itself."""
+    if stft_backend() == "matmul" and _MATMUL_DTYPE == torch.bfloat16:
+        return x.to(torch.bfloat16).to(torch.float32)
+    return x
+
+
+def _gemm(x: torch.Tensor, m: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x (..., n) @ m (n, f) as a float32 product of operands rounded to
+    `dtype`, TF32 off (`utils.device.tf32_off`: a process-global flag
+    while it runs)."""
+    with tf32_off(x.device):
+        return torch.matmul(_operand(x, dtype), _operand(m, dtype))
+
+
+@functools.lru_cache(maxsize=8)
+def _rdft_np(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real-DFT matrices: X @ C + i·(X @ S) == rfft(X) for real X.
+    Shapes (n_fft, 1 + n_fft // 2), float32."""
+    n = np.arange(n_fft)[:, None]
+    f = np.arange(1 + n_fft // 2)[None, :]
+    ang = 2.0 * np.pi * n * f / n_fft
+    return (np.cos(ang).astype(np.float32),
+            (-np.sin(ang)).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=32)
+def _table(kind: str, a: int, b: int, c: int, device: torch.device
+           ) -> torch.Tensor:
+    """A constant matrix of the matmul route on its device, once:
+    "cw"/"sw" the first c columns of the DFT matrices of n_fft a times
+    the Hann window; "c"/"s" the plain DFT matrices; "bc"/"bs" the block
+    DFT's first b rows of them; "twr"/"twi" the block combine twiddles of
+    (n_fft a, hop b)."""
+    if kind in ("twr", "twi"):
+        m = _block_twiddles_np(a, b)[kind == "twi"]
+    else:
+        m = _rdft_np(a)["s" in kind]
+        if kind.startswith("b"):
+            m = m[:b]
+        elif kind.endswith("w"):
+            m = m[:, :c] * _hann_np(a)[:, None]
+    return torch.from_numpy(np.ascontiguousarray(m)).to(device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -68,6 +169,108 @@ def _pad_center(y: torch.Tensor, pad: int, pad_mode: str) -> torch.Tensor:
                  mode=pad_mode).reshape(shape[:-1] + (shape[-1] + 2 * pad,))
 
 
+# ---------------------------------------------------------------------------
+# The block DFT: each frame's spectrum from the DFTs of its hop-sized
+# blocks. With K = n_fft / hop,
+#
+#   X_t[k] = Σ_{j<K} e^(-2πi·k·j/K) · C_{t+j}[k],
+#   C_b[k] = Σ_{n<hop} y[b·hop + n] · e^(-2πi·k·n/n_fft),
+#
+# exact, since the frame at t·hop is blocks t..t+K-1 and block j of it
+# carries the phase e^(-2πi·k·j·hop/n_fft). The Hann window is applied
+# afterwards in frequency (`hann_in_frequency`), so one block DFT serves
+# windowed (MFCC) and unwindowed (YIN) consumers.
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=8)
+def _block_dft_np(hop: int, n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Block real-DFT matrices (hop, 1 + n_fft // 2): the first `hop`
+    rows of the framed-DFT matrices."""
+    return tuple(m[:hop].copy() for m in _rdft_np(n_fft))
+
+
+@functools.lru_cache(maxsize=8)
+def _block_twiddles_np(n_fft: int, hop: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-offset combine twiddles (K, F): e^(-2πi·k·j/K)."""
+    k_ratio = n_fft // hop
+    j = np.arange(k_ratio)[:, None]
+    k = np.arange(1 + n_fft // 2)[None, :]
+    ang = 2.0 * np.pi * j * k / k_ratio
+    return (np.cos(ang).astype(np.float32),
+            (-np.sin(ang)).astype(np.float32))
+
+
+def _block_coeffs(y_padded: torch.Tensor, n_fft: int, hop_length: int,
+                  n_frames_out: int, dtype: torch.dtype
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`block_coeffs` with its GEMM operands in `dtype`."""
+    assert n_fft % hop_length == 0
+    nb = n_frames_out + n_fft // hop_length - 1
+    need = nb * hop_length
+    if y_padded.shape[-1] < need:
+        y_padded = F.pad(y_padded, (0, need - y_padded.shape[-1]))
+    blocks = y_padded[..., :need].reshape(y_padded.shape[:-1]
+                                          + (nb, hop_length))
+    dev = y_padded.device
+    return (_gemm(blocks, _table("bc", n_fft, hop_length, 0, dev), dtype),
+            _gemm(blocks, _table("bs", n_fft, hop_length, 0, dev), dtype))
+
+
+def block_coeffs(y_padded: torch.Tensor, n_fft: int, hop_length: int,
+                 n_frames_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., P) padded signal → per-block DFT coefficients (re, im), each
+    (..., n_frames_out + n_fft / hop - 1, F), float32, the GEMM's
+    operands in `matmul_dtype()`: the shared operand every
+    overlapping-frame consumer combines from."""
+    return _block_coeffs(y_padded, n_fft, hop_length, n_frames_out,
+                         _MATMUL_DTYPE)
+
+
+def combine_blocks(cre: torch.Tensor, cim: torch.Tensor, n_fft: int,
+                   hop_length: int, n_frames_out: int,
+                   n_blocks: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Twiddle-combine block coefficients into frame spectra: frame t over
+    blocks t..t+n_blocks-1 (default n_fft / hop, the whole frame; fewer
+    gives the DFT of the frame's first n_blocks·hop samples)."""
+    if n_blocks is None:
+        n_blocks = n_fft // hop_length
+    dev = cre.device
+    twr = _table("twr", n_fft, hop_length, 0, dev)
+    twi = _table("twi", n_fft, hop_length, 0, dev)
+    xre = cre[..., 0:n_frames_out, :]
+    xim = cim[..., 0:n_frames_out, :]
+    for j in range(1, n_blocks):
+        rj = cre[..., j:j + n_frames_out, :]
+        ij = cim[..., j:j + n_frames_out, :]
+        tr, ti = twr[j], twi[j]
+        xre = xre + tr * rj - ti * ij
+        xim = xim + tr * ij + ti * rj
+    return xre, xim
+
+
+def block_spectra(y_padded: torch.Tensor, n_fft: int, hop_length: int,
+                  n_frames_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., P) padded signal → unwindowed frame spectra (re, im), each
+    (..., n_frames_out, 1 + n_fft // 2), via the block DFT. Needs
+    hop_length | n_fft."""
+    cre, cim = block_coeffs(y_padded, n_fft, hop_length, n_frames_out)
+    return combine_blocks(cre, cim, n_fft, hop_length, n_frames_out)
+
+
+def hann_in_frequency(xre: torch.Tensor, xim: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The periodic-Hann-windowed spectrum from the unwindowed one:
+    X_w[k] = 0.5·X[k] - 0.25·(X[k-1] + X[k+1]), the neighbours past
+    either end from the conjugate symmetry of a real signal's spectrum
+    (X[-1] = conj(X[1]), X[N/2+1] = conj(X[N/2-1]))."""
+    rm1 = torch.cat([xre[..., 1:2], xre[..., :-1]], dim=-1)
+    im1 = torch.cat([-xim[..., 1:2], xim[..., :-1]], dim=-1)
+    rp1 = torch.cat([xre[..., 1:], xre[..., -2:-1]], dim=-1)
+    ip1 = torch.cat([xim[..., 1:], -xim[..., -2:-1]], dim=-1)
+    return (0.5 * xre - 0.25 * (rm1 + rp1),
+            0.5 * xim - 0.25 * (im1 + ip1))
+
+
 def stft(y: torch.Tensor, n_fft: int = 2048, hop_length: int | None = None,
          win_length: int | None = None, center: bool = True,
          pad_mode: str = "constant") -> torch.Tensor:
@@ -85,7 +288,13 @@ def stft(y: torch.Tensor, n_fft: int = 2048, hop_length: int | None = None,
     if win_length < n_fft:
         lpad = (n_fft - win_length) // 2
         win = F.pad(win, (lpad, n_fft - win_length - lpad))
-    return torch.fft.rfft(frame(y, n_fft, hop_length) * win, n=n_fft, dim=-1)
+    frames = frame(y, n_fft, hop_length) * win
+    if stft_backend() == "matmul":
+        c_m = _table("c", n_fft, 0, 0, y.device)
+        s_m = _table("s", n_fft, 0, 0, y.device)
+        return torch.complex(_gemm(frames, c_m, _MATMUL_DTYPE),
+                             _gemm(frames, s_m, _MATMUL_DTYPE))
+    return torch.fft.rfft(frames, n=n_fft, dim=-1)
 
 
 def power_spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
@@ -93,12 +302,22 @@ def power_spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
                       power: float = 2.0,
                       n_freqs: int | None = None) -> torch.Tensor:
     """|rfft(frame · hann)|^power over the first `n_freqs` bins (default
-    all 1 + n_fft // 2)."""
+    all 1 + n_fft // 2). On the matmul route: two GEMMs of the frames
+    against the DFT matrices with the window folded in."""
     if n_freqs is None:
         n_freqs = 1 + n_fft // 2
     if center:
         y = _pad_center(y, n_fft // 2, pad_mode)
     frames = frame(y, n_fft, hop_length)
+    if stft_backend() == "matmul":
+        re = _gemm(frames, _table("cw", n_fft, 0, n_freqs, y.device),
+                   _MATMUL_DTYPE)
+        im = _gemm(frames, _table("sw", n_fft, 0, n_freqs, y.device),
+                   _MATMUL_DTYPE)
+        p = re * re + im * im
+        if power == 2.0:
+            return p
+        return torch.sqrt(p) if power == 1.0 else p ** (power / 2.0)
     z = torch.fft.rfft(frames * hann_window(n_fft, y.device), n=n_fft,
                        dim=-1)[..., :n_freqs]
     mag = z.abs()

@@ -160,12 +160,11 @@ def make_sharded_transcribe(predictor, scaler, mesh, sr: int,
     """run(clips (B, L)) → (ensemble probs (B, C), YIN pitch (B,)), the
     clip batch split over `data`: every rank passes the same full batch,
     runs its rows through the port's ensemble (`infer/pipeline.py::
-    build_clip_ensemble_fn`, K1 and K2 on the card) and YIN (K3), and
-    gets the gathered full outputs; `gather=False` returns this rank's
+    build_clip_ensemble_fn`: K1, K2 and K3 on the card, or K1 and K6 on
+    the shared route), and gets the gathered full outputs; `gather=False` returns this rank's
     rows only. The predictor lives on this rank's device; its weights
     are broadcast from rank 0 here."""
     from ..infer.pipeline import build_clip_ensemble_fn
-    from ..ops.yin import yin_pitch
     replicate_predictor(predictor, mesh)
     ensemble = build_clip_ensemble_fn(predictor, scaler, sr, mfcc_params,
                                       melspec_params)
@@ -175,8 +174,7 @@ def make_sharded_transcribe(predictor, scaler, mesh, sr: int,
     def run(clips):
         n = clips.shape[0]
         local = rows.local(clips).to(torch.float32)
-        pitch = yin_pitch(local, sr)
-        probs = ensemble(local, raw_pitch_hz=pitch)
+        probs, pitch = ensemble(local, with_pitch=True)
         if not gather:
             return probs, pitch
         return rows.gather(probs, n), rows.gather(pitch, n)

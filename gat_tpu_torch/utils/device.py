@@ -3,9 +3,14 @@ asks for the CPU, and never the CPU on its own), and the one way results
 come back to the host."""
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
-__all__ = ["fp32_reference_math", "resolve_device", "to_host"]
+__all__ = ["fp32_reference_math", "resolve_device", "tf32_off", "to_host"]
+
+_TF32_LOCK = threading.RLock()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,6 +33,32 @@ def fp32_reference_math() -> None:
     training alike)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def tf32_off(device: torch.device, convolutions: bool = False):
+    """TF32 off on the card for the matmuls inside (and cuDNN's
+    convolutions with `convolutions`), the caller's settings back on exit.
+
+    PyTorch has no per-call control: the flags are process-global, so
+    while the block runs another thread's matmuls run without TF32 too.
+    The block holds a lock, so two threads inside never restore each
+    other's flags. The port's entry points keep TF32 off anyway
+    (`fp32_reference_math`), and then this changes nothing. Nothing is
+    touched for the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    with _TF32_LOCK:
+        saved = matmul.allow_tf32, cudnn.allow_tf32
+        matmul.allow_tf32 = False
+        if convolutions:
+            cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
 def to_host(outs: tuple) -> tuple:

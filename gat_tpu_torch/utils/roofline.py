@@ -10,7 +10,8 @@ line's `bound_ms`) and `tools/torch_roofline_files.py` (the per-stage
 floors of the serving wave) count with these functions, so the two share
 one denominator.
 
-K1-K3 are counted per clip batch (N clips of `length` samples at `sr`),
+K1-K3 and K6 are counted per clip batch (N clips of `length` samples at
+`sr`),
 K4 per batch of files (B files of n samples), K5 per batch of envelopes
 (B envelopes of T frames).
 
@@ -26,6 +27,7 @@ import math
 
 __all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS", "bound",
            "fft_flops", "melspec_cost", "mfcc_cost", "yin_cost",
+           "mfcc_pitch_cost",
            "envelope_cost", "mel_db_cost", "flux_cost", "pick_cost",
            "resample_cost", "module_cost"]
 
@@ -33,16 +35,18 @@ __all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS", "bound",
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# the device functions of K1-K5, as the profiler names them
+# the device functions of K1-K6, as the profiler names them
 KERNEL_SYMBOLS = {
     "K1": ("melspec_frontend_kernel",),
     "K2": ("mfcc_frontend_kernel",),
     "K3": ("yin_pitch_kernel",),
     "K4": ("onset_mel_db_kernel", "onset_flux_kernel"),
     "K5": ("onset_pick_kernel",),
+    "K6": ("mfcc_pitch_frontend_kernel",),
 }
 
 _N_FFT = 2048
+_RFFT_FLOPS = 5 * _N_FFT * 11 // 2  # a real-input FFT of 2048 points
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -56,7 +60,7 @@ def fft_flops(n_mels_nnz: int, n_mels: int) -> int:
     """Flops one frame of the front-ends needs: window, a real-input FFT
     of 2048 points (2.5·N·log2 N, half a complex one), power of 1025
     bins, sparse mel, log."""
-    return 2048 + 5 * 2048 * 11 // 2 + 3 * 1025 + 2 * n_mels_nnz + n_mels
+    return _N_FFT + _RFFT_FLOPS + 3 * 1025 + 2 * n_mels_nnz + n_mels
 
 
 def _tables(sr: int, n_mels: int, htk: bool, device) -> tuple[int, int]:
@@ -95,16 +99,42 @@ def mfcc_cost(n: int, length: int, sr: int, device="cpu"
             n * length * 4 + n * 64 * 4 + table_bytes + 4 * 128 * 64)
 
 
+def _acf_flops(max_p: int) -> int:
+    """Flops one YIN frame needs beyond its own FFT: the ACF from FFTs of
+    2048 points (the reversed window's real FFT, the cross spectrum at 6
+    flops per bin, the inverse real FFT), then O(max_p) for the sliding
+    energies and the CMND."""
+    return 2 * _RFFT_FLOPS + 6 * 1025 + 9 * max_p
+
+
 def yin_cost(n: int, length: int, sr: int) -> tuple[int, int]:
-    """K3 at (n, length): the ACF's 2·W flops per lag, plus O(max_p) per
-    frame for the sliding energies and the CMND; the clips read once,
+    """K3 at (n, length): each frame's real FFT and its ACF at the FFT
+    cost, the least work of the function (the kernel's direct sums, 2·W
+    flops per lag, do about 2.6x more at 11025 Hz); the clips read once,
     one pitch written per clip."""
     from gat_tpu_torch.ops import spectral
     from gat_tpu_torch.ops.yin import yin_periods
     t = spectral.n_frames(length, _N_FFT, 512)
     _, max_p = yin_periods(sr, 50.0, 1000.0, _N_FFT, 1024)
-    return (n * t * (2 * 1024 * (max_p + 1) + 9 * max_p),
+    return (n * t * (_RFFT_FLOPS + _acf_flops(max_p)),
             n * length * 4 + n * 4)
+
+
+def mfcc_pitch_cost(n: int, length: int, sr: int, device="cpu"
+                    ) -> tuple[int, int]:
+    """K6 at (n, length): K2's work with one unwindowed FFT per frame
+    that both branches share, the Hann window applied in frequency (three
+    taps, 8 flops per bin, for K2's 2048 window products), and the YIN
+    ACF from that FFT (`_acf_flops`); the clips read once, the n_mfcc + 1
+    features and the pitch written once, K2's tables and DCT matrix read
+    once."""
+    from gat_tpu_torch.ops import spectral
+    from gat_tpu_torch.ops.yin import yin_periods
+    mfcc_flops, mfcc_bytes = mfcc_cost(n, length, sr, device)
+    t = spectral.n_frames(length, _N_FFT, 512)
+    _, max_p = yin_periods(sr, 50.0, 1000.0, _N_FFT, 1024)
+    return (mfcc_flops + n * t * (_acf_flops(max_p) + 8 * 1025 - _N_FFT),
+            mfcc_bytes + n * (1 + 1) * 4)
 
 
 def envelope_cost(files: int, n: int, sr: int, device="cpu",

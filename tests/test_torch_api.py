@@ -533,14 +533,10 @@ def test_segment_reexports():
             slicing if hasattr(slicing, name) else gating, name)
 
 
-# XLA-route switches of gat_tpu with no counterpart (ROADMAP), and the
+# public names of gat_tpu with no counterpart (none left), and the
 # module that is JAX's own (utils/jaxenv.py: the kernels' build directory
 # plays the compilation cache's part)
-NOT_MIRRORED = {"features.py": {"SHARED_BLOCK_FRONTEND"},
-                "ops/spectral.py": {"set_stft_backend", "stft_backend",
-                                    "set_matmul_dtype", "matmul_dtype",
-                                    "block_coeffs", "block_spectra",
-                                    "combine_blocks", "hann_in_frequency"}}
+NOT_MIRRORED: dict[str, set] = {}
 NOT_PORTED_MODULES = ("utils/jaxenv.py",)
 
 

@@ -17,8 +17,11 @@ from test_torch_kernels_emulated import (FILE_SR, LIVE_MIN_SEP, LIVE_RING,
                                          check_zero_row, edge_envelopes,
                                          file_batch, level_step_clip,
                                          mfcc_level_step_clip, padded_wave,
-                                         pluck_riff, random_envelopes, riffs,
-                                         scan_envelopes, stitch, time_shards)
+                                         PLUCK_NEAR_TIE, pluck_riff,
+                                         port_pluck_clips, random_envelopes,
+                                         riffs, scan_envelopes,
+                                         shared_frontend_clips, stitch,
+                                         time_shards, yin_float64)
 
 pytestmark = pytest.mark.cuda
 
@@ -901,3 +904,118 @@ def test_nccl_world_1():
     torch.testing.assert_close(got["pitch"], yin.yin_pitch(
         torch.from_numpy(clips).to(dev), SR).cpu())
     assert got["flags"].tolist() == [True, False, True]
+
+
+# ---------------------------------------------------------------------------
+# K6: the shared MFCC and YIN front-end of the matmul route
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def matmul_route():
+    """The matmul route for one test; "auto", float32 and the shared
+    front-end on afterwards."""
+    _card()
+    spectral.set_stft_backend("matmul")
+    yield
+    spectral.set_stft_backend("auto")
+    spectral.set_matmul_dtype(torch.float32)
+    features.SHARED_BLOCK_FRONTEND = True
+
+
+@pytest.mark.parametrize("sr", [11025, 22050])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("pitch_normalized", [True, False])
+def test_mfcc_pitch_kernel(matmul_route, sr, normalize, pitch_normalized):
+    """K6 against the plain shared front-end (the fp32 block DFT) at the
+    emulated test's bounds (MFCC atol 1e-3 and rtol 2e-6, pitch rtol
+    2e-3), and against K2 and K3 on the card: its MFCC is K2's bit for
+    bit, its pitch K3's whenever it reads the raw clips."""
+    x = shared_frontend_clips(sr).cuda()
+    before = features.mfcc_pitch_features.launches
+    got, hz = features.mfcc_pitch_features(x, sr, 64, normalize,
+                                           pitch_normalized)
+    torch.cuda.synchronize()
+    assert features.mfcc_pitch_features.launches == before + 1
+    ref, ref_hz = features.mfcc_pitch_features_plain(
+        x.cpu(), sr, 64, normalize, pitch_normalized)
+    torch.testing.assert_close(got[:, :64].cpu(), ref[:, :64], atol=1e-3,
+                               rtol=2e-6)
+    torch.testing.assert_close(hz.cpu(), ref_hz, rtol=2e-3, atol=0)
+    torch.testing.assert_close(got[:, 64], torch.log10(hz), rtol=0,
+                               atol=1e-6)
+    assert torch.equal(got[:, :64], features.mfcc_frontend(x, sr, 64,
+                                                           normalize))
+    if features.shared_pitch_is_raw(normalize, pitch_normalized):
+        assert torch.equal(hz, yin.yin_pitch(x, sr))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("pitch_normalized", [True, False])
+def test_mfcc_pitch_kernel_bf16(matmul_route, normalize, pitch_normalized):
+    """At bfloat16 operands the wrapper hands K6 the clips rounded to
+    bfloat16: the result is K6's of the rounded clips, bit for bit, and
+    the fp32 shared front-end's of them to the fp32 bounds."""
+    spectral.set_matmul_dtype(torch.bfloat16)
+    x = shared_frontend_clips(SR).cuda()
+    xr = x.to(torch.bfloat16).float()
+    got, hz = features.mfcc_pitch_features(x, SR, 64, normalize,
+                                           pitch_normalized)
+    same, same_hz = features.mfcc_pitch_features(xr, SR, 64, normalize,
+                                                 pitch_normalized,
+                                                 bf16=False)
+    assert torch.equal(got, same) and torch.equal(hz, same_hz)
+    ref, ref_hz = features.mfcc_pitch_features_plain(
+        xr.cpu(), SR, 64, normalize, pitch_normalized, bf16=False)
+    torch.testing.assert_close(got[:, :64].cpu(), ref[:, :64], atol=1e-3,
+                               rtol=2e-6)
+    torch.testing.assert_close(hz.cpu(), ref_hz, rtol=2e-3, atol=0)
+
+
+def test_mfcc_pitch_kernel_plucks(matmul_route):
+    """On the 47 clean plucks K6 agrees with a float64 YIN to rtol 2e-3,
+    the pinned near-tie apart."""
+    x = torch.from_numpy(port_pluck_clips(0.0))
+    _, hz = features.mfcc_pitch_features(x.cuda(), SR)
+    truth = yin_float64(x, SR)
+    keep = torch.ones(47, dtype=torch.bool)
+    keep[PLUCK_NEAR_TIE] = False
+    torch.testing.assert_close(hz.cpu()[keep], truth[keep], rtol=2e-3,
+                               atol=0)
+
+
+def test_mfcc_pitch_wrapper_edges(matmul_route, clips):
+    """Zero rows, the input checks, and the refusals: 2000 frames in the
+    wrapper, a clip whose staged copy exceeds a block's shared memory in
+    the launch."""
+    got, hz = features.mfcc_pitch_features(clips[:0], SR)
+    assert got.shape == (0, 65) and hz.shape == (0,)
+    with pytest.raises(ValueError, match="float32"):
+        features.mfcc_pitch_features(clips.double(), SR)
+    with pytest.raises(ValueError, match="contiguous"):
+        features.mfcc_pitch_features(clips.t().contiguous().t(), SR)
+    with pytest.raises(ValueError, match="2000"):
+        features.mfcc_pitch_features(torch.zeros(1, 2000 * 512,
+                                                 device="cuda"), SR)
+    with pytest.raises(RuntimeError, match="mfcc_pitch_frontend"):
+        features.mfcc_pitch_features(torch.zeros(1, 60000, device="cuda"),
+                                     SR)
+
+
+def test_transcribe_clips_shared_route_card_vs_cpu(matmul_route, clips):
+    """On the shared route `transcribe_clips` launches K6 and K1 once and
+    K2 and K3 never, and gives the CPU plain path's labels."""
+    from gat_tpu_torch.infer import Transcriber
+    t = Transcriber(device="cuda")
+    t.transcribe_clips(clips)
+    wrappers = (features.melspec_features, features.mfcc_frontend,
+                yin.yin_pitch, features.mfcc_pitch_features)
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    got = t.transcribe_clips(clips)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [1, 0, 0, 1]
+    ref = Transcriber(device="cpu").transcribe_clips(clips.cpu())
+    assert got["labels"] == ref["labels"]
+    np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)
+    np.testing.assert_allclose([p for p, _ in got["dsp_info"]],
+                               [p for p, _ in ref["dsp_info"]], rtol=2e-3)

@@ -185,7 +185,8 @@ def test_multi_device_refuses_cuda_without_a_card():
 def test_kernels_not_built_at_import():
     assert kernels._libs == {}
     assert kernels.KERNELS == ("melspec_frontend", "mfcc_frontend",
-                               "yin_pitch", "onset_envelope", "onset_pick")
+                               "yin_pitch", "onset_envelope", "onset_pick",
+                               "mfcc_pitch_frontend")
     for name in kernels.KERNELS:
         assert (kernels.CSRC / f"{name}.cu").is_file()
 

@@ -380,18 +380,222 @@ def test_shared_memory_limit_refused(libs):
      (1024, 512, 2000, 221)),
     ("onset_envelope", "gat_onset_envelope_blocks_per_sm", (365, 512),
      (60000, 512)),
+    ("mfcc_pitch_frontend", "gat_mfcc_pitch_frontend_blocks_per_sm",
+     (5512, 512, 11, 128, 1024, 221), (1023488, 512, 2000, 128, 1024, 221)),
 ])
 def test_occupancy_entry_points(libs, name, symbol, args, too_big):
     """Each kernel's occupancy query takes the main path's sizes (the
     emulation has no occupancy to report, so it writes 0), and refuses
     sizes whose shared memory exceeds a block's (2000 frames or bands,
-    60000 mel items). K5's shared memory does not depend on the length:
+    60000 mel items; K6 refuses 2000 frames outright). K5's shared memory
+    does not depend on the length:
     `test_onset_pick_emulated_any_length`."""
     fn = _fn(libs[name], symbol, [ctypes.c_int] * len(args)
              + [ctypes.c_void_p])
     blocks = ctypes.c_int(-1)
     assert fn(*args, ctypes.addressof(blocks)) == 0 and blocks.value == 0
     assert fn(*too_big, ctypes.addressof(blocks)) != 0
+
+
+def mfcc_pitch_emulated(libs, x: torch.Tensor, sr: int, normalize: bool,
+                        pitch_normalized: bool
+                        ) -> tuple[int, torch.Tensor, torch.Tensor]:
+    """K6's C entry point with the arguments `features.mfcc_pitch_features`
+    passes: (status, features (N, 65), hz (N,))."""
+    n, length = x.shape
+    out = torch.full((n, 65), float("nan"))
+    hz = torch.full((n,), float("nan"))
+    hann, tw, fb, lo, hi = features._kernel_tables(sr, 128, False, CPU)
+    dct = spectral.dct_ii_matrix(128, 64)
+    min_p, max_p = yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)
+    fn = _fn(libs["mfcc_pitch_frontend"], "gat_mfcc_pitch_frontend",
+             features._MFCC_PITCH_ARGS)
+    status = fn(x.data_ptr(), out.data_ptr(), hz.data_ptr(), hann.data_ptr(),
+                tw.data_ptr(), fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                dct.data_ptr(), n, length, 512,
+                spectral.n_frames(length, 2048, 512), 128, 64, 1024, min_p,
+                max_p, int(normalize), int(pitch_normalized), 80.0, 0.1,
+                float(sr), None)
+    return status, out, hz
+
+
+# the index of test_torch_yin's pinned near-tie in `port_pluck_clips`
+PLUCK_NEAR_TIE = 41
+
+
+def port_pluck_clips(noise: float, seed: int = 0) -> np.ndarray:
+    """tests/test_torch_spectral.py's `pluck_clips` from the port's own
+    synthesizer (byte-identical to gat_tpu's, and free of JAX for the
+    card's tests): (47, 5512) plucks at MIDI 40..86 plus Gaussian noise
+    of sigma `noise`."""
+    from gat_tpu_torch.data.synth import karplus_strong
+    from gat_tpu_torch.ops.pitch import midi_to_hz
+    clips = np.stack([karplus_strong(float(midi_to_hz(40 + i)), SR, 0.5,
+                                     seed=i)[0] for i in range(47)])
+    rng = np.random.default_rng(seed)
+    return (clips + rng.normal(0.0, noise, clips.shape)).astype(np.float32)
+
+
+def shared_frontend_clips(sr: int) -> torch.Tensor:
+    """(8, sr / 2): `_clips`' three tones, four noisy plucks (E2, A3, E4,
+    A5) and a silent clip, at `sr`."""
+    length = sr // 2
+    plucks = port_pluck_clips(0.1)[[0, 17, 24, 41]]
+    if sr != SR:  # each sample held twice, the last one padded with 0
+        plucks = np.pad(np.repeat(plucks, sr // SR, axis=1),
+                        ((0, 0), (0, 1)))
+    t = np.arange(length) / sr
+    tones = np.stack([np.sin(2 * np.pi * 110.0 * t) * np.exp(-3 * t),
+                      np.sin(2 * np.pi * 196.0 * t) * np.exp(-3 * t)
+                      + np.random.default_rng(11).normal(0, 0.05, length),
+                      0.3 * np.sign(np.sin(2 * np.pi * 660.0 * t))
+                      * np.exp(-6 * t)
+                      + np.random.default_rng(12).normal(0, 0.1, length)])
+    x = np.concatenate([tones, plucks[:, :length],
+                        np.zeros((1, length))]).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+@pytest.fixture
+def matmul_route():
+    """The matmul route in fp32 for one test, the defaults back after."""
+    spectral.set_stft_backend("matmul")
+    yield
+    spectral.set_stft_backend("auto")
+    spectral.set_matmul_dtype(torch.float32)
+
+
+@pytest.mark.parametrize("sr", [11025, 22050])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("pitch_normalized", [True, False])
+def test_mfcc_pitch_kernel_emulated(libs, matmul_route, sr, normalize,
+                                    pitch_normalized):
+    """K6 against the plain shared front-end (one block DFT): MFCC atol
+    1e-3 and rtol 2e-6 (the silent clip's c0 is -1131, where one fp32
+    ulp is 1.2e-4 and the two summation orders differ by 1.5e-3), pitch
+    rtol 2e-3, the log column log10 of the pitch; the silent clip's pitch
+    is sr / min_p in both. Its MFCC is K2's bit for bit (the
+    same rounds over the same samples), its pitch K3's bit for bit
+    whenever it reads the raw clip. At 22050 Hz the lags 0..441 take two
+    lag blocks of the ACF and the 22 frames 6 rounds."""
+    x = shared_frontend_clips(sr)
+    status, out, hz = mfcc_pitch_emulated(libs, x, sr, normalize,
+                                          pitch_normalized)
+    assert status == 0
+    ref, ref_hz = features.mfcc_pitch_features_plain(
+        x, sr, 64, normalize, pitch_normalized)
+    torch.testing.assert_close(out[:, :64], ref[:, :64], atol=1e-3,
+                               rtol=2e-6)
+    torch.testing.assert_close(hz, ref_hz, rtol=2e-3, atol=0)
+    torch.testing.assert_close(out[:, 64], torch.log10(hz), rtol=0,
+                               atol=1e-6)
+    min_p = yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)[0]
+    assert float(hz[-1]) == pytest.approx(sr / min_p, rel=1e-6)
+    hann, tw, fb, lo, hi = features._kernel_tables(sr, 128, False, CPU)
+    k2 = torch.empty((x.shape[0], 64))
+    fn = _fn(libs["mfcc_frontend"], "gat_mfcc_frontend",
+             features._MFCC_ARGS)
+    assert fn(x.data_ptr(), k2.data_ptr(), hann.data_ptr(), tw.data_ptr(),
+              fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+              spectral.dct_ii_matrix(128, 64).data_ptr(), x.shape[0],
+              x.shape[1], 512, spectral.n_frames(x.shape[1], 2048, 512), 128,
+              64, int(normalize), 80.0, None) == 0
+    assert torch.equal(out[:, :64], k2)
+    if features.shared_pitch_is_raw(normalize, pitch_normalized):
+        k3 = torch.empty(x.shape[0])
+        fn = _fn(libs["yin_pitch"], "gat_yin_pitch", yin._YIN_ARGS)
+        min_p, max_p = yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)
+        assert fn(x.data_ptr(), k3.data_ptr(), x.shape[0], x.shape[1], 2048,
+                  1024, 512, spectral.n_frames(x.shape[1], 2048, 512), min_p,
+                  max_p, 0.1, float(sr), None) == 0
+        assert torch.equal(hz, k3)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("pitch_normalized", [True, False])
+def test_mfcc_pitch_kernel_emulated_bf16(libs, matmul_route, normalize,
+                                         pitch_normalized):
+    """With bfloat16 operands the wrapper hands K6 the clips rounded to
+    bfloat16 (`spectral.kernel_signal`'s rounding) and K6's twiddles stay
+    float32: K6 then computes the float32 shared front-end of the rounded
+    clips, to the fp32 tolerances. The plain bfloat16 route rounds its
+    DFT matrices too, which on the clean tones here lifts the spectrum's
+    floor and moves c0 by up to 5.6: that gap is the route's, not the
+    kernel's (`chip_smoke.py` holds the two on noisy clips)."""
+    spectral.set_matmul_dtype(torch.bfloat16)
+    x = shared_frontend_clips(SR)
+    xr = x.to(torch.bfloat16).float()
+    status, out, hz = mfcc_pitch_emulated(libs, xr, SR, normalize,
+                                          pitch_normalized)
+    assert status == 0
+    ref, ref_hz = features.mfcc_pitch_features_plain(
+        xr, SR, 64, normalize, pitch_normalized, bf16=False)
+    torch.testing.assert_close(out[:, :64], ref[:, :64], atol=1e-3,
+                               rtol=2e-6)
+    torch.testing.assert_close(hz, ref_hz, rtol=2e-3, atol=0)
+    plain_bf16 = features.mfcc_pitch_features_plain(x, SR, 64, normalize,
+                                                    pitch_normalized)[0]
+    assert float((plain_bf16 - ref).abs().max()) > 1.0
+
+
+def test_mfcc_pitch_kernel_emulated_plucks(libs, matmul_route):
+    """On the 47 clean plucks K6 holds K3's near-tie pin and agrees with a
+    float64 YIN on every other clip to rtol 2e-3; the fp32 block route of
+    the plain version (the JAX package's matmul route) misses four of the
+    clean plucks above fmax = 1000 Hz (indices 41-46: 880-1175 Hz), which
+    is why K6 keeps K3's direct ACF."""
+    from tests.test_torch_spectral import pluck_clips
+    from tests.test_torch_yin import NEAR_TIE
+    assert NEAR_TIE == PLUCK_NEAR_TIE
+    assert np.array_equal(port_pluck_clips(0.0), pluck_clips(0.0))
+    x = torch.from_numpy(port_pluck_clips(0.0))
+    status, _, hz = mfcc_pitch_emulated(libs, x, SR, True, False)
+    assert status == 0
+    truth = yin_float64(x, SR)
+    keep = torch.ones(len(x), dtype=torch.bool)
+    keep[NEAR_TIE] = False
+    torch.testing.assert_close(hz[keep], truth[keep], rtol=2e-3, atol=0)
+    _, plain_hz = features.mfcc_pitch_features_plain(x, SR)
+    assert int(((plain_hz / truth - 1).abs() > 2e-3).sum()) >= 4
+
+
+def yin_float64(x: torch.Tensor, sr: int) -> torch.Tensor:
+    """The median YIN pitch of each clip with every sum in float64 and the
+    direct ACF: librosa's algorithm without rounding to speak of."""
+    frames = torch.nn.functional.pad(x.double(), (1024, 1024)).unfold(
+        -1, 2048, 512)
+    min_p, max_p = yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)
+    acf = torch.stack([(frames[..., 1:1025] * frames[..., 1 + t:1025 + t])
+                       .sum(-1) for t in range(max_p + 1)], dim=-1)
+    csum = torch.cumsum(frames ** 2, dim=-1)
+    energy = csum[..., 1024:1024 + max_p + 1] - csum[..., :max_p + 1]
+    acf = torch.where(acf.abs() < 1e-6, 0.0, acf)
+    energy = torch.where(energy.abs() < 1e-6, 0.0, energy)
+    diff = energy[..., :1] + energy - 2.0 * acf
+    tau = torch.arange(1, max_p + 1, dtype=torch.float64)
+    cum_mean = torch.cumsum(diff[..., 1:], dim=-1) / tau
+    cmnd = diff[..., min_p:] / (cum_mean[..., min_p - 1:] + 1.1754944e-38)
+    return yin._median(yin._f0_from_cmnd(cmnd, min_p, 0.1, sr)).float()
+
+
+def test_mfcc_pitch_kernel_emulated_zero_rows(libs):
+    """A batch of no clips launches nothing and writes nothing (the
+    wrapper returns its empty outputs before the launch, as K2's and
+    K3's do)."""
+    status, out, hz = mfcc_pitch_emulated(libs, torch.zeros(0, 5512), SR,
+                                          True, False)
+    assert status == 0 and out.shape == (0, 65) and hz.shape == (0,)
+    got, got_hz = features.mfcc_pitch_features(torch.zeros(0, 5512), SR)
+    assert got.shape == (0, 65) and got_hz.shape == (0,)
+
+
+def test_mfcc_pitch_kernel_emulated_refusals(libs):
+    """K6 refuses 2000 frames or more, and a clip whose staged copy
+    exceeds a block's shared memory (60,000 samples, 118 frames), with a
+    nonzero status the wrapper raises on."""
+    for length in (2000 * 512, 60000):
+        x = torch.zeros(1, length)
+        assert mfcc_pitch_emulated(libs, x, SR, True, False)[0] != 0
 
 
 FILE_SR = 22050

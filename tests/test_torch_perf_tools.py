@@ -2,8 +2,9 @@
 (its trace parser on synthetic traces in torch's Chrome-trace format, as
 tests/test_perf_tools.py holds the JAX parser, and one traced run) and
 `tools/torch_roofline_files.py` (the stage attribution of a trace, the
-report's schema, the stage counts against the wave's, K1-K5's counts
-against the formulas `chip_smoke.py` used before they moved into
+report's schema, the stage counts against the wave's on both DFT
+routes, K6's count and bound, K1-K5's counts against the formulas
+`chip_smoke.py` used before they moved into
 `gat_tpu_torch/utils/roofline.py`, and the record_function ranges of the
 wave body). Counts are integers and held exactly; floors and shares
 within 1e-12 relative.
@@ -84,13 +85,30 @@ def test_parse_trace_keeps_device_lanes_and_sums(tmp_path, capsys):
         "onset_mel_db_kernel(float const*, float*, int)": 7.0,
         "Memcpy DtoH (Device -> Pinned)": 4.0,
         "onset_pick_kernel(float const*, int const*)": 3.0}
-    assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 7.0, "K5": 3.0}
+    assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 7.0, "K5": 3.0,
+                      "K6": 0}
     out = capsys.readouterr().out
     assert "top 10 by total us (device lanes)" in out
     assert "cudaLaunchKernel" not in out and "aten::mul" not in out
     assert "by category (0.025 ms)" in out
     assert "84.0%  kernel" in out and "16.0%  gpu_memcpy" in out
     assert "28.0%  K4" in out and "12.0%  K5" in out
+
+
+def test_parse_trace_names_k6(tmp_path, capsys):
+    """The shared front-end's device function counts as K6, and K2 and K3
+    keep their own shares beside it."""
+    _write_trace(tmp_path, [
+        _x("kernel", "mfcc_pitch_frontend_kernel(float const*, float*)",
+           10, 9.0, tid=13),
+        _x("kernel", "mfcc_frontend_kernel(float const*, float*)", 30, 2.0,
+           tid=13),
+        _x("kernel", "yin_pitch_kernel(float const*, float*)", 40, 1.0,
+           tid=13)])
+    (_, _, shares), = prof.parse_trace(str(tmp_path), top=10)
+    assert shares == {"K1": 0, "K2": 2.0, "K3": 1.0, "K4": 0, "K5": 0,
+                      "K6": 9.0}
+    assert "75.0%  K6" in capsys.readouterr().out
 
 
 def test_parse_trace_without_device_lanes_keeps_all(tmp_path, capsys):
@@ -151,7 +169,10 @@ def test_profile_trace_cpu_run(tmp_path, capsys):
 # the roofline
 # ---------------------------------------------------------------------------
 def _former_k1_k3(n, length, sr):
-    """chip_smoke.py's K1-K3 bounds as they were written there."""
+    """chip_smoke.py's K1-K3 bounds as they were written there, but K3's
+    ACF counted at the FFT cost (per frame three real FFTs of 2048 points
+    and the cross spectrum), the function's least work, not at the
+    kernel's direct sums."""
     def fft_flops(nnz, n_mels):
         return 2048 + 5 * 2048 * 11 // 2 + 3 * 1025 + 2 * nnz + n_mels
     dev = torch.device("cpu")
@@ -171,7 +192,7 @@ def _former_k1_k3(n, length, sr):
             (n * (t_mfcc * (fft_flops(nnz128, 128) + 2 * 128)
                   + 2 * 128 * 64 + 3 * length),
              n * length * 4 + n * 64 * 4 + tb128),
-            (n * t_mfcc * (2 * 1024 * (max_p + 1) + 9 * max_p),
+            (n * t_mfcc * (3 * (5 * 2048 * 11 // 2) + 6 * 1025 + 9 * max_p),
              n * length * 4 + n * 4))
 
 
@@ -240,6 +261,13 @@ ARGS = ["--device", "cpu", "--files", "2", "--seconds", "4", "--onsets",
         "--measured_wave_ms", "5.0"]
 
 
+@pytest.fixture
+def stft_route():
+    """The test may set the DFT route; it is back at "auto" afterwards."""
+    yield
+    spectral.set_stft_backend("auto")
+
+
 @pytest.fixture(scope="module")
 def report():
     return roof.report(roof.parse_args(ARGS))
@@ -298,6 +326,52 @@ def test_stage_counts_use_the_kernel_formulas(report):
         math.log2(slots))
 
 
+def test_shared_route_counts_k6_and_no_yin_baseline():
+    """On the matmul route the MFCC front-end stage is K6's count (K2's
+    operations and K3's, one read of the clips) and the scaler's, and the
+    YIN baseline stage counts nothing; every other stage as on the FFT
+    route. The route is back at its default afterwards."""
+    try:
+        rep = roof.report(roof.parse_args(ARGS + ["--stft_backend",
+                                                  "matmul"]))
+    finally:
+        spectral.set_stft_backend("auto")
+    ref = roof.report(roof.parse_args(ARGS))
+    stages = rep["stages"]
+    assert rep["program"]["stft_backend"] == "matmul"
+    assert ref["program"]["stft_backend"] == "fft"
+    k6 = roofline.mfcc_pitch_cost(24, 5512, 11025)
+    assert (stages["mfcc_yin_frontend"]["flops"],
+            stages["mfcc_yin_frontend"]["bytes"]) == (k6[0] + 2 * 65 * 24,
+                                                      k6[1] + 8 * 65 * 24)
+    assert (stages["yin_baseline"]["flops"],
+            stages["yin_baseline"]["bytes"]) == (0, 0)
+    for name in roof.STAGES:
+        if name not in ("mfcc_yin_frontend", "yin_baseline"):
+            assert stages[name] == ref["stages"][name], name
+    k2, k3 = roofline.mfcc_cost(24, 5512, 11025), roofline.yin_cost(
+        24, 5512, 11025)
+    shared = 24 * 11 * (5 * 2048 * 11 // 2 + 2048 - 8 * 1025)
+    assert k6 == (k2[0] + k3[0] - shared, k2[1] + 8 * 24)
+
+
+def test_k6_bound_at_the_clip_batch():
+    """At 1024 clips of 0.5 s, K6's bound is K2's plus K3's less the FFT
+    per frame the two branches share (and K2's window products, for the
+    window applied in frequency), operations-bound; its bytes bound one
+    read of the clips and the tables."""
+    k6 = roofline.mfcc_pitch_cost(1024, 5512, 11025)
+    ms, by = roofline.bound(*k6)
+    k2 = roofline.bound(*roofline.mfcc_cost(1024, 5512, 11025))[0]
+    k3 = roofline.bound(*roofline.yin_cost(1024, 5512, 11025))[0]
+    shared = 1024 * 11 * (5 * 2048 * 11 // 2 + 2048 - 8 * 1025) / 67e9
+    assert by == "operations"
+    assert ms == pytest.approx(k2 + k3 - shared, rel=1e-12)
+    assert k3 == pytest.approx(0.0298, abs=1e-4)
+    assert ms == pytest.approx(0.0329, abs=1e-4)
+    assert k6[1] / 3.35e12 * 1e3 == pytest.approx(0.0070, abs=1e-4)
+
+
 def test_mfu_is_the_flops_floor_over_the_measured_wave(report):
     wave, m = report["wave"], report["measured"]
     assert m["wave_ms"] == 5.0
@@ -345,23 +419,28 @@ def test_wave_body_marks_every_stage():
 
 
 # the stage ranges one call enters, in order: the two-stage path's
-# segmentation and ensemble, the fused body's, and the serving wave's
-# (the fused body with the budget's gather and scatter)
+# segmentation and ensemble (whose YIN baseline the ensemble runs), the
+# fused body's, and the serving wave's (the fused body with the budget's
+# gather and scatter)
 _SEGMENT = ["segmentation_other", "onset_detect", "slicing"]
 _ENSEMBLE = ["mfcc_yin_frontend", "melspec_frontend", "mlp_forward",
              "cnn_forward"]
 RANGES_A_CALL = {
-    "transcribe": _SEGMENT + _ENSEMBLE,
+    "transcribe": [*_SEGMENT, "yin_baseline", *_ENSEMBLE],
     "transcribe_fused": ["segmentation_other", *_SEGMENT, "clip_rerate",
                          "yin_baseline", *_ENSEMBLE],
     "wave": ["segmentation_other", *_SEGMENT, "compaction", "clip_rerate",
              "yin_baseline", *_ENSEMBLE, "compaction"],
+    # the shared route: the MFCC front-end gives the baseline's pitch
+    "wave_shared": ["segmentation_other", *_SEGMENT, "compaction",
+                    "clip_rerate", *_ENSEMBLE, "compaction"],
 }
 
 
-@pytest.mark.parametrize("call", ["transcribe", "transcribe_fused", "wave"])
+@pytest.mark.parametrize("call", ["transcribe", "transcribe_fused", "wave",
+                                  "wave_shared"])
 def test_ranges_a_call_enters_and_none_open_without_a_profiler(
-        call, tmp_path, monkeypatch):
+        call, tmp_path, monkeypatch, stft_route):
     """The stage ranges one call enters (`annotate` in the three modules
     that open them), a fixed property of the code, and that with no
     profiler recording not one of them opens a record_function."""
@@ -380,7 +459,9 @@ def test_ranges_a_call_enters_and_none_open_without_a_profiler(
     t = Transcriber(device="cpu")
     path = tmp_path / "riff.wav"
     write_wav(path, riff(22050, dur=3.7), 22050)
-    if call == "wave":
+    if call == "wave_shared":
+        spectral.set_stft_backend("matmul")
+    if call.startswith("wave"):
         run, _ = t._files_fn(22050, 0.5, 8, 6, 32)
         y = torch.from_numpy(np.random.default_rng(0).normal(
             0, 0.05, (2, 3 * 22050)).astype(np.float32))

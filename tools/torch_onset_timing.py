@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """K4 and K5, the PyTorch port's onset-envelope and onset-pick kernels,
 checked and timed at the file path's shapes for one checkout of the port,
-on one CUDA card.
+on one CUDA card; with `clip`, K2, K3 and (where the checkout has it) K6
+at the clip path's 1024 clips.
 
-    python3 tools/torch_onset_timing.py TREE [envelope] [pick]
+    python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip]
 
 TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
 another commit unpacked with `git archive`; its kernels are built there.
-Without a kernel named, both are timed. Shapes, inputs, checks and
+Without a kernel named, K4 and K5 are timed. Shapes, inputs, checks and
 timings are `chip_smoke.py`'s own (`time_envelope`: one 4 s file, 4 files
 of 4 s, 64 riffs of 8 s; `time_pick`: the same and one 400 s file, with
-the wrapper's host time split into its parts), so two checkouts timed in
-turns within one run compare like with like. Prints one JSON line per
+the wrapper's host time split into its parts; `time_clip_kernels`: the
+clip path's 1024 clips of 0.5 s at 11025 Hz, `make_clips`), so two
+checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
 nothing of JAX.
@@ -24,11 +26,12 @@ import sys
 from pathlib import Path
 
 TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
-           "pick": ("onset_pick", "time_pick")}
+           "pick": ("onset_pick", "time_pick"),
+           "clip": ("clip_kernels", "time_clip_kernels")}
 
 
 def main(argv: list[str]) -> int:
-    names = argv[2:] or list(TIMINGS)
+    names = argv[2:] or ["envelope", "pick"]
     if len(argv) < 2 or any(n not in TIMINGS for n in names):
         print(__doc__, file=sys.stderr)
         return 2
@@ -44,18 +47,24 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(tree))
-    from gat_tpu_torch import kernels
-    from gat_tpu_torch.ops import onset
+    from gat_tpu_torch import features, kernels
+    from gat_tpu_torch.ops import onset, yin
     if not Path(onset.__file__).resolve().is_relative_to(tree):
         print(f"torch_onset_timing: gat_tpu_torch came from "
               f"{onset.__file__}, not {tree}", file=sys.stderr)
         return 1
-    kernels.build(["onset_envelope", "onset_pick"])  # K5 reads K4's output
+    kernels.build(kernels.KERNELS)  # K5 reads K4's output
     dev = torch.device("cuda")
     failures: list = []
     for n in names:
         kernel, timing = TIMINGS[n]
-        for row in getattr(smoke, timing)(onset, dev, failures):
+        if n == "clip":
+            clips = torch.from_numpy(
+                smoke.make_clips(smoke.N_CLIPS, smoke.SEED)[0]).to(dev)
+            args = (features, yin, clips)
+        else:
+            args = (onset, dev)
+        for row in getattr(smoke, timing)(*args, failures):
             print(json.dumps({"tree": str(tree), "kernel": kernel, **row}),
                   flush=True)
     print(smoke.card_line(), flush=True)

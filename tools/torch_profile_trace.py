@@ -8,7 +8,8 @@ the chosen graph, on inputs distinct per iteration (a pool of 4) after
 two warm-up calls, writes a gzipped Chrome trace under `--trace_dir`,
 then parses it directly (no TensorBoard needed) and prints a per-kernel
 duration table, a rollup by event category and the share of device time
-of the port's kernels K1-K5.
+of the port's kernels K1-K6 (`gat_tpu_torch/utils/roofline.py`'s
+KERNEL_SYMBOLS).
 
 Graphs: `clip`, the flagship clip batch (`gat_tpu_torch.entry.entry`);
 `file`, the fused single-file body (`Transcriber._files_fn` at one
@@ -35,7 +36,7 @@ sys.path.insert(0, str(REPO))
 
 
 def kernel_shares(dur: dict) -> dict:
-    """{K1..K5: total µs of that kernel's device functions} from a
+    """{K1..K6: total µs of that kernel's device functions} from a
     name → µs table."""
     from gat_tpu_torch.utils.roofline import KERNEL_SYMBOLS
     return {k: sum(us for name, us in dur.items()

@@ -8,7 +8,7 @@ The wave is the shipped serving body (`Transcriber._files_fn`'s `run`:
 B files × the bucket's seconds at 22050 Hz, the onset, wave-clip and
 candidate budgets of the serve defaults). The port has no compiler cost
 model, so each stage's operations and bytes are counted from the wave's
-shapes (`gat_tpu_torch/utils/roofline.py`, whose K1-K5 counts are also
+shapes (`gat_tpu_torch/utils/roofline.py`, whose K1-K6 counts are also
 the kernels line's bounds in `chip_smoke.py`). Bytes are the least
 traffic, each input of a stage read once and each output written once,
 so every count is a floor: the wave's floor is the sum of its stages'.
@@ -24,11 +24,14 @@ attributed to the innermost stage range (`record_function`, named as
 STAGE_TAGS in `infer/pipeline.py` and what it calls) of the host thread
 that launched it. `--measured_wave_ms` takes the place of the events'
 time in the `measured` section, as in the JAX tool. `--device cpu`
-counts only: every device time is "not measured".
+counts only: every device time is "not measured". `--stft_backend matmul`
+runs and counts the matmul route, where the MFCC front-end gives the
+YIN pitch too (K6) and the yin_baseline stage does no work.
 
 Usage: python tools/torch_roofline_files.py [--files 4] [--seconds 60]
            [--onsets 112] [--budget 384] [--cand 448] [--clip_batch 256]
            [--measured_wave_ms MS] [--device cuda|cpu]
+           [--stft_backend auto|fft|matmul]
 """
 from __future__ import annotations
 
@@ -49,9 +52,11 @@ STAGE_TAGS = (
     ("onset_detect", "detect_onsets: K4 envelope, K5 pick"),
     ("slicing", "slice_at_onsets: hop-aligned row gather, clip gate"),
     ("clip_rerate", "resample of the kept clips to the checkpoint rate"),
-    ("mfcc_yin_frontend", "mfcc_feature_vectors (K2) and the scaler"),
+    ("mfcc_yin_frontend", "mfcc_feature_vectors (K2, or K6 on the shared "
+                          "route) and the scaler"),
     ("melspec_frontend", "melspec_features (K1)"),
-    ("yin_baseline", "yin_pitch (K3) of the re-rated clips"),
+    ("yin_baseline", "yin_pitch (K3) of the re-rated clips (none on the "
+                     "shared route)"),
     ("cnn_forward", "CNN forward and softmax"),
     ("mlp_forward", "MLP forward and softmax"),
     ("compaction", "kept-clip budget gather and the scatter back"),
@@ -111,7 +116,8 @@ def _add(*costs) -> tuple[int, int]:
 def clip_costs(t, n_clips: int) -> dict:
     """(flops, bytes) of each stage of the ensemble over `n_clips` clips
     at the checkpoint rate: K3, K2 and the scaler, K1, the two models,
-    the blend."""
+    the blend; on the shared route K6 and the scaler, and no K3."""
+    from gat_tpu_torch.features import shared_frontend
     from gat_tpu_torch.ops import spectral
     from gat_tpu_torch.utils import roofline
     sr = t.ckpt_sr
@@ -120,10 +126,13 @@ def clip_costs(t, n_clips: int) -> dict:
     n_feat = t.mfcc_params["N_MFCC"] + 1
     frames = spectral.n_frames(length, mel["N_FFT"], mel["HOP_LENGTH"])
     classes = len(t.predictor.reverse_map)
+    shared = shared_frontend(t.mfcc_params["ADD_PITCH_FEATURES"])
     return {
-        "yin_baseline": roofline.yin_cost(n_clips, length, sr),
+        "yin_baseline": ((0, 0) if shared
+                         else roofline.yin_cost(n_clips, length, sr)),
         "mfcc_yin_frontend": _add(
-            roofline.mfcc_cost(n_clips, length, sr),
+            (roofline.mfcc_pitch_cost if shared
+             else roofline.mfcc_cost)(n_clips, length, sr),
             (2 * n_feat * n_clips, 8 * n_feat * n_clips)),
         "melspec_frontend": roofline.melspec_cost(n_clips, length, sr),
         "mlp_forward": roofline.module_cost(t.predictor.mlp,
@@ -228,8 +237,10 @@ def report(args) -> dict:
     import torch
     from gat_tpu_torch.config import CLIP_DURATION, TARGET_SR
     from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.ops import spectral
     from gat_tpu_torch.utils import roofline
 
+    spectral.set_stft_backend(args.stft_backend)
     t = Transcriber(device=args.device)
     on_card = t.device.type == "cuda"
     n = int(args.seconds * TARGET_SR)
@@ -279,6 +290,7 @@ def report(args) -> dict:
             "bucket_samples": bucket, "max_onsets": args.onsets,
             "wave_clip_budget": args.budget, "cand_budget": args.cand,
             "audio_s_per_wave": audio_s,
+            "stft_backend": spectral.stft_backend(),
         },
         "card": {"name_power_limit": card,
                  "peak_fp32_flops": roofline.PEAK_FP32_FLOPS,
@@ -343,6 +355,9 @@ def parse_args(argv=None):
     ap.add_argument("--measured_wave_ms", type=float, default=None,
                     help="a per-wave time measured elsewhere, in place "
                          "of this run's own in the `measured` section")
+    ap.add_argument("--stft_backend", default="auto",
+                    choices=["auto", "fft", "matmul"],
+                    help="the DFT route the wave takes and is counted on")
     return ap.parse_args(argv)
 
 
