@@ -96,7 +96,8 @@ non-zero:
    four flag combinations, K6 equal bit for bit to K6 of the clips
    rounded to bfloat16 and within the float32 bounds above of the plain
    float32 front-end of them; K6 checked and timed by
-   `time_clip_kernels`, as K2 and K3 are, with its blocks per SM;
+   `time_clip_kernels`, as K2 and K3 are, its time logged beside K2 +
+   K3's of phase 3, and its blocks per SM, which must be at least four;
 14. `[eval]`: the note-accuracy harness, `tools/torch_evaluate.py`, with
    the shipped pair and the witness checkpoint, on the card and on the
    CPU: `evaluate_set` on `mixed` at 8 variants (376 clips) and on
@@ -186,6 +187,7 @@ FILES_SET = ((16, 3.9, 22050, 0.7),   # bucket 4: one chunk of K = 4 waves
              (3, 1.9, 48000, 0.7),    # bucket 2: 3 files padded to B = 4
              (1, 300.0, 22050, 2.5))  # bucket 512: B = 2, 120 plucks
 SILENT_SECONDS = 2.5  # bucket 4's 17th file: a wave of one, B = 2
+K6_BLOCKS_PER_SM = 4  # K6's least resident blocks per SM at 1024 x 5512
 SERVE_FILES = 8       # riffs of 3.9 s for the [serve] phase
 # the streaming phases' riffs: a pluck every 0.55 s, one or two notes per
 # 0.5 s chunk of the scan engine
@@ -2579,6 +2581,22 @@ def parallel_phase(rows: list, card: str, failures: list,
     torch.cuda.synchronize()
 
 
+def log_against_k2_k3(k6: dict, rows: list) -> None:
+    """Logs K6's kernels-line times beside the sum of K2's and K3's rows
+    in `rows`, which this run timed on the same clips."""
+    k2_k3 = [r for r in rows if r["name"] in ("mfcc_frontend", "yin_pitch")
+             and r.get("ms") is not None]
+    if len(k2_k3) != 2:
+        log("[shared] K2 + K3: not timed in this run")
+        return
+    ms = sum(r["ms"] for r in k2_k3)
+    dev = [r.get("device_ms") for r in k2_k3]
+    dev_ms = None if None in dev else sum(dev)
+    log(f"[shared] K6 {k6['ms']:.4f} ms (device {fmt_ms(k6['device_ms'])}) "
+        f"against K2 + K3 {ms:.4f} ms (device {fmt_ms(dev_ms)}) in this run:"
+        f" K6 / (K2 + K3) {k6['ms'] / ms:.3f}")
+
+
 def shared_phase(rows: list, card: str, failures: list,
                  clips_np: np.ndarray, device: str = "cuda") -> None:
     """`[shared]`: the matmul route's shared MFCC and YIN front-end, K6
@@ -2619,6 +2637,7 @@ def shared_phase(rows: list, card: str, failures: list,
             # K6 against the plain shared front-end, and timed
             k6 = time_clip_kernels(features, yin, clips, failures,
                                    ("mfcc_pitch_frontend",))[0]
+            log_against_k2_k3(k6, rows)
             for norm, pon in SHARED_FLAGS:
                 got, _ = features.mfcc_pitch_features(clips, SR, 64, norm,
                                                       pon)
@@ -2700,9 +2719,13 @@ def shared_phase(rows: list, card: str, failures: list,
             "mfcc_pitch_frontend", "gat_mfcc_pitch_frontend_blocks_per_sm",
             [ctypes.c_int] * len(args) + [ctypes.c_void_p])(
                 *args, ctypes.addressof(blocks)), "mfcc_pitch_frontend")
+        ok = blocks.value >= K6_BLOCKS_PER_SM
         log(f"[occupancy] mfcc_pitch_frontend_kernel: {blocks.value} "
             f"resident blocks of 256 threads per SM at {n} x {length} on "
-            f"{card}")
+            f"{card} (at least {K6_BLOCKS_PER_SM}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[occupancy] K6 at {blocks.value} blocks per SM")
         rows.append(dict(k6, launches=launches[5], blocks_per_sm=blocks.value,
                          launches_by_path={"shared": launches[5]}))
     finally:

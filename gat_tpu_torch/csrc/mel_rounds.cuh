@@ -40,19 +40,28 @@ __device__ __forceinline__ float padded_sample(const float* __restrict__ clip,
   return (i >= 0 && i < n) ? clip[i] : 0.0f;
 }
 
-// The scale of the rounds' mel sums: the 1/2 of the two-for-one split,
-// squared, and the volume normalization y / (rms + eps) (when asked
-// for), which scales the power by 1 / (rms + eps)^2. Every thread of the
-// block calls this; scratch holds kThreads floats.
-__device__ __forceinline__ float power_scale(const float* __restrict__ clip,
-                                             int n_samples, int normalize,
-                                             float* scratch) {
-  if (!normalize) return 0.25f;
+// The volume normalization's divisor rms + eps of the clip, y / (rms +
+// eps), its sum of squares in one fixed order. Every thread of the block
+// calls this and gets the result; scratch holds kThreads floats.
+__device__ __forceinline__ float volume_divisor(const float* __restrict__ clip,
+                                                int n_samples,
+                                                float* scratch) {
   float ss = 0.0f;
   for (int i = threadIdx.x; i < n_samples; i += kThreads)
     ss += clip[i] * clip[i];
   ss = block_sum(ss, scratch);
-  const float d = sqrtf(ss / (float)n_samples) + kVolumeEps;
+  return sqrtf(ss / (float)n_samples) + kVolumeEps;
+}
+
+// The scale of the rounds' mel sums: the 1/2 of the two-for-one split,
+// squared, and the volume normalization (when asked for), which scales
+// the power by 1 / (rms + eps)^2. Every thread of the block calls this;
+// scratch holds kThreads floats.
+__device__ __forceinline__ float power_scale(const float* __restrict__ clip,
+                                             int n_samples, int normalize,
+                                             float* scratch) {
+  if (!normalize) return 0.25f;
+  const float d = volume_divisor(clip, n_samples, scratch);
   return 0.25f / (d * d);
 }
 

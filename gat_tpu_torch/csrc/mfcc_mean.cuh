@@ -25,26 +25,44 @@ __host__ __device__ constexpr int mfcc_mean_floats(int n_mels, int n_frames) {
   return mel_rounds_floats(n_mels) + n_frames * n_mels;
 }
 
+// Floats at the start of `smem` that the epilogue uses after the rounds:
+// the block reduction's kThreads, the n_mels means and kDctParts x n_mfcc
+// parts of the DCT.
+__host__ __device__ constexpr int mfcc_epilogue_floats(int n_mels,
+                                                      int n_mfcc) {
+  return kThreads + n_mels + kDctParts * n_mfcc;
+}
+
 // Whether the epilogue's buffers (the block reduction's kThreads floats,
 // the n_mels means, kDctParts x n_mfcc parts) fit in the rounds' exchange
 // buffer, which they reuse.
 __host__ __device__ constexpr bool mfcc_epilogue_fits(int n_mels, int n_mfcc) {
-  return kThreads + n_mels + kDctParts * n_mfcc <= 4 * kFFT;
+  return mfcc_epilogue_floats(n_mels, n_mfcc) <= 4 * kFFT;
 }
+
+// The hook mfcc_mean runs by default once the rounds are done: nothing.
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
 
 // Writes the n_mfcc coefficients of the clip's mean MFCC to out[0..n_mfcc).
 // `scale` multiplies the rounds' mel sums: the split's (1/2)^2 times the
-// volume scale of the power. `clip` may point into shared memory; frame t
-// reads clip samples t * hop + n - kFFT / 2, zeros outside [0, n_samples).
+// volume scale of the power. Frame t reads the clip's samples t * hop + n
+// - kFFT / 2, zeros outside [0, n_samples).
 // Every thread of the block calls this; on return `smem` is free again
-// once the block has passed a barrier.
+// once the block has passed a barrier. Every thread calls
+// `after_rounds()` as it leaves the rounds, before the epilogue: from
+// then on the floats [mfcc_epilogue_floats(n_mels, n_mfcc), 4 * kFFT)
+// and [mfcc_mean_floats(n_mels, n_frames), ...) of `smem` are not
+// touched again, so it may start filling them.
+template <class AfterRounds = NoHook>
 __device__ __forceinline__ void mfcc_mean(
     const float* __restrict__ clip, int n_samples, int hop, int n_frames,
     int n_mels, int n_mfcc, float scale, float top_db,
     const float* __restrict__ hann, const float* __restrict__ tw,
     const float* __restrict__ fb, const int* __restrict__ lo,
     const int* __restrict__ hi, const float* __restrict__ dct, float* smem,
-    float* __restrict__ out) {
+    float* __restrict__ out, AfterRounds after_rounds = {}) {
   float* img = smem + mel_rounds_floats(n_mels);  // n_frames x n_mels
   // after the rounds, over the exchange buffer:
   float* scratch = smem;                 // kThreads
@@ -59,6 +77,7 @@ __device__ __forceinline__ void mfcc_mean(
         img[t * n_mels + m] = db;
         peak = fmaxf(peak, db);
       });
+  after_rounds();  // the exchange buffer's power bins are all read
   // block_max's first barrier also publishes the image
   const float floor_db = block_max(peak, scratch) - top_db;
 

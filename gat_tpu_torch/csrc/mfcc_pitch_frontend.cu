@@ -6,64 +6,137 @@
 // package runs as XLA code: one hop-block DFT of the raw clips, from which
 // both the MFCC mean (Hann applied in frequency, mel, dB, DCT) and the YIN
 // CMND are formed, the volume scale applied to the shared coefficients by
-// linearity. Here the shared operand is the clip itself, read from device
-// memory once; per clip:
-//   1. the clip is staged in shared memory with its zero centre pad of
-//      n_fft/2 on each side, and its sum of squares reduced on the way:
-//      d = rms + 1e-9, in K2's order of summation;
-//   2. the MFCC branch is K2's (mfcc_mean.cuh) over the staged clip, the
-//      power scaled by 1 / d^2 when `normalize` is on;
-//   3. the YIN branch is K3's (yin_acf.cuh) over the same staged clip,
-//      divided in place by d first when both `normalize` and
-//      `pitch_normalized` are on (the JAX function's pitch-source rule):
-//      the direct ACF, 8 chains per lag, the fp64 energy prefix, the CMND,
-//      the trough walk, the parabolic shift and the median;
-//   4. thread 0 writes log10(hz) after the n_mfcc coefficients, and hz.
-// So K6 gives K2's coefficients and K3's pitch of the same clip, with one
-// read of the clip and one launch where the FFT route has two of each. It
-// runs K3's direct ACF rather than deriving the ACF from the MFCC
-// branch's spectrum: the FFT-free sums are what hold K3's near-tie pin.
+// linearity. Here one launch computes both branches of each clip; per
+// clip:
+//   1. d = rms + 1e-9 in K2's order of summation (power_scale's), when
+//      `normalize` is on;
+//   2. the MFCC branch is K2's (mfcc_mean.cuh), reading the clip from
+//      device memory through L1 as K2 does, the power scaled by 1 / d^2
+//      when `normalize` is on;
+//   3. as the rounds end, YIN's zero-padded copy of the clip is started
+//      into the part of the buffer that the MFCC epilogue leaves alone
+//      (cp.async, 16 bytes a copy where the row allows it, else 4), and
+//      lands while the clamp, the mean and the DCT run;
+//   4. the YIN branch is K3's (yin_acf.cuh) over that copy, divided in
+//      place by d first when both `normalize` and `pitch_normalized` are
+//      on (the JAX function's pitch-source rule): the direct ACF, 8
+//      chains per lag, with the chains that overlapping frames share
+//      computed once (acf_shared_chains), the fp64 energy prefix, the
+//      CMND, then the trough walk one warp per frame (frame_f0_warps),
+//      the parabolic shift and the median of the f0 placed by rank;
+//   5. thread 0 writes log10(hz) after the n_mfcc coefficients, and hz.
+// So K6 gives K2's coefficients and K3's pitch of the same clip bit for
+// bit, in one launch where the FFT route has two. It runs K3's direct ACF
+// rather than deriving the ACF from the MFCC branch's spectrum: the
+// FFT-free 8-chain sums are what hold K3's near-tie pin.
 //
 // What bounds it: operations. The function's least work is one unwindowed
 // FFT per frame shared by both branches, the window applied in frequency,
 // and the ACF from FFTs: 2.2 M fp32 flops per 0.5 s clip at 11025 Hz
-// (utils/roofline.py::mfcc_pitch_cost) against 22 KB read; this kernel
-// does K2's 0.76 M and K3's direct 5.0 M. One
-// block of 256 threads owns one clip (the clamp needs the whole mel
-// image, the median every frame's f0). Shared memory: the staged clip, then one buffer that the
-// MFCC branch's rounds and dB image use first and the YIN tables reuse:
-// 26,240 + 56,832 = 83,072 bytes at 11 frames, so two blocks fit on an SM
-// with __launch_bounds__(256, 2).
+// (utils/roofline.py::mfcc_pitch_cost) against 22 KB read. This kernel
+// does K2's 0.76 M flops and a direct ACF of 48 distinct (hop-block,
+// segment) chains per lag instead of the 88 (frame, segment) units of
+// K3: 1.36 M multiply-adds a clip instead of 2.50 M (11 frames, 222
+// lags), in 6 rounds of 8 warps instead of 11. One block of 256 threads
+// owns one clip (the clamp needs the whole mel image, the median every
+// frame's f0). The serial tails of K3 (one thread per frame walking up to
+// 212 lags for the trough, an insertion sort on thread 0) cost K6 a fifth
+// of its time once the ACF was shared; here a warp tests 32 lags of a
+// frame at once and every thread ranks one f0, with the same comparisons,
+// so the pitch stays K3's float.
+//
+// Shared memory is one buffer of K2's size that both branches use
+// (FrontendLayout, in floats, at 11 frames of 128 mels): the rounds'
+// exchange [0, 8192) and partial sums [8192, 12800), then the dB image
+// [12800, 14208); the epilogue keeps its scratch, means and DCT parts in
+// the first 640 (896 reserved for n_mfcc up to n_mels); YIN's padded clip
+// takes [896, 7265), free once the rounds end, and the YIN tables
+// (energy chunks, ACF, the chains' table, f0: 25,204 bytes) follow it once
+// the epilogue is done. 56,832 bytes in all, as K2's, so with
+// __launch_bounds__(256, 4) four blocks fit on an SM, where staging the
+// clip before the rounds (26,240 bytes more) fitted two. The price is a
+// second read of each clip, for YIN, which hits L2: about 528 clips of 22
+// KB are in flight on the card's 132 SMs, against a 50 MB L2. Longer
+// clips (22 frames at 22050 Hz) put the YIN copy after the dB image and
+// the tables at the start of the buffer (111,364 bytes, two blocks).
+#include <cuda_pipeline.h>
+
+#include <cstdint>
+
 #include "mfcc_mean.cuh"
 #include "yin_acf.cuh"
 
 using namespace gat;
 
 constexpr int kMaxFrames = 2000;  // features.py _KERNEL_MAX_FRAMES
+constexpr int kPad = kFFT / 2;    // YIN's zero centre pad, frame_length / 2
 
-// The shared-memory layout of one block, in floats: the staged clip (its
-// pad, the clip, zeros up to the last sample either branch reads, rounded
-// up to a 128-byte row), then the work buffer of the two branches.
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// The shared-memory buffer of one block, in floats: the MFCC branch's
+// (mfcc_mean_floats), and where YIN's padded clip (`clip`) and tables
+// (`tables`, in bytes, 16-byte aligned) go in it. The clip sits past the
+// epilogue's buffers in the exchange buffer when it fits there, else past
+// the dB image with the tables at the start.
 struct FrontendLayout {
   YinLayout yin;
-  int staged, work;
-  __host__ __device__ FrontendLayout(int n_samples, int n_frames, int n_mels,
-                                     int win, int hop, int max_p)
+  int clip, floats;
+  size_t tables;
+  __host__ __device__ FrontendLayout(int n_frames, int n_mels, int win,
+                                     int hop, int max_p)
       : yin(win, hop, n_frames, max_p) {
-    const int mfcc_end = kFFT / 2 + n_samples;
-    const int len = mfcc_end > yin.padded_len ? mfcc_end : yin.padded_len;
-    staged = (len + 31) / 32 * 32;
-    const int yin_floats = (int)((yin.tables + sizeof(float) - 1)
-                                 / sizeof(float));
-    const int mfcc_floats = mfcc_mean_floats(n_mels, n_frames);
-    work = mfcc_floats > yin_floats ? mfcc_floats : yin_floats;
+    const int mfcc = mfcc_mean_floats(n_mels, n_frames);
+    // the epilogue's buffers for any n_mfcc <= n_mels
+    const int head = round4(mfcc_epilogue_floats(n_mels, n_mels));
+    const int yin_floats = round4((int)((yin.tables + 3) / 4));
+    int end;
+    if (head + yin.padded_len <= 4 * kFFT) {
+      clip = head;
+      tables = sizeof(float) * (size_t)round4(clip + yin.padded_len);
+      end = (int)(tables / sizeof(float)) + yin_floats;
+    } else {
+      clip = round4(mfcc);
+      const bool at_start = yin_floats <= clip;
+      tables = at_start ? 0 : sizeof(float) * (size_t)round4(
+                                  clip + yin.padded_len);
+      end = at_start ? clip + yin.padded_len
+                     : (int)(tables / sizeof(float)) + yin_floats;
+    }
+    floats = mfcc > end ? mfcc : end;
   }
   __host__ __device__ size_t bytes() const {
-    return sizeof(float) * ((size_t)staged + work);
+    return sizeof(float) * (size_t)floats;
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 2)
+// Starts copying YIN's zero-padded copy of the clip into `padded` (len
+// floats): padded[p] = clip[p - kPad], zeros outside the clip. The zeros
+// are stored now; the samples are cp.async copies, 16 bytes each where
+// both rows are 16-byte aligned (an 11,025-sample row of 44,100 bytes is
+// not, on three rows of four), else 4, committed as one group. Every
+// thread waits for its own with __pipeline_wait_prior(0), then the block
+// synchronizes before reading.
+__device__ __forceinline__ void stage_yin_clip(const float* __restrict__ clip,
+                                               int n_samples, int len,
+                                               float* __restrict__ padded) {
+  const int n = n_samples < len - kPad ? n_samples : len - kPad;
+  float* dst = padded + kPad;
+  for (int p = threadIdx.x; p < kPad; p += kThreads) padded[p] = 0.0f;
+  for (int p = kPad + n + threadIdx.x; p < len; p += kThreads)
+    padded[p] = 0.0f;
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(clip) |
+        reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    done = n / 4 * 4;
+    for (int q = 4 * threadIdx.x; q < done; q += 4 * kThreads)
+      __pipeline_memcpy_async(dst + q, clip + q, 4 * sizeof(float));
+  }
+  for (int i = done + threadIdx.x; i < n; i += kThreads)
+    __pipeline_memcpy_async(dst + i, clip + i, sizeof(float));
+  __pipeline_commit();
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
 mfcc_pitch_frontend_kernel(const float* __restrict__ clips,
                            float* __restrict__ out, float* __restrict__ hz_out,
                            const float* __restrict__ hann,
@@ -76,41 +149,35 @@ mfcc_pitch_frontend_kernel(const float* __restrict__ clips,
                            int win, int min_p, int max_p, int normalize,
                            int pitch_normalized, float top_db,
                            float threshold, float sr) {
-  const FrontendLayout lay(n_samples, n_frames, n_mels, win, hop, max_p);
+  const FrontendLayout lay(n_frames, n_mels, win, hop, max_p);
   extern __shared__ float smem[];
-  float* staged = smem;
-  float* work = smem + lay.staged;
-  constexpr int kPad = kFFT / 2;
+  float* padded = smem + lay.clip;
 
-  // 1. stage the clip with its pad; kPad is a multiple of kThreads, so
-  // each thread sums the squares of K2's samples in K2's order
+  // 1. the volume divisor, in K2's order of summation
   const float* clip = clips + (size_t)blockIdx.x * n_samples;
-  float ss = 0.0f;
-  for (int p = threadIdx.x; p < lay.staged; p += kThreads) {
-    const int i = p - kPad;
-    const float v = (i >= 0 && i < n_samples) ? clip[i] : 0.0f;
-    staged[p] = v;
-    ss += v * v;
-  }
-  ss = block_sum(ss, work);  // its barriers publish the staged clip
-  const float d = sqrtf(ss / (float)n_samples) + kVolumeEps;
+  const float d = normalize ? volume_divisor(clip, n_samples, smem) : 1.0f;
 
-  // 2. the MFCC mean into the row's first n_mfcc values
+  // 2-3. the MFCC mean into the row's first n_mfcc values; YIN's copy of
+  // the clip is started as the rounds end
   float* row = out + (size_t)blockIdx.x * (n_mfcc + 1);
   const float scale = normalize ? 0.25f / (d * d) : 0.25f;
-  mfcc_mean(staged + kPad, n_samples, hop, n_frames, n_mels, n_mfcc, scale,
-            top_db, hann, tw, fb, lo, hi, dct, work, row);
-  __syncthreads();  // the work buffer passes to the YIN tables
+  mfcc_mean(clip, n_samples, hop, n_frames, n_mels, n_mfcc, scale, top_db,
+            hann, tw, fb, lo, hi, dct, smem, row, [&]() {
+              stage_yin_clip(clip, n_samples, lay.yin.padded_len, padded);
+            });
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the copy has landed and the epilogue is done: the
+                    // rest of the buffer passes to the YIN tables
 
-  // 3. the YIN pitch, of the normalized clip when both flags ask for it
+  // 4. the YIN pitch, of the normalized clip when both flags ask for it
   if (normalize && pitch_normalized) {
-    for (int p = threadIdx.x; p < lay.staged; p += kThreads)
-      staged[p] = staged[p] / d;
+    for (int p = threadIdx.x; p < lay.yin.padded_len; p += kThreads)
+      padded[p] = padded[p] / d;
     __syncthreads();
   }
-  const float hz = yin_median_f0(staged, reinterpret_cast<char*>(work),
-                                 lay.yin, n_frames, win, hop, min_p, max_p,
-                                 threshold, sr);
+  const float hz = yin_median_f0</*kFused=*/true>(
+      padded, reinterpret_cast<char*>(smem) + lay.tables, lay.yin, n_frames,
+      win, hop, min_p, max_p, threshold, sr);
   if (threadIdx.x == 0) {
     row[n_mfcc] = log10f(hz);
     hz_out[blockIdx.x] = hz;
@@ -130,9 +197,10 @@ extern "C" int gat_mfcc_pitch_frontend(
     int n_mels, int n_mfcc, int win, int min_p, int max_p, int normalize,
     int pitch_normalized, float top_db, float threshold, float sr,
     void* stream) {
-  if (n_frames >= kMaxFrames || !mfcc_epilogue_fits(n_mels, n_mfcc))
+  if (n_frames >= kMaxFrames || n_mfcc > n_mels ||
+      !mfcc_epilogue_fits(n_mels, n_mfcc) || !shared_chains_fit(win, hop))
     return (int)cudaErrorInvalidValue;
-  const FrontendLayout lay(n_samples, n_frames, n_mels, win, hop, max_p);
+  const FrontendLayout lay(n_frames, n_mels, win, hop, max_p);
   cudaError_t err = frontend_set_attributes(lay);
   if (err != cudaSuccess) return (int)err;
   mfcc_pitch_frontend_kernel<<<n_clips, kThreads, lay.bytes(),
@@ -149,8 +217,10 @@ extern "C" int gat_mfcc_pitch_frontend_blocks_per_sm(int n_samples, int hop,
                                                      int n_frames, int n_mels,
                                                      int win, int max_p,
                                                      int* blocks) {
-  if (n_frames >= kMaxFrames) return (int)cudaErrorInvalidValue;
-  const FrontendLayout lay(n_samples, n_frames, n_mels, win, hop, max_p);
+  (void)n_samples;  // the buffer depends on the frame count only
+  if (n_frames >= kMaxFrames || !shared_chains_fit(win, hop))
+    return (int)cudaErrorInvalidValue;
+  const FrontendLayout lay(n_frames, n_mels, win, hop, max_p);
   cudaError_t err = frontend_set_attributes(lay);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(

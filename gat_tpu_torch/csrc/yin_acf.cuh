@@ -12,6 +12,10 @@
 //   4. f0 = sr / period per frame, then the median over frames (the mean
 //      of the two middle values when the count is even, as jnp.median).
 // How the ACF is tiled and why its sums are split is K3's header comment.
+// K6 forms the same sums with the chains that overlapping frames share
+// (acf_shared_chains below), and runs steps 3-4 with a warp per frame and
+// a rank per f0 (frame_f0_warps; both the kFused branch) where K3 runs
+// one thread per frame and an insertion sort: the same floats either way.
 #pragma once
 
 #include <cmath>
@@ -84,11 +88,167 @@ __device__ __forceinline__ void acf_tile(const float* x, int i0, int i1,
   }
 }
 
+// f0 in Hz of a frame whose trough or minimum is c[idx], c[j] =
+// CMND(min_p + j), j < n_cmnd: the parabolic shift through c[idx - 1],
+// c[idx], c[idx + 1] (0 at the edges or when |shift| > 1).
+__device__ __forceinline__ float frame_f0(const float* c, int idx,
+                                          int n_cmnd, int min_p, float sr) {
+  float shift = 0.0f;
+  if (idx > 0 && idx < n_cmnd - 1) {
+    const float a = (c[idx - 1] + c[idx + 1] - 2.0f * c[idx]) / 2.0f;
+    const float b = (c[idx + 1] - c[idx - 1]) / 2.0f;
+    const float inner = -b / (2.0f * a + kTiny);
+    shift = fabsf(inner) > 1.0f ? 0.0f : inner;
+  }
+  return sr / ((float)(min_p + idx) + shift);
+}
+
+// The median of n ascending values (the mean of the two middle ones when
+// n is even, as jnp.median).
+__device__ __forceinline__ float sorted_median(const float* v, int n) {
+  const int h = n / 2;
+  return (n & 1) ? v[h] : (v[h - 1] + v[h]) * 0.5f;
+}
+
+// f0[t] for every frame, one warp per frame, from c = CMND(min_p + j):
+// the serial walk's first trough below the threshold, tested 32 lags at a
+// time (each lane tests the trough and threshold conditions at its lag,
+// __ballot_sync and __ffs pick the first hit), else the first global
+// minimum by a warp argmin (each lane's first minimum over its lags, then
+// the smaller value or, on a tie, the smaller index across lanes). The
+// same comparisons pick the same index, and lane 0 forms f0 with
+// frame_f0, so f0 is the serial walk's float.
+__device__ __forceinline__ void frame_f0_warps(const float* acf, float* f0,
+                                               int n_frames, int n_lags,
+                                               int min_p, int n_cmnd,
+                                               float threshold, float sr) {
+  const int lane = threadIdx.x % kWarp;
+  for (int t = threadIdx.x / kWarp; t < n_frames; t += kThreads / kWarp) {
+    const float* c = acf + t * n_lags + min_p;
+    int idx = -1;
+    for (int j0 = 0; j0 < n_cmnd; j0 += kWarp) {
+      const int j = j0 + lane;
+      bool hit = false;
+      if (j < n_cmnd) {
+        bool trough;
+        if (j == 0) {
+          trough = c[0] < c[1];
+        } else {
+          const float right = j + 1 < n_cmnd ? c[j + 1] : c[j];
+          trough = c[j] < c[j - 1] && c[j] <= right;
+        }
+        hit = trough && c[j] < threshold;
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (mask != 0) {
+        idx = j0 + __ffs(mask) - 1;
+        break;
+      }
+    }
+    if (idx < 0) {
+      float best = INFINITY;
+      int at = n_cmnd;  // no lag: loses every comparison
+      if (lane < n_cmnd) {
+        best = c[lane];
+        at = lane;
+      }
+      for (int j = lane + kWarp; j < n_cmnd; j += kWarp)
+        if (c[j] < best) {
+          best = c[j];
+          at = j;
+        }
+#pragma unroll
+      for (int o = kWarp / 2; o > 0; o >>= 1) {
+        const float b = __shfl_xor_sync(0xffffffffu, best, o);
+        const int i = __shfl_xor_sync(0xffffffffu, at, o);
+        if (b < best || (b == best && i < at)) {
+          best = b;
+          at = i;
+        }
+      }
+      idx = __shfl_sync(0xffffffffu, at, 0);
+    }
+    if (lane == 0) f0[t] = frame_f0(c, idx, n_cmnd, min_p, sr);
+  }
+}
+
+// Whether acf_shared_chains takes this frame geometry: segments of
+// win / kSegs samples that tile the hop.
+__host__ __device__ constexpr bool shared_chains_fit(int win, int hop) {
+  return win % kSegs == 0 && hop > 0 && hop % (win / kSegs) == 0;
+}
+
+// The ACF of every frame into acf[t * n_lags + tau], with the chains that
+// overlapping frames share computed once (K6; shared_chains_fit(win,
+// hop)). Chain g is the sum over the seg_len = win / kSegs samples from
+// padded[g * seg_len + 1] of x[i] x[i + tau]; segment s of frame t (the
+// per-frame loop's warp s) is chain t * m + s, m = hop / seg_len. So the
+// n_frames * kSegs (frame, segment) units are (n_frames - 1) * m + kSegs
+// distinct chains: at hop = win / 2, 48 instead of 88 for 11 frames.
+// Each round, the 8 warps compute 8 consecutive chains of one lag block
+// with acf_tile over the same samples, lags and i-range length as the
+// per-frame loop, so each chain's FMAs are the same in the same order and
+// its sum is the same float. The chains go into a double-buffered table
+// of partial sums (`red`); after the round's barrier, the thread of lag
+// tau adds each chain to the frames it belongs to, in segment order, the
+// running sum of a frame whose chains span two rounds kept in acf[t] in
+// between. So acf(t, tau) = p0 + p1 + ... + p7 is summed in the per-frame
+// loop's order from the same partials, and equals its float bit for bit.
+// Every thread of the block calls this; acf is published at the next
+// barrier.
+__device__ __forceinline__ void acf_shared_chains(
+    const float* __restrict__ padded, const YinLayout& lay, float* acf,
+    float* red, int n_frames, int win, int hop) {
+  const int n_lags = lay.n_lags;
+  const int lane = threadIdx.x % kWarp, seg = threadIdx.x / kWarp;
+  const int seg_len = win / kSegs;
+  const int m = hop / seg_len;  // chains per hop
+  const int n_chains = (n_frames - 1) * m + kSegs;
+  const int rounds = (n_chains + kSegs - 1) / kSegs;
+  for (int u = 0; u < lay.lag_blocks * rounds; ++u) {
+    const int b = u / rounds;
+    const int g0 = (u - b * rounds) * kSegs;  // this round's first chain
+    const int g1 = g0 + kSegs < n_chains ? g0 + kSegs : n_chains;
+    float* part = red + (u & 1) * kSegs * kBlockLags;
+    if (g0 + seg < g1) {
+      float acc[kTile] = {};
+      acf_tile(padded + (g0 + seg) * seg_len, 1, 1 + seg_len,
+               b * kBlockLags + kTile * lane, acc);
+#pragma unroll
+      for (int r = 0; r < kTile; ++r)
+        part[seg * kBlockLags + kTile * lane + r] = acc[r];
+    }
+    __syncthreads();  // one barrier per round: the next round writes the
+                      // other half of the table
+    for (int k = threadIdx.x; k < kBlockLags; k += kThreads) {
+      const int tau = b * kBlockLags + k;
+      if (tau >= n_lags) continue;
+      // the frames with a chain in [g0, g1): t * m + kSegs > g0
+      for (int t = g0 >= kSegs ? (g0 - kSegs) / m + 1 : 0;
+           t < n_frames && t * m < g1; ++t) {
+        const int first = t * m;  // the frame's chain of segment 0
+        const int end = first + kSegs < g1 ? first + kSegs : g1;
+        int g = first > g0 ? first : g0;
+        float s = first >= g0 ? part[(g++ - g0) * kBlockLags + k]
+                              : acf[t * n_lags + tau];
+        for (; g < end; ++g) s += part[(g - g0) * kBlockLags + k];
+        acf[t * n_lags + tau] = s;
+      }
+    }
+  }
+}
+
 // The median f0 in Hz of one clip's frames (steps 1-4 above): frame t is
 // padded[t * hop + n], n < frame_length, of the clip's zero-padded copy
 // `padded` (lay.padded_len floats in shared memory, zeros past the clip),
-// with the tables at `base` (lay.tables bytes). Every thread of the block
-// calls this; the result is thread 0's.
+// with the tables at `base` (lay.tables bytes). kFused (K6, which needs
+// shared_chains_fit(win, hop)): the ACF is acf_shared_chains', the trough
+// walk runs one warp per frame (frame_f0_warps) and the median sorts by
+// rank; else (K3) one unit (frame, lag block) per ACF round, one thread
+// per frame and an insertion sort on thread 0. Either way the result is
+// the same float. Every thread of the block calls this; the result is
+// thread 0's.
+template <bool kFused = false>
 __device__ __forceinline__ float yin_median_f0(
     const float* __restrict__ padded, char* base, const YinLayout& lay,
     int n_frames, int win, int hop, int min_p, int max_p, float threshold,
@@ -119,27 +279,31 @@ __device__ __forceinline__ float yin_median_f0(
   // i in its segment for its lane's kTile lags, then the block adds the
   // kSegs partial sums of each lag in order. The sums are stored
   // unzeroed: acf(0) seeds the energies below.
-  const int lane = threadIdx.x % kWarp, seg = threadIdx.x / kWarp;
-  const int seg_len = (win + kSegs - 1) / kSegs;
-  const int i0 = 1 + seg * seg_len;
-  const int i1 = i0 + seg_len < win + 1 ? i0 + seg_len : win + 1;
-  for (int u = 0; u < n_frames * lay.lag_blocks; ++u) {
-    const int t = u / lay.lag_blocks, b = u - t * lay.lag_blocks;
-    float acc[kTile] = {};
-    acf_tile(padded + t * hop, i0, i1, b * kBlockLags + kTile * lane, acc);
-    float* part = red + (u & 1) * kSegs * kBlockLags;
+  if constexpr (kFused) {
+    acf_shared_chains(padded, lay, acf, red, n_frames, win, hop);
+  } else {
+    const int lane = threadIdx.x % kWarp, seg = threadIdx.x / kWarp;
+    const int seg_len = (win + kSegs - 1) / kSegs;
+    const int i0 = 1 + seg * seg_len;
+    const int i1 = i0 + seg_len < win + 1 ? i0 + seg_len : win + 1;
+    for (int u = 0; u < n_frames * lay.lag_blocks; ++u) {
+      const int t = u / lay.lag_blocks, b = u - t * lay.lag_blocks;
+      float acc[kTile] = {};
+      acf_tile(padded + t * hop, i0, i1, b * kBlockLags + kTile * lane, acc);
+      float* part = red + (u & 1) * kSegs * kBlockLags;
 #pragma unroll
-    for (int r = 0; r < kTile; ++r)
-      part[seg * kBlockLags + kTile * lane + r] = acc[r];
-    __syncthreads();  // one barrier per round: the next round writes the
-                      // other half of the table
-    for (int k = threadIdx.x; k < kBlockLags; k += kThreads) {
-      const int tau = b * kBlockLags + k;
-      if (tau >= n_lags) continue;
-      float s = part[k];
+      for (int r = 0; r < kTile; ++r)
+        part[seg * kBlockLags + kTile * lane + r] = acc[r];
+      __syncthreads();  // one barrier per round: the next round writes the
+                        // other half of the table
+      for (int k = threadIdx.x; k < kBlockLags; k += kThreads) {
+        const int tau = b * kBlockLags + k;
+        if (tau >= n_lags) continue;
+        float s = part[k];
 #pragma unroll
-      for (int q = 1; q < kSegs; ++q) s += part[q * kBlockLags + k];
-      acf[t * n_lags + tau] = s;
+        for (int q = 1; q < kSegs; ++q) s += part[q * kBlockLags + k];
+        acf[t * n_lags + tau] = s;
+      }
     }
   }
   __syncthreads();
@@ -191,6 +355,23 @@ __device__ __forceinline__ float yin_median_f0(
   }
   __syncthreads();
 
+  if constexpr (kFused) {
+    // one warp per frame; then each f0's rank (ties by frame) places it
+    // in ascending order in dchunk, which the CMND no longer needs: the
+    // insertion sort's order of the same values
+    frame_f0_warps(acf, f0, n_frames, n_lags, min_p, n_cmnd, threshold, sr);
+    __syncthreads();
+    for (int t = threadIdx.x; t < n_frames; t += kThreads) {
+      const float v = f0[t];
+      int rank = 0;
+      for (int j = 0; j < n_frames; ++j)
+        rank += f0[j] < v || (f0[j] == v && j < t);
+      dchunk[rank] = v;
+    }
+    __syncthreads();
+    return threadIdx.x == 0 ? sorted_median(dchunk, n_frames) : 0.0f;
+  }
+
   // one thread per frame: the trough walk over c[j] = CMND(min_p + j)
   for (int t = threadIdx.x; t < n_frames; t += kThreads) {
     const float* c = acf + t * n_lags + min_p;
@@ -210,14 +391,7 @@ __device__ __forceinline__ float yin_median_f0(
       for (int j = 1; j < n_cmnd; ++j)
         if (c[j] < c[idx]) idx = j;
     }
-    float shift = 0.0f;
-    if (idx > 0 && idx < n_cmnd - 1) {
-      const float a = (c[idx - 1] + c[idx + 1] - 2.0f * c[idx]) / 2.0f;
-      const float b = (c[idx + 1] - c[idx - 1]) / 2.0f;
-      const float inner = -b / (2.0f * a + kTiny);
-      shift = fabsf(inner) > 1.0f ? 0.0f : inner;
-    }
-    f0[t] = sr / ((float)(min_p + idx) + shift);
+    f0[t] = frame_f0(c, idx, n_cmnd, min_p, sr);
   }
   __syncthreads();
 
@@ -232,8 +406,7 @@ __device__ __forceinline__ float yin_median_f0(
       }
       f0[j + 1] = v;
     }
-    const int h = n_frames / 2;
-    hz = (n_frames & 1) ? f0[h] : (f0[h - 1] + f0[h]) * 0.5f;
+    hz = sorted_median(f0, n_frames);
   }
   return hz;
 }

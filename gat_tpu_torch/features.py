@@ -21,7 +21,7 @@ On the matmul route (`ops.spectral.set_stft_backend("matmul")`) with the
 pitch feature on and `SHARED_BLOCK_FRONTEND` true, the MFCC mean and the
 YIN pitch come from one transform of the raw clips
 (`mfcc_pitch_features`): one block DFT in the plain version, one kernel
-that reads each clip once on the card (`csrc/mfcc_pitch_frontend.cu`).
+launch for both on the card (`csrc/mfcc_pitch_frontend.cu`).
 """
 from __future__ import annotations
 
@@ -329,17 +329,20 @@ def mfcc_pitch_features(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
 
     CUDA tensor: the kernel `csrc/mfcc_pitch_frontend.cu` (K6), which
     replaces the JAX package's XLA `gat_tpu/features.py::
-    _fused_mfcc_mean_and_pitch`. One block owns one clip and reads it from
-    device memory once, into shared memory with its zero centre pad; the
-    volume scale is reduced once. The MFCC branch runs K2's rounds
-    (`csrc/mfcc_mean.cuh`), the YIN branch K3's direct ACF
-    (`csrc/yin_acf.cuh`) over the same staged clip, scaled by
-    1 / (rms + eps) only when both flags are on. Its twiddles stay
-    float32; with `bf16` (None: `spectral.matmul_dtype()` is bfloat16) it
-    is handed the clips rounded to bfloat16. Bound by operations: one
-    shared FFT per frame and the ACF from FFTs
-    (`utils/roofline.py::mfcc_pitch_cost`), where the kernel does K2's
-    work and K3's direct ACF. CPU tensor: `mfcc_pitch_features_plain`."""
+    _fused_mfcc_mean_and_pitch`. One block owns one clip; the volume
+    scale is reduced once. The MFCC branch runs K2's rounds
+    (`csrc/mfcc_mean.cuh`) on the clip read from device memory, as K2
+    does; as they end, the clip is copied again, with its zero centre pad,
+    into the shared memory the MFCC epilogue leaves free, and the YIN
+    branch runs K3's direct ACF (`csrc/yin_acf.cuh`) over that copy, each
+    ACF chain that overlapping frames share computed once, scaled by
+    1 / (rms + eps) only when both flags are on. Its MFCC is K2's and its
+    raw pitch K3's bit for bit. Its twiddles stay float32; with `bf16`
+    (None: `spectral.matmul_dtype()` is bfloat16) it is handed the clips
+    rounded to bfloat16. Bound by operations: one shared FFT per frame
+    and the ACF from FFTs (`utils/roofline.py::mfcc_pitch_cost`), where
+    the kernel does K2's work and the direct ACF. CPU tensor:
+    `mfcc_pitch_features_plain`."""
     if clips.device.type == "cpu":
         return mfcc_pitch_features_plain(clips, sr, n_mfcc,
                                          normalize_audio_volume,

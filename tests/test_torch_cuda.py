@@ -1000,6 +1000,29 @@ def test_mfcc_pitch_wrapper_edges(matmul_route, clips):
                                      SR)
 
 
+def test_mfcc_pitch_frontend_four_blocks_per_sm(matmul_route, clips):
+    """At the clip path's 1024 x 5512 (11 frames, 222 lags) K6 fits four
+    resident blocks per SM, as K2 and K3 do: one buffer of K2's 56,832
+    bytes, 64 registers a thread. The launch at that shape is K2's and
+    K3's bit for bit."""
+    import ctypes
+
+    from gat_tpu_torch import kernels
+    max_p = yin.yin_periods(SR, 50.0, 1000.0, 2048, 1024)[1]
+    blocks = ctypes.c_int(0)
+    args = (5512, 512, spectral.n_frames(5512, 2048, 512), 128, 1024, max_p)
+    kernels.check(kernels.function(
+        "mfcc_pitch_frontend", "gat_mfcc_pitch_frontend_blocks_per_sm",
+        [ctypes.c_int] * len(args) + [ctypes.c_void_p])(
+            *args, ctypes.addressof(blocks)), "mfcc_pitch_frontend")
+    assert blocks.value >= 4
+    x = clips[torch.arange(1024, device=clips.device) % len(clips)]
+    got, hz = features.mfcc_pitch_features(x.contiguous(), SR, 64, True,
+                                           False)
+    assert torch.equal(got[:, :64], features.mfcc_frontend(x, SR, 64, True))
+    assert torch.equal(hz, yin.yin_pitch(x, SR))
+
+
 def test_transcribe_clips_shared_route_card_vs_cpu(matmul_route, clips):
     """On the shared route `transcribe_clips` launches K6 and K1 once and
     K2 and K3 never, and gives the CPU plain path's labels."""

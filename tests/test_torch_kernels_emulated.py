@@ -3,8 +3,8 @@ CUDA subset they use, against their plain PyTorch versions.
 
 There is no nvcc on a CPU-only machine, but the kernels of
 `gat_tpu_torch/csrc/` use only thread/block indices, shared memory,
-register arrays, device lambdas, `__syncthreads`, warp shuffles, ballots
-and `__popc`, an integer atomicMax, the float/int bit casts and
+register arrays, device lambdas, `__syncthreads`, warp shuffles, ballots,
+`__popc` and `__ffs`, an integer atomicMax, the float/int bit casts and
 asynchronous copies into shared memory. The header below maps those onto
 C++: one std::thread per CUDA thread, the blocks of a launch one after
 another, a barrier for `__syncthreads`, a barrier per warp and an
@@ -89,6 +89,7 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return m;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int atomicMax(int* p, int v) {
   int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (old < v && !__atomic_compare_exchange_n(
@@ -398,10 +399,12 @@ def test_occupancy_entry_points(libs, name, symbol, args, too_big):
 
 
 def mfcc_pitch_emulated(libs, x: torch.Tensor, sr: int, normalize: bool,
-                        pitch_normalized: bool
+                        pitch_normalized: bool, hop: int = 512,
+                        win: int = 1024
                         ) -> tuple[int, torch.Tensor, torch.Tensor]:
     """K6's C entry point with the arguments `features.mfcc_pitch_features`
-    passes: (status, features (N, 65), hz (N,))."""
+    passes (hop 512, win 1024 unless given): (status, features (N, 65),
+    hz (N,))."""
     n, length = x.shape
     out = torch.full((n, 65), float("nan"))
     hz = torch.full((n,), float("nan"))
@@ -412,8 +415,8 @@ def mfcc_pitch_emulated(libs, x: torch.Tensor, sr: int, normalize: bool,
              features._MFCC_PITCH_ARGS)
     status = fn(x.data_ptr(), out.data_ptr(), hz.data_ptr(), hann.data_ptr(),
                 tw.data_ptr(), fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                dct.data_ptr(), n, length, 512,
-                spectral.n_frames(length, 2048, 512), 128, 64, 1024, min_p,
+                dct.data_ptr(), n, length, hop,
+                spectral.n_frames(length, 2048, hop), 128, 64, win, min_p,
                 max_p, int(normalize), int(pitch_normalized), 80.0, 0.1,
                 float(sr), None)
     return status, out, hz
@@ -596,6 +599,105 @@ def test_mfcc_pitch_kernel_emulated_refusals(libs):
     for length in (2000 * 512, 60000):
         x = torch.zeros(1, length)
         assert mfcc_pitch_emulated(libs, x, SR, True, False)[0] != 0
+
+
+def k2_k3_emulated(libs, x: torch.Tensor, sr: int, normalize: bool,
+                   hop: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's MFCC mean (N, 64) and K3's raw pitch (N,) of `x` at hop
+    `hop`, through their C entry points."""
+    n, length = x.shape
+    n_fr = spectral.n_frames(length, 2048, hop)
+    hann, tw, fb, lo, hi = features._kernel_tables(sr, 128, False, CPU)
+    k2 = torch.full((n, 64), float("nan"))
+    fn = _fn(libs["mfcc_frontend"], "gat_mfcc_frontend", features._MFCC_ARGS)
+    assert fn(x.data_ptr(), k2.data_ptr(), hann.data_ptr(), tw.data_ptr(),
+              fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+              spectral.dct_ii_matrix(128, 64).data_ptr(), n, length, hop,
+              n_fr, 128, 64, int(normalize), 80.0, None) == 0
+    k3 = torch.full((n,), float("nan"))
+    min_p, max_p = yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)
+    fn = _fn(libs["yin_pitch"], "gat_yin_pitch", yin._YIN_ARGS)
+    assert fn(x.data_ptr(), k3.data_ptr(), n, length, 2048, 1024, hop, n_fr,
+              min_p, max_p, 0.1, float(sr), None) == 0
+    return k2, k3
+
+
+def frame_count_clips(length: int) -> torch.Tensor:
+    """(4, length): `_clips`' three tones and the noisy A3 pluck of
+    `port_pluck_clips`, cut or zero-padded to `length`."""
+    pluck = np.zeros((1, length), np.float32)
+    src = port_pluck_clips(0.1)[17:18, :length]
+    pluck[:, :src.shape[1]] = src
+    return torch.cat([_clips(length), torch.from_numpy(pluck)])
+
+
+@pytest.mark.parametrize("sr, length", [(11025, 4608), (11025, 5512),
+                                        (11025, 6000), (22050, 11025)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_mfcc_pitch_kernel_emulated_frame_counts(libs, sr, length,
+                                                 normalize):
+    """10, 11, 12 and 22 frames: 11, 12, 13 and 23 hop-blocks of shared
+    ACF chains (44, 48, 52 and 92 chains), so rounds of two hop-blocks
+    with an odd count and a last round of one block, and at 22050 Hz two
+    lag blocks. K6's MFCC is K2's and its raw pitch K3's bit for bit."""
+    x = frame_count_clips(length)
+    status, out, hz = mfcc_pitch_emulated(libs, x, sr, normalize, False)
+    assert status == 0
+    k2, k3 = k2_k3_emulated(libs, x, sr, normalize)
+    assert torch.equal(out[:, :64], k2)
+    assert torch.equal(hz, k3)
+    torch.testing.assert_close(out[:, 64], torch.log10(hz), rtol=0,
+                               atol=1e-6)
+
+
+def test_mfcc_pitch_kernel_emulated_unaligned_rows(libs):
+    """11,025-sample rows (44,100 bytes) at 22050 Hz: the clip copy for
+    YIN is 16-byte copies on the first row and 4-byte copies on the other
+    three. The same rows at a one-float offset, all copied 4 bytes at a
+    time, give the same floats, and those are K2's and K3's."""
+    x = frame_count_clips(11025)
+    status, out, hz = mfcc_pitch_emulated(libs, x, 22050, True, False)
+    assert status == 0
+    shifted = torch.empty(x.numel() + 1)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    status, out_s, hz_s = mfcc_pitch_emulated(libs, shifted, 22050, True,
+                                              False)
+    assert status == 0
+    assert torch.equal(out, out_s) and torch.equal(hz, hz_s)
+    k2, k3 = k2_k3_emulated(libs, x, 22050, True)
+    assert torch.equal(out[:, :64], k2) and torch.equal(hz, k3)
+
+
+@pytest.mark.parametrize("hop", [256, 384])
+def test_mfcc_pitch_kernel_emulated_other_hops(libs, hop):
+    """A hop of 2 or 3 segments of win / 8 = 128 shares 6 or 5 of each
+    frame's 8 chains with the frames after it: K6 is still K2 and K3 bit
+    for bit at that hop."""
+    x = frame_count_clips(5512)
+    status, out, hz = mfcc_pitch_emulated(libs, x, SR, False, False, hop=hop)
+    assert status == 0
+    k2, k3 = k2_k3_emulated(libs, x, SR, False, hop=hop)
+    assert torch.equal(out[:, :64], k2) and torch.equal(hz, k3)
+
+
+@pytest.mark.parametrize("hop, win", [(500, 1024), (512, 1020),
+                                      (64, 1024)])
+def test_mfcc_pitch_kernel_emulated_refuses_hop(libs, hop, win):
+    """The shared ACF chains need win / 8 to tile the hop: K6 and its
+    occupancy query refuse any other (hop, win) with a nonzero status,
+    and write nothing."""
+    x = frame_count_clips(5512)
+    status, out, hz = mfcc_pitch_emulated(libs, x, SR, True, False, hop=hop,
+                                          win=win)
+    assert status != 0
+    assert bool(out.isnan().all()) and bool(hz.isnan().all())
+    fn = _fn(libs["mfcc_pitch_frontend"],
+             "gat_mfcc_pitch_frontend_blocks_per_sm",
+             [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    blocks = ctypes.c_int(-1)
+    assert fn(5512, hop, spectral.n_frames(5512, 2048, hop), 128, win, 221,
+              ctypes.addressof(blocks)) != 0
 
 
 FILE_SR = 22050
