@@ -138,14 +138,27 @@ non-zero:
    `TrainingManager(mesh=)` against the single-device manager, 2 epochs
    of each family at the shipped widths on a 16-variant dataset
    (histories and parameters), and `dryrun_multichip(1)`;
-17. print the `{"kernels": [...]}` line, the card line, and last
+17. `[long-clips]`: K1, K2, K3 and K6 at 256 clips of 4.0 s at 11025 Hz
+   (87 frames at hop 512, 173 at hop 256; before PR 16 K3 and K6 refused
+   clips past 70 and 69 frames) against their plain versions (K1 0.1 dB
+   above -60 dB, MFCC atol 1e-3 and rtol 2e-6, pitch rtol 2e-3), K6's
+   MFCC K2's and its pitch K3's bit for bit, each timed with its bound
+   and blocks per SM (`long_clips` in its kernels-line row); then
+   `[file]` at `clip_duration=4.0`: `transcribe` of a 12 s riff on the
+   card and the CPU, on the FFT route (K1-K5 launched) and the matmul
+   route (K1, K6, K4, K5): labels, onsets and times equal;
+18. `[numpy]`: the numpy baseline's twin,
+   `tools/torch_numpy_reference_pipeline.py`, on 32 of `[main]`'s clips:
+   its argmax equal to the card's `transcribe_clips`, its rate logged;
+19. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Each path's kernel launches are counted from zero just before it is
 driven and read just after (`launches_by_path` in the kernels line:
 clips, file, long, files, serve, http, stream, live, cli, train,
-shared, eval, tools, parallel; the two K4 pass rows launch on `parallel` only,
-K6 on `shared` only); `launches` stays the clip path's count for K1-K3,
+shared, eval, tools, parallel, file_4s, file_4s_shared; the two K4 pass
+rows launch on `parallel` only, K6 on `shared` and `file_4s_shared`
+only); `launches` stays the clip path's count for K1-K3,
 the file path's for K4/K5 and the shared clip path's for K6.
 
 Imports nothing of JAX or of the JAX package.
@@ -2785,6 +2798,211 @@ def parallel_train(mesh, failures: list) -> None:
                 failures.append(f"[parallel] Trainer(mesh=) {family}")
 
 
+LONG_CLIPS = 256           # [long-clips]: 256 clips of 4.0 s at 11025 Hz,
+LONG_CLIP_SECONDS = 4.0   # 87 frames at hop 512, 173 at hop 256
+FILE_4S_MIDI = [45, 55, 64]  # A2 G3 E4 from 0.4 s, 4.2 s apart, 12 s
+NUMPY_CLIPS = 32          # [numpy]: the twin's clips, as its main's count
+
+
+def long_clip_kernels(features, yin) -> dict:
+    """K1, K2, K3 and K6 as (kernel, plain version, roofline cost, frames,
+    the occupancy query and its sizes) by name, at the long clips'
+    shape."""
+    roofline = load_roofline()
+    from gat_tpu_torch.ops import spectral
+    n, length = LONG_CLIPS, int(LONG_CLIP_SECONDS * SR)
+    t_mel = spectral.n_frames(length, 2048, 256)
+    t_mfcc = spectral.n_frames(length, 2048, 512)
+    max_p = yin.yin_periods(SR, 50.0, 1000.0, 2048, 1024)[1]
+    return {
+        "melspec_frontend": (
+            lambda x: features.melspec_features(x, SR),
+            lambda x: features.melspec_features_plain(x, SR),
+            lambda dev: roofline.melspec_cost(n, length, SR, dev), t_mel,
+            "gat_melspec_blocks_per_sm", (64, t_mel)),
+        "mfcc_frontend": (
+            lambda x: features.mfcc_frontend(x, SR),
+            lambda x: features.mfcc_frontend_plain(x, SR),
+            lambda dev: roofline.mfcc_cost(n, length, SR, dev), t_mfcc,
+            "gat_mfcc_blocks_per_sm", (128, t_mfcc)),
+        "yin_pitch": (
+            lambda x: yin.yin_pitch(x, SR),
+            lambda x: yin.yin_pitch_plain(x, SR),
+            lambda dev: roofline.yin_cost(n, length, SR), t_mfcc,
+            "gat_yin_blocks_per_sm", (1024, 512, t_mfcc, max_p)),
+        "mfcc_pitch_frontend": (
+            lambda x: features.mfcc_pitch_features(x, SR),
+            lambda x: features.mfcc_pitch_features_plain(x, SR),
+            lambda dev: roofline.mfcc_pitch_cost(n, length, SR, dev),
+            t_mfcc, "gat_mfcc_pitch_frontend_blocks_per_sm",
+            (length, 512, t_mfcc, 128, 1024, max_p)),
+    }
+
+
+def long_clip_error(name: str, got, ref) -> tuple[float, bool]:
+    """(max abs error, ok) of a long-clip kernel against its plain
+    version, at the tolerance of its clip-path check: K1 0.1 dB where the
+    plain image is above -60 dB; K2 and K6's MFCC atol 1e-3 and rtol
+    2e-6 (a mean over 87 frames); K3's and K6's pitch rtol 2e-3."""
+    import torch
+    if name == "melspec_frontend":
+        return mel_error(got, ref)
+    if name == "yin_pitch":
+        rel = (got / ref - 1).abs()
+        return (float((got - ref).abs().max()),
+                float(rel.max()) <= 2e-3 and bool(torch.isfinite(got).all()))
+    hz_ok = True
+    if name == "mfcc_pitch_frontend":
+        (got, hz), (ref, ref_hz) = got, ref
+        got, ref = got[:, :64], ref[:, :64]
+        hz_ok = float((hz / ref_hz - 1).abs().max()) <= 2e-3
+    d = (got - ref).abs()
+    return float(d.max()), (hz_ok and bool(torch.isfinite(got).all())
+                            and bool((d <= 1e-3 + 2e-6 * ref.abs()).all()))
+
+
+def long_clips_phase(rows: list, card: str, failures: list,
+                     device: str = "cuda") -> None:
+    """`[long-clips]`: K1, K2, K3 and K6 at LONG_CLIPS clips of
+    LONG_CLIP_SECONDS (the kernels refused clips past 70 frames, K1 and K2
+    past 744 and 354, before YIN ran in groups of frames and the dB images
+    could leave shared memory): each against its plain version, K6's MFCC
+    K2's and its pitch K3's bit for bit, each timed in CUDA events over
+    POOL buffers with its bound and blocks per SM, into its kernels-line
+    row's `long_clips`; then `[file]` at `clip_duration=4.0` (module
+    docstring, phase 17)."""
+    import torch
+    from gat_tpu_torch import features, kernels
+    from gat_tpu_torch.ops import yin
+    roofline = load_roofline()
+    dev = torch.device(device)
+    length = int(LONG_CLIP_SECONDS * SR)
+    midi = (40 + np.arange(LONG_CLIPS * 5) % 47).reshape(LONG_CLIPS, 5)
+    x = torch.from_numpy(make_riffs(midi, LONG_CLIP_SECONDS, SR, SEED + 16,
+                                    noise=0.1)).to(dev)
+    pool = noisy_pool(x, SEED, 0.01)
+    by_name = {r["name"]: r for r in rows}
+    outs = {}
+    for name, (fn, plain, cost, frames, symbol, sizes) in (
+            long_clip_kernels(features, yin).items()):
+        outs[name] = got = fn(x)
+        err, ok = long_clip_error(name, got, plain(x))
+        blocks = ctypes.c_int(0)
+        kernels.check(kernels.function(
+            name, symbol, [ctypes.c_int] * len(sizes) + [ctypes.c_void_p])(
+                *sizes, ctypes.addressof(blocks)), f"{name} occupancy")
+        bound_ms, bound_by = roofline.bound(*cost(dev))
+        info = dict(shape=[LONG_CLIPS, length], frames=frames,
+                    max_abs_err=err, ms=time_ms(fn, pool, reps=10),
+                    plain_ms=time_ms(plain, pool, reps=3),
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    blocks_per_sm=blocks.value)
+        log(f"[long-clips] {name} at {LONG_CLIPS} x {length} ({frames} "
+            f"frames): max abs err {err:.6g} -> {'ok' if ok else 'FAIL'}; "
+            f"kernel {info['ms']:.4f} ms, plain {info['plain_ms']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), {blocks.value} blocks "
+            f"per SM, on {card}")
+        if not ok:
+            failures.append(f"[long-clips] {name} against its plain version")
+        if name in by_name:
+            by_name[name]["long_clips"] = info
+    k6, hz = outs["mfcc_pitch_frontend"]
+    same = (torch.equal(k6[:, :64], outs["mfcc_frontend"])
+            and torch.equal(hz, outs["yin_pitch"]))
+    log(f"[long-clips] K6's MFCC K2's and its pitch K3's bit for bit: "
+        f"{same}")
+    if not same:
+        failures.append("[long-clips] K6 differs from K2 and K3")
+    torch.cuda.synchronize()
+    file_4s_phase(rows, card, failures, device)
+
+
+def file_4s_phase(rows: list, card: str, failures: list,
+                  device: str = "cuda") -> None:
+    """`[file]` at `clip_duration=4.0`: a 12 s riff (A2 G3 E4, 4.2 s
+    apart) at 22050 Hz through `transcribe`, on the card and the CPU, on
+    the FFT route (K1-K5 launched) and on the matmul route (K1, K6, K4,
+    K5; no K2 or K3): labels, onsets and times equal to the CPU's."""
+    import torch
+    from gat_tpu_torch import features
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.ops import spectral
+    from gat_tpu_torch.utils.wavio import write_wav
+    card_t, cpu_t = Transcriber(device=device), Transcriber(device="cpu")
+    k6_row = next((r for r in rows if r["name"] == "mfcc_pitch_frontend"),
+                  None)
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "riff_12s.wav"
+        write_wav(path, make_riffs(np.array([FILE_4S_MIDI]), 12.0, FILE_SR,
+                                   SEED + 6, noise=0.0, spacing=4.2)[0],
+                  FILE_SR)
+        try:
+            for route in ("fft", "matmul"):
+                spectral.set_stft_backend(route)
+                call = functools.partial(card_t.transcribe, path,
+                                         clip_duration=4.0)
+                call()  # first call: library handles
+                features.mfcc_pitch_features.launches = 0
+                got, launches, wall = driven(call)
+                k6 = features.mfcc_pitch_features.launches
+                ref = cpu_t.transcribe(path, clip_duration=4.0)
+                same, err = same_result(got, ref)
+                want = ([1, 1, 1, 1, 1], 0) if route == "fft" else (
+                    [1, 0, 0, 1, 1], 1)
+                ok = (same and bool(got["labels"])
+                      and [min(k, 1) for k in launches] == want[0]
+                      and min(k6, 1) == want[1])
+                log(f"[file] transcribe(12 s riff, clip_duration=4.0) on "
+                    f"the {route} route: labels {got['labels']}, onsets "
+                    f"{got['onsets_s']}; equal to the CPU plain path {same} "
+                    f"(max prob err {err:.3g}); launches K1..K5 {launches}, "
+                    f"K6 {k6}; {wall * 1e3:.3f} ms on {card} -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"[file] clip_duration=4.0 on the "
+                                    f"{route} route")
+                path_name = "file_4s" if route == "fft" else "file_4s_shared"
+                record_launches(rows, path_name, launches)
+                if k6_row is not None:
+                    k6_row.setdefault("launches_by_path", {})[path_name] = k6
+        finally:
+            spectral.set_stft_backend("auto")
+    torch.cuda.synchronize()
+
+
+def numpy_phase(rows: list, card: str, failures: list, clips_np: np.ndarray,
+                device: str = "cuda") -> None:
+    """`[numpy]`: the numpy baseline's twin,
+    `tools/torch_numpy_reference_pipeline.py`, on the first NUMPY_CLIPS of
+    `[main]`'s clips with the shipped checkpoints: its argmax equals the
+    card's `transcribe_clips`'s on every clip; its rate in audio-s/s on
+    this host is logged (the CPU floor of the port's bench)."""
+    from gat_tpu_torch.config import CNN_CONFIG, MLP_CONFIG
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.train.checkpoint import load_checkpoint
+    twin = load_tool("torch_numpy_reference_pipeline")
+    pipe = twin.NumpyReferencePipeline(
+        load_checkpoint(MLP_CONFIG.CHECKPOINTS_DIR
+                        / MLP_CONFIG.DEFAULT_CKPT_NAME),
+        load_checkpoint(CNN_CONFIG.CHECKPOINTS_DIR
+                        / CNN_CONFIG.DEFAULT_CKPT_NAME))
+    clips = clips_np[:NUMPY_CLIPS]
+    pipe.transcribe_clip(clips[0])  # numpy's own first-call costs
+    t0 = time.perf_counter()
+    probs = np.concatenate([pipe.transcribe_clip(c) for c in clips])
+    dt = time.perf_counter() - t0
+    card = Transcriber(device=device).transcribe_clips(clips)
+    same = probs.argmax(1).tolist() == np.asarray(
+        card["probs"]).argmax(1).tolist()
+    err = float(np.abs(probs - np.asarray(card["probs"])).max())
+    log(f"[numpy] the twin's argmax over {len(clips)} clips equal to the "
+        f"card's transcribe_clips {same} (max prob diff {err:.3g}); the "
+        f"twin at {len(clips) * 0.5 / dt:.2f} audio-s/s on this host -> "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("[numpy] the twin's argmax differs from the card's")
+
+
 def main() -> int:
     import torch
 
@@ -3010,6 +3228,11 @@ def main() -> int:
     # ---- 16. multi-device at world 1 --------------------------------------
     parallel_phase(rows, card, failures, clips_np)
 
+    # ---- 17. the clip kernels at 4 s, and the file path at clip 4 s -------
+    long_clips_phase(rows, card, failures)
+
+    # ---- 18. the numpy baseline's twin ------------------------------------
+    numpy_phase(rows, card, failures, clips_np)
 
     if failures:
         log(f"[fail] {failures}")

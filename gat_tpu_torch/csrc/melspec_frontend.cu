@@ -46,15 +46,30 @@
 //      after them, 1 after the mel partial sums.
 // Items 1, 2 and 4 are the round loop of mel_rounds.cuh, which K2
 // (mfcc_frontend.cu) shares with a zero pad and its own epilogue.
+// A clip whose image does not fit beside the rounds' buffers in a block's
+// shared memory (745 frames or more at 64 mels) writes each value straight
+// into the output, which is the image (the kernel's kImageInSmem = false
+// instance): the same values, stored one at a time instead of once as a
+// whole.
 #include "mel_rounds.cuh"
 
 using namespace gat;
 
-static size_t melspec_smem_bytes(int n_mels, int n_frames) {
+__host__ __device__ constexpr bool melspec_image_in_smem(int n_mels,
+                                                        int n_frames) {
   return sizeof(float) *
-         (size_t)(mel_rounds_floats(n_mels) + n_mels * n_frames);
+             (size_t)(mel_rounds_floats(n_mels) + n_mels * n_frames) <=
+         kMaxBlockSmem;
 }
 
+static size_t melspec_smem_bytes(int n_mels, int n_frames) {
+  return sizeof(float) *
+         (size_t)(mel_rounds_floats(n_mels) +
+                  (melspec_image_in_smem(n_mels, n_frames) ? n_mels * n_frames
+                                                           : 0));
+}
+
+template <bool kImageInSmem>
 __global__ void __launch_bounds__(kThreads, 4)
 melspec_frontend_kernel(const float* __restrict__ clips,
                         float* __restrict__ out,
@@ -65,7 +80,9 @@ melspec_frontend_kernel(const float* __restrict__ clips,
                         const int* __restrict__ hi, int n_samples, int hop,
                         int n_frames, int n_mels, int normalize, int to_db) {
   extern __shared__ float smem[];
-  float* img = smem + mel_rounds_floats(n_mels);  // n_mels x n_frames
+  float* o = out + (size_t)blockIdx.x * n_mels * n_frames;
+  // n_mels x n_frames
+  float* img = kImageInSmem ? smem + mel_rounds_floats(n_mels) : o;
 
   const float* clip = clips + (size_t)blockIdx.x * n_samples;
   const float scale = power_scale(clip, n_samples, normalize, smem);
@@ -76,15 +93,25 @@ melspec_frontend_kernel(const float* __restrict__ clips,
         v *= scale;
         img[m * n_frames + t] = to_db ? 10.0f * log10f(fmaxf(v, 1e-10f)) : v;
       });
-  __syncthreads();
-  float* o = out + (size_t)blockIdx.x * n_mels * n_frames;
-  for (int i = threadIdx.x; i < n_mels * n_frames; i += kThreads)
-    o[i] = img[i];
+  if constexpr (kImageInSmem) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_mels * n_frames; i += kThreads)
+      o[i] = img[i];
+  }
+}
+
+using MelspecKernel = decltype(&melspec_frontend_kernel<true>);
+
+static MelspecKernel melspec_kernel(int n_mels, int n_frames) {
+  return melspec_image_in_smem(n_mels, n_frames)
+             ? melspec_frontend_kernel<true>
+             : melspec_frontend_kernel<false>;
 }
 
 static cudaError_t melspec_set_attributes(int n_mels, int n_frames) {
   return cudaFuncSetAttribute(
-      melspec_frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      melspec_kernel(n_mels, n_frames),
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)melspec_smem_bytes(n_mels, n_frames));
 }
 
@@ -95,11 +122,13 @@ extern "C" int gat_melspec_frontend(const float* clips, float* out,
                                     int n_samples, int hop, int n_frames,
                                     int n_mels, int normalize, int to_db,
                                     void* stream) {
+  if (n_frames < 1 || n_frames >= kMaxFrames)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = melspec_set_attributes(n_mels, n_frames);
   if (err != cudaSuccess) return (int)err;
-  melspec_frontend_kernel<<<n_clips, kThreads,
-                            melspec_smem_bytes(n_mels, n_frames),
-                            (cudaStream_t)stream>>>(
+  const MelspecKernel kernel = melspec_kernel(n_mels, n_frames);
+  kernel<<<n_clips, kThreads, melspec_smem_bytes(n_mels, n_frames),
+           (cudaStream_t)stream>>>(
       clips, out, hann, tw, fb, lo, hi, n_samples, hop, n_frames, n_mels,
       normalize, to_db);
   return (int)cudaGetLastError();
@@ -109,9 +138,11 @@ extern "C" int gat_melspec_frontend(const float* clips, float* out,
 // from the kernel's registers and shared memory.
 extern "C" int gat_melspec_blocks_per_sm(int n_mels, int n_frames,
                                          int* blocks) {
+  if (n_frames < 1 || n_frames >= kMaxFrames)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = melspec_set_attributes(n_mels, n_frames);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, melspec_frontend_kernel, kThreads,
+      blocks, melspec_kernel(n_mels, n_frames), kThreads,
       melspec_smem_bytes(n_mels, n_frames));
 }

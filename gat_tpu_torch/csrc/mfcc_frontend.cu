@@ -30,15 +30,23 @@
 // each coefficient) all 256 threads. Shared memory: the rounds' 2 x 2 x
 // 2048 floats of exchange and 128 x 36 of partial sums, and the image,
 // 56,832 bytes for 11 frames, so four blocks fit on an SM with
-// __launch_bounds__(256, 4).
+// __launch_bounds__(256, 4). A clip whose image does not fit beside the
+// rounds' buffers in a block's shared memory (355 frames or more at 128
+// mels) keeps it in a workspace in device memory that the caller passes,
+// n_frames x n_mels floats per clip (the kernel's kImageInSmem = false
+// instance); the max, the clamp and the mean read the same floats in the
+// same order.
 #include "mfcc_mean.cuh"
 
 using namespace gat;
 
 static size_t mfcc_smem_bytes(int n_mels, int n_frames) {
-  return sizeof(float) * (size_t)mfcc_mean_floats(n_mels, n_frames);
+  return sizeof(float) *
+         (size_t)mfcc_mean_floats(
+             n_mels, mfcc_image_in_smem(n_mels, n_frames) ? n_frames : 0);
 }
 
+template <bool kImageInSmem>
 __global__ void __launch_bounds__(kThreads, 4)
 mfcc_frontend_kernel(const float* __restrict__ clips,
                      float* __restrict__ out,
@@ -46,38 +54,59 @@ mfcc_frontend_kernel(const float* __restrict__ clips,
                      const float* __restrict__ tw,
                      const float* __restrict__ fb,
                      const int* __restrict__ lo, const int* __restrict__ hi,
-                     const float* __restrict__ dct, int n_samples, int hop,
-                     int n_frames, int n_mels, int n_mfcc, int normalize,
-                     float top_db) {
+                     const float* __restrict__ dct, float* workspace,
+                     int n_samples, int hop, int n_frames, int n_mels,
+                     int n_mfcc, int normalize, float top_db) {
   extern __shared__ float smem[];
   const float* clip = clips + (size_t)blockIdx.x * n_samples;
   const float scale = power_scale(clip, n_samples, normalize, smem);
+  float* img = kImageInSmem
+                   ? smem + mel_rounds_floats(n_mels)
+                   : workspace + (size_t)blockIdx.x * n_frames * n_mels;
   mfcc_mean(clip, n_samples, hop, n_frames, n_mels, n_mfcc, scale, top_db,
-            hann, tw, fb, lo, hi, dct, smem,
+            hann, tw, fb, lo, hi, dct, smem, img,
             out + (size_t)blockIdx.x * n_mfcc);
+}
+
+using MfccKernel = decltype(&mfcc_frontend_kernel<true>);
+
+static MfccKernel mfcc_kernel(int n_mels, int n_frames) {
+  return mfcc_image_in_smem(n_mels, n_frames) ? mfcc_frontend_kernel<true>
+                                              : mfcc_frontend_kernel<false>;
 }
 
 static cudaError_t mfcc_set_attributes(int n_mels, int n_frames) {
   return cudaFuncSetAttribute(
-      mfcc_frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mfcc_kernel(n_mels, n_frames),
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)mfcc_smem_bytes(n_mels, n_frames));
+}
+
+// Floats of device-memory workspace per clip that a launch at these sizes
+// needs: 0 when the dB image stays in shared memory.
+extern "C" int gat_mfcc_workspace_floats(int n_mels, int n_frames) {
+  return mfcc_image_in_smem(n_mels, n_frames) ? 0 : n_frames * n_mels;
 }
 
 extern "C" int gat_mfcc_frontend(const float* clips, float* out,
                                  const float* hann, const float* tw,
                                  const float* fb, const int* lo,
                                  const int* hi, const float* dct,
-                                 int n_clips, int n_samples, int hop,
-                                 int n_frames, int n_mels, int n_mfcc,
-                                 int normalize, float top_db, void* stream) {
-  if (!mfcc_epilogue_fits(n_mels, n_mfcc))
+                                 float* workspace, int n_clips,
+                                 int n_samples, int hop, int n_frames,
+                                 int n_mels, int n_mfcc, int normalize,
+                                 float top_db, void* stream) {
+  if (n_frames < 1 || n_frames >= kMaxFrames ||
+      !mfcc_epilogue_fits(n_mels, n_mfcc) ||
+      (gat_mfcc_workspace_floats(n_mels, n_frames) > 0 && !workspace))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = mfcc_set_attributes(n_mels, n_frames);
   if (err != cudaSuccess) return (int)err;
-  mfcc_frontend_kernel<<<n_clips, kThreads, mfcc_smem_bytes(n_mels, n_frames),
-                         (cudaStream_t)stream>>>(
-      clips, out, hann, tw, fb, lo, hi, dct, n_samples, hop, n_frames,
-      n_mels, n_mfcc, normalize, top_db);
+  const MfccKernel kernel = mfcc_kernel(n_mels, n_frames);
+  kernel<<<n_clips, kThreads, mfcc_smem_bytes(n_mels, n_frames),
+           (cudaStream_t)stream>>>(
+      clips, out, hann, tw, fb, lo, hi, dct, workspace, n_samples, hop,
+      n_frames, n_mels, n_mfcc, normalize, top_db);
   return (int)cudaGetLastError();
 }
 
@@ -85,9 +114,11 @@ extern "C" int gat_mfcc_frontend(const float* clips, float* out,
 // from the kernel's registers and shared memory.
 extern "C" int gat_mfcc_blocks_per_sm(int n_mels, int n_frames,
                                       int* blocks) {
+  if (n_frames < 1 || n_frames >= kMaxFrames)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = mfcc_set_attributes(n_mels, n_frames);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, mfcc_frontend_kernel, kThreads,
+      blocks, mfcc_kernel(n_mels, n_frames), kThreads,
       mfcc_smem_bytes(n_mels, n_frames));
 }

@@ -1,9 +1,10 @@
 // The MFCC mean of one clip, shared by K2 (mfcc_frontend.cu) and K6
 // (mfcc_pitch_frontend.cu): K1's round loop (mel_rounds.cuh) over a zero
 // centre pad, then the epilogue:
-//   1. 10*log10(max(v * scale, 1e-10)) per (band, frame) into a dB image in
-//      shared memory, each thread folding the values it writes into a
-//      running max, so the clip's peak costs one block reduction;
+//   1. 10*log10(max(v * scale, 1e-10)) per (band, frame) into a dB image,
+//      in shared memory where it fits and else in a workspace in device
+//      memory, each thread folding the values it writes into a running
+//      max, so the clip's peak costs one block reduction;
 //   2. the clamp at peak - top_db and the mean over frames, one thread per
 //      band;
 //   3. one orthonormal DCT-II of the mean (it commutes with the mean), 4
@@ -20,9 +21,19 @@ namespace gat {
 constexpr int kDctParts = 4;  // parts of the bands per DCT coefficient
 
 // Floats of shared memory `mfcc_mean` uses from its `smem`: the rounds'
-// exchange buffer and partial sums, then the n_frames x n_mels dB image.
+// exchange buffer and partial sums, then the n_frames x n_mels dB image
+// (n_frames 0: the image is in device memory).
 __host__ __device__ constexpr int mfcc_mean_floats(int n_mels, int n_frames) {
   return mel_rounds_floats(n_mels) + n_frames * n_mels;
+}
+
+// Whether the dB image of a clip stays in shared memory with the rounds'
+// buffers (else it goes to a workspace in device memory, n_frames x n_mels
+// floats per clip).
+__host__ __device__ constexpr bool mfcc_image_in_smem(int n_mels,
+                                                     int n_frames) {
+  return sizeof(float) * (size_t)mfcc_mean_floats(n_mels, n_frames) <=
+         kMaxBlockSmem;
 }
 
 // Floats at the start of `smem` that the epilogue uses after the rounds:
@@ -48,13 +59,17 @@ struct NoHook {
 // Writes the n_mfcc coefficients of the clip's mean MFCC to out[0..n_mfcc).
 // `scale` multiplies the rounds' mel sums: the split's (1/2)^2 times the
 // volume scale of the power. Frame t reads the clip's samples t * hop + n
-// - kFFT / 2, zeros outside [0, n_samples).
+// - kFFT / 2, zeros outside [0, n_samples). `img` holds the n_frames x
+// n_mels dB image: smem + mel_rounds_floats(n_mels) where it fits
+// (mfcc_image_in_smem), else this clip's rows of a workspace in device
+// memory; the same floats in the same order either way.
 // Every thread of the block calls this; on return `smem` is free again
 // once the block has passed a barrier. Every thread calls
 // `after_rounds()` as it leaves the rounds, before the epilogue: from
 // then on the floats [mfcc_epilogue_floats(n_mels, n_mfcc), 4 * kFFT)
-// and [mfcc_mean_floats(n_mels, n_frames), ...) of `smem` are not
-// touched again, so it may start filling them.
+// and those past the image, or past the rounds' buffers when the image is
+// in device memory, of `smem` are not touched again, so it may start
+// filling them.
 template <class AfterRounds = NoHook>
 __device__ __forceinline__ void mfcc_mean(
     const float* __restrict__ clip, int n_samples, int hop, int n_frames,
@@ -62,8 +77,7 @@ __device__ __forceinline__ void mfcc_mean(
     const float* __restrict__ hann, const float* __restrict__ tw,
     const float* __restrict__ fb, const int* __restrict__ lo,
     const int* __restrict__ hi, const float* __restrict__ dct, float* smem,
-    float* __restrict__ out, AfterRounds after_rounds = {}) {
-  float* img = smem + mel_rounds_floats(n_mels);  // n_frames x n_mels
+    float* img, float* __restrict__ out, AfterRounds after_rounds = {}) {
   // after the rounds, over the exchange buffer:
   float* scratch = smem;                 // kThreads
   float* mean_db = scratch + kThreads;   // n_mels

@@ -57,25 +57,39 @@
 // clip before the rounds (26,240 bytes more) fitted two. The price is a
 // second read of each clip, for YIN, which hits L2: about 528 clips of 22
 // KB are in flight on the card's 132 SMs, against a 50 MB L2. Longer
-// clips (22 frames at 22050 Hz) put the YIN copy after the dB image and
-// the tables at the start of the buffer (111,364 bytes, two blocks).
+// clips put the YIN copy after the dB image and the tables at the start of
+// the buffer when the copy does not fit in the exchange buffer.
+//
+// Clips of any length up to kMaxFrames frames: YIN runs in groups of
+// frames (yin_acf.cuh), the first group's copy started by the hook as
+// above, each later one staged when the last is done; the group is the
+// largest that fits the shared memory a block has at the occupancy the
+// MFCC branch allows (four blocks at 11 frames, where the group is the
+// whole clip and the layout the one above). Chains that cross a group's
+// end are summed again in the next group, from the same samples in the
+// same order, so every frame's f0 is the same float. Where the dB image
+// and a group of YIN do not fit beside the rounds' buffers (355 frames or
+// more at 128 mels, as in K2), the image goes to a workspace in device
+// memory that the caller passes, n_frames x n_mels floats per clip.
 #include <cuda_pipeline.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 #include "mfcc_mean.cuh"
 #include "yin_acf.cuh"
 
 using namespace gat;
 
-constexpr int kMaxFrames = 2000;  // features.py _KERNEL_MAX_FRAMES
-constexpr int kPad = kFFT / 2;    // YIN's zero centre pad, frame_length / 2
+constexpr int kPad = kFFT / 2;  // YIN's zero centre pad, frame_length / 2
+constexpr int kBlocksPerSM = 4;
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
 // The shared-memory buffer of one block, in floats: the MFCC branch's
-// (mfcc_mean_floats), and where YIN's padded clip (`clip`) and tables
-// (`tables`, in bytes, 16-byte aligned) go in it. The clip sits past the
+// (mfcc_mean_floats, with the dB image when kImageInSmem), and where
+// YIN's padded copy of a group of `group` frames (`clip`) and its tables
+// (`tables`, in bytes, 16-byte aligned) go in it. The copy sits past the
 // epilogue's buffers in the exchange buffer when it fits there, else past
 // the dB image with the tables at the start.
 struct FrontendLayout {
@@ -83,9 +97,10 @@ struct FrontendLayout {
   int clip, floats;
   size_t tables;
   __host__ __device__ FrontendLayout(int n_frames, int n_mels, int win,
-                                     int hop, int max_p)
-      : yin(win, hop, n_frames, max_p) {
-    const int mfcc = mfcc_mean_floats(n_mels, n_frames);
+                                     int hop, int max_p, int group,
+                                     bool image_in_smem)
+      : yin(win, hop, group, max_p, n_frames) {
+    const int mfcc = mfcc_mean_floats(n_mels, image_in_smem ? n_frames : 0);
     // the epilogue's buffers for any n_mfcc <= n_mels
     const int head = round4(mfcc_epilogue_floats(n_mels, n_mels));
     const int yin_floats = round4((int)((yin.tables + 3) / 4));
@@ -109,34 +124,41 @@ struct FrontendLayout {
   }
 };
 
-// Starts copying YIN's zero-padded copy of the clip into `padded` (len
-// floats): padded[p] = clip[p - kPad], zeros outside the clip. The zeros
-// are stored now; the samples are cp.async copies, 16 bytes each where
-// both rows are 16-byte aligned (an 11,025-sample row of 44,100 bytes is
-// not, on three rows of four), else 4, committed as one group. Every
-// thread waits for its own with __pipeline_wait_prior(0), then the block
-// synchronizes before reading.
+// Starts copying the zero-padded samples of a group, from the padded
+// clip's index `first` on, into `padded` (len floats): padded[p] =
+// clip[first + p - kPad], zeros outside the clip. The zeros are stored
+// now; the samples are cp.async copies, 16 bytes each where both rows are
+// 16-byte aligned (an 11,025-sample row of 44,100 bytes is not, on three
+// rows of four), else 4, committed as one group. Every thread waits for
+// its own with __pipeline_wait_prior(0), then the block synchronizes
+// before reading.
 __device__ __forceinline__ void stage_yin_clip(const float* __restrict__ clip,
-                                               int n_samples, int len,
+                                               int n_samples, int first,
+                                               int len,
                                                float* __restrict__ padded) {
-  const int n = n_samples < len - kPad ? n_samples : len - kPad;
-  float* dst = padded + kPad;
-  for (int p = threadIdx.x; p < kPad; p += kThreads) padded[p] = 0.0f;
-  for (int p = kPad + n + threadIdx.x; p < len; p += kThreads)
+  const int lead = first < kPad ? kPad - first : 0;  // zeros before sample 0
+  const float* src = clip + (first + lead - kPad);
+  int n = n_samples - (first + lead - kPad);
+  if (n > len - lead) n = len - lead;
+  if (n < 0) n = 0;
+  float* dst = padded + lead;
+  for (int p = threadIdx.x; p < lead; p += kThreads) padded[p] = 0.0f;
+  for (int p = lead + n + threadIdx.x; p < len; p += kThreads)
     padded[p] = 0.0f;
   int done = 0;
-  if (((reinterpret_cast<uintptr_t>(clip) |
+  if (((reinterpret_cast<uintptr_t>(src) |
         reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
     done = n / 4 * 4;
     for (int q = 4 * threadIdx.x; q < done; q += 4 * kThreads)
-      __pipeline_memcpy_async(dst + q, clip + q, 4 * sizeof(float));
+      __pipeline_memcpy_async(dst + q, src + q, 4 * sizeof(float));
   }
   for (int i = done + threadIdx.x; i < n; i += kThreads)
-    __pipeline_memcpy_async(dst + i, clip + i, sizeof(float));
+    __pipeline_memcpy_async(dst + i, src + i, sizeof(float));
   __pipeline_commit();
 }
 
-__global__ void __launch_bounds__(kThreads, 4)
+template <bool kImageInSmem>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 mfcc_pitch_frontend_kernel(const float* __restrict__ clips,
                            float* __restrict__ out, float* __restrict__ hz_out,
                            const float* __restrict__ hann,
@@ -144,70 +166,155 @@ mfcc_pitch_frontend_kernel(const float* __restrict__ clips,
                            const float* __restrict__ fb,
                            const int* __restrict__ lo,
                            const int* __restrict__ hi,
-                           const float* __restrict__ dct, int n_samples,
-                           int hop, int n_frames, int n_mels, int n_mfcc,
-                           int win, int min_p, int max_p, int normalize,
-                           int pitch_normalized, float top_db,
-                           float threshold, float sr) {
-  const FrontendLayout lay(n_frames, n_mels, win, hop, max_p);
+                           const float* __restrict__ dct, float* workspace,
+                           int n_samples, int hop, int n_frames, int n_mels,
+                           int n_mfcc, int win, int min_p, int max_p,
+                           int group, int normalize, int pitch_normalized,
+                           float top_db, float threshold, float sr) {
+  const FrontendLayout lay(n_frames, n_mels, win, hop, max_p, group,
+                           kImageInSmem);
   extern __shared__ float smem[];
   float* padded = smem + lay.clip;
+  char* tables = reinterpret_cast<char*>(smem) + lay.tables;
+  float* f0 = reinterpret_cast<float*>(tables + lay.yin.f0);
 
   // 1. the volume divisor, in K2's order of summation
   const float* clip = clips + (size_t)blockIdx.x * n_samples;
   const float d = normalize ? volume_divisor(clip, n_samples, smem) : 1.0f;
 
   // 2-3. the MFCC mean into the row's first n_mfcc values; YIN's copy of
-  // the clip is started as the rounds end
+  // the first group is started as the rounds end
   float* row = out + (size_t)blockIdx.x * (n_mfcc + 1);
+  float* img = kImageInSmem
+                   ? smem + mel_rounds_floats(n_mels)
+                   : workspace + (size_t)blockIdx.x * n_frames * n_mels;
   const float scale = normalize ? 0.25f / (d * d) : 0.25f;
   mfcc_mean(clip, n_samples, hop, n_frames, n_mels, n_mfcc, scale, top_db,
-            hann, tw, fb, lo, hi, dct, smem, row, [&]() {
-              stage_yin_clip(clip, n_samples, lay.yin.padded_len, padded);
+            hann, tw, fb, lo, hi, dct, smem, img, row, [&]() {
+              stage_yin_clip(clip, n_samples, 0, lay.yin.padded_len, padded);
             });
   __pipeline_wait_prior(0);
   __syncthreads();  // the copy has landed and the epilogue is done: the
                     // rest of the buffer passes to the YIN tables
 
-  // 4. the YIN pitch, of the normalized clip when both flags ask for it
-  if (normalize && pitch_normalized) {
-    for (int p = threadIdx.x; p < lay.yin.padded_len; p += kThreads)
-      padded[p] = padded[p] / d;
-    __syncthreads();
+  // 4. the YIN pitch, of the normalized clip when both flags ask for it,
+  // group by group
+  for (int g0 = 0; g0 < n_frames; g0 += group) {
+    if (g0 > 0) {
+      __syncthreads();  // the last group is done with the copy
+      stage_yin_clip(clip, n_samples, g0 * hop, lay.yin.padded_len, padded);
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
+    if (normalize && pitch_normalized) {
+      for (int p = threadIdx.x; p < lay.yin.padded_len; p += kThreads)
+        padded[p] = padded[p] / d;
+      __syncthreads();
+    }
+    yin_frames_f0</*kFused=*/true>(
+        padded, tables, lay.yin,
+        n_frames - g0 < group ? n_frames - g0 : group, f0 + g0, win, hop,
+        min_p, max_p, threshold, sr);
   }
-  const float hz = yin_median_f0</*kFused=*/true>(
-      padded, reinterpret_cast<char*>(smem) + lay.tables, lay.yin, n_frames,
-      win, hop, min_p, max_p, threshold, sr);
+  const float hz = yin_median</*kFused=*/true>(tables, lay.yin, n_frames);
   if (threadIdx.x == 0) {
     row[n_mfcc] = log10f(hz);
     hz_out[blockIdx.x] = hz;
   }
 }
 
-static cudaError_t frontend_set_attributes(const FrontendLayout& lay) {
-  return cudaFuncSetAttribute(mfcc_pitch_frontend_kernel,
+using FrontendKernel = decltype(&mfcc_pitch_frontend_kernel<true>);
+
+// How a launch at these sizes runs: the dB image in shared memory or not,
+// YIN's group of frames, and the layout. The image stays in shared memory
+// when some group fits beside it; the group is the largest whose buffer
+// fits at the occupancy the MFCC branch alone allows (at most
+// kBlocksPerSM). group 0: refused.
+struct FrontendPlan {
+  bool image_in_smem = true;
+  int group = 0;
+};
+
+static FrontendPlan frontend_plan(int n_frames, int n_mels, int n_mfcc,
+                                  int win, int hop, int max_p) {
+  FrontendPlan plan;
+  if (n_frames < 1 || n_frames >= kMaxFrames || max_p < 1 ||
+      n_mfcc > n_mels || !mfcc_epilogue_fits(n_mels, n_mfcc) ||
+      !shared_chains_fit(win, hop))
+    return plan;
+  for (const bool in_smem : {true, false}) {
+    const size_t mfcc =
+        sizeof(float) * (size_t)mfcc_mean_floats(n_mels,
+                                                 in_smem ? n_frames : 0);
+    if (!smem_fits(mfcc, kMaxBlockSmem)) continue;
+    const size_t budget = smem_per_block(blocks_per_sm(mfcc, kBlocksPerSM));
+    plan.image_in_smem = in_smem;
+    plan.group = yin_group(win, hop, n_frames, max_p, budget, [&](int g) {
+      return FrontendLayout(n_frames, n_mels, win, hop, max_p, g, in_smem)
+          .bytes();
+    });
+    if (plan.group > 0) break;
+  }
+  return plan;
+}
+
+static FrontendKernel frontend_kernel(const FrontendPlan& plan) {
+  return plan.image_in_smem ? mfcc_pitch_frontend_kernel<true>
+                            : mfcc_pitch_frontend_kernel<false>;
+}
+
+static FrontendLayout frontend_layout(const FrontendPlan& plan, int n_frames,
+                                      int n_mels, int win, int hop,
+                                      int max_p) {
+  return FrontendLayout(n_frames, n_mels, win, hop, max_p, plan.group,
+                        plan.image_in_smem);
+}
+
+static cudaError_t frontend_set_attributes(const FrontendPlan& plan,
+                                           const FrontendLayout& lay) {
+  return cudaFuncSetAttribute(frontend_kernel(plan),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)lay.bytes());
+}
+
+// Floats of device-memory workspace per clip that a launch at these sizes
+// needs (0: the dB image stays in shared memory), or -1 when it is
+// refused.
+extern "C" int gat_mfcc_pitch_workspace_floats(int n_frames, int n_mels,
+                                               int n_mfcc, int win, int hop,
+                                               int max_p) {
+  const FrontendPlan plan =
+      frontend_plan(n_frames, n_mels, n_mfcc, win, hop, max_p);
+  if (plan.group == 0) return -1;
+  return plan.image_in_smem ? 0 : n_frames * n_mels;
+}
+
+// YIN's group of frames at these sizes (0: refused).
+extern "C" int gat_mfcc_pitch_group(int n_frames, int n_mels, int n_mfcc,
+                                    int win, int hop, int max_p) {
+  return frontend_plan(n_frames, n_mels, n_mfcc, win, hop, max_p).group;
 }
 
 extern "C" int gat_mfcc_pitch_frontend(
     const float* clips, float* out, float* hz, const float* hann,
     const float* tw, const float* fb, const int* lo, const int* hi,
-    const float* dct, int n_clips, int n_samples, int hop, int n_frames,
-    int n_mels, int n_mfcc, int win, int min_p, int max_p, int normalize,
-    int pitch_normalized, float top_db, float threshold, float sr,
-    void* stream) {
-  if (n_frames >= kMaxFrames || n_mfcc > n_mels ||
-      !mfcc_epilogue_fits(n_mels, n_mfcc) || !shared_chains_fit(win, hop))
+    const float* dct, float* workspace, int n_clips, int n_samples, int hop,
+    int n_frames, int n_mels, int n_mfcc, int win, int min_p, int max_p,
+    int normalize, int pitch_normalized, float top_db, float threshold,
+    float sr, void* stream) {
+  const FrontendPlan plan =
+      frontend_plan(n_frames, n_mels, n_mfcc, win, hop, max_p);
+  if (plan.group == 0 || (!plan.image_in_smem && !workspace))
     return (int)cudaErrorInvalidValue;
-  const FrontendLayout lay(n_frames, n_mels, win, hop, max_p);
-  cudaError_t err = frontend_set_attributes(lay);
+  const FrontendLayout lay =
+      frontend_layout(plan, n_frames, n_mels, win, hop, max_p);
+  cudaError_t err = frontend_set_attributes(plan, lay);
   if (err != cudaSuccess) return (int)err;
-  mfcc_pitch_frontend_kernel<<<n_clips, kThreads, lay.bytes(),
-                               (cudaStream_t)stream>>>(
-      clips, out, hz, hann, tw, fb, lo, hi, dct, n_samples, hop, n_frames,
-      n_mels, n_mfcc, win, min_p, max_p, normalize, pitch_normalized, top_db,
-      threshold, sr);
+  const FrontendKernel kernel = frontend_kernel(plan);
+  kernel<<<n_clips, kThreads, lay.bytes(), (cudaStream_t)stream>>>(
+      clips, out, hz, hann, tw, fb, lo, hi, dct, workspace, n_samples, hop,
+      n_frames, n_mels, n_mfcc, win, min_p, max_p, plan.group, normalize,
+      pitch_normalized, top_db, threshold, sr);
   return (int)cudaGetLastError();
 }
 
@@ -218,11 +325,13 @@ extern "C" int gat_mfcc_pitch_frontend_blocks_per_sm(int n_samples, int hop,
                                                      int win, int max_p,
                                                      int* blocks) {
   (void)n_samples;  // the buffer depends on the frame count only
-  if (n_frames >= kMaxFrames || !shared_chains_fit(win, hop))
-    return (int)cudaErrorInvalidValue;
-  const FrontendLayout lay(n_frames, n_mels, win, hop, max_p);
-  cudaError_t err = frontend_set_attributes(lay);
+  const FrontendPlan plan =
+      frontend_plan(n_frames, n_mels, n_mels, win, hop, max_p);
+  if (plan.group == 0) return (int)cudaErrorInvalidValue;
+  const FrontendLayout lay =
+      frontend_layout(plan, n_frames, n_mels, win, hop, max_p);
+  cudaError_t err = frontend_set_attributes(plan, lay);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, mfcc_pitch_frontend_kernel, kThreads, lay.bytes());
+      blocks, frontend_kernel(plan), kThreads, lay.bytes());
 }

@@ -11,6 +11,14 @@
 //      minimum; a parabolic shift (0 at the edges or when |shift| > 1);
 //   4. f0 = sr / period per frame, then the median over frames (the mean
 //      of the two middle values when the count is even, as jnp.median).
+// Steps 1-3 are per frame, so a clip runs in groups of frames
+// (yin_frames_f0): a group's padded samples and its frames' tables fit in
+// shared memory whatever the clip's length, and each frame's sums are the
+// same floats in any group. Only the f0 of every frame (4 bytes a frame)
+// stays for the median (yin_median). A clip of at most one group stages
+// all of itself at once, as before groups existed. The host picks the
+// group from the shared memory a block has at the kernel's occupancy
+// (yin_group).
 // How the ACF is tiled and why its sums are split is K3's header comment.
 // K6 forms the same sums with the chains that overlapping frames share
 // (acf_shared_chains below), and runs steps 3-4 with a warp per frame and
@@ -31,26 +39,51 @@ constexpr int kWarp = 32;
 constexpr int kBlockLags = kWarp * kTile;  // lags per unit: 224
 constexpr int kSegs = kThreads / kWarp;    // segments of i: one per warp
 
-// The tables of one clip's YIN in shared memory: byte offsets from an
-// 8-byte aligned base, doubles first, `tables` bytes in all; and the
-// length of the zero-padded clip the ACF reads.
+// The tables of one group of `group` frames in shared memory: byte
+// offsets from an 8-byte aligned base, doubles first, `tables` bytes in
+// all; and the length of the group's zero-padded samples the ACF reads.
+// The f0 table holds every frame of the clip, `n_frames` (default: the
+// group is the whole clip).
 struct YinLayout {
   int n_lags, lag_blocks, padded_len;
   size_t chunk, dchunk, acf, red, f0, tables;
-  __host__ __device__ YinLayout(int win, int hop, int n_frames, int max_p) {
+  __host__ __device__ YinLayout(int win, int hop, int group, int max_p,
+                                int n_frames = 0) {
+    if (n_frames < group) n_frames = group;
     n_lags = max_p + 1;
     lag_blocks = (n_lags + kBlockLags - 1) / kBlockLags;
     // up to the highest sample read, x[win + lag_blocks * kBlockLags] of
-    // the last frame (the window refill after the ACF's last step)
-    padded_len = (n_frames - 1) * hop + win + lag_blocks * kBlockLags + 1;
+    // the group's last frame (the window refill after the ACF's last step)
+    padded_len = (group - 1) * hop + win + lag_blocks * kBlockLags + 1;
     chunk = 0;  // fp64 energy sum per (frame, chunk)
-    dchunk = chunk + sizeof(double) * n_frames * kChunks;
-    acf = dchunk + sizeof(float) * n_frames * kChunks;
-    red = acf + sizeof(float) * n_frames * n_lags;
+    dchunk = chunk + sizeof(double) * group * kChunks;
+    acf = dchunk + sizeof(float) * group * kChunks;
+    red = acf + sizeof(float) * group * n_lags;
     f0 = red + sizeof(float) * 2 * kSegs * kBlockLags;
     tables = f0 + sizeof(float) * n_frames;
   }
 };
+
+// The median's rank sort (K6) places the f0 of every frame in the ACF
+// round table, free by then.
+static_assert(2 * kSegs * kBlockLags >= kMaxFrames,
+              "the round table holds a clip's f0");
+
+// The largest group of frames, at most n_frames, whose shared memory
+// `bytes(g)` fits in `budget` bytes; 0 when not even one frame fits. Any
+// layout holds the group's padded samples and tables apart, which grow
+// with g, so the search ends where those alone exceed the budget.
+template <class Bytes>
+inline int yin_group(int win, int hop, int n_frames, int max_p,
+                     size_t budget, Bytes bytes) {
+  int best = 0;
+  for (int g = 1; g <= n_frames; ++g) {
+    const YinLayout y(win, hop, g, max_p, n_frames);
+    if (!smem_fits(y.tables + sizeof(float) * y.padded_len, budget)) break;
+    if (smem_fits(bytes(g), budget)) best = g;
+  }
+  return best;
+}
 
 // The energy scan's term at lag tau: the square entering the window
 // minus the square leaving it.
@@ -238,28 +271,26 @@ __device__ __forceinline__ void acf_shared_chains(
   }
 }
 
-// The median f0 in Hz of one clip's frames (steps 1-4 above): frame t is
-// padded[t * hop + n], n < frame_length, of the clip's zero-padded copy
-// `padded` (lay.padded_len floats in shared memory, zeros past the clip),
-// with the tables at `base` (lay.tables bytes). kFused (K6, which needs
-// shared_chains_fit(win, hop)): the ACF is acf_shared_chains', the trough
-// walk runs one warp per frame (frame_f0_warps) and the median sorts by
-// rank; else (K3) one unit (frame, lag block) per ACF round, one thread
-// per frame and an insertion sort on thread 0. Either way the result is
-// the same float. Every thread of the block calls this; the result is
-// thread 0's.
+// Steps 1-3 for a group of n_frames frames (at most the layout's group):
+// frame t is padded[t * hop + n], n < frame_length, of the group's
+// zero-padded samples `padded` (lay.padded_len floats in shared memory,
+// zeros past the clip), with the tables at `base` (lay.tables bytes); its
+// f0 in Hz goes to f0[t]. kFused (K6, which needs shared_chains_fit(win,
+// hop)): the ACF is acf_shared_chains', the trough walk runs one warp per
+// frame (frame_f0_warps); else (K3) one unit (frame, lag block) per ACF
+// round and one thread per frame. Either way each f0 is the same float.
+// Every thread of the block calls this; f0 is published on return.
 template <bool kFused = false>
-__device__ __forceinline__ float yin_median_f0(
+__device__ __forceinline__ void yin_frames_f0(
     const float* __restrict__ padded, char* base, const YinLayout& lay,
-    int n_frames, int win, int hop, int min_p, int max_p, float threshold,
-    float sr) {
+    int n_frames, float* f0, int win, int hop, int min_p, int max_p,
+    float threshold, float sr) {
   const int n_lags = lay.n_lags;
   const int n_cmnd = max_p - min_p + 1;
   double* chunk = reinterpret_cast<double*>(base + lay.chunk);
   float* dchunk = reinterpret_cast<float*>(base + lay.dchunk);
   float* acf = reinterpret_cast<float*>(base + lay.acf);  // then d, CMND
   float* red = reinterpret_cast<float*>(base + lay.red);
-  float* f0 = reinterpret_cast<float*>(base + lay.f0);
 
   // The energy scan's first step: each chunk's sum of terms. The
   // barriers of the ACF rounds publish them.
@@ -356,48 +387,58 @@ __device__ __forceinline__ float yin_median_f0(
   __syncthreads();
 
   if constexpr (kFused) {
-    // one warp per frame; then each f0's rank (ties by frame) places it
-    // in ascending order in dchunk, which the CMND no longer needs: the
-    // insertion sort's order of the same values
     frame_f0_warps(acf, f0, n_frames, n_lags, min_p, n_cmnd, threshold, sr);
-    __syncthreads();
+  } else {
+    // one thread per frame: the trough walk over c[j] = CMND(min_p + j)
+    for (int t = threadIdx.x; t < n_frames; t += kThreads) {
+      const float* c = acf + t * n_lags + min_p;
+      int idx = -1;
+      for (int j = 0; j < n_cmnd && idx < 0; ++j) {
+        bool trough;
+        if (j == 0) {
+          trough = c[0] < c[1];
+        } else {
+          const float right = j + 1 < n_cmnd ? c[j + 1] : c[j];
+          trough = c[j] < c[j - 1] && c[j] <= right;
+        }
+        if (trough && c[j] < threshold) idx = j;
+      }
+      if (idx < 0) {
+        idx = 0;
+        for (int j = 1; j < n_cmnd; ++j)
+          if (c[j] < c[idx]) idx = j;
+      }
+      f0[t] = frame_f0(c, idx, n_cmnd, min_p, sr);
+    }
+  }
+  __syncthreads();
+}
+
+// Step 4: the median in Hz of the f0 of a clip's n_frames frames, in the
+// layout's f0 table. kFused: each f0's rank (ties by frame) places it in
+// ascending order in the ACF round table, free by then, which is the
+// insertion sort's order of the same values; else (K3) an insertion sort
+// in place on thread 0. Every thread of the block calls this; the result
+// is thread 0's.
+template <bool kFused = false>
+__device__ __forceinline__ float yin_median(char* base, const YinLayout& lay,
+                                            int n_frames) {
+  float* f0 = reinterpret_cast<float*>(base + lay.f0);
+  if constexpr (kFused) {
+    float* sorted = reinterpret_cast<float*>(base + lay.red);
     for (int t = threadIdx.x; t < n_frames; t += kThreads) {
       const float v = f0[t];
       int rank = 0;
       for (int j = 0; j < n_frames; ++j)
         rank += f0[j] < v || (f0[j] == v && j < t);
-      dchunk[rank] = v;
+      sorted[rank] = v;
     }
     __syncthreads();
-    return threadIdx.x == 0 ? sorted_median(dchunk, n_frames) : 0.0f;
+    return threadIdx.x == 0 ? sorted_median(sorted, n_frames) : 0.0f;
   }
-
-  // one thread per frame: the trough walk over c[j] = CMND(min_p + j)
-  for (int t = threadIdx.x; t < n_frames; t += kThreads) {
-    const float* c = acf + t * n_lags + min_p;
-    int idx = -1;
-    for (int j = 0; j < n_cmnd && idx < 0; ++j) {
-      bool trough;
-      if (j == 0) {
-        trough = c[0] < c[1];
-      } else {
-        const float right = j + 1 < n_cmnd ? c[j + 1] : c[j];
-        trough = c[j] < c[j - 1] && c[j] <= right;
-      }
-      if (trough && c[j] < threshold) idx = j;
-    }
-    if (idx < 0) {
-      idx = 0;
-      for (int j = 1; j < n_cmnd; ++j)
-        if (c[j] < c[idx]) idx = j;
-    }
-    f0[t] = frame_f0(c, idx, n_cmnd, min_p, sr);
-  }
-  __syncthreads();
-
   float hz = 0.0f;
   if (threadIdx.x == 0) {
-    for (int i = 1; i < n_frames; ++i) {  // insertion sort, n_frames small
+    for (int i = 1; i < n_frames; ++i) {  // insertion sort
       const float v = f0[i];
       int j = i - 1;
       while (j >= 0 && f0[j] > v) {

@@ -45,36 +45,67 @@
 // the CMND, both in place over the ACF. The trough walk and the median
 // run one thread per frame and one per clip. Shared memory at 11 frames
 // of 222 lags: 50,680 bytes, so four blocks fit on an SM.
+//
+// Clips of any length up to kMaxFrames frames: the frames run in groups
+// (yin_acf.cuh), each group's padded samples and tables staged in turn,
+// the group the largest whose shared memory lets four blocks share an SM
+// (kBlocksPerSM, the launch bounds), or, if not even one frame does, the
+// largest that fits a block at all. Only the f0 of every frame stays for
+// the median. Each frame's sums are those of a clip staged whole, so the
+// pitch is the same float at any group; a clip of at most one group (11
+// frames at 11025 Hz: the whole clip) takes the one-group layout above.
 #include "yin_acf.cuh"
 
 using namespace gat;
 
-__global__ void __launch_bounds__(kThreads, 4)
+constexpr int kBlocksPerSM = 4;
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 yin_pitch_kernel(const float* __restrict__ clips, float* __restrict__ out,
                  int n_samples, int frame_length, int win, int hop,
-                 int n_frames, int min_p, int max_p, float threshold,
-                 float sr) {
-  const YinLayout lay(win, hop, n_frames, max_p);
+                 int n_frames, int group, int min_p, int max_p,
+                 float threshold, float sr) {
+  const YinLayout lay(win, hop, group, max_p, n_frames);
   extern __shared__ float smem[];
   char* base = reinterpret_cast<char*>(smem);
   float* padded = reinterpret_cast<float*>(base + lay.tables);
+  float* f0 = reinterpret_cast<float*>(base + lay.f0);
 
-  // the clip with its zero center pad, up to the last sample read
   const float* clip = clips + (size_t)blockIdx.x * n_samples;
   const int pad = frame_length / 2;
-  for (int p = threadIdx.x; p < lay.padded_len; p += kThreads) {
-    const int i = p - pad;
-    padded[p] = (i >= 0 && i < n_samples) ? clip[i] : 0.0f;
+  for (int g0 = 0; g0 < n_frames; g0 += group) {
+    if (g0 > 0) __syncthreads();  // the last group is done with the copy
+    // the group's samples with the clip's zero center pad, up to the last
+    // sample read
+    for (int p = threadIdx.x; p < lay.padded_len; p += kThreads) {
+      const int i = g0 * hop + p - pad;
+      padded[p] = (i >= 0 && i < n_samples) ? clip[i] : 0.0f;
+    }
+    __syncthreads();
+    yin_frames_f0(padded, base, lay,
+                  n_frames - g0 < group ? n_frames - g0 : group, f0 + g0,
+                  win, hop, min_p, max_p, threshold, sr);
   }
-  __syncthreads();
-
-  const float hz = yin_median_f0(padded, base, lay, n_frames, win, hop,
-                                 min_p, max_p, threshold, sr);
+  const float hz = yin_median(base, lay, n_frames);
   if (threadIdx.x == 0) out[blockIdx.x] = hz;
 }
 
 static size_t yin_smem_bytes(const YinLayout& lay) {
   return lay.tables + sizeof(float) * lay.padded_len;
+}
+
+// The group of frames a clip runs in: the largest at kBlocksPerSM blocks
+// per SM, else the largest a block can hold; 0 (refused) past kMaxFrames
+// or when not even one frame fits.
+static int yin_launch_group(int win, int hop, int n_frames, int max_p) {
+  if (n_frames < 1 || n_frames >= kMaxFrames || max_p < 1) return 0;
+  const auto bytes = [&](int g) {
+    return yin_smem_bytes(YinLayout(win, hop, g, max_p, n_frames));
+  };
+  const int g = yin_group(win, hop, n_frames, max_p,
+                          smem_per_block(kBlocksPerSM), bytes);
+  return g > 0 ? g : yin_group(win, hop, n_frames, max_p, kMaxBlockSmem,
+                               bytes);
 }
 
 static cudaError_t yin_set_attributes(const YinLayout& lay) {
@@ -87,21 +118,30 @@ extern "C" int gat_yin_pitch(const float* clips, float* out, int n_clips,
                              int n_samples, int frame_length, int win,
                              int hop, int n_frames, int min_p, int max_p,
                              float threshold, float sr, void* stream) {
-  const YinLayout lay(win, hop, n_frames, max_p);
+  const int group = yin_launch_group(win, hop, n_frames, max_p);
+  if (group == 0) return (int)cudaErrorInvalidValue;
+  const YinLayout lay(win, hop, group, max_p, n_frames);
   cudaError_t err = yin_set_attributes(lay);
   if (err != cudaSuccess) return (int)err;
   yin_pitch_kernel<<<n_clips, kThreads, yin_smem_bytes(lay),
                      (cudaStream_t)stream>>>(
-      clips, out, n_samples, frame_length, win, hop, n_frames, min_p, max_p,
-      threshold, sr);
+      clips, out, n_samples, frame_length, win, hop, n_frames, group, min_p,
+      max_p, threshold, sr);
   return (int)cudaGetLastError();
+}
+
+// The group of frames a launch at these sizes runs in (0: refused).
+extern "C" int gat_yin_group(int win, int hop, int n_frames, int max_p) {
+  return yin_launch_group(win, hop, n_frames, max_p);
 }
 
 // Resident blocks per SM at these sizes, as the CUDA runtime computes it
 // from the kernel's registers and shared memory.
 extern "C" int gat_yin_blocks_per_sm(int win, int hop, int n_frames,
                                      int max_p, int* blocks) {
-  const YinLayout lay(win, hop, n_frames, max_p);
+  const int group = yin_launch_group(win, hop, n_frames, max_p);
+  if (group == 0) return (int)cudaErrorInvalidValue;
+  const YinLayout lay(win, hop, group, max_p, n_frames);
   cudaError_t err = yin_set_attributes(lay);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -54,8 +54,6 @@ SHARED_BLOCK_FRONTEND = True
 _VOLUME_EPS = 1e-9
 _KERNEL_N_FFT = 2048   # the FFT size compiled into both front-end kernels
 _MFCC_HOP, _MFCC_N_MELS, _TOP_DB = 512, 128, 80.0  # spectral.mfcc defaults
-# K1-K3 keep a clip's frames in shared memory and refuse this many or more
-_KERNEL_MAX_FRAMES = 2000
 # "the caller gave nothing: use the config's params", apart from an
 # explicit None, which skips the mel branch (MLP-only operation)
 _USE_CONFIG = object()
@@ -76,6 +74,23 @@ def normalize_volume(y: torch.Tensor, eps: float = _VOLUME_EPS
     """Per-clip RMS volume normalization."""
     rms = torch.sqrt(torch.mean(y * y, dim=-1, keepdim=True))
     return y / (rms + eps)
+
+
+def kernel_frames(length: int, hop: int, name: str) -> int:
+    """The frame count of a clip of `length` samples at `hop`, raising
+    where the clip kernels refuse it (`kernels.check_frames`)."""
+    n_fr = spectral.n_frames(length, _KERNEL_N_FFT, hop)
+    kernels.check_frames(n_fr, hop, length, name)
+    return n_fr
+
+
+@functools.lru_cache(maxsize=64)
+def _workspace_floats(kernel: str, symbol: str, *sizes: int) -> int:
+    """Floats of device-memory workspace per clip that a kernel's launch
+    at these sizes needs (0: its dB image stays in shared memory), as the
+    kernel's own C entry point `symbol` computes it."""
+    fn = kernels.function(kernel, symbol, [ctypes.c_int] * len(sizes))
+    return fn(*sizes)
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +161,10 @@ def melspec_features(clips: torch.Tensor, sr: int, n_mels: int = 64,
     against 28 KB moved). One block owns one clip and runs two adjacent
     frames per complex FFT (register Stockham passes, four frames in
     flight), then power, mel and dB in shared memory, so the spectrum
-    never reaches device memory. On the matmul route with bfloat16
+    never reaches device memory; an image too large for shared memory
+    (745 frames or more at 64 mels) is written straight to the output.
+    Clips of `kernels.MAX_FRAMES` frames or more raise. On the matmul
+    route with bfloat16
     operands it is handed the clips rounded to bfloat16
     (`spectral.kernel_signal`; its twiddles stay float32). CPU tensor:
     `melspec_features_plain`."""
@@ -165,7 +183,7 @@ def melspec_features(clips: torch.Tensor, sr: int, n_mels: int = 64,
         raise ValueError(f"[melspec_features] clips must be longer than "
                          f"{n_fft // 2} samples")
     n, length = clips.shape
-    n_fr = spectral.n_frames(length, n_fft, hop_length)
+    n_fr = kernel_frames(length, hop_length, "melspec_features")
     out = torch.empty((n, n_mels, n_fr, 1), dtype=torch.float32,
                       device=clips.device)
     if n == 0:
@@ -199,8 +217,19 @@ def mfcc_frontend_plain(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     return torch.mean(spectral.mfcc(y, sr, n_mfcc=n_mfcc), dim=-2)
 
 
-_MFCC_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+_MFCC_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
+
+
+def _workspace(n: int, floats: int, device: torch.device
+               ) -> torch.Tensor | None:
+    """A kernel's (n, floats) scratch in device memory, or None when it
+    needs none."""
+    if floats < 0:
+        raise ValueError("[gat_tpu_torch.features] the kernel refuses these "
+                         "sizes")
+    return (torch.empty((n, floats), dtype=torch.float32, device=device)
+            if floats else None)
 
 
 def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
@@ -217,8 +246,11 @@ def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     loop (`csrc/mel_rounds.cuh`: two adjacent frames per complex FFT,
     register Stockham passes, four frames in flight) over a zero pad, then
     the clamp, the mean over frames and the DCT, which commutes with the
-    mean. The same bfloat16 rounding of the clips as K1's on the matmul
-    route. CPU tensor: `mfcc_frontend_plain`."""
+    mean. A dB image too large for shared memory (355 frames or more)
+    goes to a workspace in device memory that this wrapper allocates.
+    Clips of `kernels.MAX_FRAMES` frames or more raise. The same bfloat16
+    rounding of the clips as K1's on the matmul route. CPU tensor:
+    `mfcc_frontend_plain`."""
     if clips.device.type == "cpu":
         return mfcc_frontend_plain(clips, sr, n_mfcc, normalize_audio_volume)
     if clips.device.type != "cuda":
@@ -226,18 +258,23 @@ def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     kernels.check_input(clips, "mfcc_frontend")
     clips = spectral.kernel_signal(clips)
     n, length = clips.shape
-    n_fr = spectral.n_frames(length, _KERNEL_N_FFT, _MFCC_HOP)
+    n_fr = kernel_frames(length, _MFCC_HOP, "mfcc_frontend")
     out = torch.empty((n, n_mfcc), dtype=torch.float32, device=clips.device)
     if n == 0:
         return out
     hann, tw, fb, lo, hi = _kernel_tables(sr, _MFCC_N_MELS, False,
                                           clips.device)
     dct = _dct_table(n_mfcc, clips.device)
+    ws = _workspace(n, _workspace_floats(
+        "mfcc_frontend", "gat_mfcc_workspace_floats", _MFCC_N_MELS, n_fr),
+        clips.device)
     fn = kernels.function("mfcc_frontend", "gat_mfcc_frontend", _MFCC_ARGS)
     with kernels.device_guard(clips.device):
         status = fn(clips.data_ptr(), out.data_ptr(), hann.data_ptr(),
                     tw.data_ptr(), fb.data_ptr(), lo.data_ptr(),
-                    hi.data_ptr(), dct.data_ptr(), n, length, _MFCC_HOP,
+                    hi.data_ptr(), dct.data_ptr(),
+                    None if ws is None else ws.data_ptr(), n, length,
+                    _MFCC_HOP,
                     n_fr, _MFCC_N_MELS, n_mfcc, int(normalize_audio_volume),
                     _TOP_DB, kernels.stream(clips.device))
     kernels.check(status, "mfcc_frontend")
@@ -315,7 +352,7 @@ def mfcc_pitch_features_plain(clips: torch.Tensor, sr: int,
     return torch.cat([vec, torch.log10(hz)[..., None]], dim=-1), hz
 
 
-_MFCC_PITCH_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+_MFCC_PITCH_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                     + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 
@@ -336,13 +373,16 @@ def mfcc_pitch_features(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     into the shared memory the MFCC epilogue leaves free, and the YIN
     branch runs K3's direct ACF (`csrc/yin_acf.cuh`) over that copy, each
     ACF chain that overlapping frames share computed once, scaled by
-    1 / (rms + eps) only when both flags are on. Its MFCC is K2's and its
-    raw pitch K3's bit for bit. Its twiddles stay float32; with `bf16`
-    (None: `spectral.matmul_dtype()` is bfloat16) it is handed the clips
-    rounded to bfloat16. Bound by operations: one shared FFT per frame
-    and the ACF from FFTs (`utils/roofline.py::mfcc_pitch_cost`), where
-    the kernel does K2's work and the direct ACF. CPU tensor:
-    `mfcc_pitch_features_plain`."""
+    1 / (rms + eps) only when both flags are on, in groups of frames that
+    fit in shared memory. Its MFCC is K2's and its raw pitch K3's bit for
+    bit. A dB image too large for shared memory goes to a workspace in
+    device memory that this wrapper allocates; clips of
+    `kernels.MAX_FRAMES` frames or more raise. Its twiddles stay float32;
+    with `bf16` (None: `spectral.matmul_dtype()` is bfloat16) it is handed
+    the clips rounded to bfloat16. Bound by operations: one shared FFT
+    per frame and the ACF from FFTs (`utils/roofline.py::
+    mfcc_pitch_cost`), where the kernel does K2's work and the direct
+    ACF. CPU tensor: `mfcc_pitch_features_plain`."""
     if clips.device.type == "cpu":
         return mfcc_pitch_features_plain(clips, sr, n_mfcc,
                                          normalize_audio_volume,
@@ -356,10 +396,7 @@ def mfcc_pitch_features(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     if bf16:
         clips = clips.to(torch.bfloat16).to(torch.float32)
     n, length = clips.shape
-    n_fr = spectral.n_frames(length, _KERNEL_N_FFT, _MFCC_HOP)
-    if n_fr >= _KERNEL_MAX_FRAMES:
-        raise ValueError(f"[mfcc_pitch_features] {n_fr} frames; the kernel "
-                         f"takes fewer than {_KERNEL_MAX_FRAMES}")
+    n_fr = kernel_frames(length, _MFCC_HOP, "mfcc_pitch_features")
     win = _KERNEL_N_FFT // 2
     min_p, max_p = yin_periods(sr, 50.0, 1000.0, _KERNEL_N_FFT, win)
     if max_p - min_p < 1:
@@ -373,12 +410,16 @@ def mfcc_pitch_features(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     hann, tw, fb, lo, hi = _kernel_tables(sr, _MFCC_N_MELS, False,
                                           clips.device)
     dct = _dct_table(n_mfcc, clips.device)
+    ws = _workspace(n, _workspace_floats(
+        "mfcc_pitch_frontend", "gat_mfcc_pitch_workspace_floats", n_fr,
+        _MFCC_N_MELS, n_mfcc, win, _MFCC_HOP, max_p), clips.device)
     fn = kernels.function("mfcc_pitch_frontend", "gat_mfcc_pitch_frontend",
                           _MFCC_PITCH_ARGS)
     with kernels.device_guard(clips.device):
         status = fn(clips.data_ptr(), out.data_ptr(), hz.data_ptr(),
                     hann.data_ptr(), tw.data_ptr(), fb.data_ptr(),
-                    lo.data_ptr(), hi.data_ptr(), dct.data_ptr(), n, length,
+                    lo.data_ptr(), hi.data_ptr(), dct.data_ptr(),
+                    None if ws is None else ws.data_ptr(), n, length,
                     _MFCC_HOP, n_fr, _MFCC_N_MELS, n_mfcc, win, min_p, max_p,
                     int(normalize_audio_volume), int(pitch_on_normalized),
                     _TOP_DB, _TROUGH_THRESHOLD, float(sr),
@@ -440,19 +481,19 @@ class FeatureBuilder:
 
     def _on_device(self, clips, hop_length: int) -> torch.Tensor:
         """Clips as a contiguous float32 tensor on the builder's device.
-        The kernels hold a clip's frames in shared memory: on the card,
-        longer clips raise here, before any launch, instead of running
-        another version."""
+        On the card, clips the kernels refuse (`kernels.MAX_FRAMES` frames
+        or more at the smallest hop) raise here, before any upload or
+        launch, instead of running another version."""
         clips = torch.as_tensor(clips, dtype=torch.float32)
         if self.device.type == "cuda":
             frames = spectral.n_frames(clips.shape[-1], _KERNEL_N_FFT,
                                        hop_length)
-            if clips.ndim != 2 or frames >= _KERNEL_MAX_FRAMES:
+            if clips.ndim != 2 or frames >= kernels.MAX_FRAMES:
                 raise ValueError(
                     f"[FeatureBuilder] clips of shape {tuple(clips.shape)} "
                     f"give {frames} frames at hop {hop_length}; the card's "
                     f"front-end kernels take mono clips of fewer than "
-                    f"{_KERNEL_MAX_FRAMES} frames. Give the loader a clip "
+                    f"{kernels.MAX_FRAMES} frames. Give the loader a clip "
                     f"`duration` (TrainingManager does).")
         return clips.to(self.device).contiguous()
 

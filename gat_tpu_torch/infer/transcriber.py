@@ -80,7 +80,7 @@ class Transcriber:
                  require_cnn: bool = True,
                  pitch_prior_weight: float = 0.0,
                  cnn_dtype: torch.dtype | None = None,
-                 use_cnn: bool = True, device=None, mesh=None):
+                 use_cnn: bool = True, mesh=None, device=None):
         """Resolve and load both checkpoints, check that their embedded
         configs agree, and build the ensemble on `device` (default the
         card; 'cpu' runs the plain PyTorch path). `cnn_weight` is the

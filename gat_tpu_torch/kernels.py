@@ -28,12 +28,17 @@ import torch
 
 from .config import KERNEL_BUILD_DIR
 
-__all__ = ["KERNELS", "build", "function", "device_guard", "stream",
-           "check_input", "check", "nvcc_path"]
+__all__ = ["KERNELS", "MAX_FRAMES", "build", "function", "device_guard",
+           "stream", "check_input", "check_frames", "check", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("melspec_frontend", "mfcc_frontend", "yin_pitch", "onset_envelope",
            "onset_pick", "mfcc_pitch_frontend")
+# The clip front-ends (K1, K2, K3, K6) take fewer frames than this
+# (`kMaxFrames` in `csrc/dsp_common.cuh`); below it they take any length,
+# running YIN in groups of frames and keeping a dB image too large for
+# shared memory in device memory.
+MAX_FRAMES = 2000
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -140,6 +145,15 @@ def check_input(clips, name: str) -> None:
                          f"{clips.dtype} {tuple(clips.shape)}")
     if not clips.is_contiguous():
         raise ValueError(f"[{name}] kernel takes contiguous clips")
+
+
+def check_frames(n_frames: int, hop: int, length: int, name: str) -> None:
+    """Raise where the clip front-ends refuse a clip of `length` samples:
+    at MAX_FRAMES frames or more at `hop`."""
+    if n_frames >= MAX_FRAMES:
+        raise ValueError(f"[{name}] clips of {length} samples give "
+                         f"{n_frames} frames at hop {hop}; the kernel takes "
+                         f"fewer than {MAX_FRAMES} frames")
 
 
 def check(status: int, name: str) -> None:

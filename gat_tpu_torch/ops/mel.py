@@ -1,8 +1,10 @@
 """Mel scales and triangular filterbanks, both conventions of the model.
 
-* MFCC path: librosa's Slaney scale with 'slaney' area normalization.
+* MFCC path: librosa's Slaney scale with 'slaney' area normalization
+  (by default; `fmin`, `fmax`, `htk` and `norm` as librosa takes them).
 * CNN path: torchaudio's HTK scale, no normalization, with the frequency
-  grid spanned by `linspace(0, sr // 2, n_freqs)` (integer Nyquist).
+  grid spanned by `linspace(0, sr // 2, n_freqs)` (integer Nyquist) and
+  the bands over [fmin, fmax].
 
 Filterbanks are built in float64 on the host and cast to float32.
 """
@@ -62,23 +64,32 @@ def _triangles(fft_freqs: np.ndarray, band_freqs: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def mel_filterbank_librosa(sr: int, n_fft: int, n_mels: int = 128
+def mel_filterbank_librosa(sr: int, n_fft: int, n_mels: int = 128,
+                           fmin: float = 0.0, fmax: float | None = None,
+                           htk: bool = False, norm: str | None = "slaney"
                            ) -> np.ndarray:
-    """librosa.filters.mel defaults: Slaney scale and Slaney area norm
-    over [0, sr / 2]. (n_mels, 1 + n_fft // 2) float32."""
+    """librosa.filters.mel semantics: the Slaney scale (HTK with `htk`)
+    over [fmin, fmax] (None: sr / 2) and the Slaney area norm (none with
+    `norm=None`). (n_mels, 1 + n_fft // 2) float32."""
+    if fmax is None:
+        fmax = sr / 2.0
     fft_freqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
-    band = mel_frequencies(n_mels + 2, 0.0, sr / 2.0)
+    band = mel_frequencies(n_mels + 2, fmin, fmax, htk)
     weights = _triangles(fft_freqs, band)
-    weights *= (2.0 / (band[2:n_mels + 2] - band[:n_mels]))[:, None]
+    if norm == "slaney":
+        weights *= (2.0 / (band[2:n_mels + 2] - band[:n_mels]))[:, None]
     return weights.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=32)
-def mel_filterbank_torchaudio(sr: int, n_fft: int, n_mels: int = 128
+def mel_filterbank_torchaudio(sr: int, n_fft: int, n_mels: int = 128,
+                              fmin: float = 0.0, fmax: float | None = None
                               ) -> np.ndarray:
     """torchaudio.functional.melscale_fbanks as MelSpectrogram uses it:
-    HTK, no norm, `sr // 2` for both the grid and fmax.
-    (n_mels, 1 + n_fft // 2) float32."""
+    HTK, no norm, the frequency grid spanned by `sr // 2`, bands over
+    [fmin, fmax] (None: `sr // 2`). (n_mels, 1 + n_fft // 2) float32."""
+    if fmax is None:
+        fmax = float(sr // 2)
     fft_freqs = np.linspace(0.0, float(sr // 2), 1 + n_fft // 2)
-    band = mel_frequencies(n_mels + 2, 0.0, float(sr // 2), htk=True)
+    band = mel_frequencies(n_mels + 2, fmin, fmax, htk=True)
     return _triangles(fft_freqs, band).astype(np.float32)

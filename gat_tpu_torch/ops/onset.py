@@ -1,7 +1,9 @@
 """Spectral-flux onset detection of the file path, the twin of
 `gat_tpu/ops/onset.py` with the batch written out: envelopes are (B, T)
 with an optional (B,) count of valid frames, `n_valid_frames`, for
-zero-padded batch slots.
+zero-padded batch slots. `onset_strength` and `detect_onsets` also take
+one signal (n,), as the reference does, and the reference's keywords
+(`valid_frames`, a prefix mask of the frames; `n_valid_samples`).
 
 Two hand-written CUDA kernels, each with its plain PyTorch version here:
 
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..features import _kernel_tables
+from ..utils.signals import as_count_rows, as_rows, either
 from .mel import mel_filterbank_librosa
 from .spectral import (TINY32, _last_nonzero_bin, kernel_signal,
                        melspectrogram_librosa, n_frames, power_spectrogram,
@@ -161,9 +164,12 @@ _ENVELOPE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
 
 def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
                    n_fft: int = 2048, n_mels: int = 128, lag: int = 1,
+                   valid_frames: torch.Tensor | None = None,
                    n_valid_frames: torch.Tensor | None = None,
                    grid: int | None = None) -> torch.Tensor:
-    """(B, n) → (B, T = 1 + n // hop) onset envelope.
+    """(B, n) → (B, T = 1 + n // hop) onset envelope; one signal (n,) →
+    (T,). `valid_frames`, the reference's prefix mask of the frames ((B,
+    T) or (T,) bool), is taken as its count `n_valid_frames`.
 
     CUDA tensor: the kernel `csrc/onset_envelope.cu` (K4), which replaces
     the JAX package's XLA `gat_tpu/ops/onset.py::onset_strength`. Bound by
@@ -178,6 +184,16 @@ def onset_strength(y: torch.Tensor, sr: int, hop_length: int = 512,
     operands it is handed the signal rounded to bfloat16
     (`spectral.kernel_signal`; its twiddles stay float32). CPU tensor:
     `onset_strength_plain`."""
+    if valid_frames is not None:
+        valid_frames = valid_frames.to(y.device).sum(-1, dtype=torch.int32)
+    n_valid_frames = either("onset_strength", "valid_frames", valid_frames,
+                            "n_valid_frames", n_valid_frames)
+    y, one = as_rows(y)
+    if one:
+        return onset_strength(y, sr, hop_length, n_fft, n_mels, lag,
+                              n_valid_frames=as_count_rows(
+                                  n_valid_frames, True, y.device),
+                              grid=grid)[0]
     if y.device.type == "cpu":
         return onset_strength_plain(y, sr, hop_length, n_fft, n_mels, lag,
                                     n_valid_frames)
@@ -688,12 +704,23 @@ def pick_onsets_from_envelope(env: torch.Tensor, sr: int, hop_length: int,
 def detect_onsets(y: torch.Tensor, sr: int = 22050, hop_length: int = 512,
                   min_sep: float = 0.3, max_onsets: int = 64,
                   backtrack: bool = True,
-                  n_valid: torch.Tensor | None = None,
-                  cand_budget: int | None = None):
+                  n_valid_samples: torch.Tensor | None = None,
+                  cand_budget: int | None = None,
+                  n_valid: torch.Tensor | None = None):
     """(B, n) → (onset samples (B, max_onsets) int32, valid, overflow,
-    cap_overflow, n_kept): onset_strength → pick_onsets. `n_valid` (B,)
-    masks each row's zero-padded tail: its frames are 1 + nv // hop,
-    computed once as the int32 counts both kernels take."""
+    cap_overflow, n_kept): onset_strength → pick_onsets; one signal (n,)
+    gives the reference's (max_onsets,) and () outputs. `n_valid` (B,)
+    (the reference's `n_valid_samples`; one signal's a count) masks each
+    row's zero-padded tail: its frames are 1 + nv // hop, computed once
+    as the int32 counts both kernels take."""
+    n_valid = either("detect_onsets", "n_valid_samples", n_valid_samples,
+                     "n_valid", n_valid)
+    y, one = as_rows(y)
+    if one:
+        outs = detect_onsets(y, sr, hop_length, min_sep, max_onsets,
+                             backtrack, cand_budget=cand_budget,
+                             n_valid=as_count_rows(n_valid, True, y.device))
+        return tuple(x[0] for x in outs)
     nvf = (None if n_valid is None
            else n_valid.to(device=y.device, dtype=torch.int32)
            // hop_length + 1)

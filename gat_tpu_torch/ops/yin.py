@@ -294,10 +294,10 @@ def yin_pitch(clips: torch.Tensor, sr: int, fmin: float = 50.0,
     by operations: the function's least work, the ACF from FFTs, is 1.9 M
     flops per clip at 11025 Hz against 22 KB read, and the kernel's direct
     time-domain ACF does n_frames·(max_p+1)·W multiply-adds (2.5 M). It
-    keeps each padded clip in shared memory and tiles the ACF in
-    registers: a thread sums 7 lags of one frame over one of 8 segments
-    of the window, with the 7 window samples in registers (2 loads per 7
-    multiply-adds); the sliding energies are a running fp64 sum of the
+    stages each padded clip in shared memory, in groups of frames where
+    the whole clip does not fit, and tiles the ACF in registers: a thread
+    sums 7 lags of one frame over one of 8 segments of the window, with
+    the 7 window samples in registers (2 loads per 7 multiply-adds); the sliding energies are a running fp64 sum of the
     entering minus the leaving square, O(W + max_p) per frame. The
     kernel computes the same function on both routes; on the matmul route
     with bfloat16 operands it is handed the clips rounded to bfloat16
@@ -313,6 +313,7 @@ def yin_pitch(clips: torch.Tensor, sr: int, fmin: float = 50.0,
     min_p, max_p = yin_periods(sr, fmin, fmax, frame_length, win)
     n, length = clips.shape
     n_fr = n_frames(length, frame_length, hop)
+    kernels.check_frames(n_fr, hop, length, "yin_pitch")
     if max_p - min_p < 1:
         raise ValueError(f"[yin_pitch] period range [{min_p}, {max_p}] "
                          "needs at least two periods")

@@ -1,6 +1,8 @@
 """Noise gating of the file path, the twin of `gat_tpu/segment/gating.py`
 with the batch written out: signals are (B, n) with an optional (B,)
-count of valid samples, `n_valid`, for zero-padded batch slots.
+count of valid samples, `n_valid`, for zero-padded batch slots; as in the
+reference, one signal (n,) with a count, and the reference's keyword
+`n_valid_samples`, are taken too.
 
 * `sample_db_gate` zeroes samples whose 20·log10|y| is below min_db;
 * `rms_gate` computes the frame RMS in dB, median-smooths it over 5
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.filters import masked_percentile, median_filter1d, rms_frames
+from ..utils.signals import as_count_rows, as_rows, either
 
 __all__ = ["sample_db_gate", "rms_db_envelope", "dynamic_thresholds",
            "rms_gate", "slice_rms_db", "gate_waveform"]
@@ -37,8 +40,10 @@ def _shift_gather(x: torch.Tensor, start: torch.Tensor, size: int
 
 def rms_db_envelope(y: torch.Tensor, frame_length: int = 2048,
                     hop_length: int = 512, smooth: bool = True,
+                    n_valid_samples: torch.Tensor | None = None,
                     n_valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Median-smoothed frame RMS in dB, (B, n) → (B, 1 + n // hop).
+    """Median-smoothed frame RMS in dB, (B, n) → (B, 1 + n // hop), or
+    (n,) → (1 + n // hop,). `n_valid_samples` is `n_valid`.
 
     With `n_valid`, a zero-padded row gives the same values on its valid
     frames as its exact-length signal alone: (a) the frame RMS reflects
@@ -48,6 +53,13 @@ def rms_db_envelope(y: torch.Tensor, frame_length: int = 2048,
     valid values. Both mirrors are read from zero-left-padded copies, so a
     valid region shorter than the frame reads zeros instead of a clamped
     slice of unrelated audio."""
+    n_valid = either("rms_db_envelope", "n_valid_samples", n_valid_samples,
+                     "n_valid", n_valid)
+    y, one = as_rows(y)
+    if one:
+        return rms_db_envelope(y, frame_length, hop_length, smooth,
+                               n_valid=as_count_rows(n_valid, True,
+                                                     y.device))[0]
     if n_valid is None:
         rms_db = 20.0 * torch.log10(
             rms_frames(y, frame_length, hop_length, pad_mode="reflect") + _EPS)
@@ -94,9 +106,17 @@ def dynamic_thresholds(rms_db: torch.Tensor, valid: torch.Tensor,
 
 
 def rms_gate(y: torch.Tensor, hop_length: int = 512,
+             n_valid_samples: torch.Tensor | None = None,
              n_valid: torch.Tensor | None = None) -> torch.Tensor:
-    """The dynamic frame-RMS gate of each row of (B, n), thresholds from
-    the row's own valid frames."""
+    """The dynamic frame-RMS gate of each row of (B, n), or of one signal
+    (n,), thresholds from the row's own valid frames. `n_valid_samples`
+    is `n_valid`."""
+    n_valid = either("rms_gate", "n_valid_samples", n_valid_samples,
+                     "n_valid", n_valid)
+    y, one = as_rows(y)
+    if one:
+        return rms_gate(y, hop_length, n_valid=as_count_rows(
+            n_valid, True, y.device))[0]
     rms_db = rms_db_envelope(y, hop_length=hop_length, n_valid=n_valid)
     t = rms_db.shape[-1]
     frames = torch.arange(t, device=y.device)[None, :]
@@ -124,7 +144,11 @@ def slice_rms_db(clips: torch.Tensor) -> torch.Tensor:
 
 
 def gate_waveform(y: torch.Tensor, min_db: float, hop_length: int = 512,
+                  n_valid_samples: torch.Tensor | None = None,
                   n_valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Both gates in sequence, as the slicer applies them."""
+    """Both gates in sequence, as the slicer applies them, to (B, n) or
+    (n,). `n_valid_samples` is `n_valid`."""
+    n_valid = either("gate_waveform", "n_valid_samples", n_valid_samples,
+                     "n_valid", n_valid)
     return rms_gate(sample_db_gate(y, min_db), hop_length=hop_length,
                     n_valid=n_valid)

@@ -9,17 +9,25 @@
 * windows outside the audio give zero clips, which are dropped;
 * clips quieter than min_slice_rms_db are dropped.
 
-Every clip of the onset budget is gathered at once as whole hop-long
-rows (onsets are multiples of the onset hop), with a `kept` mask in place
-of the reference's per-clip drop logic.
+Every clip of the onset budget is gathered at once, with a `kept` mask
+in place of the reference's per-clip drop logic: sample by sample for any
+onsets, or as whole hop-long rows when the caller vouches that every
+onset is a multiple of `onset_hop` (`segment_waveform` does). Both take a
+batch (B, n) or, as the reference, one signal (n,), and the reference's
+keyword `n_valid_samples` beside the port's `n_valid`.
 
 `AudioSlicer` keeps the reference class's surface (load_wav,
 apply_db_threshold, apply_rms_threshold, detect_onsets,
 is_slice_loud_enough, save_clip, slice_and_save and its alias sliceNsave)
-on top of these ops, on the card unless it is given device="cpu".
+on top of these ops, on the card unless it is given device="cpu". The
+five methods the reference defines as static also work on the class, on
+`AudioSlicer.default_device` (None: the card).
 """
 from __future__ import annotations
 
+import functools
+import inspect
+import types
 import warnings
 from pathlib import Path
 
@@ -32,6 +40,7 @@ from ..ops.onset import detect_onsets
 from ..ops.resample import resample
 from ..utils.device import resolve_device, to_host
 from ..utils.profiling import annotate
+from ..utils.signals import as_count_rows, as_rows, either
 from ..utils.wavio import read_wav, write_wav
 from . import gating
 
@@ -46,12 +55,26 @@ def slice_at_onsets(y: torch.Tensor, onsets: torch.Tensor,
                     attack_skip_sec: float = SLICER_CONFIG.ATTACK_SKIP_SEC,
                     min_slice_rms_db: float = SLICER_CONFIG.MIN_SLICE_RMS_DB,
                     strict_reference_compat: bool = True,
-                    n_valid: torch.Tensor | None = None,
-                    onset_hop: int = _ONSET_HOP):
+                    n_valid_samples: torch.Tensor | None = None,
+                    onset_hop: int | None = None,
+                    n_valid: torch.Tensor | None = None):
     """(B, n), (B, K), (B, K) → clips (B, K, L), kept (B, K), times
-    (B, K, 2) in seconds. Every onset must be a multiple of `onset_hop`:
-    clip k is then the rows onsets[k] / hop onwards of the skip-shifted
-    waveform cut into hop-long rows."""
+    (B, K, 2) in seconds; one signal (n,), (K,), (K,) → (K, L), (K,),
+    (K, 2). `n_valid_samples` is `n_valid`. With `onset_hop` None each
+    clip is gathered sample by sample (positions clamped into the signal,
+    then masked to the window), for any onsets; with a hop, every onset
+    must be a multiple of it, and clip k is then the rows onsets[k] / hop
+    onwards of the skip-shifted waveform cut into hop-long rows."""
+    n_valid = either("slice_at_onsets", "n_valid_samples", n_valid_samples,
+                     "n_valid", n_valid)
+    y, one = as_rows(y)
+    if one:
+        outs = slice_at_onsets(
+            y, onsets[None], onsets_valid[None], sr, length_sec,
+            attack_skip_sec, min_slice_rms_db, strict_reference_compat,
+            onset_hop=onset_hop,
+            n_valid=as_count_rows(n_valid, True, y.device))
+        return tuple(x[0] for x in outs)
     b, n_total = y.shape
     k = onsets.shape[1]
     dev = y.device
@@ -73,19 +96,23 @@ def slice_at_onsets(y: torch.Tensor, onsets: torch.Tensor,
     pos = start[..., None] + torch.arange(length, device=dev)
     window_ok = (pos < end[..., None]) & (in_bounds & onsets_valid)[..., None]
 
-    hop = int(onset_hop)
-    blocks_per_clip = -(-length // hop)
-    avail = max(0, n_total - skip)       # y[:, skip:] is empty for skip > n
-    n_blocks = max(1, -(-avail // hop))
-    blocks = F.pad(y[:, skip:], (0, n_blocks * hop - avail)).reshape(
-        b, n_blocks, hop)
-    first = torch.clamp(onsets // hop, 0, n_blocks - 1)
-    idx = torch.clamp(first[..., None] + torch.arange(blocks_per_clip,
-                                                      device=dev),
-                      0, n_blocks - 1)
-    rows = torch.gather(blocks, 1, idx.reshape(b, -1)[..., None].expand(
-        -1, -1, hop))
-    rows = rows.reshape(b, k, blocks_per_clip * hop)[..., :length]
+    if onset_hop is None:
+        idx = torch.clamp(pos, 0, n_total - 1).reshape(b, k * length)
+        rows = torch.gather(y, 1, idx).reshape(b, k, length)
+    else:
+        hop = int(onset_hop)
+        blocks_per_clip = -(-length // hop)
+        avail = max(0, n_total - skip)   # y[:, skip:] is empty for skip > n
+        n_blocks = max(1, -(-avail // hop))
+        blocks = F.pad(y[:, skip:], (0, n_blocks * hop - avail)).reshape(
+            b, n_blocks, hop)
+        first = torch.clamp(onsets // hop, 0, n_blocks - 1)
+        idx = torch.clamp(first[..., None] + torch.arange(blocks_per_clip,
+                                                          device=dev),
+                          0, n_blocks - 1)
+        rows = torch.gather(blocks, 1, idx.reshape(b, -1)[..., None].expand(
+            -1, -1, hop))
+        rows = rows.reshape(b, k, blocks_per_clip * hop)[..., :length]
     clips = torch.where(window_ok, rows, 0.0)
 
     kept = onsets_valid & (gating.slice_rms_db(clips) > min_slice_rms_db)
@@ -106,12 +133,24 @@ def segment_waveform(y: torch.Tensor, sr: int = TARGET_SR,
                      attack_skip_sec: float = SLICER_CONFIG.ATTACK_SKIP_SEC,
                      max_onsets: int = 64,
                      strict_reference_compat: bool = True,
-                     n_valid: torch.Tensor | None = None,
-                     cand_budget: int | None = None):
-    """Whole-file segmentation of (B, n): gate → detect onsets → slice.
-    Returns (clips (B, K, L), kept, onsets, onsets_valid, times, overflow
-    (B,), cap_overflow (B,), n_detected (B,)); the flags and count are
-    `ops.onset.pick_onsets_plain`'s."""
+                     n_valid_samples: torch.Tensor | None = None,
+                     cand_budget: int | None = None,
+                     n_valid: torch.Tensor | None = None):
+    """Whole-file segmentation of (B, n), or of one signal (n,): gate →
+    detect onsets → slice. Returns (clips (B, K, L), kept, onsets,
+    onsets_valid, times, overflow (B,), cap_overflow (B,), n_detected
+    (B,)), without the batch axis for one signal; the flags and count are
+    `ops.onset.pick_onsets_plain`'s. `n_valid_samples` is `n_valid`."""
+    n_valid = either("segment_waveform", "n_valid_samples", n_valid_samples,
+                     "n_valid", n_valid)
+    y, one = as_rows(y)
+    if one:
+        outs = segment_waveform(
+            y, sr, hop_length, length_sec, min_sep, min_db,
+            min_slice_rms_db, attack_skip_sec, max_onsets,
+            strict_reference_compat, cand_budget=cand_budget,
+            n_valid=as_count_rows(n_valid, True, y.device))
+        return tuple(x[0] for x in outs)
     # the gates take the slicer's hop; onset detection keeps its own 512.
     # The ranges name the stages of a profiler trace (infer/pipeline.py)
     with annotate("segmentation_other"):
@@ -143,11 +182,41 @@ def save_clip(clip, sr: int, out_dir, idx: int, onset_s: float,
               np.asarray(clip), sr)
 
 
+class _static_or_bound:
+    """A method the reference defines as static: called on an instance it
+    computes on the instance's device; called on the class, on a new
+    instance on the class's `default_device`, with the reference's
+    signature (no `self`)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        functools.update_wrapper(self, fn)
+        sig = inspect.signature(fn)
+        self.signature = sig.replace(
+            parameters=list(sig.parameters.values())[1:])
+
+    def __get__(self, obj, cls=None):
+        if obj is not None:
+            return types.MethodType(self.fn, obj)
+        fn = self.fn
+
+        @functools.wraps(fn)
+        def on_default_device(*args, **kwargs):
+            return fn(cls(device=cls.default_device), *args, **kwargs)
+        on_default_device.__signature__ = self.signature
+        return on_default_device
+
+
 class AudioSlicer:
     """File-level slicer with the reference class's surface, computing on
     `device` (default the card; 'cpu' runs the plain PyTorch path). Each
     method takes and returns numpy, with one transfer from the device per
-    call."""
+    call. `load_wav`, `apply_db_threshold`, `apply_rms_threshold`,
+    `detect_onsets` and `is_slice_loud_enough` may also be called on the
+    class, as the reference's static methods are: they then compute on
+    `default_device` (None: the card)."""
+
+    default_device = None
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -156,6 +225,7 @@ class AudioSlicer:
         return torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(
             self.device)
 
+    @_static_or_bound
     def load_wav(self, path, sr: int = 11025):
         """(mono float32 samples, rate), resampled to `sr` unless it is
         None."""
@@ -165,13 +235,16 @@ class AudioSlicer:
             sr_in = sr
         return np.asarray(wav, np.float32), sr_in
 
+    @_static_or_bound
     def apply_db_threshold(self, y, min_db: float = -45.0):
         return to_host((gating.sample_db_gate(self._tensor(y), min_db),))[0]
 
+    @_static_or_bound
     def apply_rms_threshold(self, y, hop_len: int = 512):
         return to_host((gating.rms_gate(self._tensor(y)[None],
                                         hop_length=hop_len)[0],))[0]
 
+    @_static_or_bound
     def detect_onsets(self, y, sr: int = 11025, hop_len: int = 512,
                       min_sep: float = 0.25, max_onsets: int = 64):
         """Onset samples of one signal, its three outputs in one transfer;
@@ -186,6 +259,7 @@ class AudioSlicer:
                 f"budget for exhaustive results", stacklevel=2)
         return [int(s) for s in onsets[0][valid[0]]]
 
+    @_static_or_bound
     def is_slice_loud_enough(self, clip, min_rms_db: float = -40.0) -> bool:
         (db,) = to_host((gating.slice_rms_db(self._tensor(clip)),))
         return bool(db > min_rms_db)

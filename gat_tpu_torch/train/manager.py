@@ -41,8 +41,8 @@ class TrainingManager:
     def __init__(self, mlp_cfg=None, cnn_cfg=None,
                  datasets_root=DATASETS_ROOT, target_sr: int = TARGET_SR,
                  clip_duration: float = CLIP_DURATION,
-                 use_bf16_cnn: bool | None = None, device=None,
-                 mesh_devices: int | None = None, mesh=None):
+                 use_bf16_cnn: bool | None = None,
+                 mesh_devices: int | None = None, mesh=None, device=None):
         """`mesh_devices=N` (a mesh of the world's N ranks on `device`'s
         kind, `parallel.make_mesh`) or an explicit `mesh` trains both
         families data-parallel: every rank makes the same calls, builds

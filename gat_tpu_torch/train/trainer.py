@@ -131,7 +131,7 @@ class Trainer:
                  lr: float = 1e-3, weight_decay: float = 1e-4,
                  scaler=None, seed: int = 0, label_smoothing: float = 0.05,
                  max_clip_norm: float = 1.0, model_type: str | None = None,
-                 device=None, mesh=None):
+                 mesh=None, device=None):
         """`mesh` (a DeviceMesh from `parallel.make_mesh`, every rank
         making the same call) runs every training and evaluation step
         data-parallel over its `data` axis: each rank holds the data and

@@ -428,8 +428,9 @@ def test_inference_features_from_loader(tmp_path):
 
 
 def test_inference_features_refuse_long_clips_before_the_card():
-    """On the card the extractors refuse clips past K1-K3's shared memory
-    before any launch (the device is set by hand: there is no card)."""
+    """On the card the extractors refuse clips at the clip kernels' frame
+    limit before any launch (the device is set by hand: there is no
+    card)."""
     fb = tf.FeatureBuilder(device="cpu")
     fb.device = torch.device("cuda")
     mfcc = dataclasses.asdict(tf.MFCC_CONFIG)
@@ -577,3 +578,107 @@ def test_public_names_of_gat_tpu_all_exist_in_the_port():
             if obj is None:
                 missing.append(f"{rel}::{name}")
     assert missing == []
+
+
+# Where the port's signature may differ from gat_tpu's, and why: the
+# framework's own arguments, not the reference's
+SIGNATURE_EXCEPTIONS = {
+    # flax.linen.Module's `parent` and `name`, which every flax module
+    # takes; the port's modules are torch.nn.Modules
+    "flax": ("parent", "name"),
+    # JAX params and a PRNG key; the port reinitializes a module in place
+    # from a torch.Generator
+    "train/trainer.py::kaiming_reinit": "(model, generator)",
+    # jax devices; the port's mesh takes the device kind of its ranks
+    "parallel/mesh.py::make_mesh": "device=",
+    "parallel/__init__.py::make_mesh": "device=",
+    # shardings of a params tree; the port shards the module
+    "parallel/sharded.py::mlp_tp_shardings": "(model, mesh)",
+    "parallel/__init__.py::mlp_tp_shardings": "(model, mesh)",
+    # a NamedSharding for a mesh; the port replicates a module's state
+    "parallel/mesh.py::replicated": "(module, mesh)",
+    "parallel/__init__.py::replicated": "(module, mesh)",
+    # the port's logger is named after its package, and its traces go
+    # under its checkout, never to /tmp
+    "utils/logging.py::get_logger": "name='gat_tpu_torch'",
+    "utils/profiling.py::device_trace": "log_dir=None",
+}
+
+
+def _same_default(ref, got) -> bool:
+    """Equal defaults; two bare `object()` sentinels count as equal, and a
+    JAX dtype as its torch namesake."""
+    if type(ref) is object and type(got) is object:
+        return True
+    if isinstance(got, torch.dtype):
+        return str(got) == f"torch.{np.dtype(ref).name}"
+    try:
+        return bool(ref == got)
+    except Exception:
+        return False
+
+
+def _signature_faults(rel: str, name: str, ref, got) -> list[str]:
+    """How the port's signature breaks the reference's: each reference
+    parameter in the same place, kind and name, with the same default
+    where the reference has one; the port's own extra parameters come
+    after them, each with a default, so every call of the reference binds
+    the same way."""
+    import inspect
+    ref_params = list(inspect.signature(ref).parameters.values())
+    if any(p.name == "parent" and "flax" in str(p.annotation)
+           for p in ref_params):
+        ref_params = [p for p in ref_params
+                      if p.name not in SIGNATURE_EXCEPTIONS["flax"]]
+    got_params = list(inspect.signature(got).parameters.values())
+    faults = []
+    for i, r in enumerate(ref_params):
+        g = got_params[i] if i < len(got_params) else None
+        if g is None or (g.name, g.kind) != (r.name, r.kind):
+            faults.append(f"{rel}::{name}: parameter {i} is "
+                          f"{g and g.name!r}, gat_tpu's {r.name!r}")
+        elif (r.default is not inspect.Parameter.empty
+              and not _same_default(r.default, g.default)):
+            faults.append(f"{rel}::{name}: {r.name}={g.default!r}, gat_tpu's "
+                          f"{r.default!r}")
+    for g in got_params[len(ref_params):]:
+        if (g.default is inspect.Parameter.empty
+                and g.kind not in (g.VAR_POSITIONAL, g.VAR_KEYWORD)):
+            faults.append(f"{rel}::{name}: the port's {g.name!r} has no "
+                          f"default")
+    return faults
+
+
+def test_public_signatures_match_gat_tpu():
+    """Every public function, class and method of gat_tpu that the port
+    mirrors takes the same parameters in the same order with the same
+    defaults, the port's own extra parameters last and optional; the
+    exceptions are the frameworks' (SIGNATURE_EXCEPTIONS, each with its
+    reason)."""
+    import inspect
+    faults, compared = [], 0
+    for path in sorted((REPO / "gat_tpu").rglob("*.py")):
+        rel = path.relative_to(REPO / "gat_tpu").as_posix()
+        if rel.startswith(NOT_PORTED_MODULES):
+            continue
+        parts = rel.removesuffix(".py").split("/")
+        if parts[-1] == "__init__":
+            parts.pop()
+        ref_mod = importlib.import_module(".".join(["gat_tpu"] + parts))
+        mod = importlib.import_module(".".join(["gat_tpu_torch"] + parts))
+        for name in _public_names(path):
+            if f"{rel}::{name}" in SIGNATURE_EXCEPTIONS:
+                continue
+            ref, got = ref_mod, mod
+            for part in name.split("."):
+                ref, got = getattr(ref, part, None), getattr(got, part, None)
+            if not callable(ref) or not callable(got):
+                continue
+            try:
+                inspect.signature(ref)
+            except (TypeError, ValueError):
+                continue
+            compared += 1
+            faults += _signature_faults(rel, name, ref, got)
+    assert compared >= 250
+    assert faults == []

@@ -15,7 +15,8 @@ from test_torch_kernels_emulated import (FILE_SR, LIVE_MIN_SEP, LIVE_RING,
                                          RIFF_NOTES, check_mel_image,
                                          check_mfcc_level_step,
                                          check_zero_row, edge_envelopes,
-                                         file_batch, level_step_clip,
+                                         file_batch, frame_count_clips,
+                                         frames_clips, level_step_clip,
                                          mfcc_level_step_clip, padded_wave,
                                          PLUCK_NEAR_TIE, pluck_riff,
                                          port_pluck_clips, random_envelopes,
@@ -645,8 +646,9 @@ def test_inference_features_card_vs_cpu(clips):
 
 
 def test_feature_builder_refuses_long_clips_on_the_card(tmp_path):
-    """Clips past K1-K3's shared memory are refused before any launch, by
-    the dataset and the inference extractors alike."""
+    """Clips at the clip kernels' frame limit (2000 frames) are refused
+    before any launch, by the dataset and the inference extractors
+    alike."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
@@ -983,9 +985,10 @@ def test_mfcc_pitch_kernel_plucks(matmul_route):
 
 
 def test_mfcc_pitch_wrapper_edges(matmul_route, clips):
-    """Zero rows, the input checks, and the refusals: 2000 frames in the
-    wrapper, a clip whose staged copy exceeds a block's shared memory in
-    the launch."""
+    """Zero rows, the input checks, the refusal of 2000 frames in the
+    wrapper, and a clip of 60,000 samples (118 frames), which the launch
+    refused while YIN staged the whole clip, run in groups of frames:
+    K2's MFCC and K3's pitch bit for bit."""
     got, hz = features.mfcc_pitch_features(clips[:0], SR)
     assert got.shape == (0, 65) and hz.shape == (0,)
     with pytest.raises(ValueError, match="float32"):
@@ -995,9 +998,10 @@ def test_mfcc_pitch_wrapper_edges(matmul_route, clips):
     with pytest.raises(ValueError, match="2000"):
         features.mfcc_pitch_features(torch.zeros(1, 2000 * 512,
                                                  device="cuda"), SR)
-    with pytest.raises(RuntimeError, match="mfcc_pitch_frontend"):
-        features.mfcc_pitch_features(torch.zeros(1, 60000, device="cuda"),
-                                     SR)
+    x = frame_count_clips(60000).cuda()
+    got, hz = features.mfcc_pitch_features(x, SR)
+    assert torch.equal(got[:, :64], features.mfcc_frontend(x, SR))
+    assert torch.equal(hz, yin.yin_pitch(x, SR))
 
 
 def test_mfcc_pitch_frontend_four_blocks_per_sm(matmul_route, clips):
@@ -1042,3 +1046,101 @@ def test_transcribe_clips_shared_route_card_vs_cpu(matmul_route, clips):
     np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)
     np.testing.assert_allclose([p for p, _ in got["dsp_info"]],
                                [p for p, _ in ref["dsp_info"]], rtol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# K1, K2, K3 and K6 past what a block held at once before (PR 16's repair)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_frames", [71, 100, 200])
+def test_clip_kernels_long_card(matmul_route, n_frames):
+    """K3 and K6 at 71, 100 and 200 frames (they refused 71 and 70 or
+    more), YIN in groups of frames: K3 against its plain version to rtol
+    2e-3, K6 against the plain shared front-end (MFCC atol 1e-3 and rtol
+    2e-6, pitch rtol 2e-3), its MFCC K2's and its pitch K3's bit for bit;
+    K1 and K2 at the same clips, the mel image at its hop of 256."""
+    x = frames_clips(n_frames).cuda()
+    hz3 = yin.yin_pitch(x, SR)
+    torch.testing.assert_close(hz3, yin.yin_pitch_plain(x, SR), rtol=2e-3,
+                               atol=0)
+    got, hz = features.mfcc_pitch_features(x, SR, 64, True, False)
+    ref, ref_hz = features.mfcc_pitch_features_plain(x.cpu(), SR, 64, True,
+                                                     False)
+    torch.testing.assert_close(got[:, :64].cpu(), ref[:, :64], atol=1e-3,
+                               rtol=2e-6)
+    torch.testing.assert_close(hz.cpu(), ref_hz, rtol=2e-3, atol=0)
+    k2 = features.mfcc_frontend(x, SR)
+    assert torch.equal(got[:, :64], k2) and torch.equal(hz, hz3)
+    torch.testing.assert_close(k2, features.mfcc_frontend_plain(x, SR),
+                               atol=1e-3, rtol=2e-6)
+    rows = x[1:].contiguous()  # the noisy rows, as the emulated K1 test
+    check_mel_image(features.melspec_features(rows, SR),
+                    features.melspec_features_plain(rows, SR), True)
+
+
+@pytest.mark.parametrize("n_frames", [354, 355, 400])
+def test_mfcc_kernels_past_the_image_limit_card(matmul_route, n_frames):
+    """K2 and K6 keep the dB image in shared memory at 354 frames and in
+    the wrapper's workspace from 355 (K2 refused 355 or more): K2 against
+    its plain version (atol 1e-3, rtol 2e-6), K6 K2's and K3's bit for
+    bit."""
+    x = frames_clips(n_frames)[[1, 3]].cuda()
+    k2 = features.mfcc_frontend(x, SR)
+    torch.testing.assert_close(k2, features.mfcc_frontend_plain(x, SR),
+                               atol=1e-3, rtol=2e-6)
+    got, hz = features.mfcc_pitch_features(x, SR, 64, True, False)
+    assert torch.equal(got[:, :64], k2)
+    assert torch.equal(hz, yin.yin_pitch(x, SR))
+
+
+def test_melspec_kernel_past_the_image_limit_card():
+    """K1 at 800 frames (it refused 745 or more) writes its image straight
+    to the output: to K1's tolerance on the noisy rows (the emulated
+    test says why the clean decaying tone is left out)."""
+    _card()
+    x = frames_clips(800, hop=256)[[1, 2, 3]].cuda()
+    check_mel_image(features.melspec_features(x, SR),
+                    features.melspec_features_plain(x, SR), True)
+
+
+def test_yin_four_blocks_per_sm_at_the_clip_path():
+    """K3 at the clip path's 11 frames runs the whole clip as one group at
+    four resident blocks per SM, as before groups."""
+    import ctypes
+
+    from gat_tpu_torch import kernels
+    _card()
+    max_p = yin.yin_periods(SR, 50.0, 1000.0, 2048, 1024)[1]
+    args = (1024, 512, spectral.n_frames(5512, 2048, 512), max_p)
+    assert kernels.function("yin_pitch", "gat_yin_group",
+                            [ctypes.c_int] * 4)(*args) == args[2]
+    blocks = ctypes.c_int(0)
+    kernels.check(kernels.function(
+        "yin_pitch", "gat_yin_blocks_per_sm",
+        [ctypes.c_int] * 4 + [ctypes.c_void_p])(
+            *args, ctypes.addressof(blocks)), "yin_pitch")
+    assert blocks.value >= 4
+
+
+def test_transcribe_clip_duration_4_card_vs_cpu(tmp_path):
+    """`transcribe(clip_duration=4.0)` on a 12 s riff, whose clips of 4 s
+    (87 frames at the MFCC's hop) the card refused on both routes: labels,
+    onsets and times equal to the CPU plain path's, on the FFT route and
+    on the matmul route."""
+    _card()
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.utils.wavio import write_wav
+    notes = ((0.4, 110.0), (4.6, 196.0), (8.8, 329.63))
+    path = tmp_path / "riff.wav"
+    write_wav(path, pluck_riff(22050, 12.0, notes), 22050)
+    card, cpu = Transcriber(device="cuda"), Transcriber(device="cpu")
+    try:
+        for backend in ("fft", "matmul"):
+            spectral.set_stft_backend(backend)
+            got = card.transcribe(path, clip_duration=4.0)
+            ref = cpu.transcribe(path, clip_duration=4.0)
+            assert got["labels"] == ref["labels"] and got["labels"]
+            assert got["onsets_s"] == ref["onsets_s"]
+            assert got["times"] == ref["times"]
+            np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)
+    finally:
+        spectral.set_stft_backend("auto")

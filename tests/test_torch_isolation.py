@@ -97,7 +97,7 @@ def test_lazy_top_level_names_resolve_without_jax():
 
 def test_torch_tools_import_without_jax():
     names = tuple(p.stem for p in sorted((REPO / "tools").glob("torch_*.py")))
-    assert len(names) == 11
+    assert len(names) == 12  # with torch_numpy_reference_pipeline
     out = _run_blocked(
         "import importlib.util\n"
         f"for name in {names!r}:\n"

@@ -18,6 +18,7 @@ checks the kernels' arithmetic and indexing, not the GPU compiler or the
 card: `chip_smoke.py` does that.
 """
 import ctypes
+import hashlib
 import re
 import shutil
 import subprocess
@@ -273,17 +274,32 @@ def test_melspec_kernel_emulated_level_step(libs):
     check_mel_image(_melspec_emulated(libs, x, True, True), ref, True)
 
 
+def workspace(libs, kernel: str, symbol: str, n: int, *sizes: int):
+    """The (n, floats) workspace a kernel's launch at these sizes needs,
+    as its C entry point `symbol` counts it, or None when it needs none
+    or refuses the sizes (-1; the wrappers' `features._workspace`)."""
+    floats = _fn(libs[kernel], symbol, [ctypes.c_int] * len(sizes))(*sizes)
+    return torch.full((n, floats), float("nan")) if floats > 0 else None
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def _mfcc_emulated(libs, x: torch.Tensor, normalize: bool) -> torch.Tensor:
     n, length = x.shape
+    n_fr = spectral.n_frames(length, 2048, 512)
     out = torch.empty((n, 64))
     hann, tw, fb, lo, hi = features._kernel_tables(SR, 128, False, CPU)
     dct = spectral.dct_ii_matrix(128, 64)
+    ws = workspace(libs, "mfcc_frontend", "gat_mfcc_workspace_floats", n,
+                   128, n_fr)
     fn = _fn(libs["mfcc_frontend"], "gat_mfcc_frontend",
              features._MFCC_ARGS)
     assert fn(x.data_ptr(), out.data_ptr(), hann.data_ptr(), tw.data_ptr(),
               fb.data_ptr(), lo.data_ptr(), hi.data_ptr(), dct.data_ptr(),
-              n, length, 512, spectral.n_frames(length, 2048, 512), 128, 64,
-              int(normalize), 80.0, None) == 0
+              _ptr(ws), n, length, 512, n_fr, 128, 64, int(normalize), 80.0,
+              None) == 0
     return out
 
 
@@ -364,14 +380,18 @@ def test_yin_kernel_emulated_plucks(libs, noise):
 
 
 def test_shared_memory_limit_refused(libs):
-    """A launch needing more than a block's shared memory is refused with
-    a nonzero status, which the wrappers raise on."""
+    """A launch K3 cannot hold is refused with a nonzero status, which the
+    wrappers raise on: a clip of 2000 frames (1,023,488 samples, the frame
+    limit) and a period range whose single frame exceeds a block's shared
+    memory. Longer clips than one block holds at once run in groups of
+    frames (`test_yin_kernel_emulated_long`)."""
     fn = _fn(libs["yin_pitch"], "gat_yin_pitch", yin._YIN_ARGS)
-    x = torch.zeros(1, 60000)
-    out = torch.empty(1)
-    assert fn(x.data_ptr(), out.data_ptr(), 1, 60000, 2048, 1024, 512,
-              spectral.n_frames(60000, 2048, 512), 11, 221, 0.1, float(SR),
-              None) != 0
+    for length, max_p in ((2000 * 512, 221), (5512, 60000)):
+        x = torch.zeros(1, length)
+        out = torch.empty(1)
+        assert fn(x.data_ptr(), out.data_ptr(), 1, length, 2048, 1024, 512,
+                  spectral.n_frames(length, 2048, 512), 11, max_p, 0.1,
+                  float(SR), None) != 0
 
 
 @pytest.mark.parametrize("name, symbol, args, too_big", [
@@ -387,10 +407,10 @@ def test_shared_memory_limit_refused(libs):
 def test_occupancy_entry_points(libs, name, symbol, args, too_big):
     """Each kernel's occupancy query takes the main path's sizes (the
     emulation has no occupancy to report, so it writes 0), and refuses
-    sizes whose shared memory exceeds a block's (2000 frames or bands,
-    60000 mel items; K6 refuses 2000 frames outright). K5's shared memory
-    does not depend on the length:
-    `test_onset_pick_emulated_any_length`."""
+    what its launch refuses: 2000 frames, the clip front-ends' frame limit
+    (`test_frame_limit_is_the_wrappers_guard`), and 60000 mel items, more
+    shared memory than a block has, for K4. K5's shared memory does not
+    depend on the length: `test_onset_pick_emulated_any_length`."""
     fn = _fn(libs[name], symbol, [ctypes.c_int] * len(args)
              + [ctypes.c_void_p])
     blocks = ctypes.c_int(-1)
@@ -400,25 +420,29 @@ def test_occupancy_entry_points(libs, name, symbol, args, too_big):
 
 def mfcc_pitch_emulated(libs, x: torch.Tensor, sr: int, normalize: bool,
                         pitch_normalized: bool, hop: int = 512,
-                        win: int = 1024
+                        win: int = 1024, periods=None
                         ) -> tuple[int, torch.Tensor, torch.Tensor]:
     """K6's C entry point with the arguments `features.mfcc_pitch_features`
-    passes (hop 512, win 1024 unless given): (status, features (N, 65),
-    hz (N,))."""
+    passes (hop 512, win 1024, the periods of 50-1000 Hz unless given) and
+    the workspace its query asks for: (status, features (N, 65), hz
+    (N,))."""
     n, length = x.shape
+    n_fr = spectral.n_frames(length, 2048, hop)
     out = torch.full((n, 65), float("nan"))
     hz = torch.full((n,), float("nan"))
     hann, tw, fb, lo, hi = features._kernel_tables(sr, 128, False, CPU)
     dct = spectral.dct_ii_matrix(128, 64)
-    min_p, max_p = yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)
+    min_p, max_p = periods or yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)
+    ws = workspace(libs, "mfcc_pitch_frontend",
+                   "gat_mfcc_pitch_workspace_floats", n, n_fr, 128, 64, win,
+                   hop, max_p)
     fn = _fn(libs["mfcc_pitch_frontend"], "gat_mfcc_pitch_frontend",
              features._MFCC_PITCH_ARGS)
     status = fn(x.data_ptr(), out.data_ptr(), hz.data_ptr(), hann.data_ptr(),
                 tw.data_ptr(), fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                dct.data_ptr(), n, length, hop,
-                spectral.n_frames(length, 2048, hop), 128, 64, win, min_p,
-                max_p, int(normalize), int(pitch_normalized), 80.0, 0.1,
-                float(sr), None)
+                dct.data_ptr(), _ptr(ws), n, length, hop, n_fr, 128, 64, win,
+                min_p, max_p, int(normalize), int(pitch_normalized), 80.0,
+                0.1, float(sr), None)
     return status, out, hz
 
 
@@ -500,7 +524,7 @@ def test_mfcc_pitch_kernel_emulated(libs, matmul_route, sr, normalize,
              features._MFCC_ARGS)
     assert fn(x.data_ptr(), k2.data_ptr(), hann.data_ptr(), tw.data_ptr(),
               fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-              spectral.dct_ii_matrix(128, 64).data_ptr(), x.shape[0],
+              spectral.dct_ii_matrix(128, 64).data_ptr(), None, x.shape[0],
               x.shape[1], 512, spectral.n_frames(x.shape[1], 2048, 512), 128,
               64, int(normalize), 80.0, None) == 0
     assert torch.equal(out[:, :64], k2)
@@ -593,12 +617,16 @@ def test_mfcc_pitch_kernel_emulated_zero_rows(libs):
 
 
 def test_mfcc_pitch_kernel_emulated_refusals(libs):
-    """K6 refuses 2000 frames or more, and a clip whose staged copy
-    exceeds a block's shared memory (60,000 samples, 118 frames), with a
-    nonzero status the wrapper raises on."""
-    for length in (2000 * 512, 60000):
-        x = torch.zeros(1, length)
-        assert mfcc_pitch_emulated(libs, x, SR, True, False)[0] != 0
+    """K6 refuses 2000 frames or more (1,023,488 samples, the frame limit)
+    and a period range whose single frame of YIN exceeds a block's shared
+    memory, with a nonzero status the wrapper raises on (its workspace
+    query says -1). Longer clips than one block holds at once run in
+    groups of frames (`test_mfcc_pitch_kernel_emulated_long`)."""
+    x = torch.zeros(1, 2000 * 512)
+    assert mfcc_pitch_emulated(libs, x, SR, True, False)[0] != 0
+    x = torch.zeros(1, 5512)
+    assert mfcc_pitch_emulated(libs, x, SR, True, False,
+                               periods=(11, 60000))[0] != 0
 
 
 def k2_k3_emulated(libs, x: torch.Tensor, sr: int, normalize: bool,
@@ -609,11 +637,13 @@ def k2_k3_emulated(libs, x: torch.Tensor, sr: int, normalize: bool,
     n_fr = spectral.n_frames(length, 2048, hop)
     hann, tw, fb, lo, hi = features._kernel_tables(sr, 128, False, CPU)
     k2 = torch.full((n, 64), float("nan"))
+    ws = workspace(libs, "mfcc_frontend", "gat_mfcc_workspace_floats", n,
+                   128, n_fr)
     fn = _fn(libs["mfcc_frontend"], "gat_mfcc_frontend", features._MFCC_ARGS)
     assert fn(x.data_ptr(), k2.data_ptr(), hann.data_ptr(), tw.data_ptr(),
               fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-              spectral.dct_ii_matrix(128, 64).data_ptr(), n, length, hop,
-              n_fr, 128, 64, int(normalize), 80.0, None) == 0
+              spectral.dct_ii_matrix(128, 64).data_ptr(), _ptr(ws), n,
+              length, hop, n_fr, 128, 64, int(normalize), 80.0, None) == 0
     k3 = torch.full((n,), float("nan"))
     min_p, max_p = yin.yin_periods(sr, 50.0, 1000.0, 2048, 1024)
     fn = _fn(libs["yin_pitch"], "gat_yin_pitch", yin._YIN_ARGS)
@@ -698,6 +728,192 @@ def test_mfcc_pitch_kernel_emulated_refuses_hop(libs, hop, win):
     blocks = ctypes.c_int(-1)
     assert fn(5512, hop, spectral.n_frames(5512, 2048, hop), 128, win, 221,
               ctypes.addressof(blocks)) != 0
+
+
+# Clips past what one block held at once before groups and workspaces:
+# K3 refused 71 frames or more at hop 512 (11025 Hz: 3.25 s), K6 70, K2
+# 355 and K1 745 at hop 256.
+LONG_FRAMES = (71, 100, 200)
+
+
+def frames_clips(n_frames: int, hop: int = 512) -> torch.Tensor:
+    """`frame_count_clips` of exactly n_frames frames at `hop`."""
+    return frame_count_clips((n_frames - 1) * hop)
+
+
+@pytest.mark.parametrize("n_frames", LONG_FRAMES)
+def test_yin_kernel_emulated_long(libs, n_frames):
+    """K3 at 71, 100 and 200 frames, where its clip no longer fits a block
+    whole: it runs in groups of frames and agrees with the plain version
+    to rtol 2e-3, as at 11 frames."""
+    x = frames_clips(n_frames)
+    group = _fn(libs["yin_pitch"], "gat_yin_group", [ctypes.c_int] * 4)(
+        1024, 512, n_frames, 221)
+    assert 0 < group < n_frames
+    _, k3 = k2_k3_emulated(libs, x, SR, True)
+    torch.testing.assert_close(k3, yin.yin_pitch_plain(x, SR), rtol=2e-3,
+                               atol=0)
+
+
+@pytest.mark.parametrize("n_frames", LONG_FRAMES)
+def test_mfcc_pitch_kernel_emulated_long(libs, matmul_route, n_frames):
+    """K6 at 71, 100 and 200 frames, YIN in groups of frames: against the
+    plain shared front-end to `test_mfcc_pitch_kernel_emulated`'s
+    tolerances, its MFCC K2's and its pitch K3's bit for bit (chains that
+    cross a group's end are summed again in the next group)."""
+    x = frames_clips(n_frames)
+    group = _fn(libs["mfcc_pitch_frontend"], "gat_mfcc_pitch_group",
+                [ctypes.c_int] * 6)(n_frames, 128, 64, 1024, 512, 221)
+    assert 0 < group < n_frames
+    status, out, hz = mfcc_pitch_emulated(libs, x, SR, True, False)
+    assert status == 0
+    ref, ref_hz = features.mfcc_pitch_features_plain(x, SR, 64, True, False)
+    torch.testing.assert_close(out[:, :64], ref[:, :64], atol=1e-3,
+                               rtol=2e-6)
+    torch.testing.assert_close(hz, ref_hz, rtol=2e-3, atol=0)
+    k2, k3 = k2_k3_emulated(libs, x, SR, True)
+    assert torch.equal(out[:, :64], k2) and torch.equal(hz, k3)
+
+
+@pytest.mark.parametrize("pitch_normalized", [True, False])
+def test_mfcc_pitch_kernel_emulated_long_normalized(libs, matmul_route,
+                                                    pitch_normalized):
+    """Each group's copy is divided by the clip's volume divisor when both
+    flags ask for it: 100 frames, against the plain version."""
+    x = frames_clips(100)
+    status, out, hz = mfcc_pitch_emulated(libs, x, SR, True,
+                                          pitch_normalized)
+    assert status == 0
+    ref, ref_hz = features.mfcc_pitch_features_plain(x, SR, 64, True,
+                                                     pitch_normalized)
+    torch.testing.assert_close(out[:, :64], ref[:, :64], atol=1e-3,
+                               rtol=2e-6)
+    torch.testing.assert_close(hz, ref_hz, rtol=2e-3, atol=0)
+
+
+def test_melspec_kernel_emulated_past_the_image_limit(libs):
+    """K1 at 800 frames (hop 256; it refused 745 or more): the image is
+    written straight to the output, to K1's tolerance against the plain
+    version, on the noisy rows. The clean decaying tone (row 0) is left
+    out: its bands 66 dB below its peak differ from the plain version by
+    up to 0.22 dB at 744 frames too, with the image in shared memory,
+    which is fp32 FFT leakage and not where the image is kept."""
+    x = frames_clips(800, hop=256)[[1, 2, 3]]
+    check_mel_image(_melspec_emulated(libs, x, True, True),
+                    features.melspec_features_plain(x, SR), True)
+
+
+@pytest.mark.parametrize("n_frames", [354, 355, 400])
+def test_mfcc_kernels_emulated_past_the_image_limit(libs, matmul_route,
+                                                    n_frames):
+    """K2 and K6 at 354 frames keep the dB image in shared memory, and from
+    355 frames (K2 refused 355 or more) in a workspace of n_frames x 128
+    floats per clip: K2 against the plain version (atol 1e-3 and rtol
+    2e-6, as K6's test: the mostly silent pluck row's c0 is -261, a mean
+    over 355 frames summed in another order than torch.mean's), K6's MFCC
+    K2's and its pitch K3's bit for bit."""
+    x = frames_clips(n_frames)[[1, 3]]
+    floats = n_frames * 128 if n_frames >= 355 else 0
+    sizes = (n_frames, 128, 64, 1024, 512, 221)
+    assert _fn(libs["mfcc_frontend"], "gat_mfcc_workspace_floats",
+               [ctypes.c_int] * 2)(128, n_frames) == floats
+    assert _fn(libs["mfcc_pitch_frontend"],
+               "gat_mfcc_pitch_workspace_floats",
+               [ctypes.c_int] * 6)(*sizes) == floats
+    k2, k3 = k2_k3_emulated(libs, x, SR, True)
+    torch.testing.assert_close(k2, features.mfcc_frontend_plain(x, SR),
+                               atol=1e-3, rtol=2e-6)
+    status, out, hz = mfcc_pitch_emulated(libs, x, SR, True, False)
+    assert status == 0
+    assert torch.equal(out[:, :64], k2) and torch.equal(hz, k3)
+
+
+def test_mfcc_kernel_emulated_refuses_missing_workspace(libs):
+    """A launch whose dB image needs the workspace is refused without
+    one, and writes nothing."""
+    x = frames_clips(400)[:1]
+    out = torch.full((1, 64), float("nan"))
+    hann, tw, fb, lo, hi = features._kernel_tables(SR, 128, False, CPU)
+    fn = _fn(libs["mfcc_frontend"], "gat_mfcc_frontend", features._MFCC_ARGS)
+    assert fn(x.data_ptr(), out.data_ptr(), hann.data_ptr(), tw.data_ptr(),
+              fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+              spectral.dct_ii_matrix(128, 64).data_ptr(), None, 1,
+              x.shape[1], 512, 400, 128, 64, 1, 80.0, None) != 0
+    assert bool(out.isnan().all())
+
+
+def golden_clips(length: int) -> torch.Tensor:
+    """(3, length) from a numpy seed: a 196 Hz tone and a 523 Hz square
+    wave, decaying, with noise, and white noise."""
+    rng = np.random.default_rng(1616)
+    t = np.arange(length) / SR
+    x = np.stack([np.sin(2 * np.pi * 196.0 * t) * np.exp(-2 * t)
+                  + rng.normal(0, 0.02, length),
+                  0.3 * np.sign(np.sin(2 * np.pi * 523.25 * t))
+                  * np.exp(-3 * t) + rng.normal(0, 0.05, length),
+                  rng.normal(0, 0.1, length)])
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()[:16]
+
+
+# sha256 of each kernel's output bytes on `golden_clips`, as the kernels
+# gave them before YIN ran in groups of frames and the dB images could
+# leave shared memory (d475e9f): 11 and 69 frames at hop 512 (22 and 137
+# at K1's 256) at 11025 Hz, 22 frames at 22050 Hz
+GOLDEN = {
+    (11025, 5512): {"K1": "8e2312e8b8faad74", "K2": "74f9d76596777f74",
+                    "K3": "0d0eb0babeb8b824", "K6": "ac0e3439b311cae8"},
+    (11025, 34816): {"K1": "dabfd4f77719e688", "K2": "989e23b0e37ed547",
+                     "K3": "798e1c9212a55696", "K6": "52848fab332a1f9a"},
+    (22050, 11025): {"K3": "5e02cedfb1f15469", "K6": "71e1d19be1fcef2f"},
+}
+
+
+@pytest.mark.parametrize("sr, length", list(GOLDEN))
+def test_clip_kernels_emulated_golden(libs, matmul_route, sr, length):
+    """At up to 69 frames every clip front-end gives the floats it gave
+    before this length handling, bit for bit: the one-group layout at 11
+    frames, groups of frames at 22 (22050 Hz) and 69 (K3)."""
+    x = golden_clips(length)
+    want = GOLDEN[(sr, length)]
+    k2, k3 = k2_k3_emulated(libs, x, sr, True)
+    _, k6, hz = mfcc_pitch_emulated(libs, x, sr, True, False)
+    got = {"K2": _digest(k2), "K3": _digest(k3), "K6": _digest(k6)}
+    if "K1" in want:
+        got["K1"] = _digest(_melspec_emulated(libs, x, True, True))
+    assert {k: got[k] for k in want} == want
+    assert torch.equal(hz, k3)
+
+
+@pytest.mark.parametrize("name, symbol, args", [
+    ("melspec_frontend", "gat_melspec_blocks_per_sm", (64,)),
+    ("mfcc_frontend", "gat_mfcc_blocks_per_sm", (128,)),
+    ("yin_pitch", "gat_yin_blocks_per_sm", (1024, 512, None, 221)),
+    ("mfcc_pitch_frontend", "gat_mfcc_pitch_frontend_blocks_per_sm",
+     (0, 512, None, 128, 1024, 221)),
+])
+def test_frame_limit_is_the_wrappers_guard(libs, name, symbol, args):
+    """Each clip front-end takes 1999 frames and refuses 2000, and so does
+    the wrappers' guard, whose error names the limit."""
+    def query(n_frames):
+        full = [n_frames if a is None else a for a in args]
+        if None not in args:
+            full.append(n_frames)
+        fn = _fn(libs[name], symbol, [ctypes.c_int] * len(full)
+                 + [ctypes.c_void_p])
+        blocks = ctypes.c_int(-1)
+        return fn(*full, ctypes.addressof(blocks))
+    assert query(kernels.MAX_FRAMES - 1) == 0
+    assert query(kernels.MAX_FRAMES) != 0
+    kernels.check_frames(kernels.MAX_FRAMES - 1, 512, 0, name)
+    with pytest.raises(ValueError, match="fewer than 2000 frames"):
+        kernels.check_frames(kernels.MAX_FRAMES, 512, 1023488, name)
+    assert features.kernel_frames(1998 * 512, 512, name) == 1999
+    with pytest.raises(ValueError, match="1023488 samples give 2000 frames"):
+        features.kernel_frames(1999 * 512, 512, name)
 
 
 FILE_SR = 22050
