@@ -7,7 +7,7 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits
 non-zero:
 
 1. the card: name and power limit (nvidia-smi);
-2. build the six CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
+2. build the eight CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
    source, in parallel), print nvcc's register/spill report and each
    kernel's resident blocks per SM as the CUDA runtime computes them;
 3. hold each kernel against its plain PyTorch version on the card, at its
@@ -24,7 +24,17 @@ non-zero:
    candidate budgets; K4 and K5 also at the file path's own shapes, one
    4 s file and a wave of 4, and K5 at one 400 s file (17,227 frames),
    with their device time from the profiler beside the CUDA-event time,
-   and K5's wrapper host time split into its parts;
+   and K5's wrapper host time split into its parts; then `[gate]`: the
+   noise gate K7 (`csrc/noise_gate.cu`) and the clip slicer K8
+   (`csrc/slice_clips.cu`) against their plain twins at the serving wave
+   (4 files x 60 s at 22050 Hz, 112 onsets a file, 448 slots of 11,025
+   samples) and a 400 s riff, with rows of n_valid 0, 1500 and off the
+   512 grid, a batch without counts, hop 256 and the RMS gate alone (K7:
+   envelope, median and gate_db within 1e-4 dB, frame masks equal but
+   within 1e-3 dB of gate_db, gated samples bit-equal where both
+   decisions agree; K8: clips and times bit-equal, kept equal but within
+   1e-4 dB of its threshold), both gathers and both last-note rules for
+   K8, and both timed with their bound, plain time and blocks per SM;
 4. drive the clip path, `Transcriber(device="cuda").transcribe_clips`, at
    the shipped checkpoints: K1-K3's launch counts must rise, the labels
    must equal those of the plain versions fed to the same models, and a
@@ -153,13 +163,16 @@ non-zero:
 19. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
-Each path's kernel launches are counted from zero just before it is
-driven and read just after (`launches_by_path` in the kernels line:
-clips, file, long, files, serve, http, stream, live, cli, train,
-shared, eval, tools, parallel, file_4s, file_4s_shared; the two K4 pass
-rows launch on `parallel` only, K6 on `shared` and `file_4s_shared`
-only); `launches` stays the clip path's count for K1-K3,
-the file path's for K4/K5 and the shared clip path's for K6.
+Each path's kernel launches, K1..K8, are counted from zero just before
+it is driven and read just after (`launches_by_path` in the kernels
+line: clips, file, long, files, serve, http, stream, live, cli, train,
+shared, eval, tools, parallel, file_4s, file_4s_shared; K6's row from
+`shared` on; the two K4 pass rows launch on `parallel` only, K6 on
+`shared` and `file_4s_shared` only); every path that segments a file
+(file, long, files, serve, http, cli, eval, tools, parallel and both
+file_4s paths) must launch K7 and K8. `launches` stays the clip path's
+count for K1-K3, the file path's for K4, K5, K7 and K8 and the shared
+clip path's for K6.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -792,18 +805,302 @@ def check_file_kernels(dev, failures: list) -> list[dict]:
     return rows
 
 
+GATE_FILES = 4        # [gate]: the serving wave, 4 files x 60 s at 22050 Hz
+GATE_SECONDS = 60.0
+GATE_ONSETS = 112     # its onset budget: 448 slots of 11,025 samples
+GATE_SPACING = 0.55   # a pluck every 0.55 s: 108 per file
+
+
+def gate_errors(got: dict, ref: dict, y, min_db: float | None,
+                hop: int) -> tuple[dict, bool]:
+    """K7's parts (`gating.noise_gate(parts=True)`) against the plain
+    gate's (`gating.gate_parts_plain`), at the bounds of
+    `tests/test_torch_kernels_emulated.py::check_gate`: envelope, median
+    and gate_db within 1e-4 dB; frame masks equal except at frames within
+    1e-3 dB of gate_db; gated samples bit-equal where the frame decision
+    agrees and the sample's dB is not within 1e-4 dB of min_db. Returns
+    the errors and the counts let through, and whether all hold."""
+    import torch
+    err = {k: float((got[k] - ref[k]).abs().max())
+           for k in ("env", "med", "gate_db")}
+    near = (ref["med"] - ref["gate_db"][:, None]).abs() < 1e-3
+    flipped = got["frame_mask"] != ref["frame_mask"]
+    n = y.shape[1]
+    agree = ~flipped.repeat_interleave(hop, dim=1)[:, :n]
+    if min_db is not None:
+        amp_db = 20.0 * torch.log10(y.abs() + 1e-10)
+        agree &= (amp_db - min_db).abs() >= 1e-4
+    same = got["out"].view(torch.int32) == ref["out"].view(torch.int32)
+    out = dict(err, frames_flipped=int(flipped.sum()),
+               frames_flipped_far=int((flipped & ~near).sum()),
+               samples_excused=int((~agree).sum()),
+               samples_differing=int((~same & agree).sum()),
+               gated_max_abs_err=float((got["out"] - ref["out"]).abs().max()))
+    ok = (max(err.values()) <= 1e-4 and out["frames_flipped_far"] == 0
+          and out["samples_differing"] == 0
+          and bool(torch.isfinite(got["out"]).all()))
+    return out, ok
+
+
+def slice_errors(got: tuple, ref: tuple, min_db: float) -> tuple[dict, bool]:
+    """K8 against the plain slicer: clips and times bit-equal, kept equal
+    except where the clip's dB is within 1e-4 dB of min_db."""
+    import torch
+    from gat_tpu_torch.segment.gating import slice_rms_db
+    near = (slice_rms_db(ref[0]) - min_db).abs() < 1e-4
+    out = dict(clips_max_abs_err=float((got[0] - ref[0]).abs().max()),
+               clips_bits_equal=bool(torch.equal(got[0].view(torch.int32),
+                                                 ref[0].view(torch.int32))),
+               times_equal=bool(torch.equal(got[2], ref[2])),
+               kept_differing=int((got[1] != ref[1]).sum()),
+               kept_differing_far=int(((got[1] != ref[1]) & ~near).sum()),
+               kept=int(ref[1].sum()))
+    ok = (out["clips_bits_equal"] and out["times_equal"]
+          and out["kept_differing_far"] == 0)
+    return out, ok
+
+
+def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
+    """`[gate]`: K7 (`csrc/noise_gate.cu`) and K8 (`csrc/slice_clips.cu`)
+    against their plain twins on the card, at the serving wave (4 files x
+    60 s at 22050 Hz, a pluck every 0.55 s, noise 0.01; 112 onsets a
+    file, 448 slots of 11,025 samples) and at one 400 s riff (17,227
+    frames): K7 with valid counts of the whole row and one not a multiple
+    of 512, then rows of n_valid 0, 1500 and a third of the row off the
+    512 grid beside a whole one, a batch without counts, hop 256 and
+    `rms_gate` alone (the bounds of `gate_errors`); K8 on the onsets
+    K4/K5 find in K7's output, by the hop-512 row gather and the
+    per-sample gather, with both last-note rules (`slice_errors`). Then
+    both timed at the wave and the riff: kernel ms in CUDA events over
+    POOL distinct buffers, device ms in the profiler, plain ms, bound
+    (`utils/roofline.py`'s gate_cost, and slice_cost at the samples
+    these onsets' windows read), blocks per SM; `library ms` null: no
+    single PyTorch call computes either. Returns their kernels-line
+    rows."""
+    import torch
+    from gat_tpu_torch import kernels
+    from gat_tpu_torch.config import CLIP_DURATION, SLICER_CONFIG
+    from gat_tpu_torch.ops import onset
+    from gat_tpu_torch.segment import gating, slicing
+    roofline = load_roofline()
+    dev = torch.device(device)
+    min_db = SLICER_CONFIG.MIN_IN_DB_THRESHOLD
+    min_rms_db = SLICER_CONFIG.MIN_SLICE_RMS_DB
+    length = int(FILE_SR * CLIP_DURATION)
+
+    def riffs(files: int, seconds: float, seed: int):
+        k = len(np.arange(0.4, seconds - 0.45, GATE_SPACING))
+        midi = 40 + np.arange(files * k).reshape(files, k) % 47
+        return torch.from_numpy(make_riffs(midi, seconds, FILE_SR, seed,
+                                           noise=0.01,
+                                           spacing=GATE_SPACING)).to(dev)
+
+    def check_gate(tag, y, nv, mdb, hop=512):
+        got = gating.noise_gate(y, mdb, hop, nv, parts=True)[1]
+        ref = gating.gate_parts_plain(y, mdb, hop, nv)
+        torch.cuda.synchronize()
+        e, ok = gate_errors(got, ref, y, mdb, hop)
+        log(f"[gate] K7 {tag}: env max abs err {e['env']:.3g} dB, median "
+            f"{e['med']:.3g}, gate_db {e['gate_db']:.3g} (1e-4 dB); frames "
+            f"flipped {e['frames_flipped']} (far from gate_db "
+            f"{e['frames_flipped_far']}); samples excused by a flip or "
+            f"min_db {e['samples_excused']}, differing elsewhere "
+            f"{e['samples_differing']} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[gate] K7 {tag}")
+        return got["out"], e
+
+    def check_slice(tag, y, ons, valid, nv, hop, strict):
+        got = slicing.slice_at_onsets(y, ons, valid, FILE_SR,
+                                      strict_reference_compat=strict,
+                                      n_valid=nv, onset_hop=hop)
+        ref = slicing.slice_at_onsets_plain(y, ons, valid, FILE_SR,
+                                            strict_reference_compat=strict,
+                                            n_valid=nv, onset_hop=hop)
+        torch.cuda.synchronize()
+        e, ok = slice_errors(got, ref, min_rms_db)
+        log(f"[gate] K8 {tag} (onset_hop {hop}, strict {strict}): clips "
+            f"bit-equal {e['clips_bits_equal']}, times equal "
+            f"{e['times_equal']}, kept {e['kept']} of {ons.numel()} slots, "
+            f"kept differing {e['kept_differing']} (far from min_db "
+            f"{e['kept_differing_far']}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[gate] K8 {tag} onset_hop {hop} strict "
+                            f"{strict}")
+        return e
+
+    t0 = time.perf_counter()
+    y_wave = riffs(GATE_FILES, GATE_SECONDS, SEED + 20)
+    y_long = riffs(1, LONG_SECONDS, SEED + 21)
+    log(f"[data] [gate] {GATE_FILES} x {GATE_SECONDS:g} s and 1 x "
+        f"{LONG_SECONDS:g} s riffs at {FILE_SR} Hz in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = y_wave.shape[1]
+    nv_wave = torch.tensor([n, n, n - 12345, n], dtype=torch.int32,
+                           device=dev)
+    # none, under a frame, a third of the row off the 512 grid, the row
+    nv_edges = torch.tensor([0, 1500, n // 3 // 512 * 512 + 77, n],
+                            dtype=torch.int32, device=dev)
+    nv_long = torch.tensor([y_long.shape[1]], dtype=torch.int32, device=dev)
+    gated, e7 = check_gate(f"at the wave ({GATE_FILES} x {n})", y_wave,
+                           nv_wave, min_db)
+    errs7 = [e7]
+    for tag, y, nv, mdb, hop in (
+            (f"at n_valid {nv_edges.tolist()}", y_wave, nv_edges, min_db,
+             512),
+            ("without counts", y_wave, None, min_db, 512),
+            ("at hop 256", y_wave, nv_wave, min_db, 256),
+            ("rms_gate alone", y_wave, nv_wave, None, 512)):
+        errs7.append(check_gate(tag, y, nv, mdb, hop)[1])
+    gated_long, e = check_gate(f"at 1 x {y_long.shape[1]} (400 s)", y_long,
+                               nv_long, min_db)
+    errs7.append(e)
+
+    def onsets_of(g, nv):
+        ons, valid, *_ = onset.detect_onsets(g, sr=FILE_SR, min_sep=0.25,
+                                             max_onsets=GATE_ONSETS,
+                                             n_valid=nv)
+        return ons, valid
+    ons, valid = onsets_of(gated, nv_wave)
+    errs8 = []
+    for hop in (512, None):
+        for strict in (True, False):
+            errs8.append(check_slice("at the wave", y_wave, ons, valid,
+                                     nv_wave, hop, strict))
+    g_edges = gating.gate_waveform(y_wave, min_db, n_valid=nv_edges)
+    ons_e, valid_e = onsets_of(g_edges, nv_edges)
+    if bool(valid_e[:2].any()):
+        failures.append("[gate] onsets found in rows of n_valid 0 or 1500")
+    errs8.append(check_slice(f"at n_valid {nv_edges.tolist()}", y_wave,
+                             ons_e, valid_e, nv_edges, 512, True))
+    ons_l, valid_l = onsets_of(gated_long, nv_long)
+    errs8.append(check_slice("at the 400 s riff", y_long, ons_l, valid_l,
+                             nv_long, 512, True))
+    log(f"[gate] onsets at the wave {valid.sum(-1).tolist()} of "
+        f"{GATE_ONSETS} slots a file; at the 400 s riff "
+        f"{int(valid_l.sum())}")
+
+    # timing at the wave and the 400 s riff, the path's arguments
+    shapes7, shapes8 = [], []
+    for y, nv, o, v in ((y_wave, nv_wave, ons, valid),
+                        (y_long, nv_long, ons_l, valid_l)):
+        files, rows_n = y.shape
+        pool = noisy_pool(y, SEED + 22, 0.001)
+
+        def gate(x):
+            return gating.gate_waveform(x, min_db, n_valid=nv)
+
+        def gate_plain(x):
+            return gating.gate_waveform_plain(x, min_db, n_valid=nv)
+
+        def cut(x):
+            return slicing.slice_at_onsets(x, o, v, FILE_SR, n_valid=nv,
+                                           onset_hop=512)
+
+        def cut_plain(x):
+            return slicing.slice_at_onsets_plain(x, o, v, FILE_SR,
+                                                 n_valid=nv, onset_hop=512)
+        slots = o.numel()
+        # the samples K8's windows read: what these onsets open
+        windows = roofline.window_samples(cut_plain(y)[2], v, nv, FILE_SR)
+        for shapes, name, fn, plain, cost, kernel in (
+                (shapes7, "noise_gate", gate, gate_plain,
+                 roofline.gate_cost(files, rows_n), "K7"),
+                (shapes8, "slice_clips", cut, cut_plain,
+                 roofline.slice_cost(files, rows_n, slots, length, windows),
+                 "K8")):
+            row = dict(files=files, samples=rows_n, slots=slots,
+                       window_samples=windows,
+                       ms=time_ms(fn, pool, reps=10),
+                       device_ms=kernel_device_ms(fn, pool, kernel),
+                       plain_ms=time_ms(plain, pool, reps=3))
+            row["bound_ms"], row["bound_by"] = roofline.bound(*cost)
+            log(f"[time] {name} at {files} x {rows_n} ({slots} slots): "
+                f"kernel {row['ms']:.4f} ms (events), "
+                f"{fmt_ms(row['device_ms'])} device (profiler), plain "
+                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+                f"({row['bound_by']})")
+            shapes.append(row)
+    blocks = {}
+    for name, symbol, args in (
+            ("noise_gate", "gat_noise_gate_blocks_per_sm", (512,)),
+            ("slice_clips", "gat_slice_clips_blocks_per_sm", ())):
+        b = ctypes.c_int(0)
+        kernels.check(kernels.function(
+            name, symbol, [ctypes.c_int] * len(args) + [ctypes.c_void_p])(
+                *args, ctypes.addressof(b)), f"{name} occupancy")
+        blocks[name] = b.value
+    rows = []
+    for name, source, replaces, errs, shapes, tol in (
+            ("noise_gate", "gat_tpu_torch/csrc/noise_gate.cu",
+             "gat_tpu/segment/gating.py:154", errs7, shapes7,
+             "envelope, median and gate_db atol 1e-4 dB; frame masks equal "
+             "but within 1e-3 dB of gate_db; gated samples bit-equal where "
+             "the frame and sample decisions agree (samples within 1e-4 dB "
+             "of min_db excused)"),
+            ("slice_clips", "gat_tpu_torch/csrc/slice_clips.cu",
+             "gat_tpu/segment/slicing.py:48", errs8, shapes8,
+             "clips and times bit-equal; kept equal but within 1e-4 dB of "
+             "min_slice_rms_db")):
+        wave_row = shapes[0]
+        if name == "noise_gate":
+            err = max(max(e["env"], e["med"], e["gate_db"]) for e in errs)
+            extra = dict(
+                gated_max_abs_err=max(e["gated_max_abs_err"] for e in errs),
+                frames_flipped=sum(e["frames_flipped"] for e in errs),
+                samples_excused=sum(e["samples_excused"] for e in errs))
+        else:
+            err = max(e["clips_max_abs_err"] for e in errs)
+            extra = dict(kept_differing=sum(e["kept_differing"]
+                                            for e in errs))
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, launches=0, max_abs_err=err,
+                         tolerance=tol, ms=wave_row["ms"],
+                         plain_ms=wave_row["plain_ms"],
+                         bound_ms=wave_row["bound_ms"],
+                         bound_by=wave_row["bound_by"], library_ms=None,
+                         device_ms=wave_row["device_ms"],
+                         blocks_per_sm=blocks[name], shapes=shapes, **extra))
+        log(f"[occupancy] {name}: {blocks[name]} resident blocks of 256 "
+            f"threads per SM")
+    torch.cuda.synchronize()
+    return rows
+
+
+# the kernels every path's launches are counted for, K1..K8 in the order
+# of `utils/roofline.py`'s KERNEL_SYMBOLS, by their kernels-line rows'
+# names; the indices of K1..K8 in a `driven` count; and those that every
+# path that segments a file launches on the FFT route (all but K6)
+KERNEL_ROWS = ("melspec_frontend", "mfcc_frontend", "yin_pitch",
+               "onset_envelope", "onset_pick", "mfcc_pitch_frontend",
+               "noise_gate", "slice_clips")
+K1, K2, K3, K4, K5, K6, K7, K8 = range(8)
+SEGMENTING = (K1, K2, K3, K4, K5, K7, K8)
+
+
 def kernel_wrappers() -> list:
-    """The wrappers of K1..K5, each counting the launches of its kernel."""
+    """The wrappers of K1..K8, each counting the launches of its kernel
+    (K7's is `gating.noise_gate`, which `rms_gate` and `gate_waveform`
+    call)."""
     from gat_tpu_torch import features
     from gat_tpu_torch.ops import onset, yin
+    from gat_tpu_torch.segment import gating, slicing
     return [features.melspec_features, features.mfcc_frontend,
-            yin.yin_pitch, onset.onset_strength, onset.pick_onsets]
+            yin.yin_pitch, onset.onset_strength, onset.pick_onsets,
+            features.mfcc_pitch_features, gating.noise_gate,
+            slicing.slice_at_onsets]
+
+
+def not_launched(launches: list, need=SEGMENTING) -> list:
+    """The names of the kernels of `need` (indices K1..K8) that a `driven`
+    count shows were not launched."""
+    return [KERNEL_ROWS[i] for i in need if launches[i] < 1]
 
 
 def driven(fn) -> tuple:
     """fn() run once with every kernel's launch count set to 0 just before
     and read just after, once the card is idle: (its result, launches
-    K1..K5, wall seconds)."""
+    K1..K8, wall seconds)."""
     import torch
     wrappers = kernel_wrappers()
     torch.cuda.synchronize()
@@ -817,9 +1114,13 @@ def driven(fn) -> tuple:
 
 
 def record_launches(rows: list, path: str, launches: list) -> None:
-    """Each kernel's launches on one path, into its kernels-line row."""
-    for row, n in zip(rows, launches):
-        row.setdefault("launches_by_path", {})[path] = n
+    """Each kernel's launches on one path (K1..K8, a `driven` count), into
+    its kernels-line row, found by name (K6's row exists from `[shared]`
+    on)."""
+    by_name = {row["name"]: row for row in rows}
+    for name, n in zip(KERNEL_ROWS, launches):
+        if name in by_name:
+            by_name[name].setdefault("launches_by_path", {})[path] = n
 
 
 def same_result(got: dict, ref: dict) -> tuple[bool, float]:
@@ -856,13 +1157,16 @@ def file_phase(rows: list, card: str, failures: list) -> None:
             _, launches, _ = driven(
                 lambda: card_t.transcribe(paths[FILE_SR], fused=fused))
             log(f"[file] launches per transcribe(fused={fused}) call, "
-                f"K1..K5: {launches}")
-            if min(launches) < 1 or launches[3] != 1:
+                f"K1..K8: {launches}")
+            if not_launched(launches) or launches[K4] != 1:
                 failures.append(f"a kernel was not launched on the file "
                                 f"path, or K4 more than once "
                                 f"(fused={fused}): {launches}")
             if not fused:
-                rows[3]["launches"], rows[4]["launches"] = launches[3:5]
+                for i in (K4, K5, K7, K8):
+                    row = next(r for r in rows
+                               if r["name"] == KERNEL_ROWS[i])
+                    row["launches"] = launches[i]
                 record_launches(rows, "file", launches)
         for sr, path in paths.items():
             ref = cpu_t.transcribe(path)
@@ -913,7 +1217,7 @@ def long_phase(rows: list, card: str, failures: list) -> None:
         card_t.transcribe(path)  # first call at this length
         got, launches, wall = driven(lambda: card_t.transcribe(path))
         record_launches(rows, "long", launches)
-        launches = launches[3:]
+        launches = [launches[i] for i in (K4, K5, K7, K8)]
         t0 = time.perf_counter()
         ref = cpu_t.transcribe(path)
         cpu_wall = time.perf_counter() - t0
@@ -921,13 +1225,14 @@ def long_phase(rows: list, card: str, failures: list) -> None:
     same = same and got["labels"] == planted
     log(f"[long] transcribe({LONG_SECONDS:g} s at {FILE_SR} Hz, {k} plucks): "
         f"{len(got['labels'])} labels, {wall * 1e3:.3f} ms on {card} "
-        f"(CPU plain path {cpu_wall:.1f} s); K4, K5 launches {launches}; "
+        f"(CPU plain path {cpu_wall:.1f} s); K4, K5, K7, K8 launches "
+        f"{launches}; "
         f"labels the planted notes but the last, and labels, onsets and "
         f"times equal to the CPU's: {same} (max prob err {err:.3g})")
     if not same:
         failures.append("[long] card and CPU disagree on the 400 s file")
     if min(launches) < 1:
-        failures.append(f"[long] K4 or K5 not launched: {launches}")
+        failures.append(f"[long] K4, K5, K7 or K8 not launched: {launches}")
 
 
 def wave(rows_s: list, seconds: float, spacing: float, seed: int):
@@ -1096,7 +1401,7 @@ def files_phase(rows: list, card: str, failures: list,
             log(f"[files] transcribe_files({len(paths)} files, "
                 f"{audio_s:g} audio-s, buckets 2/4/16/512 s): {wall * 1e3:.3f} "
                 f"ms on {card} (CPU plain path {cpu_s:.1f} s); launches "
-                f"K1..K5 {launches}, host transfers {n_host}; equal to the "
+                f"K1..K8 {launches}, host transfers {n_host}; equal to the "
                 f"CPU's {n_same}/{len(paths)} (max prob err "
                 f"{max(e for _, e in checks):.3g}), planted labels "
                 f"{n_planted}/{len(paths)}, silent file empty "
@@ -1105,7 +1410,7 @@ def files_phase(rows: list, card: str, failures: list,
             if not ok:
                 failures.append("[files] card and CPU disagree, or a file "
                                 "lost its planted labels")
-            if min(launches) < 1:
+            if not_launched(launches):
                 failures.append(f"[files] a kernel was not launched: "
                                 f"{launches}")
 
@@ -1144,7 +1449,7 @@ def files_phase(rows: list, card: str, failures: list,
                 log(f"[files] transcribe_files({name}): {ms:.3f} ms/call, "
                     f"{ms / n_files:.3f} ms/file, {n_files / ms * 1e3:.1f} "
                     f"files/s, {secs / ms * 1e3:.1f} audio-s/s; launches "
-                    f"K1..K5 {launches}, host transfers {n_host}; on {card}")
+                    f"K1..K8 {launches}, host transfers {n_host}; on {card}")
                 if n_files >= 16:
                     out[name]["busy_ms"] = profile_call(fn, ms)
             ms = wall_ms(lambda: [card_t.transcribe(p) for p in riffs], 1)
@@ -1196,9 +1501,9 @@ def serve_phase(rows: list, card: str, failures: list,
         record_launches(rows, "serve", launches)
         got = {s: json.loads((d / "out" / f"{s}.json").read_text())["labels"]
                for s in want}
-        ok = n == SERVE_FILES and got == want and min(launches) >= 1
+        ok = n == SERVE_FILES and got == want and not not_launched(launches)
         log(f"[serve] serve(once=True, batch=4) over {SERVE_FILES} riffs: "
-            f"{wall * 1e3:.3f} ms, launches K1..K5 {launches}; labels equal "
+            f"{wall * 1e3:.3f} ms, launches K1..K8 {launches}; labels equal "
             f"to the CPU's {got == want} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("[serve] the watch folder's labels or launches")
@@ -1247,11 +1552,11 @@ def serve_phase(rows: list, card: str, failures: list,
         record_launches(rows, "http", launches)
         same = all(answers.get(s, (0, {}))[0] == 200
                    and answers[s][1]["labels"] == want[s] for s in want)
-        ok = same and min(launches) >= 1 and not server.is_alive()
+        ok = same and not not_launched(launches) and not server.is_alive()
         log(f"[serve] serve_http(batch=4): {SERVE_FILES} concurrent POSTs in "
             f"{wall * 1e3:.3f} ms, {metrics['gat_device_dispatches_total']} "
             f"dispatches carrying {metrics['gat_dispatch_files_sum']} files, "
-            f"launches K1..K5 {launches}; every answer 200 with the CPU's "
+            f"launches K1..K8 {launches}; every answer 200 with the CPU's "
             f"labels {same}; server stopped {not server.is_alive()} -> "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1450,13 +1755,14 @@ def stream_phase(rows: list, card: str, failures: list,
                             and r["labels"][0] == lab for r in got)
                         for t, lab in planted)
             ok = (slots_same and same and found == len(planted)
-                  and min(launches) >= 1 and n_host == 2 * windows)
+                  and not not_launched(launches, (K1, K2, K3, K4, K5))
+                  and n_host == 2 * windows)
             tag = f"transcribe_stream({seconds:g} s, {n_chunks} chunks, " \
                   f"{windows} windows)"
             log(f"[stream] {tag}: {len(got)} notes, planted found "
                 f"{found}/{len(planted)}; slots identical to the CPU's "
                 f"{slots_same}, notes equal {same} (max prob err "
-                f"{err:.3g}); launches K1..K5 {launches}, host transfers "
+                f"{err:.3g}); launches K1..K8 {launches}, host transfers "
                 f"{n_host} (2 per window), synchronizing calls "
                 f"{sum(n_sync.values())} {dict(n_sync)}; "
                 f"{wall * 1e3:.3f} ms on {card} (CPU plain path "
@@ -1526,7 +1832,7 @@ def live_phase(rows: list, card: str, failures: list,
     log(f"[live] run_on_source({STREAM_SECONDS:g} s riff, {len(planted)} "
         f"plucks, {polls} polls): {len(got)} notes transcribed, labels "
         f"equal to the CPU's {same} (max prob err {err:.3g}), the planted "
-        f"sequence {seq == [lab for _, lab in planted]}; launches K1..K5 "
+        f"sequence {seq == [lab for _, lab in planted]}; launches K1..K8 "
         f"{launches} ({detecting} detecting polls, K4/K5 once each), onset "
         f"transfers {transfers[0]}, synchronizing calls "
         f"{sum(n_sync.values())} {dict(n_sync)}; {wall * 1e3:.3f} ms, "
@@ -1590,8 +1896,8 @@ def cli_phase(rows: list, card: str, failures: list,
             if not ok:
                 failures.append(f"[cli] {name}: the card's results differ")
     log(f"[cli] the three card runs: {wall * 1e3:.3f} ms with checkpoint "
-        f"loads, launches K1..K5 {launches} on {card}")
-    if min(launches) < 1:
+        f"loads, launches K1..K8 {launches} on {card}")
+    if not_launched(launches):
         failures.append(f"[cli] a kernel was not launched: {launches}")
 
 
@@ -1716,7 +2022,7 @@ def train_phase(rows: list, card: str, failures: list,
               and e_pitch <= 2e-3 and e_mel <= 0.1
               and np.isfinite(mf).all() and np.isfinite(mel).all())
         log(f"[train] FeatureBuilder on {len(y)} clips: X {mf.shape} and "
-            f"{mel.shape}; launches K1..K5 {l_mf} (MFCC) and {l_mel} (mel); "
+            f"{mel.shape}; launches K1..K8 {l_mf} (MFCC) and {l_mel} (mel); "
             f"vs the CPU plain path ({cpu_s:.1f} s): MFCC max abs err "
             f"{e_mfcc:.3g} (1e-3), pitch rel {e_pitch:.3g} (2e-3), mel "
             f"{e_mel:.3g} dB (0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
@@ -1766,7 +2072,7 @@ def train_phase(rows: list, card: str, failures: list,
               and n_host == 2 * TRAIN_EPOCHS)
         log(f"[train] train_all({len(y)} clips, {TRAIN_EPOCHS} epochs) in "
             f"{wall:.2f} s (synthesis {synth_s:.1f} s before it): launches "
-            f"K1..K5 {launches}, host transfers {n_host} (one per epoch), "
+            f"K1..K8 {launches}, host transfers {n_host} (one per epoch), "
             f"losses finite {finite} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("[train] train_all: launches, transfers or "
@@ -1871,7 +2177,7 @@ def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
                         for a, b in zip(one, ref))
     ok = same and launches[4] == 1
     log(f"[api] pick_onsets_from_envelope at {tuple(env.shape)}: launches "
-        f"K1..K5 {launches}; outputs identical to pick_onsets_plain's "
+        f"K1..K8 {launches}; outputs identical to pick_onsets_plain's "
         f"{same} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("[api] pick_onsets_from_envelope")
@@ -1909,7 +2215,7 @@ def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
             ok = (launches[:3] == [1, 1, 1] and e_mfcc <= 1e-3
                   and e_pitch <= 2e-3 and e_mel <= 0.1
                   and np.isfinite(mf).all() and np.isfinite(ms).all())
-            log(f"[api] {name}: {mf.shape} and {ms.shape}; launches K1..K5 "
+            log(f"[api] {name}: {mf.shape} and {ms.shape}; launches K1..K8 "
                 f"{launches}; vs the CPU: MFCC max abs err {e_mfcc:.3g} "
                 f"(1e-3), pitch rel {e_pitch:.3g} (2e-3), mel {e_mel:.3g} dB "
                 f"(0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
@@ -2036,8 +2342,8 @@ def eval_phase(rows: list, card: str, failures: list,
     log(f"[eval] evaluate_set on {len(EVAL_SETS)} sets and evaluate_wav_dir "
         f"on {card_wav['n_files']} files: {wall:.2f} s on the card side, of "
         f"which synthesis {synth_s:.2f} s (host); CPU plain path {cpu_s:.1f} "
-        f"s; launches K1..K5 {launches} on {card}")
-    if min(launches) < 1:
+        f"s; launches K1..K8 {launches} on {card}")
+    if not_launched(launches):
         failures.append(f"[eval] a kernel was not launched: {launches}")
     for name, _ in EVAL_SETS:
         got, ref = card_sets[name], cpu_sets[name]
@@ -2142,7 +2448,7 @@ def tools_phase(rows: list, card: str, failures: list,
     tool = {name: load_tool(f"torch_{name}") for name in (
         "inspect_ckpt", "dataset_creator", "eda", "cross_family_eval",
         "train_wall", "profile_trace", "roofline_files")}
-    total = [0] * 5
+    total = [0] * len(KERNEL_ROWS)
 
     def run(what, fn, need=()):
         """fn() driven; fails unless each kernel index in `need`
@@ -2151,7 +2457,7 @@ def tools_phase(rows: list, card: str, failures: list,
         for i, n in enumerate(launches):
             total[i] += n
         ok = all(launches[i] >= 1 for i in need)
-        log(f"[tools] {what}: {wall:.2f} s, launches K1..K5 {launches}"
+        log(f"[tools] {what}: {wall:.2f} s, launches K1..K8 {launches}"
             + ("" if ok else " -> FAIL (a kernel was not launched)"))
         if not ok:
             failures.append(f"[tools] {what}: launches {launches}")
@@ -2180,7 +2486,7 @@ def tools_phase(rows: list, card: str, failures: list,
         totals = {dev: run(f"dataset_creator slice-all ({dev})",
                            lambda dev=dev: creator.slice_all_clips(
                                raw, d / f"clips_{dev}", device=dev),
-                           need=(3, 4) if dev == device else ())
+                           need=(K4, K5, K7, K8) if dev == device else ())
                   for dev in (device, "cpu")}
         same, err, same_bytes = same_wav_trees(d / f"clips_{device}",
                                                d / "clips_cpu")
@@ -2216,7 +2522,7 @@ def tools_phase(rows: list, card: str, failures: list,
         wav = next(raw.rglob("*.wav"))
         got = {dev: run(f"eda slices ({dev})",
                         lambda dev=dev: eda.slice_analysis(wav, device=dev),
-                        need=(3, 4) if dev == device else ())
+                        need=(K4, K5, K7, K8) if dev == device else ())
                for dev in (device, "cpu")}
         ok = ([c["clip"] for c in got[device]]
               == [c["clip"] for c in got["cpu"]]
@@ -2297,7 +2603,7 @@ def tools_phase(rows: list, card: str, failures: list,
 
     KERNEL_SYMBOLS = load_roofline().KERNEL_SYMBOLS
     prof = tool["profile_trace"]
-    for graph, need in (("clip", (0, 1, 2)), ("files", (0, 1, 2, 3, 4))):
+    for graph, need in (("clip", (K1, K2, K3)), ("files", SEGMENTING)):
         with tempfile.TemporaryDirectory() as d:
             fn, pool = prof.trace_inputs(graph, N_CLIPS, 60.0, 4, 384, 1,
                                          112, 448, device)
@@ -2317,7 +2623,7 @@ def tools_phase(rows: list, card: str, failures: list,
 
     roof = tool["roofline_files"]
     out = run("roofline_files", lambda: roof.report(roof.parse_args(
-        ["--device", device])), need=(0, 1, 2, 3, 4))
+        ["--device", device])), need=SEGMENTING)
     record_launches(rows, "tools", total)
     m = out["measured"]
     if m is None:
@@ -2515,6 +2821,7 @@ def parallel_phase(rows: list, card: str, failures: list,
             detect_onsets_timesharded(ylong, mesh, sr=FILE_SR)
             wrappers = kernel_wrappers() + [onset.onset_mel_db,
                                             onset.onset_flux]
+            n_k = len(KERNEL_ROWS)
             torch.cuda.synchronize()
             for w in wrappers:
                 w.launches = 0
@@ -2524,15 +2831,14 @@ def parallel_phase(rows: list, card: str, failures: list,
                                                        sr=FILE_SR)
             torch.cuda.synchronize()
             launches = [w.launches for w in wrappers]
-        for row, n in zip(rows, launches[:5]):
-            row.setdefault("launches_by_path", {})["parallel"] = n
-        for row, n in zip(new_rows, launches[5:]):
+        record_launches(rows, "parallel", launches[:n_k])
+        for row, n in zip(new_rows, launches[n_k:]):
             row["launches"] = n
             row["launches_by_path"] = {"parallel": n}
         rows += new_rows
-        log(f"[parallel] launches K1..K5 {launches[:5]}, onset_mel_db "
-            f"{launches[5]}, onset_flux {launches[6]}")
-        if min(launches) < 1:
+        log(f"[parallel] launches K1..K8 {launches[:n_k]}, onset_mel_db "
+            f"{launches[n_k]}, onset_flux {launches[n_k + 1]}")
+        if not_launched(launches) or min(launches[n_k:]) < 1:
             failures.append(f"[parallel] a kernel was not launched: "
                             f"{launches}")
 
@@ -2663,7 +2969,7 @@ def shared_phase(rows: list, card: str, failures: list,
                     failures.append(f"[shared] K6 flags {norm}/{pon}")
 
             # the clip path, driven: every count at 0 before, read after
-            wrappers = kernel_wrappers() + [features.mfcc_pitch_features]
+            wrappers = kernel_wrappers()
             t.transcribe_clips(clips)
             torch.cuda.synchronize()
             for w in wrappers:
@@ -2671,12 +2977,13 @@ def shared_phase(rows: list, card: str, failures: list,
             res = t.transcribe_clips(clips)
             torch.cuda.synchronize()
             launches = [w.launches for w in wrappers]
-            record_launches(rows, "shared", launches[:5])
+            shared_launches = launches
             err = float(np.abs(res["probs"] - fft_clips["probs"]).max())
             same = res["labels"] == fft_clips["labels"] and err <= 1e-2
-            ok = same and launches[:3] == [1, 0, 0] and launches[5] == 1
+            ok = (same and launches[:K4] == [1, 0, 0]
+                  and launches[K6] == 1)
             log(f"[shared] transcribe_clips({n}) on the shared route: "
-                f"launches K1..K5 {launches[:5]}, K6 {launches[5]}; labels "
+                f"launches K1..K8 {launches}; labels "
                 f"equal to the FFT route's {res['labels'] == fft_clips['labels']}"
                 f", max prob diff {err:.3g} (1e-2) -> "
                 f"{'ok' if ok else 'FAIL'}")
@@ -2739,8 +3046,9 @@ def shared_phase(rows: list, card: str, failures: list,
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"[occupancy] K6 at {blocks.value} blocks per SM")
-        rows.append(dict(k6, launches=launches[5], blocks_per_sm=blocks.value,
-                         launches_by_path={"shared": launches[5]}))
+        rows.append(dict(k6, launches=shared_launches[K6],
+                         blocks_per_sm=blocks.value))
+        record_launches(rows, "shared", shared_launches)
     finally:
         spectral.set_stft_backend("auto")
         spectral.set_matmul_dtype(torch.float32)
@@ -2921,16 +3229,14 @@ def file_4s_phase(rows: list, card: str, failures: list,
                   device: str = "cuda") -> None:
     """`[file]` at `clip_duration=4.0`: a 12 s riff (A2 G3 E4, 4.2 s
     apart) at 22050 Hz through `transcribe`, on the card and the CPU, on
-    the FFT route (K1-K5 launched) and on the matmul route (K1, K6, K4,
-    K5; no K2 or K3): labels, onsets and times equal to the CPU's."""
+    the FFT route (K1-K5, K7, K8 launched) and on the matmul route (K1,
+    K6, K4, K5, K7, K8; no K2 or K3): labels, onsets and times equal to
+    the CPU's."""
     import torch
-    from gat_tpu_torch import features
     from gat_tpu_torch.infer import Transcriber
     from gat_tpu_torch.ops import spectral
     from gat_tpu_torch.utils.wavio import write_wav
     card_t, cpu_t = Transcriber(device=device), Transcriber(device="cpu")
-    k6_row = next((r for r in rows if r["name"] == "mfcc_pitch_frontend"),
-                  None)
     with tempfile.TemporaryDirectory() as d:
         path = Path(d) / "riff_12s.wav"
         write_wav(path, make_riffs(np.array([FILE_4S_MIDI]), 12.0, FILE_SR,
@@ -2942,29 +3248,26 @@ def file_4s_phase(rows: list, card: str, failures: list,
                 call = functools.partial(card_t.transcribe, path,
                                          clip_duration=4.0)
                 call()  # first call: library handles
-                features.mfcc_pitch_features.launches = 0
                 got, launches, wall = driven(call)
-                k6 = features.mfcc_pitch_features.launches
                 ref = cpu_t.transcribe(path, clip_duration=4.0)
                 same, err = same_result(got, ref)
-                want = ([1, 1, 1, 1, 1], 0) if route == "fft" else (
-                    [1, 0, 0, 1, 1], 1)
+                # K1..K8 launched or not: K6 in place of K2 and K3 on the
+                # matmul route, the segmentation's K4, K5, K7, K8 on both
+                want = ([1, 1, 1, 1, 1, 0, 1, 1] if route == "fft"
+                        else [1, 0, 0, 1, 1, 1, 1, 1])
                 ok = (same and bool(got["labels"])
-                      and [min(k, 1) for k in launches] == want[0]
-                      and min(k6, 1) == want[1])
+                      and [min(k, 1) for k in launches] == want)
                 log(f"[file] transcribe(12 s riff, clip_duration=4.0) on "
                     f"the {route} route: labels {got['labels']}, onsets "
                     f"{got['onsets_s']}; equal to the CPU plain path {same} "
-                    f"(max prob err {err:.3g}); launches K1..K5 {launches}, "
-                    f"K6 {k6}; {wall * 1e3:.3f} ms on {card} -> "
+                    f"(max prob err {err:.3g}); launches K1..K8 {launches}; "
+                    f"{wall * 1e3:.3f} ms on {card} -> "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     failures.append(f"[file] clip_duration=4.0 on the "
                                     f"{route} route")
                 path_name = "file_4s" if route == "fft" else "file_4s_shared"
                 record_launches(rows, path_name, launches)
-                if k6_row is not None:
-                    k6_row.setdefault("launches_by_path", {})[path_name] = k6
         finally:
             spectral.set_stft_backend("auto")
     torch.cuda.synchronize()
@@ -3113,6 +3416,7 @@ def main() -> int:
                               ("mfcc_frontend", "yin_pitch"))
 
     rows += check_file_kernels(dev, failures)
+    rows += gate_phase(failures)
 
     # ---- 4. the clip path -------------------------------------------------
     t = Transcriber(device="cuda")

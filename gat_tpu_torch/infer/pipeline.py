@@ -173,14 +173,13 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
     def body(ys, n_valids, n_files: int, first: int):
         # files [first, first + len(ys)) of a wave of n_files
         with annotate("segmentation_other"):
-            n_valids = n_valids.to(device=ys.device, dtype=torch.int64)
-            # exact zeros past each file's true length: the whole-second
-            # host pad goes through the resampler, whose edge leaks into
-            # the tail, and a clip window crossing the end must see what
-            # the unpadded signal would
-            ys = torch.where(torch.arange(ys.shape[-1],
-                                          device=ys.device)[None]
-                             < n_valids[:, None], ys, 0.0)
+            # the counts as K7 and K8 take them. The samples past each
+            # file's true length (the whole-second host pad, which the
+            # resampler's edge leaks into) need no mask of their own: the
+            # gate zeroes every sample past n_valid, onset detection reads
+            # the gated rows, and a clip reads only inside [start, end),
+            # which lies in [0, n_valid)
+            n_valids = n_valids.to(device=ys.device, dtype=torch.int32)
         (clips, kept, onsets, _, times, overflow, cap,
          n_detected) = segment_waveform(
             ys, sr=target_sr, length_sec=clip_duration,

@@ -220,7 +220,7 @@ class Transcriber:
         ys = torch.stack([y for y, _ in entries]
                          + [y0.new_zeros(n_bucket)] * (b - len(entries)))
         nv = torch.tensor([n for _, n in entries] + [0] * (b - len(entries)),
-                          dtype=torch.int64, device=y0.device)
+                          dtype=torch.int32, device=y0.device)
         return _to_host(run(ys, nv))
 
     def _dsp_info(self, pitch) -> list:
@@ -393,7 +393,7 @@ class Transcriber:
                 ys = torch.stack([y for _, y, _ in chunk]).reshape(
                     kc, max_batch, n_bucket)
                 nvs = torch.tensor([nv for _, _, nv in chunk],
-                                   dtype=torch.int64,
+                                   dtype=torch.int32,
                                    device=self.device).reshape(kc, max_batch)
                 outs = _to_host(run_scan(ys, nvs))
                 for j, (idx, _, _) in enumerate(chunk):
@@ -501,7 +501,7 @@ class Transcriber:
         n = -(-n_raw * target_sr // sr_in)
         y_dev = resample(torch.from_numpy(y_np).to(self.device), sr_in,
                          target_sr).contiguous()
-        nv = torch.tensor([n], dtype=torch.int64, device=self.device)
+        nv = torch.tensor([n], dtype=torch.int32, device=self.device)
 
         if fused and not save_clips:
             def run(m, cb):

@@ -68,8 +68,9 @@ def _valid_mask(n_valid_frames: torch.Tensor | None, b: int, t: int,
 
 def _frame_counts(n_valid_frames: torch.Tensor | None, device
                   ) -> torch.Tensor | None:
-    """The (B,) valid frame counts as K4 and K5 take them, contiguous
-    int32 on `device`; a tensor that is so already is passed as it is."""
+    """The (B,) valid counts as the file kernels take them (of frames for
+    K4 and K5, of samples for K7 and K8), contiguous int32 on `device`; a
+    tensor that is so already is passed as it is."""
     if n_valid_frames is None or (n_valid_frames.dtype == torch.int32
                                   and n_valid_frames.device == device
                                   and n_valid_frames.is_contiguous()):

@@ -14,7 +14,10 @@ in place of the reference's per-clip drop logic: sample by sample for any
 onsets, or as whole hop-long rows when the caller vouches that every
 onset is a multiple of `onset_hop` (`segment_waveform` does). Both take a
 batch (B, n) or, as the reference, one signal (n,), and the reference's
-keyword `n_valid_samples` beside the port's `n_valid`.
+keyword `n_valid_samples` beside the port's `n_valid`. `slice_at_onsets`
+launches the hand-written CUDA kernel `csrc/slice_clips.cu` (K8) for a
+CUDA tensor and runs its plain PyTorch twin, `slice_at_onsets_plain`,
+for a CPU tensor.
 
 `AudioSlicer` keeps the reference class's surface (load_wav,
 apply_db_threshold, apply_rms_threshold, detect_onsets,
@@ -25,6 +28,7 @@ five methods the reference defines as static also work on the class, on
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import inspect
 import types
@@ -35,8 +39,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from ..config import CLIP_DURATION, SLICER_CONFIG, TARGET_SR
-from ..ops.onset import detect_onsets
+from ..ops.onset import _frame_counts, detect_onsets
 from ..ops.resample import resample
 from ..utils.device import resolve_device, to_host
 from ..utils.profiling import annotate
@@ -44,20 +49,23 @@ from ..utils.signals import as_count_rows, as_rows, either
 from ..utils.wavio import read_wav, write_wav
 from . import gating
 
-__all__ = ["slice_at_onsets", "segment_waveform", "save_clip", "AudioSlicer"]
+__all__ = ["slice_at_onsets", "slice_at_onsets_plain", "segment_waveform",
+           "save_clip", "AudioSlicer"]
 
 _ONSET_HOP = 512  # onset detection's own hop (the reference's default)
 
 
-def slice_at_onsets(y: torch.Tensor, onsets: torch.Tensor,
-                    onsets_valid: torch.Tensor, sr: int,
-                    length_sec: float = CLIP_DURATION,
-                    attack_skip_sec: float = SLICER_CONFIG.ATTACK_SKIP_SEC,
-                    min_slice_rms_db: float = SLICER_CONFIG.MIN_SLICE_RMS_DB,
-                    strict_reference_compat: bool = True,
-                    n_valid_samples: torch.Tensor | None = None,
-                    onset_hop: int | None = None,
-                    n_valid: torch.Tensor | None = None):
+def slice_at_onsets_plain(y: torch.Tensor, onsets: torch.Tensor,
+                          onsets_valid: torch.Tensor, sr: int,
+                          length_sec: float = CLIP_DURATION,
+                          attack_skip_sec: float =
+                          SLICER_CONFIG.ATTACK_SKIP_SEC,
+                          min_slice_rms_db: float =
+                          SLICER_CONFIG.MIN_SLICE_RMS_DB,
+                          strict_reference_compat: bool = True,
+                          n_valid_samples: torch.Tensor | None = None,
+                          onset_hop: int | None = None,
+                          n_valid: torch.Tensor | None = None):
     """(B, n), (B, K), (B, K) → clips (B, K, L), kept (B, K), times
     (B, K, 2) in seconds; one signal (n,), (K,), (K,) → (K, L), (K,),
     (K, 2). `n_valid_samples` is `n_valid`. With `onset_hop` None each
@@ -122,6 +130,98 @@ def slice_at_onsets(y: torch.Tensor, onsets: torch.Tensor,
     times = torch.stack([start.to(torch.float32) * inv_sr,
                          end.to(torch.float32) * inv_sr], dim=-1)
     return clips, kept, times
+
+
+def check_slice(b: int, k: int, length: int, skip: int,
+                onset_hop: int | None) -> None:
+    """Raise where K8 refuses a call (its C entry point refuses the same):
+    clips shorter than 1 sample, a negative attack skip, an onset hop
+    below 1, or more than 2^31 - 1 (file, slot) blocks."""
+    if length < 1 or skip < 0:
+        raise ValueError(f"[slice_at_onsets] the kernel takes clips of 1 or "
+                         f"more samples and a skip of 0 or more, got "
+                         f"{length} and {skip}")
+    if onset_hop is not None and int(onset_hop) < 1:
+        raise ValueError(f"[slice_at_onsets] onset_hop must be >= 1 or "
+                         f"None, got {onset_hop}")
+    if b * k > 2 ** 31 - 1:
+        raise ValueError(f"[slice_at_onsets] {b} x {k} slots; the kernel "
+                         f"takes at most 2^31 - 1")
+
+
+_SLICE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+               + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+def slice_at_onsets(y: torch.Tensor, onsets: torch.Tensor,
+                    onsets_valid: torch.Tensor, sr: int,
+                    length_sec: float = CLIP_DURATION,
+                    attack_skip_sec: float = SLICER_CONFIG.ATTACK_SKIP_SEC,
+                    min_slice_rms_db: float = SLICER_CONFIG.MIN_SLICE_RMS_DB,
+                    strict_reference_compat: bool = True,
+                    n_valid_samples: torch.Tensor | None = None,
+                    onset_hop: int | None = None,
+                    n_valid: torch.Tensor | None = None):
+    """(B, n), (B, K), (B, K) → clips (B, K, L), kept (B, K), times
+    (B, K, 2) in seconds, as `slice_at_onsets_plain` defines them; one
+    signal (n,), (K,), (K,) → (K, L), (K,), (K, 2).
+
+    CUDA tensor: the kernel `csrc/slice_clips.cu` (K8), which replaces the
+    JAX package's XLA `gat_tpu/segment/slicing.py::slice_at_onsets`: one
+    block per (file, slot) writes its clip with 16-byte stores, gathering
+    only inside its window (with `onset_hop` by the reference's hop-long
+    rows, which inside the window are the samples the per-sample gather
+    reads), sums its squares for `kept` and writes its times; one launch.
+    CPU tensor: `slice_at_onsets_plain`."""
+    n_valid = either("slice_at_onsets", "n_valid_samples", n_valid_samples,
+                     "n_valid", n_valid)
+    if y.device.type == "cpu":
+        return slice_at_onsets_plain(
+            y, onsets, onsets_valid, sr, length_sec, attack_skip_sec,
+            min_slice_rms_db, strict_reference_compat, onset_hop=onset_hop,
+            n_valid=n_valid)
+    if y.device.type != "cuda":
+        raise ValueError(f"[slice_at_onsets] unsupported device {y.device}")
+    y, one = as_rows(y)
+    if one:
+        onsets, onsets_valid = onsets[None], onsets_valid[None]
+        n_valid = as_count_rows(n_valid, True, y.device)
+    kernels.check_input(y, "slice_at_onsets")
+    b, n = y.shape
+    k = onsets.shape[-1]
+    if tuple(onsets.shape) != (b, k) or tuple(onsets_valid.shape) != (b, k):
+        raise ValueError(f"[slice_at_onsets] onsets and onsets_valid must be "
+                         f"({b}, K), got {tuple(onsets.shape)} and "
+                         f"{tuple(onsets_valid.shape)}")
+    length = int(length_sec * sr)
+    skip = int(attack_skip_sec * sr)
+    check_slice(b, k, length, skip, onset_hop)
+    hop = 0 if onset_hop is None else int(onset_hop)
+    dev = y.device
+    clips = torch.empty((b, k, length), dtype=torch.float32, device=dev)
+    kept = torch.empty((b, k), dtype=torch.bool, device=dev)
+    times = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
+    if b * k > 0:
+        # no copy for K5's outputs, which are so already
+        ons = onsets.to(device=dev, dtype=torch.int32).contiguous()
+        valid = onsets_valid.to(device=dev, dtype=torch.bool).contiguous()
+        nv = _frame_counts(n_valid, dev)
+        fn = kernels.function("slice_clips", "gat_slice_clips", _SLICE_ARGS)
+        with kernels.device_guard(dev):
+            status = fn(y.data_ptr(), ons.data_ptr(), valid.data_ptr(),
+                        None if nv is None else nv.data_ptr(),
+                        clips.data_ptr(), kept.data_ptr(), times.data_ptr(),
+                        b, n, k, length, skip, hop,
+                        int(strict_reference_compat), min_slice_rms_db,
+                        1.0 / sr, kernels.stream(dev))
+        kernels.check(status, "slice_at_onsets")
+        slice_at_onsets.launches += 1
+    if one:
+        return clips[0], kept[0], times[0]
+    return clips, kept, times
+
+
+slice_at_onsets.launches = 0
 
 
 def segment_waveform(y: torch.Tensor, sr: int = TARGET_SR,

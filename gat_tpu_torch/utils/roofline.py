@@ -11,9 +11,9 @@ floors of the serving wave) count with these functions, so the two share
 one denominator.
 
 K1-K3 and K6 are counted per clip batch (N clips of `length` samples at
-`sr`),
-K4 per batch of files (B files of n samples), K5 per batch of envelopes
-(B envelopes of T frames).
+`sr`), K4 and K7 per batch of files (B files of n samples), K5 per batch
+of envelopes (B envelopes of T frames), K8 per batch of slots (B files of
+n samples, K slots each, of `length` samples).
 
 `chip_smoke.py` loads this file by path from its own checkout, so that
 another checkout timed by it (`tools/torch_onset_timing.py`) is held to
@@ -29,13 +29,14 @@ __all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS", "bound",
            "fft_flops", "melspec_cost", "mfcc_cost", "yin_cost",
            "mfcc_pitch_cost",
            "envelope_cost", "mel_db_cost", "flux_cost", "pick_cost",
-           "resample_cost", "module_cost"]
+           "gate_cost", "slice_cost", "window_samples", "resample_cost",
+           "module_cost", "GATE_OPS_PER_SAMPLE"]
 
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# the device functions of K1-K6, as the profiler names them
+# the device functions of K1-K8, as the profiler names them
 KERNEL_SYMBOLS = {
     "K1": ("melspec_frontend_kernel",),
     "K2": ("mfcc_frontend_kernel",),
@@ -43,7 +44,14 @@ KERNEL_SYMBOLS = {
     "K4": ("onset_mel_db_kernel", "onset_flux_kernel"),
     "K5": ("onset_pick_kernel",),
     "K6": ("mfcc_pitch_frontend_kernel",),
+    "K7": ("noise_gate_rms_kernel", "noise_gate_threshold_kernel",
+           "noise_gate_apply_kernel"),
+    "K8": ("slice_clips_kernel",),
 }
+# the gates' least work per sample: the dB gate (abs, log, scale,
+# compare, multiply), the frame RMS as a running sum (square, add), the
+# frame mask and the length mask
+GATE_OPS_PER_SAMPLE = 10
 
 _N_FFT = 2048
 _RFFT_FLOPS = 5 * _N_FFT * 11 // 2  # a real-input FFT of 2048 points
@@ -193,6 +201,43 @@ def pick_cost(files: int, t: int, sr: int, hop: int = 512,
     pre_max, post_max, _, _, _ = peak_pick_params(sr, hop)
     return (files * t * (pre_max + post_max + 16),
             4 * files * (t + 1) + files * (max_onsets * 5 + 6))
+
+
+def gate_cost(files: int, n: int) -> tuple[int, int]:
+    """K7 (and the serving wave's `segmentation_other` stage, the length
+    mask and both gates, which it replaces) at (files, n):
+    `GATE_OPS_PER_SAMPLE` operations a sample; each sample read and each
+    gated sample written once, with one 8-byte count a file."""
+    return (GATE_OPS_PER_SAMPLE * files * n, 8 * files * n + 8 * files)
+
+
+def slice_cost(files: int, n: int, slots: int, length: int,
+               windows: int | None = None) -> tuple[int, int]:
+    """K8 (and the serving wave's `slicing` stage) at `slots` clips of
+    `length` samples over (files, n): a square and an add per clip sample
+    for the loudness; the samples the windows read, the onsets, the clips
+    written, the kept flags and the times, and the valid flags, once.
+    The samples read depend on the onsets: `windows`, this run's count
+    (`window_samples`), or by default the most they could be, every
+    slot's whole clip and at most the files' samples."""
+    if windows is None:
+        windows = min(files * n, slots * length)
+    return (2 * slots * length,
+            4 * windows + 4 * slots + 4 * slots * length + 9 * slots)
+
+
+def window_samples(times, valid, n_valid, sr: int) -> int:
+    """The samples the slicer's windows read: end - start over the valid
+    slots whose window lies in the file (start < n_valid, end <=
+    n_valid), from its times (B, K, 2) in float32 seconds (x · fl(1/sr),
+    rounded back to samples; past about 2^22 samples a window may be a
+    sample off), the valid slots (B, K) and the (B,) valid counts."""
+    import torch
+    t = torch.round(times.detach().cpu().double() * sr).to(torch.int64)
+    start, end = t[..., 0], t[..., 1]
+    nv = n_valid.detach().cpu().to(torch.int64)[:, None]
+    inside = valid.detach().cpu() & (start < nv) & (end <= nv)
+    return int(torch.where(inside, (end - start).clamp(min=0), 0).sum())
 
 
 def resample_cost(rows: int, n_in: int, sr_in: int, sr_out: int

@@ -11,8 +11,10 @@ import torch
 
 from gat_tpu_torch import features
 from gat_tpu_torch.ops import onset, spectral, yin
-from test_torch_kernels_emulated import (FILE_SR, LIVE_MIN_SEP, LIVE_RING,
-                                         RIFF_NOTES, check_mel_image,
+from gat_tpu_torch.segment import gating, slicing
+from test_torch_kernels_emulated import (FILE_SR, GATE_MIN_DB, LIVE_MIN_SEP,
+                                         LIVE_RING, RIFF_NOTES, check_gate,
+                                         check_mel_image, check_slice,
                                          check_mfcc_level_step,
                                          check_zero_row, edge_envelopes,
                                          file_batch, frame_count_clips,
@@ -1144,3 +1146,142 @@ def test_transcribe_clip_duration_4_card_vs_cpu(tmp_path):
             np.testing.assert_allclose(got["probs"], ref["probs"], atol=1e-2)
     finally:
         spectral.set_stft_backend("auto")
+
+
+# K7 (noise gate) and K8 (clip slicer) at the shapes of chip_smoke's
+# [gate] phase: the serving wave (4 files x 60 s at 22050 Hz, 112 onsets a
+# file, 448 slots of 11,025 samples) and one 400 s riff
+def tiled_riffs(files: int, seconds: float, seed: int = 0) -> torch.Tensor:
+    """(files, seconds at 22050 Hz) on the card: the 3.9 s plucked riff
+    repeated, at a level of its own per file, plus noise of sigma 0.01."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = int(seconds * FILE_SR)
+    riff = pluck_riff(FILE_SR, 3.9)
+    rng = np.random.default_rng(seed)
+    y = np.stack([(0.5 + 0.25 * f) * np.resize(riff, n)
+                  + rng.normal(0, 0.01, n) for f in range(files)])
+    return torch.from_numpy(y.astype(np.float32)).cuda()
+
+
+def _counts(values) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("case", ["whole", "edges", "none", "hop256",
+                                  "rms_only"])
+def test_noise_gate_card_vs_plain(case):
+    """K7 against the plain gate at the wave's shape, at `check_gate`'s
+    bounds: counts of the whole rows and one off the 512 grid; rows of
+    n_valid 0, 1500 and a third of the row; no counts; hop 256; the RMS
+    gate alone. One launch a call."""
+    y = tiled_riffs(4, 60.0)
+    n = y.shape[1]
+    nv = {"edges": _counts([0, 1500, n // 3 // 512 * 512 + 77, n]),
+          "none": None}.get(case, _counts([n, n, n - 12345, n]))
+    hop = 256 if case == "hop256" else 512
+    min_db = None if case == "rms_only" else GATE_MIN_DB
+    before = gating.noise_gate.launches
+    out, got = gating.noise_gate(y, min_db, hop, nv, parts=True)
+    ref = gating.gate_parts_plain(y, min_db, hop, nv)
+    torch.cuda.synchronize()
+    assert gating.noise_gate.launches == before + 1
+    check_gate({k: v.cpu() for k, v in got.items()},
+               {k: v.cpu() for k, v in ref.items()}, y.cpu(), min_db, hop)
+    if case == "edges":
+        assert not bool(out[:2, 1500:].any()) and not bool(out[0].any())
+
+
+def test_noise_gate_card_400s():
+    """K7 on one 400 s riff (17,227 frames), against the plain gate."""
+    y = tiled_riffs(1, 400.0, seed=1)
+    nv = _counts([y.shape[1]])
+    got = gating.noise_gate(y, GATE_MIN_DB, 512, nv,
+                                       parts=True)[1]
+    ref = gating.gate_parts_plain(y, GATE_MIN_DB, 512, nv)
+    torch.cuda.synchronize()
+    check_gate({k: v.cpu() for k, v in got.items()},
+               {k: v.cpu() for k, v in ref.items()}, y.cpu(),
+               GATE_MIN_DB, 512)
+
+
+def test_noise_gate_card_grid_invariant():
+    """K7's result does not depend on its grid: 1 block, 97, and the
+    card's default give the same bits."""
+    y = tiled_riffs(2, 20.0, seed=2)
+    nv = _counts([y.shape[1], 300001])
+    g = gating
+    first = g.noise_gate(y, GATE_MIN_DB, 512, nv)
+    for grid in (1, 97):
+        assert torch.equal(g.noise_gate(y, GATE_MIN_DB, 512, nv,
+                                        grid=grid), first)
+
+
+def test_gate_wrappers_one_signal_card():
+    """`gate_waveform` and `rms_gate` of one signal (n,) on the card equal
+    their batch of one, and K7's plain twin at the bounds."""
+    y = tiled_riffs(1, 8.0, seed=3)[0]
+    g = gating
+    a = g.gate_waveform(y, GATE_MIN_DB, n_valid_samples=100000)
+    b = g.gate_waveform(y[None], GATE_MIN_DB,
+                        n_valid=_counts([100000]))[0]
+    assert torch.equal(a, b)
+    assert torch.equal(g.rms_gate(y), g.rms_gate(y[None])[0])
+
+
+@pytest.mark.parametrize("onset_hop", [512, None])
+@pytest.mark.parametrize("strict", [True, False])
+def test_slice_clips_card_vs_plain(onset_hop, strict):
+    """K8 against the plain slicer at the wave's shape, on the onsets
+    K4/K5 find in K7's output (112 slots a file), at `check_slice`'s
+    bounds; one launch a call."""
+    g, sl = gating, slicing
+    y = tiled_riffs(4, 60.0)
+    n = y.shape[1]
+    nv = _counts([n, n, n - 12345, n])
+    gated = g.gate_waveform(y, GATE_MIN_DB, n_valid=nv)
+    ons, valid, *_ = onset.detect_onsets(gated, sr=FILE_SR, min_sep=0.25,
+                                         max_onsets=112, n_valid=nv)
+    before = sl.slice_at_onsets.launches
+    got = sl.slice_at_onsets(y, ons, valid, FILE_SR,
+                             strict_reference_compat=strict, n_valid=nv,
+                             onset_hop=onset_hop)
+    ref = sl.slice_at_onsets_plain(y, ons, valid, FILE_SR,
+                                   strict_reference_compat=strict,
+                                   n_valid=nv, onset_hop=onset_hop)
+    torch.cuda.synchronize()
+    assert sl.slice_at_onsets.launches == before + 1
+    assert got[0].shape == (4, 112, 11025) and int(valid.sum()) > 200
+    check_slice(tuple(x.cpu() for x in got), tuple(x.cpu() for x in ref),
+                -37.0)
+
+
+def test_slice_clips_card_400s_and_edges():
+    """K8 on the 400 s riff's onsets, and on the edge cases of the
+    emulated test: a skip past the row, negative and past-the-end onsets,
+    unaligned onsets with the row gather, a row with no valid slot."""
+    g, sl = gating, slicing
+    y = tiled_riffs(1, 400.0, seed=1)
+    nv = _counts([y.shape[1]])
+    ons, valid, *_ = onset.detect_onsets(
+        g.gate_waveform(y, GATE_MIN_DB, n_valid=nv), sr=FILE_SR,
+        min_sep=0.25, max_onsets=112, n_valid=nv)
+    check_slice(tuple(x.cpu() for x in sl.slice_at_onsets(
+        y, ons, valid, FILE_SR, n_valid=nv, onset_hop=512)),
+        tuple(x.cpu() for x in sl.slice_at_onsets_plain(
+            y, ons, valid, FILE_SR, n_valid=nv, onset_hop=512)), -37.0)
+    y = tiled_riffs(2, 1.0)[:, :3000].contiguous()
+    onsets = torch.tensor([[-700, 3, 1500, 2999], [100, 200, 5000, 900]],
+                          dtype=torch.int32, device="cuda")
+    valid = torch.tensor([[True] * 4, [False] * 4], device="cuda")
+    for skip_sec, length_sec, hop in ((0.2, 0.5, 512), (0.0, 0.2, None),
+                                      (0.001, 0.2, 512), (0.0, 0.01, 7)):
+        for strict in (True, False):
+            kw = dict(length_sec=length_sec, attack_skip_sec=skip_sec,
+                      min_slice_rms_db=-40.0,
+                      strict_reference_compat=strict, onset_hop=hop)
+            check_slice(
+                tuple(x.cpu() for x in sl.slice_at_onsets(
+                    y, onsets, valid, FILE_SR, **kw)),
+                tuple(x.cpu() for x in sl.slice_at_onsets_plain(
+                    y, onsets, valid, FILE_SR, **kw)), -40.0)

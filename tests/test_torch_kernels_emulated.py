@@ -4,13 +4,14 @@ CUDA subset they use, against their plain PyTorch versions.
 There is no nvcc on a CPU-only machine, but the kernels of
 `gat_tpu_torch/csrc/` use only thread/block indices, shared memory,
 register arrays, device lambdas, `__syncthreads`, warp shuffles, ballots,
-`__popc` and `__ffs`, an integer atomicMax, the float/int bit casts and
-asynchronous copies into shared memory. The header below maps those onto
-C++: one std::thread per CUDA thread, the blocks of a launch one after
-another, a barrier for `__syncthreads`, a barrier per warp and an
-exchange slot per lane for the warp intrinsics, a compare-and-swap for
-the atomic and a plain copy for the asynchronous one. Each `.cu` is
-compiled by g++ with the
+`__popc` and `__ffs`, integer atomicMax and atomicAdd, the float/int bit
+casts, the float32 steps rounded one by one (`__fadd_rn`, `__fsub_rn`,
+`__fmul_rn`), `float4` and asynchronous copies into shared memory. The
+header below maps those onto C++: one std::thread per CUDA thread, the
+blocks of a launch one after another, a barrier for `__syncthreads`, a
+barrier per warp and an exchange slot per lane for the warp intrinsics,
+a compare-and-swap or a fetch-and-add for the atomics and a plain copy
+for the asynchronous one. Each `.cu` is compiled by g++ with the
 header forced in and its `<<<grid, block, smem, stream>>>` launch turned
 into a call of `emu_launch`; the C entry points are then called through
 ctypes with CPU pointers, with the argument lists the wrappers use. This
@@ -29,6 +30,7 @@ import torch
 
 from gat_tpu_torch import features, kernels
 from gat_tpu_torch.ops import onset, spectral, yin
+from gat_tpu_torch.segment import gating, slicing
 
 SR = 11025
 CPU = torch.device("cpu")
@@ -91,6 +93,9 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 inline int atomicMax(int* p, int v) {
   int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (old < v && !__atomic_compare_exchange_n(
@@ -104,6 +109,11 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
 struct int2 { int x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+// float32 steps rounded one by one (g++ here contracts no FMA)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 inline int2 make_int2(int x, int y) { return {x, y}; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
@@ -153,7 +163,8 @@ inline void emu_launch(int grid, int block, std::function<void()> fn) {
 
 _LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),[^>]*>>>\((.*?)\);",
                      re.S)
-LAUNCHES = {"onset_envelope": 2}  # kernel launches per C entry point
+LAUNCHES = {"onset_envelope": 2,  # kernel launches per C entry point
+            "noise_gate": 3}
 
 
 @pytest.fixture(scope="module")
@@ -1499,3 +1510,295 @@ def test_function_resolves_once(libs, monkeypatch):
     assert again is first and list(first.argtypes) == onset._PICK_ARGS
     assert first.restype is ctypes.c_int
     assert kernels._functions == {("onset_pick", "gat_onset_pick"): first}
+
+
+# ---------------------------------------------------------------------------
+# K7 (noise gate) and K8 (clip slicer)
+# ---------------------------------------------------------------------------
+GATE_MIN_DB = -32.5
+
+
+def gate_rows(n: int, seed: int = 0) -> np.ndarray:
+    """Six rows of n samples at 22050 Hz: the plucked riff at six levels
+    plus noise of sigma 0.003, each with its own noise."""
+    rng = np.random.default_rng(seed)
+    riff = pluck_riff(FILE_SR, n / FILE_SR)
+    return np.stack([(0.4 + 0.2 * i) * riff + rng.normal(0, 0.003, n)
+                     for i in range(6)]).astype(np.float32)
+
+
+def gate_counts(n: int) -> np.ndarray:
+    """The valid counts of `gate_rows`' six rows: none, below a frame,
+    one short of a frame, a frame, not a multiple of 512, the whole row."""
+    return np.array([0, 1000, 2047, 2048, 5000, n])
+
+
+def noise_gate_emulated(libs, y: torch.Tensor, nv: torch.Tensor | None,
+                        min_db: float | None, hop: int = 512,
+                        grid: int = 3) -> dict:
+    """K7's C entry point with the arguments `gating.noise_gate` passes,
+    and `grid` blocks (the emulation has no occupancy to size it from);
+    the gated rows and the workspaces, named as `gate_parts_plain`'s."""
+    b, n = y.shape
+    t = 1 + n // hop
+    parts = dict(out=torch.empty_like(y), env=torch.empty(b, t),
+                 med=torch.empty(b, t), gate_db=torch.empty(b),
+                 frame_mask=torch.empty((b, t), dtype=torch.bool))
+    nv = onset._frame_counts(nv, CPU)
+    fn = _fn(libs["noise_gate"], "gat_noise_gate", gating._GATE_ARGS)
+    assert fn(y.data_ptr(), parts["out"].data_ptr(),
+              None if nv is None else nv.data_ptr(), parts["env"].data_ptr(),
+              parts["med"].data_ptr(), parts["frame_mask"].data_ptr(),
+              parts["gate_db"].data_ptr(), b, n, hop,
+              int(min_db is not None), 0.0 if min_db is None else min_db,
+              grid, None) == 0
+    return parts
+
+
+def check_gate(got: dict, ref: dict, y: torch.Tensor, min_db: float | None,
+               hop: int) -> tuple[int, int]:
+    """K7's outputs against the plain gate's, at the bounds both the
+    emulated and the card tests hold (each with its reason):
+    * the frame RMS in dB and its median within 1e-4 dB (means of 2048
+      squares summed in another order, fp64 in the kernel);
+    * gate_db within 1e-4 dB (bit-equal percentile arithmetic on an
+      envelope within that bound);
+    * the frame masks equal, except at frames within 1e-3 dB of gate_db;
+    * the gated samples bit-equal wherever the frame decision agrees and
+      the sample's dB is not within 1e-4 dB of min_db (log10 of the card
+      or the C library against PyTorch's, a last bit apart at most).
+    Returns the counts of frames and samples let through by the last two
+    exceptions."""
+    for key in ("env", "med", "gate_db"):
+        err = float((got[key] - ref[key]).abs().max())
+        assert err <= 1e-4, (key, err)
+    near = (ref["med"] - ref["gate_db"][:, None]).abs() < 1e-3
+    flipped = got["frame_mask"] != ref["frame_mask"]
+    assert not bool((flipped & ~near).any())
+    n = y.shape[1]
+    agree = ~flipped.repeat_interleave(hop, dim=1)[:, :n]
+    if min_db is not None:
+        amp_db = 20.0 * torch.log10(y.abs() + 1e-10)
+        agree &= (amp_db - min_db).abs() >= 1e-4
+    same = got["out"].view(torch.int32) == ref["out"].view(torch.int32)
+    assert bool(same[agree].all())
+    return int(flipped.sum()), int((~agree).sum())
+
+
+@pytest.mark.parametrize("hop", [512, 256, 700])
+@pytest.mark.parametrize("counted", [True, False])
+@pytest.mark.parametrize("min_db", [GATE_MIN_DB, None])
+def test_noise_gate_emulated(libs, hop, counted, min_db):
+    """K7 against `gate_parts_plain` (gate_waveform with min_db, rms_gate
+    without) on 2 s rows with valid counts 0, 1000, 2047, 2048, 5000 and
+    the row (or none), at hop 512, 256 and 700 (runs of 21, 41 and 15
+    frames), at the bounds of `check_gate`."""
+    n = 2 * FILE_SR
+    y = torch.from_numpy(gate_rows(n))
+    nv = torch.from_numpy(gate_counts(n)) if counted else None
+    got = noise_gate_emulated(libs, y, nv, min_db, hop)
+    ref = gating.gate_parts_plain(y, min_db, hop, nv)
+    check_gate(got, ref, y, min_db, hop)
+    assert bool(got["out"].any())
+    if counted:
+        assert not bool(got["out"][0].any())
+
+
+@pytest.mark.parametrize("n", [44100, 44104])
+def test_noise_gate_emulated_vector_path(libs, n):
+    """Rows whose length is a multiple of 4 take the 16-byte apply path,
+    others the scalar one; both give the plain gate."""
+    y = torch.from_numpy(gate_rows(n, seed=n)[:3])
+    nv = torch.tensor([n, 30001, 2048])
+    check_gate(noise_gate_emulated(libs, y, nv, GATE_MIN_DB),
+               gating.gate_parts_plain(y, GATE_MIN_DB, 512, nv), y,
+               GATE_MIN_DB, 512)
+
+
+def test_noise_gate_emulated_grid_invariant(libs):
+    """The gate does not depend on its grid: 1 block, 5, and more than
+    there are runs of frames give the same bits."""
+    n = 2 * FILE_SR
+    y = torch.from_numpy(gate_rows(n)[:2])
+    nv = torch.tensor([n, 30000])
+    first = noise_gate_emulated(libs, y, nv, GATE_MIN_DB, grid=1)
+    for grid in (5, 64):
+        again = noise_gate_emulated(libs, y, nv, GATE_MIN_DB, grid=grid)
+        assert all(torch.equal(first[k], again[k]) for k in first)
+
+
+@pytest.mark.parametrize("hop", [4096, 20000])
+def test_noise_gate_emulated_long_hops(libs, hop):
+    """Hops past the stage's room: runs of 3 frames, then of 1 frame."""
+    n = 3 * FILE_SR
+    y = torch.from_numpy(gate_rows(n)[:2])
+    nv = torch.tensor([n, 40000])
+    check_gate(noise_gate_emulated(libs, y, nv, GATE_MIN_DB, hop),
+               gating.gate_parts_plain(y, GATE_MIN_DB, hop, nv), y,
+               GATE_MIN_DB, hop)
+
+
+def test_noise_gate_emulated_percentile_ties(libs):
+    """Envelopes with long runs of equal frames (a row of silence and a
+    row of a held level under a step): the order statistics at and
+    next to the 20th percentile come from a run of equal keys."""
+    n = 2 * FILE_SR
+    y = np.zeros((3, n), np.float32)
+    y[1] = 0.25
+    y[1, n // 2:] = 0.5
+    y[2] = np.sign(np.sin(np.arange(n) / 7.0)) * 0.1
+    y = torch.from_numpy(y)
+    nv = torch.tensor([n, n, 33333])
+    for min_db in (GATE_MIN_DB, None):
+        got = noise_gate_emulated(libs, y, nv, min_db)
+        ref = gating.gate_parts_plain(y, min_db, 512, nv)
+        check_gate(got, ref, y, min_db, 512)
+        assert torch.equal(got["gate_db"], ref["gate_db"])
+
+
+def slice_clips_emulated(libs, y: torch.Tensor, onsets: torch.Tensor,
+                         valid: torch.Tensor, nv: torch.Tensor | None,
+                         strict: bool, onset_hop: int | None,
+                         length_sec: float = 0.5, skip_sec: float = 0.01,
+                         min_db: float = -40.0) -> tuple:
+    """K8's C entry point with the arguments `slicing.slice_at_onsets`
+    passes: (clips, kept, times)."""
+    b, n = y.shape
+    k = onsets.shape[1]
+    length, skip = int(length_sec * FILE_SR), int(skip_sec * FILE_SR)
+    clips = torch.empty(b, k, length)
+    kept = torch.empty((b, k), dtype=torch.bool)
+    times = torch.empty(b, k, 2)
+    onsets = onsets.to(torch.int32).contiguous()
+    nv = onset._frame_counts(nv, CPU)
+    fn = _fn(libs["slice_clips"], "gat_slice_clips", slicing._SLICE_ARGS)
+    assert fn(y.data_ptr(), onsets.data_ptr(), valid.data_ptr(),
+              None if nv is None else nv.data_ptr(), clips.data_ptr(),
+              kept.data_ptr(), times.data_ptr(), b, n, k, length, skip,
+              0 if onset_hop is None else onset_hop, int(strict), min_db,
+              1.0 / FILE_SR, None) == 0
+    return clips, kept, times
+
+
+def check_slice(got: tuple, ref: tuple, min_db: float = -40.0) -> None:
+    """K8 against the plain slicer: clips and times bit-equal (gathered
+    samples; the same float32 product for the times); kept equal except
+    where the clip's dB is within 1e-4 dB of min_db (its mean of squares
+    summed in another order, fp64 in the kernel)."""
+    clips, kept, times = got
+    assert torch.equal(clips.view(torch.int32), ref[0].view(torch.int32))
+    assert torch.equal(times, ref[2])
+    near = (gating.slice_rms_db(ref[0]) - min_db).abs() < 1e-4
+    assert bool((kept == ref[1])[~near].all())
+
+
+def onset_rows(n: int, aligned: bool) -> tuple:
+    """Onsets (3, 8) of three rows of n samples: from 0, sorted, one 100
+    samples from a row's end, aligned to 512 or not; the valid slots a
+    prefix in the first row, not one in the last."""
+    rng = np.random.default_rng(5)
+    onsets = np.sort(rng.integers(0, n, (3, 8)), axis=1)
+    onsets[:, 0] = 0
+    onsets[1, -1] = n - 100
+    if aligned:
+        onsets = onsets // 512 * 512
+    valid = np.ones((3, 8), bool)
+    valid[0, 6:] = False
+    valid[2, [1, 4]] = False
+    return torch.from_numpy(onsets.astype(np.int32)), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("onset_hop", [None, 512])
+@pytest.mark.parametrize("counted", [True, False])
+def test_slice_clips_emulated(libs, strict, onset_hop, counted):
+    """K8 against `slice_at_onsets_plain` on 3 s rows, both gathers, both
+    last-note rules, valid counts short of the rows (clips cut and
+    refused there) or none."""
+    n = 3 * FILE_SR
+    y = torch.from_numpy(gate_rows(n)[:3])
+    onsets, valid = onset_rows(n, onset_hop is not None)
+    nv = torch.tensor([n, n - 3000, 40000]) if counted else None
+    got = slice_clips_emulated(libs, y, onsets, valid, nv, strict, onset_hop)
+    ref = slicing.slice_at_onsets_plain(y, onsets, valid, FILE_SR,
+                                        0.5, 0.01, -40.0, strict,
+                                        onset_hop=onset_hop, n_valid=nv)
+    check_slice(got, ref)
+    assert bool(ref[1].any()) and not bool(ref[1].all())
+
+
+def test_slice_clips_emulated_on_detected_onsets(libs):
+    """K8 on the onsets the plain detection finds in the gated riffs, as
+    `segment_waveform` hands them over (hop 512, 112 slots mostly
+    empty), padding rows of n_valid 0 and 1500 among the rows."""
+    n = 3 * FILE_SR
+    y = torch.from_numpy(gate_rows(n)[:4])
+    nv = torch.tensor([n, 50001, 0, 1500])
+    gated = gating.gate_waveform_plain(y, GATE_MIN_DB, n_valid=nv)
+    onsets, valid, *_ = onset.detect_onsets(gated, sr=FILE_SR, min_sep=0.25,
+                                            max_onsets=16, n_valid=nv)
+    assert int(valid.sum()) >= 6 and not bool(valid[2:].any())
+    for strict in (True, False):
+        got = slice_clips_emulated(libs, y, onsets, valid, nv, strict, 512)
+        ref = slicing.slice_at_onsets_plain(y, onsets, valid, FILE_SR, 0.5,
+                                            0.01, -40.0, strict,
+                                            onset_hop=512, n_valid=nv)
+        check_slice(got, ref)
+
+
+def test_slice_clips_emulated_edges(libs):
+    """A skip past the row (every clip empty), a clip longer than the row,
+    unaligned onsets with the row gather (the reference's rows, not the
+    samples), negative and past-the-end onsets, and a row with no valid
+    slot: the plain slicer's outputs."""
+    y = torch.from_numpy(gate_rows(3000)[:2])
+    onsets = torch.tensor([[-700, 3, 1500, 2999], [100, 200, 5000, 900]],
+                          dtype=torch.int32)
+    valid = torch.tensor([[True, True, True, True], [False] * 4])
+    for skip_sec, length_sec, hop in ((0.2, 0.5, 512), (0.0, 0.2, None),
+                                      (0.001, 0.2, 512), (0.0, 0.01, 7)):
+        for strict in (True, False):
+            got = slice_clips_emulated(libs, y, onsets, valid, None, strict,
+                                       hop, length_sec, skip_sec)
+            ref = slicing.slice_at_onsets_plain(
+                y, onsets, valid, FILE_SR, length_sec, skip_sec, -40.0,
+                strict, onset_hop=hop)
+            check_slice(got, ref)
+
+
+def test_gate_and_slice_occupancy_and_guards(libs):
+    """K7's occupancy query takes every hop of 1 or more and refuses 0,
+    as its launch and the wrapper's guard do (the guard names the
+    limit); K8's shared memory is fixed, its query has no size. Both
+    wrappers' other guards name what they refuse, and the C entry points
+    refuse the same."""
+    blocks = ctypes.c_int(-1)
+    q7 = _fn(libs["noise_gate"], "gat_noise_gate_blocks_per_sm",
+             [ctypes.c_int, ctypes.c_void_p])
+    assert q7(1, ctypes.addressof(blocks)) == 0 and blocks.value == 0
+    assert q7(0, ctypes.addressof(blocks)) != 0
+    q8 = _fn(libs["slice_clips"], "gat_slice_clips_blocks_per_sm",
+             [ctypes.c_void_p])
+    blocks.value = -1
+    assert q8(ctypes.addressof(blocks)) == 0 and blocks.value == 0
+    with pytest.raises(ValueError, match="hop_length must be >= 1"):
+        gating.check_gate(44100, 0, True)
+    with pytest.raises(ValueError, match="more than 1024 samples"):
+        gating.check_gate(1024, 512, False)
+    gating.check_gate(1025, 1, False)
+    gating.check_gate(1, 512, True)
+    with pytest.raises(ValueError, match="1 or more samples"):
+        slicing.check_slice(1, 4, 0, 0, 512)
+    with pytest.raises(ValueError, match="onset_hop must be >= 1"):
+        slicing.check_slice(1, 4, 100, 0, 0)
+    y = torch.zeros(1, 4096)
+    fn = _fn(libs["noise_gate"], "gat_noise_gate", gating._GATE_ARGS)
+    ws = torch.empty(64)
+    assert fn(y.data_ptr(), y.data_ptr(), None, ws.data_ptr(),
+              ws.data_ptr(), ws.data_ptr(), ws.data_ptr(), 1, 4096, 0, 1,
+              -45.0, 3, None) != 0
+    fn = _fn(libs["slice_clips"], "gat_slice_clips", slicing._SLICE_ARGS)
+    ons = torch.zeros(1, 4, dtype=torch.int32)
+    assert fn(y.data_ptr(), ons.data_ptr(), ons.data_ptr(), None,
+              ws.data_ptr(), ws.data_ptr(), ws.data_ptr(), 1, 4096, 4, 0,
+              0, 512, 1, -40.0, 1.0 / FILE_SR, None) != 0

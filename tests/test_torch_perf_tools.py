@@ -86,12 +86,13 @@ def test_parse_trace_keeps_device_lanes_and_sums(tmp_path, capsys):
         "Memcpy DtoH (Device -> Pinned)": 4.0,
         "onset_pick_kernel(float const*, int const*)": 3.0}
     assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 7.0, "K5": 3.0,
-                      "K6": 0}
+                      "K6": 0, "K7": 0, "K8": 0}
     out = capsys.readouterr().out
     assert "top 10 by total us (device lanes)" in out
     assert "cudaLaunchKernel" not in out and "aten::mul" not in out
     assert "by category (0.025 ms)" in out
     assert "84.0%  kernel" in out and "16.0%  gpu_memcpy" in out
+    assert "kernel (4 events)" in out and "gpu_memcpy (1 events)" in out
     assert "28.0%  K4" in out and "12.0%  K5" in out
 
 
@@ -107,8 +108,28 @@ def test_parse_trace_names_k6(tmp_path, capsys):
            tid=13)])
     (_, _, shares), = prof.parse_trace(str(tmp_path), top=10)
     assert shares == {"K1": 0, "K2": 2.0, "K3": 1.0, "K4": 0, "K5": 0,
-                      "K6": 9.0}
+                      "K6": 9.0, "K7": 0, "K8": 0}
     assert "75.0%  K6" in capsys.readouterr().out
+
+
+def test_parse_trace_names_k7_and_k8(tmp_path, capsys):
+    """The gate's three device functions count as K7 and the slicer's as
+    K8 (the profiler's names: the kernel's symbol, then its signature)."""
+    _write_trace(tmp_path, [
+        _x("kernel", "noise_gate_rms_kernel(float const*, int const*, "
+           "float*, int, int, int, int, int, float)", 10, 4.0, tid=13),
+        _x("kernel", "noise_gate_threshold_kernel(float const*, int "
+           "const*, float*, unsigned char*, float*, int, int, int)", 20,
+           1.0, tid=13),
+        _x("kernel", "noise_gate_apply_kernel(float const*, float*)", 30,
+           3.0, tid=13),
+        _x("kernel", "slice_clips_kernel(float const*, int const*)", 40,
+           2.0, tid=13)])
+    (_, _, shares), = prof.parse_trace(str(tmp_path), top=10)
+    assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                      "K6": 0, "K7": 8.0, "K8": 2.0}
+    out = capsys.readouterr().out
+    assert "80.0%  K7" in out and "20.0%  K8" in out
 
 
 def test_parse_trace_without_device_lanes_keeps_all(tmp_path, capsys):
@@ -231,6 +252,55 @@ def test_k4_k5_counts_equal_the_former_formulas(files, seconds, hop,
                               max_onsets) == k5
 
 
+@pytest.mark.parametrize("files, seconds, slots", [(4, 60.0, 448),
+                                                   (1, 400.0, 64),
+                                                   (2, 4.0, 32)])
+def test_k7_k8_costs_are_the_stage_floors(files, seconds, slots):
+    """K7's and K8's bounds are the serving wave's `segmentation_other` and
+    `slicing` floors as the roofline tool counted them before the two
+    kernels (8 bytes a sample and 8 a file; the windows read, the clips
+    written), bytes-bound; at the wave (4 x 60 s, 448 slots of 11,025)
+    0.01264 and 0.01180 ms."""
+    n = int(seconds * 22050)
+    length = 11025
+    assert roofline.gate_cost(files, n) == (10 * files * n,
+                                            8 * files * n + 8 * files)
+    assert roofline.slice_cost(files, n, slots, length) == (
+        2 * slots * length, 4 * min(files * n, slots * length) + 4 * slots
+        + 4 * slots * length + 9 * slots)
+    for cost in (roofline.gate_cost(files, n),
+                 roofline.slice_cost(files, n, slots, length)):
+        assert roofline.bound(*cost)[1] == "bytes"
+    if (files, seconds) == (4, 60.0):
+        assert round(roofline.bound(*roofline.gate_cost(files, n))[0],
+                     5) == 0.01264
+        assert round(roofline.bound(*roofline.slice_cost(
+            files, n, slots, length))[0], 5) == 0.01180
+
+
+def test_window_samples_count_the_open_windows():
+    """The slicer's reads are the samples of the valid slots' windows
+    inside each file: the nonzero samples of the plain slicer's clips of
+    noise, over valid and refused slots, both gathers' onsets and a file
+    cut short; K8's bound takes them in place of the most they could be."""
+    from gat_tpu_torch.segment import slicing
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.normal(0, 0.1, (3, 50000)).astype(np.float32))
+    ons = torch.tensor([[0, 5120, 10240, 40960], [512, 1024, 49152, 0],
+                        [1024, 2048, 3072, 4096]], dtype=torch.int32)
+    valid = torch.tensor([[1, 1, 1, 1], [1, 1, 1, 0], [0, 0, 0, 0]],
+                         dtype=torch.bool)
+    nv = torch.tensor([50000, 45000, 50000])
+    for hop in (512, None):
+        clips, _, times = slicing.slice_at_onsets_plain(
+            y, ons, valid, 22050, n_valid=nv, onset_hop=hop)
+        w = roofline.window_samples(times, valid, nv, 22050)
+        assert w == int((clips != 0).sum()) > 0
+    flops, nbytes = roofline.slice_cost(3, 50000, 12, 11025, w)
+    full = roofline.slice_cost(3, 50000, 12, 11025)
+    assert flops == full[0] and full[1] - nbytes == 4 * (12 * 11025 - w)
+
+
 def test_bound_picks_the_larger_time():
     ms, by = roofline.bound(67e9, 1.0)
     assert (ms, by) == (pytest.approx(1.0, rel=1e-12), "operations")
@@ -324,6 +394,16 @@ def test_stage_counts_use_the_kernel_formulas(report):
     slots = 2 * 16
     assert stages["compaction"]["flops"] == slots * math.ceil(
         math.log2(slots))
+    # K7's and K8's counts are the two stages' floors as they were
+    # counted before the kernels took them
+    length = 11025
+    assert (stages["segmentation_other"]["flops"],
+            stages["segmentation_other"]["bytes"]) == (
+        roofline.gate_cost(2, n)) == (10 * 2 * n, 8 * 2 * n + 8 * 2)
+    assert (stages["slicing"]["flops"], stages["slicing"]["bytes"]) == (
+        roofline.slice_cost(2, n, slots, length)) == (
+        2 * slots * length, 4 * min(2 * n, slots * length) + 4 * slots
+        + 4 * slots * length + 9 * slots)
 
 
 def test_shared_route_counts_k6_and_no_yin_baseline():

@@ -7,8 +7,9 @@ Runs `torch.profiler` (CPU and CUDA activities) around `--iters` runs of
 the chosen graph, on inputs distinct per iteration (a pool of 4) after
 two warm-up calls, writes a gzipped Chrome trace under `--trace_dir`,
 then parses it directly (no TensorBoard needed) and prints a per-kernel
-duration table, a rollup by event category and the share of device time
-of the port's kernels K1-K6 (`gat_tpu_torch/utils/roofline.py`'s
+duration table, a rollup by event category (its time and its number of
+events: kernels launched over the traced calls) and the share of device time
+of the port's kernels K1-K8 (`gat_tpu_torch/utils/roofline.py`'s
 KERNEL_SYMBOLS).
 
 Graphs: `clip`, the flagship clip batch (`gat_tpu_torch.entry.entry`);
@@ -36,7 +37,7 @@ sys.path.insert(0, str(REPO))
 
 
 def kernel_shares(dur: dict) -> dict:
-    """{K1..K6: total µs of that kernel's device functions} from a
+    """{K1..K8: total µs of that kernel's device functions} from a
     name → µs table."""
     from gat_tpu_torch.utils.roofline import KERNEL_SYMBOLS
     return {k: sum(us for name, us in dur.items()
@@ -45,7 +46,7 @@ def kernel_shares(dur: dict) -> dict:
 
 
 def parse_trace(trace_dir: str, top: int = 25):
-    """[(file, top rows [(name, µs)], K1-K5 µs)] for every
+    """[(file, top rows [(name, µs)], K1-K8 µs)] for every
     `*.trace.json.gz` under `trace_dir`. Only device lanes are summed
     (host Python and launch events would otherwise dominate and
     misattribute the time); a trace with none keeps all lanes, and says
@@ -63,9 +64,11 @@ def parse_trace(trace_dir: str, top: int = 25):
         lanes = device or events
         dur = collections.Counter()
         by_cat = collections.Counter()
+        n_cat = collections.Counter()
         for e in lanes:
             dur[e.get("name", "?")] += e["dur"]
             by_cat[e.get("cat") or "(uncategorized)"] += e["dur"]
+            n_cat[e.get("cat") or "(uncategorized)"] += 1
         rows = dur.most_common(top)
         shares = kernel_shares(dur)
         tables.append((f, rows, shares))
@@ -77,7 +80,8 @@ def parse_trace(trace_dir: str, top: int = 25):
         total = sum(by_cat.values()) or 1
         print(f"--- by category ({total / 1e3:.3f} ms) ---")
         for c, us in by_cat.most_common():
-            print(f"{us:>12.1f} us  {us / total:6.1%}  {c}")
+            print(f"{us:>12.1f} us  {us / total:6.1%}  {c} ({n_cat[c]} "
+                  f"events)")
         if device:
             print("--- the port's kernels (share of device time) ---")
             for k, us in shares.items():

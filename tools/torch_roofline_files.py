@@ -8,14 +8,16 @@ The wave is the shipped serving body (`Transcriber._files_fn`'s `run`:
 B files × the bucket's seconds at 22050 Hz, the onset, wave-clip and
 candidate budgets of the serve defaults). The port has no compiler cost
 model, so each stage's operations and bytes are counted from the wave's
-shapes (`gat_tpu_torch/utils/roofline.py`, whose K1-K6 counts are also
+shapes (`gat_tpu_torch/utils/roofline.py`, whose K1-K8 counts are also
 the kernels line's bounds in `chip_smoke.py`). Bytes are the least
 traffic, each input of a stage read once and each output written once,
 so every count is a floor: the wave's floor is the sum of its stages'.
-A stage measured below its floor is a fault of the count, and the tool
-raises. (The bytes floor takes every byte at the HBM rate; a stage whose
-inputs stay in the 50 MB L2 could beat it, and is then raised too, to be
-looked at rather than reported.)
+The slicer's reads depend on the onsets: on the card they are the
+windows the measured inputs open (`wave_windows`), on the CPU the most
+they could be. A stage measured below its floor is a fault of the
+count, and the tool raises. (The bytes floor takes every byte at the
+HBM rate; a stage whose inputs stay in the 50 MB L2 could beat it, and
+is then raised too, to be looked at rather than reported.)
 
 On the card (`--device cuda`, the default; it raises without a card)
 the wave runs ITERS times over 4 distinct inputs: its time per call
@@ -50,7 +52,7 @@ sys.path.insert(0, str(REPO))
 # record_function ranges of the wave body carry these names
 STAGE_TAGS = (
     ("onset_detect", "detect_onsets: K4 envelope, K5 pick"),
-    ("slicing", "slice_at_onsets: hop-aligned row gather, clip gate"),
+    ("slicing", "slice_at_onsets (K8): the clips, their gate, times"),
     ("clip_rerate", "resample of the kept clips to the checkpoint rate"),
     ("mfcc_yin_frontend", "mfcc_feature_vectors (K2, or K6 on the shared "
                           "route) and the scaler"),
@@ -60,15 +62,11 @@ STAGE_TAGS = (
     ("cnn_forward", "CNN forward and softmax"),
     ("mlp_forward", "MLP forward and softmax"),
     ("compaction", "kept-clip budget gather and the scatter back"),
-    ("segmentation_other", "length mask and both gates"),
+    ("segmentation_other", "both gates and the length mask (K7)"),
 )
 STAGES = tuple(name for name, _ in STAGE_TAGS) + ("other",)
 # calls per measurement on the card
 ITERS = 8
-# the gates' least work per sample: the dB gate (abs, log, scale,
-# compare, multiply), the frame RMS as a running sum (square, add), the
-# frame mask and the length mask
-GATE_OPS_PER_SAMPLE = 10
 # the blend, softmax and pitch prior per class and clip
 BLEND_OPS_PER_CLASS = 12
 
@@ -145,9 +143,11 @@ def clip_costs(t, n_clips: int) -> dict:
 
 
 def wave_costs(t, files: int, n: int, max_onsets: int,
-               budget: int | None) -> dict:
+               budget: int | None, windows: int | None = None) -> dict:
     """(flops, bytes) of each stage of one wave of `files` files of `n`
-    samples at 22050 Hz, in STAGES order."""
+    samples at 22050 Hz, in STAGES order; `windows`, the samples the
+    slicer's windows read in the run measured (`wave_windows`), or None
+    for the most they could."""
     from gat_tpu_torch.config import CLIP_DURATION, TARGET_SR
     from gat_tpu_torch.utils import roofline
     slots = files * max_onsets
@@ -161,18 +161,31 @@ def wave_costs(t, files: int, n: int, max_onsets: int,
         "onset_detect": _add(
             roofline.envelope_cost(files, n, TARGET_SR),
             roofline.pick_cost(files, frames, TARGET_SR, 512, max_onsets)),
-        "slicing": (2 * slots * length,
-                    4 * min(files * n, slots * length) + 4 * slots
-                    + 4 * slots * length + 9 * slots),
+        "slicing": roofline.slice_cost(files, n, slots, length, windows),
         "clip_rerate": roofline.resample_cost(clips, length, TARGET_SR,
                                               t.ckpt_sr),
         "compaction": ((slots * math.ceil(math.log2(slots)), slots
                         + 8 * clips * length + clips * per_clip
                         + slots * per_clip) if clips < slots else (0, 0)),
-        "segmentation_other": (GATE_OPS_PER_SAMPLE * files * n,
-                               8 * files * n + 8 * files),
+        "segmentation_other": roofline.gate_cost(files, n),
     })
     return {k: costs[k] for k in STAGES}
+
+
+def wave_windows(run, ys, n_valids) -> int:
+    """The samples the slicer's windows read in one wave of the body
+    `run` on (ys, n_valids): its valid slots are each file's first
+    n_detected (capped at the budget), their windows its times."""
+    import torch
+    from gat_tpu_torch.config import TARGET_SR
+    from gat_tpu_torch.utils import roofline
+    with torch.no_grad():
+        outs = run(ys, n_valids)
+    times, n_detected = outs[6], outs[9]
+    k = times.shape[1]
+    valid = (torch.arange(k)[None, :]
+             < n_detected.detach().cpu().clamp(max=k)[:, None])
+    return roofline.window_samples(times, valid, n_valids, TARGET_SR)
 
 
 def _floors(flops: float, nbytes: float) -> dict:
@@ -246,9 +259,6 @@ def report(args) -> dict:
     n = int(args.seconds * TARGET_SR)
     # whole seconds, as transcribe_files pads each file on the host
     bucket = -(-n // TARGET_SR) * TARGET_SR
-    costs = wave_costs(t, args.files, bucket, args.onsets, args.budget)
-    flops = sum(f for f, _ in costs.values())
-    nbytes = sum(b for _, b in costs.values())
     audio_s = args.files * args.seconds
     card = None
     if on_card:
@@ -258,7 +268,7 @@ def report(args) -> dict:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip().splitlines()[0]
 
-    stage_ms = None
+    stage_ms = windows = None
     wave_ms = args.measured_wave_ms
     if on_card:
         run, _ = t._files_fn(TARGET_SR, CLIP_DURATION, args.onsets,
@@ -270,6 +280,14 @@ def report(args) -> dict:
                 for _ in range(4)]
         events_ms, stage_ms = measure(run, pool)
         wave_ms = wave_ms or events_ms
+        # the slicer reads what the onsets open: its floor is counted
+        # over the inputs measured
+        windows = round(sum(wave_windows(run, *args_) for args_ in pool)
+                        / len(pool))
+    costs = wave_costs(t, args.files, bucket, args.onsets, args.budget,
+                       windows)
+    flops = sum(f for f, _ in costs.values())
+    nbytes = sum(b for _, b in costs.values())
 
     stages = {}
     for name in STAGES:
