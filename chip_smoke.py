@@ -28,13 +28,15 @@ non-zero:
    noise gate K7 (`csrc/noise_gate.cu`) and the clip slicer K8
    (`csrc/slice_clips.cu`) against their plain twins at the serving wave
    (4 files x 60 s at 22050 Hz, 112 onsets a file, 448 slots of 11,025
-   samples) and a 400 s riff, with rows of n_valid 0, 1500 and off the
-   512 grid, a batch without counts, hop 256 and the RMS gate alone (K7:
-   envelope, median and gate_db within 1e-4 dB, frame masks equal but
-   within 1e-3 dB of gate_db, gated samples bit-equal where both
-   decisions agree; K8: clips and times bit-equal, kept equal but within
-   1e-4 dB of its threshold), both gathers and both last-note rules for
-   K8, and both timed with their bound, plain time and blocks per SM;
+   samples) and a 400 s riff (at hop 512 and at hop 128, past K7's
+   threshold pass's shared-memory limit), with rows of n_valid 0, 1500
+   and off the 512 grid, a batch without counts, hop 256 and the RMS
+   gate alone (K7: envelope, median and gate_db within 1e-4 dB, frame
+   masks equal but within 1e-3 dB of gate_db, gated samples bit-equal
+   where both decisions agree; K8: clips and times bit-equal, kept equal
+   but within 1e-4 dB of its threshold), both gathers and both last-note
+   rules for K8, and both timed with their bound, plain time and blocks
+   per SM (K7's device time and blocks per SM also per pass);
 4. drive the clip path, `Transcriber(device="cuda").transcribe_clips`, at
    the shipped checkpoints: K1-K3's launch counts must rise, the labels
    must equal those of the plain versions fed to the same models, and a
@@ -324,16 +326,24 @@ def time_ms(fn, pool, reps: int) -> float:
 
 
 def kernel_device_ms(fn, pool, kernel: str) -> float | None:
-    """Device time per call of the device functions of `kernel` (K1..K6,
-    `load_roofline().KERNEL_SYMBOLS`), each launched once a call, from
-    torch.profiler over one call on every buffer of the pool: each
-    function's mean over the launches the profiler kept, summed (a trace
-    late in a long process has been seen to keep 4 of 6 launches, which
-    a sum over the pool would read as a faster kernel; such a loss is
-    logged). None when the profiler saw no device time."""
+    """Device time per call of the device functions of `kernel` (K1..K8,
+    `load_roofline().KERNEL_SYMBOLS`), each launched once a call: the sum
+    of `symbol_device_ms`. None when the profiler saw no device time."""
+    per_call = sum(ms or 0.0 for ms in symbol_device_ms(
+        fn, pool, load_roofline().KERNEL_SYMBOLS[kernel]).values())
+    return per_call if per_call > 0 else None
+
+
+def symbol_device_ms(fn, pool, names) -> dict:
+    """Device ms per call of each device function in `names` (prefixes of
+    the profiler's kernel names), from torch.profiler over one call on
+    every buffer of the pool: each function's mean over the launches the
+    profiler kept (a trace late in a long process has been seen to keep 4
+    of 6 launches, which a sum over the pool would read as a faster
+    kernel; such a loss is logged). None for a function the profiler saw
+    no device time of."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    names = load_roofline().KERNEL_SYMBOLS[kernel]
     for x in pool:
         fn(x)
     torch.cuda.synchronize()
@@ -342,16 +352,16 @@ def kernel_device_ms(fn, pool, kernel: str) -> float | None:
             fn(x)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    per_call = 0.0
+    out = {}
     for name in names:
         kept = [e for e in events if e.key.startswith(name)]
         n = sum(e.count for e in kept)
-        if n:
-            per_call += sum(e.self_device_time_total for e in kept) / n
+        total = sum(e.self_device_time_total for e in kept)
+        out[name] = total / n / 1e3 if n and total > 0 else None
         if n != len(pool):
             log(f"[profile] {name}: the trace kept {n} of {len(pool)} "
                 f"launches")
-    return per_call / 1e3 if per_call > 0 else None
+    return out
 
 
 def fmt_ms(ms: float | None) -> str:
@@ -860,23 +870,116 @@ def slice_errors(got: tuple, ref: tuple, min_db: float) -> tuple[dict, bool]:
     return out, ok
 
 
+def gate_riffs(dev) -> tuple:
+    """`[gate]`'s inputs on `dev`: the serving wave (GATE_FILES riffs of
+    GATE_SECONDS at FILE_SR, a pluck every GATE_SPACING s, noise 0.01)
+    with valid counts of the whole row and one not a multiple of 512, and
+    one LONG_SECONDS riff with its count."""
+    import torch
+
+    def riffs(files: int, seconds: float, seed: int):
+        k = len(np.arange(0.4, seconds - 0.45, GATE_SPACING))
+        midi = 40 + np.arange(files * k).reshape(files, k) % 47
+        return torch.from_numpy(make_riffs(midi, seconds, FILE_SR, seed,
+                                           noise=0.01,
+                                           spacing=GATE_SPACING)).to(dev)
+    y_wave = riffs(GATE_FILES, GATE_SECONDS, SEED + 20)
+    y_long = riffs(1, LONG_SECONDS, SEED + 21)
+    n = y_wave.shape[1]
+    nv_wave = torch.tensor([n, n, n - 12345, n], dtype=torch.int32,
+                           device=dev)
+    nv_long = torch.tensor([y_long.shape[1]], dtype=torch.int32, device=dev)
+    return y_wave, nv_wave, y_long, nv_long
+
+
+def time_gate(gating, dev, failures: list, data: tuple | None = None
+              ) -> list[dict]:
+    """K7 (`gating.noise_gate`, under `gate_waveform`) checked against the
+    plain gate (`gate_errors`) and timed at the serving wave and the 400 s
+    riff (`gate_riffs`, or `data`) with the file path's arguments: kernel
+    ms in CUDA events over POOL distinct buffers, device ms in the
+    profiler, in all and per pass (its device functions,
+    `utils/roofline.py`'s KERNEL_SYMBOLS["K7"]), plain ms, and the bound
+    (gate_cost). `tools/torch_onset_timing.py TREE gate` times another
+    checkout's K7 with it, so two trees timed in turns compare like with
+    like. Returns one row per shape."""
+    from gat_tpu_torch.config import SLICER_CONFIG
+    roofline = load_roofline()
+    min_db = SLICER_CONFIG.MIN_IN_DB_THRESHOLD
+    y_wave, nv_wave, y_long, nv_long = data or gate_riffs(dev)
+    passes = roofline.KERNEL_SYMBOLS["K7"]
+    rows = []
+    for y, nv in ((y_wave, nv_wave), (y_long, nv_long)):
+        files, rows_n = y.shape
+        pool = noisy_pool(y, SEED + 22, 0.001)
+
+        def gate(x):
+            return gating.gate_waveform(x, min_db, n_valid=nv)
+
+        def gate_plain(x):
+            return gating.gate_waveform_plain(x, min_db, n_valid=nv)
+        ok = gate_errors(gating.noise_gate(y, min_db, 512, nv, parts=True)[1],
+                         gating.gate_parts_plain(y, min_db, 512, nv), y,
+                         min_db, 512)[1]
+        if not ok:
+            failures.append(f"[gate] K7 at {files} x {rows_n} against the "
+                            f"plain gate")
+        by_pass = symbol_device_ms(gate, pool, passes)
+        device = sum(ms or 0.0 for ms in by_pass.values()) or None
+        row = dict(files=files, samples=rows_n, ms=time_ms(gate, pool, 10),
+                   device_ms=device,
+                   pass_device_ms={
+                       p.removeprefix("noise_gate_").removesuffix(
+                           "_kernel"): ms for p, ms in by_pass.items()},
+                   plain_ms=time_ms(gate_plain, pool, reps=3))
+        row["bound_ms"], row["bound_by"] = roofline.bound(
+            *roofline.gate_cost(files, rows_n))
+        log(f"[time] noise_gate at {files} x {rows_n}: kernel "
+            f"{row['ms']:.4f} ms (events), {fmt_ms(device)} device "
+            f"(profiler; "
+            + ", ".join(f"{p} {fmt_ms(ms)}"
+                        for p, ms in row["pass_device_ms"].items())
+            + f"), plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+        if device is None:
+            failures.append(f"[gate] K7 at {files} x {rows_n}: no device "
+                            f"time in the profiler")
+        rows.append(row)
+    return rows
+
+
+def gate_pass_blocks(kernels, n: int, hop: int) -> dict:
+    """K7's passes at rows of n samples and this hop
+    (`gat_noise_gate_pass_blocks`): resident blocks per SM of each, the
+    threshold block's threads and whether it stages the envelope in
+    shared memory."""
+    out = (ctypes.c_int * 5)()
+    kernels.check(kernels.function(
+        "noise_gate", "gat_noise_gate_pass_blocks",
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])(
+            n, hop, ctypes.addressof(out)), "noise_gate pass occupancy")
+    return dict(rms=out[0], threshold=out[1], apply=out[2],
+                threshold_threads=out[3], threshold_staged=bool(out[4]))
+
+
 def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
     """`[gate]`: K7 (`csrc/noise_gate.cu`) and K8 (`csrc/slice_clips.cu`)
     against their plain twins on the card, at the serving wave (4 files x
     60 s at 22050 Hz, a pluck every 0.55 s, noise 0.01; 112 onsets a
     file, 448 slots of 11,025 samples) and at one 400 s riff (17,227
-    frames): K7 with valid counts of the whole row and one not a multiple
-    of 512, then rows of n_valid 0, 1500 and a third of the row off the
-    512 grid beside a whole one, a batch without counts, hop 256 and
-    `rms_gate` alone (the bounds of `gate_errors`); K8 on the onsets
-    K4/K5 find in K7's output, by the hop-512 row gather and the
+    frames at hop 512, 68,907 at hop 128, past the threshold pass's
+    shared-memory limit): K7 with valid counts of the whole row and one
+    not a multiple of 512, then rows of n_valid 0, 1500 and a third of the
+    row off the 512 grid beside a whole one, a batch without counts, hop
+    256 and `rms_gate` alone (the bounds of `gate_errors`); K8 on the
+    onsets K4/K5 find in K7's output, by the hop-512 row gather and the
     per-sample gather, with both last-note rules (`slice_errors`). Then
     both timed at the wave and the riff: kernel ms in CUDA events over
-    POOL distinct buffers, device ms in the profiler, plain ms, bound
-    (`utils/roofline.py`'s gate_cost, and slice_cost at the samples
-    these onsets' windows read), blocks per SM; `library ms` null: no
-    single PyTorch call computes either. Returns their kernels-line
-    rows."""
+    POOL distinct buffers, device ms in the profiler (K7's per pass,
+    `time_gate`), plain ms, bound (`utils/roofline.py`'s gate_cost, and
+    slice_cost at the samples these onsets' windows read), blocks per SM
+    (K7's per pass); `library ms` null: no single PyTorch call computes
+    either. Returns their kernels-line rows."""
     import torch
     from gat_tpu_torch import kernels
     from gat_tpu_torch.config import CLIP_DURATION, SLICER_CONFIG
@@ -887,13 +990,6 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
     min_db = SLICER_CONFIG.MIN_IN_DB_THRESHOLD
     min_rms_db = SLICER_CONFIG.MIN_SLICE_RMS_DB
     length = int(FILE_SR * CLIP_DURATION)
-
-    def riffs(files: int, seconds: float, seed: int):
-        k = len(np.arange(0.4, seconds - 0.45, GATE_SPACING))
-        midi = 40 + np.arange(files * k).reshape(files, k) % 47
-        return torch.from_numpy(make_riffs(midi, seconds, FILE_SR, seed,
-                                           noise=0.01,
-                                           spacing=GATE_SPACING)).to(dev)
 
     def check_gate(tag, y, nv, mdb, hop=512):
         got = gating.noise_gate(y, mdb, hop, nv, parts=True)[1]
@@ -930,18 +1026,15 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
         return e
 
     t0 = time.perf_counter()
-    y_wave = riffs(GATE_FILES, GATE_SECONDS, SEED + 20)
-    y_long = riffs(1, LONG_SECONDS, SEED + 21)
+    data = gate_riffs(dev)
+    y_wave, nv_wave, y_long, nv_long = data
     log(f"[data] [gate] {GATE_FILES} x {GATE_SECONDS:g} s and 1 x "
         f"{LONG_SECONDS:g} s riffs at {FILE_SR} Hz in "
         f"{time.perf_counter() - t0:.1f} s")
     n = y_wave.shape[1]
-    nv_wave = torch.tensor([n, n, n - 12345, n], dtype=torch.int32,
-                           device=dev)
     # none, under a frame, a third of the row off the 512 grid, the row
     nv_edges = torch.tensor([0, 1500, n // 3 // 512 * 512 + 77, n],
                             dtype=torch.int32, device=dev)
-    nv_long = torch.tensor([y_long.shape[1]], dtype=torch.int32, device=dev)
     gated, e7 = check_gate(f"at the wave ({GATE_FILES} x {n})", y_wave,
                            nv_wave, min_db)
     errs7 = [e7]
@@ -950,7 +1043,10 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
              512),
             ("without counts", y_wave, None, min_db, 512),
             ("at hop 256", y_wave, nv_wave, min_db, 256),
-            ("rms_gate alone", y_wave, nv_wave, None, 512)):
+            ("rms_gate alone", y_wave, nv_wave, None, 512),
+            (f"at 1 x {y_long.shape[1]} (400 s) hop 128, "
+             f"{1 + y_long.shape[1] // 128} frames in device memory",
+             y_long, nv_long, min_db, 128)):
         errs7.append(check_gate(tag, y, nv, mdb, hop)[1])
     gated_long, e = check_gate(f"at 1 x {y_long.shape[1]} (400 s)", y_long,
                                nv_long, min_db)
@@ -981,17 +1077,12 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
         f"{int(valid_l.sum())}")
 
     # timing at the wave and the 400 s riff, the path's arguments
-    shapes7, shapes8 = [], []
+    shapes7 = time_gate(gating, dev, failures, data)
+    shapes8 = []
     for y, nv, o, v in ((y_wave, nv_wave, ons, valid),
                         (y_long, nv_long, ons_l, valid_l)):
         files, rows_n = y.shape
         pool = noisy_pool(y, SEED + 22, 0.001)
-
-        def gate(x):
-            return gating.gate_waveform(x, min_db, n_valid=nv)
-
-        def gate_plain(x):
-            return gating.gate_waveform_plain(x, min_db, n_valid=nv)
 
         def cut(x):
             return slicing.slice_at_onsets(x, o, v, FILE_SR, n_valid=nv,
@@ -1003,33 +1094,36 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
         slots = o.numel()
         # the samples K8's windows read: what these onsets open
         windows = roofline.window_samples(cut_plain(y)[2], v, nv, FILE_SR)
-        for shapes, name, fn, plain, cost, kernel in (
-                (shapes7, "noise_gate", gate, gate_plain,
-                 roofline.gate_cost(files, rows_n), "K7"),
-                (shapes8, "slice_clips", cut, cut_plain,
-                 roofline.slice_cost(files, rows_n, slots, length, windows),
-                 "K8")):
-            row = dict(files=files, samples=rows_n, slots=slots,
-                       window_samples=windows,
-                       ms=time_ms(fn, pool, reps=10),
-                       device_ms=kernel_device_ms(fn, pool, kernel),
-                       plain_ms=time_ms(plain, pool, reps=3))
-            row["bound_ms"], row["bound_by"] = roofline.bound(*cost)
-            log(f"[time] {name} at {files} x {rows_n} ({slots} slots): "
-                f"kernel {row['ms']:.4f} ms (events), "
-                f"{fmt_ms(row['device_ms'])} device (profiler), plain "
-                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-                f"({row['bound_by']})")
-            shapes.append(row)
-    blocks = {}
-    for name, symbol, args in (
-            ("noise_gate", "gat_noise_gate_blocks_per_sm", (512,)),
-            ("slice_clips", "gat_slice_clips_blocks_per_sm", ())):
-        b = ctypes.c_int(0)
-        kernels.check(kernels.function(
-            name, symbol, [ctypes.c_int] * len(args) + [ctypes.c_void_p])(
-                *args, ctypes.addressof(b)), f"{name} occupancy")
-        blocks[name] = b.value
+        row = dict(files=files, samples=rows_n, slots=slots,
+                   window_samples=windows,
+                   ms=time_ms(cut, pool, reps=10),
+                   device_ms=kernel_device_ms(cut, pool, "K8"),
+                   plain_ms=time_ms(cut_plain, pool, reps=3))
+        row["bound_ms"], row["bound_by"] = roofline.bound(
+            *roofline.slice_cost(files, rows_n, slots, length, windows))
+        log(f"[time] slice_clips at {files} x {rows_n} ({slots} slots): "
+            f"kernel {row['ms']:.4f} ms (events), "
+            f"{fmt_ms(row['device_ms'])} device (profiler), plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']})")
+        shapes8.append(row)
+    k7_blocks = {}
+    for tag, rows_n, hop in (("wave", n, 512),
+                             ("400 s", y_long.shape[1], 512),
+                             ("400 s hop 128", y_long.shape[1], 128)):
+        b = k7_blocks[tag] = gate_pass_blocks(kernels, rows_n, hop)
+        log(f"[occupancy] noise_gate {tag}: rms {b['rms']}, threshold "
+            f"{b['threshold']} ({b['threshold_threads']} threads, "
+            f"envelope in {'shared' if b['threshold_staged'] else 'device'}"
+            f" memory), apply {b['apply']} resident blocks per SM")
+    shapes7[0]["pass_blocks_per_sm"] = k7_blocks["wave"]
+    shapes7[1]["pass_blocks_per_sm"] = k7_blocks["400 s"]
+    blocks = {"noise_gate": k7_blocks["wave"]["rms"]}
+    b = ctypes.c_int(0)
+    kernels.check(kernels.function(
+        "slice_clips", "gat_slice_clips_blocks_per_sm", [ctypes.c_void_p])(
+            ctypes.addressof(b)), "slice_clips occupancy")
+    blocks["slice_clips"] = b.value
     rows = []
     for name, source, replaces, errs, shapes, tol in (
             ("noise_gate", "gat_tpu_torch/csrc/noise_gate.cu",
@@ -1048,7 +1142,8 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
             extra = dict(
                 gated_max_abs_err=max(e["gated_max_abs_err"] for e in errs),
                 frames_flipped=sum(e["frames_flipped"] for e in errs),
-                samples_excused=sum(e["samples_excused"] for e in errs))
+                samples_excused=sum(e["samples_excused"] for e in errs),
+                threshold_staged_frames=gating.GATE_STAGED_FRAMES)
         else:
             err = max(e["clips_max_abs_err"] for e in errs)
             extra = dict(kept_differing=sum(e["kept_differing"]

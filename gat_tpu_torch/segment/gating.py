@@ -32,11 +32,17 @@ from ..utils.signals import as_count_rows, as_rows, either
 
 __all__ = ["sample_db_gate", "rms_db_envelope", "dynamic_thresholds",
            "rms_gate", "rms_gate_plain", "slice_rms_db", "gate_waveform",
-           "gate_waveform_plain", "gate_parts_plain", "noise_gate"]
+           "gate_waveform_plain", "gate_parts_plain", "noise_gate",
+           "GATE_STAGED_FRAMES"]
 
 _EPS = 1e-10
 # the longest row K7 takes (its C entry point's int32 sample positions)
 _MAX_GATE_SAMPLES = 2 ** 31 - 1 - 2 * 2048
+# K7's threshold pass stages a file's envelope and median in shared memory
+# up to this many frames (`kThresholdFrames` in csrc/noise_gate.cu, 192
+# KB: 570 s at hop 512 and 22050 Hz); longer files keep them in device
+# memory
+GATE_STAGED_FRAMES = 24576
 
 
 def sample_db_gate(y: torch.Tensor, min_db: float = -45.0) -> torch.Tensor:
@@ -193,11 +199,18 @@ def gate_parts_plain(y: torch.Tensor, min_db: float | None,
                 out=rms_gate_plain(ys, hop_length, n_valid=n_valid))
 
 
+# K7's rms pass runs this many waves of its resident blocks: a block that
+# has summed its runs gives its SM to one that starts copying, which on
+# an H100 beat one wave at the serving wave and at 400 s (PERF.md §6)
+_GATE_WAVES = 2
+
+
 @functools.lru_cache(maxsize=16)
 def _gate_grid(device: torch.device) -> int:
     """K7's grid: the card's SMs times the resident blocks of its rms pass
-    on one SM (the same at every hop), queried once per process and
-    device."""
+    on one SM at hop 512, the file path's (three; fewer at hops with a
+    hop block below 8, where the grid is only a count of blocks), times
+    `_GATE_WAVES`, queried once per process and device."""
     blocks = ctypes.c_int(0)
     fn = kernels.function("noise_gate", "gat_noise_gate_blocks_per_sm",
                           [ctypes.c_int, ctypes.c_void_p])
@@ -205,7 +218,7 @@ def _gate_grid(device: torch.device) -> int:
         kernels.check(fn(512, ctypes.addressof(blocks)),
                       "noise_gate occupancy")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * max(1, blocks.value)
+    return _GATE_WAVES * sms * max(1, blocks.value)
 
 
 def check_gate(n: int, hop_length: int, counted: bool) -> None:
@@ -238,10 +251,12 @@ def noise_gate(y: torch.Tensor, min_db: float | None, hop_length: int = 512,
     reflect pad needs). Returns the gated rows, and with `parts` the
     dict of `gate_parts_plain` from K7's workspaces. Three launches in one
     C entry point: the frame RMS in dB over a grid sized to the card
-    (`grid` blocks, default SMs x resident blocks per SM; the result does
-    not depend on it), the median and thresholds one block per file, and
-    the gated samples. Raises on what the kernel does not take; CPU rows
-    are refused (the wrappers run the plain twins there)."""
+    (`grid` blocks, default two waves of SMs x resident blocks per SM,
+    each block walking runs of frames; the result does not depend on it),
+    the median and thresholds one block per file (the envelope in shared
+    memory up to `GATE_STAGED_FRAMES` frames), and the gated samples, a
+    warp per frame. Raises on what the kernel does not take; CPU rows are
+    refused (the wrappers run the plain twins there)."""
     if y.device.type != "cuda":
         raise ValueError(f"[noise_gate] kernel takes CUDA rows, got "
                          f"{y.device}")

@@ -1192,29 +1192,61 @@ def test_noise_gate_card_vs_plain(case):
         assert not bool(out[:2, 1500:].any()) and not bool(out[0].any())
 
 
-def test_noise_gate_card_400s():
-    """K7 on one 400 s riff (17,227 frames), against the plain gate."""
+@pytest.mark.parametrize("hop", [512, 128])
+def test_noise_gate_card_400s(hop):
+    """K7 on one 400 s riff against the plain gate: 17,227 frames at hop
+    512, whose threshold pass stages them in shared memory, and 68,907 at
+    hop 128, past `GATE_STAGED_FRAMES`, in device memory."""
     y = tiled_riffs(1, 400.0, seed=1)
     nv = _counts([y.shape[1]])
-    got = gating.noise_gate(y, GATE_MIN_DB, 512, nv,
-                                       parts=True)[1]
+    t = 1 + y.shape[1] // hop
+    assert (t <= gating.GATE_STAGED_FRAMES) == (hop == 512)
+    got = gating.noise_gate(y, GATE_MIN_DB, hop, nv, parts=True)[1]
+    ref = gating.gate_parts_plain(y, GATE_MIN_DB, hop, nv)
+    torch.cuda.synchronize()
+    check_gate({k: v.cpu() for k, v in got.items()},
+               {k: v.cpu() for k, v in ref.items()}, y.cpu(),
+               GATE_MIN_DB, hop)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_noise_gate_card_unaligned_rows(offset):
+    """Rows of an odd length at a pointer 4 or 12 bytes past 16-byte
+    alignment (the rms pass's copies shifted to the rows' phase, the
+    apply pass's scalar path) give the bits of the same rows at an
+    aligned pointer, and the plain gate's at `check_gate`'s bounds."""
+    y = tiled_riffs(3, 20.0, seed=4)[:, :441001].contiguous()
+    n = y.shape[1]
+    nv = _counts([n, 300001, 2048])
+    buf = torch.empty(3 * n + 4, device="cuda")
+    moved = buf[offset:offset + 3 * n].view(3, n)
+    moved.copy_(y)
+    assert moved.data_ptr() % 16 == 4 * offset
+    got = gating.noise_gate(moved, GATE_MIN_DB, 512, nv, parts=True)[1]
+    aligned = gating.noise_gate(y, GATE_MIN_DB, 512, nv, parts=True)[1]
     ref = gating.gate_parts_plain(y, GATE_MIN_DB, 512, nv)
     torch.cuda.synchronize()
+    assert all(torch.equal(got[k], aligned[k]) for k in got)
     check_gate({k: v.cpu() for k, v in got.items()},
                {k: v.cpu() for k, v in ref.items()}, y.cpu(),
                GATE_MIN_DB, 512)
 
 
-def test_noise_gate_card_grid_invariant():
+@pytest.mark.parametrize("hop", [512, 1])
+def test_noise_gate_card_grid_invariant(hop):
     """K7's result does not depend on its grid: 1 block, 97, and the
-    card's default give the same bits."""
+    card's default give the same bits, at hop 512 and at hop 1 (hop
+    blocks of one sample, the threshold pass in device memory)."""
     y = tiled_riffs(2, 20.0, seed=2)
-    nv = _counts([y.shape[1], 300001])
+    if hop == 1:
+        y = y[:, :60000].contiguous()
+    nv = _counts([y.shape[1], min(300001, y.shape[1] - 7)])
     g = gating
-    first = g.noise_gate(y, GATE_MIN_DB, 512, nv)
+    first = g.noise_gate(y, GATE_MIN_DB, hop, nv, parts=True)[1]
     for grid in (1, 97):
-        assert torch.equal(g.noise_gate(y, GATE_MIN_DB, 512, nv,
-                                        grid=grid), first)
+        again = g.noise_gate(y, GATE_MIN_DB, hop, nv, grid=grid,
+                             parts=True)[1]
+        assert all(torch.equal(again[k], first[k]) for k in first)
 
 
 def test_gate_wrappers_one_signal_card():

@@ -6,17 +6,20 @@ There is no nvcc on a CPU-only machine, but the kernels of
 register arrays, device lambdas, `__syncthreads`, warp shuffles, ballots,
 `__popc` and `__ffs`, integer atomicMax and atomicAdd, the float/int bit
 casts, the float32 steps rounded one by one (`__fadd_rn`, `__fsub_rn`,
-`__fmul_rn`), `float4` and asynchronous copies into shared memory. The
-header below maps those onto C++: one std::thread per CUDA thread, the
-blocks of a launch one after another, a barrier for `__syncthreads`, a
-barrier per warp and an exchange slot per lane for the warp intrinsics,
-a compare-and-swap or a fetch-and-add for the atomics and a plain copy
-for the asynchronous one. Each `.cu` is compiled by g++ with the
-header forced in and its `<<<grid, block, smem, stream>>>` launch turned
-into a call of `emu_launch`; the C entry points are then called through
-ctypes with CPU pointers, with the argument lists the wrappers use. This
-checks the kernels' arithmetic and indexing, not the GPU compiler or the
-card: `chip_smoke.py` does that.
+`__fmul_rn`), `float4`, asynchronous copies into shared memory
+(`cp.async`, and `csrc/bulk_copy.cuh`'s bulk copies on an mbarrier) and
+the dynamic shared-memory attribute. The header below maps those onto
+C++: one std::thread per CUDA thread, the blocks of a launch one after
+another, a barrier for `__syncthreads`, a barrier per warp and an
+exchange slot per lane for the warp intrinsics, a compare-and-swap or a
+fetch-and-add for the atomics and a plain copy for the asynchronous
+ones. Each `.cu` is compiled by g++ with the header forced in (it stands
+in for `cuda_runtime.h`, `cuda_pipeline.h` and `bulk_copy.cuh`) and its
+`<<<grid, block, smem, stream>>>` launch turned into a call of
+`emu_launch`; the C entry points are then called through ctypes with CPU
+pointers, with the argument lists the wrappers use. This checks the
+kernels' arithmetic and indexing, not the GPU compiler or the card:
+`chip_smoke.py` does that.
 """
 import ctypes
 import hashlib
@@ -39,6 +42,7 @@ EMULATION_HEADER = r"""
 #pragma once
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <functional>
 #include <pthread.h>
@@ -108,6 +112,14 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
+// csrc/bulk_copy.cuh (Hopper's bulk copy on an mbarrier): the copy lands
+// at once, so the barrier has nothing to wait for
+inline void mbar_init(uint64_t*, unsigned) {}
+inline void mbar_arrive_expect(uint64_t*, unsigned) {}
+inline void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t*) {
+  std::memcpy(dst, src, bytes);
+}
+inline void mbar_wait(uint64_t*, unsigned) {}
 struct int2 { int x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 // float32 steps rounded one by one (g++ here contracts no FMA)
@@ -175,7 +187,8 @@ def libs(tmp_path_factory):
         pytest.skip("needs g++")
     out = tmp_path_factory.mktemp("emulated_kernels")
     (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
-    (out / "cuda_pipeline.h").write_text("#pragma once\n")
+    for header in ("cuda_pipeline.h", "bulk_copy.cuh"):  # in the header
+        (out / header).write_text("#pragma once\n")
     procs = {}
     for name in kernels.KERNELS:
         src = (kernels.CSRC / f"{name}.cu").read_text()
@@ -1604,10 +1617,10 @@ def test_noise_gate_emulated(libs, hop, counted, min_db):
         assert not bool(got["out"][0].any())
 
 
-@pytest.mark.parametrize("n", [44100, 44104])
+@pytest.mark.parametrize("n", [44100, 44104, 44101])
 def test_noise_gate_emulated_vector_path(libs, n):
     """Rows whose length is a multiple of 4 take the 16-byte apply path,
-    others the scalar one; both give the plain gate."""
+    others (44101) the scalar one; both give the plain gate."""
     y = torch.from_numpy(gate_rows(n, seed=n)[:3])
     nv = torch.tensor([n, 30001, 2048])
     check_gate(noise_gate_emulated(libs, y, nv, GATE_MIN_DB),
@@ -1654,6 +1667,143 @@ def test_noise_gate_emulated_percentile_ties(libs):
         ref = gating.gate_parts_plain(y, min_db, 512, nv)
         check_gate(got, ref, y, min_db, 512)
         assert torch.equal(got["gate_db"], ref["gate_db"])
+
+
+# sha256 of K7's outputs on `test_noise_gate_emulated`'s rows and counts, as
+# its first design gave them (db4b038: a 48 KB stage filled a sample at a
+# time, a warp per frame summing its 2048 squares, the threshold pass's
+# frames in device memory, a grid-stride apply): (hop, counted, min_db)
+# -> digests of gate_db, frame_mask, out, env and med
+GATE_PINS = {
+    (512, True, GATE_MIN_DB): ("8634dc2904e1ed35", "cdf33983ad35b7c8",
+                               "2ea824bb4ef2020e", "3c39cc73ccce745c",
+                               "f9f721aab928542c"),
+    (512, True, None): ("78e025ef44c0c93a", "4db7f285392b6814",
+                        "4ce0a806f045ad90", "c784832a864d2349",
+                        "f7b288c8b872be91"),
+    (512, False, GATE_MIN_DB): ("8634dc2904e1ed35", "ddc06d0902d59c81",
+                                "79fff294b62fc7ec", "bebb9b72270b3aa3",
+                                "813d34d50ebbc098"),
+    (512, False, None): ("ec3429661f904543", "f05a553ef2842145",
+                         "ec828715a551784c", "070a51dc4631cbbf",
+                         "1e74d67313d8ec27"),
+    (256, True, GATE_MIN_DB): ("8634dc2904e1ed35", "cd54908aba386cab",
+                               "2ea824bb4ef2020e", "145ff423780a3fac",
+                               "b0672c2bd7ce190a"),
+    (256, True, None): ("7096a56cf47ef855", "e6f7c8ae8c07404a",
+                        "9ce0d0a6eac2059b", "790e7fe1753bd2ae",
+                        "558b7db64a8a51e5"),
+    (256, False, GATE_MIN_DB): ("8634dc2904e1ed35", "019cd2ec40db11d6",
+                                "79fff294b62fc7ec", "059356478f2b6330",
+                                "de0a01c2b3b10f66"),
+    (256, False, None): ("697e62ecb369f44f", "fec57121a74f3431",
+                         "5604ca80395d312a", "8d87bfcd01377bdd",
+                         "c9628777eefcdd92"),
+}
+
+
+@pytest.mark.parametrize("hop, counted, min_db", list(GATE_PINS))
+def test_noise_gate_emulated_pins(libs, hop, counted, min_db):
+    """K7 gives the bits its first design gave: gate_db, the frame mask and
+    the gated rows bit-equal to the pins, and the envelope and its median
+    too (hop blocks summed in fp64 give each frame's float32 sum of its
+    2048 squares as a warp per frame did)."""
+    n = 2 * FILE_SR
+    y = torch.from_numpy(gate_rows(n))
+    nv = torch.from_numpy(gate_counts(n)) if counted else None
+    got = noise_gate_emulated(libs, y, nv, min_db, hop)
+    keys = ("gate_db", "frame_mask", "out", "env", "med")
+    assert tuple(_digest(got[k]) for k in keys) == GATE_PINS[
+        (hop, counted, min_db)]
+
+
+def pass_blocks(libs, n: int, hop: int) -> list:
+    """K7's `gat_noise_gate_pass_blocks`: each pass's resident blocks per
+    SM (0 under the emulation), the threshold block's threads, and
+    whether it stages the envelope in shared memory."""
+    out = (ctypes.c_int * 5)(*[-1] * 5)
+    fn = _fn(libs["noise_gate"], "gat_noise_gate_pass_blocks",
+             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    assert fn(n, hop, ctypes.addressof(out)) == 0
+    return list(out)
+
+
+@pytest.mark.parametrize("n", [gating.GATE_STAGED_FRAMES - 1,
+                               gating.GATE_STAGED_FRAMES])
+def test_noise_gate_emulated_threshold_in_device_memory(libs, n):
+    """At hop 1 the threshold pass stages 24,576 frames in shared memory
+    (the row of 24,575 samples) and keeps 24,577 in device memory (one
+    sample more): both give the plain gate at `check_gate`'s bounds, with
+    1024 threads a file."""
+    y = torch.from_numpy(gate_rows(n, seed=7)[:2])
+    nv = torch.tensor([n, 20001])
+    assert pass_blocks(libs, n, 1)[3:] == [
+        1024, int(n < gating.GATE_STAGED_FRAMES)]
+    check_gate(noise_gate_emulated(libs, y, nv, GATE_MIN_DB, 1),
+               gating.gate_parts_plain(y, GATE_MIN_DB, 1, nv), y,
+               GATE_MIN_DB, 1)
+
+
+def test_noise_gate_emulated_pass_blocks(libs):
+    """The passes' query refuses hop 0 and n 0. The threshold block has 256
+    threads up to 2,048 frames, then twice as many while a thread would
+    hold more than 8 frames, 1024 at most; it stages the envelope in
+    shared memory up to `GATE_STAGED_FRAMES` frames (192 KB with the
+    median): the file path's 2 s file, serving wave and 400 s riff at hop
+    512, the riff at hop 128 (past the limit) and hop 700."""
+    for n, hop, threads in ((44100, 512, 256), (1048064, 512, 256),
+                            (1048576, 512, 512), (1323000, 512, 512),
+                            (8820000, 512, 1024), (8820000, 128, 1024),
+                            (44100, 700, 256)):
+        staged = int(1 + n // hop <= gating.GATE_STAGED_FRAMES)
+        assert pass_blocks(libs, n, hop) == [0, 0, 0, threads, staged]
+    assert pass_blocks(libs, 8820000, 128)[4] == 0
+    assert gating.GATE_STAGED_FRAMES * 8 == 192 * 1024
+    fn = _fn(libs["noise_gate"], "gat_noise_gate_pass_blocks",
+             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * 5)()
+    assert fn(44100, 0, ctypes.addressof(out)) != 0
+    assert fn(0, 512, ctypes.addressof(out)) != 0
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_noise_gate_emulated_unaligned_rows(libs, offset):
+    """Rows of an odd length at a pointer 1-3 floats past 16-byte
+    alignment: the rms pass shifts its stages to the rows' phase and the
+    apply pass takes its scalar path; the bits are those of the same rows
+    at an aligned pointer, and the plain gate's at `check_gate`'s
+    bounds."""
+    n = 44101
+    y = torch.from_numpy(gate_rows(n, seed=offset)[:3])
+    nv = torch.tensor([n, 30001, 2048])
+    buf = torch.empty(3 * n + 4)
+    moved = buf[offset:offset + 3 * n].view(3, n)
+    moved.copy_(y)
+    assert moved.data_ptr() % 16 == 4 * offset
+    got = noise_gate_emulated(libs, moved, nv, GATE_MIN_DB)
+    aligned = noise_gate_emulated(libs, y, nv, GATE_MIN_DB)
+    assert all(torch.equal(got[k], aligned[k]) for k in got)
+    check_gate(got, gating.gate_parts_plain(y, GATE_MIN_DB, 512, nv), y,
+               GATE_MIN_DB, 512)
+
+
+def test_noise_gate_emulated_sample_gate_band(libs):
+    """Samples swept across min_db from 0.05 dB below to 0.05 dB above, in
+    steps of 1e-4 dB: inside the 0.01 dB band the kernel takes the log10,
+    outside it the amplitude alone decides; every sample farther than
+    1e-4 dB from min_db takes the formula's decision, on both sides of
+    the band's edges."""
+    n = 4 * 4096
+    db = GATE_MIN_DB + np.linspace(-0.05, 0.05, n)
+    amp = (10.0 ** (db / 20.0)).astype(np.float32)
+    sign = np.where(np.arange(n) % 2, -1.0, 1.0).astype(np.float32)
+    y = torch.from_numpy(np.stack([amp * sign, amp[::-1] * sign]))
+    nv = torch.tensor([n, n])
+    got = noise_gate_emulated(libs, y, nv, GATE_MIN_DB)
+    ref = gating.gate_parts_plain(y, GATE_MIN_DB, 512, nv)
+    check_gate(got, ref, y, GATE_MIN_DB, 512)
+    kept = gating.sample_db_gate(y, GATE_MIN_DB) != 0
+    assert 0 < int(kept.sum()) < y.numel()
 
 
 def slice_clips_emulated(libs, y: torch.Tensor, onsets: torch.Tensor,

@@ -2,9 +2,10 @@
 """K4 and K5, the PyTorch port's onset-envelope and onset-pick kernels,
 checked and timed at the file path's shapes for one checkout of the port,
 on one CUDA card; with `clip`, K2, K3 and (where the checkout has it) K6
-at the clip path's 1024 clips.
+at the clip path's 1024 clips; with `gate`, the noise gate K7 at the
+serving wave and a 400 s riff, per pass.
 
-    python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip]
+    python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip] [gate]
 
 TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
 another commit unpacked with `git archive`; its kernels are built there.
@@ -12,7 +13,9 @@ Without a kernel named, K4 and K5 are timed. Shapes, inputs, checks and
 timings are `chip_smoke.py`'s own (`time_envelope`: one 4 s file, 4 files
 of 4 s, 64 riffs of 8 s; `time_pick`: the same and one 400 s file, with
 the wrapper's host time split into its parts; `time_clip_kernels`: the
-clip path's 1024 clips of 0.5 s at 11025 Hz, `make_clips`), so two
+clip path's 1024 clips of 0.5 s at 11025 Hz, `make_clips`; `time_gate`:
+4 files of 60 s and one of 400 s at 22050 Hz, `gate_riffs`, device time
+per pass by the kernel names of this checkout's roofline), so two
 checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
@@ -27,7 +30,8 @@ from pathlib import Path
 
 TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
            "pick": ("onset_pick", "time_pick"),
-           "clip": ("clip_kernels", "time_clip_kernels")}
+           "clip": ("clip_kernels", "time_clip_kernels"),
+           "gate": ("noise_gate", "time_gate")}
 
 
 def main(argv: list[str]) -> int:
@@ -49,6 +53,7 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(tree))
     from gat_tpu_torch import features, kernels
     from gat_tpu_torch.ops import onset, yin
+    from gat_tpu_torch.segment import gating
     if not Path(onset.__file__).resolve().is_relative_to(tree):
         print(f"torch_onset_timing: gat_tpu_torch came from "
               f"{onset.__file__}, not {tree}", file=sys.stderr)
@@ -62,6 +67,8 @@ def main(argv: list[str]) -> int:
             clips = torch.from_numpy(
                 smoke.make_clips(smoke.N_CLIPS, smoke.SEED)[0]).to(dev)
             args = (features, yin, clips)
+        elif n == "gate":
+            args = (gating, dev)
         else:
             args = (onset, dev)
         for row in getattr(smoke, timing)(*args, failures):
