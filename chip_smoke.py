@@ -35,8 +35,10 @@ non-zero:
    masks equal but within 1e-3 dB of gate_db, gated samples bit-equal
    where both decisions agree; K8: clips and times bit-equal, kept equal
    but within 1e-4 dB of its threshold), both gathers and both last-note
-   rules for K8, and both timed with their bound, plain time and blocks
-   per SM (K7's device time and blocks per SM also per pass);
+   rules for K8, also at clips of 4.0 s and with a valid count past the
+   row's end, and both timed with their bound,
+   plain time and blocks per SM (K7's device time and blocks per SM also
+   per pass; K8 also at 4.0 s clips, with its ring's stages);
 4. drive the clip path, `Transcriber(device="cuda").transcribe_clips`, at
    the shipped checkpoints: K1-K3's launch counts must rise, the labels
    must equal those of the plain versions fed to the same models, and a
@@ -335,8 +337,10 @@ def kernel_device_ms(fn, pool, kernel: str) -> float | None:
 
 
 def symbol_device_ms(fn, pool, names) -> dict:
-    """Device ms per call of each device function in `names` (prefixes of
-    the profiler's kernel names), from torch.profiler over one call on
+    """Device ms per call of each device function in `names` (the
+    functions the profiler's kernel names are of,
+    `utils/roofline.py::device_function`, templates included), from
+    torch.profiler over one call on
     every buffer of the pool: each function's mean over the launches the
     profiler kept (a trace late in a long process has been seen to keep 4
     of 6 launches, which a sum over the pool would read as a faster
@@ -352,9 +356,10 @@ def symbol_device_ms(fn, pool, names) -> dict:
             fn(x)
         torch.cuda.synchronize()
     events = prof.key_averages()
+    of = load_roofline().device_function
     out = {}
     for name in names:
-        kept = [e for e in events if e.key.startswith(name)]
+        kept = [e for e in events if of(e.key) == name]
         n = sum(e.count for e in kept)
         total = sum(e.self_device_time_total for e in kept)
         out[name] = total / n / 1e3 if n and total > 0 else None
@@ -962,6 +967,117 @@ def gate_pass_blocks(kernels, n: int, hop: int) -> dict:
                 threshold_threads=out[3], threshold_staged=bool(out[4]))
 
 
+SLICE_LONG_CLIP = 4.0  # [gate]'s long clips: transcribe(clip_duration=4.0)
+SLICE_LONG_EVERY = 8   # their onsets: every 8th of the wave's, 4.4 s apart
+
+
+def long_clip_onsets(ons, valid) -> tuple:
+    """Every SLICE_LONG_EVERY-th onset of each file and its flag, so that a
+    window holds a whole SLICE_LONG_CLIP s clip."""
+    return (ons[:, ::SLICE_LONG_EVERY].contiguous(),
+            valid[:, ::SLICE_LONG_EVERY].contiguous())
+
+
+def slice_data(slicing, dev) -> tuple:
+    """K8's inputs as `[gate]` makes them: the serving wave and the 400 s
+    riff (`gate_riffs`) with their counts, each with the onsets K4/K5 find
+    in K7's output (`slicing`'s own gate and detection)."""
+    from gat_tpu_torch.config import SLICER_CONFIG
+    y_wave, nv_wave, y_long, nv_long = gate_riffs(dev)
+    out = []
+    for y, nv in ((y_wave, nv_wave), (y_long, nv_long)):
+        gated = slicing.gating.gate_waveform(
+            y, SLICER_CONFIG.MIN_IN_DB_THRESHOLD, n_valid=nv)
+        ons, valid, *_ = slicing.detect_onsets(
+            gated, sr=FILE_SR, min_sep=0.25, max_onsets=GATE_ONSETS,
+            n_valid=nv)
+        out += [y, nv, ons, valid]
+    return tuple(out)
+
+
+def time_slice(slicing, dev, failures: list, data: tuple | None = None
+               ) -> list[dict]:
+    """K8 (`slicing.slice_at_onsets`) checked against the plain slicer
+    (`slice_errors`) and timed with the file path's arguments (the hop-512
+    gather, the reference's last-note rule) at the serving wave (448 slots
+    of 0.5 s), the 400 s riff (112 slots) and the wave's
+    SLICE_LONG_CLIP s clips (`long_clip_onsets`, 56 slots of 88,200
+    samples), on `slice_data`'s inputs or `data` (y_wave, nv_wave, ons,
+    valid, y_long, nv_long, ons_l, valid_l): kernel ms in CUDA events over
+    POOL distinct buffers, device ms in the profiler, plain ms, the bound
+    (slice_cost at the samples these onsets' windows read), resident
+    blocks per SM and the ring's stages and samples a stage (K8's
+    `gat_slice_clips_ring`; None for a checkout without a ring).
+    `tools/torch_onset_timing.py TREE slice` times another checkout's K8
+    with it. Returns one row per shape."""
+    from gat_tpu_torch.config import CLIP_DURATION, SLICER_CONFIG
+    roofline = load_roofline()
+    kernels = slicing.kernels
+    y_wave, nv_wave, ons, valid, y_long, nv_long, ons_l, valid_l = (
+        data or slice_data(slicing, dev))
+    b = ctypes.c_int(0)
+    kernels.check(kernels.function(
+        "slice_clips", "gat_slice_clips_blocks_per_sm", [ctypes.c_void_p])(
+            ctypes.addressof(b)), "slice_clips occupancy")
+    stages = chunk = None
+    try:
+        shape = [ctypes.c_int(0) for _ in range(3)]
+        kernels.check(kernels.function(
+            "slice_clips", "gat_slice_clips_ring", [ctypes.c_void_p] * 3)(
+                *map(ctypes.addressof, shape)), "slice_clips ring")
+        stages, chunk, smem = (v.value for v in shape)
+        ring = (f"a ring of {stages} stages of {chunk} samples, {smem} "
+                f"bytes of shared memory a block")
+    except AttributeError:  # a checkout whose K8 has no ring
+        ring = "no ring"
+    log(f"[occupancy] slice_clips: {b.value} resident blocks of 256 threads "
+        f"per SM, {ring}")
+    ons4, valid4 = long_clip_onsets(ons, valid)
+    rows = []
+    for y, nv, o, v, secs in (
+            (y_wave, nv_wave, ons, valid, CLIP_DURATION),
+            (y_long, nv_long, ons_l, valid_l, CLIP_DURATION),
+            (y_wave, nv_wave, ons4, valid4, SLICE_LONG_CLIP)):
+        files, rows_n = y.shape
+        length = int(FILE_SR * secs)
+        pool = noisy_pool(y, SEED + 22, 0.001)
+
+        def cut(x):
+            return slicing.slice_at_onsets(x, o, v, FILE_SR, secs,
+                                           n_valid=nv, onset_hop=512)
+
+        def cut_plain(x):
+            return slicing.slice_at_onsets_plain(x, o, v, FILE_SR, secs,
+                                                 n_valid=nv, onset_hop=512)
+        ref = cut_plain(y)
+        ok = slice_errors(cut(y), ref, SLICER_CONFIG.MIN_SLICE_RMS_DB)[1]
+        slots = o.numel()
+        tag = f"{files} x {rows_n} ({slots} slots of {length} samples)"
+        if not ok:
+            failures.append(f"[gate] K8 at {tag} against the plain slicer")
+        # the samples K8's windows read: what these onsets open
+        windows = roofline.window_samples(ref[2], v, nv, FILE_SR)
+        row = dict(files=files, samples=rows_n, slots=slots,
+                   clip_samples=length, window_samples=windows,
+                   ms=time_ms(cut, pool, reps=10),
+                   device_ms=kernel_device_ms(cut, pool, "K8"),
+                   plain_ms=time_ms(cut_plain, pool, reps=3),
+                   blocks_per_sm=b.value, stages=stages,
+                   stage_samples=chunk, checked=ok)
+        row["bound_ms"], row["bound_by"] = roofline.bound(
+            *roofline.slice_cost(files, rows_n, slots, length, windows))
+        log(f"[time] slice_clips at {tag}: kernel {row['ms']:.4f} ms "
+            f"(events), {fmt_ms(row['device_ms'])} device (profiler), plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}); {b.value} blocks/SM, {ring}; checked "
+            f"{'ok' if ok else 'FAIL'}")
+        if row["device_ms"] is None:
+            failures.append(f"[gate] K8 at {tag}: no device time in the "
+                            f"profiler")
+        rows.append(row)
+    return rows
+
+
 def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
     """`[gate]`: K7 (`csrc/noise_gate.cu`) and K8 (`csrc/slice_clips.cu`)
     against their plain twins on the card, at the serving wave (4 files x
@@ -973,23 +1089,27 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
     row off the 512 grid beside a whole one, a batch without counts, hop
     256 and `rms_gate` alone (the bounds of `gate_errors`); K8 on the
     onsets K4/K5 find in K7's output, by the hop-512 row gather and the
-    per-sample gather, with both last-note rules (`slice_errors`). Then
-    both timed at the wave and the riff: kernel ms in CUDA events over
-    POOL distinct buffers, device ms in the profiler (K7's per pass,
-    `time_gate`), plain ms, bound (`utils/roofline.py`'s gate_cost, and
+    per-sample gather, with both last-note rules (`slice_errors`), and at
+    SLICE_LONG_CLIP s clips (88,200 samples, through K8's ring many
+    times; the per-sample gather with slot j's onset moved by j samples,
+    every source phase), and with a valid count past the last row's end
+    (its last window crosses the row's end, both gathers). Then both
+    timed at the wave and the riff, K8 also
+    at the long clips (`time_gate`, `time_slice`): kernel ms in CUDA
+    events over POOL distinct buffers, device ms in the profiler (K7's
+    per pass), plain ms, bound (`utils/roofline.py`'s gate_cost, and
     slice_cost at the samples these onsets' windows read), blocks per SM
-    (K7's per pass); `library ms` null: no single PyTorch call computes
-    either. Returns their kernels-line rows."""
+    (K7's per pass; K8's with its ring's stages); `library ms` null: no
+    single PyTorch call computes either. Returns their kernels-line
+    rows."""
     import torch
     from gat_tpu_torch import kernels
     from gat_tpu_torch.config import CLIP_DURATION, SLICER_CONFIG
     from gat_tpu_torch.ops import onset
     from gat_tpu_torch.segment import gating, slicing
-    roofline = load_roofline()
     dev = torch.device(device)
     min_db = SLICER_CONFIG.MIN_IN_DB_THRESHOLD
     min_rms_db = SLICER_CONFIG.MIN_SLICE_RMS_DB
-    length = int(FILE_SR * CLIP_DURATION)
 
     def check_gate(tag, y, nv, mdb, hop=512):
         got = gating.noise_gate(y, mdb, hop, nv, parts=True)[1]
@@ -1006,11 +1126,13 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
             failures.append(f"[gate] K7 {tag}")
         return got["out"], e
 
-    def check_slice(tag, y, ons, valid, nv, hop, strict):
-        got = slicing.slice_at_onsets(y, ons, valid, FILE_SR,
+    def check_slice(tag, y, ons, valid, nv, hop, strict,
+                    length_sec=CLIP_DURATION):
+        got = slicing.slice_at_onsets(y, ons, valid, FILE_SR, length_sec,
                                       strict_reference_compat=strict,
                                       n_valid=nv, onset_hop=hop)
         ref = slicing.slice_at_onsets_plain(y, ons, valid, FILE_SR,
+                                            length_sec,
                                             strict_reference_compat=strict,
                                             n_valid=nv, onset_hop=hop)
         torch.cuda.synchronize()
@@ -1072,41 +1194,42 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
     ons_l, valid_l = onsets_of(gated_long, nv_long)
     errs8.append(check_slice("at the 400 s riff", y_long, ons_l, valid_l,
                              nv_long, 512, True))
+    # clips of transcribe(clip_duration=4.0), 88,200 samples, through K8's
+    # ring many times: the hop-512 gather, and the per-sample one with
+    # slot j's onset moved by j samples (every phase of the row)
+    ons4, valid4 = long_clip_onsets(ons, valid)
+    shift = torch.arange(ons4.shape[1], dtype=ons4.dtype, device=dev)
+    for hop, o in ((512, ons4), (None, ons4 + shift)):
+        for strict in (True, False):
+            errs8.append(check_slice(
+                f"at the wave, {SLICE_LONG_CLIP:g} s clips", y_wave, o,
+                valid4, nv_wave, hop, strict, SLICE_LONG_CLIP))
+    # a valid count past the last row's end: the 4.0 s window of its last
+    # onset (strict False: cut by the count) crosses the row's end and the
+    # tensor's, which the kernel reads as the plain slicer does, clamped,
+    # and never past the row
+    nv_past = nv_wave.clone()
+    nv_past[-1] = n + int(SLICE_LONG_CLIP * FILE_SR)
+    last = int(ons[-1][valid[-1]].max())
+    crossing = (last + int(SLICER_CONFIG.ATTACK_SKIP_SEC * FILE_SR)
+                + int(SLICE_LONG_CLIP * FILE_SR)) > n
+    if not crossing:
+        failures.append("[gate] K8 past the row: no window crosses the "
+                        "row's end")
+    for hop in (512, None):
+        errs8.append(check_slice(
+            f"at n_valid {nv_past.tolist()} (past the row of {n}), "
+            f"{SLICE_LONG_CLIP:g} s clips, last onset {last}", y_wave, ons,
+            valid, nv_past, hop, False, SLICE_LONG_CLIP))
     log(f"[gate] onsets at the wave {valid.sum(-1).tolist()} of "
         f"{GATE_ONSETS} slots a file; at the 400 s riff "
         f"{int(valid_l.sum())}")
 
     # timing at the wave and the 400 s riff, the path's arguments
     shapes7 = time_gate(gating, dev, failures, data)
-    shapes8 = []
-    for y, nv, o, v in ((y_wave, nv_wave, ons, valid),
-                        (y_long, nv_long, ons_l, valid_l)):
-        files, rows_n = y.shape
-        pool = noisy_pool(y, SEED + 22, 0.001)
-
-        def cut(x):
-            return slicing.slice_at_onsets(x, o, v, FILE_SR, n_valid=nv,
-                                           onset_hop=512)
-
-        def cut_plain(x):
-            return slicing.slice_at_onsets_plain(x, o, v, FILE_SR,
-                                                 n_valid=nv, onset_hop=512)
-        slots = o.numel()
-        # the samples K8's windows read: what these onsets open
-        windows = roofline.window_samples(cut_plain(y)[2], v, nv, FILE_SR)
-        row = dict(files=files, samples=rows_n, slots=slots,
-                   window_samples=windows,
-                   ms=time_ms(cut, pool, reps=10),
-                   device_ms=kernel_device_ms(cut, pool, "K8"),
-                   plain_ms=time_ms(cut_plain, pool, reps=3))
-        row["bound_ms"], row["bound_by"] = roofline.bound(
-            *roofline.slice_cost(files, rows_n, slots, length, windows))
-        log(f"[time] slice_clips at {files} x {rows_n} ({slots} slots): "
-            f"kernel {row['ms']:.4f} ms (events), "
-            f"{fmt_ms(row['device_ms'])} device (profiler), plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_by']})")
-        shapes8.append(row)
+    shapes8 = time_slice(slicing, dev, failures,
+                         (y_wave, nv_wave, ons, valid, y_long, nv_long,
+                          ons_l, valid_l))
     k7_blocks = {}
     for tag, rows_n, hop in (("wave", n, 512),
                              ("400 s", y_long.shape[1], 512),
@@ -1118,12 +1241,8 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
             f" memory), apply {b['apply']} resident blocks per SM")
     shapes7[0]["pass_blocks_per_sm"] = k7_blocks["wave"]
     shapes7[1]["pass_blocks_per_sm"] = k7_blocks["400 s"]
-    blocks = {"noise_gate": k7_blocks["wave"]["rms"]}
-    b = ctypes.c_int(0)
-    kernels.check(kernels.function(
-        "slice_clips", "gat_slice_clips_blocks_per_sm", [ctypes.c_void_p])(
-            ctypes.addressof(b)), "slice_clips occupancy")
-    blocks["slice_clips"] = b.value
+    blocks = {"noise_gate": k7_blocks["wave"]["rms"],
+              "slice_clips": shapes8[0]["blocks_per_sm"]}
     rows = []
     for name, source, replaces, errs, shapes, tol in (
             ("noise_gate", "gat_tpu_torch/csrc/noise_gate.cu",
@@ -2696,7 +2815,9 @@ def tools_phase(rows: list, card: str, failures: list,
     if not ok:
         failures.append("[tools] train_wall")
 
-    KERNEL_SYMBOLS = load_roofline().KERNEL_SYMBOLS
+    roofline = load_roofline()
+    KERNEL_SYMBOLS, device_function = (roofline.KERNEL_SYMBOLS,
+                                       roofline.device_function)
     prof = tool["profile_trace"]
     for graph, need in (("clip", (K1, K2, K3)), ("files", SEGMENTING)):
         with tempfile.TemporaryDirectory() as d:
@@ -2705,10 +2826,9 @@ def tools_phase(rows: list, card: str, failures: list,
             run(f"profile_trace {graph}",
                 lambda: prof.trace(fn, pool, 8, d), need=need)
             (_, top, shares), = prof.parse_trace(d, PROFILE_TOP)
-        names = [name for name, _ in top]
+        names = {device_function(name) for name, _ in top}
         missing = [k for i, k in enumerate(KERNEL_SYMBOLS) if i in need
-                   and not any(sym in name for sym in KERNEL_SYMBOLS[k]
-                               for name in names)]
+                   and not names & set(KERNEL_SYMBOLS[k])]
         log(f"[tools] profile_trace {graph}: the port's kernels' device us "
             f"over 8 calls {({k: round(v, 1) for k, v in shares.items()})}; "
             f"launched kernels missing from the top {PROFILE_TOP}: "

@@ -168,10 +168,15 @@ def slice_at_onsets(y: torch.Tensor, onsets: torch.Tensor,
 
     CUDA tensor: the kernel `csrc/slice_clips.cu` (K8), which replaces the
     JAX package's XLA `gat_tpu/segment/slicing.py::slice_at_onsets`: one
-    block per (file, slot) writes its clip with 16-byte stores, gathering
-    only inside its window (with `onset_hop` by the reference's hop-long
-    rows, which inside the window are the samples the per-sample gather
-    reads), sums its squares for `kept` and writes its times; one launch.
+    block per (file, slot) writes its clip with 16-byte stores, reading
+    only inside its window, sums its squares for `kept` and writes its
+    times; one launch. A window whose samples are y[start + j] (any
+    onset without `onset_hop`, one on the hop's grid with it, start >= 0,
+    end within the row) is staged by bulk copies through a ring in shared
+    memory (`gat_slice_clips_ring` reports its shape); any other (the
+    reference's hop-long rows of an onset off the grid, a negative start,
+    an end past the row under a valid count past it) is gathered a sample
+    at a time.
     CPU tensor: `slice_at_onsets_plain`."""
     n_valid = either("slice_at_onsets", "n_valid_samples", n_valid_samples,
                      "n_valid", n_valid)

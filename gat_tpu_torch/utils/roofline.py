@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS", "bound",
+__all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS",
+           "device_function", "bound",
            "fft_flops", "melspec_cost", "mfcc_cost", "yin_cost",
            "mfcc_pitch_cost",
            "envelope_cost", "mel_db_cost", "flux_cost", "pick_cost",
@@ -36,7 +37,7 @@ __all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS", "bound",
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# the device functions of K1-K8, as the profiler names them
+# the device functions of K1-K8 (`device_function` of the profiler's names)
 KERNEL_SYMBOLS = {
     "K1": ("melspec_frontend_kernel",),
     "K2": ("mfcc_frontend_kernel",),
@@ -48,6 +49,20 @@ KERNEL_SYMBOLS = {
            "noise_gate_apply_kernel"),
     "K8": ("slice_clips_kernel",),
 }
+
+
+def device_function(name: str) -> str:
+    """The device function a profiler's kernel name is of: the name up to
+    its template arguments or parameter list, without the `void` that a
+    template's name starts with (`void melspec_frontend_kernel<true>(float
+    const*, ...)` and `slice_clips_kernel(float const*, ...)` are
+    melspec_frontend_kernel and slice_clips_kernel)."""
+    name = name.removeprefix("void ")
+    for stop in "<(":
+        name = name.split(stop, 1)[0]
+    return name.strip()
+
+
 # the gates' least work per sample: the dB gate (abs, log, scale,
 # compare, multiply), the frame RMS as a running sum (square, add), the
 # frame mask and the length mask

@@ -13,15 +13,19 @@ from gat_tpu_torch import features
 from gat_tpu_torch.ops import onset, spectral, yin
 from gat_tpu_torch.segment import gating, slicing
 from test_torch_kernels_emulated import (FILE_SR, GATE_MIN_DB, LIVE_MIN_SEP,
-                                         LIVE_RING, RIFF_NOTES, check_gate,
+                                         LIVE_RING, RIFF_NOTES, SLICE_PINS,
+                                         SLICE_PINS_PAST_ROW, _digest,
+                                         check_gate,
                                          check_mel_image, check_slice,
                                          check_mfcc_level_step,
                                          check_zero_row, edge_envelopes,
                                          file_batch, frame_count_clips,
                                          frames_clips, level_step_clip,
                                          mfcc_level_step_clip, padded_wave,
-                                         PLUCK_NEAR_TIE, pluck_riff,
-                                         port_pluck_clips, random_envelopes,
+                                         PLUCK_NEAR_TIE, past_row_inputs,
+                                         pin_inputs,
+                                         pluck_riff, port_pluck_clips,
+                                         random_envelopes,
                                          riffs, scan_envelopes,
                                          shared_frontend_clips, stitch,
                                          time_shards, yin_float64)
@@ -1317,3 +1321,104 @@ def test_slice_clips_card_400s_and_edges():
                     y, onsets, valid, FILE_SR, **kw)),
                 tuple(x.cpu() for x in sl.slice_at_onsets_plain(
                     y, onsets, valid, FILE_SR, **kw)), -40.0)
+
+
+@pytest.mark.parametrize("length_sec, onset_hop, strict", list(SLICE_PINS))
+def test_slice_clips_card_pins(length_sec, onset_hop, strict):
+    """K8 on the card on the emulated pins' inputs (`pin_inputs`): 0.5 s
+    clips (odd: every destination phase) and 4.0 s clips (the ring goes
+    round 7 times) at every source phase, windows cut by the next onset,
+    by n_valid and by the tensor's end, the general route's rows, both
+    gathers and both last-note rules: clips and times bit-equal to the
+    pins and kept to the plain slicer at `check_slice`'s bounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    y, onsets, valid, nv = pin_inputs(length_sec, onset_hop)
+    before = slicing.slice_at_onsets.launches
+    got = slicing.slice_at_onsets(
+        y.cuda(), onsets.cuda(), valid.cuda(), FILE_SR, length_sec, 0.01,
+        -40.0, strict, onset_hop=onset_hop, n_valid=nv.cuda())
+    torch.cuda.synchronize()
+    assert slicing.slice_at_onsets.launches == before + 1
+    got = tuple(x.cpu() for x in got)
+    check_slice(got, slicing.slice_at_onsets_plain(
+        y, onsets, valid, FILE_SR, length_sec, 0.01, -40.0, strict,
+        onset_hop=onset_hop, n_valid=nv), -40.0)
+    pins = SLICE_PINS[(length_sec, onset_hop, strict)]
+    assert (_digest(got[0]), _digest(got[2])) == (pins[0], pins[2])
+
+
+@pytest.mark.parametrize("onset_hop, strict", list(SLICE_PINS_PAST_ROW))
+def test_slice_clips_card_past_the_row(onset_hop, strict):
+    """K8 on the card with valid counts past the row's end
+    (`past_row_inputs`: windows that cross it, in the last row past the
+    tensor's end): the plain slicer's bits at `check_slice`'s bounds, and
+    the pins' clips and times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    y, onsets, valid, nv = past_row_inputs(onset_hop)
+    got = slicing.slice_at_onsets(
+        y.cuda(), onsets.cuda(), valid.cuda(), FILE_SR, 0.1, 0.01, -40.0,
+        strict, onset_hop=onset_hop, n_valid=nv.cuda())
+    got = tuple(x.cpu() for x in got)
+    check_slice(got, slicing.slice_at_onsets_plain(
+        y, onsets, valid, FILE_SR, 0.1, 0.01, -40.0, strict,
+        onset_hop=onset_hop, n_valid=nv), -40.0)
+    pins = SLICE_PINS_PAST_ROW[(onset_hop, strict)]
+    assert (_digest(got[0]), _digest(got[2])) == (pins[0], pins[2])
+
+
+@pytest.mark.parametrize("onset_hop", [512, None])
+def test_slice_clips_card_4s_clips(onset_hop):
+    """K8 at `transcribe(clip_duration=4.0)`'s clips of 88,200 samples on
+    every 8th onset K4/K5 find in the wave (windows of 4.4 s; without a
+    hop slot j's onset moved by j samples, every source phase), both
+    last-note rules, against the plain slicer at `check_slice`'s
+    bounds."""
+    y = tiled_riffs(4, 60.0)
+    n = y.shape[1]
+    nv = _counts([n, n, n - 12345, n])
+    ons, valid, *_ = onset.detect_onsets(
+        gating.gate_waveform(y, GATE_MIN_DB, n_valid=nv), sr=FILE_SR,
+        min_sep=0.25, max_onsets=112, n_valid=nv)
+    ons, valid = ons[:, ::8].contiguous(), valid[:, ::8].contiguous()
+    if onset_hop is None:
+        ons = ons + torch.arange(ons.shape[1], dtype=ons.dtype,
+                                 device="cuda")
+    for strict in (True, False):
+        kw = dict(strict_reference_compat=strict, n_valid=nv,
+                  onset_hop=onset_hop)
+        got = slicing.slice_at_onsets(y, ons, valid, FILE_SR, 4.0, **kw)
+        ref = slicing.slice_at_onsets_plain(y, ons, valid, FILE_SR, 4.0,
+                                            **kw)
+        torch.cuda.synchronize()
+        assert got[0].shape == (4, 14, 88200) and int(ref[1].sum()) > 20
+        check_slice(tuple(x.cpu() for x in got),
+                    tuple(x.cpu() for x in ref), -37.0)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_slice_clips_card_unaligned_rows(offset):
+    """Rows at a pointer 4 or 12 bytes past 16-byte alignment, windows from
+    the tensor's first sample to its last: the bits of the same rows at an
+    aligned pointer, and the plain slicer's at `check_slice`'s bounds."""
+    y = tiled_riffs(2, 1.0, seed=offset)[:, :3001].contiguous()
+    n = y.shape[1]
+    onsets = torch.tensor([[0, 1, 1500, 2000], [0, 700, 2990, 2999]],
+                          dtype=torch.int32, device="cuda")
+    valid = torch.ones(2, 4, dtype=torch.bool, device="cuda")
+    buf = torch.empty(2 * n + 4, device="cuda")
+    moved = buf[offset:offset + 2 * n].view(2, n)
+    moved.copy_(y)
+    assert moved.data_ptr() % 16 == 4 * offset
+    for hop, strict in ((None, False), (1, True)):
+        kw = dict(length_sec=0.1, attack_skip_sec=0.0,
+                  min_slice_rms_db=-40.0, strict_reference_compat=strict,
+                  onset_hop=hop)
+        got = slicing.slice_at_onsets(moved, onsets, valid, FILE_SR, **kw)
+        aligned = slicing.slice_at_onsets(y, onsets, valid, FILE_SR, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, aligned))
+        check_slice(tuple(x.cpu() for x in got), tuple(
+            x.cpu() for x in slicing.slice_at_onsets_plain(
+                y, onsets, valid, FILE_SR, **kw)), -40.0)

@@ -12,8 +12,9 @@ the dynamic shared-memory attribute. The header below maps those onto
 C++: one std::thread per CUDA thread, the blocks of a launch one after
 another, a barrier for `__syncthreads`, a barrier per warp and an
 exchange slot per lane for the warp intrinsics, a compare-and-swap or a
-fetch-and-add for the atomics and a plain copy for the asynchronous
-ones. Each `.cu` is compiled by g++ with the header forced in (it stands
+fetch-and-add for the atomics, a plain copy for the asynchronous ones,
+and for an mbarrier a word of its phase, arrivals and bytes, so that a
+wait holds its threads until the copies it waits for have landed. Each `.cu` is compiled by g++ with the header forced in (it stands
 in for `cuda_runtime.h`, `cuda_pipeline.h` and `bulk_copy.cuh`) and its
 `<<<grid, block, smem, stream>>>` launch turned into a call of
 `emu_launch`; the C entry points are then called through ctypes with CPU
@@ -112,14 +113,42 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
-// csrc/bulk_copy.cuh (Hopper's bulk copy on an mbarrier): the copy lands
-// at once, so the barrier has nothing to wait for
-inline void mbar_init(uint64_t*, unsigned) {}
-inline void mbar_arrive_expect(uint64_t*, unsigned) {}
-inline void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t*) {
-  std::memcpy(dst, src, bytes);
+// csrc/bulk_copy.cuh (Hopper's bulk copy on an mbarrier): a barrier is one
+// word of its phase (bits 56-63), its arrival count (48-55), the arrivals
+// (32-47) and bytes (0-31) its phase still waits for; a copy lands at once
+// and then completes its bytes, a phase completes when neither is left,
+// and a wait spins until the phase of its parity has completed
+inline void emu_bar_update(uint64_t* bar, unsigned arrivals, unsigned tx) {
+  uint64_t old = __atomic_load_n(bar, __ATOMIC_SEQ_CST), now;
+  do {
+    unsigned phase = (unsigned)(old >> 56), count = (old >> 48) & 0xffu;
+    unsigned left = ((old >> 32) & 0xffffu) - arrivals;
+    const unsigned bytes = (unsigned)old + tx;
+    if (left == 0 && bytes == 0) {
+      ++phase;
+      left = count;
+    }
+    now = (uint64_t)(phase & 0xffu) << 56 | (uint64_t)count << 48 |
+          (uint64_t)(left & 0xffffu) << 32 | bytes;
+  } while (!__atomic_compare_exchange_n(bar, &old, now, false,
+                                        __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST));
 }
-inline void mbar_wait(uint64_t*, unsigned) {}
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  __atomic_store_n(bar, (uint64_t)count << 48 | (uint64_t)count << 32,
+                   __ATOMIC_SEQ_CST);
+}
+inline void mbar_arrive_expect(uint64_t* bar, unsigned bytes) {
+  emu_bar_update(bar, 1, bytes);
+}
+inline void bulk_load(void* dst, const void* src, unsigned bytes,
+                      uint64_t* bar) {
+  std::memcpy(dst, src, bytes);
+  emu_bar_update(bar, 0, 0u - bytes);
+}
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  while ((__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 56 & 1u) == parity)
+    std::this_thread::yield();
+}
 struct int2 { int x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 // float32 steps rounded one by one (g++ here contracts no FMA)
@@ -1914,6 +1943,174 @@ def test_slice_clips_emulated_edges(libs):
                 y, onsets, valid, FILE_SR, length_sec, skip_sec, -40.0,
                 strict, onset_hop=hop)
             check_slice(got, ref)
+
+
+def pin_inputs(length_sec: float, onset_hop: int | None) -> tuple:
+    """`test_slice_clips_emulated_pins`' inputs: six rows of 4 clips' length
+    + 1 samples (each row one float past the last: row r starts at 16-byte
+    phase r mod 4) at levels from -48 to -6 dB, 6 onsets a row. Rows 0-3
+    and 5 take the staged route at every source phase and, at an odd
+    clip length, every destination phase: windows whole, cut short by the
+    next onset (512 samples on), past a row's valid count, and in row 5
+    up to the tensor's last sample (strict False). Row 1 starts at a
+    negative onset, row 3 has an onset off the 512 grid (the general
+    route with a hop), row 4 has no valid slot. Without a hop slot j's onset
+    moves by j samples, so the source phases mix."""
+    length = int(length_sec * FILE_SR)
+    n = 4 * length + 1
+    rng = np.random.default_rng(19)
+    level = np.array([0.3, 0.1, 0.02, 0.004, 0.5, 0.05])[:, None]
+    y = (level * rng.normal(0.0, 1.0, (6, n))).astype(np.float32)
+    unit = -(-length // 512) * 512  # one clip, rounded up to the grid
+    base = np.array([0, unit + 512, unit + 1024, 2 * unit + 1024,
+                     3 * unit, 3 * unit + 1536])
+    onsets = np.stack([base + 512 * r for r in range(6)])
+    onsets[1, 0] = -512
+    onsets[3, 1] += 5
+    onsets[5, 5] = n - length // 2 - 512
+    if onset_hop is None:
+        onsets = onsets + np.arange(6)[None, :]
+    valid = np.ones((6, 6), bool)
+    valid[4] = False
+    valid[2, 4] = False
+    nv = np.full(6, n)
+    nv[0] = onsets[0, 5] + length // 3
+    nv[3] = onsets[3, 4] + 100
+    return (torch.from_numpy(y), torch.from_numpy(onsets.astype(np.int32)),
+            torch.from_numpy(valid), torch.from_numpy(nv.astype(np.int32)))
+
+
+# sha256 of K8's outputs on `pin_inputs`, as its first design gave them
+# (d5fe321: one block per slot gathering a sample at a time through
+# `Window::at`): (clip seconds, onset_hop, strict) -> digests of clips,
+# kept and times
+SLICE_PINS = {
+    (0.5, 512, True): ("c215c18344ce414a", "e5adf878e9c606e1",
+                       "1d7b8d969831ebc2"),
+    (4.0, 512, True): ("84dd682d626328e7", "8d5b72349d244af9",
+                       "ca8b8585579c549c"),
+    (0.5, None, True): ("ddca4e1a71ff8705", "e5adf878e9c606e1",
+                        "73810cf09ee10cd2"),
+    (4.0, None, True): ("7e51b7c94d9e73f4", "8d5b72349d244af9",
+                        "4ac5c6cb2981d01a"),
+    (0.5, 512, False): ("a959e58c0798505f", "0502b13dcc723145",
+                        "b48da4344ff7057a"),
+    (4.0, 512, False): ("e9d29d0c57538519", "056cd0e052195f13",
+                        "94915f74c7fba22c"),
+    (0.5, None, False): ("8b47341147255617", "0502b13dcc723145",
+                         "a1c6eae8b8dd606d"),
+    (4.0, None, False): ("02502f03f9c7fe11", "056cd0e052195f13",
+                         "9a74ef0e29b740aa"),
+}
+
+
+@pytest.mark.parametrize("length_sec, onset_hop, strict", list(SLICE_PINS))
+def test_slice_clips_emulated_pins(libs, length_sec, onset_hop, strict):
+    """K8 gives the bits its first design gave on `pin_inputs`: clips of
+    0.5 s (shorter than the stage ring, odd) and 4.0 s (seven times the
+    ring) by both gathers and both last-note rules; and the plain
+    slicer's at `check_slice`'s bounds."""
+    y, onsets, valid, nv = pin_inputs(length_sec, onset_hop)
+    assert y.data_ptr() % 16 == 0
+    got = slice_clips_emulated(libs, y, onsets, valid, nv, strict, onset_hop,
+                               length_sec)
+    check_slice(got, slicing.slice_at_onsets_plain(
+        y, onsets, valid, FILE_SR, length_sec, 0.01, -40.0, strict,
+        onset_hop=onset_hop, n_valid=nv))
+    assert tuple(_digest(t) for t in got) == SLICE_PINS[
+        (length_sec, onset_hop, strict)]
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_slice_clips_emulated_unaligned_rows(libs, offset):
+    """Rows at a pointer 1-3 floats past 16-byte alignment, windows from
+    the tensor's first sample to its last: the staged route reads the
+    floats its copies' rounding would take from outside the tensor one at
+    a time; the bits are those of the same rows at an aligned pointer,
+    and the plain slicer's at `check_slice`'s bounds."""
+    n = 3001
+    y = torch.from_numpy(gate_rows(n, seed=offset)[:2])
+    onsets = torch.tensor([[0, 1, 1500, 2000], [0, 700, 2990, 2999]],
+                          dtype=torch.int32)
+    valid = torch.ones(2, 4, dtype=torch.bool)
+    buf = torch.empty(2 * n + 4)
+    moved = buf[offset:offset + 2 * n].view(2, n)
+    moved.copy_(y)
+    assert moved.data_ptr() % 16 == 4 * offset
+    for hop, strict in ((None, False), (1, True)):
+        got = slice_clips_emulated(libs, moved, onsets, valid, None, strict,
+                                   hop, 0.1, 0.0)
+        aligned = slice_clips_emulated(libs, y, onsets, valid, None, strict,
+                                       hop, 0.1, 0.0)
+        assert all(torch.equal(a, b) for a, b in zip(got, aligned))
+        check_slice(got, slicing.slice_at_onsets_plain(
+            y, onsets, valid, FILE_SR, 0.1, 0.0, -40.0, strict,
+            onset_hop=hop))
+
+
+def past_row_inputs(onset_hop: int | None) -> tuple:
+    """`test_slice_clips_emulated_pins_past_the_row`'s inputs: three rows
+    of 5001 samples, 4 onsets a row on the 512 grid, 0.1 s clips. Row 0
+    counts its whole row; rows 1 and 2 count 3000 and 4000 samples past
+    it, so that slot 2's window crosses the row's end (in row 1 into the
+    next row's samples, in row 2, the last, into no sample of the tensor)
+    and, without the reference's last-note rule, row 2's slot 3 opens a
+    window wholly past it. The plain slicer reads those positions clamped
+    to the row's last sample, or (with a hop) rows clamped and zero past
+    the row."""
+    n = 5001
+    rng = np.random.default_rng(23)
+    y = (0.1 * rng.normal(0.0, 1.0, (3, n))).astype(np.float32)
+    onsets = np.array([[0, 1024, 2048, 3072], [0, 1536, 4608, 9216],
+                       [512, 2560, 4608, 8192]], np.int32)
+    valid = np.ones((3, 4), bool)
+    nv = np.array([n, n + 3000, n + 4000], np.int32)
+    return (torch.from_numpy(y), torch.from_numpy(onsets),
+            torch.from_numpy(valid), torch.from_numpy(nv))
+
+
+# sha256 of K8's outputs on `past_row_inputs`, as its first design gave
+# them (d5fe321): (onset_hop, strict) -> digests of clips, kept and times
+SLICE_PINS_PAST_ROW = {
+    (512, True): ("8bc1c0b9328bc873", "d69618d1b8617e61",
+                  "50f8201d643d4418"),
+    (512, False): ("278c0407cef49fcb", "573dcf77c369f92b",
+                   "f72639093b92c014"),
+    (None, True): ("66a82b81f864d900", "d69618d1b8617e61",
+                   "50f8201d643d4418"),
+    (None, False): ("426552b67481ce4f", "573dcf77c369f92b",
+                    "f72639093b92c014"),
+}
+
+
+@pytest.mark.parametrize("onset_hop, strict", list(SLICE_PINS_PAST_ROW))
+def test_slice_clips_emulated_pins_past_the_row(libs, onset_hop, strict):
+    """A valid count past the row's end opens windows that cross it: K8
+    reads them as the plain slicer does (clamped, never a sample past the
+    row) and gives its first design's bits."""
+    y, onsets, valid, nv = past_row_inputs(onset_hop)
+    got = slice_clips_emulated(libs, y, onsets, valid, nv, strict, onset_hop,
+                               0.1)
+    check_slice(got, slicing.slice_at_onsets_plain(
+        y, onsets, valid, FILE_SR, 0.1, 0.01, -40.0, strict,
+        onset_hop=onset_hop, n_valid=nv))
+    assert tuple(_digest(t) for t in got) == SLICE_PINS_PAST_ROW[
+        (onset_hop, strict)]
+
+
+def test_slice_clips_ring_fits_shared_memory(libs):
+    """K8's ring (`gat_slice_clips_ring`): a 0.5 s clip at 22050 Hz is in
+    flight at once, a 4.0 s one goes round it, and the block's static
+    shared memory stays within 48 KB and leaves 4 blocks an SM room."""
+    shape = [ctypes.c_int(0) for _ in range(3)]
+    assert _fn(libs["slice_clips"], "gat_slice_clips_ring",
+               [ctypes.c_void_p] * 3)(*map(ctypes.addressof, shape)) == 0
+    stages, chunk, smem = (v.value for v in shape)
+    assert stages >= 2 and chunk % 4 == 0
+    assert stages * chunk >= int(0.5 * FILE_SR)
+    assert stages * chunk < int(4.0 * FILE_SR)
+    assert 4 * stages * chunk < smem <= 48 * 1024
+    assert 4 * (smem + 1024) <= 228 * 1024
 
 
 def test_gate_and_slice_occupancy_and_guards(libs):

@@ -6,13 +6,15 @@ report's schema, the stage counts against the wave's on both DFT
 routes, K6's count and bound, K1-K5's counts against the formulas
 `chip_smoke.py` used before they moved into
 `gat_tpu_torch/utils/roofline.py`, and the record_function ranges of the
-wave body). Counts are integers and held exactly; floors and shares
-within 1e-12 relative.
+wave body), the kernels' names as the profiler reads them back, and
+`tools/torch_onset_timing.py`'s slicer mode. Counts are integers and held
+exactly; floors and shares within 1e-12 relative.
 """
 import gzip
 import importlib.util
 import json
 import math
+import re
 from pathlib import Path
 
 import numpy as np
@@ -130,6 +132,19 @@ def test_parse_trace_names_k7_and_k8(tmp_path, capsys):
                       "K6": 0, "K7": 8.0, "K8": 2.0}
     out = capsys.readouterr().out
     assert "80.0%  K7" in out and "20.0%  K8" in out
+
+
+def test_kernel_shares_read_names_by_device_function():
+    """`kernel_shares` takes a kernel's events by `roofline.device_function`,
+    the rule `chip_smoke.py` times by: a template's name counts, a function
+    whose name only holds a kernel's symbol does not."""
+    shares = prof.kernel_shares({
+        "void melspec_frontend_kernel<true>(float const*, int)": 5.0,
+        "slice_clips_kernel(float const*, int const*)": 2.0,
+        "slice_clips_kernel_wide(float const*)": 7.0,
+        "void at::native::noise_gate_apply_kernel_copy<4>()": 3.0})
+    assert shares == {"K1": 5.0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                      "K6": 0, "K7": 0, "K8": 2.0}
 
 
 def test_parse_trace_without_device_lanes_keeps_all(tmp_path, capsys):
@@ -317,6 +332,50 @@ def test_module_cost_counts_matmuls():
     weights = sum(p.numel() * 4 for p in (*m.parameters(), *m.buffers()))
     assert nbytes == weights + 4 * 10 * 65 + 4 * 10 * 47
     assert next(m.parameters()).device.type == "cpu"
+
+
+GLOBAL = re.compile(r"(template\s*<[^>]*>\s*)?__global__\s+void\s+"
+                    r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+
+
+def test_kernel_symbols_name_the_kernels_device_functions():
+    """Every name of `roofline.KERNEL_SYMBOLS` is a `__global__` function of
+    `gat_tpu_torch/csrc/*.cu`, every such function is listed, and the name
+    the profiler gives it (`name(args)`, or `void name<...>(args)` for a
+    template) is read back to it by `device_function`, the match
+    `chip_smoke.py` times each kernel by: a renamed kernel, or a template
+    read by a prefix of the profiler's name, would time no launch
+    without failing a test."""
+    declared = {}
+    for src in sorted((REPO / "gat_tpu_torch" / "csrc").glob("*.cu")):
+        for m in GLOBAL.finditer(src.read_text()):
+            declared[m[2]] = bool(m[1])
+    listed = [n for syms in roofline.KERNEL_SYMBOLS.values() for n in syms]
+    assert sorted(listed) == sorted(declared)
+    for name, template in declared.items():
+        shown = (f"void {name}<true>(float const*, int)" if template
+                 else f"{name}(float const*, int)")
+        assert roofline.device_function(shown) == name
+    assert not declared["slice_clips_kernel"]
+    assert declared["melspec_frontend_kernel"]
+    assert roofline.device_function("noise_gate_rms_kernel") != "noise_gate"
+
+
+def test_onset_timing_tool_times_the_slicer(monkeypatch):
+    """`tools/torch_onset_timing.py TREE slice` runs chip_smoke's
+    `time_slice` (the wave, the 400 s riff and 4.0 s clips) and, like
+    every mode, exits 1 without a card (2 for a mode it does not know)."""
+    timing = _tool("torch_onset_timing")
+    assert timing.TIMINGS["slice"] == ("slice_clips", "time_slice")
+    spec = importlib.util.spec_from_file_location("_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for _, fn in timing.TIMINGS.values():
+        assert callable(getattr(smoke, fn))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert timing.main(["torch_onset_timing.py", str(REPO), "slice"]) == 1
+    assert timing.main(["torch_onset_timing.py", str(REPO), "slices"]) == 2
 
 
 def test_stage_tags_keep_the_jax_names():

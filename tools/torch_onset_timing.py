@@ -3,9 +3,11 @@
 checked and timed at the file path's shapes for one checkout of the port,
 on one CUDA card; with `clip`, K2, K3 and (where the checkout has it) K6
 at the clip path's 1024 clips; with `gate`, the noise gate K7 at the
-serving wave and a 400 s riff, per pass.
+serving wave and a 400 s riff, per pass; with `slice`, the clip slicer K8
+at the same wave and riff and at 4.0 s clips.
 
     python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip] [gate]
+                                             [slice]
 
 TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
 another commit unpacked with `git archive`; its kernels are built there.
@@ -15,7 +17,10 @@ of 4 s, 64 riffs of 8 s; `time_pick`: the same and one 400 s file, with
 the wrapper's host time split into its parts; `time_clip_kernels`: the
 clip path's 1024 clips of 0.5 s at 11025 Hz, `make_clips`; `time_gate`:
 4 files of 60 s and one of 400 s at 22050 Hz, `gate_riffs`, device time
-per pass by the kernel names of this checkout's roofline), so two
+per pass by the kernel names of this checkout's roofline; `time_slice`:
+the onsets that checkout's gate and detection find in them, the file
+path's arguments, 0.5 s clips and 4.0 s clips at every 8th onset, with
+K8's resident blocks per SM and its ring), so two
 checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
@@ -31,7 +36,8 @@ from pathlib import Path
 TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
            "pick": ("onset_pick", "time_pick"),
            "clip": ("clip_kernels", "time_clip_kernels"),
-           "gate": ("noise_gate", "time_gate")}
+           "gate": ("noise_gate", "time_gate"),
+           "slice": ("slice_clips", "time_slice")}
 
 
 def main(argv: list[str]) -> int:
@@ -53,7 +59,7 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(tree))
     from gat_tpu_torch import features, kernels
     from gat_tpu_torch.ops import onset, yin
-    from gat_tpu_torch.segment import gating
+    from gat_tpu_torch.segment import gating, slicing
     if not Path(onset.__file__).resolve().is_relative_to(tree):
         print(f"torch_onset_timing: gat_tpu_torch came from "
               f"{onset.__file__}, not {tree}", file=sys.stderr)
@@ -69,6 +75,8 @@ def main(argv: list[str]) -> int:
             args = (features, yin, clips)
         elif n == "gate":
             args = (gating, dev)
+        elif n == "slice":
+            args = (slicing, dev)
         else:
             args = (onset, dev)
         for row in getattr(smoke, timing)(*args, failures):

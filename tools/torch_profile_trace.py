@@ -38,10 +38,10 @@ sys.path.insert(0, str(REPO))
 
 def kernel_shares(dur: dict) -> dict:
     """{K1..K8: total µs of that kernel's device functions} from a
-    name → µs table."""
-    from gat_tpu_torch.utils.roofline import KERNEL_SYMBOLS
+    name → µs table, each name read by `roofline.device_function`."""
+    from gat_tpu_torch.utils.roofline import KERNEL_SYMBOLS, device_function
     return {k: sum(us for name, us in dur.items()
-                   if any(sym in name for sym in syms))
+                   if device_function(name) in syms)
             for k, syms in KERNEL_SYMBOLS.items()}
 
 
