@@ -7,7 +7,7 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits
 non-zero:
 
 1. the card: name and power limit (nvidia-smi);
-2. build the eight CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
+2. build the nine CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
    source, in parallel), print nvcc's register/spill report and each
    kernel's resident blocks per SM as the CUDA runtime computes them;
 3. hold each kernel against its plain PyTorch version on the card, at its
@@ -38,7 +38,15 @@ non-zero:
    rules for K8, also at clips of 4.0 s and with a valid count past the
    row's end, and both timed with their bound,
    plain time and blocks per SM (K7's device time and blocks per SM also
-   per pass; K8 also at 4.0 s clips, with its ring's stages);
+   per pass; K8 also at 4.0 s clips, with its ring's stages); then
+   `[resample]`: the polyphase resampler K9 (`csrc/resample.cu`) against
+   the plain route (`resample_plain`, atol 1e-5) at the serving wave's
+   clip re-rate (`resample_rows` of the budget's 384 of 448 slots of 0.5 s,
+   22050 -> 11025 Hz, cut to 5,512 samples), one 60 s and one 400 s file
+   at 48 kHz and one 60 s file at 16 kHz (to 22050 Hz), each with its
+   device time, the whole call's, the plain route's, the bound, resident
+   blocks per SM and shared memory, and at the wave `library_ms`, one
+   `F.conv1d(x, h, stride=2)` with TF32 off;
 4. drive the clip path, `Transcriber(device="cuda").transcribe_clips`, at
    the shipped checkpoints: K1-K3's launch counts must rise, the labels
    must equal those of the plain versions fed to the same models, and a
@@ -48,7 +56,9 @@ non-zero:
    kernels must launch, the labels must be the planted notes but the last
    (the reference slicer drops it), and labels, onsets and times must
    equal the CPU plain path's; per-file wall time and the device's busy
-   share of one call;
+   share of one call; at 48000 Hz the time per file also in turns with
+   both re-rates bound to their plain versions (`plain_rerate`, the
+   parent's route);
 6. `[long]`: `transcribe` of a 400 s riff WAV at 22050 Hz, a pluck every
    2.5 s, on the card and on the CPU: K4 and K5 must launch, the labels
    must be the planted notes but the last, and labels, onsets and times
@@ -167,16 +177,18 @@ non-zero:
 19. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
-Each path's kernel launches, K1..K8, are counted from zero just before
+Each path's kernel launches, K1..K9, are counted from zero just before
 it is driven and read just after (`launches_by_path` in the kernels
 line: clips, file, long, files, serve, http, stream, live, cli, train,
 shared, eval, tools, parallel, file_4s, file_4s_shared; K6's row from
 `shared` on; the two K4 pass rows launch on `parallel` only, K6 on
 `shared` and `file_4s_shared` only); every path that segments a file
 (file, long, files, serve, http, cli, eval, tools, parallel and both
-file_4s paths) must launch K7 and K8. `launches` stays the clip path's
-count for K1-K3, the file path's for K4, K5, K7 and K8 and the shared
-clip path's for K6.
+file_4s paths) must launch K7, K8 and K9 (its clips re-rated to the
+checkpoint's rate), and stream, live and train, which re-rate their
+clips or files, K9. `launches` stays the clip path's count for K1-K3,
+the file path's for K4, K5, K7, K8 and K9 and the shared clip path's for
+K6.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -242,6 +254,7 @@ TOOLS_SR = 44100
 CROSS_VARIANTS = 5
 PROFILE_TOP = 60
 POOL = 6                  # distinct input buffers per timing repetition
+PROFILE_TRIES = 3         # traces at most, while a trace loses launches
 
 
 def log(msg: str) -> None:
@@ -328,7 +341,7 @@ def time_ms(fn, pool, reps: int) -> float:
 
 
 def kernel_device_ms(fn, pool, kernel: str) -> float | None:
-    """Device time per call of the device functions of `kernel` (K1..K8,
+    """Device time per call of the device functions of `kernel` (K1..K9,
     `load_roofline().KERNEL_SYMBOLS`), each launched once a call: the sum
     of `symbol_device_ms`. None when the profiler saw no device time."""
     per_call = sum(ms or 0.0 for ms in symbol_device_ms(
@@ -344,29 +357,36 @@ def symbol_device_ms(fn, pool, names) -> dict:
     every buffer of the pool: each function's mean over the launches the
     profiler kept (a trace late in a long process has been seen to keep 4
     of 6 launches, which a sum over the pool would read as a faster
-    kernel; such a loss is logged). None for a function the profiler saw
-    no device time of."""
+    kernel; such a loss is logged). A trace that lost launches of a
+    function is taken again, up to PROFILE_TRIES traces in all, and each
+    function keeps the trace that kept most of its launches. None for a
+    function no trace saw device time of."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    of = load_roofline().device_function
     for x in pool:
         fn(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for x in pool:
-            fn(x)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    of = load_roofline().device_function
-    out = {}
-    for name in names:
-        kept = [e for e in events if of(e.key) == name]
-        n = sum(e.count for e in kept)
-        total = sum(e.self_device_time_total for e in kept)
-        out[name] = total / n / 1e3 if n and total > 0 else None
+    best = {name: (0, None) for name in names}
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for x in pool:
+                fn(x)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        for name in names:
+            kept = [e for e in events if of(e.key) == name]
+            n = sum(e.count for e in kept)
+            total = sum(e.self_device_time_total for e in kept)
+            if n > best[name][0] and total > 0:
+                best[name] = (n, total / n / 1e3)
+        if all(n == len(pool) for n, _ in best.values()):
+            break
+    for name, (n, _) in best.items():
         if n != len(pool):
-            log(f"[profile] {name}: the trace kept {n} of {len(pool)} "
-                f"launches")
-    return out
+            log(f"[profile] {name}: the best of {PROFILE_TRIES} traces kept "
+                f"{n} of {len(pool)} launches")
+    return {name: ms for name, (_, ms) in best.items()}
 
 
 def fmt_ms(ms: float | None) -> str:
@@ -1281,32 +1301,244 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
     return rows
 
 
-# the kernels every path's launches are counted for, K1..K8 in the order
+# [resample]: K9 at the serving wave's clip re-rate (the budget's 384 of
+# 448 slots of 0.5 s at 22050 Hz, cut to the checkpoint's clip length),
+# and at three files a user loads: 60 s and 400 s at 48 kHz (m = 8.82 M:
+# j·down passes 2^31) and 60 s at 16 kHz; (tag, rows, seconds, from, to)
+RESAMPLE_SHAPES = (("wave", 448, 0.5, FILE_SR, SR),
+                   ("60 s at 48 kHz", 1, 60.0, 48000, FILE_SR),
+                   ("400 s at 48 kHz", 1, LONG_SECONDS, 48000, FILE_SR),
+                   ("60 s at 16 kHz", 1, 60.0, 16000, FILE_SR))
+RESAMPLE_BUDGET = 384  # the serving wave's clip budget (serve's default)
+
+
+def resample_data(dev) -> list:
+    """[resample]'s inputs on `dev`, one (x, rows) per RESAMPLE_SHAPES
+    entry: the wave's 448 slots cut from `gate_riffs`' four 60 s riffs,
+    0.5 s each, with the budget's slot-major selection of 384 of them (as
+    `build_files_fn` picks them when every slot is kept; rows None
+    elsewhere), and riffs of a pluck every GATE_SPACING s at the file
+    rates."""
+    import torch
+    out = []
+    for i, (tag, rows, seconds, orig, _) in enumerate(RESAMPLE_SHAPES):
+        files = GATE_FILES if tag == "wave" else rows
+        secs = GATE_SECONDS if tag == "wave" else seconds
+        k = len(np.arange(0.4, secs - 0.45, GATE_SPACING))
+        midi = 40 + np.arange(files * k).reshape(files, k) % 47
+        y = make_riffs(midi, secs, orig, SEED + 20 + i, noise=0.01,
+                       spacing=GATE_SPACING)
+        sel = None
+        if tag == "wave":
+            length = int(seconds * orig)
+            y = y[:, :rows // files * length].reshape(rows, length)
+            p = np.arange(RESAMPLE_BUDGET)
+            sel = torch.from_numpy((p % files) * (rows // files)
+                                   + p // files).to(dev)
+        out.append((torch.from_numpy(np.ascontiguousarray(y)).to(dev), sel))
+    return out
+
+
+def call_device_ms(fn, pool) -> float | None:
+    """Device time per call of every kernel, copy and fill fn launches,
+    from torch.profiler over one call on every buffer of the pool; None
+    when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for x in pool:
+        fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in pool:
+            fn(x)
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    return total / len(pool) / 1e3 if total > 0 else None
+
+
+def time_resample(resample, dev, failures: list, data: list | None = None
+                  ) -> list[dict]:
+    """K9 (`resample.resample_rows` at the wave, `resample.resample` at
+    the files) checked against the plain route (`resample_plain`, the
+    reference's matmul or convolution route; atol 1e-5) and timed at
+    RESAMPLE_SHAPES on `resample_data`'s inputs or `data`: kernel ms in
+    CUDA events over POOL distinct buffers, K9's device ms and the whole
+    call's (every kernel it launches) in the profiler, the plain route's
+    ms (at the wave with its gather and fix_length: the parent's
+    `compaction` gather and `clip_rerate`), the bound
+    (`utils/roofline.py`'s resample_cost at the outputs written, with the
+    wave's int32 index), resident blocks per SM and shared memory a block,
+    and `library_ms`, one `F.conv1d(x, h, stride=down)` of the same rows
+    with TF32 off where up == 1 (None elsewhere: no single PyTorch call
+    computes a polyphase filter with up > 1). A checkout without K9
+    (`tools/torch_onset_timing.py TREE resample` on the parent) has no
+    `resample_plain`: its `resample` is the plain route, timed as the
+    kernel, with no device ms of K9 and no blocks. Returns one row per
+    shape."""
+    import torch
+    import torch.nn.functional as F
+    from gat_tpu_torch.config import CLIP_DURATION
+    from gat_tpu_torch.utils.device import tf32_off
+    roofline = load_roofline()
+    data = data or resample_data(dev)
+    k9 = hasattr(resample, "resample_plain")
+    plain_resample = resample.resample_plain if k9 else resample.resample
+    rows = []
+    for (tag, _, _, orig, target), (x, sel) in zip(RESAMPLE_SHAPES, data):
+        g = int(np.gcd(orig, target))
+        up, down = target // g, orig // g
+        n_src, n = x.shape
+        m = -(-n * up // down)
+        if sel is None:
+            out_len, picked = m, n_src
+
+            def fn(z):
+                return resample.resample(z, orig, target)
+
+            def plain(z):
+                return plain_resample(z, orig, target)
+        else:
+            out_len, picked = int(target * CLIP_DURATION), sel.numel()
+            if k9:
+                def fn(z):
+                    return resample.resample_rows(z, sel, orig, target,
+                                                  out_len)
+            else:
+                def fn(z):
+                    return resample.fix_length(
+                        resample.resample(z[sel], orig, target), out_len)
+
+            def plain(z):
+                return resample.fix_length(plain_resample(z[sel], orig,
+                                                          target), out_len)
+        pool = noisy_pool(x, SEED + 23, 0.001)
+        before = resample.resample.launches if k9 else 0
+        got = fn(x)
+        launched = (resample.resample.launches - before) if k9 else None
+        ref = plain(x)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = (got.shape == ref.shape == (picked, out_len)
+              and bool(torch.isfinite(got).all()) and err <= 1e-5
+              and launched in (None, 1))
+        library_ms = lib_err = None
+        if up == 1:
+            h = torch.from_numpy(resample.resample_filter(up, down)).to(
+                dev)[None, None]
+            lib_pool = [z if sel is None else z[sel] for z in pool]
+
+            def lib(z):
+                return F.conv1d(z[:, None], h, stride=down,
+                                padding=(h.shape[-1] - 1) // 2)[:, 0]
+            with tf32_off(dev, convolutions=True):
+                lib_err = float((lib(lib_pool[0])[:, :out_len]
+                                 - ref).abs().max())
+                library_ms = time_ms(lib, lib_pool, reps=10)
+        del got, ref
+        cost = roofline.resample_cost(picked, n, orig, target, out_len)
+        if sel is not None:
+            cost = (cost[0], cost[1] + 4 * picked)
+        row = dict(shape=tag, rows=picked, samples=n, orig_sr=orig,
+                   target_sr=target, out_len=out_len, up=up, down=down,
+                   route="K9" if k9 else "plain", max_abs_err=err,
+                   launches=launched, ms=time_ms(fn, pool, reps=10),
+                   device_ms=kernel_device_ms(fn, pool, "K9") if k9 else None,
+                   call_device_ms=call_device_ms(fn, pool),
+                   plain_ms=time_ms(plain, pool, reps=3),
+                   library_ms=library_ms, checked=ok)
+        row["bound_ms"], row["bound_by"] = roofline.bound(*cost)
+        row["blocks_per_sm"] = (resample.resample_blocks_per_sm(orig, target)
+                                if k9 else None)
+        layout = ""
+        if k9:
+            vals = [ctypes.c_int(0) for _ in range(4)]
+            taps = resample._phase_taps(up, down, 24, 9.58, dev)
+            resample.kernels.check(resample.kernels.function(
+                "resample", "gat_resample_layout",
+                [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)(
+                    up, down, taps.shape[-1], *map(ctypes.addressof, vals)),
+                "resample layout")
+            tile, span, tab, row["smem_bytes"] = (v.value for v in vals)
+            row["taps_in_smem"] = tab > 0
+            layout = (f", {tile} outputs a block, {row['smem_bytes']} bytes "
+                      f"of shared memory (span {span} floats, table "
+                      f"{tab or 'through the read-only cache'})")
+        log(f"[time] resample {tag} ({picked} x {n} at {orig} -> {target} "
+            f"Hz, up {up} down {down}, {out_len} outputs a row): "
+            f"{row['route']} {row['ms']:.4f} ms (events), "
+            f"{fmt_ms(row['device_ms'])} device (profiler), the call "
+            f"{fmt_ms(row['call_device_ms'])} device; plain "
+            f"{row['plain_ms']:.4f} ms, library "
+            f"{fmt_ms(library_ms)} (max abs err {lib_err}), bound "
+            f"{row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}); max abs err {err:.3g} (atol 1e-5); "
+            f"{row['blocks_per_sm']} blocks/SM{layout} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[resample] {tag}: against the plain route "
+                            f"(err {err:.3g}, launches {launched})")
+        if k9 and row["device_ms"] is None:
+            failures.append(f"[resample] {tag}: no device time of K9 in "
+                            f"the profiler")
+        rows.append(row)
+        del pool
+    torch.cuda.synchronize()
+    return rows
+
+
+def resample_phase(failures: list, device: str = "cuda") -> list[dict]:
+    """`[resample]`: K9 (`csrc/resample.cu`) against the plain route at
+    RESAMPLE_SHAPES, timed (`time_resample`); returns its kernels-line
+    row, the wave's numbers with every shape's in `shapes`."""
+    import torch
+    from gat_tpu_torch.ops import resample
+    shapes = time_resample(resample, torch.device(device), failures)
+    wave = shapes[0]
+    torch.cuda.synchronize()
+    return [dict(name="resample", route="cuda",
+                 source="gat_tpu_torch/csrc/resample.cu",
+                 replaces="gat_tpu/ops/resample.py:89", launches=0,
+                 max_abs_err=max(s["max_abs_err"] for s in shapes),
+                 tolerance="atol 1e-5 against the plain route "
+                           "(resample_plain: the reference's matmul or "
+                           "convolution route, TF32 off)",
+                 ms=wave["ms"], plain_ms=wave["plain_ms"],
+                 bound_ms=wave["bound_ms"], bound_by=wave["bound_by"],
+                 library_ms=wave["library_ms"], device_ms=wave["device_ms"],
+                 blocks_per_sm=wave["blocks_per_sm"], shapes=shapes)]
+
+
+# the kernels every path's launches are counted for, K1..K9 in the order
 # of `utils/roofline.py`'s KERNEL_SYMBOLS, by their kernels-line rows'
-# names; the indices of K1..K8 in a `driven` count; and those that every
+# names; the indices of K1..K9 in a `driven` count; and those that every
 # path that segments a file launches on the FFT route (all but K6)
 KERNEL_ROWS = ("melspec_frontend", "mfcc_frontend", "yin_pitch",
                "onset_envelope", "onset_pick", "mfcc_pitch_frontend",
-               "noise_gate", "slice_clips")
-K1, K2, K3, K4, K5, K6, K7, K8 = range(8)
-SEGMENTING = (K1, K2, K3, K4, K5, K7, K8)
+               "noise_gate", "slice_clips", "resample")
+K1, K2, K3, K4, K5, K6, K7, K8, K9 = range(9)
+# a path that segments a file re-rates its clips to the checkpoint's rate
+# (K9) too
+SEGMENTING = (K1, K2, K3, K4, K5, K7, K8, K9)
 
 
 def kernel_wrappers() -> list:
-    """The wrappers of K1..K8, each counting the launches of its kernel
+    """The wrappers of K1..K9, each counting the launches of its kernel
     (K7's is `gating.noise_gate`, which `rms_gate` and `gate_waveform`
-    call)."""
+    call; K9's count is on `resample.resample`, which `resample_rows`
+    adds to)."""
     from gat_tpu_torch import features
-    from gat_tpu_torch.ops import onset, yin
+    from gat_tpu_torch.ops import onset, resample, yin
     from gat_tpu_torch.segment import gating, slicing
     return [features.melspec_features, features.mfcc_frontend,
             yin.yin_pitch, onset.onset_strength, onset.pick_onsets,
             features.mfcc_pitch_features, gating.noise_gate,
-            slicing.slice_at_onsets]
+            slicing.slice_at_onsets, resample.resample]
 
 
 def not_launched(launches: list, need=SEGMENTING) -> list:
-    """The names of the kernels of `need` (indices K1..K8) that a `driven`
+    """The names of the kernels of `need` (indices K1..K9) that a `driven`
     count shows were not launched."""
     return [KERNEL_ROWS[i] for i in need if launches[i] < 1]
 
@@ -1314,7 +1546,7 @@ def not_launched(launches: list, need=SEGMENTING) -> list:
 def driven(fn) -> tuple:
     """fn() run once with every kernel's launch count set to 0 just before
     and read just after, once the card is idle: (its result, launches
-    K1..K8, wall seconds)."""
+    K1..K9, wall seconds)."""
     import torch
     wrappers = kernel_wrappers()
     torch.cuda.synchronize()
@@ -1328,7 +1560,7 @@ def driven(fn) -> tuple:
 
 
 def record_launches(rows: list, path: str, launches: list) -> None:
-    """Each kernel's launches on one path (K1..K8, a `driven` count), into
+    """Each kernel's launches on one path (K1..K9, a `driven` count), into
     its kernels-line row, found by name (K6's row exists from `[shared]`
     on)."""
     by_name = {row["name"]: row for row in rows}
@@ -1371,13 +1603,13 @@ def file_phase(rows: list, card: str, failures: list) -> None:
             _, launches, _ = driven(
                 lambda: card_t.transcribe(paths[FILE_SR], fused=fused))
             log(f"[file] launches per transcribe(fused={fused}) call, "
-                f"K1..K8: {launches}")
+                f"K1..K9: {launches}")
             if not_launched(launches) or launches[K4] != 1:
                 failures.append(f"a kernel was not launched on the file "
                                 f"path, or K4 more than once "
                                 f"(fused={fused}): {launches}")
             if not fused:
-                for i in (K4, K5, K7, K8):
+                for i in (K4, K5, K7, K8, K9):
                     row = next(r for r in rows
                                if r["name"] == KERNEL_ROWS[i])
                     row["launches"] = launches[i]
@@ -1394,18 +1626,56 @@ def file_phase(rows: list, card: str, failures: list) -> None:
                 if not same:
                     failures.append(f"file path at {sr} Hz (fused={fused})")
             for fused in (False, True):
-                reps = 5
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    card_t.transcribe(path, fused=fused)
-                torch.cuda.synchronize()
-                dt = (time.perf_counter() - t0) / reps
+                def call():
+                    return card_t.transcribe(path, fused=fused)
+                dt = wall_per_call(call, reps=5)
                 log(f"[file] transcribe(3.9 s at {sr} Hz, fused={fused}): "
                     f"{dt * 1e3:.3f} ms/file on {card}")
                 if sr == FILE_SR:
-                    profile_call(lambda: card_t.transcribe(path, fused=fused),
-                                 dt * 1e3)
+                    profile_call(call, dt * 1e3)
+                if sr == 48000:
+                    # in turns with both re-rates (the load to 22050 Hz and
+                    # the clips' to the checkpoint's rate) on the plain
+                    # route, as the parent tree ran them
+                    turns = [wall_per_call(
+                        (lambda: plain_rerate(call)) if plain else call, 5)
+                        for plain in (True, False, False, True)]
+                    log(f"[file] transcribe(3.9 s at {sr} Hz, fused={fused})"
+                        f" in turns: K9 {turns[1] * 1e3:.3f}, "
+                        f"{turns[2] * 1e3:.3f} ms/file, the plain re-rate "
+                        f"(the parent's) {turns[0] * 1e3:.3f}, "
+                        f"{turns[3] * 1e3:.3f} ms/file on {card}")
+
+
+def wall_per_call(fn, reps: int) -> float:
+    """Host seconds per call of fn over `reps` calls, from an idle card to
+    an idle card."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def plain_rerate(fn):
+    """fn() with the Transcriber's and the file body's re-rates bound to
+    the plain versions (`resample_plain`, `resample_rows_plain`): the
+    parent tree's route, for a comparison in one process. Restored on
+    return."""
+    from gat_tpu_torch.infer import pipeline, transcriber
+    from gat_tpu_torch.ops import resample
+    saved = (transcriber.resample, transcriber.resample_rows,
+             pipeline.resample_rows)
+    transcriber.resample = resample.resample_plain
+    transcriber.resample_rows = pipeline.resample_rows = (
+        resample.resample_rows_plain)
+    try:
+        return fn()
+    finally:
+        (transcriber.resample, transcriber.resample_rows,
+         pipeline.resample_rows) = saved
 
 
 def long_phase(rows: list, card: str, failures: list) -> None:
@@ -1431,7 +1701,7 @@ def long_phase(rows: list, card: str, failures: list) -> None:
         card_t.transcribe(path)  # first call at this length
         got, launches, wall = driven(lambda: card_t.transcribe(path))
         record_launches(rows, "long", launches)
-        launches = [launches[i] for i in (K4, K5, K7, K8)]
+        launches = [launches[i] for i in (K4, K5, K7, K8, K9)]
         t0 = time.perf_counter()
         ref = cpu_t.transcribe(path)
         cpu_wall = time.perf_counter() - t0
@@ -1439,14 +1709,15 @@ def long_phase(rows: list, card: str, failures: list) -> None:
     same = same and got["labels"] == planted
     log(f"[long] transcribe({LONG_SECONDS:g} s at {FILE_SR} Hz, {k} plucks): "
         f"{len(got['labels'])} labels, {wall * 1e3:.3f} ms on {card} "
-        f"(CPU plain path {cpu_wall:.1f} s); K4, K5, K7, K8 launches "
+        f"(CPU plain path {cpu_wall:.1f} s); K4, K5, K7, K8, K9 launches "
         f"{launches}; "
         f"labels the planted notes but the last, and labels, onsets and "
         f"times equal to the CPU's: {same} (max prob err {err:.3g})")
     if not same:
         failures.append("[long] card and CPU disagree on the 400 s file")
     if min(launches) < 1:
-        failures.append(f"[long] K4, K5, K7 or K8 not launched: {launches}")
+        failures.append(f"[long] K4, K5, K7, K8 or K9 not launched: "
+                        f"{launches}")
 
 
 def wave(rows_s: list, seconds: float, spacing: float, seed: int):
@@ -1615,7 +1886,7 @@ def files_phase(rows: list, card: str, failures: list,
             log(f"[files] transcribe_files({len(paths)} files, "
                 f"{audio_s:g} audio-s, buckets 2/4/16/512 s): {wall * 1e3:.3f} "
                 f"ms on {card} (CPU plain path {cpu_s:.1f} s); launches "
-                f"K1..K8 {launches}, host transfers {n_host}; equal to the "
+                f"K1..K9 {launches}, host transfers {n_host}; equal to the "
                 f"CPU's {n_same}/{len(paths)} (max prob err "
                 f"{max(e for _, e in checks):.3g}), planted labels "
                 f"{n_planted}/{len(paths)}, silent file empty "
@@ -1663,7 +1934,7 @@ def files_phase(rows: list, card: str, failures: list,
                 log(f"[files] transcribe_files({name}): {ms:.3f} ms/call, "
                     f"{ms / n_files:.3f} ms/file, {n_files / ms * 1e3:.1f} "
                     f"files/s, {secs / ms * 1e3:.1f} audio-s/s; launches "
-                    f"K1..K8 {launches}, host transfers {n_host}; on {card}")
+                    f"K1..K9 {launches}, host transfers {n_host}; on {card}")
                 if n_files >= 16:
                     out[name]["busy_ms"] = profile_call(fn, ms)
             ms = wall_ms(lambda: [card_t.transcribe(p) for p in riffs], 1)
@@ -1717,7 +1988,7 @@ def serve_phase(rows: list, card: str, failures: list,
                for s in want}
         ok = n == SERVE_FILES and got == want and not not_launched(launches)
         log(f"[serve] serve(once=True, batch=4) over {SERVE_FILES} riffs: "
-            f"{wall * 1e3:.3f} ms, launches K1..K8 {launches}; labels equal "
+            f"{wall * 1e3:.3f} ms, launches K1..K9 {launches}; labels equal "
             f"to the CPU's {got == want} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("[serve] the watch folder's labels or launches")
@@ -1770,7 +2041,7 @@ def serve_phase(rows: list, card: str, failures: list,
         log(f"[serve] serve_http(batch=4): {SERVE_FILES} concurrent POSTs in "
             f"{wall * 1e3:.3f} ms, {metrics['gat_device_dispatches_total']} "
             f"dispatches carrying {metrics['gat_dispatch_files_sum']} files, "
-            f"launches K1..K8 {launches}; every answer 200 with the CPU's "
+            f"launches K1..K9 {launches}; every answer 200 with the CPU's "
             f"labels {same}; server stopped {not server.is_alive()} -> "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1969,14 +2240,14 @@ def stream_phase(rows: list, card: str, failures: list,
                             and r["labels"][0] == lab for r in got)
                         for t, lab in planted)
             ok = (slots_same and same and found == len(planted)
-                  and not not_launched(launches, (K1, K2, K3, K4, K5))
+                  and not not_launched(launches, (K1, K2, K3, K4, K5, K9))
                   and n_host == 2 * windows)
             tag = f"transcribe_stream({seconds:g} s, {n_chunks} chunks, " \
                   f"{windows} windows)"
             log(f"[stream] {tag}: {len(got)} notes, planted found "
                 f"{found}/{len(planted)}; slots identical to the CPU's "
                 f"{slots_same}, notes equal {same} (max prob err "
-                f"{err:.3g}); launches K1..K8 {launches}, host transfers "
+                f"{err:.3g}); launches K1..K9 {launches}, host transfers "
                 f"{n_host} (2 per window), synchronizing calls "
                 f"{sum(n_sync.values())} {dict(n_sync)}; "
                 f"{wall * 1e3:.3f} ms on {card} (CPU plain path "
@@ -2042,11 +2313,12 @@ def live_phase(rows: list, card: str, failures: list,
            if not i or labels[i - 1] != lab]  # same-label echoes collapsed
     detecting = launches[3]
     ok = (same and seq == [lab for _, lab in planted]
-          and detecting == launches[4] > 0 and transfers[0] == detecting)
+          and detecting == launches[4] > 0 and transfers[0] == detecting
+          and launches[K9] >= 1)
     log(f"[live] run_on_source({STREAM_SECONDS:g} s riff, {len(planted)} "
         f"plucks, {polls} polls): {len(got)} notes transcribed, labels "
         f"equal to the CPU's {same} (max prob err {err:.3g}), the planted "
-        f"sequence {seq == [lab for _, lab in planted]}; launches K1..K8 "
+        f"sequence {seq == [lab for _, lab in planted]}; launches K1..K9 "
         f"{launches} ({detecting} detecting polls, K4/K5 once each), onset "
         f"transfers {transfers[0]}, synchronizing calls "
         f"{sum(n_sync.values())} {dict(n_sync)}; {wall * 1e3:.3f} ms, "
@@ -2110,7 +2382,7 @@ def cli_phase(rows: list, card: str, failures: list,
             if not ok:
                 failures.append(f"[cli] {name}: the card's results differ")
     log(f"[cli] the three card runs: {wall * 1e3:.3f} ms with checkpoint "
-        f"loads, launches K1..K8 {launches} on {card}")
+        f"loads, launches K1..K9 {launches} on {card}")
     if not_launched(launches):
         failures.append(f"[cli] a kernel was not launched: {launches}")
 
@@ -2236,7 +2508,7 @@ def train_phase(rows: list, card: str, failures: list,
               and e_pitch <= 2e-3 and e_mel <= 0.1
               and np.isfinite(mf).all() and np.isfinite(mel).all())
         log(f"[train] FeatureBuilder on {len(y)} clips: X {mf.shape} and "
-            f"{mel.shape}; launches K1..K8 {l_mf} (MFCC) and {l_mel} (mel); "
+            f"{mel.shape}; launches K1..K9 {l_mf} (MFCC) and {l_mel} (mel); "
             f"vs the CPU plain path ({cpu_s:.1f} s): MFCC max abs err "
             f"{e_mfcc:.3g} (1e-3), pitch rel {e_pitch:.3g} (2e-3), mel "
             f"{e_mel:.3g} dB (0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
@@ -2281,12 +2553,12 @@ def train_phase(rows: list, card: str, failures: list,
         record_launches(rows, "train", launches)
         finite = all(np.isfinite(t.train_loss_history + t.val_loss_history)
                      .all() for t in (mlp_t, cnn_t))
-        ok = (min(launches[:3]) >= 1 and finite
+        ok = (min(launches[:3]) >= 1 and launches[K9] >= 1 and finite
               and mlp_t.epoch == cnn_t.epoch == TRAIN_EPOCHS
               and n_host == 2 * TRAIN_EPOCHS)
         log(f"[train] train_all({len(y)} clips, {TRAIN_EPOCHS} epochs) in "
             f"{wall:.2f} s (synthesis {synth_s:.1f} s before it): launches "
-            f"K1..K8 {launches}, host transfers {n_host} (one per epoch), "
+            f"K1..K9 {launches}, host transfers {n_host} (one per epoch), "
             f"losses finite {finite} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("[train] train_all: launches, transfers or "
@@ -2391,7 +2663,7 @@ def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
                         for a, b in zip(one, ref))
     ok = same and launches[4] == 1
     log(f"[api] pick_onsets_from_envelope at {tuple(env.shape)}: launches "
-        f"K1..K8 {launches}; outputs identical to pick_onsets_plain's "
+        f"K1..K9 {launches}; outputs identical to pick_onsets_plain's "
         f"{same} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("[api] pick_onsets_from_envelope")
@@ -2429,7 +2701,7 @@ def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
             ok = (launches[:3] == [1, 1, 1] and e_mfcc <= 1e-3
                   and e_pitch <= 2e-3 and e_mel <= 0.1
                   and np.isfinite(mf).all() and np.isfinite(ms).all())
-            log(f"[api] {name}: {mf.shape} and {ms.shape}; launches K1..K8 "
+            log(f"[api] {name}: {mf.shape} and {ms.shape}; launches K1..K9 "
                 f"{launches}; vs the CPU: MFCC max abs err {e_mfcc:.3g} "
                 f"(1e-3), pitch rel {e_pitch:.3g} (2e-3), mel {e_mel:.3g} dB "
                 f"(0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
@@ -2556,7 +2828,7 @@ def eval_phase(rows: list, card: str, failures: list,
     log(f"[eval] evaluate_set on {len(EVAL_SETS)} sets and evaluate_wav_dir "
         f"on {card_wav['n_files']} files: {wall:.2f} s on the card side, of "
         f"which synthesis {synth_s:.2f} s (host); CPU plain path {cpu_s:.1f} "
-        f"s; launches K1..K8 {launches} on {card}")
+        f"s; launches K1..K9 {launches} on {card}")
     if not_launched(launches):
         failures.append(f"[eval] a kernel was not launched: {launches}")
     for name, _ in EVAL_SETS:
@@ -2671,7 +2943,7 @@ def tools_phase(rows: list, card: str, failures: list,
         for i, n in enumerate(launches):
             total[i] += n
         ok = all(launches[i] >= 1 for i in need)
-        log(f"[tools] {what}: {wall:.2f} s, launches K1..K8 {launches}"
+        log(f"[tools] {what}: {wall:.2f} s, launches K1..K9 {launches}"
             + ("" if ok else " -> FAIL (a kernel was not launched)"))
         if not ok:
             failures.append(f"[tools] {what}: launches {launches}")
@@ -3051,7 +3323,7 @@ def parallel_phase(rows: list, card: str, failures: list,
             row["launches"] = n
             row["launches_by_path"] = {"parallel": n}
         rows += new_rows
-        log(f"[parallel] launches K1..K8 {launches[:n_k]}, onset_mel_db "
+        log(f"[parallel] launches K1..K9 {launches[:n_k]}, onset_mel_db "
             f"{launches[n_k]}, onset_flux {launches[n_k + 1]}")
         if not_launched(launches) or min(launches[n_k:]) < 1:
             failures.append(f"[parallel] a kernel was not launched: "
@@ -3198,7 +3470,7 @@ def shared_phase(rows: list, card: str, failures: list,
             ok = (same and launches[:K4] == [1, 0, 0]
                   and launches[K6] == 1)
             log(f"[shared] transcribe_clips({n}) on the shared route: "
-                f"launches K1..K8 {launches}; labels "
+                f"launches K1..K9 {launches}; labels "
                 f"equal to the FFT route's {res['labels'] == fft_clips['labels']}"
                 f", max prob diff {err:.3g} (1e-2) -> "
                 f"{'ok' if ok else 'FAIL'}")
@@ -3466,16 +3738,17 @@ def file_4s_phase(rows: list, card: str, failures: list,
                 got, launches, wall = driven(call)
                 ref = cpu_t.transcribe(path, clip_duration=4.0)
                 same, err = same_result(got, ref)
-                # K1..K8 launched or not: K6 in place of K2 and K3 on the
-                # matmul route, the segmentation's K4, K5, K7, K8 on both
-                want = ([1, 1, 1, 1, 1, 0, 1, 1] if route == "fft"
-                        else [1, 0, 0, 1, 1, 1, 1, 1])
+                # K1..K9 launched or not: K6 in place of K2 and K3 on the
+                # matmul route, the segmentation's K4, K5, K7, K8 and the
+                # clip re-rate's K9 on both
+                want = ([1, 1, 1, 1, 1, 0, 1, 1, 1] if route == "fft"
+                        else [1, 0, 0, 1, 1, 1, 1, 1, 1])
                 ok = (same and bool(got["labels"])
                       and [min(k, 1) for k in launches] == want)
                 log(f"[file] transcribe(12 s riff, clip_duration=4.0) on "
                     f"the {route} route: labels {got['labels']}, onsets "
                     f"{got['onsets_s']}; equal to the CPU plain path {same} "
-                    f"(max prob err {err:.3g}); launches K1..K8 {launches}; "
+                    f"(max prob err {err:.3g}); launches K1..K9 {launches}; "
                     f"{wall * 1e3:.3f} ms on {card} -> "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -3632,6 +3905,7 @@ def main() -> int:
 
     rows += check_file_kernels(dev, failures)
     rows += gate_phase(failures)
+    rows += resample_phase(failures)
 
     # ---- 4. the clip path -------------------------------------------------
     t = Transcriber(device="cuda")
@@ -3755,6 +4029,10 @@ def main() -> int:
 
     if failures:
         log(f"[fail] {failures}")
+        # also on standard error, whose end a caller that keeps only that
+        # shows: the reasons, not only the exit code
+        print(f"chip_smoke: {len(failures)} failed: {failures}",
+              file=sys.stderr, flush=True)
         return 1
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

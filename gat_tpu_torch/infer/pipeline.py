@@ -19,7 +19,7 @@ import torch
 from ..features import (melspec_features, mfcc_feature_vectors,
                         mfcc_pitch_features, shared_frontend,
                         shared_pitch_is_raw)
-from ..ops.resample import fix_length, resample
+from ..ops.resample import fix_length, resample, resample_rows
 from ..ops.yin import yin_pitch
 from ..utils.profiling import annotate
 
@@ -153,10 +153,13 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
                                       return_parts=True)
     clip_len = int(ckpt_sr * clip_duration)
 
-    def classify(clips):
+    def classify(clips, rows=None):
+        # rows `rows` of the clips (None: all), re-rated and cut to the
+        # checkpoint's clip length in one step (on the card one launch of
+        # K9, which reads the picked rows where they lie)
         with annotate("clip_rerate"):
-            comp = fix_length(resample(clips, target_sr, ckpt_sr),
-                              clip_len).contiguous()
+            comp = resample_rows(clips, rows, target_sr, ckpt_sr,
+                                 clip_len).contiguous()
         parts, pitch = ensemble(comp, with_pitch=True)
         return (*parts, pitch)
 
@@ -205,8 +208,8 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
                 n_sel = sel.numel()
                 # a rank none of whose slots is picked classifies one
                 # slot that nothing reads, so no kernel sees 0 clips
-                picked = flat[sel if n_sel else sel.new_zeros(1)]
-            parts = classify(picked)
+                picked = sel if n_sel else sel.new_zeros(1)
+            parts = classify(flat, picked)
 
             def scatter(x):
                 if x is None:

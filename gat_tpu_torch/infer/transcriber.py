@@ -28,7 +28,7 @@ from ..config import (CLIP_DURATION, CNN_CONFIG, DEFAULT_MAX_BATCH,
                       DEFAULT_MAX_ONSETS, INFERENCE_OUTPUT_ROOT, MLP_CONFIG,
                       TARGET_SR)
 from ..features import FeatureBuilder
-from ..ops.resample import fix_length, resample
+from ..ops.resample import fix_length, resample, resample_rows
 from ..ops.yin import estimate_note, yin_pitch
 from ..segment.slicing import save_clip, segment_waveform
 from ..train.checkpoint import load_checkpoint
@@ -550,18 +550,18 @@ class Transcriber:
         idx_kept = np.flatnonzero(kept)
         if idx_kept.size == 0:
             raise ValueError("[transcribe] No clips survived slicing.")
-        clips_kept = clips[torch.from_numpy(idx_kept).to(clips.device)]
+        rows = torch.from_numpy(idx_kept).to(clips.device)
 
         if save_clips:
             stamp = datetime.now().strftime("%m-%d_%H-%M-%S")
             out_dir = Path(out_root) / f"{audio_name}_{stamp}" / audio_name
-            for i, clip in zip(idx_kept, clips_kept.cpu().numpy()):
+            for i, clip in zip(idx_kept, clips[rows].cpu().numpy()):
                 save_clip(clip, target_sr, out_dir, int(i),
                           onsets[i] / target_sr)
 
-        # adopt the checkpoint's sample rate
-        clips_ckpt = fix_length(resample(clips_kept, target_sr, self.ckpt_sr),
-                                int(self.ckpt_sr * clip_duration))
+        # the kept clips at the checkpoint's sample rate and clip length
+        clips_ckpt = resample_rows(clips, rows, target_sr, self.ckpt_sr,
+                                   int(self.ckpt_sr * clip_duration))
         result = self.transcribe_clips(clips_ckpt)
         result["onsets_s"] = (onsets[kept] / float(target_sr)).tolist()
         result["times"] = times[kept].tolist()

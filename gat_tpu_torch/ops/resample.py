@@ -1,8 +1,16 @@
 """Polyphase sample-rate conversion, the twin of `gat_tpu/ops/resample.py`.
 
 The anti-aliasing FIR (Kaiser-windowed sinc, 24 zero crossings, β 9.58)
-is designed once on the host with scipy and applied on the tensor's
-device in full float32:
+is designed once on the host with scipy; output j of a row of n samples
+is sum_k x[i0 + k]·hp[delta][k], i0 = ceil((j·down − half) / up), delta =
+i0·up − (j·down − half), over the phase table hp of `_polyphase_plan`.
+
+On the card, `resample` and `resample_rows` launch the hand-written
+kernel `csrc/resample.cu` (K9), which computes only the taps each output
+needs and writes only the outputs; `resample_rows` also reads the rows it
+is given and cuts or zero-pads them, `fix_length(resample(x[rows]))` in
+one launch. On the CPU both take the plain versions, the reference's
+routes in full float32:
 
 * pure decimation (`up == 1`: the 22050 → 11025 clip re-rate, 44100 →
   22050) groups the outputs into super-frames of 128 and multiplies each
@@ -16,6 +24,7 @@ keeps about three decimal digits.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -23,9 +32,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from ..utils.device import tf32_off
 
-__all__ = ["resample", "resample_filter", "fix_length"]
+__all__ = ["resample", "resample_rows", "resample_plain",
+           "resample_rows_plain", "resample_filter", "fix_length",
+           "resample_blocks_per_sm"]
 
 _SUPER_FRAME = 128  # outputs per super-frame of the decimation matmul
 
@@ -100,15 +112,18 @@ def _phase_taps(up: int, down: int, zeros: int, beta: float,
     return torch.from_numpy(hp)[:, None, :].to(device)
 
 
-def resample(y: torch.Tensor, orig_sr: int, target_sr: int,
-             zeros: int = 24, beta: float = 9.58) -> torch.Tensor:
-    """Resample the last axis: (..., n) → (..., m), m = ceil(n·target /
-    orig) (librosa.resample's fix=True length). The same tensor when the
-    rates match."""
+def _ratio(orig_sr: int, target_sr: int) -> tuple[int, int]:
+    g = math.gcd(int(orig_sr), int(target_sr))
+    return int(target_sr) // g, int(orig_sr) // g
+
+
+def resample_plain(y: torch.Tensor, orig_sr: int, target_sr: int,
+                   zeros: int = 24, beta: float = 9.58) -> torch.Tensor:
+    """`resample` by the reference's routes (the module's docstring), on
+    any device: the CPU path, and K9's yardstick on the card."""
     if orig_sr == target_sr:
         return y
-    g = math.gcd(int(orig_sr), int(target_sr))
-    up, down = target_sr // g, orig_sr // g
+    up, down = _ratio(orig_sr, target_sr)
     batch_shape = y.shape[:-1]
     n = y.shape[-1]
     if n == 0:
@@ -147,6 +162,136 @@ def resample(y: torch.Tensor, orig_sr: int, target_sr: int,
                        for s in range(phases)], dim=-1)
     return out.reshape(z.shape[0], t_len * phases)[:, :m].reshape(
         batch_shape + (m,))
+
+
+def resample_rows_plain(x: torch.Tensor, rows, orig_sr: int,
+                        target_sr: int, out_len: int, zeros: int = 24,
+                        beta: float = 9.58) -> torch.Tensor:
+    """`resample_rows` as the reference composes it:
+    fix_length(resample(x[rows]), out_len)."""
+    x = _as_rows(x)
+    if rows is not None:
+        x = x[torch.as_tensor(rows, dtype=torch.int64, device=x.device)]
+    return fix_length(resample_plain(x, orig_sr, target_sr, zeros, beta),
+                      out_len)
+
+
+_RESAMPLE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def _k9(x: torch.Tensor, rows: torch.Tensor | None, up: int, down: int,
+        zeros: int, beta: float, out_len: int) -> torch.Tensor:
+    """K9 on contiguous float32 rows x (N, n), n >= 1, on the card: the
+    (len(rows) or N, out_len) outputs."""
+    dev = x.device
+    n_src, n = x.shape
+    taps = _phase_taps(up, down, zeros, beta, dev)
+    half = (resample_filter(up, down, zeros, beta).shape[0] - 1) // 2
+    n_rows = n_src if rows is None else rows.numel()
+    out = torch.empty((n_rows, out_len), dtype=torch.float32, device=dev)
+    if n_rows == 0 or out_len == 0:
+        return out
+    if max(n_src, n, out_len) > 0x7fffffff:
+        raise ValueError(f"[resample] {n_src} rows of {n} samples to "
+                         f"{out_len}: the kernel takes int32 sizes")
+    fn = kernels.function("resample", "gat_resample", _RESAMPLE_ARGS)
+    with kernels.device_guard(dev):
+        status = fn(x.data_ptr(), None if rows is None else rows.data_ptr(),
+                    taps.data_ptr(), out.data_ptr(), n_src, n, n_rows,
+                    out_len, up, down, taps.shape[-1], half,
+                    kernels.stream(dev))
+    kernels.check(status, "resample")
+    resample.launches += 1
+    return out
+
+
+def _as_rows(x: torch.Tensor) -> torch.Tensor:
+    """x (..., n) as (N, n) rows, n = 0 included."""
+    return x.reshape(math.prod(x.shape[:-1]), x.shape[-1])
+
+
+def _rows_on(x: torch.Tensor) -> torch.Tensor:
+    """(N, n) contiguous float32 rows of x (..., n), cast once."""
+    return _as_rows(x).to(torch.float32).contiguous()
+
+
+def resample(y: torch.Tensor, orig_sr: int, target_sr: int,
+             zeros: int = 24, beta: float = 9.58) -> torch.Tensor:
+    """Resample the last axis: (..., n) → (..., m), m = ceil(n·target /
+    orig) (librosa.resample's fix=True length), in float32. The same
+    tensor when the rates match.
+
+    CUDA tensor: the kernel `csrc/resample.cu` (K9), one launch over the
+    rows (stereo (2, n) is two rows); none for n = 0. CPU tensor:
+    `resample_plain`. K9's launches, from this and `resample_rows`, are
+    counted on `resample.launches`."""
+    if orig_sr == target_sr:
+        return y
+    if y.device.type == "cpu":
+        return resample_plain(y, orig_sr, target_sr, zeros, beta)
+    if y.device.type != "cuda":
+        raise ValueError(f"[resample] unsupported device {y.device}")
+    up, down = _ratio(orig_sr, target_sr)
+    n = y.shape[-1]
+    m = -(-n * up // down)
+    if n == 0:
+        return torch.zeros(y.shape[:-1] + (0,), dtype=torch.float32,
+                           device=y.device)
+    return _k9(_rows_on(y), None, up, down, zeros, beta, m).reshape(
+        y.shape[:-1] + (m,))
+
+
+resample.launches = 0
+
+
+def resample_rows(x: torch.Tensor, rows, orig_sr: int, target_sr: int,
+                  out_len: int, zeros: int = 24,
+                  beta: float = 9.58) -> torch.Tensor:
+    """fix_length(resample(x[rows], orig_sr, target_sr), out_len): the rows
+    `rows` (int indices into the rows of x (..., n); None for all of them,
+    in order) re-rated and cut or zero-padded to `out_len` samples,
+    (len(rows), out_len) float32.
+
+    CUDA tensor: one launch of K9 that reads the rows where they lie (no
+    gathered copy) and writes exactly `out_len` outputs a row; a row index
+    outside the rows of x gives a row of NaN. The rates equal: the gather
+    and the cut alone. CPU tensor: `resample_rows_plain`."""
+    if x.device.type == "cpu":
+        return resample_rows_plain(x, rows, orig_sr, target_sr, out_len,
+                                   zeros, beta)
+    if x.device.type != "cuda":
+        raise ValueError(f"[resample_rows] unsupported device {x.device}")
+    if out_len < 0:
+        raise ValueError(f"[resample_rows] out_len must be >= 0, got "
+                         f"{out_len}")
+    if rows is not None:
+        rows = torch.as_tensor(rows, device=x.device).to(
+            torch.int32).reshape(-1).contiguous()
+    if orig_sr == target_sr:
+        x = _as_rows(x)
+        return fix_length(x if rows is None else x[rows.long()], out_len)
+    up, down = _ratio(orig_sr, target_sr)
+    x = _rows_on(x)
+    if x.shape[-1] == 0:
+        n_rows = x.shape[0] if rows is None else rows.numel()
+        return torch.zeros((n_rows, out_len), dtype=torch.float32,
+                           device=x.device)
+    return _k9(x, rows, up, down, zeros, beta, out_len)
+
+
+def resample_blocks_per_sm(orig_sr: int, target_sr: int, zeros: int = 24,
+                           beta: float = 9.58) -> int:
+    """K9's resident blocks per SM at these rates, as the CUDA runtime
+    computes it on the current device (raising its shared-memory
+    attribute as a launch does)."""
+    up, down = _ratio(orig_sr, target_sr)
+    k_taps = -(-resample_filter(up, down, zeros, beta).shape[0] // up)
+    blocks = ctypes.c_int(0)
+    fn = kernels.function("resample", "gat_resample_blocks_per_sm",
+                          [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    kernels.check(fn(up, down, k_taps, ctypes.addressof(blocks)),
+                  "resample occupancy")
+    return blocks.value
 
 
 def fix_length(y: torch.Tensor, size: int) -> torch.Tensor:

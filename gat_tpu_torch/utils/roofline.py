@@ -13,7 +13,7 @@ one denominator.
 K1-K3 and K6 are counted per clip batch (N clips of `length` samples at
 `sr`), K4 and K7 per batch of files (B files of n samples), K5 per batch
 of envelopes (B envelopes of T frames), K8 per batch of slots (B files of
-n samples, K slots each, of `length` samples).
+n samples, K slots each, of `length` samples), K9 per batch of rows.
 
 `chip_smoke.py` loads this file by path from its own checkout, so that
 another checkout timed by it (`tools/torch_onset_timing.py`) is held to
@@ -37,7 +37,7 @@ __all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS",
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# the device functions of K1-K8 (`device_function` of the profiler's names)
+# the device functions of K1-K9 (`device_function` of the profiler's names)
 KERNEL_SYMBOLS = {
     "K1": ("melspec_frontend_kernel",),
     "K2": ("mfcc_frontend_kernel",),
@@ -48,6 +48,7 @@ KERNEL_SYMBOLS = {
     "K7": ("noise_gate_rms_kernel", "noise_gate_threshold_kernel",
            "noise_gate_apply_kernel"),
     "K8": ("slice_clips_kernel",),
+    "K9": ("resample_kernel",),
 }
 
 
@@ -255,19 +256,23 @@ def window_samples(times, valid, n_valid, sr: int) -> int:
     return int(torch.where(inside, (end - start).clamp(min=0), 0).sum())
 
 
-def resample_cost(rows: int, n_in: int, sr_in: int, sr_out: int
-                  ) -> tuple[int, int]:
+def resample_cost(rows: int, n_in: int, sr_in: int, sr_out: int,
+                  out_len: int | None = None) -> tuple[int, int]:
     """The polyphase Kaiser filter from `sr_in` to `sr_out` over `rows`
-    signals of `n_in` samples: a multiply-add per tap of each output
-    sample's phase; the signals read and the outputs written once."""
+    signals of `n_in` samples (K9): a multiply-add per tap of each output
+    sample's phase; the signals read and the outputs written once. With
+    `out_len` the outputs are cut or zero-padded to that many
+    (`resample_rows`): min(m, out_len) computed, out_len written."""
     if sr_in == sr_out:
         return 0, 0
     from gat_tpu_torch.ops.resample import resample_filter
     g = math.gcd(sr_in, sr_out)
     up, down = sr_out // g, sr_in // g
     n_out = -(-n_in * up // down)
+    written = n_out if out_len is None else out_len
     taps = -(-resample_filter(up, down).size // up)
-    return 2 * taps * rows * n_out, 4 * rows * (n_in + n_out)
+    return (2 * taps * rows * min(n_out, written),
+            4 * rows * (n_in + written))
 
 
 def module_cost(module, example_shape: tuple) -> tuple[int, int]:

@@ -10,10 +10,11 @@ import pytest
 import torch
 
 from gat_tpu_torch import features
-from gat_tpu_torch.ops import onset, spectral, yin
+from gat_tpu_torch.ops import onset, resample, spectral, yin
 from gat_tpu_torch.segment import gating, slicing
 from test_torch_kernels_emulated import (FILE_SR, GATE_MIN_DB, LIVE_MIN_SEP,
-                                         LIVE_RING, RIFF_NOTES, SLICE_PINS,
+                                         LIVE_RING, RESAMPLE_RATES,
+                                         RIFF_NOTES, SLICE_PINS,
                                          SLICE_PINS_PAST_ROW, _digest,
                                          check_gate,
                                          check_mel_image, check_slice,
@@ -1422,3 +1423,116 @@ def test_slice_clips_card_unaligned_rows(offset):
         check_slice(tuple(x.cpu() for x in got), tuple(
             x.cpu() for x in slicing.slice_at_onsets_plain(
                 y, onsets, valid, FILE_SR, **kw)), -40.0)
+
+
+# ---------------------------------------------------------------------------
+# K9 (polyphase resampler)
+# ---------------------------------------------------------------------------
+def card_rows(rows: int, seconds: float, sr: int, seed: int = 0
+              ) -> torch.Tensor:
+    """(rows, seconds at sr) of the plucked riff at 22050 Hz's notes
+    resized to that length, plus noise of sigma 0.05, on the card."""
+    dev = _card()
+    n = int(seconds * sr)
+    rng = np.random.default_rng(seed)
+    riff = pluck_riff(sr, 3.9)
+    y = np.resize(riff, (rows, n)) + rng.normal(0, 0.05, (rows, n))
+    return torch.from_numpy(y.astype(np.float32)).to(dev)
+
+
+# chip_smoke's [resample] shapes: the serving wave's 384 clips of 0.5 s at
+# 22050 Hz, one 60 s and one 400 s file at 48 kHz (m = 8.82 M outputs:
+# j·down passes 2^31), one 60 s file at 16 kHz
+RESAMPLE_SHAPES = [(384, 0.5, 22050, 11025), (1, 60.0, 48000, 22050),
+                   (1, 400.0, 48000, 22050), (1, 60.0, 16000, 22050)]
+
+
+@pytest.mark.parametrize("rows, seconds, orig, target", RESAMPLE_SHAPES)
+def test_resample_kernel_card_vs_plain(rows, seconds, orig, target):
+    """K9 against `resample_plain` on the card at atol 1e-5, one launch a
+    call; at 400 s the last outputs' j·down is past 2^31."""
+    y = card_rows(rows, seconds, orig)
+    before = resample.resample.launches
+    got = resample.resample(y, orig, target)
+    ref = resample.resample_plain(y, orig, target)
+    torch.cuda.synchronize()
+    assert resample.resample.launches == before + 1
+    assert got.shape == ref.shape == (rows, -(-y.shape[1] * target // orig))
+    if seconds == 400.0:
+        assert (got.shape[1] - 1) * 320 > 2 ** 31
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("orig,target", RESAMPLE_RATES)
+@pytest.mark.parametrize("length", [1, 7, 1001, 4099])
+def test_resample_kernel_card_lengths(orig, target, length):
+    """The emulated test's rate pairs and lengths on the card: stereo
+    (2, n) and one (2, 1, n), against the plain version at 1e-5."""
+    dev = _card()
+    x = torch.from_numpy(np.random.default_rng(length).normal(
+        0, 0.3, (2, length)).astype(np.float32)).to(dev)
+    for y in (x, x[:, None]):
+        got = resample.resample(y, orig, target)
+        ref = resample.resample_plain(y, orig, target)
+        assert got.shape == ref.shape
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+def test_resample_rows_card_vs_plain():
+    """`resample_rows` on the card against `resample_rows_plain`: the
+    wave's budget (384 of 448 slots, permuted, cut to 5,512), one row
+    padded past m, every row, rows from the host, and the empty
+    selection's one dummy row; a row index outside x gives NaN."""
+    x = card_rows(448, 0.5, 22050, seed=4)
+    sel = torch.randperm(448, generator=torch.Generator().manual_seed(0)
+                         )[:384].cuda()
+    for rows, out_len in ((sel, 5512), (sel[:1], 6000), (None, 5512),
+                          (np.array([7, 3]), 100), (sel.new_zeros(1), 5512)):
+        before = resample.resample.launches
+        got = resample.resample_rows(x, rows, 22050, 11025, out_len)
+        ref = resample.resample_rows_plain(x, rows, 22050, 11025, out_len)
+        torch.cuda.synchronize()
+        assert resample.resample.launches == before + 1
+        assert got.shape == ref.shape
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    bad = resample.resample_rows(x, [0, 448], 48000, 22050, 50).cpu()
+    assert not bool(bad[0].isnan().any()) and bool(bad[1].isnan().all())
+
+
+def test_resample_card_never_reaches_conv_or_matmul(monkeypatch):
+    """A CUDA-tensor call of `resample` or `resample_rows` launches K9 for
+    every rate pair and calls neither `F.conv1d` nor `torch.matmul`;
+    n = 0 launches nothing."""
+    dev = _card()
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 0.3, (2, 3000)).astype(np.float32)).to(dev)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain route on the card")
+    monkeypatch.setattr(torch.nn.functional, "conv1d", refuse)
+    monkeypatch.setattr(torch, "matmul", refuse)
+    for orig, target in RESAMPLE_RATES:
+        before = resample.resample.launches
+        resample.resample(x, orig, target)
+        resample.resample_rows(x, [1], orig, target, 777)
+        assert resample.resample.launches == before + 2
+    before = resample.resample.launches
+    assert resample.resample(x[:, :0], 48000, 22050).shape == (2, 0)
+    assert resample.resample_rows(x[:, :0], None, 48000, 22050, 5).shape \
+        == (2, 5)
+    assert resample.resample.launches == before
+
+
+def test_resample_attribute_only_grows_card():
+    """96 kHz's 147 x 209 table (123 KB), then 48 kHz (62 KB), then 96 kHz
+    again, then 44100 Hz (97 taps) in one process: every launch fits, and
+    the occupancy queries report resident blocks."""
+    y = card_rows(2, 3.0, 96000)
+    for orig in (96000, 48000, 96000, 44100):
+        x = y[:, :int(3.0 * orig)].contiguous()
+        torch.testing.assert_close(resample.resample(x, orig, 22050),
+                                   resample.resample_plain(x, orig, 22050),
+                                   atol=1e-5, rtol=0)
+        assert resample.resample_blocks_per_sm(orig, 22050) >= 1
+    torch.cuda.synchronize()

@@ -6,7 +6,7 @@ There is no nvcc on a CPU-only machine, but the kernels of
 register arrays, device lambdas, `__syncthreads`, warp shuffles, ballots,
 `__popc` and `__ffs`, integer atomicMax and atomicAdd, the float/int bit
 casts, the float32 steps rounded one by one (`__fadd_rn`, `__fsub_rn`,
-`__fmul_rn`), `float4`, asynchronous copies into shared memory
+`__fmul_rn`) and `fmaf` (libm's, fused as the card's), `__ldg`, `float4`, asynchronous copies into shared memory
 (`cp.async`, and `csrc/bulk_copy.cuh`'s bulk copies on an mbarrier) and
 the dynamic shared-memory attribute. The header below maps those onto
 C++: one std::thread per CUDA thread, the blocks of a launch one after
@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from gat_tpu_torch import features, kernels
-from gat_tpu_torch.ops import onset, spectral, yin
+from gat_tpu_torch.ops import onset, resample, spectral, yin
 from gat_tpu_torch.segment import gating, slicing
 
 SR = 11025
@@ -156,6 +156,7 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline int2 make_int2(int x, int y) { return {x, y}; }
+template <class T> T __ldg(const T* p) { return *p; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 typedef void* cudaStream_t;
@@ -2149,3 +2150,161 @@ def test_gate_and_slice_occupancy_and_guards(libs):
     assert fn(y.data_ptr(), ons.data_ptr(), ons.data_ptr(), None,
               ws.data_ptr(), ws.data_ptr(), ws.data_ptr(), 1, 4096, 4, 0,
               0, 512, 1, -40.0, 1.0 / FILE_SR, None) != 0
+
+
+# ---------------------------------------------------------------------------
+# K9 (polyphase resampler)
+# ---------------------------------------------------------------------------
+# tests/test_torch_resample.py's rate pairs, and 96000, 8000 and 44100 Hz
+# to the file and clip rates: up == 1 at down 2 and 4, and phase tables
+# of 147 x 105, 441 x 49 and 147 x 209 floats
+RESAMPLE_RATES = [(44100, 22050), (22050, 11025), (48000, 22050),
+                  (16000, 22050), (96000, 22050), (8000, 22050),
+                  (44100, 11025)]
+
+
+def resample_emulated(libs, x: torch.Tensor, orig: int, target: int,
+                      rows=None, out_len: int | None = None) -> torch.Tensor:
+    """K9's C entry point with the arguments `resample._k9` passes: the
+    (len(rows) or N, out_len) outputs, out_len m by default."""
+    up, down = resample._ratio(orig, target)
+    n_src, n = x.shape
+    out_len = -(-n * up // down) if out_len is None else out_len
+    taps = resample._phase_taps(up, down, 24, 9.58, CPU)
+    half = (resample.resample_filter(up, down).shape[0] - 1) // 2
+    rows_t = None if rows is None else torch.tensor(rows, dtype=torch.int32)
+    n_rows = n_src if rows is None else len(rows)
+    out = torch.full((n_rows, out_len), -7.0)
+    fn = _fn(libs["resample"], "gat_resample", resample._RESAMPLE_ARGS)
+    assert fn(x.data_ptr(), _ptr(rows_t), taps.data_ptr(), out.data_ptr(),
+              n_src, n, n_rows, out_len, up, down, taps.shape[-1], half,
+              None) == 0
+    return out
+
+
+def resample_rows_np(length: int, rows: int = 2, seed: int = 0
+                     ) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed + length).normal(
+        0, 0.3, (rows, length)).astype(np.float32))
+
+
+@pytest.mark.parametrize("orig,target", RESAMPLE_RATES)
+@pytest.mark.parametrize("length", [0, 1, 7, 1001, 4099])
+def test_resample_kernel_emulated(libs, orig, target, length):
+    """K9 on stereo rows (2, n), as `resample` flattens them, against
+    `resample_plain` at atol 1e-5 (float32 sums of 49 to 209 taps in
+    another order); the first outputs of every row have a negative u,
+    the last read past the row. A row of 0 samples is refused by the C
+    entry point, and the wrapper launches nothing for it."""
+    x = resample_rows_np(length)
+    ref = resample.resample_plain(x, orig, target)
+    if length == 0:
+        up, down = resample._ratio(orig, target)
+        fn = _fn(libs["resample"], "gat_resample", resample._RESAMPLE_ARGS)
+        out = torch.empty(2, 1)
+        assert fn(x.data_ptr(), None, x.data_ptr(), out.data_ptr(), 2, 0,
+                  2, 1, up, down, 1, 0, None) != 0
+        assert ref.shape == (2, 0)
+        return
+    got = resample_emulated(libs, x, orig, target)
+    assert got.shape == ref.shape
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("orig,target", [(22050, 11025), (48000, 22050),
+                                         (16000, 22050)])
+def test_resample_rows_kernel_emulated(libs, orig, target):
+    """`resample_rows`' launch: a permuted selection with a repeat, a
+    single row, out_len above m (zeros past it) and below it (a cut, the
+    file body's 11,025 -> 5,512), against `resample_rows_plain`; a row
+    index outside x's rows gives a row of NaN."""
+    x = resample_rows_np(4099, rows=5)
+    m = -(-4099 * resample._ratio(orig, target)[0]
+          // resample._ratio(orig, target)[1])
+    for rows, out_len in (([3, 0, 4, 1, 3], m), ([2], m), ([4, 1], m + 700),
+                          ([0, 2, 1], m // 2), (None, m - 1)):
+        got = resample_emulated(libs, x, orig, target, rows, out_len)
+        ref = resample.resample_rows_plain(x, rows, orig, target, out_len)
+        assert got.shape == ref.shape
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    got = resample_emulated(libs, x, orig, target, [1, 5, -1], 300)
+    assert not bool(got[0].isnan().any())
+    assert bool(got[1:].isnan().all())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_resample_kernel_emulated_unaligned_rows(libs, offset):
+    """Rows at a pointer 1-3 floats past 16-byte alignment: the copies'
+    cover stops at the tensor's aligned interior and its first and last
+    floats are read one at a time; the bits are those of the same rows
+    at an aligned pointer, and the plain version's within 1e-5."""
+    n = 1003
+    x = resample_rows_np(n, seed=offset)
+    buf = torch.empty(2 * n + 4)
+    moved = buf[offset:offset + 2 * n].view(2, n)
+    moved.copy_(x)
+    assert moved.data_ptr() % 16 == 4 * offset
+    for orig, target in ((22050, 11025), (48000, 22050)):
+        got = resample_emulated(libs, moved, orig, target)
+        assert torch.equal(got, resample_emulated(libs, x, orig, target))
+        torch.testing.assert_close(
+            got, resample.resample_plain(x, orig, target), atol=1e-5,
+            rtol=0)
+
+
+def resample_layout(libs, up: int, down: int, k_taps: int) -> tuple:
+    vals = [ctypes.c_int(-1) for _ in range(4)]
+    fn = _fn(libs["resample"], "gat_resample_layout",
+             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+    assert fn(up, down, k_taps, *map(ctypes.addressof, vals)) == 0
+    return tuple(v.value for v in vals)
+
+
+def test_resample_kernel_emulated_taps_through_the_cache(libs):
+    """7999 -> 22050 Hz (up 22050, down 7999): a phase table of 22050 x
+    49 floats (4.3 MB) does not fit a block's shared memory, so K9 reads
+    it through the read-only cache; the outputs are the plain version's
+    within 1e-5."""
+    up, down = resample._ratio(7999, 22050)
+    k_taps = resample._phase_taps(up, down, 24, 9.58, CPU).shape[-1]
+    tile, span, taps, nbytes = resample_layout(libs, up, down, k_taps)
+    assert (up, k_taps, taps) == (22050, 49, 0)
+    assert nbytes == 16 + 4 * span
+    x = resample_rows_np(301)
+    torch.testing.assert_close(resample_emulated(libs, x, 7999, 22050),
+                               resample.resample_plain(x, 7999, 22050),
+                               atol=1e-5, rtol=0)
+
+
+def test_resample_layout_and_attribute_only_grows(libs):
+    """Every rate pair of the tests keeps its phase table in shared memory
+    beside a span that holds a tile's inputs; 96 kHz's 147 x 209 table
+    takes 122,896 bytes. The occupancy query (a launch does the same)
+    raises the dynamic shared-memory attribute and never lowers it: after
+    96 kHz, 48 kHz (61,744 B of table) and 22050 Hz leave it at 96 kHz's
+    bytes."""
+    sizes = {}
+    for orig, target in RESAMPLE_RATES:
+        up, down = resample._ratio(orig, target)
+        k = resample._phase_taps(up, down, 24, 9.58, CPU).shape[-1]
+        tile, span, taps, nbytes = resample_layout(libs, up, down, k)
+        assert taps == (up * k + 3) // 4 * 4
+        assert span >= (tile - 1) * down // up + 1 + k + 6
+        assert nbytes == 16 + 4 * (span + taps) <= 232448
+        sizes[(orig, target)] = (up, down, k, nbytes)
+    assert sizes[(96000, 22050)][:3] == (147, 640, 209)
+    lib = libs["resample"]
+    attr = ctypes.c_int.in_dll(lib, "emu_smem_attr")
+    attr.value = 48 * 1024
+    fn = _fn(lib, "gat_resample_blocks_per_sm",
+             [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    blocks = ctypes.c_int(-1)
+    held = []
+    for rates in ((96000, 22050), (48000, 22050), (22050, 11025)):
+        assert fn(*sizes[rates][:3], ctypes.addressof(blocks)) == 0
+        assert blocks.value == 0
+        held.append(attr.value)
+    assert held == [sizes[(96000, 22050)][3]] * 3
+    resample_emulated(libs, resample_rows_np(500), 48000, 22050)
+    assert attr.value == sizes[(96000, 22050)][3]
+    assert fn(1, 0, 97, ctypes.addressof(blocks)) != 0

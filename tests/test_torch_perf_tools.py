@@ -88,7 +88,8 @@ def test_parse_trace_keeps_device_lanes_and_sums(tmp_path, capsys):
         "Memcpy DtoH (Device -> Pinned)": 4.0,
         "onset_pick_kernel(float const*, int const*)": 3.0}
     assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 7.0, "K5": 3.0,
-                      "K6": 0, "K7": 0, "K8": 0}
+                      "K6": 0, "K7": 0, "K8": 0,
+                      "K9": 0}
     out = capsys.readouterr().out
     assert "top 10 by total us (device lanes)" in out
     assert "cudaLaunchKernel" not in out and "aten::mul" not in out
@@ -110,7 +111,8 @@ def test_parse_trace_names_k6(tmp_path, capsys):
            tid=13)])
     (_, _, shares), = prof.parse_trace(str(tmp_path), top=10)
     assert shares == {"K1": 0, "K2": 2.0, "K3": 1.0, "K4": 0, "K5": 0,
-                      "K6": 9.0, "K7": 0, "K8": 0}
+                      "K6": 9.0, "K7": 0, "K8": 0,
+                      "K9": 0}
     assert "75.0%  K6" in capsys.readouterr().out
 
 
@@ -129,7 +131,8 @@ def test_parse_trace_names_k7_and_k8(tmp_path, capsys):
            2.0, tid=13)])
     (_, _, shares), = prof.parse_trace(str(tmp_path), top=10)
     assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
-                      "K6": 0, "K7": 8.0, "K8": 2.0}
+                      "K6": 0, "K7": 8.0, "K8": 2.0,
+                      "K9": 0}
     out = capsys.readouterr().out
     assert "80.0%  K7" in out and "20.0%  K8" in out
 
@@ -144,7 +147,8 @@ def test_kernel_shares_read_names_by_device_function():
         "slice_clips_kernel_wide(float const*)": 7.0,
         "void at::native::noise_gate_apply_kernel_copy<4>()": 3.0})
     assert shares == {"K1": 5.0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
-                      "K6": 0, "K7": 0, "K8": 2.0}
+                      "K6": 0, "K7": 0, "K8": 2.0,
+                      "K9": 0}
 
 
 def test_parse_trace_without_device_lanes_keeps_all(tmp_path, capsys):
@@ -378,6 +382,25 @@ def test_onset_timing_tool_times_the_slicer(monkeypatch):
     assert timing.main(["torch_onset_timing.py", str(REPO), "slices"]) == 2
 
 
+def test_onset_timing_tool_times_the_resampler(monkeypatch):
+    """`tools/torch_onset_timing.py TREE resample` runs chip_smoke's
+    `time_resample` at its four shapes (the wave's budgeted clips, 60 s
+    and 400 s at 48 kHz, 60 s at 16 kHz, all to the file or checkpoint
+    rate) and exits 1 without a card."""
+    timing = _tool("torch_onset_timing")
+    assert timing.TIMINGS["resample"] == ("resample", "time_resample")
+    spec = importlib.util.spec_from_file_location("_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert [s[3:] for s in smoke.RESAMPLE_SHAPES] == [
+        (22050, 11025), (48000, 22050), (48000, 22050), (16000, 22050)]
+    assert smoke.KERNEL_ROWS[smoke.K9] == "resample"
+    assert smoke.K9 in smoke.SEGMENTING
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert timing.main(["torch_onset_timing.py", str(REPO), "resample"]) == 1
+
+
 def test_stage_tags_keep_the_jax_names():
     jroof = _tool("roofline_files")
     assert [n for n, _ in roof.STAGE_TAGS] == [n for n, _ in
@@ -463,6 +486,24 @@ def test_stage_counts_use_the_kernel_formulas(report):
         roofline.slice_cost(2, n, slots, length)) == (
         2 * slots * length, 4 * min(2 * n, slots * length) + 4 * slots
         + 4 * slots * length + 9 * slots)
+
+
+def test_clip_rerate_reads_the_budget_gather(report):
+    """K9 reads the budget's clips where they lie (`resample_rows`): the
+    clip_rerate stage counts the 24 picked clips of 11,025 samples, their
+    int32 index and 5,512 outputs each (97 taps, the clip length cut at
+    m = 5,513), and the compaction no gathered copy of the clips, only
+    its selection and the scatter of 47 probs x 3 and the pitch."""
+    stages = report["stages"]
+    clips, slots, length, out_len = 24, 32, 11025, 5512
+    assert (stages["clip_rerate"]["flops"],
+            stages["clip_rerate"]["bytes"]) == (
+        2 * 97 * clips * out_len, 4 * clips * (length + out_len) + 4 * clips)
+    per_clip = 4 * (3 * 47 + 1)
+    assert stages["compaction"]["bytes"] == (slots + clips * per_clip
+                                             + slots * per_clip)
+    assert roofline.resample_cost(clips, length, 22050, 11025) == (
+        2 * 97 * clips * 5513, 4 * clips * (length + 5513))
 
 
 def test_shared_route_counts_k6_and_no_yin_baseline():

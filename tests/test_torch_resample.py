@@ -1,4 +1,5 @@
-"""PyTorch port vs gat_tpu: the polyphase resampler, fix_length, the WAV
+"""PyTorch port vs gat_tpu: the polyphase resampler, `resample_rows` (the
+file body's gather, re-rate and cut in one step), fix_length, the WAV
 codec and the clip ensemble's re-rate (CPU).
 
 Bounds: the filter tables are identical (the same scipy design); the
@@ -38,6 +39,36 @@ def test_resample_plucks_one_second(orig, target):
     got = tr.resample(torch.from_numpy(x), orig, target).numpy()
     assert got.shape == ref.shape == (target,)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("orig,target", RATES + [(22050, 22050)])
+@pytest.mark.parametrize("rows, extra", [([3, 0, 4, 3], -37),
+                                         ([2], 201), (None, 0)])
+def test_resample_rows_matches(orig, target, rows, extra):
+    """`resample_rows` against the reference's composition
+    fix_length(resample(x[sel]), size): a permuted selection with a
+    repeat cut short of m, one row padded past it, every row at m; the
+    same rate is the gather and the cut alone."""
+    x = np.random.default_rng(9).normal(0, 0.3, (5, 4099)).astype(
+        np.float32)
+    size = -(-4099 * target // orig) + extra
+    sel = x if rows is None else x[np.asarray(rows)]
+    ref = np.asarray(jr.fix_length(jr.resample(jnp.asarray(sel), orig,
+                                               target), size))
+    got = tr.resample_rows(torch.from_numpy(x), rows, orig, target,
+                           size).numpy()
+    assert got.shape == ref.shape == (len(sel), size)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+def test_resample_rows_of_no_samples():
+    """Rows of 0 samples give rows of `out_len` zeros, as fix_length of
+    the reference's empty resample."""
+    x = torch.zeros(2, 0)
+    got = tr.resample_rows(x, [1, 1, 0], 48000, 22050, 5)
+    ref = jr.fix_length(jr.resample(jnp.zeros((3, 0)), 48000, 22050), 5)
+    assert got.shape == ref.shape == (3, 5) and not bool(got.any())
+    assert tr.resample_rows(x, None, 44100, 22050, 0).shape == (2, 0)
 
 
 @pytest.mark.parametrize("orig,target", RATES)

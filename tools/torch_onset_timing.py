@@ -4,10 +4,12 @@ checked and timed at the file path's shapes for one checkout of the port,
 on one CUDA card; with `clip`, K2, K3 and (where the checkout has it) K6
 at the clip path's 1024 clips; with `gate`, the noise gate K7 at the
 serving wave and a 400 s riff, per pass; with `slice`, the clip slicer K8
-at the same wave and riff and at 4.0 s clips.
+at the same wave and riff and at 4.0 s clips; with `resample`, the
+polyphase resampler K9 at the serving wave's clip re-rate and three user
+files (or, in a checkout without K9, its plain route at the same calls).
 
     python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip] [gate]
-                                             [slice]
+                                             [slice] [resample]
 
 TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
 another commit unpacked with `git archive`; its kernels are built there.
@@ -20,7 +22,10 @@ clip path's 1024 clips of 0.5 s at 11025 Hz, `make_clips`; `time_gate`:
 per pass by the kernel names of this checkout's roofline; `time_slice`:
 the onsets that checkout's gate and detection find in them, the file
 path's arguments, 0.5 s clips and 4.0 s clips at every 8th onset, with
-K8's resident blocks per SM and its ring), so two
+K8's resident blocks per SM and its ring; `time_resample`: the wave's
+384 budgeted clips of 0.5 s at 22050 Hz re-rated and cut to 5,512
+samples, 60 s and 400 s at 48 kHz, 60 s at 16 kHz to 22050 Hz, with the
+whole call's device time beside K9's), so two
 checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
@@ -37,7 +42,8 @@ TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
            "pick": ("onset_pick", "time_pick"),
            "clip": ("clip_kernels", "time_clip_kernels"),
            "gate": ("noise_gate", "time_gate"),
-           "slice": ("slice_clips", "time_slice")}
+           "slice": ("slice_clips", "time_slice"),
+           "resample": ("resample", "time_resample")}
 
 
 def main(argv: list[str]) -> int:
@@ -58,7 +64,7 @@ def main(argv: list[str]) -> int:
         return 1
     sys.path.insert(0, str(tree))
     from gat_tpu_torch import features, kernels
-    from gat_tpu_torch.ops import onset, yin
+    from gat_tpu_torch.ops import onset, resample, yin
     from gat_tpu_torch.segment import gating, slicing
     if not Path(onset.__file__).resolve().is_relative_to(tree):
         print(f"torch_onset_timing: gat_tpu_torch came from "
@@ -77,6 +83,8 @@ def main(argv: list[str]) -> int:
             args = (gating, dev)
         elif n == "slice":
             args = (slicing, dev)
+        elif n == "resample":
+            args = (resample, dev)
         else:
             args = (onset, dev)
         for row in getattr(smoke, timing)(*args, failures):

@@ -8,7 +8,7 @@ The wave is the shipped serving body (`Transcriber._files_fn`'s `run`:
 B files × the bucket's seconds at 22050 Hz, the onset, wave-clip and
 candidate budgets of the serve defaults). The port has no compiler cost
 model, so each stage's operations and bytes are counted from the wave's
-shapes (`gat_tpu_torch/utils/roofline.py`, whose K1-K8 counts are also
+shapes (`gat_tpu_torch/utils/roofline.py`, whose K1-K9 counts are also
 the kernels line's bounds in `chip_smoke.py`). Bytes are the least
 traffic, each input of a stage read once and each output written once,
 so every count is a floor: the wave's floor is the sum of its stages'.
@@ -53,7 +53,8 @@ sys.path.insert(0, str(REPO))
 STAGE_TAGS = (
     ("onset_detect", "detect_onsets: K4 envelope, K5 pick"),
     ("slicing", "slice_at_onsets (K8): the clips, their gate, times"),
-    ("clip_rerate", "resample of the kept clips to the checkpoint rate"),
+    ("clip_rerate", "resample_rows (K9): the budget's clips re-rated to the "
+                    "checkpoint rate and clip length"),
     ("mfcc_yin_frontend", "mfcc_feature_vectors (K2, or K6 on the shared "
                           "route) and the scaler"),
     ("melspec_frontend", "melspec_features (K1)"),
@@ -61,7 +62,7 @@ STAGE_TAGS = (
                      "shared route)"),
     ("cnn_forward", "CNN forward and softmax"),
     ("mlp_forward", "MLP forward and softmax"),
-    ("compaction", "kept-clip budget gather and the scatter back"),
+    ("compaction", "the kept-clip budget's selection and the scatter back"),
     ("segmentation_other", "both gates and the length mask (K7)"),
 )
 STAGES = tuple(name for name, _ in STAGE_TAGS) + ("other",)
@@ -162,11 +163,16 @@ def wave_costs(t, files: int, n: int, max_onsets: int,
             roofline.envelope_cost(files, n, TARGET_SR),
             roofline.pick_cost(files, frames, TARGET_SR, 512, max_onsets)),
         "slicing": roofline.slice_cost(files, n, slots, length, windows),
-        "clip_rerate": roofline.resample_cost(clips, length, TARGET_SR,
-                                              t.ckpt_sr),
+        # K9 reads the picked clips where they lie, by the budget's
+        # int32 index (its gather is no copy of the compaction's), and
+        # writes the checkpoint's clip length
+        "clip_rerate": _add(roofline.resample_cost(
+            clips, length, TARGET_SR, t.ckpt_sr,
+            int(t.ckpt_sr * CLIP_DURATION)),
+            (0, 4 * clips if clips < slots else 0)),
         "compaction": ((slots * math.ceil(math.log2(slots)), slots
-                        + 8 * clips * length + clips * per_clip
-                        + slots * per_clip) if clips < slots else (0, 0)),
+                        + clips * per_clip + slots * per_clip)
+                       if clips < slots else (0, 0)),
         "segmentation_other": roofline.gate_cost(files, n),
     })
     return {k: costs[k] for k in STAGES}
