@@ -1303,12 +1303,17 @@ def gate_phase(failures: list, device: str = "cuda") -> list[dict]:
 
 # [resample]: K9 at the serving wave's clip re-rate (the budget's 384 of
 # 448 slots of 0.5 s at 22050 Hz, cut to the checkpoint's clip length),
-# and at three files a user loads: 60 s and 400 s at 48 kHz (m = 8.82 M:
-# j·down passes 2^31) and 60 s at 16 kHz; (tag, rows, seconds, from, to)
+# at four files a user loads: 60 s and 400 s at 48 kHz (m = 8.82 M:
+# j·down passes 2^31), 60 s at 16 kHz and 60 s at 44.1 kHz (a CD-rate
+# WAV, up == 1 on one long row), and at one note of 0.5 s at 22050 Hz to
+# the checkpoint rate (`transcribe_note`'s re-rate, one a note in
+# `LiveTranscriber`: a launch of few tiles); (tag, rows, seconds, from, to)
 RESAMPLE_SHAPES = (("wave", 448, 0.5, FILE_SR, SR),
                    ("60 s at 48 kHz", 1, 60.0, 48000, FILE_SR),
                    ("400 s at 48 kHz", 1, LONG_SECONDS, 48000, FILE_SR),
-                   ("60 s at 16 kHz", 1, 60.0, 16000, FILE_SR))
+                   ("60 s at 16 kHz", 1, 60.0, 16000, FILE_SR),
+                   ("60 s at 44.1 kHz", 1, 60.0, 44100, FILE_SR),
+                   ("0.5 s note", 1, 0.5, FILE_SR, SR))
 RESAMPLE_BUDGET = 384  # the serving wave's clip budget (serve's default)
 
 
@@ -1317,18 +1322,21 @@ def resample_data(dev) -> list:
     entry: the wave's 448 slots cut from `gate_riffs`' four 60 s riffs,
     0.5 s each, with the budget's slot-major selection of 384 of them (as
     `build_files_fn` picks them when every slot is kept; rows None
-    elsewhere), and riffs of a pluck every GATE_SPACING s at the file
-    rates."""
+    elsewhere), riffs of a pluck every GATE_SPACING s at the file rates,
+    and the note: a pluck from its onset, 0.5 s of a 1 s riff."""
     import torch
     out = []
     for i, (tag, rows, seconds, orig, _) in enumerate(RESAMPLE_SHAPES):
         files = GATE_FILES if tag == "wave" else rows
-        secs = GATE_SECONDS if tag == "wave" else seconds
+        secs = (GATE_SECONDS if tag == "wave" else
+                max(seconds, 1.0))
         k = len(np.arange(0.4, secs - 0.45, GATE_SPACING))
         midi = 40 + np.arange(files * k).reshape(files, k) % 47
         y = make_riffs(midi, secs, orig, SEED + 20 + i, noise=0.01,
                        spacing=GATE_SPACING)
         sel = None
+        if secs > seconds and tag != "wave":  # the note, from its onset
+            y = y[:, int(0.4 * orig):int(0.4 * orig) + int(seconds * orig)]
         if tag == "wave":
             length = int(seconds * orig)
             y = y[:, :rows // files * length].reshape(rows, length)
@@ -1358,6 +1366,29 @@ def call_device_ms(fn, pool) -> float | None:
     return total / len(pool) / 1e3 if total > 0 else None
 
 
+# gat_resample_layout's fields, in order (csrc/resample.cu)
+RESAMPLE_LAYOUT = ("tile", "buf", "taps", "bytes", "rows", "frames",
+                   "groups", "lag", "steps", "phases", "per_lane")
+
+
+def resample_layout(resample, up: int, down: int) -> dict:
+    """K9's layout at these rates (`gat_resample_layout`), by name; for
+    K9's first design (a checkout without `polyphase_bank`, timed by
+    `tools/torch_onset_timing.py`), its four fields: outputs a block,
+    span floats, table floats, bytes."""
+    k_taps = -(-resample.resample_filter(up, down).shape[0] // up)
+    names = (RESAMPLE_LAYOUT if hasattr(resample, "polyphase_bank")
+             else RESAMPLE_LAYOUT[:4])
+    vals = (ctypes.c_int * len(names))()
+    args = ([vals] if len(names) > 4 else
+            [ctypes.addressof(vals) + 4 * i for i in range(4)])
+    resample.kernels.check(resample.kernels.function(
+        "resample", "gat_resample_layout",
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * len(args))(
+            up, down, k_taps, *args), "resample layout")
+    return dict(zip(names, vals))
+
+
 def time_resample(resample, dev, failures: list, data: list | None = None
                   ) -> list[dict]:
     """K9 (`resample.resample_rows` at the wave, `resample.resample` at
@@ -1369,10 +1400,14 @@ def time_resample(resample, dev, failures: list, data: list | None = None
     ms (at the wave with its gather and fix_length: the parent's
     `compaction` gather and `clip_rerate`), the bound
     (`utils/roofline.py`'s resample_cost at the outputs written, with the
-    wave's int32 index), resident blocks per SM and shared memory a block,
-    and `library_ms`, one `F.conv1d(x, h, stride=down)` of the same rows
-    with TF32 off where up == 1 (None elsewhere: no single PyTorch call
-    computes a polyphase filter with up > 1). A checkout without K9
+    wave's int32 index), resident blocks per SM and K9's layout (shared
+    memory a block, rows or span, frames and groups a tile), and
+    `library_ms`, one `F.conv1d` of the same rows with TF32 off at every
+    rate pair: `resample.polyphase_bank`'s up channels at stride down over
+    the rows padded beforehand (torchaudio's form; at up == 1 the filter
+    itself), its largest difference from the plain route logged; the
+    pad and the channels' interleave are outside the timed call. A
+    checkout without K9
     (`tools/torch_onset_timing.py TREE resample` on the parent) has no
     `resample_plain`: its `resample` is the plain route, timed as the
     kernel, with no device ms of K9 and no blocks. Returns one row per
@@ -1424,18 +1459,21 @@ def time_resample(resample, dev, failures: list, data: list | None = None
               and bool(torch.isfinite(got).all()) and err <= 1e-5
               and launched in (None, 1))
         library_ms = lib_err = None
-        if up == 1:
-            h = torch.from_numpy(resample.resample_filter(up, down)).to(
-                dev)[None, None]
-            lib_pool = [z if sel is None else z[sel] for z in pool]
+        if hasattr(resample, "polyphase_bank"):
+            bank = torch.from_numpy(resample.polyphase_bank(up, down)[0]
+                                    ).to(dev)
+            lib_pool = [resample.conv_input(z if sel is None else z[sel],
+                                            orig, target) for z in pool]
 
             def lib(z):
-                return F.conv1d(z[:, None], h, stride=down,
-                                padding=(h.shape[-1] - 1) // 2)[:, 0]
+                return F.conv1d(z, bank, stride=down)
             with tf32_off(dev, convolutions=True):
-                lib_err = float((lib(lib_pool[0])[:, :out_len]
-                                 - ref).abs().max())
+                lib_out = resample.fix_length(resample.resample_conv(
+                    x if sel is None else x[sel], orig, target,
+                    bank=bank), out_len)
+                lib_err = float((lib_out - ref).abs().max())
                 library_ms = time_ms(lib, lib_pool, reps=10)
+            del lib_out, lib_pool
         del got, ref
         cost = roofline.resample_cost(picked, n, orig, target, out_len)
         if sel is not None:
@@ -1447,24 +1485,28 @@ def time_resample(resample, dev, failures: list, data: list | None = None
                    device_ms=kernel_device_ms(fn, pool, "K9") if k9 else None,
                    call_device_ms=call_device_ms(fn, pool),
                    plain_ms=time_ms(plain, pool, reps=3),
-                   library_ms=library_ms, checked=ok)
+                   library_ms=library_ms, library_max_abs_err=lib_err,
+                   checked=ok)
         row["bound_ms"], row["bound_by"] = roofline.bound(*cost)
         row["blocks_per_sm"] = (resample.resample_blocks_per_sm(orig, target)
                                 if k9 else None)
         layout = ""
         if k9:
-            vals = [ctypes.c_int(0) for _ in range(4)]
-            taps = resample._phase_taps(up, down, 24, 9.58, dev)
-            resample.kernels.check(resample.kernels.function(
-                "resample", "gat_resample_layout",
-                [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)(
-                    up, down, taps.shape[-1], *map(ctypes.addressof, vals)),
-                "resample layout")
-            tile, span, tab, row["smem_bytes"] = (v.value for v in vals)
-            row["taps_in_smem"] = tab > 0
-            layout = (f", {tile} outputs a block, {row['smem_bytes']} bytes "
-                      f"of shared memory (span {span} floats, table "
-                      f"{tab or 'through the read-only cache'})")
+            lay = resample_layout(resample, up, down)
+            row.update(smem_bytes=lay["bytes"], taps_in_smem=lay["taps"] > 0,
+                       layout=lay)
+            table = lay["taps"] or "through the read-only cache"
+            layout = (f", {lay['tile']} outputs a tile "
+                      f"({'rows' if lay['rows'] else 'span'} of "
+                      f"{lay['frames']} frames x {lay['groups']} groups, "
+                      f"{lay['per_lane']} frames a lane, lag {lay['lag']}, "
+                      f"{lay['steps']} steps), "
+                      f"{lay['bytes']} bytes of shared memory (buffers 2 x "
+                      f"{lay['buf']} floats, table {table})"
+                      if "rows" in lay else
+                      f", {lay['tile']} outputs a block, {lay['bytes']} "
+                      f"bytes of shared memory (span {lay['buf']} floats, "
+                      f"table {table})")
         log(f"[time] resample {tag} ({picked} x {n} at {orig} -> {target} "
             f"Hz, up {up} down {down}, {out_len} outputs a row): "
             f"{row['route']} {row['ms']:.4f} ms (events), "

@@ -37,7 +37,8 @@ from ..utils.device import tf32_off
 
 __all__ = ["resample", "resample_rows", "resample_plain",
            "resample_rows_plain", "resample_filter", "fix_length",
-           "resample_blocks_per_sm"]
+           "resample_blocks_per_sm", "polyphase_bank", "conv_input",
+           "resample_conv"]
 
 _SUPER_FRAME = 128  # outputs per super-frame of the decimation matmul
 
@@ -110,6 +111,62 @@ def _phase_taps(up: int, down: int, zeros: int, beta: float,
     uploaded once (they do not depend on the signal's length)."""
     hp = _polyphase_plan(1, up, down, zeros, beta)[0]
     return torch.from_numpy(hp)[:, None, :].to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def polyphase_bank(up: int, down: int, zeros: int = 24,
+                   beta: float = 9.58) -> tuple[np.ndarray, int]:
+    """The filter as one convolution bank, the form torchaudio's resampler
+    uses: (up, 1, W) float32, channel s holding hp[delta_s] at offset
+    i0_s − i0_0 in a window of W = K + i0_{up−1} − i0_0 (i0_s = ceil((s·down
+    − half) / up), delta_s = i0_s·up − (s·down − half)), and the left pad
+    −i0_0. Output t·up + s is channel s of `F.conv1d` at stride `down`
+    over the padded row, position t. The library's single call beside K9
+    (`resample_conv`); K9 never uses it."""
+    h = resample_filter(up, down, zeros, beta)
+    half = (h.shape[0] - 1) // 2
+    hp = _polyphase_plan(1, up, down, zeros, beta)[0]
+    k_taps = hp.shape[1]
+    u = np.arange(up, dtype=np.int64) * down - half
+    i0 = -(-u // up)
+    delta = i0 * up - u
+    bank = np.zeros((up, 1, k_taps + int(i0[-1] - i0[0])), np.float32)
+    for s in range(up):
+        off = int(i0[s] - i0[0])
+        bank[s, 0, off:off + k_taps] = hp[delta[s]]
+    return bank, int(-i0[0])
+
+
+def conv_input(x: torch.Tensor, orig_sr: int, target_sr: int,
+               zeros: int = 24, beta: float = 9.58) -> torch.Tensor:
+    """Rows x (N, n), n >= 1, as `polyphase_bank`'s convolution reads them:
+    (N, 1, L) float32, padded left by −i0_0 and right as far as the last
+    output's window reaches."""
+    up, down = _ratio(orig_sr, target_sr)
+    bank, lpad = polyphase_bank(up, down, zeros, beta)
+    n = x.shape[-1]
+    need = (-(-(-(-n * up // down)) // up) - 1) * down + bank.shape[-1]
+    return F.pad(x[:, None].to(torch.float32),
+                 (lpad, max(0, need - n - lpad)))
+
+
+def resample_conv(x: torch.Tensor, orig_sr: int, target_sr: int,
+                  zeros: int = 24, beta: float = 9.58,
+                  bank: torch.Tensor | None = None) -> torch.Tensor:
+    """`resample` of rows x (N, n), n >= 1, by one `F.conv1d` of
+    `polyphase_bank` at stride `down` over `conv_input(x)` (TF32 off), its
+    up channels then interleaved: (N, m). The library's call that K9 is
+    timed against, at every rate pair; `bank` is the bank on x's device,
+    uploaded by the caller to keep the upload out of a timing."""
+    up, down = _ratio(orig_sr, target_sr)
+    if bank is None:
+        bank = torch.from_numpy(polyphase_bank(up, down, zeros, beta)[0]
+                                ).to(x.device)
+    m = -(-x.shape[-1] * up // down)
+    with tf32_off(x.device, convolutions=True):
+        z = F.conv1d(conv_input(x, orig_sr, target_sr, zeros, beta), bank,
+                     stride=down)
+    return z.transpose(1, 2).reshape(x.shape[0], -1)[:, :m]
 
 
 def _ratio(orig_sr: int, target_sr: int) -> tuple[int, int]:

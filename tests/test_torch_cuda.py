@@ -13,7 +13,8 @@ from gat_tpu_torch import features
 from gat_tpu_torch.ops import onset, resample, spectral, yin
 from gat_tpu_torch.segment import gating, slicing
 from test_torch_kernels_emulated import (FILE_SR, GATE_MIN_DB, LIVE_MIN_SEP,
-                                         LIVE_RING, RESAMPLE_RATES,
+                                         LIVE_RING, RESAMPLE_PINS,
+                                         RESAMPLE_RATES,
                                          RIFF_NOTES, SLICE_PINS,
                                          SLICE_PINS_PAST_ROW, _digest,
                                          check_gate,
@@ -27,7 +28,7 @@ from test_torch_kernels_emulated import (FILE_SR, GATE_MIN_DB, LIVE_MIN_SEP,
                                          pin_inputs,
                                          pluck_riff, port_pluck_clips,
                                          random_envelopes,
-                                         riffs, scan_envelopes,
+                                         resample_pin_digest, riffs, scan_envelopes,
                                          shared_frontend_clips, stitch,
                                          time_shards, yin_float64)
 
@@ -1442,9 +1443,11 @@ def card_rows(rows: int, seconds: float, sr: int, seed: int = 0
 
 # chip_smoke's [resample] shapes: the serving wave's 384 clips of 0.5 s at
 # 22050 Hz, one 60 s and one 400 s file at 48 kHz (m = 8.82 M outputs:
-# j·down passes 2^31), one 60 s file at 16 kHz
+# j·down passes 2^31), one 60 s file at 16 kHz and one at 44.1 kHz, and
+# one note of 0.5 s at 22050 Hz (`transcribe_note`'s re-rate)
 RESAMPLE_SHAPES = [(384, 0.5, 22050, 11025), (1, 60.0, 48000, 22050),
-                   (1, 400.0, 48000, 22050), (1, 60.0, 16000, 22050)]
+                   (1, 400.0, 48000, 22050), (1, 60.0, 16000, 22050),
+                   (1, 60.0, 44100, 22050), (1, 0.5, 22050, 11025)]
 
 
 @pytest.mark.parametrize("rows, seconds, orig, target", RESAMPLE_SHAPES)
@@ -1462,6 +1465,23 @@ def test_resample_kernel_card_vs_plain(rows, seconds, orig, target):
         assert (got.shape[1] - 1) * 320 > 2 ** 31
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("orig,target", list(RESAMPLE_PINS))
+def test_resample_card_pins(orig, target):
+    """K9 on the card gives the emulated pins' bits at every rate pair,
+    the read-only-cache route included: the card's fmaf is the
+    emulation's, each output's taps in the same order."""
+    _card()
+
+    def run(x, rows, out_len):
+        x = x.cuda()
+        got = (resample.resample(x, orig, target) if rows is None
+               and out_len is None else
+               resample.resample_rows(x, rows, orig, target, out_len))
+        return got.cpu()
+    assert resample_pin_digest(run, orig, target) == RESAMPLE_PINS[
+        (orig, target)]
 
 
 @pytest.mark.parametrize("orig,target", RESAMPLE_RATES)

@@ -22,6 +22,7 @@ pointers, with the argument lists the wrappers use. This checks the
 kernels' arithmetic and indexing, not the GPU compiler or the card:
 `chip_smoke.py` does that.
 """
+import contextlib
 import ctypes
 import hashlib
 import re
@@ -183,6 +184,15 @@ int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
   return 0;
 }
 inline int cudaGetLastError() { return 0; }
+// the card's SMs (K9 sizes its grid by them with the occupancy above, read
+// as 1 block an SM), readable and settable from the test
+extern "C" { inline int emu_sm_count = 4; }
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+inline int cudaGetDevice(int* device) { *device = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* value, int, int) {
+  *value = emu_sm_count;
+  return 0;
+}
 alignas(16) inline float smem[232448 / sizeof(float)];
 inline void emu_launch(int grid, int block, std::function<void()> fn) {
   gridDim.x = grid;
@@ -2252,47 +2262,242 @@ def test_resample_kernel_emulated_unaligned_rows(libs, offset):
             rtol=0)
 
 
-def resample_layout(libs, up: int, down: int, k_taps: int) -> tuple:
-    vals = [ctypes.c_int(-1) for _ in range(4)]
+# gat_resample_layout's fields, in order
+RESAMPLE_LAYOUT = ("tile", "buf", "taps", "bytes", "rows", "frames",
+                   "groups", "lag", "steps", "phases", "per_lane")
+
+
+def resample_layout(libs, up: int, down: int, k_taps: int) -> dict:
+    """K9's layout at these rates, `gat_resample_layout`'s fields by
+    name."""
+    vals = (ctypes.c_int * len(RESAMPLE_LAYOUT))()
     fn = _fn(libs["resample"], "gat_resample_layout",
-             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
-    assert fn(up, down, k_taps, *map(ctypes.addressof, vals)) == 0
-    return tuple(v.value for v in vals)
+             [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    assert fn(up, down, k_taps, vals) == 0
+    return dict(zip(RESAMPLE_LAYOUT, vals))
+
+
+def resample_taps(orig: int, target: int) -> tuple:
+    """(up, down, K) at these rates."""
+    up, down = resample._ratio(orig, target)
+    return up, down, resample._phase_taps(up, down, 24, 9.58, CPU).shape[-1]
+
+
+@contextlib.contextmanager
+def emulated_sms(libs, sms: int):
+    """The emulated card's SMs, restored after: under the emulation K9's
+    grid is min(tiles, SMs) (one resident block an SM)."""
+    count = ctypes.c_int.in_dll(libs["resample"], "emu_sm_count")
+    saved, count.value = count.value, sms
+    try:
+        yield
+    finally:
+        count.value = saved
+
+
+def resample_tiles(libs, orig: int, target: int, n: int, n_rows: int,
+                   out_len: int | None = None) -> int:
+    """The tiles of K9's launch, counted as `gat_resample` counts them:
+    parts of GB groups x rows x tiles of TF frames (only the groups below
+    out_len when one frame holds every output)."""
+    up, down, k = resample_taps(orig, target)
+    lay = resample_layout(libs, up, down, k)
+    out_len = -(-n * up // down) if out_len is None else out_len
+    frames = -(-out_len // lay["phases"])
+    groups = lay["phases"] // 4 if frames > 1 else min(
+        lay["phases"] // 4, -(-out_len // 4))
+    return (-(-groups // lay["groups"]) * n_rows
+            * -(-frames // lay["frames"]))
 
 
 def test_resample_kernel_emulated_taps_through_the_cache(libs):
     """7999 -> 22050 Hz (up 22050, down 7999): a phase table of 22050 x
     49 floats (4.3 MB) does not fit a block's shared memory, so K9 reads
-    it through the read-only cache; the outputs are the plain version's
-    within 1e-5."""
-    up, down = resample._ratio(7999, 22050)
-    k_taps = resample._phase_taps(up, down, 24, 9.58, CPU).shape[-1]
-    tile, span, taps, nbytes = resample_layout(libs, up, down, k_taps)
-    assert (up, k_taps, taps) == (22050, 49, 0)
-    assert nbytes == 16 + 4 * span
+    its taps through the read-only cache, builds no banded table, and
+    stages rows; the outputs are the plain version's within 1e-5."""
+    up, down, k_taps = resample_taps(7999, 22050)
+    lay = resample_layout(libs, up, down, k_taps)
+    assert (up, k_taps, lay["taps"], lay["rows"]) == (22050, 49, 0, 1)
+    assert lay["bytes"] == 4 * (152 + 2 * lay["buf"]
+                                + lay["frames"] * (4 * lay["groups"] + 1))
     x = resample_rows_np(301)
     torch.testing.assert_close(resample_emulated(libs, x, 7999, 22050),
                                resample.resample_plain(x, 7999, 22050),
                                atol=1e-5, rtol=0)
 
 
+def test_resample_kernel_emulated_cache_route_grid(libs):
+    """The read-only-cache route with the grid sized to the card: a 2003
+    sample row at 7999 Hz (5,522 outputs in one frame of 44,100 phases,
+    87 tiles of 16 groups) on 3 blocks gives the bits of 64 blocks, and
+    the plain version's within 1e-5."""
+    x = resample_rows_np(2003, rows=1)
+    assert resample_tiles(libs, 7999, 22050, 2003, 1) == 87
+    with emulated_sms(libs, 3):
+        got = resample_emulated(libs, x, 7999, 22050)
+    with emulated_sms(libs, 64):
+        assert torch.equal(got, resample_emulated(libs, x, 7999, 22050))
+    torch.testing.assert_close(got, resample.resample_plain(x, 7999, 22050),
+                               atol=1e-5, rtol=0)
+
+
+# sha256 (first 16 hex digits) of K9's outputs on `resample_pin_digest`'s
+# inputs, as its first design gave them (4914cd3: one block per 1024
+# outputs, each output's taps from its own phase row)
+RESAMPLE_PINS = {(44100, 22050): "7f8ebf902c3dd3d5",
+                 (22050, 11025): "7f8ebf902c3dd3d5",
+                 (48000, 22050): "364dc453a6f11a20",
+                 (16000, 22050): "74e8014af51b9ffd",
+                 (96000, 22050): "fc57bb8df11f8c86",
+                 (8000, 22050): "03fdc1baff8bb76a",
+                 (44100, 11025): "0e2f2c1e090c3c53",
+                 (7999, 22050): "543f71415352df80"}
+
+
+def resample_pin_digest(run, orig: int, target: int) -> str:
+    """The digest of K9's outputs, `run(x, rows, out_len)` its launch
+    (rows None: every row; out_len None: m), on fixed inputs: 3 rows of
+    4099 samples (301 at 7999 Hz) whole, 4 of them selected and cut 5
+    short of m, one padded 300 past it, and one row of 40,000 samples."""
+    x = resample_rows_np(4099 if orig != 7999 else 301, rows=3, seed=17)
+    up, down = resample._ratio(orig, target)
+    m = -(-x.shape[1] * up // down)
+    outs = [run(x, None, None), run(x, [2, 0, 2, 1], m - 5),
+            run(x, [1], m + 300),
+            run(resample_rows_np(40000, rows=1, seed=5), None, None)]
+    return hashlib.sha256(b"".join(t.numpy().tobytes() for t in outs)
+                          ).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("orig,target", list(RESAMPLE_PINS))
+def test_resample_kernel_emulated_pins(libs, orig, target):
+    """K9 gives the bits its first design gave at every rate pair, the
+    read-only-cache route included: each output still adds its taps in
+    ascending k with fmaf from 0, and the banded table's zeros around
+    them leave the sum as it was."""
+    def run(x, rows, out_len):
+        return resample_emulated(libs, x, orig, target, rows, out_len)
+    assert resample_pin_digest(run, orig, target) == RESAMPLE_PINS[
+        (orig, target)]
+
+
+@pytest.mark.parametrize("orig,target", [(22050, 11025), (48000, 22050),
+                                         (16000, 22050), (44100, 11025)])
+@pytest.mark.parametrize("sms", [1, 7])
+def test_resample_kernel_emulated_grid(libs, orig, target, sms):
+    """Blocks that compute several tiles each, a block's tiles crossing
+    rows' ends (3 rows of 9001 samples at 48 and 16 kHz, of 33,000 and
+    66,000 in the span's tiles of 4096 outputs): the span route at lags 8
+    and 16 and the rows route give on 1 and 7 blocks the bits of 64
+    blocks (one a tile but at 16 kHz's 84 tiles), and the plain version's
+    within 1e-5."""
+    n = {22050: 33000, 44100: 66000}.get(orig, 9001)
+    x = resample_rows_np(n, rows=3, seed=2)
+    tiles = resample_tiles(libs, orig, target, n, 3)
+    assert tiles >= 2 * sms
+    with emulated_sms(libs, sms):
+        got = resample_emulated(libs, x, orig, target)
+    with emulated_sms(libs, 64):
+        assert torch.equal(got, resample_emulated(libs, x, orig, target))
+    torch.testing.assert_close(got, resample.resample_plain(x, orig, target),
+                               atol=1e-5, rtol=0)
+
+
+def test_resample_kernel_emulated_tiles_not_a_multiple_of_the_grid(libs):
+    """30 tiles (10 parts of 16 groups x 3 rows at 48 kHz) on 4 blocks:
+    blocks of 7 and 8 tiles, parts changing inside a block (its banded
+    table rebuilt), the same bits as one block a tile."""
+    x = resample_rows_np(9001, rows=3, seed=2)
+    sel = [2, 0, 1]
+    tiles = resample_tiles(libs, 48000, 22050, 9001, 3)
+    assert tiles == 30 and tiles % 4
+    with emulated_sms(libs, 4):
+        got = resample_emulated(libs, x, 48000, 22050, sel, 4000)
+    with emulated_sms(libs, tiles):
+        assert torch.equal(got, resample_emulated(libs, x, 48000, 22050,
+                                                  sel, 4000))
+    torch.testing.assert_close(
+        got, resample.resample_rows_plain(x, sel, 48000, 22050, 4000),
+        atol=1e-5, rtol=0)
+
+
+def test_resample_kernel_emulated_buffer_parity(libs):
+    """One block computes all 6 tiles of 6 rows at 22050 -> 11025 Hz, so
+    each input buffer serves 3 tiles, its k-th use waiting on its
+    mbarrier's parity k & 1: a wrong parity would read a buffer before its
+    copy landed (stale outputs) or wait forever."""
+    x = resample_rows_np(4099, rows=6, seed=8)
+    assert resample_tiles(libs, 22050, 11025, 4099, 6) == 6
+    with emulated_sms(libs, 1):
+        got = resample_emulated(libs, x, 22050, 11025)
+    torch.testing.assert_close(got, resample.resample_plain(x, 22050, 11025),
+                               atol=1e-5, rtol=0)
+
+
+def test_resample_kernel_emulated_short_rows(libs):
+    """Rows shorter than a tile (9 rows of 37 samples) at every rate pair
+    on 2 blocks: a tile or a few parts a row, a frame holding every output
+    (fewer outputs than a frame's phases), within 1e-5 of the plain
+    version."""
+    x = resample_rows_np(37, rows=9, seed=3)
+    with emulated_sms(libs, 2):
+        for orig, target in RESAMPLE_RATES + [(7999, 22050)]:
+            torch.testing.assert_close(
+                resample_emulated(libs, x, orig, target),
+                resample.resample_plain(x, orig, target), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("orig", [11025, 24000, 32000, 88200, 192000,
+                                  384000])
+def test_resample_kernel_emulated_other_rates(libs, orig):
+    """Rates of WAVs users load, to 22050 Hz, beyond the tests' pairs: up 2
+    (a span at lag 2), down 160 and 640 (rows), up 1 at down 4 (a span at
+    lag 16), and 192 and 384 kHz, whose phase tables (246 and 492 KB) go
+    through the read-only cache in rows of 32 and 16 frames of 8 groups;
+    within 1e-5 of the plain version."""
+    up, down, k = resample_taps(orig, 22050)
+    lay = resample_layout(libs, up, down, k)
+    assert lay["bytes"] > 0
+    assert lay["frames"] == {11025: 1024, 24000: 32, 32000: 32, 88200: 1024,
+                             192000: 32, 384000: 16}[orig]
+    assert (lay["taps"] == 0) == (orig >= 192000)
+    x = resample_rows_np(3001)
+    torch.testing.assert_close(resample_emulated(libs, x, orig, 22050),
+                               resample.resample_plain(x, orig, 22050),
+                               atol=1e-5, rtol=0)
+
+
 def test_resample_layout_and_attribute_only_grows(libs):
-    """Every rate pair of the tests keeps its phase table in shared memory
-    beside a span that holds a tile's inputs; 96 kHz's 147 x 209 table
-    takes 122,896 bytes. The occupancy query (a launch does the same)
-    raises the dynamic shared-memory attribute and never lowers it: after
-    96 kHz, 48 kHz (61,744 B of table) and 22050 Hz leave it at 96 kHz's
-    bytes."""
+    """Every rate pair of the tests fits a block: rows of 32 frames x 16
+    groups, one frame a lane, at lag 4 where a frame's samples lie a
+    multiple of 32 floats apart (48, 16, 96 and 8 kHz; 96 kHz's rows and
+    table take 200,160 bytes), a span of 1024 frames of one group, four a
+    lane, elsewhere at lag gcd(D, 32) (8 at 22050 -> 11025: 89,488
+    bytes); a thread walks the group's window, K +
+    ceil(3·down / up) positions, lagged and rounded up to 4. The occupancy
+    query (a launch does the same) raises the dynamic shared-memory
+    attribute and never lowers it: after 96 kHz, 48 kHz and 22050 Hz leave
+    it at 96 kHz's bytes."""
     sizes = {}
     for orig, target in RESAMPLE_RATES:
-        up, down = resample._ratio(orig, target)
-        k = resample._phase_taps(up, down, 24, 9.58, CPU).shape[-1]
-        tile, span, taps, nbytes = resample_layout(libs, up, down, k)
-        assert taps == (up * k + 3) // 4 * 4
-        assert span >= (tile - 1) * down // up + 1 + k + 6
-        assert nbytes == 16 + 4 * (span + taps) <= 232448
-        sizes[(orig, target)] = (up, down, k, nbytes)
-    assert sizes[(96000, 22050)][:3] == (147, 640, 209)
+        up, down, k = resample_taps(orig, target)
+        lay = resample_layout(libs, up, down, k)
+        stride = lay["phases"] // up * down
+        rows = stride % 32 == 0
+        assert lay["phases"] == up * 4 // np.gcd(up, 4)
+        want = ((1, 32, 16, 4, 1) if rows
+                else (0, 1024, 1, np.gcd(stride, 32), 4))
+        assert (lay["rows"], lay["frames"], lay["groups"], lay["lag"],
+                lay["per_lane"]) == want
+        assert lay["tile"] == lay["frames"] * 4 * lay["groups"]
+        window = -(-3 * down // up) + k + lay["lag"] - 1
+        assert lay["steps"] == -(-window // 4) * 4
+        assert lay["taps"] == lay["groups"] * (lay["steps"] + lay["lag"]
+                                               - 1) * 4
+        assert 0 < lay["bytes"] <= 232448
+        sizes[(orig, target)] = (up, down, k, lay["bytes"])
+    assert sizes[(96000, 22050)] == (147, 640, 209, 200160)
+    assert sizes[(22050, 11025)][3] == 89488
     lib = libs["resample"]
     attr = ctypes.c_int.in_dll(lib, "emu_smem_attr")
     attr.value = 48 * 1024

@@ -384,9 +384,9 @@ def test_onset_timing_tool_times_the_slicer(monkeypatch):
 
 def test_onset_timing_tool_times_the_resampler(monkeypatch):
     """`tools/torch_onset_timing.py TREE resample` runs chip_smoke's
-    `time_resample` at its four shapes (the wave's budgeted clips, 60 s
-    and 400 s at 48 kHz, 60 s at 16 kHz, all to the file or checkpoint
-    rate) and exits 1 without a card."""
+    `time_resample` at its six shapes (the wave's budgeted clips, 60 s
+    and 400 s at 48 kHz, 60 s at 16 kHz and at 44.1 kHz, one 0.5 s note,
+    all to the file or checkpoint rate) and exits 1 without a card."""
     timing = _tool("torch_onset_timing")
     assert timing.TIMINGS["resample"] == ("resample", "time_resample")
     spec = importlib.util.spec_from_file_location("_smoke",
@@ -394,7 +394,8 @@ def test_onset_timing_tool_times_the_resampler(monkeypatch):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     assert [s[3:] for s in smoke.RESAMPLE_SHAPES] == [
-        (22050, 11025), (48000, 22050), (48000, 22050), (16000, 22050)]
+        (22050, 11025), (48000, 22050), (48000, 22050), (16000, 22050),
+        (44100, 22050), (22050, 11025)]
     assert smoke.KERNEL_ROWS[smoke.K9] == "resample"
     assert smoke.K9 in smoke.SEGMENTING
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -86,6 +86,33 @@ def test_filter_tables_identical(orig, target):
             jr._decimation_band_np(up, down, 24, 9.58, 128))
 
 
+@pytest.mark.parametrize("orig,target", [(48000, 22050), (16000, 22050),
+                                         (96000, 22050), (22050, 11025)])
+@pytest.mark.parametrize("length", [1, 1001, 4099])
+def test_polyphase_bank_matches_plain(orig, target, length):
+    """The library's one `F.conv1d` that K9 is timed against at every rate
+    pair (`polyphase_bank`, torchaudio's form: up channels at stride
+    down, then interleaved) gives `resample_plain`'s outputs within 1e-5
+    at the smoke's rate pairs, and the reference's too; at up == 1 the
+    bank is the filter itself."""
+    x = np.random.default_rng(length).normal(0, 0.3, (2, length)).astype(
+        np.float32)
+    got = tr.resample_conv(torch.from_numpy(x), orig, target)
+    ref = tr.resample_plain(torch.from_numpy(x), orig, target)
+    assert got.shape == ref.shape == (2, -(-length * target // orig))
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jr.resample(jnp.asarray(x), orig, target)),
+        atol=1e-5, rtol=0)
+    up, down = target // np.gcd(orig, target), orig // np.gcd(orig, target)
+    bank, lpad = tr.polyphase_bank(up, down)
+    k_taps = tr._polyphase_plan(1, up, down, 24, 9.58)[0].shape[1]
+    assert bank.shape[:2] == (up, 1) and bank.shape[2] >= k_taps
+    if up == 1:
+        np.testing.assert_array_equal(bank[0, 0], tr.resample_filter(1, down))
+        assert lpad == (bank.shape[2] - 1) // 2
+
+
 def test_same_rate_is_identity():
     x = torch.ones(3, 10)
     assert tr.resample(x, 22050, 22050) is x

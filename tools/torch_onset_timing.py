@@ -5,8 +5,9 @@ on one CUDA card; with `clip`, K2, K3 and (where the checkout has it) K6
 at the clip path's 1024 clips; with `gate`, the noise gate K7 at the
 serving wave and a 400 s riff, per pass; with `slice`, the clip slicer K8
 at the same wave and riff and at 4.0 s clips; with `resample`, the
-polyphase resampler K9 at the serving wave's clip re-rate and three user
-files (or, in a checkout without K9, its plain route at the same calls).
+polyphase resampler K9 at the serving wave's clip re-rate, four user
+files and one note (or, in a checkout without K9, its plain route at the
+same calls).
 
     python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip] [gate]
                                              [slice] [resample]
@@ -24,8 +25,10 @@ the onsets that checkout's gate and detection find in them, the file
 path's arguments, 0.5 s clips and 4.0 s clips at every 8th onset, with
 K8's resident blocks per SM and its ring; `time_resample`: the wave's
 384 budgeted clips of 0.5 s at 22050 Hz re-rated and cut to 5,512
-samples, 60 s and 400 s at 48 kHz, 60 s at 16 kHz to 22050 Hz, with the
-whole call's device time beside K9's), so two
+samples, 60 s and 400 s at 48 kHz, 60 s at 16 kHz and at 44.1 kHz to
+22050 Hz, one 0.5 s note to 11025 Hz, with the whole call's device time
+beside K9's and one `F.conv1d` of the filter bank as the library's
+time), so two
 checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
