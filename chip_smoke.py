@@ -7,7 +7,7 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits
 non-zero:
 
 1. the card: name and power limit (nvidia-smi);
-2. build the nine CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
+2. build the ten CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
    source, in parallel), print nvcc's register/spill report and each
    kernel's resident blocks per SM as the CUDA runtime computes them;
 3. hold each kernel against its plain PyTorch version on the card, at its
@@ -46,7 +46,21 @@ non-zero:
    at 48 kHz and one 60 s file at 16 kHz (to 22050 Hz), each with its
    device time, the whole call's, the plain route's, the bound, resident
    blocks per SM and shared memory, and at the wave `library_ms`, one
-   `F.conv1d(x, h, stride=2)` with TF32 off;
+   `F.conv1d(x, h, stride=2)` with TF32 off; then `[compact]`: the
+   wave's clip-budget compaction K10 (`csrc/wave_compact.cu`, its
+   selection `wave_select` and its scatter `wave_scatter`) against the
+   plain twins (`ops/compaction.py`: the selection equal field by field,
+   sel in the reference's order, the scatter bit-equal) at the serving
+   wave (4 files x 112 slots, budget 384) with random kept bits, with the
+   kept bits of `[gate]`'s riffs and of torch_roofline_files.py's noise
+   wave (none kept), with bits that overflow the budget, at a 64-file
+   wave of 7,168 slots (budget 5,376), and every rank's (first, n_local)
+   of the riffs' and the 64-file wave's bits for 2 and 4 ranks, each
+   timed in CUDA events and in the profiler with the plain route's device
+   ms and the bound; and the file body's `compaction` stage in situ on
+   the riffs and the noise wave (`time_compact_stage`: its device ms and
+   kernels, no sort kernel in the wave, no synchronising call of the
+   compaction);
 4. drive the clip path, `Transcriber(device="cuda").transcribe_clips`, at
    the shipped checkpoints: K1-K3's launch counts must rise, the labels
    must equal those of the plain versions fed to the same models, and a
@@ -177,7 +191,7 @@ non-zero:
 19. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
-Each path's kernel launches, K1..K9, are counted from zero just before
+Each path's kernel launches, K1..K10, are counted from zero just before
 it is driven and read just after (`launches_by_path` in the kernels
 line: clips, file, long, files, serve, http, stream, live, cli, train,
 shared, eval, tools, parallel, file_4s, file_4s_shared; K6's row from
@@ -186,9 +200,14 @@ shared, eval, tools, parallel, file_4s, file_4s_shared; K6's row from
 (file, long, files, serve, http, cli, eval, tools, parallel and both
 file_4s paths) must launch K7, K8 and K9 (its clips re-rated to the
 checkpoint's rate), and stream, live and train, which re-rate their
-clips or files, K9. `launches` stays the clip path's count for K1-K3,
-the file path's for K4, K5, K7, K8 and K9 and the shared clip path's for
-K6.
+clips or files, K9. Each wave through the file body's budget branch
+(more slots than the budget: `transcribe_files` waves of 4 under the
+"auto" budget) is counted too, apart from K10 (`compaction_branch`):
+K10's two kernels must launch once a compacted wave on every path and so
+never on a path that does not compact, and at least once on files,
+serve, http and parallel. `launches` stays the clip path's count for
+K1-K3, the file path's for K4, K5, K7, K8 and K9, the shared clip path's
+for K6 and the many-file path's for K10.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -341,7 +360,7 @@ def time_ms(fn, pool, reps: int) -> float:
 
 
 def kernel_device_ms(fn, pool, kernel: str) -> float | None:
-    """Device time per call of the device functions of `kernel` (K1..K9,
+    """Device time per call of the device functions of `kernel` (K1..K10,
     `load_roofline().KERNEL_SYMBOLS`), each launched once a call: the sum
     of `symbol_device_ms`. None when the profiler saw no device time."""
     per_call = sum(ms or 0.0 for ms in symbol_device_ms(
@@ -1552,43 +1571,361 @@ def resample_phase(failures: list, device: str = "cuda") -> list[dict]:
                  blocks_per_sm=wave["blocks_per_sm"], shapes=shapes)]
 
 
-# the kernels every path's launches are counted for, K1..K9 in the order
-# of `utils/roofline.py`'s KERNEL_SYMBOLS, by their kernels-line rows'
-# names; the indices of K1..K9 in a `driven` count; and those that every
-# path that segments a file launches on the FFT route (all but K6)
+# [compact]: K10 at the serving wave (4 files x 112 slots, budget 384 as
+# [resample] and torch_roofline_files.py take it), with the kept bits of
+# [gate]'s riffs and of torch_roofline_files.py's default (noise) wave,
+# random bits that overflow the budget, a 64-file wave of 7,168 slots and
+# the mesh's (first, n_local) for 2 and 4 ranks
+COMPACT_FILES, COMPACT_SLOTS, COMPACT_BUDGET = 4, 112, 384
+COMPACT_BIG = (64, 112, 5376)   # 3/4 of its slots
+COMPACT_CLASSES = 47
+COMPACT_CAND = 448     # the serve defaults' candidate budget (the roofline's)
+COMPACT_WORLDS = (2, 4)
+
+
+def wave_segment(y, nv, dev):
+    """The serving wave's kept bits (files, 112) of the riffs y with valid
+    counts nv, segmented as the file body segments them on `dev`."""
+    from gat_tpu_torch.segment.slicing import segment_waveform
+    return segment_waveform(y, sr=FILE_SR, length_sec=0.5,
+                            max_onsets=COMPACT_SLOTS, n_valid=nv,
+                            cand_budget=COMPACT_CAND)[1]
+
+
+def noise_wave(dev):
+    """torch_roofline_files.py's default wave, its first input: 4 files of
+    60 s of Gaussian noise (sigma 0.05, numpy seed 0) and their counts."""
+    import torch
+    n = int(60.0 * FILE_SR)
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.normal(0, 0.05, (COMPACT_FILES, n))
+                         .astype(np.float32)).to(dev)
+    return y, torch.full((COMPACT_FILES,), n, dtype=torch.int32, device=dev)
+
+
+def compact_data(dev) -> list:
+    """[compact]'s cases on `dev`: (tag, kept bits (files, K) bool, budget,
+    world) with world 1 for one device, else every rank's (first,
+    n_local) of it is checked."""
+    import torch
+    gen = torch.Generator("cpu").manual_seed(SEED + 30)
+
+    def bits(files, k, density):
+        return (torch.rand((files, k), generator=gen) < density).to(dev)
+    y, nv, _, _ = gate_riffs(dev)
+    riffs = wave_segment(y, nv, dev)
+    noise = wave_segment(*noise_wave(dev), dev)
+    files, k, budget = COMPACT_BIG
+    cases = [("wave", bits(COMPACT_FILES, COMPACT_SLOTS, 0.5),
+              COMPACT_BUDGET, 1),
+             ("wave_riffs", riffs, COMPACT_BUDGET, 1),
+             ("wave_noise", noise, COMPACT_BUDGET, 1),
+             ("overflow", bits(COMPACT_FILES, COMPACT_SLOTS, 0.97),
+              COMPACT_BUDGET, 1),
+             ("wave64", bits(files, k, 0.6), budget, 1)]
+    cases += [(f"wave_riffs_mesh{w}", riffs, COMPACT_BUDGET, w)
+              for w in COMPACT_WORLDS]
+    cases += [(f"wave64_mesh{w}", cases[4][1], budget, w)
+              for w in COMPACT_WORLDS]
+    return cases
+
+
+def compact_parts(rows: int, dev, seed: int) -> tuple:
+    """Compact outputs of `rows` rows as the file body's classify gives
+    them: blended, MLP and CNN probs (rows, 47) and the pitch (rows,)."""
+    import torch
+    gen = torch.Generator("cpu").manual_seed(seed)
+    mats = [torch.softmax(torch.randn((rows, COMPACT_CLASSES), generator=gen),
+                          -1).to(dev) for _ in range(3)]
+    return (*mats, (80.0 + 900.0 * torch.rand(rows, generator=gen)).to(dev))
+
+
+def same_selection(got, ref) -> bool:
+    """K10's selection equal to the plain one, field by field (sel in the
+    same order)."""
+    return got.n_sel == ref.n_sel and all(
+        getattr(got, f).dtype == getattr(ref, f).dtype
+        and bool((getattr(got, f) == getattr(ref, f)).all())
+        and getattr(got, f).shape == getattr(ref, f).shape
+        for f in ("sel", "pos", "kept", "dropped", "overflow", "fixable"))
+
+
+def time_compact_cases(compaction, dev, failures: list,
+                       data: list | None = None) -> list[dict]:
+    """K10 (`compaction.wave_select` and `wave_scatter`) against the plain
+    twins on `compact_data`'s cases or `data`: the selection equal field
+    by field on every rank of a mesh case, the scatter of `compact_parts`
+    bit-equal (a copy); each timed in CUDA events over POOL distinct
+    buffers (rank 0's call for a mesh case), with each kernel's device ms
+    and the plain route's (every kernel of `wave_select_plain` and
+    `wave_scatter_plain`) from the profiler, and its bound
+    (`utils/roofline.py`'s select_cost and scatter_cost). One row per
+    case."""
+    import torch
+    roofline = load_roofline()
+    syms = roofline.KERNEL_SYMBOLS["K10"]
+    rows = []
+    for tag, kept, budget, world in data or compact_data(dev):
+        files, k = kept.shape
+        local = files // world
+        ok, n_sel0, launched = True, None, 0
+        for rank in range(world):
+            first = rank * local
+            ovf = torch.arange(local, device=dev) % 3 == 0
+            fix = torch.arange(local, device=dev) % 5 == 0
+            before = (compaction.wave_select.launches,
+                      compaction.wave_scatter.launches)
+            got = compaction.wave_select(kept, budget, first, local, ovf,
+                                         fix)
+            ref = compaction.wave_select_plain(kept, budget, first, local,
+                                               ovf, fix)
+            parts = compact_parts(max(got.n_sel, 1), dev, SEED + rank)
+            out = compaction.wave_scatter(got.pos, parts)
+            ref_out = compaction.wave_scatter_plain(ref.pos, parts)
+            torch.cuda.synchronize()
+            launched += (compaction.wave_select.launches - before[0]
+                         + compaction.wave_scatter.launches - before[1])
+            ok = ok and same_selection(got, ref) and all(
+                torch.equal(a, b) for a, b in zip(out, ref_out))
+            if rank == 0:
+                n_sel0 = got.n_sel
+        # timing: rank 0's call on POOL distinct copies of its inputs
+        ovf = torch.zeros(local, dtype=torch.bool, device=dev)
+        pool = [kept.clone() for _ in range(POOL)]
+        sel0 = compaction.wave_select(kept, budget, 0, local, ovf, ovf)
+        parts = compact_parts(max(sel0.n_sel, 1), dev, SEED)
+        pos_pool = [sel0.pos.clone() for _ in range(POOL)]
+
+        def select(x):
+            return compaction.wave_select(x, budget, 0, local, ovf, ovf)
+
+        def select_plain(x):
+            return compaction.wave_select_plain(x, budget, 0, local, ovf,
+                                                ovf)
+
+        def scatter(p):
+            return compaction.wave_scatter(p, parts)
+
+        def scatter_plain(p):
+            return compaction.wave_scatter_plain(p, parts)
+        widths = 3 * COMPACT_CLASSES + 1
+        row = dict(case=tag, files=files, slots=k, budget=budget,
+                   world=world, n_local=local, n_kept=int(kept.sum()),
+                   n_sel=n_sel0, launches=launched, checked=ok,
+                   select_ms=time_ms(select, pool, reps=20),
+                   scatter_ms=time_ms(scatter, pos_pool, reps=20),
+                   select_plain_ms=time_ms(select_plain, pool, reps=5),
+                   scatter_plain_ms=time_ms(scatter_plain, pos_pool, reps=5))
+        dev_ms = symbol_device_ms(select, pool, syms[:1])
+        dev_ms.update(symbol_device_ms(scatter, pos_pool, syms[1:]))
+        row.update(select_device_ms=dev_ms[syms[0]],
+                   scatter_device_ms=dev_ms[syms[1]],
+                   plain_device_ms=call_device_ms(
+                       lambda x: scatter_plain(select_plain(x).pos), pool))
+        row["select_bound_ms"], row["select_bound_by"] = roofline.bound(
+            *roofline.select_cost(files, k, local, sel0.n_sel))
+        row["scatter_bound_ms"], row["scatter_bound_by"] = roofline.bound(
+            *roofline.scatter_cost(local * k, sel0.n_sel, widths))
+        log(f"[compact] {tag} ({files} x {k} slots, {row['n_kept']} kept, "
+            f"budget {budget}, {world} rank(s), rank 0 n_sel {n_sel0}): "
+            f"select {row['select_ms']:.4f} ms (events), "
+            f"{fmt_ms(row['select_device_ms'])} device, bound "
+            f"{row['select_bound_ms']:.6f} ms; scatter "
+            f"{row['scatter_ms']:.4f} ms (events), "
+            f"{fmt_ms(row['scatter_device_ms'])} device, bound "
+            f"{row['scatter_bound_ms']:.6f} ms; plain select "
+            f"{row['select_plain_ms']:.4f} ms, scatter "
+            f"{row['scatter_plain_ms']:.4f} ms (events), the plain route "
+            f"{fmt_ms(row['plain_device_ms'])} device; {launched} launches "
+            f"for {2 * world} calls; selection equal and outputs bit-equal "
+            f"on every rank {ok} -> "
+            f"{'ok' if ok and launched == 2 * world else 'FAIL'}")
+        if not ok or launched != 2 * world:
+            failures.append(f"[compact] {tag}: K10 against the plain twins "
+                            f"(launches {launched})")
+        if row["select_device_ms"] is None or row["scatter_device_ms"] is None:
+            failures.append(f"[compact] {tag}: no device time of K10 in the "
+                            f"profiler")
+        rows.append(row)
+    torch.cuda.synchronize()
+    return rows
+
+
+def time_compact_stage(dev, failures: list) -> list[dict]:
+    """The file body's `compaction` stage in situ, for whichever checkout's
+    package is imported: the serving wave's body (`Transcriber._files_fn`
+    at 4 files x 60 s, 112 onsets, budget 384, candidates 448) on [gate]'s
+    riffs (their kept slots overflow the budget) and on
+    torch_roofline_files.py's noise wave (none kept), run ITERS times
+    under the profiler by this checkout's `tools/torch_roofline_files.py`
+    (`measure`): the wave's ms in CUDA events, the compaction stage's and
+    the whole wave's device ms per call and the kernels the stage
+    launched, and the synchronising calls of one call of the body (torch's
+    sync debug mode). One row per wave."""
+    import torch
+    from gat_tpu_torch.infer import Transcriber
+    roof = load_tool("torch_roofline_files")
+    t = Transcriber(device=str(dev))
+    run, _ = t._files_fn(FILE_SR, 0.5, COMPACT_SLOTS, COMPACT_BUDGET,
+                         COMPACT_CAND)
+    y, nv, _, _ = gate_riffs(dev)
+    y_noise, nv_noise = noise_wave(dev)
+    rows = []
+    for tag, (ys, nvs) in (("riffs", (y, nv)), ("noise", (y_noise,
+                                                          nv_noise))):
+        pool = [(ys, nvs)] + [((ys + 1e-4 * torch.randn(
+            ys.shape, device=dev, generator=torch.Generator(dev)
+            .manual_seed(SEED + i))).contiguous(), nvs) for i in range(1, 4)]
+        events_ms, stage_ms, kernels = roof.measure(run, pool)
+        _, syncs = sync_warnings(lambda: run(*pool[0]))
+        torch.cuda.synchronize()
+        row = dict(wave=tag, events_ms=events_ms,
+                   compaction_ms=stage_ms["compaction"],
+                   device_ms=sum(stage_ms.values()),
+                   stage_ms=stage_ms,
+                   compaction_kernels=kernels.get("compaction", []),
+                   sort_kernels=sorted({n for ks in kernels.values()
+                                        for n in ks if "sort" in n.lower()}),
+                   syncs=sum(syncs.values()),
+                   compaction_syncs=sum(n for at, n in syncs.items()
+                                        if at.startswith("compaction.py")))
+        log(f"[compact] stage, {tag} wave: compaction "
+            f"{row['compaction_ms']:.4f} ms device of the wave's "
+            f"{row['device_ms']:.4f} ms ({events_ms:.4f} ms events); its "
+            f"kernels {row['compaction_kernels']}; sort kernels in the wave "
+            f"{row['sort_kernels']}; {row['syncs']} synchronising calls a "
+            f"body call {dict(syncs)}")
+        rows.append(row)
+        del pool
+    return rows
+
+
+def time_compact(dev, failures: list) -> list[dict]:
+    """`tools/torch_onset_timing.py TREE compact`: the compaction stage in
+    situ (`time_compact_stage`) for any checkout, then K10's cases
+    (`time_compact_cases`) where the checkout has `ops/compaction.py`."""
+    import importlib.util
+    rows = time_compact_stage(dev, failures)
+    if importlib.util.find_spec("gat_tpu_torch.ops.compaction") is not None:
+        from gat_tpu_torch.ops import compaction
+        rows += time_compact_cases(compaction, dev, failures)
+    return rows
+
+
+def compact_phase(failures: list, device: str = "cuda") -> list[dict]:
+    """`[compact]`: K10 (`csrc/wave_compact.cu`) against its plain twins at
+    `compact_data`'s cases, timed, and the body's compaction stage in situ
+    (no sort kernel in the wave, a kernel launched in the stage, no
+    synchronising call of the compaction on one device);
+    returns the kernels-line rows of its two kernels, the serving wave's
+    numbers, with every case's in `cases` and the stage's in `stage` of
+    the selection's row."""
+    import torch
+    from gat_tpu_torch.ops import compaction
+    dev = torch.device(device)
+    stages = time_compact_stage(dev, failures)
+    roofline = load_roofline()
+    for st in stages:
+        ran = {roofline.device_function(n) for n in st["compaction_kernels"]}
+        if (st["sort_kernels"] or st["compaction_syncs"]
+                or not ran >= set(roofline.KERNEL_SYMBOLS["K10"])):
+            failures.append(f"[compact] {st['wave']} wave: sort kernels "
+                            f"{st['sort_kernels']}, compaction kernels "
+                            f"{st['compaction_kernels']}, "
+                            f"{st['compaction_syncs']} syncs of the "
+                            f"compaction on one device")
+    cases = time_compact_cases(compaction, dev, failures)
+    wave = cases[0]
+    tolerance = ("equal: sel (values and order), pos, kept, dropped, "
+                 "overflow, fixable and n_sel; scattered outputs bit-equal")
+    common = dict(route="cuda", source="gat_tpu_torch/csrc/wave_compact.cu",
+                  replaces="gat_tpu/infer/pipeline.py:171", launches=0,
+                  max_abs_err=0.0 if all(c["checked"] for c in cases)
+                  else None, tolerance=tolerance, library_ms=None,
+                  plain_device_ms=wave["plain_device_ms"])
+    # every case's and the stage's numbers (both kernels') once, in the
+    # selection's row
+    return [dict(name="wave_select", ms=wave["select_ms"],
+                 plain_ms=wave["select_plain_ms"],
+                 bound_ms=wave["select_bound_ms"],
+                 bound_by=wave["select_bound_by"],
+                 device_ms=wave["select_device_ms"], cases=cases,
+                 stage=stages, **common),
+            dict(name="wave_scatter", ms=wave["scatter_ms"],
+                 plain_ms=wave["scatter_plain_ms"],
+                 bound_ms=wave["scatter_bound_ms"],
+                 bound_by=wave["scatter_bound_by"],
+                 device_ms=wave["scatter_device_ms"], **common)]
+
+
+# the kernels every path's launches are counted for, K1..K10 in the order
+# of `utils/roofline.py`'s KERNEL_SYMBOLS (K10's two kernels, the
+# compaction's selection and scatter, a row each), by their kernels-line
+# rows' names; the indices of K1..K10 in a `driven` count; and those that
+# every path that segments a file launches on the FFT route (all but K6
+# and K10)
 KERNEL_ROWS = ("melspec_frontend", "mfcc_frontend", "yin_pitch",
                "onset_envelope", "onset_pick", "mfcc_pitch_frontend",
-               "noise_gate", "slice_clips", "resample")
-K1, K2, K3, K4, K5, K6, K7, K8, K9 = range(9)
+               "noise_gate", "slice_clips", "resample", "wave_select",
+               "wave_scatter")
+K1, K2, K3, K4, K5, K6, K7, K8, K9, K10S, K10C = range(11)
 # a path that segments a file re-rates its clips to the checkpoint's rate
 # (K9) too
 SEGMENTING = (K1, K2, K3, K4, K5, K7, K8, K9)
+# K10 launches once a wave that goes through the file body's budget
+# branch, which a `driven` count also counts apart, at BRANCH after the
+# kernels; the paths that must take that branch (waves of more slots than
+# the budget); and each path's K10 faults, which main() fails on
+COMPACTING = (K10S, K10C)
+BRANCH = len(KERNEL_ROWS)
+MUST_COMPACT = ("files", "serve", "http", "parallel")
+PATH_FAULTS: list = []
+
+
+def compaction_branch():
+    """The file body's budget branch, counted: `infer.pipeline`'s
+    `wave_select`, which the branch calls once a wave, wrapped once a
+    process so that its `launches` counts the waves that took the branch,
+    whatever K10's own counts say."""
+    from gat_tpu_torch.infer import pipeline
+    if not getattr(pipeline.wave_select, "branch", False):
+        inner = pipeline.wave_select
+
+        def counted(*args, **kwargs):
+            counted.launches += 1
+            return inner(*args, **kwargs)
+        counted.launches, counted.branch = 0, True
+        pipeline.wave_select = counted
+    return pipeline.wave_select
 
 
 def kernel_wrappers() -> list:
-    """The wrappers of K1..K9, each counting the launches of its kernel
+    """The wrappers of K1..K10, each counting the launches of its kernel
     (K7's is `gating.noise_gate`, which `rms_gate` and `gate_waveform`
     call; K9's count is on `resample.resample`, which `resample_rows`
-    adds to)."""
+    adds to; K10's on `compaction.wave_select` and `wave_scatter`), and
+    last the budget branch's count (`compaction_branch`)."""
     from gat_tpu_torch import features
-    from gat_tpu_torch.ops import onset, resample, yin
+    from gat_tpu_torch.ops import compaction, onset, resample, yin
     from gat_tpu_torch.segment import gating, slicing
     return [features.melspec_features, features.mfcc_frontend,
             yin.yin_pitch, onset.onset_strength, onset.pick_onsets,
             features.mfcc_pitch_features, gating.noise_gate,
-            slicing.slice_at_onsets, resample.resample]
+            slicing.slice_at_onsets, resample.resample,
+            compaction.wave_select, compaction.wave_scatter,
+            compaction_branch()]
 
 
 def not_launched(launches: list, need=SEGMENTING) -> list:
-    """The names of the kernels of `need` (indices K1..K9) that a `driven`
-    count shows were not launched."""
+    """The names of the kernels of `need` (indices K1..K10) that a
+    `driven` count shows were not launched."""
     return [KERNEL_ROWS[i] for i in need if launches[i] < 1]
 
 
 def driven(fn) -> tuple:
     """fn() run once with every kernel's launch count set to 0 just before
     and read just after, once the card is idle: (its result, launches
-    K1..K9, wall seconds)."""
+    K1..K10 and the budget branch's count at BRANCH, wall seconds)."""
     import torch
     wrappers = kernel_wrappers()
     torch.cuda.synchronize()
@@ -1602,13 +1939,25 @@ def driven(fn) -> tuple:
 
 
 def record_launches(rows: list, path: str, launches: list) -> None:
-    """Each kernel's launches on one path (K1..K9, a `driven` count), into
+    """Each kernel's launches on one path (K1..K10, a `driven` count), into
     its kernels-line row, found by name (K6's row exists from `[shared]`
-    on)."""
+    on, K10's from `[compact]` on); and K10's check: each of its kernels
+    launched once for every wave that took the budget branch, so none on
+    a path that does not compact, and at least once on MUST_COMPACT's
+    paths (a fault goes to PATH_FAULTS)."""
     by_name = {row["name"]: row for row in rows}
     for name, n in zip(KERNEL_ROWS, launches):
         if name in by_name:
             by_name[name].setdefault("launches_by_path", {})[path] = n
+    branch = launches[BRANCH]
+    k10 = [launches[i] for i in COMPACTING]
+    ok = k10 == [branch, branch] and (branch >= 1
+                                      or path not in MUST_COMPACT)
+    log(f"[compact] {path}: {branch} waves through the budget branch, K10 "
+        f"launches {k10} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        PATH_FAULTS.append(f"[{path}] K10 launched {k10} for {branch} "
+                           f"compacted waves")
 
 
 def same_result(got: dict, ref: dict) -> tuple[bool, float]:
@@ -1645,7 +1994,7 @@ def file_phase(rows: list, card: str, failures: list) -> None:
             _, launches, _ = driven(
                 lambda: card_t.transcribe(paths[FILE_SR], fused=fused))
             log(f"[file] launches per transcribe(fused={fused}) call, "
-                f"K1..K9: {launches}")
+                f"K1..K10 and the budget branch: {launches}")
             if not_launched(launches) or launches[K4] != 1:
                 failures.append(f"a kernel was not launched on the file "
                                 f"path, or K4 more than once "
@@ -1918,6 +2267,11 @@ def files_phase(rows: list, card: str, failures: list,
             got, launches, wall, n_host = call(
                 lambda: card_t.transcribe_files(paths))
             record_launches(rows, "files", launches)
+            # K10's `launches`: the many-file path's, the path it serves
+            for row in rows:
+                if row["name"] in ("wave_select", "wave_scatter"):
+                    row["launches"] = launches[KERNEL_ROWS.index(
+                        row["name"])]
             checks = [same_result(g, r) for g, r in zip(got, ref)]
             n_same = sum(s for s, _ in checks)
             n_planted = sum(g["labels"] == p for g, p in zip(got, planted))
@@ -1928,7 +2282,7 @@ def files_phase(rows: list, card: str, failures: list,
             log(f"[files] transcribe_files({len(paths)} files, "
                 f"{audio_s:g} audio-s, buckets 2/4/16/512 s): {wall * 1e3:.3f} "
                 f"ms on {card} (CPU plain path {cpu_s:.1f} s); launches "
-                f"K1..K9 {launches}, host transfers {n_host}; equal to the "
+                f"K1..K10, branch {launches}, host transfers {n_host}; equal to the "
                 f"CPU's {n_same}/{len(paths)} (max prob err "
                 f"{max(e for _, e in checks):.3g}), planted labels "
                 f"{n_planted}/{len(paths)}, silent file empty "
@@ -1976,7 +2330,7 @@ def files_phase(rows: list, card: str, failures: list,
                 log(f"[files] transcribe_files({name}): {ms:.3f} ms/call, "
                     f"{ms / n_files:.3f} ms/file, {n_files / ms * 1e3:.1f} "
                     f"files/s, {secs / ms * 1e3:.1f} audio-s/s; launches "
-                    f"K1..K9 {launches}, host transfers {n_host}; on {card}")
+                    f"K1..K10, branch {launches}, host transfers {n_host}; on {card}")
                 if n_files >= 16:
                     out[name]["busy_ms"] = profile_call(fn, ms)
             ms = wall_ms(lambda: [card_t.transcribe(p) for p in riffs], 1)
@@ -2030,7 +2384,7 @@ def serve_phase(rows: list, card: str, failures: list,
                for s in want}
         ok = n == SERVE_FILES and got == want and not not_launched(launches)
         log(f"[serve] serve(once=True, batch=4) over {SERVE_FILES} riffs: "
-            f"{wall * 1e3:.3f} ms, launches K1..K9 {launches}; labels equal "
+            f"{wall * 1e3:.3f} ms, launches K1..K10, branch {launches}; labels equal "
             f"to the CPU's {got == want} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("[serve] the watch folder's labels or launches")
@@ -2083,7 +2437,7 @@ def serve_phase(rows: list, card: str, failures: list,
         log(f"[serve] serve_http(batch=4): {SERVE_FILES} concurrent POSTs in "
             f"{wall * 1e3:.3f} ms, {metrics['gat_device_dispatches_total']} "
             f"dispatches carrying {metrics['gat_dispatch_files_sum']} files, "
-            f"launches K1..K9 {launches}; every answer 200 with the CPU's "
+            f"launches K1..K10, branch {launches}; every answer 200 with the CPU's "
             f"labels {same}; server stopped {not server.is_alive()} -> "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -2289,7 +2643,7 @@ def stream_phase(rows: list, card: str, failures: list,
             log(f"[stream] {tag}: {len(got)} notes, planted found "
                 f"{found}/{len(planted)}; slots identical to the CPU's "
                 f"{slots_same}, notes equal {same} (max prob err "
-                f"{err:.3g}); launches K1..K9 {launches}, host transfers "
+                f"{err:.3g}); launches K1..K10, branch {launches}, host transfers "
                 f"{n_host} (2 per window), synchronizing calls "
                 f"{sum(n_sync.values())} {dict(n_sync)}; "
                 f"{wall * 1e3:.3f} ms on {card} (CPU plain path "
@@ -2360,7 +2714,7 @@ def live_phase(rows: list, card: str, failures: list,
     log(f"[live] run_on_source({STREAM_SECONDS:g} s riff, {len(planted)} "
         f"plucks, {polls} polls): {len(got)} notes transcribed, labels "
         f"equal to the CPU's {same} (max prob err {err:.3g}), the planted "
-        f"sequence {seq == [lab for _, lab in planted]}; launches K1..K9 "
+        f"sequence {seq == [lab for _, lab in planted]}; launches K1..K10, branch "
         f"{launches} ({detecting} detecting polls, K4/K5 once each), onset "
         f"transfers {transfers[0]}, synchronizing calls "
         f"{sum(n_sync.values())} {dict(n_sync)}; {wall * 1e3:.3f} ms, "
@@ -2424,7 +2778,7 @@ def cli_phase(rows: list, card: str, failures: list,
             if not ok:
                 failures.append(f"[cli] {name}: the card's results differ")
     log(f"[cli] the three card runs: {wall * 1e3:.3f} ms with checkpoint "
-        f"loads, launches K1..K9 {launches} on {card}")
+        f"loads, launches K1..K10, branch {launches} on {card}")
     if not_launched(launches):
         failures.append(f"[cli] a kernel was not launched: {launches}")
 
@@ -2550,7 +2904,7 @@ def train_phase(rows: list, card: str, failures: list,
               and e_pitch <= 2e-3 and e_mel <= 0.1
               and np.isfinite(mf).all() and np.isfinite(mel).all())
         log(f"[train] FeatureBuilder on {len(y)} clips: X {mf.shape} and "
-            f"{mel.shape}; launches K1..K9 {l_mf} (MFCC) and {l_mel} (mel); "
+            f"{mel.shape}; launches K1..K10, branch {l_mf} (MFCC) and {l_mel} (mel); "
             f"vs the CPU plain path ({cpu_s:.1f} s): MFCC max abs err "
             f"{e_mfcc:.3g} (1e-3), pitch rel {e_pitch:.3g} (2e-3), mel "
             f"{e_mel:.3g} dB (0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
@@ -2600,7 +2954,7 @@ def train_phase(rows: list, card: str, failures: list,
               and n_host == 2 * TRAIN_EPOCHS)
         log(f"[train] train_all({len(y)} clips, {TRAIN_EPOCHS} epochs) in "
             f"{wall:.2f} s (synthesis {synth_s:.1f} s before it): launches "
-            f"K1..K9 {launches}, host transfers {n_host} (one per epoch), "
+            f"K1..K10, branch {launches}, host transfers {n_host} (one per epoch), "
             f"losses finite {finite} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("[train] train_all: launches, transfers or "
@@ -2705,7 +3059,7 @@ def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
                         for a, b in zip(one, ref))
     ok = same and launches[4] == 1
     log(f"[api] pick_onsets_from_envelope at {tuple(env.shape)}: launches "
-        f"K1..K9 {launches}; outputs identical to pick_onsets_plain's "
+        f"K1..K10, branch {launches}; outputs identical to pick_onsets_plain's "
         f"{same} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("[api] pick_onsets_from_envelope")
@@ -2743,7 +3097,7 @@ def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
             ok = (launches[:3] == [1, 1, 1] and e_mfcc <= 1e-3
                   and e_pitch <= 2e-3 and e_mel <= 0.1
                   and np.isfinite(mf).all() and np.isfinite(ms).all())
-            log(f"[api] {name}: {mf.shape} and {ms.shape}; launches K1..K9 "
+            log(f"[api] {name}: {mf.shape} and {ms.shape}; launches K1..K10, branch "
                 f"{launches}; vs the CPU: MFCC max abs err {e_mfcc:.3g} "
                 f"(1e-3), pitch rel {e_pitch:.3g} (2e-3), mel {e_mel:.3g} dB "
                 f"(0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
@@ -2870,7 +3224,7 @@ def eval_phase(rows: list, card: str, failures: list,
     log(f"[eval] evaluate_set on {len(EVAL_SETS)} sets and evaluate_wav_dir "
         f"on {card_wav['n_files']} files: {wall:.2f} s on the card side, of "
         f"which synthesis {synth_s:.2f} s (host); CPU plain path {cpu_s:.1f} "
-        f"s; launches K1..K9 {launches} on {card}")
+        f"s; launches K1..K10, branch {launches} on {card}")
     if not_launched(launches):
         failures.append(f"[eval] a kernel was not launched: {launches}")
     for name, _ in EVAL_SETS:
@@ -2976,7 +3330,7 @@ def tools_phase(rows: list, card: str, failures: list,
     tool = {name: load_tool(f"torch_{name}") for name in (
         "inspect_ckpt", "dataset_creator", "eda", "cross_family_eval",
         "train_wall", "profile_trace", "roofline_files")}
-    total = [0] * len(KERNEL_ROWS)
+    total = [0] * (BRANCH + 1)
 
     def run(what, fn, need=()):
         """fn() driven; fails unless each kernel index in `need`
@@ -2985,7 +3339,7 @@ def tools_phase(rows: list, card: str, failures: list,
         for i, n in enumerate(launches):
             total[i] += n
         ok = all(launches[i] >= 1 for i in need)
-        log(f"[tools] {what}: {wall:.2f} s, launches K1..K9 {launches}"
+        log(f"[tools] {what}: {wall:.2f} s, launches K1..K10, branch {launches}"
             + ("" if ok else " -> FAIL (a kernel was not launched)"))
         if not ok:
             failures.append(f"[tools] {what}: launches {launches}")
@@ -3165,6 +3519,13 @@ def tools_phase(rows: list, card: str, failures: list,
         f"{m['device_busy_ms']:.4f} ms; clip step at "
         f"{out['clip_step']['batch']}: {out['clip_step']['measured_ms']:.4f}"
         f" ms, floor {out['clip_step']['floor_ms']:.5f} ms on {card}")
+    sorts = m["sort_kernels"]
+    staged = m["stage_kernels"].get("compaction", [])
+    log(f"[tools] roofline: the compaction stage's kernels "
+        f"{sorted({device_function(n) for n in staged})}; sort kernels in "
+        f"the wave {sorts} -> {'ok' if not sorts else 'FAIL'}")
+    if sorts:
+        failures.append(f"[tools] roofline: sort kernels in the wave {sorts}")
     for name, r in out["stages"].items():
         log(f"[tools] roofline stage {name}: measured {r['measured_ms']:.4f}"
             f" ms ({r['share']:.1%} of device time), floor "
@@ -3350,7 +3711,7 @@ def parallel_phase(rows: list, card: str, failures: list,
             detect_onsets_timesharded(ylong, mesh, sr=FILE_SR)
             wrappers = kernel_wrappers() + [onset.onset_mel_db,
                                             onset.onset_flux]
-            n_k = len(KERNEL_ROWS)
+            n_k = BRANCH + 1
             torch.cuda.synchronize()
             for w in wrappers:
                 w.launches = 0
@@ -3365,7 +3726,8 @@ def parallel_phase(rows: list, card: str, failures: list,
             row["launches"] = n
             row["launches_by_path"] = {"parallel": n}
         rows += new_rows
-        log(f"[parallel] launches K1..K9 {launches[:n_k]}, onset_mel_db "
+        log(f"[parallel] launches K1..K10 and compactions "
+            f"{launches[:n_k]}, onset_mel_db "
             f"{launches[n_k]}, onset_flux {launches[n_k + 1]}")
         if not_launched(launches) or min(launches[n_k:]) < 1:
             failures.append(f"[parallel] a kernel was not launched: "
@@ -3512,7 +3874,7 @@ def shared_phase(rows: list, card: str, failures: list,
             ok = (same and launches[:K4] == [1, 0, 0]
                   and launches[K6] == 1)
             log(f"[shared] transcribe_clips({n}) on the shared route: "
-                f"launches K1..K9 {launches}; labels "
+                f"launches K1..K10, branch {launches}; labels "
                 f"equal to the FFT route's {res['labels'] == fft_clips['labels']}"
                 f", max prob diff {err:.3g} (1e-2) -> "
                 f"{'ok' if ok else 'FAIL'}")
@@ -3780,17 +4142,18 @@ def file_4s_phase(rows: list, card: str, failures: list,
                 got, launches, wall = driven(call)
                 ref = cpu_t.transcribe(path, clip_duration=4.0)
                 same, err = same_result(got, ref)
-                # K1..K9 launched or not: K6 in place of K2 and K3 on the
+                # K1..K10 launched or not: K6 in place of K2 and K3 on the
                 # matmul route, the segmentation's K4, K5, K7, K8 and the
-                # clip re-rate's K9 on both
+                # clip re-rate's K9 on both; no compaction (B = 1, no
+                # budget): no K10 and no wave through the budget branch
                 want = ([1, 1, 1, 1, 1, 0, 1, 1, 1] if route == "fft"
-                        else [1, 0, 0, 1, 1, 1, 1, 1, 1])
+                        else [1, 0, 0, 1, 1, 1, 1, 1, 1]) + [0, 0, 0]
                 ok = (same and bool(got["labels"])
                       and [min(k, 1) for k in launches] == want)
                 log(f"[file] transcribe(12 s riff, clip_duration=4.0) on "
                     f"the {route} route: labels {got['labels']}, onsets "
                     f"{got['onsets_s']}; equal to the CPU plain path {same} "
-                    f"(max prob err {err:.3g}); launches K1..K9 {launches}; "
+                    f"(max prob err {err:.3g}); launches K1..K10, branch {launches}; "
                     f"{wall * 1e3:.3f} ms on {card} -> "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -3948,6 +4311,7 @@ def main() -> int:
     rows += check_file_kernels(dev, failures)
     rows += gate_phase(failures)
     rows += resample_phase(failures)
+    rows += compact_phase(failures)
 
     # ---- 4. the clip path -------------------------------------------------
     t = Transcriber(device="cuda")
@@ -4069,6 +4433,7 @@ def main() -> int:
     # ---- 18. the numpy baseline's twin ------------------------------------
     numpy_phase(rows, card, failures, clips_np)
 
+    failures += PATH_FAULTS
     if failures:
         log(f"[fail] {failures}")
         # also on standard error, whose end a caller that keeps only that

@@ -19,6 +19,7 @@ import torch
 from ..features import (melspec_features, mfcc_feature_vectors,
                         mfcc_pitch_features, shared_frontend,
                         shared_pitch_is_raw)
+from ..ops.compaction import wave_scatter, wave_select
 from ..ops.resample import fix_length, resample, resample_rows
 from ..ops.yin import yin_pitch
 from ..utils.profiling import annotate
@@ -192,41 +193,20 @@ def build_files_fn(predictor, scaler, ckpt_sr: int, mfcc_params: dict,
         flat = clips.reshape(b * k, length)
         budget = wave_clip_budget
         if budget is not None and budget < n_files * k:
-            # kept slots first, slot-major over the whole wave: the
-            # file-major index of slot-major position p is
-            # (p % n_files)·k + p // n_files
+            # kept slots first, slot-major over the whole wave, picked and
+            # put back by `ops.compaction` (on the card K10's two launches)
             with annotate("compaction"):
                 kept_all = (kept if rows is None
                             else rows.gather(kept, n_files))
-                keptt = kept_all.T.reshape(n_files * k)
-                ordert = torch.argsort((~keptt).to(torch.uint8),
-                                       stable=True)[:budget]
-                sel = (ordert % n_files) * k + ordert // n_files
-                if rows is not None:  # this rank's files' slots
-                    sel = sel[(sel >= first * k)
-                              & (sel < (first + b) * k)] - first * k
-                n_sel = sel.numel()
+                s = wave_select(kept_all, budget, first, b, overflow,
+                                fixable)
                 # a rank none of whose slots is picked classifies one
                 # slot that nothing reads, so no kernel sees 0 clips
-                picked = sel if n_sel else sel.new_zeros(1)
+                picked = s.sel if s.n_sel else s.sel.new_zeros(1)
             parts = classify(flat, picked)
-
-            def scatter(x):
-                if x is None:
-                    return None
-                out = x.new_zeros((b * k,) + x.shape[1:])
-                out[sel] = x[:n_sel]
-                return out
             with annotate("compaction"):
-                probs, mlp_p, cnn_p, pitch = (scatter(x) for x in parts)
-                computed = torch.zeros(b * k, dtype=torch.bool,
-                                       device=ys.device)
-                computed[sel] = True
-                dropped = (kept.reshape(b * k)
-                           & ~computed).reshape(b, k).any(-1)
-                kept = kept & computed.reshape(b, k)
-                overflow = overflow | dropped
-                fixable = fixable | dropped
+                probs, mlp_p, cnn_p, pitch = wave_scatter(s.pos, parts)
+            kept, overflow, fixable = s.kept, s.overflow, s.fixable
         else:
             probs, mlp_p, cnn_p, pitch = classify(flat)
 

@@ -34,7 +34,7 @@ __all__ = ["KERNELS", "MAX_FRAMES", "build", "function", "device_guard",
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("melspec_frontend", "mfcc_frontend", "yin_pitch", "onset_envelope",
            "onset_pick", "mfcc_pitch_frontend", "noise_gate", "slice_clips",
-           "resample")
+           "resample", "wave_compact")
 # The clip front-ends (K1, K2, K3, K6) take fewer frames than this
 # (`kMaxFrames` in `csrc/dsp_common.cuh`); below it they take any length,
 # running YIN in groups of frames and keeping a dB image too large for

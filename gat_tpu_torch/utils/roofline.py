@@ -31,13 +31,15 @@ __all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS",
            "mfcc_pitch_cost",
            "envelope_cost", "mel_db_cost", "flux_cost", "pick_cost",
            "gate_cost", "slice_cost", "window_samples", "resample_cost",
-           "module_cost", "GATE_OPS_PER_SAMPLE"]
+           "select_cost", "scatter_cost", "module_cost",
+           "GATE_OPS_PER_SAMPLE"]
 
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# the device functions of K1-K9 (`device_function` of the profiler's names)
+# the device functions of K1-K10 (`device_function` of the profiler's
+# names)
 KERNEL_SYMBOLS = {
     "K1": ("melspec_frontend_kernel",),
     "K2": ("mfcc_frontend_kernel",),
@@ -49,6 +51,7 @@ KERNEL_SYMBOLS = {
            "noise_gate_apply_kernel"),
     "K8": ("slice_clips_kernel",),
     "K9": ("resample_kernel",),
+    "K10": ("wave_select_kernel", "wave_scatter_kernel"),
 }
 
 
@@ -273,6 +276,25 @@ def resample_cost(rows: int, n_in: int, sr_in: int, sr_out: int,
     taps = -(-resample_filter(up, down).size // up)
     return (2 * taps * rows * min(n_out, written),
             4 * rows * (n_in + written))
+
+
+def select_cost(n_files: int, k: int, n_local: int, n_sel: int
+                ) -> tuple[int, int]:
+    """K10's selection of a wave of n_files x K slots for n_local files
+    that picks n_sel: a count and a compare a slot; the kept bits and
+    the two input flags read once, sel, pos, the new kept bits, the three
+    output flags and the count written once."""
+    slots = n_files * k
+    return (2 * slots, slots + 2 * n_local + 4 * n_sel + 5 * n_local * k
+            + 3 * n_local + 4)
+
+
+def scatter_cost(n: int, rows: int, widths: int) -> tuple[int, int]:
+    """K10's scatter of `rows` compact rows back to n slots, `widths`
+    floats a row over its parts (3·C + 1 for three probability matrices
+    and the pitch): no arithmetic; pos and the rows read once, the
+    outputs written once."""
+    return 0, 4 * n + 4 * rows * widths + 4 * n * widths
 
 
 def module_cost(module, example_shape: tuple) -> tuple[int, int]:

@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from gat_tpu_torch import features
-from gat_tpu_torch.ops import onset, resample, spectral, yin
+from gat_tpu_torch.ops import compaction, onset, resample, spectral, yin
 from gat_tpu_torch.segment import gating, slicing
 from test_torch_kernels_emulated import (FILE_SR, GATE_MIN_DB, LIVE_MIN_SEP,
+                                         WAVE_SHAPES, check_selection,
+                                         scatter_parts, wave_flags, wave_kept,
                                          LIVE_RING, RESAMPLE_PINS,
                                          RESAMPLE_RATES,
                                          RIFF_NOTES, SLICE_PINS,
@@ -1556,3 +1558,110 @@ def test_resample_attribute_only_grows_card():
                                    atol=1e-5, rtol=0)
         assert resample.resample_blocks_per_sm(orig, 22050) >= 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", WAVE_SHAPES + ((64, 112),))
+@pytest.mark.parametrize("density", [0.0, 0.3, 0.97, 1.0])
+def test_wave_select_card_vs_plain(shape, density):
+    """K10's selection on the card equal to `wave_select_plain`'s on the
+    same bits, field by field (sel in the reference's order), at budget
+    1, around the kept count, the serving wave's 3/4 and every slot; one
+    launch a call and no read of the count on one device."""
+    dev = _card()
+    n_files, k = shape
+    kept = wave_kept(n_files, k, density, seed=n_files * k).to(dev)
+    ovf, fix = (f.to(dev) for f in wave_flags(n_files, n_files * k))
+    n_kept = int(kept.sum())
+    for budget in sorted({1, max(1, n_kept - 1), max(1, n_kept), n_kept + 1,
+                          max(1, 3 * n_files * k // 4), n_files * k}):
+        before = compaction.wave_select.launches
+        got = compaction.wave_select(kept, budget, overflow=ovf,
+                                     fixable=fix)
+        ref = compaction.wave_select_plain(kept, budget, overflow=ovf,
+                                           fixable=fix)
+        torch.cuda.synchronize()
+        assert compaction.wave_select.launches == before + 1
+        check_selection(got, ref)
+
+
+@pytest.mark.parametrize("shape, world", [((4, 112), 2), ((4, 112), 4),
+                                          ((64, 112), 4), ((8, 112), 8)])
+def test_wave_select_card_mesh(shape, world):
+    """Every rank's (first, n_local) of the whole wave's bits: its slots of
+    the wave's selection in the same order, as the plain code's filter."""
+    dev = _card()
+    n_files, k = shape
+    kept = wave_kept(n_files, k, 0.7, seed=world).to(dev)
+    b = n_files // world
+    for budget in (1, 3 * n_files * k // 4, n_files * k - 1):
+        for rank in range(world):
+            got = compaction.wave_select(kept, budget, rank * b, b)
+            check_selection(got, compaction.wave_select_plain(
+                kept, budget, rank * b, b))
+
+
+@pytest.mark.parametrize("c, cnn", [(47, True), (47, False), (1, True)])
+def test_wave_scatter_card_vs_plain(c, cnn):
+    """K10's scatter on the card bit-equal to the plain scatter at the
+    serving wave and the 64-file wave, a dummy row past n_sel unread; a
+    CNN-less build's None stays None; one launch a call."""
+    dev = _card()
+    for shape, budget in (((4, 112), 384), ((64, 112), 5376)):
+        kept = wave_kept(*shape, 0.5, seed=c).to(dev)
+        s = compaction.wave_select(kept, budget)
+        parts = tuple(None if x is None else x.to(dev) for x in
+                      scatter_parts(s.n_sel + 1, c, seed=budget, cnn=cnn))
+        before = compaction.wave_scatter.launches
+        got = compaction.wave_scatter(s.pos, parts)
+        ref = compaction.wave_scatter_plain(s.pos, parts)
+        torch.cuda.synchronize()
+        assert compaction.wave_scatter.launches == before + 1
+        for g, r in zip(got, ref):
+            assert (g is None and r is None) or torch.equal(g, r)
+
+
+def test_files_body_compacts_on_card():
+    """The file body with a clip budget on the card: K10 launched once
+    each, no sort kernel, outputs equal to the CPU body's (kept, flags,
+    labels; probs within 1e-2)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.infer.pipeline import build_files_fn
+    dev = _card()
+    ys = np.stack([pluck_riff(FILE_SR, 3.0), pluck_riff(FILE_SR, 3.0)[::-1],
+                   pluck_riff(FILE_SR, 3.0), np.zeros(3 * FILE_SR)]
+                  ).astype(np.float32)
+    nv = np.array([3 * FILE_SR] * 3 + [0], dtype=np.int32)
+    outs = []
+    for device in ("cpu", "cuda"):
+        t = Transcriber(device=device)
+        fn = build_files_fn(t.predictor, t.scaler, t.ckpt_sr, t.mfcc_params,
+                            t.melspec_params, FILE_SR, 0.5, 8,
+                            wave_clip_budget=6)
+        args = (torch.from_numpy(ys).to(device), torch.from_numpy(nv).to(
+            device))
+        if device == "cuda":
+            fn(*args)
+            before = (compaction.wave_select.launches,
+                      compaction.wave_scatter.launches)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn(*args)
+                torch.cuda.synchronize()
+            assert (compaction.wave_select.launches,
+                    compaction.wave_scatter.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+            assert not [e.key for e in prof.key_averages()
+                        if "sort" in e.key.lower()]
+        else:
+            out = fn(*args)
+        outs.append([None if x is None else x.cpu().numpy() for x in out])
+    cpu, card = outs
+    for i in range(4, 10):
+        np.testing.assert_array_equal(card[i], cpu[i])
+    assert cpu[4].sum() <= 6 and dev.type == "cuda"
+    kept = cpu[4]
+    np.testing.assert_array_equal(card[0].argmax(-1)[kept],
+                                  cpu[0].argmax(-1)[kept])
+    for i in range(3):
+        np.testing.assert_allclose(card[i], cpu[i], atol=1e-2)

@@ -34,7 +34,7 @@ import pytest
 import torch
 
 from gat_tpu_torch import features, kernels
-from gat_tpu_torch.ops import onset, resample, spectral, yin
+from gat_tpu_torch.ops import compaction, onset, resample, spectral, yin
 from gat_tpu_torch.segment import gating, slicing
 
 SR = 11025
@@ -216,7 +216,8 @@ inline void emu_launch(int grid, int block, std::function<void()> fn) {
 _LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),[^>]*>>>\((.*?)\);",
                      re.S)
 LAUNCHES = {"onset_envelope": 2,  # kernel launches per C entry point
-            "noise_gate": 3}
+            "noise_gate": 3,
+            "wave_compact": 2}  # (per source: two entry points of one)
 
 
 @pytest.fixture(scope="module")
@@ -2513,3 +2514,202 @@ def test_resample_layout_and_attribute_only_grows(libs):
     resample_emulated(libs, resample_rows_np(500), 48000, 22050)
     assert attr.value == sizes[(96000, 22050)][3]
     assert fn(1, 0, 97, ctypes.addressof(blocks)) != 0
+
+
+# ---- K10: the wave's clip-budget compaction (csrc/wave_compact.cu) --------
+
+def wave_select_emulated(libs, kept_all: torch.Tensor, budget: int,
+                         first: int = 0, n_local: int | None = None,
+                         overflow=None, fixable=None):
+    """`gat_wave_select` called as `compaction.wave_select` calls it, on CPU
+    pointers: the same `Selection` (n_sel read from the kernel's word, on
+    one device too). Outputs start as garbage, so a field the kernel leaves
+    unwritten shows."""
+    n_files, k = kept_all.shape
+    n_local = n_files if n_local is None else n_local
+    compaction.check_select(kept_all, budget, first, n_local)
+    bits = kept_all.to(torch.bool).contiguous()
+    ovf_in = compaction._flags(overflow, n_local, CPU).contiguous()
+    fix_in = compaction._flags(fixable, n_local, CPU).contiguous()
+    cap = min(budget, n_local * k)
+    ints = torch.full((cap + n_local * k + 1,), -7, dtype=torch.int32)
+    sel, pos, count = ints[:cap], ints[cap:cap + n_local * k], ints[-1:]
+    flags = torch.full((n_local * (k + 3),), 0xAB, dtype=torch.uint8)
+    fn = _fn(libs["wave_compact"], "gat_wave_select",
+             compaction._SELECT_ARGS)
+    assert fn(bits.data_ptr(), ovf_in.data_ptr(), fix_in.data_ptr(),
+              sel.data_ptr(), pos.data_ptr(), flags.data_ptr(),
+              flags[n_local * k:].data_ptr(),
+              flags[n_local * k + n_local:].data_ptr(),
+              flags[n_local * k + 2 * n_local:].data_ptr(),
+              count.data_ptr(), n_files, k, budget, first, n_local,
+              None) == 0
+    assert set(flags.tolist()) <= {0, 1}  # every byte written, 0 or 1
+    n_sel = int(count)
+    kept = flags[:n_local * k].view(n_local, k).to(torch.bool)
+    dropped, ovf, fix = flags[n_local * k:].to(torch.bool).view(3, n_local)
+    return compaction.Selection(sel[:n_sel], pos, kept, dropped, ovf, fix,
+                                n_sel)
+
+
+def check_selection(got, ref) -> None:
+    """Every field equal: sel in the same order, n_sel the same count."""
+    assert got.n_sel == ref.n_sel
+    for name in ("sel", "pos", "kept", "dropped", "overflow", "fixable"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def wave_kept(n_files: int, k: int, density: float, seed: int
+              ) -> torch.Tensor:
+    """(n_files, K) kept bits: each slot kept with probability `density`,
+    from a seed; a file's kept slots need not be a prefix."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.random((n_files, k)) < density)
+
+
+def wave_flags(n_files: int, seed: int) -> tuple:
+    rng = np.random.default_rng(seed + 1000)
+    return (torch.from_numpy(rng.random(n_files) < 0.3),
+            torch.from_numpy(rng.random(n_files) < 0.3))
+
+
+# (files, K): 1, 31, 448 (the serving wave), 4,100 and 8,300 slots (past
+# one tile of the selection's 512 threads x 16 positions)
+WAVE_SHAPES = ((1, 1), (1, 31), (31, 1), (4, 112), (41, 100), (83, 100))
+
+
+@pytest.mark.parametrize("shape", WAVE_SHAPES)
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_wave_select_emulated(libs, shape, density):
+    """Random budgets (1, below, at and above the kept count, all slots)
+    and densities: K10's selection equal to the plain one, field by
+    field, sel in the reference's order."""
+    n_files, k = shape
+    kept = wave_kept(n_files, k, density, seed=n_files * k)
+    n_kept = int(kept.sum())
+    rng = np.random.default_rng(7)
+    budgets = {1, max(1, n_kept - 1), max(1, n_kept), n_kept + 1,
+               n_files * k, int(rng.integers(1, n_files * k + 1))}
+    ovf, fix = wave_flags(n_files, n_files * k)
+    for budget in sorted(budgets):
+        check_selection(
+            wave_select_emulated(libs, kept, budget, overflow=ovf,
+                                 fixable=fix),
+            compaction.wave_select_plain(kept, budget, overflow=ovf,
+                                         fixable=fix))
+
+
+@pytest.mark.parametrize("shape, world, density", [
+    ((4, 112), 2, 0.2), ((4, 112), 4, 0.9), ((8, 112), 8, 0.5),
+    ((64, 64), 4, 0.3), ((6, 7), 3, 0.6), ((90, 100), 3, 0.5)])
+def test_wave_select_emulated_mesh(libs, shape, world, density):
+    """Each rank's (first, n_local) of the whole wave's kept bits: its
+    slots of the wave's selection, in the same order, equal to the plain
+    code's sel[(sel >= first·K) & (sel < (first + b)·K)] - first·K; a rank
+    none of whose slots is picked gets n_sel 0."""
+    n_files, k = shape
+    kept = wave_kept(n_files, k, density, seed=world)
+    b = n_files // world
+    for budget in (1, max(1, int(kept.sum()) // 2), n_files * k - 1):
+        whole = compaction.wave_select_plain(kept, budget).sel.long()
+        for rank in range(world):
+            first = rank * b
+            ref = compaction.wave_select_plain(kept, budget, first, b)
+            want = whole[(whole >= first * k) & (whole < (first + b) * k)]
+            assert torch.equal(ref.sel.long(), want - first * k)
+            check_selection(wave_select_emulated(libs, kept, budget, first,
+                                                 b), ref)
+    # budget 1 with slot 0 of file 0 kept: only rank 0 picks a slot
+    kept[0, 0] = True
+    assert [wave_select_emulated(libs, kept, 1, r * b, b).n_sel
+            for r in range(world)] == [1] + [0] * (world - 1)
+
+
+def scatter_parts(rows: int, c: int, seed: int, cnn: bool = True,
+                  mlp: bool = True) -> tuple:
+    rng = np.random.default_rng(seed)
+
+    def mat():
+        return torch.from_numpy(rng.random((rows, c), dtype=np.float32))
+    return (mat(), mat() if mlp else None, mat() if cnn else None,
+            torch.from_numpy(rng.random(rows, dtype=np.float32) * 900))
+
+
+def wave_scatter_emulated(libs, pos: torch.Tensor, parts) -> tuple:
+    """`gat_wave_scatter` called as `compaction.wave_scatter` calls it, on
+    CPU pointers; outputs start as NaN, so an element left unwritten
+    shows."""
+    _, c = compaction.check_scatter(pos, parts)
+    n = pos.numel()
+    out = [None if x is None else
+           torch.full((n,) + tuple(x.shape[1:]), float("nan"))
+           for x in parts]
+    fn = _fn(libs["wave_compact"], "gat_wave_scatter",
+             compaction._SCATTER_ARGS)
+    assert fn(pos.data_ptr(), *(_ptr(x) for x in parts),
+              *(_ptr(x) for x in out), n, c, None) == 0
+    return tuple(out)
+
+
+@pytest.mark.parametrize("shape, c, density, budget", [
+    ((1, 1), 47, 1.0, 1), ((4, 112), 47, 0.3, 384), ((4, 112), 47, 0.9, 1),
+    ((41, 100), 1, 0.5, 3000), ((6, 7), 5, 0.4, 42), ((6, 7), 5, 0.0, 9)])
+def test_wave_scatter_emulated(libs, shape, c, density, budget):
+    """The compact outputs back at their slots, zeros elsewhere: bit-equal
+    to the plain scatter (a copy), with a dummy row past n_sel unread."""
+    n_files, k = shape
+    kept = wave_kept(n_files, k, density, seed=c)
+    s = compaction.wave_select_plain(kept, budget)
+    parts = scatter_parts(s.n_sel + 1, c, seed=budget)
+    got = wave_scatter_emulated(libs, s.pos, parts)
+    ref = compaction.wave_scatter_plain(s.pos, parts)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("cnn, mlp", [(False, True), (True, False),
+                                      (False, False)])
+def test_wave_scatter_emulated_missing_parts(libs, cnn, mlp):
+    """A build without a CNN or an MLP passes None for its probs: no output
+    for that part, the others as the plain scatter."""
+    kept = wave_kept(6, 7, 0.4, seed=3)
+    s = compaction.wave_select_plain(kept, 30)
+    parts = scatter_parts(s.n_sel, 47, seed=3, cnn=cnn, mlp=mlp)
+    got = wave_scatter_emulated(libs, s.pos, parts)
+    ref = compaction.wave_scatter_plain(s.pos, parts)
+    for g, r in zip(got, ref):
+        assert (g is None and r is None) or torch.equal(g, r)
+
+
+def test_wave_compact_refusals(libs):
+    """The C entry points refuse what the wrappers' guards refuse."""
+    sel_fn = _fn(libs["wave_compact"], "gat_wave_select",
+                 compaction._SELECT_ARGS)
+    for n_files, k, budget, first, n_local in ((0, 4, 1, 0, 0),
+                                               (2, 4, 0, 0, 2),
+                                               (2, 4, 1, 1, 2),
+                                               (2, 4, 1, 0, 0)):
+        assert sel_fn(*[None] * 10, n_files, k, budget, first, n_local,
+                      None) != 0
+        with pytest.raises(ValueError):
+            compaction.check_select(torch.zeros(n_files, k, dtype=torch.bool),
+                                    budget, first, n_local)
+    scatter_fn = _fn(libs["wave_compact"], "gat_wave_scatter",
+                     compaction._SCATTER_ARGS)
+    assert scatter_fn(*[None] * 9, 0, 47, None) != 0
+    assert scatter_fn(*[None] * 9, 4, 0, None) != 0
+
+
+def test_wave_compact_constants_match_kernel():
+    """`compaction.MAX_SLOTS` leaves the selection's last tile of
+    kSelectThreads x kItems positions inside int32, as its C entry point
+    refuses the rest."""
+    src = (kernels.CSRC / "wave_compact.cu").read_text()
+    threads = int(re.search(r"kSelectThreads = (\d+);", src)[1])
+    items = int(re.search(r"kItems = (\d+);", src)[1])
+    assert re.search(r"kTile = kSelectThreads \* kItems;", src)
+    assert compaction.MAX_SLOTS == 2 ** 31 - 1 - threads * items
+    with pytest.raises(ValueError, match="at most"):
+        compaction.check_select(torch.zeros(1, 1, dtype=torch.bool).expand(
+            compaction.MAX_SLOTS + 1, 1), 1, 0, 1)

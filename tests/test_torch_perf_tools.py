@@ -89,7 +89,7 @@ def test_parse_trace_keeps_device_lanes_and_sums(tmp_path, capsys):
         "onset_pick_kernel(float const*, int const*)": 3.0}
     assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 7.0, "K5": 3.0,
                       "K6": 0, "K7": 0, "K8": 0,
-                      "K9": 0}
+                      "K9": 0, "K10": 0}
     out = capsys.readouterr().out
     assert "top 10 by total us (device lanes)" in out
     assert "cudaLaunchKernel" not in out and "aten::mul" not in out
@@ -112,7 +112,7 @@ def test_parse_trace_names_k6(tmp_path, capsys):
     (_, _, shares), = prof.parse_trace(str(tmp_path), top=10)
     assert shares == {"K1": 0, "K2": 2.0, "K3": 1.0, "K4": 0, "K5": 0,
                       "K6": 9.0, "K7": 0, "K8": 0,
-                      "K9": 0}
+                      "K9": 0, "K10": 0}
     assert "75.0%  K6" in capsys.readouterr().out
 
 
@@ -132,7 +132,7 @@ def test_parse_trace_names_k7_and_k8(tmp_path, capsys):
     (_, _, shares), = prof.parse_trace(str(tmp_path), top=10)
     assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                       "K6": 0, "K7": 8.0, "K8": 2.0,
-                      "K9": 0}
+                      "K9": 0, "K10": 0}
     out = capsys.readouterr().out
     assert "80.0%  K7" in out and "20.0%  K8" in out
 
@@ -148,7 +148,7 @@ def test_kernel_shares_read_names_by_device_function():
         "void at::native::noise_gate_apply_kernel_copy<4>()": 3.0})
     assert shares == {"K1": 5.0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                       "K6": 0, "K7": 0, "K8": 2.0,
-                      "K9": 0}
+                      "K9": 0, "K10": 0}
 
 
 def test_parse_trace_without_device_lanes_keeps_all(tmp_path, capsys):
@@ -193,6 +193,27 @@ def test_stage_attribution_innermost_range():
     us = roof.stage_device_us(events)
     assert us == {"onset_detect": 10.0, "slicing": 9.0, "other": 8.0,
                   "mfcc_yin_frontend": 8.0}
+
+
+def test_stage_kernels_name_each_stage_s_kernels():
+    """`stage_kernels` names the kernels each stage launched, attributed as
+    the device time is (memsets left out): the report's `sort_kernels`
+    reads them for a sort on the wave's path."""
+    events = TRACE + [
+        _x("user_annotation", "compaction", 300, 100),
+        _x("cuda_runtime", "cudaLaunchKernel", 310, 1, correlation=6),
+        _x("kernel", "wave_select_kernel(unsigned char const*, int)", 320,
+           3.0, tid=13, correlation=6),
+        _x("cuda_runtime", "cudaLaunchKernel", 330, 1, correlation=7),
+        _x("gpu_memset", "Memset (Device)", 340, 2.0, tid=13,
+           correlation=7),
+    ]
+    kernels = roof.stage_kernels(events)
+    assert kernels["compaction"] == [
+        "wave_select_kernel(unsigned char const*, int)"]
+    assert set(kernels) == {"onset_detect", "slicing", "other",
+                            "compaction"}
+    assert roof.stage_device_us(events)["compaction"] == 5.0
 
 
 def test_profile_trace_cpu_run(tmp_path, capsys):
@@ -400,6 +421,44 @@ def test_onset_timing_tool_times_the_resampler(monkeypatch):
     assert smoke.K9 in smoke.SEGMENTING
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert timing.main(["torch_onset_timing.py", str(REPO), "resample"]) == 1
+
+
+def test_onset_timing_tool_times_the_compaction(monkeypatch):
+    """`tools/torch_onset_timing.py TREE compact` runs chip_smoke's
+    `time_compact` (the compaction stage in situ for any checkout, K10's
+    cases where it has them) at the serving wave's budget, 384 of its 448
+    slots as `[resample]` and the roofline tool take it, and a 64-file
+    wave at 3/4 of its slots, and exits 1 without a card; the kernels
+    line and every path count K10's two kernels."""
+    timing = _tool("torch_onset_timing")
+    assert timing.TIMINGS["compact"] == ("wave_compact", "time_compact")
+    spec = importlib.util.spec_from_file_location("_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.COMPACT_BUDGET == smoke.RESAMPLE_BUDGET == 384
+    assert smoke.COMPACT_FILES * smoke.COMPACT_SLOTS == 448
+    files, k, budget = smoke.COMPACT_BIG
+    assert files * k == 7168 and budget == (files * k * 3) // 4
+    assert [smoke.KERNEL_ROWS[i] for i in smoke.COMPACTING] == [
+        "wave_select", "wave_scatter"]
+    assert smoke.BRANCH == len(smoke.KERNEL_ROWS) == 11
+    assert roofline.KERNEL_SYMBOLS["K10"] == ("wave_select_kernel",
+                                              "wave_scatter_kernel")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert timing.main(["torch_onset_timing.py", str(REPO), "compact"]) == 1
+
+
+def test_k10_costs_count_each_byte_once():
+    """K10's bounds: the selection reads the kept bits and flags once and
+    writes sel, pos, kept, the flags and the count once; the scatter reads
+    pos and the picked rows once and writes every output once."""
+    assert roofline.select_cost(4, 112, 4, 384) == (
+        2 * 448, 448 + 8 + 4 * 384 + 5 * 448 + 12 + 4)
+    assert roofline.scatter_cost(448, 384, 142) == (
+        0, 4 * 448 + 4 * 384 * 142 + 4 * 448 * 142)
+    ms, by = roofline.bound(*roofline.scatter_cost(448, 384, 142))
+    assert by == "bytes" and ms == pytest.approx(0.00014, rel=0.02)
 
 
 def test_stage_tags_keep_the_jax_names():

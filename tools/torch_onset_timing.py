@@ -7,10 +7,12 @@ serving wave and a 400 s riff, per pass; with `slice`, the clip slicer K8
 at the same wave and riff and at 4.0 s clips; with `resample`, the
 polyphase resampler K9 at the serving wave's clip re-rate, four user
 files and one note (or, in a checkout without K9, its plain route at the
-same calls).
+same calls); with `compact`, the file body's clip-budget compaction
+stage in situ at the serving wave, and (where the checkout has K10) K10
+at the `[compact]` cases.
 
     python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip] [gate]
-                                             [slice] [resample]
+                                             [slice] [resample] [compact]
 
 TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
 another commit unpacked with `git archive`; its kernels are built there.
@@ -28,7 +30,11 @@ K8's resident blocks per SM and its ring; `time_resample`: the wave's
 samples, 60 s and 400 s at 48 kHz, 60 s at 16 kHz and at 44.1 kHz to
 22050 Hz, one 0.5 s note to 11025 Hz, with the whole call's device time
 beside K9's and one `F.conv1d` of the filter bank as the library's
-time), so two
+time; `time_compact`: the serving wave's body (4 files x 60 s, 112
+onsets, budget 384) on the gate's riffs and on the roofline tool's noise
+wave under the profiler, the `compaction` stage's device ms and kernels
+and the body's synchronising calls, then K10 against its plain twins at
+`compact_data`'s cases), so two
 checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
@@ -46,7 +52,8 @@ TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
            "clip": ("clip_kernels", "time_clip_kernels"),
            "gate": ("noise_gate", "time_gate"),
            "slice": ("slice_clips", "time_slice"),
-           "resample": ("resample", "time_resample")}
+           "resample": ("resample", "time_resample"),
+           "compact": ("wave_compact", "time_compact")}
 
 
 def main(argv: list[str]) -> int:
@@ -88,6 +95,8 @@ def main(argv: list[str]) -> int:
             args = (slicing, dev)
         elif n == "resample":
             args = (resample, dev)
+        elif n == "compact":
+            args = (dev,)
         else:
             args = (onset, dev)
         for row in getattr(smoke, timing)(*args, failures):

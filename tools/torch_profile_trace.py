@@ -9,7 +9,7 @@ two warm-up calls, writes a gzipped Chrome trace under `--trace_dir`,
 then parses it directly (no TensorBoard needed) and prints a per-kernel
 duration table, a rollup by event category (its time and its number of
 events: kernels launched over the traced calls) and the share of device time
-of the port's kernels K1-K9 (`gat_tpu_torch/utils/roofline.py`'s
+of the port's kernels K1-K10 (`gat_tpu_torch/utils/roofline.py`'s
 KERNEL_SYMBOLS).
 
 Graphs: `clip`, the flagship clip batch (`gat_tpu_torch.entry.entry`);
@@ -37,7 +37,7 @@ sys.path.insert(0, str(REPO))
 
 
 def kernel_shares(dur: dict) -> dict:
-    """{K1..K9: total µs of that kernel's device functions} from a
+    """{K1..K10: total µs of that kernel's device functions} from a
     name → µs table, each name read by `roofline.device_function`."""
     from gat_tpu_torch.utils.roofline import KERNEL_SYMBOLS, device_function
     return {k: sum(us for name, us in dur.items()
@@ -46,7 +46,7 @@ def kernel_shares(dur: dict) -> dict:
 
 
 def parse_trace(trace_dir: str, top: int = 25):
-    """[(file, top rows [(name, µs)], K1-K9 µs)] for every
+    """[(file, top rows [(name, µs)], K1-K10 µs)] for every
     `*.trace.json.gz` under `trace_dir`. Only device lanes are summed
     (host Python and launch events would otherwise dominate and
     misattribute the time); a trace with none keeps all lanes, and says

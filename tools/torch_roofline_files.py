@@ -24,8 +24,11 @@ the wave runs ITERS times over 4 distinct inputs: its time per call
 in CUDA events, and under torch.profiler each kernel's device time,
 attributed to the innermost stage range (`record_function`, named as
 STAGE_TAGS in `infer/pipeline.py` and what it calls) of the host thread
-that launched it. `--measured_wave_ms` takes the place of the events'
-time in the `measured` section, as in the JAX tool. `--device cpu`
+that launched it, and the kernels each stage launched (`measured`'s
+`stage_kernels`; `sort_kernels` lists any sort among them: the
+compaction counts a partition, K10, and sorts nothing).
+`--measured_wave_ms` takes the place of the events' time in the
+`measured` section, as in the JAX tool. `--device cpu`
 counts only: every device time is "not measured". `--stft_backend matmul`
 runs and counts the matmul route, where the MFCC front-end gives the
 YIN pitch too (K6) and the yin_baseline stage does no work.
@@ -72,10 +75,10 @@ ITERS = 8
 BLEND_OPS_PER_CLASS = 12
 
 
-def stage_device_us(events: list, stages=STAGES) -> collections.Counter:
-    """Device µs per stage from a torch Chrome trace's events: every
-    kernel, memcpy and memset is matched to its launching runtime call
-    by correlation id and attributed to the innermost range named in
+def _attributed(events: list, stages=STAGES):
+    """(stage, event) of every kernel, memcpy and memset of a torch Chrome
+    trace's events: each is matched to its launching runtime call by
+    correlation id and attributed to the innermost range named in
     `stages` on that host thread; work outside every range is 'other'."""
     from gat_tpu_torch.utils.profiling import DEVICE_CATEGORIES
     ranges = collections.defaultdict(list)
@@ -91,7 +94,6 @@ def stage_device_us(events: list, stages=STAGES) -> collections.Counter:
             corr = (e.get("args") or {}).get("correlation")
             if corr is not None:
                 launches[corr] = e
-    out = collections.Counter()
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
             continue
@@ -104,8 +106,27 @@ def stage_device_us(events: list, stages=STAGES) -> collections.Counter:
                       if start <= ts <= end]
             if inside:
                 name = min(inside)[1]
+        yield name, e
+
+
+def stage_device_us(events: list, stages=STAGES) -> collections.Counter:
+    """Device µs per stage from a torch Chrome trace's events, attributed
+    as `_attributed` does."""
+    out = collections.Counter()
+    for name, e in _attributed(events, stages):
         out[name] += e["dur"]
     return out
+
+
+def stage_kernels(events: list, stages=STAGES) -> dict:
+    """{stage: sorted names of the kernels it launched} from a torch
+    Chrome trace's events (memcpy and memset left out), attributed as
+    `_attributed` does."""
+    out = collections.defaultdict(set)
+    for name, e in _attributed(events, stages):
+        if e.get("cat") == "kernel":
+            out[name].add(e.get("name", ""))
+    return {k: sorted(v) for k, v in out.items()}
 
 
 def _add(*costs) -> tuple[int, int]:
@@ -215,9 +236,10 @@ def check_floors(stages: dict) -> None:
             + "; the count is wrong")
 
 
-def measure(run, pool) -> tuple[float, dict]:
+def measure(run, pool) -> tuple[float, dict, dict]:
     """(ms per call in CUDA events, device ms per call of each stage from
-    torch.profiler) of `run` over the pool."""
+    torch.profiler, the kernels each stage launched) of `run` over the
+    pool."""
     import glob
     import gzip
     import statistics
@@ -247,7 +269,8 @@ def measure(run, pool) -> tuple[float, dict]:
             events = json.load(fh)["traceEvents"]
     us = stage_device_us(events)
     return (statistics.median(times),
-            {k: us.get(k, 0.0) / 1e3 / ITERS for k in STAGES})
+            {k: us.get(k, 0.0) / 1e3 / ITERS for k in STAGES},
+            stage_kernels(events))
 
 
 def report(args) -> dict:
@@ -274,7 +297,7 @@ def report(args) -> dict:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip().splitlines()[0]
 
-    stage_ms = windows = None
+    stage_ms = windows = kernels = None
     wave_ms = args.measured_wave_ms
     if on_card:
         run, _ = t._files_fn(TARGET_SR, CLIP_DURATION, args.onsets,
@@ -284,7 +307,7 @@ def report(args) -> dict:
         pool = [(torch.from_numpy(rng.normal(0, 0.05, (args.files, bucket))
                                   .astype(np.float32)).to(t.device), nv)
                 for _ in range(4)]
-        events_ms, stage_ms = measure(run, pool)
+        events_ms, stage_ms, kernels = measure(run, pool)
         wave_ms = wave_ms or events_ms
         # the slicer reads what the onsets open: its floor is counted
         # over the inputs measured
@@ -341,6 +364,12 @@ def report(args) -> dict:
             "roofline_share": floor_ms / wave_ms,
             "device_busy_ms": (sum(stage_ms.values())
                                if stage_ms is not None else None),
+            # the kernels each stage launched, and any sort among them
+            # (the compaction is a partition count, K10, not a sort)
+            "stage_kernels": kernels,
+            "sort_kernels": (None if kernels is None else sorted(
+                {n for ks in kernels.values() for n in ks
+                 if "sort" in n.lower()})),
             "verdict": (f"{bound_by}-bound at the floor; the wave takes "
                         f"{wave_ms / floor_ms:.1f}x its floor"),
         }
@@ -358,7 +387,7 @@ def report(args) -> dict:
             cpool = [(torch.from_numpy(np.random.default_rng(i).normal(
                 0, 0.1, tuple(ex.shape)).astype(np.float32)).to(t.device),)
                 for i in range(4)]
-            clip["measured_ms"], _ = measure(step, cpool)
+            clip["measured_ms"], _, _ = measure(step, cpool)
         out["clip_step"] = clip
     return out
 
