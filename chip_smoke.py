@@ -7,7 +7,7 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits
 non-zero:
 
 1. the card: name and power limit (nvidia-smi);
-2. build the ten CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
+2. build the thirteen CUDA kernels from `gat_tpu_torch/csrc/` (one nvcc per
    source, in parallel), print nvcc's register/spill report and each
    kernel's resident blocks per SM as the CUDA runtime computes them;
 3. hold each kernel against its plain PyTorch version on the card, at its
@@ -108,12 +108,20 @@ non-zero:
 11. `[train]`: the training path on a dataset synthesized with the
    shipped recipe (all3, noise, stressors 0.5, channel 0.25, seed 42) at
    16 variants per class, 752 clips: K1-K3 against their plain versions
-   at that shape, the FeatureBuilder's features against the CPU plain
-   path's, one dropout-0 step on the card against the CPU (fp32 MLP and
-   CNN, bf16 CNN), `TrainingManager(device="cuda").train_all` for 3
-   epochs at full width (K1-K3 launched, finite losses, one host transfer
-   per epoch), ms per epoch, steps/s, examples/s and busy share per
-   family, and the saved checkpoints through `Transcriber`;
+   at that shape, the training step's kernels against their plain
+   versions and timed (`train_kernel_rows`: K11 the label-smoothed loss
+   at a step of 32 x 47 and an eval chunk of 65,536 x 47, K12 the clip
+   and AdamW at the CNN's and the MLP's parameter counts, K13 the
+   train-mode BatchNorm at the CNN's three layers, bf16 and fp32, in the
+   layout its convolutions give), the FeatureBuilder's features against
+   the CPU plain path's, one dropout-0 step on the card against the CPU
+   (fp32 MLP and CNN, bf16 CNN), `TrainingManager(device="cuda")
+   .train_all` for 3 epochs at full width (K1-K3 launched, K11 once a
+   step and an eval chunk, K12 once a step, K13 three times a CNN step,
+   finite losses, one host transfer per epoch), ms per epoch, steps/s,
+   examples/s and busy share per family, a step's `cudaLaunchKernel`
+   calls, host µs and device ms (`step_launches`), and the saved
+   checkpoints through `Transcriber`;
 12. `[api]`: the public API added over the main path, on the card:
    `pick_onsets_from_envelope` at the 64-riff shape (K5 launched, its
    outputs identical to `pick_onsets_plain`'s), the FeatureBuilder's
@@ -191,7 +199,7 @@ non-zero:
 19. print the `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
-Each path's kernel launches, K1..K10, are counted from zero just before
+Each path's kernel launches, K1..K13, are counted from zero just before
 it is driven and read just after (`launches_by_path` in the kernels
 line: clips, file, long, files, serve, http, stream, live, cli, train,
 shared, eval, tools, parallel, file_4s, file_4s_shared; K6's row from
@@ -207,7 +215,8 @@ K10's two kernels must launch once a compacted wave on every path and so
 never on a path that does not compact, and at least once on files,
 serve, http and parallel. `launches` stays the clip path's count for
 K1-K3, the file path's for K4, K5, K7, K8 and K9, the shared clip path's
-for K6 and the many-file path's for K10.
+for K6, the many-file path's for K10 and the training path's for K11-K13
+(their rows from `[train]` on).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -360,7 +369,7 @@ def time_ms(fn, pool, reps: int) -> float:
 
 
 def kernel_device_ms(fn, pool, kernel: str) -> float | None:
-    """Device time per call of the device functions of `kernel` (K1..K10,
+    """Device time per call of the device functions of `kernel` (K1..K13,
     `load_roofline().KERNEL_SYMBOLS`), each launched once a call: the sum
     of `symbol_device_ms`. None when the profiler saw no device time."""
     per_call = sum(ms or 0.0 for ms in symbol_device_ms(
@@ -1858,17 +1867,23 @@ def compact_phase(failures: list, device: str = "cuda") -> list[dict]:
                  device_ms=wave["scatter_device_ms"], **common)]
 
 
-# the kernels every path's launches are counted for, K1..K10 in the order
+# the kernels every path's launches are counted for, K1..K13 in the order
 # of `utils/roofline.py`'s KERNEL_SYMBOLS (K10's two kernels, the
-# compaction's selection and scatter, a row each), by their kernels-line
-# rows' names; the indices of K1..K10 in a `driven` count; and those that
-# every path that segments a file launches on the FFT route (all but K6
-# and K10)
+# compaction's selection and scatter, a row each, and so K12's two passes
+# and K13's four kernels), by their kernels-line rows' names; the indices
+# of K1..K13 in a `driven` count; and those that every path that segments
+# a file launches on the FFT route (all but K6 and K10-K13)
 KERNEL_ROWS = ("melspec_frontend", "mfcc_frontend", "yin_pitch",
                "onset_envelope", "onset_pick", "mfcc_pitch_frontend",
                "noise_gate", "slice_clips", "resample", "wave_select",
-               "wave_scatter")
-K1, K2, K3, K4, K5, K6, K7, K8, K9, K10S, K10C = range(11)
+               "wave_scatter", "softmax_xent", "clip_norm", "adamw_update",
+               "bn_moments", "bn_apply", "bn_apply_grad", "bn_moments_grad")
+(K1, K2, K3, K4, K5, K6, K7, K8, K9, K10S, K10C, K11, K12N, K12U, K13M, K13A,
+ K13G, K13B) = range(18)
+# every training step launches K11 and K12's two passes; a CNN step K13's
+# four kernels once a BatchNorm layer
+TRAINING = (K11, K12N, K12U)
+BATCHNORM = (K13M, K13A, K13G, K13B)
 # a path that segments a file re-rates its clips to the checkpoint's rate
 # (K9) too
 SEGMENTING = (K1, K2, K3, K4, K5, K7, K8, K9)
@@ -1900,24 +1915,32 @@ def compaction_branch():
 
 
 def kernel_wrappers() -> list:
-    """The wrappers of K1..K10, each counting the launches of its kernel
+    """The wrappers of K1..K13, each counting the launches of its kernel
     (K7's is `gating.noise_gate`, which `rms_gate` and `gate_waveform`
     call; K9's count is on `resample.resample`, which `resample_rows`
-    adds to; K10's on `compaction.wave_select` and `wave_scatter`), and
-    last the budget branch's count (`compaction_branch`)."""
+    adds to; K10's on `compaction.wave_select` and `wave_scatter`; K11's
+    on `loss.softmax_xent`, K12's on `optim.clip_norm` and
+    `optim.adamw_update`, K13's on `batchnorm.bn_moments`, `bn_apply`,
+    `bn_apply_grad` and `bn_moments_grad`), and last the budget branch's
+    count (`compaction_branch`)."""
     from gat_tpu_torch import features
-    from gat_tpu_torch.ops import compaction, onset, resample, yin
+    from gat_tpu_torch.ops import (batchnorm, compaction, loss, onset,
+                                   resample, yin)
     from gat_tpu_torch.segment import gating, slicing
+    from gat_tpu_torch.train import optim
     return [features.melspec_features, features.mfcc_frontend,
             yin.yin_pitch, onset.onset_strength, onset.pick_onsets,
             features.mfcc_pitch_features, gating.noise_gate,
             slicing.slice_at_onsets, resample.resample,
             compaction.wave_select, compaction.wave_scatter,
+            loss.softmax_xent, optim.clip_norm, optim.adamw_update,
+            batchnorm.bn_moments, batchnorm.bn_apply,
+            batchnorm.bn_apply_grad, batchnorm.bn_moments_grad,
             compaction_branch()]
 
 
 def not_launched(launches: list, need=SEGMENTING) -> list:
-    """The names of the kernels of `need` (indices K1..K10) that a
+    """The names of the kernels of `need` (indices K1..K13) that a
     `driven` count shows were not launched."""
     return [KERNEL_ROWS[i] for i in need if launches[i] < 1]
 
@@ -1925,7 +1948,7 @@ def not_launched(launches: list, need=SEGMENTING) -> list:
 def driven(fn) -> tuple:
     """fn() run once with every kernel's launch count set to 0 just before
     and read just after, once the card is idle: (its result, launches
-    K1..K10 and the budget branch's count at BRANCH, wall seconds)."""
+    K1..K13 and the budget branch's count at BRANCH, wall seconds)."""
     import torch
     wrappers = kernel_wrappers()
     torch.cuda.synchronize()
@@ -1939,7 +1962,7 @@ def driven(fn) -> tuple:
 
 
 def record_launches(rows: list, path: str, launches: list) -> None:
-    """Each kernel's launches on one path (K1..K10, a `driven` count), into
+    """Each kernel's launches on one path (K1..K13, a `driven` count), into
     its kernels-line row, found by name (K6's row exists from `[shared]`
     on, K10's from `[compact]` on); and K10's check: each of its kernels
     launched once for every wave that took the budget branch, so none on
@@ -1994,7 +2017,7 @@ def file_phase(rows: list, card: str, failures: list) -> None:
             _, launches, _ = driven(
                 lambda: card_t.transcribe(paths[FILE_SR], fused=fused))
             log(f"[file] launches per transcribe(fused={fused}) call, "
-                f"K1..K10 and the budget branch: {launches}")
+                f"K1..K13 and the budget branch: {launches}")
             if not_launched(launches) or launches[K4] != 1:
                 failures.append(f"a kernel was not launched on the file "
                                 f"path, or K4 more than once "
@@ -2282,7 +2305,7 @@ def files_phase(rows: list, card: str, failures: list,
             log(f"[files] transcribe_files({len(paths)} files, "
                 f"{audio_s:g} audio-s, buckets 2/4/16/512 s): {wall * 1e3:.3f} "
                 f"ms on {card} (CPU plain path {cpu_s:.1f} s); launches "
-                f"K1..K10, branch {launches}, host transfers {n_host}; equal to the "
+                f"K1..K13, branch {launches}, host transfers {n_host}; equal to the "
                 f"CPU's {n_same}/{len(paths)} (max prob err "
                 f"{max(e for _, e in checks):.3g}), planted labels "
                 f"{n_planted}/{len(paths)}, silent file empty "
@@ -2330,7 +2353,7 @@ def files_phase(rows: list, card: str, failures: list,
                 log(f"[files] transcribe_files({name}): {ms:.3f} ms/call, "
                     f"{ms / n_files:.3f} ms/file, {n_files / ms * 1e3:.1f} "
                     f"files/s, {secs / ms * 1e3:.1f} audio-s/s; launches "
-                    f"K1..K10, branch {launches}, host transfers {n_host}; on {card}")
+                    f"K1..K13, branch {launches}, host transfers {n_host}; on {card}")
                 if n_files >= 16:
                     out[name]["busy_ms"] = profile_call(fn, ms)
             ms = wall_ms(lambda: [card_t.transcribe(p) for p in riffs], 1)
@@ -2384,7 +2407,7 @@ def serve_phase(rows: list, card: str, failures: list,
                for s in want}
         ok = n == SERVE_FILES and got == want and not not_launched(launches)
         log(f"[serve] serve(once=True, batch=4) over {SERVE_FILES} riffs: "
-            f"{wall * 1e3:.3f} ms, launches K1..K10, branch {launches}; labels equal "
+            f"{wall * 1e3:.3f} ms, launches K1..K13, branch {launches}; labels equal "
             f"to the CPU's {got == want} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("[serve] the watch folder's labels or launches")
@@ -2437,7 +2460,7 @@ def serve_phase(rows: list, card: str, failures: list,
         log(f"[serve] serve_http(batch=4): {SERVE_FILES} concurrent POSTs in "
             f"{wall * 1e3:.3f} ms, {metrics['gat_device_dispatches_total']} "
             f"dispatches carrying {metrics['gat_dispatch_files_sum']} files, "
-            f"launches K1..K10, branch {launches}; every answer 200 with the CPU's "
+            f"launches K1..K13, branch {launches}; every answer 200 with the CPU's "
             f"labels {same}; server stopped {not server.is_alive()} -> "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -2643,7 +2666,7 @@ def stream_phase(rows: list, card: str, failures: list,
             log(f"[stream] {tag}: {len(got)} notes, planted found "
                 f"{found}/{len(planted)}; slots identical to the CPU's "
                 f"{slots_same}, notes equal {same} (max prob err "
-                f"{err:.3g}); launches K1..K10, branch {launches}, host transfers "
+                f"{err:.3g}); launches K1..K13, branch {launches}, host transfers "
                 f"{n_host} (2 per window), synchronizing calls "
                 f"{sum(n_sync.values())} {dict(n_sync)}; "
                 f"{wall * 1e3:.3f} ms on {card} (CPU plain path "
@@ -2714,7 +2737,7 @@ def live_phase(rows: list, card: str, failures: list,
     log(f"[live] run_on_source({STREAM_SECONDS:g} s riff, {len(planted)} "
         f"plucks, {polls} polls): {len(got)} notes transcribed, labels "
         f"equal to the CPU's {same} (max prob err {err:.3g}), the planted "
-        f"sequence {seq == [lab for _, lab in planted]}; launches K1..K10, branch "
+        f"sequence {seq == [lab for _, lab in planted]}; launches K1..K13, branch "
         f"{launches} ({detecting} detecting polls, K4/K5 once each), onset "
         f"transfers {transfers[0]}, synchronizing calls "
         f"{sum(n_sync.values())} {dict(n_sync)}; {wall * 1e3:.3f} ms, "
@@ -2778,7 +2801,7 @@ def cli_phase(rows: list, card: str, failures: list,
             if not ok:
                 failures.append(f"[cli] {name}: the card's results differ")
     log(f"[cli] the three card runs: {wall * 1e3:.3f} ms with checkpoint "
-        f"loads, launches K1..K10, branch {launches} on {card}")
+        f"loads, launches K1..K13, branch {launches} on {card}")
     if not_launched(launches):
         failures.append(f"[cli] a kernel was not launched: {launches}")
 
@@ -2827,6 +2850,492 @@ def host_parts(t) -> dict:
     return {"step": acc["step"] / n * 1e6,
             "optimizer": acc["optimizer"] / n * 1e6,
             "rest_ms": (wall - acc["step"]) * 1e3}
+
+
+# K11-K13, the training step's kernels, at the shipped models' step: a
+# batch of TRAIN_BATCH clips, 47 classes, the CNN's three BatchNorm layers
+# on (64 mels x 22 frames) inputs, and K11 also at an eval chunk
+# (`Trainer._EVAL_CHUNK` rows); TRAIN_STEPS steps profiled for the launches
+# a step
+TRAIN_BATCH, TRAIN_CLASSES, EVAL_CHUNK = 32, 47, 65536
+BN_LAYERS = ((32, 32, 64, 22), (32, 64, 32, 11), (32, 128, 16, 5))
+SMOOTHING = 0.05
+TRAIN_STEPS = 10
+# cudaLaunchKernel calls a step in a profile of a training epoch when the
+# loss, the optimizer and BatchNorm were library calls (PERF.md §5)
+LIBRARY_STEP_LAUNCHES = {"mlp": 95, "cnn": 308}
+BN_KERNELS = ("bn_moments", "bn_apply", "bn_apply_grad", "bn_moments_grad")
+
+
+def xent_pool(b: int, seed: int, dev) -> list:
+    """POOL (logits (b, 47) float32, labels (b,) int64) on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return [(torch.from_numpy(rng.normal(0.0, 3.0, (b, TRAIN_CLASSES))
+                              .astype(np.float32)).to(dev),
+             torch.from_numpy(rng.integers(0, TRAIN_CLASSES, b)).to(dev))
+            for _ in range(POOL)]
+
+
+def time_xent(dev, failures: list) -> dict:
+    """K11 (`ops/loss.py::softmax_xent`) against its plain version at a
+    step (32 x 47: the loss and its gradient, through autograd) and at an
+    eval chunk (65,536 x 47: the loss sum, the count and the argmaxes, no
+    gradient): loss within 1e-5 relative, gradient within 1e-6 of its
+    largest value, counts and argmaxes equal; each timed in CUDA events
+    (the step's loss and gradient, `torch.autograd.grad`), the kernel's
+    device ms in the profiler, the plain version's ms, one
+    `F.cross_entropy(label_smoothing=0.05)` forward and backward (at the
+    eval chunk its forward, reduction "sum") and the bound. Returns the
+    kernels-line row."""
+    import torch
+    import torch.nn.functional as F
+    from gat_tpu_torch.ops import loss as loss_mod
+    roofline = load_roofline()
+
+    def with_grad(f):
+        def run(xy):
+            x = xy[0].detach().requires_grad_(True)
+            loss = f(x, xy[1])
+            return loss, torch.autograd.grad(loss, x)[0]
+        return run
+    scale = 1.0 / TRAIN_BATCH
+    step = {"kernel": with_grad(lambda x, y: loss_mod.softmax_xent(
+                x, y, SMOOTHING, scale)[0]),
+            "plain": with_grad(lambda x, y: loss_mod.softmax_xent_plain(
+                x, y, SMOOTHING, scale)[0]),
+            "library": with_grad(lambda x, y: F.cross_entropy(
+                x, y, label_smoothing=SMOOTHING))}
+    evals = {"kernel": lambda xy: loss_mod.softmax_xent(
+                 xy[0], xy[1], SMOOTHING, 1.0, preds=True),
+             "plain": lambda xy: loss_mod.softmax_xent_plain(
+                 xy[0], xy[1], SMOOTHING, 1.0, preds=True),
+             "library": lambda xy: F.cross_entropy(
+                 xy[0], xy[1], label_smoothing=SMOOTHING, reduction="sum")}
+    out = {}
+    for tag, fns, b, grad in (("step", step, TRAIN_BATCH, True),
+                              ("eval", evals, EVAL_CHUNK, False)):
+        pool = xent_pool(b, SEED + b, dev)
+        got, ref = fns["kernel"](pool[0]), fns["plain"](pool[0])
+        counts = [int(loss_mod.softmax_xent(*pool[0], SMOOTHING, 1.0)[1]),
+                  int(loss_mod.softmax_xent_plain(*pool[0], SMOOTHING)[1])]
+        rel = float((got[0] - ref[0]).detach().abs() / ref[0].detach().abs())
+        if grad:
+            err = float((got[1] - ref[1]).abs().max())
+            ok = err <= 1e-6 * float(ref[1].abs().max())
+        else:
+            err = 0.0
+            ok = bool(torch.equal(got[2], ref[2]))
+        ok = ok and rel <= 1e-5 and counts[0] == counts[1]
+        err = max(err, float((got[0] - ref[0]).abs()))
+        cost = roofline.xent_cost(b, TRAIN_CLASSES, grad, preds=not grad)
+        bound_ms, bound_by = roofline.bound(*cost)
+        out[tag] = dict(
+            rows=b, max_abs_err=err, ms=time_ms(fns["kernel"], pool, 10),
+            device_ms=symbol_device_ms(fns["kernel"], pool, [
+                "softmax_xent_kernel"])["softmax_xent_kernel"],
+            plain_ms=time_ms(fns["plain"], pool, 10),
+            library_ms=time_ms(fns["library"], pool, 10),
+            bound_ms=bound_ms, bound_by=bound_by)
+        o = out[tag]
+        log(f"[train] softmax_xent at {b} x {TRAIN_CLASSES} ({tag}): loss "
+            f"rel err {rel:.3g} (1e-5), max abs err {err:.3g}, correct "
+            f"{counts}, {'gradient' if grad else 'argmaxes'} -> "
+            f"{'ok' if ok else 'FAIL'}; kernel {o['ms']:.4f} ms (events), "
+            f"{fmt_ms(o['device_ms'])} device, plain {o['plain_ms']:.4f} "
+            f"ms, F.cross_entropy {o['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by})")
+        if not ok:
+            failures.append(f"[train] softmax_xent ({tag}) against its "
+                            f"plain version")
+        del pool
+    s = out["step"]
+    return dict(name="softmax_xent", route="cuda",
+                source="gat_tpu_torch/csrc/softmax_xent.cu",
+                replaces="gat_tpu/train/trainer.py:250", launches=0,
+                max_abs_err=max(o["max_abs_err"] for o in out.values()),
+                tolerance="loss 1e-5 relative; gradient 1e-6 of its largest "
+                          "value; counts and argmaxes equal",
+                ms=s["ms"], device_ms=s["device_ms"], plain_ms=s["plain_ms"],
+                bound_ms=s["bound_ms"], bound_by=s["bound_by"],
+                library_ms=s["library_ms"], eval_chunk=out["eval"])
+
+
+def model_params(kind: str) -> int:
+    """The shipped MLP's or CNN's parameter count."""
+    from gat_tpu_torch.models import CNN, MLP
+    model = MLP(65, 128, 2, TRAIN_CLASSES) if kind == "mlp" else CNN(
+        TRAIN_CLASSES)
+    return sum(p.numel() for p in model.parameters())
+
+
+def time_clip_adamw(dev, failures: list) -> list[dict]:
+    """K12 (`train/optim.py`: `clip_norm`, then `adamw_update`) at the
+    shipped CNN's and MLP's parameter counts with gradients above the clip
+    threshold (the step clips): one step against the plain versions on
+    copies of the same buffers (norm within 1e-5 relative, parameters,
+    moments and clipped gradients within 1e-6 of their largest value, the
+    count equal), then each pass timed over POOL optimizers in CUDA
+    events, its device ms, its plain version's ms, the library's (pass
+    1: `torch._foreach_norm`; pass 2: the `_foreach_mul_` clip, the step
+    count's `_foreach_add_` and `torch._fused_adamw_`) and its bound.
+    Returns the two kernels-line rows (the CNN's numbers; the MLP's under
+    `mlp`)."""
+    import torch
+    from gat_tpu_torch.train import optim
+    roofline = load_roofline()
+    rng = np.random.default_rng(SEED)
+    per = {}
+    for kind in ("cnn", "mlp"):
+        n = model_params(kind)
+
+        def make():
+            p = torch.nn.Parameter(torch.from_numpy(
+                rng.normal(0.0, 0.05, n).astype(np.float32)).to(dev))
+            opt = optim.ClipAdamW([p], lr=1e-3, max_norm=1.0)
+            opt.flat_grad.copy_(torch.from_numpy(
+                rng.normal(0.0, 0.02, n).astype(np.float32)))
+            return opt
+        a = make()
+        b = optim.ClipAdamW([torch.nn.Parameter(a._flat_p.clone())],
+                            lr=1e-3, max_norm=1.0)
+        b.flat_grad.copy_(a.flat_grad)
+        a.step()
+        optim.clip_norm_plain(b.flat_grad, b.norm, b.count)
+        optim.adamw_update_plain(b._flat_p, b.flat_grad, b.mu, b.nu, b.norm,
+                                 b.count, b.lr, 1.0, b.b1, b.b2, b.c1, b.c2,
+                                 b.eps, b.weight_decay)
+        rel = float((a.norm - b.norm).abs() / b.norm)
+        errs = {k: float((getattr(a, f) - getattr(b, f)).abs().max())
+                for k, f in (("p", "_flat_p"), ("mu", "mu"), ("nu", "nu"),
+                             ("g", "flat_grad"))}
+        ok = (rel <= 1e-5 and int(a.count) == int(b.count) == 1
+              and all(errs[k] <= 1e-6 * float(getattr(b, f).abs().max())
+                      for k, f in (("p", "_flat_p"), ("mu", "mu"),
+                                   ("nu", "nu"), ("g", "flat_grad"))))
+        clipped = float(b.norm) >= 1.0
+        log(f"[train] clip_adamw at {n} parameters ({kind}): norm "
+            f"{float(b.norm):.4f} rel err {rel:.3g} (1e-5), max abs err "
+            f"{errs} (1e-6 of each buffer's largest), clipped {clipped} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"[train] clip_adamw ({kind}) against its plain "
+                            f"version")
+        pool = [a] + [make() for _ in range(POOL - 1)]
+        steps = [torch.zeros((), device=dev) for _ in pool]
+        lib_of = {id(o): s for o, s in zip(pool, steps)}
+
+        def norm_kernel(o):
+            optim.clip_norm(o.flat_grad, o.norm, o.count, o._part)
+
+        def update_kernel(o):
+            optim.adamw_update(o._flat_p, o.flat_grad, o.mu, o.nu, o.norm,
+                               o.count, o.lr, 1.0, o.b1, o.b2, o.c1, o.c2,
+                               o.eps, o.weight_decay)
+
+        def norm_plain(o):
+            optim.clip_norm_plain(o.flat_grad, o.norm, o.count)
+
+        def update_plain(o):
+            optim.adamw_update_plain(o._flat_p, o.flat_grad, o.mu, o.nu,
+                                     o.norm, o.count, o.lr, 1.0, o.b1, o.b2,
+                                     o.c1, o.c2, o.eps, o.weight_decay)
+
+        def norm_library(o):
+            o.norm.copy_(torch._foreach_norm([o.flat_grad])[0])
+
+        def update_library(o):
+            coef = torch.clamp(1.0 / (o.norm + 1e-6), max=1.0)
+            torch._foreach_mul_([o.flat_grad], coef)
+            torch._foreach_add_([lib_of[id(o)]], 1)
+            torch._fused_adamw_([o._flat_p], [o.flat_grad], [o.mu], [o.nu],
+                                [], [lib_of[id(o)]], lr=1e-3, beta1=o.b1,
+                                beta2=o.b2, weight_decay=o.weight_decay,
+                                eps=o.eps, amsgrad=False, maximize=False)
+        has_fused = hasattr(torch, "_fused_adamw_")
+        per[kind] = {}
+        for name, kern, plain, lib, cost, sym in (
+                ("clip_norm", norm_kernel, norm_plain, norm_library,
+                 roofline.clip_norm_cost(n), "clip_norm_kernel"),
+                ("adamw_update", update_kernel, update_plain,
+                 update_library if has_fused else None,
+                 roofline.adamw_cost(n, clipped), "adamw_update_kernel")):
+            bound_ms, bound_by = roofline.bound(*cost)
+            o = dict(params=n, ms=time_ms(kern, pool, 10),
+                     device_ms=symbol_device_ms(kern, pool, [sym])[sym],
+                     plain_ms=time_ms(plain, pool, 10),
+                     library_ms=None if lib is None else time_ms(lib, pool,
+                                                                 10),
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     max_abs_err=max(errs.values()))
+            per[kind][name] = o
+            log(f"[time] {name} at {n} parameters ({kind}): kernel "
+                f"{o['ms']:.4f} ms (events), {fmt_ms(o['device_ms'])} "
+                f"device, plain {o['plain_ms']:.4f} ms, library "
+                f"{fmt_ms(o['library_ms'])}, bound {bound_ms:.6f} ms "
+                f"({bound_by})")
+        del pool
+        torch.cuda.synchronize()
+    rows = []
+    for name, replaces in (("clip_norm", "gat_tpu/train/trainer.py:263"),
+                           ("adamw_update", "gat_tpu/train/trainer.py:264")):
+        c = per["cnn"][name]
+        rows.append(dict(
+            name=name, route="cuda", source="gat_tpu_torch/csrc/clip_adamw.cu",
+            replaces=replaces, launches=0,
+            max_abs_err=max(per[k][name]["max_abs_err"] for k in per),
+            tolerance="norm 1e-5 relative; p, mu, nu, clipped g 1e-6 of each "
+                      "buffer's largest value; count equal",
+            ms=c["ms"], device_ms=c["device_ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["library_ms"], params=c["params"],
+            mlp=per["mlp"][name]))
+    return rows
+
+
+def bn_layouts(dev) -> list:
+    """(shape, strides, dtype) of x at each BatchNorm of the shipped bf16
+    CNN's train-mode forward on the card, as cuDNN's convolutions give
+    them."""
+    import torch
+    from gat_tpu_torch.models import CNN
+    from gat_tpu_torch.models import cnn as cnn_mod
+    seen = []
+    inner = cnn_mod.batch_norm_train
+
+    def spy(x, *args, **kwargs):
+        seen.append((tuple(x.shape), x.stride(), x.dtype))
+        return inner(x, *args, **kwargs)
+    model = CNN(TRAIN_CLASSES, dtype=torch.bfloat16).to(dev).train()
+    x = torch.randn(TRAIN_BATCH, 64, 22, 1, device=dev)
+    cnn_mod.batch_norm_train = spy
+    try:
+        model(x)
+    finally:
+        cnn_mod.batch_norm_train = inner
+    return seen
+
+
+def time_bn(dev, failures: list) -> list[dict]:
+    """K13 (`ops/batchnorm.py`: moments and apply forward, apply-backward
+    and moments-backward) at the shipped CNN's three layers at a step of
+    32 clips, bfloat16 (the shipped CNN) and float32, in the layout the
+    card's convolutions give (`bn_layouts`): forward and backward against
+    the plain version and its autograd (float32 y and dx within 1e-4 of
+    their largest value, bfloat16 within two of their ulps plus 1e-5 of
+    it, dw and db 1e-4, running statistics 1e-5), then each kernel's
+    device ms a layer in the profiler over a forward and backward, the
+    whole forward and backward in CUDA events, the plain version's
+    forward and its backward in CUDA events, and each kernel's bound.
+    Returns the four kernels-line rows: the bfloat16 layers' sums, the
+    float32 ones under `fp32`, per layer under `layers`; library_ms is
+    null (F.batch_norm in training mode moves the running variance toward
+    the unbiased variance, another function)."""
+    import torch
+    from gat_tpu_torch.ops import batchnorm
+    roofline = load_roofline()
+    seen = bn_layouts(dev)
+    last = [s[1][1] == 1 for s in seen]
+    log(f"[train] BatchNorm inputs of the bf16 CNN on the card: "
+        f"{[(s[0], s[1]) for s in seen]} (channels-last {last})")
+    channels_last = all(last)
+    syms = dict(zip(BN_KERNELS, load_roofline().KERNEL_SYMBOLS["K13"]))
+    per = {name: {"bf16": [], "fp32": []} for name in BN_KERNELS}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        elem = torch.tensor([], dtype=dtype).element_size()
+        for shape in BN_LAYERS:
+            rng = np.random.default_rng(sum(shape))
+            fmt = (torch.channels_last if channels_last
+                   else torch.contiguous_format)
+
+            def t(*s):
+                return torch.from_numpy(rng.normal(0.3, 1.5, s).astype(
+                    np.float32)).to(dev)
+            pool = [dict(x=t(*shape).to(dtype).contiguous(memory_format=fmt),
+                         dy=t(*shape).to(dtype).contiguous(memory_format=fmt),
+                         w=t(shape[1]), b=t(shape[1]), rm=t(shape[1]),
+                         rv=t(shape[1]).abs()) for _ in range(POOL)]
+
+            def run(fn, backward=True):
+                def go(d):
+                    x = d["x"].detach().requires_grad_(True)
+                    w = d["w"].detach().requires_grad_(True)
+                    b = d["b"].detach().requires_grad_(True)
+                    rm, rv = d["rm"].clone(), d["rv"].clone()
+                    y = fn(x, w, b, rm, rv, 1e-5, 0.9)
+                    if not backward:
+                        return y
+                    return (y, rm, rv) + torch.autograd.grad(
+                        y, (x, w, b), d["dy"])
+                return go
+            kern = run(batchnorm.batch_norm_train)
+            plain = run(batchnorm.batch_norm_train_plain)
+            got, ref = kern(pool[0]), plain(pool[0])
+            errs, ok = {}, True
+            for name, g, r in zip(("y", "rm", "rv", "dx", "dw", "db"), got,
+                                  ref):
+                g, r = g.float(), r.float()
+                scale = float(r.abs().max())
+                diff = (g - r).abs()
+                errs[name] = float(diff.max())
+                if dtype == torch.bfloat16 and name in ("y", "dx"):
+                    bound = 2.0 * 2.0 ** (torch.floor(torch.log2(
+                        r.abs().clamp_min(1e-30))) - 7) + 1e-5 * scale
+                    ok = ok and bool((diff <= bound).all())
+                else:
+                    tol = 1e-5 if name in ("rm", "rv") else 1e-4
+                    ok = ok and errs[name] <= tol * scale
+            log(f"[train] batch_norm {tag} at {shape}: max abs err {errs} "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[train] batch_norm {tag} {shape} against "
+                                f"its plain version")
+            device = symbol_device_ms(kern, pool, list(syms.values()))
+            events = time_ms(kern, pool, 10)
+            plain_fwd = time_ms(run(batchnorm.batch_norm_train_plain, False),
+                                pool, 10)
+            plain_all = time_ms(plain, pool, 10)
+            n, c, h, w = shape
+            for name in BN_KERNELS:
+                bound_ms, bound_by = roofline.bound(*roofline.bn_cost(
+                    name.removeprefix("bn_"), n, c, h * w, elem))
+                forward = name in ("bn_moments", "bn_apply")
+                per[name][tag].append(dict(
+                    shape=list(shape), device_ms=device[syms[name]],
+                    events_ms=events, bound_ms=bound_ms, bound_by=bound_by,
+                    plain_ms=plain_fwd if forward else plain_all - plain_fwd,
+                    max_abs_err=max(errs[k] for k in (
+                        ("y", "rm", "rv") if forward else
+                        ("dx", "dw", "db")))))
+            shown = {k: None if v is None else round(v, 5)
+                     for k, v in device.items()}
+            log(f"[time] batch_norm {tag} at {shape}: device ms {shown}, "
+                f"forward and backward {events:.4f} ms (events); plain "
+                f"forward {plain_fwd:.4f} ms, backward "
+                f"{plain_all - plain_fwd:.4f} ms")
+            del pool
+            torch.cuda.synchronize()
+    rows = []
+    for name in BN_KERNELS:
+        layers = per[name]
+
+        def total(tag, key):
+            vals = [o[key] for o in layers[tag]]
+            return None if any(v is None for v in vals) else sum(vals)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="gat_tpu_torch/csrc/batchnorm_train.cu",
+            replaces="gat_tpu/models/cnn.py:84", launches=0,
+            max_abs_err=max(o["max_abs_err"] for t in layers.values()
+                            for o in t),
+            tolerance="float32 y, dx 1e-4 of the largest; bfloat16 two ulps "
+                      "+ 1e-5 of the largest; dw, db 1e-4; running stats "
+                      "1e-5",
+            ms=total("bf16", "device_ms"), device_ms=total("bf16",
+                                                           "device_ms"),
+            plain_ms=total("bf16", "plain_ms"),
+            bound_ms=total("bf16", "bound_ms"), bound_by="bytes",
+            library_ms=None,
+            library_note="F.batch_norm in training mode moves the running "
+                         "variance toward the unbiased variance: another "
+                         "function",
+            layers=layers["bf16"], fp32=dict(
+                ms=total("fp32", "device_ms"),
+                plain_ms=total("fp32", "plain_ms"),
+                bound_ms=total("fp32", "bound_ms"), layers=layers["fp32"])))
+    return rows
+
+
+def train_kernel_rows(failures: list, device: str = "cuda") -> list[dict]:
+    """`[train]`'s kernels K11-K13 against their plain versions and timed
+    at the step's shapes (`time_xent`, `time_clip_adamw`, `time_bn`): the
+    kernels line's rows softmax_xent, clip_norm, adamw_update and the four
+    bn_* rows, each with launches 0 until `train_all` fills them in."""
+    import torch
+    dev = torch.device(device)
+    rows = [time_xent(dev, failures)]
+    rows += time_clip_adamw(dev, failures)
+    rows += time_bn(dev, failures)
+    return rows
+
+
+def step_launches(t, steps: int = TRAIN_STEPS) -> dict:
+    """`steps` optimizer steps of trainer t on its first batch, after one
+    warm step: host µs a step (the host clock over the steps, synchronised
+    at the end; the card is idle for most of a step, so this is the wall)
+    and, from a profiler over as many steps, the `cudaLaunchKernel` calls
+    a step (the CUDA runtime's launches: PyTorch's kernels and the port's
+    alike) and the device ms a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    xb = t._upload(t.train_dl.X[:TRAIN_BATCH])
+    yb = t._upload(t.train_dl.y[:TRAIN_BATCH], torch.int64)
+    t._step(xb, yb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        t._step(xb, yb)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / steps * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            t._step(xb, yb)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    return {"host_us": host, "launches": launches / steps,
+            "device_ms": busy / steps}
+
+
+def time_train(dev, failures: list) -> list[dict]:
+    """`tools/torch_onset_timing.py TREE train`: the steady-state epoch of
+    the shipped MLP (fp32) and CNN (bf16) at `[train]`'s sizes (601
+    training and 151 validation examples of random features from SEED,
+    batch 32, 47 classes), for whichever checkout's package is imported:
+    ms an epoch (validation included; the median of 3 after 2 warm
+    epochs) and `step_launches`. One row per family."""
+    import torch
+    from gat_tpu_torch.models import CNN, MLP
+    from gat_tpu_torch.train import ArrayDataLoader, Trainer
+    rng = np.random.default_rng(SEED)
+    y = rng.integers(0, TRAIN_CLASSES, 752)
+    rows = []
+    for fam in ("mlp", "cnn"):
+        if fam == "mlp":
+            X = rng.normal(size=(752, 65)).astype(np.float32)
+            model = MLP(65, 128, 2, TRAIN_CLASSES)
+        else:
+            X = rng.normal(-40.0, 15.0, (752, 64, 22, 1)).astype(np.float32)
+            model = CNN(TRAIN_CLASSES, dtype=torch.bfloat16)
+        t = Trainer(model, ArrayDataLoader(X[:601], y[:601], seed=SEED),
+                    ArrayDataLoader(X[601:], y[601:], shuffle=False),
+                    reverse_map={i: str(i) for i in range(TRAIN_CLASSES)},
+                    seed=SEED, device=str(dev))
+        t.train(epochs=2, verbose=False)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train(epochs=1, verbose=False)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step = step_launches(t)
+        rows.append(dict(family=fam, ms_per_epoch=statistics.median(times),
+                         epoch_ms=times, steps_per_epoch=-(-601 // 32),
+                         **{f"step_{k}": v for k, v in step.items()}))
+        log(f"[train] {fam}: {statistics.median(times):.3f} ms an epoch "
+            f"(median of {[round(x, 3) for x in times]}), a step "
+            f"{step['host_us']:.0f} µs host, {step['launches']:.1f} "
+            f"cudaLaunchKernel, {step['device_ms']:.4f} ms device")
+        if not np.isfinite(t.train_loss_history).all():
+            failures.append(f"[train] {fam}: losses not finite")
+    return rows
 
 
 def train_phase(rows: list, card: str, failures: list,
@@ -2885,6 +3394,9 @@ def train_phase(rows: list, card: str, failures: list,
             f"(2e-3) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("[train] a kernel disagrees at the dataset shape")
+        # K11-K13 against their plain versions at the step's shapes, timed
+        train_rows = train_kernel_rows(failures, device)
+        rows += train_rows
         fb = features.FeatureBuilder(device=device)
         (mf, y, _, _), l_mf, _ = driven(lambda: fb.extract_mfcc_features(
             loader))
@@ -2904,7 +3416,7 @@ def train_phase(rows: list, card: str, failures: list,
               and e_pitch <= 2e-3 and e_mel <= 0.1
               and np.isfinite(mf).all() and np.isfinite(mel).all())
         log(f"[train] FeatureBuilder on {len(y)} clips: X {mf.shape} and "
-            f"{mel.shape}; launches K1..K10, branch {l_mf} (MFCC) and {l_mel} (mel); "
+            f"{mel.shape}; launches K1..K13, branch {l_mf} (MFCC) and {l_mel} (mel); "
             f"vs the CPU plain path ({cpu_s:.1f} s): MFCC max abs err "
             f"{e_mfcc:.3g} (1e-3), pitch rel {e_pitch:.3g} (2e-3), mel "
             f"{e_mel:.3g} dB (0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
@@ -2940,12 +3452,22 @@ def train_phase(rows: list, card: str, failures: list,
         mgr = TrainingManager(datasets_root=d, target_sr=SR, device=device)
         transfers = [0]
         original = counting(trainer_mod, transfers)
+        # the trainer's K11 calls, a step's (with the gradient) apart from
+        # an evaluation's (with the argmaxes)
+        xent_calls = {"step": 0, "eval": 0}
+        inner_xent = trainer_mod.softmax_xent
+
+        def counted_xent(*args, preds=False, **kwargs):
+            xent_calls["eval" if preds else "step"] += 1
+            return inner_xent(*args, preds=preds, **kwargs)
+        trainer_mod.softmax_xent = counted_xent
         try:
             (mlp_t, cnn_t), launches, wall = driven(lambda: mgr.train_all(
                 ds, epochs=TRAIN_EPOCHS, save=False, verbose=False))
             n_host = transfers[0]
         finally:
             trainer_mod._to_host = original
+            trainer_mod.softmax_xent = inner_xent
         record_launches(rows, "train", launches)
         finite = all(np.isfinite(t.train_loss_history + t.val_loss_history)
                      .all() for t in (mlp_t, cnn_t))
@@ -2954,11 +3476,28 @@ def train_phase(rows: list, card: str, failures: list,
               and n_host == 2 * TRAIN_EPOCHS)
         log(f"[train] train_all({len(y)} clips, {TRAIN_EPOCHS} epochs) in "
             f"{wall:.2f} s (synthesis {synth_s:.1f} s before it): launches "
-            f"K1..K10, branch {launches}, host transfers {n_host} (one per epoch), "
+            f"K1..K13, branch {launches}, host transfers {n_host} (one per epoch), "
             f"losses finite {finite} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("[train] train_all: launches, transfers or "
                             "losses")
+        # K11 once a step and once an evaluation chunk, K12's passes once a
+        # step, K13's kernels once a CNN step and BatchNorm layer (three)
+        steps = sum(t.epoch * len(t.train_dl) for t in (mlp_t, cnn_t))
+        cnn_steps = cnn_t.epoch * len(cnn_t.train_dl)
+        want = {K11: steps + xent_calls["eval"], K12N: steps, K12U: steps,
+                **{k: 3 * cnn_steps for k in BATCHNORM}}
+        ok = (xent_calls["step"] == steps
+              and all(launches[k] == n for k, n in want.items()))
+        log(f"[train] K11-K13 on train_all: {steps} steps ({cnn_steps} of "
+            f"the CNN), {xent_calls['eval']} evaluation chunks; launches "
+            f"{ {KERNEL_ROWS[k]: launches[k] for k in want} }, expected "
+            f"{ {KERNEL_ROWS[k]: n for k, n in want.items()} } -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("[train] K11-K13 launches on train_all")
+        for row in train_rows:
+            row["launches"] = launches[KERNEL_ROWS.index(row["name"])]
         numbers = {}
         for fam, t in (("mlp", mlp_t), ("cnn", cnn_t)):
             n_tr = len(t.train_dl.y)
@@ -2967,6 +3506,7 @@ def train_phase(rows: list, card: str, failures: list,
             _, n_sync = sync_warnings(lambda: t.train(epochs=1,
                                                       verbose=False))
             host = host_parts(t)
+            step = step_launches(t)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             t.train(epochs=TRAIN_EPOCHS, verbose=False)
@@ -2977,20 +3517,26 @@ def train_phase(rows: list, card: str, failures: list,
             numbers[fam] = dict(
                 ms_per_epoch=ms, steps_per_s=steps / ms * 1e3,
                 examples_per_s=n_tr / ms * 1e3, busy_ms=busy,
-                sync_calls=sum(n_sync.values()), host_us=host,
+                sync_calls=sum(n_sync.values()), host_us=host, step=step,
                 stage_seconds=t.stage_seconds,
                 val_acc=t.val_accuracy_history[-1])
             log(f"[train] {fam}: {ms:.3f} ms per epoch ({steps} steps of "
                 f"{t.train_dl.batch_size}, {n_tr} examples, validation "
                 f"included), {steps / ms * 1e3:.1f} optimizer steps/s, "
                 f"{n_tr / ms * 1e3:.1f} examples/s; host µs per step "
-                f"{host['step']:.0f}, of which AdamW.step "
+                f"{host['step']:.0f}, of which the optimizer's step "
                 f"{host['optimizer']:.0f}, and {host['rest_ms']:.3f} ms an "
                 f"epoch outside the steps (validation, the transfer); "
                 f"synchronizing calls in a 1-epoch train() "
                 f"{sum(n_sync.values())} {dict(n_sync)}, val acc "
                 f"{t.val_accuracy_history[-1]:.4f} after "
                 f"{t.epoch} epochs, on {card}")
+            log(f"[train] {fam} step on its first batch: "
+                f"{step['launches']:.1f} cudaLaunchKernel a step (with "
+                f"library calls: {LIBRARY_STEP_LAUNCHES[fam]}), "
+                f"{step['host_us']:.0f} µs "
+                f"host a step over {TRAIN_STEPS} steps, "
+                f"{step['device_ms']:.4f} ms device a step, on {card}")
         log(f"[train] numbers {json.dumps(numbers)}")
 
         # the checkpoints through the Transcriber
@@ -3059,7 +3605,7 @@ def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
                         for a, b in zip(one, ref))
     ok = same and launches[4] == 1
     log(f"[api] pick_onsets_from_envelope at {tuple(env.shape)}: launches "
-        f"K1..K10, branch {launches}; outputs identical to pick_onsets_plain's "
+        f"K1..K13, branch {launches}; outputs identical to pick_onsets_plain's "
         f"{same} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("[api] pick_onsets_from_envelope")
@@ -3097,7 +3643,7 @@ def api_phase(rows: list, clips_np: np.ndarray, midi: np.ndarray,
             ok = (launches[:3] == [1, 1, 1] and e_mfcc <= 1e-3
                   and e_pitch <= 2e-3 and e_mel <= 0.1
                   and np.isfinite(mf).all() and np.isfinite(ms).all())
-            log(f"[api] {name}: {mf.shape} and {ms.shape}; launches K1..K10, branch "
+            log(f"[api] {name}: {mf.shape} and {ms.shape}; launches K1..K13, branch "
                 f"{launches}; vs the CPU: MFCC max abs err {e_mfcc:.3g} "
                 f"(1e-3), pitch rel {e_pitch:.3g} (2e-3), mel {e_mel:.3g} dB "
                 f"(0.1 where > -60 dB) -> {'ok' if ok else 'FAIL'}")
@@ -3224,7 +3770,7 @@ def eval_phase(rows: list, card: str, failures: list,
     log(f"[eval] evaluate_set on {len(EVAL_SETS)} sets and evaluate_wav_dir "
         f"on {card_wav['n_files']} files: {wall:.2f} s on the card side, of "
         f"which synthesis {synth_s:.2f} s (host); CPU plain path {cpu_s:.1f} "
-        f"s; launches K1..K10, branch {launches} on {card}")
+        f"s; launches K1..K13, branch {launches} on {card}")
     if not_launched(launches):
         failures.append(f"[eval] a kernel was not launched: {launches}")
     for name, _ in EVAL_SETS:
@@ -3339,7 +3885,7 @@ def tools_phase(rows: list, card: str, failures: list,
         for i, n in enumerate(launches):
             total[i] += n
         ok = all(launches[i] >= 1 for i in need)
-        log(f"[tools] {what}: {wall:.2f} s, launches K1..K10, branch {launches}"
+        log(f"[tools] {what}: {wall:.2f} s, launches K1..K13, branch {launches}"
             + ("" if ok else " -> FAIL (a kernel was not launched)"))
         if not ok:
             failures.append(f"[tools] {what}: launches {launches}")
@@ -3726,7 +4272,7 @@ def parallel_phase(rows: list, card: str, failures: list,
             row["launches"] = n
             row["launches_by_path"] = {"parallel": n}
         rows += new_rows
-        log(f"[parallel] launches K1..K10 and compactions "
+        log(f"[parallel] launches K1..K13 and compactions "
             f"{launches[:n_k]}, onset_mel_db "
             f"{launches[n_k]}, onset_flux {launches[n_k + 1]}")
         if not_launched(launches) or min(launches[n_k:]) < 1:
@@ -3874,7 +4420,7 @@ def shared_phase(rows: list, card: str, failures: list,
             ok = (same and launches[:K4] == [1, 0, 0]
                   and launches[K6] == 1)
             log(f"[shared] transcribe_clips({n}) on the shared route: "
-                f"launches K1..K10, branch {launches}; labels "
+                f"launches K1..K13, branch {launches}; labels "
                 f"equal to the FFT route's {res['labels'] == fft_clips['labels']}"
                 f", max prob diff {err:.3g} (1e-2) -> "
                 f"{'ok' if ok else 'FAIL'}")
@@ -3955,7 +4501,9 @@ def parallel_train(mesh, failures: list) -> None:
     parameters atol 2e-2 but the conv biases ahead of BatchNorm (true
     gradient 0, Adam's ±lr steps), as tests/test_torch_train.py bounds
     the bf16 CNN (its accuracies are printed, not held: a bf16 near-tie
-    may flip a clip)."""
+    may flip a clip). The mesh's training, counted as `driven` counts a
+    path, must launch K11 and K12's two passes, and the CNN's K13's four
+    kernels."""
     from gat_tpu_torch.data.synth import synthesize_note_dataset
     from gat_tpu_torch.train import TrainingManager
     with tempfile.TemporaryDirectory() as d:
@@ -3969,10 +4517,14 @@ def parallel_train(mesh, failures: list) -> None:
         meshed = TrainingManager(target_sr=SR, mesh=mesh)
         for family, rtol, atol in (("mlp", 1e-4, 1e-4),
                                    ("cnn", 5e-3, 2e-2)):
-            trs = [getattr(m, f"train_{family}")(
+            a, (b, launches, _) = (getattr(single, f"train_{family}")(
                 dataset=ds, epochs=PARALLEL_EPOCHS, save=False,
-                verbose=False) for m in (single, meshed)]
-            a, b = trs
+                verbose=False), driven(lambda: getattr(
+                    meshed, f"train_{family}")(
+                        dataset=ds, epochs=PARALLEL_EPOCHS, save=False,
+                        verbose=False)))
+            need = TRAINING + (BATCHNORM if family == "cnn" else ())
+            missing = not_launched(launches, need)
             err_h = max(float(np.max(np.abs(np.subtract(x, y))
                                      / np.maximum(np.abs(y), 1e-12)))
                         for x, y in ((b.train_loss_history,
@@ -3987,12 +4539,13 @@ def parallel_train(mesh, failures: list) -> None:
             acc_ok = (a.train_accuracy_history == b.train_accuracy_history
                       and a.val_accuracy_history == b.val_accuracy_history)
             ok = err_h <= rtol and err_p <= atol and (
-                acc_ok or family == "cnn")
+                acc_ok or family == "cnn") and not missing
             log(f"[parallel] Trainer(mesh=) {family} {PARALLEL_EPOCHS} "
                 f"epochs vs single device: histories max rel err "
                 f"{err_h:.3g} ({rtol:g}), accuracies equal {acc_ok}, "
-                f"parameters max abs err {err_p:.3g} ({atol:g}) -> "
-                f"{'ok' if ok else 'FAIL'}")
+                f"parameters max abs err {err_p:.3g} ({atol:g}); launches "
+                f"K11..K13 {[launches[k] for k in TRAINING + BATCHNORM]}, "
+                f"not launched {missing} -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"[parallel] Trainer(mesh=) {family}")
 
@@ -4142,18 +4695,19 @@ def file_4s_phase(rows: list, card: str, failures: list,
                 got, launches, wall = driven(call)
                 ref = cpu_t.transcribe(path, clip_duration=4.0)
                 same, err = same_result(got, ref)
-                # K1..K10 launched or not: K6 in place of K2 and K3 on the
+                # K1..K13 launched or not: K6 in place of K2 and K3 on the
                 # matmul route, the segmentation's K4, K5, K7, K8 and the
                 # clip re-rate's K9 on both; no compaction (B = 1, no
-                # budget): no K10 and no wave through the budget branch
+                # budget): no K10, no wave through the budget branch and
+                # no training kernel (K11-K13)
                 want = ([1, 1, 1, 1, 1, 0, 1, 1, 1] if route == "fft"
-                        else [1, 0, 0, 1, 1, 1, 1, 1, 1]) + [0, 0, 0]
+                        else [1, 0, 0, 1, 1, 1, 1, 1, 1]) + [0] * (BRANCH - 8)
                 ok = (same and bool(got["labels"])
                       and [min(k, 1) for k in launches] == want)
                 log(f"[file] transcribe(12 s riff, clip_duration=4.0) on "
                     f"the {route} route: labels {got['labels']}, onsets "
                     f"{got['onsets_s']}; equal to the CPU plain path {same} "
-                    f"(max prob err {err:.3g}); launches K1..K10, branch {launches}; "
+                    f"(max prob err {err:.3g}); launches K1..K13, branch {launches}; "
                     f"{wall * 1e3:.3f} ms on {card} -> "
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:

@@ -29,12 +29,14 @@ import torch
 from .config import KERNEL_BUILD_DIR
 
 __all__ = ["KERNELS", "MAX_FRAMES", "build", "function", "device_guard",
-           "stream", "check_input", "check_frames", "check", "nvcc_path"]
+           "stream", "ticket", "check_input", "check_frames", "check",
+           "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("melspec_frontend", "mfcc_frontend", "yin_pitch", "onset_envelope",
            "onset_pick", "mfcc_pitch_frontend", "noise_gate", "slice_clips",
-           "resample", "wave_compact")
+           "resample", "wave_compact", "softmax_xent", "clip_adamw",
+           "batchnorm_train")
 # The clip front-ends (K1, K2, K3, K6) take fewer frames than this
 # (`kMaxFrames` in `csrc/dsp_common.cuh`); below it they take any length,
 # running YIN in groups of frames and keeping a dB image too large for
@@ -46,6 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def nvcc_path() -> str:
@@ -136,6 +139,18 @@ def stream(device: torch.device) -> int:
     generated kernels read it (`torch.cuda.current_stream().cuda_stream`
     builds a Stream object on every call)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def ticket(device: torch.device) -> torch.Tensor:
+    """The int32 ticket of the kernels that finish a reduction in their
+    last block (K11, K13): 0 before a launch and reset to 0 by its last
+    block. One a (device, stream), made once, so launches that share it
+    run one after another."""
+    key = (device.index, stream(device))
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
 
 
 def check_input(clips, name: str) -> None:

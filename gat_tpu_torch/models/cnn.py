@@ -19,7 +19,8 @@ float32 matmul), and the logits come back as float32.
 In train mode BatchNorm follows flax, not `nn.BatchNorm2d`: it normalizes
 with the batch's biased variance, E[x²] − E[x]² in float32, and moves the
 running statistics by momentum 0.1 toward the batch mean and the *biased*
-variance (torch would take the unbiased one).
+variance (torch would take the unbiased one): `ops/batchnorm.py`, K13 on
+the card.
 `bn_reduce`, set by a data-parallel step (`parallel/sharded.py`), turns
 a rank's batch moments E[x], E[x²] over its rows into the global batch's
 (a differentiable weighted sum over the ranks of the `data` axis): the
@@ -32,6 +33,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..ops.batchnorm import batch_norm_train
 from .mlp import Dropout
 
 __all__ = ["CNN", "adaptive_avg_pool_2d", "params_from_flax",
@@ -107,31 +109,15 @@ class CNN(nn.Module):
 
     def _batch_norm(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """BatchNorm in float32, rounded to the compute dtype: the running
-        statistics in eval mode, flax's batch statistics in train mode."""
+        statistics in eval mode (the library layer), flax's batch
+        statistics in train mode (`ops/batchnorm.py`: K13 on the card, its
+        plain version on the CPU), the global batch's under `bn_reduce`."""
         bn = getattr(self, name)
-        x = x.float()
         if not self.training:
-            return bn(x).to(self.dtype)
-        if self.bn_reduce is None:
-            mean = x.mean(dim=(0, 2, 3))
-            sq = (x * x).mean(dim=(0, 2, 3))
-        else:
-            # a data-parallel step: the global batch's moments from every
-            # rank's own (its rows' share of the batch weighs them)
-            if x.shape[0]:
-                mean, sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
-            else:
-                mean = sq = x.new_zeros(x.shape[1])
-            mean, sq = self.bn_reduce(mean, sq, x.shape[0])
-        var = torch.clamp(sq - mean * mean, min=0.0)
-        with torch.no_grad():
-            bn.running_mean.copy_(_BN_MOMENTUM * bn.running_mean
-                                  + (1.0 - _BN_MOMENTUM) * mean)
-            bn.running_var.copy_(_BN_MOMENTUM * bn.running_var
-                                 + (1.0 - _BN_MOMENTUM) * var)
-        mul = torch.rsqrt(var + bn.eps) * bn.weight
-        y = (x - mean[:, None, None]) * mul[:, None, None]
-        return (y + bn.bias[:, None, None]).to(self.dtype)
+            return bn(x.float()).to(self.dtype)
+        return batch_norm_train(x, bn.weight, bn.bias, bn.running_mean,
+                                bn.running_var, bn.eps, _BN_MOMENTUM,
+                                self.bn_reduce).to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, H=n_mels, W=T, C) NHWC → float32 logits (N,

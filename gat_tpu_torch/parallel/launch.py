@@ -72,6 +72,11 @@ def _init(rank: int, world: int, device: str, store_path: str,
         backend_for(device), store=dist.FileStore(store_path, world),
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s))
+    # every rank has joined before any runs fn: gloo's init connects each
+    # pair of ranks, and a rank that finished fn and left the group while a
+    # peer was still connecting to it failed that peer's init ("Connection
+    # closed by peer")
+    dist.barrier()
 
 
 def _write_error(out: Path, rank: int) -> None:

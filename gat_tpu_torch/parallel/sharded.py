@@ -34,6 +34,8 @@ from torch import nn
 
 from ..models import cnn as cnn_mod
 from ..models import mlp as mlp_mod
+from ..ops.loss import softmax_xent
+from ..train.optim import ClipAdamW
 from .mesh import (DATA, MODEL, axis_group, axis_rank, axis_size,
                    data_sharding, mesh_device, replicated, row_range)
 
@@ -110,36 +112,31 @@ def _allreduce_flat(tensors: list, group) -> None:
         off += t.numel()
 
 
-def data_parallel_backward(model: nn.Module, params: list, xb: torch.Tensor,
-                           yb: torch.Tensor, n: int, start: int, mesh,
-                           label_smoothing: float = 0.05):
+def data_parallel_backward(model: nn.Module, optimizer: ClipAdamW,
+                           xb: torch.Tensor, yb: torch.Tensor, n: int,
+                           start: int, mesh, label_smoothing: float = 0.05):
     """Forward and backward of this rank's rows (xb, yb) = rows [start,
     start + len(yb)) of a global batch of n, with the loss the mean over
-    the global batch; then each parameter's gradient, the loss sum and
-    the correct count summed over `data` in one all-reduce. Returns (loss
-    sum, correct count) of the global batch, device scalars; the
-    gradients are left in `p.grad`, equal on every rank."""
+    the global batch (K11 on the card, at scale 1/n: this rank's share);
+    then the optimizer's flat gradients, the loss sum and the correct
+    count summed over `data` in one all-reduce of its `grad_and_stats`.
+    Returns (loss sum, correct count) of the global batch, device
+    scalars; the gradients are left in the optimizer's flat buffer (each
+    `p.grad` a view of it), equal on every rank."""
     model.train()
     k = len(yb)
+    optimizer.zero_grad()
     with data_parallel_rows(model, n, start, start + k, mesh):
         logits = model(xb)
+    stats = optimizer.grad_and_stats[optimizer.n:]
     if k:
-        loss = F.cross_entropy(logits, yb, label_smoothing=label_smoothing)
-        loss_sum = loss.detach() * k
-        loss = loss * (k / n)  # this rank's share of the global mean
+        loss, correct = softmax_xent(logits, yb, label_smoothing, 1.0 / n)
+        stats[0] = loss.detach() * n
+        stats[1] = correct
     else:  # no rows: still in the graph, for the collectives' backward
         loss = logits.sum() * 0.0
-        loss_sum = loss.detach()
-    for p in params:
-        p.grad = None
     loss.backward()
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    stats = torch.stack([loss_sum,
-                         (logits.argmax(dim=-1) == yb).sum().float()])
-    _allreduce_flat([p.grad for p in params] + [stats],
-                    axis_group(mesh, DATA))
+    dist.all_reduce(optimizer.grad_and_stats, group=axis_group(mesh, DATA))
     return stats[0], stats[1].round().to(torch.int64)
 
 
@@ -218,11 +215,12 @@ def make_sharded_transcribe_files(transcriber, mesh, target_sr: int,
 # training
 # ---------------------------------------------------------------------------
 def adamw(lr: float = 1e-3, weight_decay: float = 1e-4):
-    """The optimizer factory params → AdamW with optax.adamw's defaults
-    (betas 0.9/0.999, eps 1e-8, weight decay 1e-4 on every parameter)."""
+    """The optimizer factory params → the port's AdamW (K12 on the card)
+    with optax.adamw's defaults (betas 0.9/0.999, eps 1e-8, weight decay
+    1e-4 on every parameter) and no clip."""
     def make(params):
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=weight_decay)
+        return ClipAdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=weight_decay, hyper_f32=False)
     return make
 
 
@@ -342,7 +340,7 @@ class ShardedTrainState:
     """A model on this rank's device (replicated, or this rank's
     TensorParallelMLP shard) and its optimizer."""
     module: nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: ClipAdamW
 
 
 def make_sharded_train_step(model, tx=None, mesh=None,
@@ -377,13 +375,12 @@ def make_sharded_train_step(model, tx=None, mesh=None,
         start, _ = row_range(n, mesh)
         xl = rows.local(xb).to(torch.float32)
         yl = rows.local(yb).to(torch.int64)
-        params = list(module.parameters())
         if not use_tp:
             for m in module.modules():
                 if isinstance(m, mlp_mod.Dropout) and generator is not None:
                     m.generator = generator
-            loss_sum, _ = data_parallel_backward(module, params, xl, yl, n,
-                                                 start, mesh,
+            loss_sum, _ = data_parallel_backward(module, state.optimizer, xl,
+                                                 yl, n, start, mesh,
                                                  label_smoothing)
         else:
             if generator is not None:
@@ -394,11 +391,8 @@ def make_sharded_train_step(model, tx=None, mesh=None,
                 logits = module(xl)
             finally:
                 module.rows = None
-            loss_sum = F.cross_entropy(logits, yl,
-                                       label_smoothing=label_smoothing,
-                                       reduction="sum")
-            for p in params:
-                p.grad = None
+            loss_sum, _ = softmax_xent(logits, yl, label_smoothing, 1.0)
+            state.optimizer.zero_grad()
             (loss_sum / (n * axis_size(mesh, MODEL))).backward()
             sharded = [p for name, p in module.named_parameters()
                        if name in module.sharded]

@@ -6,9 +6,13 @@
     max_norm / norm only when the norm reaches max_norm) + AdamW (lr
     1e-3, wd 1e-4, betas (0.9, 0.999), eps 1e-8, the decay on every
     parameter, as optax's unmasked adamw);
+  * on the card the loss, its gradient and the correct count are one
+    launch of K11 (`ops/loss.py`) and the clip and AdamW two of K12
+    (`train/optim.py::ClipAdamW`, flat buffers behind the parameters and
+    their gradients, the LR and step count on the device);
   * ReduceLROnPlateau(factor 0.5, patience 3, rel threshold 1e-4), the
-    JAX package's class, its LR written into the optimizer's param
-    groups;
+    JAX package's class, its LR written into the optimizer's device
+    scalar;
   * slope early stop: np.polyfit over the last `es_window_len` val
     losses once past 1.5x the window, checked before the epoch's metrics
     are appended;
@@ -40,18 +44,19 @@ from pathlib import Path
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import (CLIP_DURATION, CNN_CONFIG, CONFIG_VERSION,
                       MELSPEC_CONFIG, MFCC_CONFIG, MLP_CONFIG, TARGET_SR,
                       TORCH_CHECKPOINTS_ROOT, config_dict)
 from ..models import cnn as cnn_mod, mlp as mlp_mod
+from ..ops.loss import softmax_xent
 from ..utils.device import (fp32_reference_math, resolve_device,
                             to_host as _to_host)
 from .checkpoint import (flatten_tree, load_checkpoint, save_checkpoint,
                          unflatten_tree)
 from .data import ArrayDataLoader
 from .metrics import classification_report, confusion_matrix, plot_curves
+from .optim import ClipAdamW
 
 __all__ = ["ReduceLROnPlateau", "Trainer", "kaiming_reinit"]
 
@@ -182,9 +187,9 @@ class Trainer:
                 m.generator = self._dropout_gen
         self._names = [n for n, _ in model.named_parameters()]
         self._params = [p for _, p in model.named_parameters()]
-        self.optimizer = torch.optim.AdamW(
-            self._params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=weight_decay)
+        self.optimizer = ClipAdamW(self._params, lr=lr, betas=(0.9, 0.999),
+                                   eps=1e-8, weight_decay=weight_decay,
+                                   max_norm=self.max_clip_norm)
         self.scheduler = ReduceLROnPlateau(lr)
 
         self.train_loss_history: list[float] = []
@@ -233,10 +238,6 @@ class Trainer:
             c = getattr(self, attr)
         return c[3], c[4]
 
-    def _global_norm(self, grads: list) -> torch.Tensor:
-        return torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
-
     def _rows(self, n: int) -> tuple[int, int]:
         """[start, stop) of this rank's rows of a global batch of n (all
         of them without a mesh)."""
@@ -247,37 +248,24 @@ class Trainer:
 
     def _step(self, xb: torch.Tensor, yb: torch.Tensor, n: int | None = None):
         """One optimizer step on a device batch: (mean loss, correct
-        count, pre-clip grad norm), all device scalars. Under a mesh, xb
-        and yb are this rank's rows (`_rows`) of a global batch of n."""
+        count, pre-clip grad norm), all device scalars (the norm is the
+        optimizer's, overwritten by the next step). Under a mesh, xb and yb
+        are this rank's rows (`_rows`) of a global batch of n."""
         if self.mesh is not None:
             from ..parallel.sharded import data_parallel_backward
             loss_sum, correct = data_parallel_backward(
-                self.model, self._params, xb, yb, n, self._rows(n)[0],
+                self.model, self.optimizer, xb, yb, n, self._rows(n)[0],
                 self.mesh, self.label_smoothing)
-            return loss_sum / n, correct, self._clip_and_update()
+            return loss_sum / n, correct, self.optimizer.step()
         self.model.train()
         logits = self.model(xb)
-        loss = F.cross_entropy(logits, yb,
-                               label_smoothing=self.label_smoothing)
-        self.optimizer.zero_grad(set_to_none=True)
+        # K11: the mean loss, the correct count and the logits' gradient
+        loss, correct = softmax_xent(logits, yb, self.label_smoothing,
+                                     1.0 / len(yb))
+        self.optimizer.zero_grad()
         loss.backward()
-        gnorm = self._clip_and_update()
-        correct = (logits.argmax(dim=-1) == yb).sum()
-        return loss.detach(), correct, gnorm
-
-    def _clip_and_update(self) -> torch.Tensor:
-        """optax's global-norm clip of the gradients, then the AdamW
-        update; returns the pre-clip norm."""
-        grads = [p.grad for p in self._params]
-        gnorm = self._global_norm(grads)
-        # optax's clip_by_global_norm: g unchanged below max_norm, else
-        # g / norm · max_norm; decided on the device, no host sync
-        factor = torch.where(gnorm < self.max_clip_norm,
-                             torch.ones_like(gnorm),
-                             self.max_clip_norm / gnorm)
-        torch._foreach_mul_(grads, factor)
-        self.optimizer.step()
-        return gnorm
+        # K12: the pre-clip norm, the clip and the AdamW update
+        return loss.detach(), correct, self.optimizer.step()
 
     def _perm_on_device(self, idx: np.ndarray) -> torch.Tensor:
         """The epoch's permutation on the device, copied from pinned
@@ -423,8 +411,7 @@ class Trainer:
                       f"val accuracy: {val_acc:.4f}")
 
     def _set_lr(self, lr: float) -> None:
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        self.optimizer.set_lr(lr)
 
     @torch.no_grad()
     def _eval_logits(self, xb: torch.Tensor) -> torch.Tensor:
@@ -471,11 +458,14 @@ class Trainer:
             lo, hi = self._rows(n)
             logits = self._eval_logits(xb[lo:hi])
             if hi > lo:  # under a mesh a rank may hold no row of it
-                loss_sum += F.cross_entropy(
-                    logits, yb[lo:hi],
-                    label_smoothing=self.label_smoothing) * (hi - lo)
-            p = logits.argmax(dim=-1)
-            correct += (p == yb[lo:hi]).sum()
+                # K11: the loss sum, the correct count and the argmaxes
+                part, corr, p = softmax_xent(logits, yb[lo:hi],
+                                             self.label_smoothing, 1.0,
+                                             preds=True)
+                loss_sum += part
+                correct += corr
+            else:
+                p = logits.argmax(dim=-1)
             if self.mesh is not None:
                 from ..parallel.mesh import gather_batch
                 p = gather_batch(p, n, self.mesh)
@@ -545,25 +535,20 @@ class Trainer:
                 f"{self.model_type}_v{CONFIG_VERSION}.gtckpt.npz")
 
     def _moments_tree(self, key: str) -> dict:
-        """One Adam moment of every parameter (zeros before the first
-        step) as a flax params tree."""
-        sd = {}
-        for name, p in zip(self._names, self._params):
-            m = self.optimizer.state.get(p, {}).get(key)
-            sd[name] = torch.zeros_like(p) if m is None else m
+        """One Adam moment ("mu" or "nu") of every parameter (zeros before
+        the first step) as a flax params tree."""
+        flat = getattr(self.optimizer, key)
+        sd = dict(zip(self._names, self.optimizer.views(flat)))
         return self._codec.params_to_flax(sd)["params"]
 
     def _opt_state_tree(self) -> dict:
         """The optimizer state as optax's adamw leaves, in its order."""
-        state = self.optimizer.state.get(self._params[0], {})
-        count = np.int32(int(state["step"]) if "step" in state else 0)
-        group = self.optimizer.param_groups[0]
-        hyper = {"b1": group["betas"][0], "b2": group["betas"][1],
-                 "eps": group["eps"], "eps_root": 0.0,
-                 "learning_rate": group["lr"],
-                 "weight_decay": group["weight_decay"]}
-        mu, nu = (flatten_tree(self._moments_tree(k))
-                  for k in ("exp_avg", "exp_avg_sq"))
+        opt = self.optimizer
+        count = np.int32(int(opt.count))
+        hyper = {"b1": opt.b1, "b2": opt.b2, "eps": opt.eps, "eps_root": 0.0,
+                 "learning_rate": opt.lr_value,
+                 "weight_decay": opt.weight_decay}
+        mu, nu = (flatten_tree(self._moments_tree(k)) for k in ("mu", "nu"))
         order = _optax_order(mu)
         leaves = ([count] + [np.float32(hyper[k]) for k in _HYPERPARAMS]
                   + [count] + [mu[k] for k in order]
@@ -633,7 +618,7 @@ class Trainer:
         tensors by parameter name; raises on a leaf count or shape that
         does not fit this model."""
         leaves = [opt_tree[k] for k in sorted(opt_tree)]
-        template = flatten_tree(self._moments_tree("exp_avg"))
+        template = flatten_tree(self._moments_tree("mu"))
         paths = _optax_order(template)
         want = _OPT_HEAD + 2 * len(paths)
         if len(leaves) != want:
@@ -687,11 +672,8 @@ class Trainer:
         self.model.load_state_dict(sd)
         if restored is not None:
             count, lr, mu, nu = restored
-            for name, p in zip(self._names, self._params):
-                self.optimizer.state[p] = {
-                    "step": torch.tensor(float(count)),
-                    "exp_avg": mu[name].to(self.device, p.dtype),
-                    "exp_avg_sq": nu[name].to(self.device, p.dtype)}
+            self.optimizer.load_state(count, [mu[n] for n in self._names],
+                                      [nu[n] for n in self._names])
             self._set_lr(lr)
         self.train_loss_history = list(ck.get("train_loss_history", []))
         self.train_accuracy_history = list(

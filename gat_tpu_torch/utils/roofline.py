@@ -31,14 +31,15 @@ __all__ = ["PEAK_FP32_FLOPS", "PEAK_BYTES_PER_S", "KERNEL_SYMBOLS",
            "mfcc_pitch_cost",
            "envelope_cost", "mel_db_cost", "flux_cost", "pick_cost",
            "gate_cost", "slice_cost", "window_samples", "resample_cost",
-           "select_cost", "scatter_cost", "module_cost",
+           "select_cost", "scatter_cost", "xent_cost", "clip_norm_cost",
+           "adamw_cost", "bn_cost", "module_cost",
            "GATE_OPS_PER_SAMPLE"]
 
 # H100 SXM published peaks (dense, no sparsity) at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# the device functions of K1-K10 (`device_function` of the profiler's
+# the device functions of K1-K13 (`device_function` of the profiler's
 # names)
 KERNEL_SYMBOLS = {
     "K1": ("melspec_frontend_kernel",),
@@ -52,6 +53,10 @@ KERNEL_SYMBOLS = {
     "K8": ("slice_clips_kernel",),
     "K9": ("resample_kernel",),
     "K10": ("wave_select_kernel", "wave_scatter_kernel"),
+    "K11": ("softmax_xent_kernel",),
+    "K12": ("clip_norm_kernel", "adamw_update_kernel"),
+    "K13": ("bn_moments_kernel", "bn_apply_kernel", "bn_apply_grad_kernel",
+            "bn_moments_grad_kernel"),
 }
 
 
@@ -295,6 +300,47 @@ def scatter_cost(n: int, rows: int, widths: int) -> tuple[int, int]:
     and the pitch): no arithmetic; pos and the rows read once, the
     outputs written once."""
     return 0, 4 * n + 4 * rows * widths + 4 * n * widths
+
+
+def xent_cost(b: int, c: int, grad: bool, preds: bool = False
+              ) -> tuple[int, int]:
+    """K11 over (b, c) float32 logits: per logit a compare, a subtraction,
+    an exponent, a sum and the loss term's three operations, and with the
+    gradient a division, a product and a difference more; the logits and
+    the int64 labels read once, the loss (4 bytes) and the count (8)
+    written, and the gradient (4·b·c) and the argmaxes (8·b) where asked
+    for."""
+    return ((7 + 3 * grad) * b * c,
+            4 * b * c + 8 * b + 12 + 4 * b * c * grad + 8 * b * preds)
+
+
+def clip_norm_cost(n: int) -> tuple[int, int]:
+    """K12's pass 1 over n float32 gradients: a square and a sum each;
+    the gradients read once, the norm and the count written."""
+    return 2 * n, 4 * n + 8
+
+
+def adamw_cost(n: int, clipped: bool) -> tuple[int, int]:
+    """K12's pass 2 over n parameters: the clip (2), the moments (6), the
+    bias corrections, root and quotient (5) and the decayed update (4) a
+    parameter; p, g, mu, nu read and p, mu, nu written (28 bytes a
+    parameter), and g written back where the step clips (4 more)."""
+    return 17 * n, (28 + 4 * clipped) * n + 12
+
+
+def bn_cost(kernel: str, n: int, c: int, p: int, elem: int
+            ) -> tuple[int, int]:
+    """One of K13's kernels over x (n, c, p positions) of `elem` bytes an
+    element: "moments" reads x (sum and sum of squares, 3 operations an
+    element) and writes 2·C floats; "apply" reads x and writes y (3 an
+    element) with the C-sized parameters and statistics; "apply_grad"
+    reads dy and x (4 an element) and writes 5·C floats; "moments_grad"
+    reads dy and x and writes dx (5 an element)."""
+    e = n * c * p
+    per = {"moments": (3, 1, 8 * c), "apply": (3, 2, 32 * c),
+           "apply_grad": (4, 2, 32 * c), "moments_grad": (5, 3, 12 * c)}
+    ops, tensors, small = per[kernel]
+    return ops * e, tensors * e * elem + small
 
 
 def module_cost(module, example_shape: tuple) -> tuple[int, int]:

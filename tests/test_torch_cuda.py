@@ -1665,3 +1665,195 @@ def test_files_body_compacts_on_card():
                                   cpu[0].argmax(-1)[kept])
     for i in range(3):
         np.testing.assert_allclose(card[i], cpu[i], atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# K11-K13, the training step's kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b", [32, 65536])
+@pytest.mark.parametrize("grad", [True, False])
+def test_softmax_xent_kernel(b, grad):
+    """K11 against its plain version on the card, at a step's 32 rows and
+    an eval chunk's 65,536, with and without the gradient: loss within
+    1e-5 relative (sums in another order, over up to 65,536 rows), count
+    and argmaxes exact, the gradient within 1e-6 of its largest value; one
+    launch."""
+    from gat_tpu_torch.ops import loss as loss_mod
+    from test_torch_kernels_emulated import xent_inputs
+    dev = _card()
+    logits, labels = (t.to(dev) for t in xent_inputs(b, 47, seed=b))
+    scale = 1.0 / b
+    x = logits.clone().requires_grad_(grad)
+    ref = logits.clone().requires_grad_(grad)
+    before = loss_mod.softmax_xent.launches
+    got = loss_mod.softmax_xent(x, labels, 0.05, scale, preds=not grad)
+    want = loss_mod.softmax_xent_plain(ref, labels, 0.05, scale,
+                                       preds=not grad)
+    if grad:
+        got[0].backward()
+        want[0].backward()
+    torch.cuda.synchronize()
+    assert loss_mod.softmax_xent.launches == before + 1
+    torch.testing.assert_close(got[0].detach(), want[0].detach(), rtol=1e-5,
+                               atol=0)
+    assert int(got[1]) == int(want[1])
+    if grad:
+        torch.testing.assert_close(x.grad, ref.grad, rtol=0,
+                                   atol=1e-6 * float(ref.grad.abs().max()))
+    else:
+        assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("max_norm, g_scale", [(1.0, 0.01), (1.0, 10.0),
+                                               (None, 10.0)])
+def test_clip_adamw_kernel(max_norm, g_scale):
+    """K12 (`ClipAdamW` on the card, two launches a step) against its plain
+    version (the same optimizer on the CPU) for three steps at the shipped
+    CNN's 629,743 parameters, the learning rate changed after the first:
+    the norm within 1e-5 relative (a sum of 629,743 squares in another
+    order), parameters and moments within 1e-5 relative and 1e-6 of their
+    largest value (the norm's last bits through the clip, powf), the count
+    exact."""
+    from gat_tpu_torch.train import optim
+    from test_torch_kernels_emulated import adamw_inputs
+    dev = _card()
+    n = 629743
+    st = adamw_inputs(n, seed=1, g_scale=g_scale)
+    pair = []
+    for device in (dev, torch.device("cpu")):
+        p = torch.nn.Parameter(st["p"].clone().to(device))
+        pair.append((p, optim.ClipAdamW([p], lr=1e-3, max_norm=max_norm)))
+    before = (optim.clip_norm.launches, optim.adamw_update.launches)
+    for step in range(3):
+        g = adamw_inputs(n, seed=2 + step, g_scale=g_scale)["g"]
+        norms = []
+        for p, opt in pair:
+            if step == 1:
+                opt.set_lr(5e-4)
+            opt.zero_grad()
+            p.grad.add_(g.to(p.device))
+            norms.append(float(opt.step()))
+        torch.testing.assert_close(norms[0], norms[1], rtol=1e-5, atol=0)
+    torch.cuda.synchronize()
+    assert (optim.clip_norm.launches, optim.adamw_update.launches) == (
+        before[0] + 3, before[1] + 3)
+    (p0, o0), (p1, o1) = pair
+    assert int(o0.count) == int(o1.count) == 3
+    for a, b in ((p0, p1), (o0.mu, o1.mu), (o0.nu, o1.nu),
+                 (o0.flat_grad, o1.flat_grad)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-5,
+                                   atol=1e-6 * float(b.detach().abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 64, 22), (32, 64, 32, 11),
+                                   (32, 128, 16, 5), (3, 4, 5, 6)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_batchnorm_kernels(shape, dtype, channels_last):
+    """K13 (two launches forward, two backward) against its plain version
+    and its autograd on the card, at the shipped CNN's three layers at a
+    step of 32 clips and a small shape, both layouts: the tolerances of
+    the emulated test (`test_batchnorm_kernels_emulated`), the per-channel
+    sums over up to 45,056 positions within 1e-4 of their scale."""
+    from gat_tpu_torch.ops import batchnorm
+    from test_torch_kernels_emulated import bn_inputs
+    dev = _card()
+    d = {k: v.to(dev) for k, v in bn_inputs(shape, seed=sum(shape),
+                                            dtype=dtype,
+                                            channels_last=channels_last
+                                            ).items()}
+    outs = []
+    counts = [0, 0, 0, 0]
+    for fn in (batchnorm.batch_norm_train, batchnorm.batch_norm_train_plain):
+        x = d["x"].clone().requires_grad_(True)
+        w = d["w"].clone().requires_grad_(True)
+        b = d["b"].clone().requires_grad_(True)
+        rm, rv = d["rm"].clone(), d["rv"].clone()
+        wrappers = (batchnorm.bn_moments, batchnorm.bn_apply,
+                    batchnorm.bn_apply_grad, batchnorm.bn_moments_grad)
+        before = [f.launches for f in wrappers]
+        y = fn(x, w, b, rm, rv, 1e-5, 0.9)
+        y.backward(d["dy"])
+        torch.cuda.synchronize()
+        counts = [f.launches - k for f, k in zip(wrappers, before)]
+        outs.append((y.detach(), rm, rv, x.grad, w.grad, b.grad, counts))
+    (y, rm, rv, dx, dw, db, counts), ref = outs
+    assert counts == [1, 1, 1, 1] and ref[-1] == [0, 0, 0, 0]
+    assert y.stride() == d["x"].stride() and dx.stride() == d["x"].stride()
+    for name, g, r in zip(("y", "rm", "rv", "dx", "dw", "db"),
+                          (y, rm, rv, dx, dw, db), ref[:6]):
+        g, r = g.float().cpu(), r.float().cpu()
+        scale = float(r.abs().max())
+        if dtype == torch.bfloat16 and name in ("y", "dx"):
+            bound = 2.0 * 2.0 ** (torch.floor(torch.log2(
+                r.abs().clamp_min(1e-30))) - 7)
+            assert bool(((g - r).abs() <= bound + 1e-5 * scale).all()), name
+        else:
+            tol = 1e-6 if name in ("rm", "rv") else 1e-4
+            torch.testing.assert_close(g, r, rtol=0, atol=tol * scale,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.parametrize("kind", ["mlp", "cnn", "cnn_bf16"])
+def test_train_step_card_vs_cpu(kind, clips):
+    """One training step (`Trainer._step`, dropout 0) from the same weights
+    on `test_one_step_card_vs_cpu`'s inputs (the mel images or MFCC
+    features of 32 tones), on the card and on the CPU: on the card K11
+    once, K12's two passes
+    once each and, for the CNN, K13's four kernels once a layer (three
+    layers); the loss within 1e-4 relative (5e-2 in bfloat16), each
+    parameter's clipped gradient within 1e-3 of its largest value, and in
+    bfloat16 within 2e-2 of its norm (`test_one_step_card_vs_cpu`'s
+    bound: cuDNN's bf16 convolutions and the CPU's round at 8 bits and sum
+    in other orders), leaving out the conv biases ahead of BatchNorm
+    (their true gradient is 0, so both sides hold rounding noise), and the
+    BatchNorm running statistics within 1e-4 of their largest value
+    (1e-2)."""
+    from gat_tpu_torch.models import CNN, MLP
+    from gat_tpu_torch.ops import batchnorm, loss as loss_mod
+    from gat_tpu_torch.train import ArrayDataLoader, Trainer, optim
+    dev = _card()
+    y = np.arange(32)
+    if kind == "mlp":
+        x = features.mfcc_feature_vectors(clips[:32], SR).cpu().numpy()
+        x = (x - x.mean(0)) / x.std(0)
+        make = lambda: MLP(65, 128, 2, 47, 0.0)  # noqa: E731
+    else:
+        x = features.melspec_features(clips[:32], SR).cpu().numpy()
+        dtype = torch.bfloat16 if kind == "cnn_bf16" else torch.float32
+        make = lambda: CNN(47, dropout=0.0, dtype=dtype)  # noqa: E731
+    wrappers = (loss_mod.softmax_xent, optim.clip_norm, optim.adamw_update,
+                batchnorm.bn_moments, batchnorm.bn_apply,
+                batchnorm.bn_apply_grad, batchnorm.bn_moments_grad)
+    out = []
+    for device in ("cuda", "cpu"):
+        t = Trainer(make(), ArrayDataLoader(x, y), seed=0, device=device)
+        before = [f.launches for f in wrappers]
+        loss = float(t._step(torch.from_numpy(x).to(t.device),
+                             torch.from_numpy(y).to(t.device))[0])
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in t.model.named_parameters()
+                 if not (n.startswith("conv_") and n.endswith(".bias"))}
+        stats = {k: v.detach().float().cpu()
+                 for k, v in t.model.state_dict().items() if "running" in k}
+        out.append((loss, grads, stats,
+                    [f.launches - k for f, k in zip(wrappers, before)]))
+    (l_card, g_card, s_card, n_card), (l_cpu, g_cpu, s_cpu, n_cpu) = out
+    bn = 3 if kind != "mlp" else 0
+    assert n_card == [1, 1, 1, bn, bn, bn, bn] and n_cpu == [0] * 7
+    bf16 = kind == "cnn_bf16"
+    assert abs(l_card - l_cpu) <= (5e-2 if bf16 else 1e-4) * abs(l_cpu)
+    assert dev.type == "cuda"
+    for k, r in g_cpu.items():
+        if bf16:
+            assert float((g_card[k] - r).norm() / r.norm()) <= 2e-2, k
+        else:
+            torch.testing.assert_close(g_card[k], r, rtol=0,
+                                       atol=1e-3 * float(r.abs().max()),
+                                       msg=lambda m, k=k: f"{k}: {m}")
+    for k, r in s_cpu.items():
+        torch.testing.assert_close(s_card[k], r, rtol=0,
+                                   atol=(1e-2 if bf16 else 1e-4)
+                                   * float(r.abs().max()),
+                                   msg=lambda m, k=k: f"{k}: {m}")

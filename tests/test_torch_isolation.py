@@ -187,7 +187,9 @@ def test_kernels_not_built_at_import():
     assert kernels.KERNELS == ("melspec_frontend", "mfcc_frontend",
                                "yin_pitch", "onset_envelope", "onset_pick",
                                "mfcc_pitch_frontend", "noise_gate",
-                               "slice_clips", "resample", "wave_compact")
+                               "slice_clips", "resample", "wave_compact",
+                               "softmax_xent", "clip_adamw",
+                               "batchnorm_train")
     for name in kernels.KERNELS:
         assert (kernels.CSRC / f"{name}.cu").is_file()
 

@@ -4,8 +4,9 @@ CUDA subset they use, against their plain PyTorch versions.
 There is no nvcc on a CPU-only machine, but the kernels of
 `gat_tpu_torch/csrc/` use only thread/block indices, shared memory,
 register arrays, device lambdas, `__syncthreads`, warp shuffles, ballots,
-`__popc` and `__ffs`, integer atomicMax and atomicAdd, the float/int bit
-casts, the float32 steps rounded one by one (`__fadd_rn`, `__fsub_rn`,
+`__popc` and `__ffs`, integer atomicMax and atomicAdd, `__threadfence`
+and `__ldcg` (a fence and a plain load: the blocks run one after
+another), the float/int bit casts, the float32 steps rounded one by one (`__fadd_rn`, `__fsub_rn`,
 `__fmul_rn`) and `fmaf` (libm's, fused as the card's), `__ldg`, `float4`, asynchronous copies into shared memory
 (`cp.async`, and `csrc/bulk_copy.cuh`'s bulk copies on an mbarrier) and
 the dynamic shared-memory attribute. The header below maps those onto
@@ -34,8 +35,11 @@ import pytest
 import torch
 
 from gat_tpu_torch import features, kernels
-from gat_tpu_torch.ops import compaction, onset, resample, spectral, yin
+from gat_tpu_torch.ops import (batchnorm, compaction, onset, resample,
+                               spectral, yin)
+from gat_tpu_torch.ops import loss as loss_mod
 from gat_tpu_torch.segment import gating, slicing
+from gat_tpu_torch.train import optim
 
 SR = 11025
 CPU = torch.device("cpu")
@@ -158,6 +162,8 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline int2 make_int2(int x, int y) { return {x, y}; }
 template <class T> T __ldg(const T* p) { return *p; }
+template <class T> T __ldcg(const T* p) { return *p; }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 typedef void* cudaStream_t;
@@ -217,7 +223,9 @@ _LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),[^>]*>>>\((.*?)\);",
                      re.S)
 LAUNCHES = {"onset_envelope": 2,  # kernel launches per C entry point
             "noise_gate": 3,
-            "wave_compact": 2}  # (per source: two entry points of one)
+            "wave_compact": 2,  # (per source: two entry points of one)
+            "clip_adamw": 2,    # (two entry points of one)
+            "batchnorm_train": 4}  # (four entry points of one)
 
 
 @pytest.fixture(scope="module")
@@ -2713,3 +2721,298 @@ def test_wave_compact_constants_match_kernel():
     with pytest.raises(ValueError, match="at most"):
         compaction.check_select(torch.zeros(1, 1, dtype=torch.bool).expand(
             compaction.MAX_SLOTS + 1, 1), 1, 0, 1)
+
+
+# ---------------------------------------------------------------------------
+# K11-K13, the training step's kernels
+# ---------------------------------------------------------------------------
+def xent_inputs(b: int, c: int, seed: int) -> tuple:
+    """(logits (b, c) float32, labels (b,) int64) from a numpy seed: row 0
+    ties its maximum at two classes (the first wins), row 1's label is its
+    argmax, row 2's label lies outside [0, c) (no one-hot, as in
+    jax.nn.one_hot), the rest random."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 2.0, (b, c)).astype(np.float32)
+    y = rng.integers(0, c, b)
+    x[0, [1 % c, c - 1]] = x[0].max() + 1.0
+    y[1] = int(np.argmax(x[1]))
+    if b > 2:
+        y[2] = c + 3
+    return torch.from_numpy(x), torch.from_numpy(y.astype(np.int64))
+
+
+def xent_emulated(libs, logits, labels, smoothing: float, scale: float,
+                  grad: bool = True) -> tuple:
+    """K11 through its C entry point, as `ops/loss.py::_launch` calls it:
+    (loss, correct, grad or None, preds, the ticket after the launch)."""
+    b, c = logits.shape
+    blocks = _fn(libs["softmax_xent"], "gat_softmax_xent_blocks",
+                 [ctypes.c_int])(b)
+    assert blocks == loss_mod.blocks(b)
+    part_loss = torch.full((blocks,), float("nan"))
+    part_correct = torch.zeros(blocks, dtype=torch.int32)
+    ticket = torch.zeros(1, dtype=torch.int32)
+    out = torch.full((), float("nan"))
+    correct = torch.zeros((), dtype=torch.int64)
+    g = torch.full_like(logits, float("nan")) if grad else None
+    pred = torch.full((b,), -1, dtype=torch.int64)
+    fn = _fn(libs["softmax_xent"], "gat_softmax_xent", loss_mod._ARGS)
+    assert fn(logits.data_ptr(), labels.data_ptr(), _ptr(g), pred.data_ptr(),
+              part_loss.data_ptr(), part_correct.data_ptr(),
+              ticket.data_ptr(), out.data_ptr(), correct.data_ptr(), b, c,
+              smoothing, scale, None) == 0
+    return out, correct, g, pred, ticket
+
+
+@pytest.mark.parametrize("b, c", [(8, 47), (19, 47), (5, 3), (3, 70)])
+@pytest.mark.parametrize("scale", [1.0, 0.125])
+def test_softmax_xent_kernel_emulated(libs, b, c, scale):
+    """Loss, correct count, argmaxes and gradient against the plain version
+    and its autograd: one block (8 rows), three, fewer classes than lanes
+    and more than two rounds of them. The loss within 2e-6 relative (other
+    summation orders), the gradient within 1e-6 absolute (a softmax less a
+    target times scale, each term rounded once either way), count and
+    argmaxes exact; the ticket back at 0."""
+    logits, labels = xent_inputs(b, c, seed=b * c)
+    got, correct, grad, pred, ticket = xent_emulated(libs, logits, labels,
+                                                     0.05, scale)
+    x = logits.clone().requires_grad_(True)
+    ref, ref_correct, ref_pred = loss_mod.softmax_xent_plain(
+        x, labels, 0.05, scale, preds=True)
+    ref.backward()
+    torch.testing.assert_close(got, ref.detach(), rtol=2e-6, atol=0)
+    assert int(correct) == int(ref_correct)
+    assert torch.equal(pred, ref_pred)
+    assert int(pred[0]) == 1 % c  # the first of the tied maxima
+    torch.testing.assert_close(grad, x.grad, rtol=0, atol=1e-6)
+    assert int(ticket) == 0
+
+
+def test_softmax_xent_kernel_emulated_eval_form(libs):
+    """Without a gradient (the eval step) the launch writes none and gives
+    the same loss, count and argmaxes."""
+    logits, labels = xent_inputs(21, 47, seed=5)
+    with_grad = xent_emulated(libs, logits, labels, 0.05, 1.0)
+    without = xent_emulated(libs, logits, labels, 0.05, 1.0, grad=False)
+    assert torch.equal(with_grad[0], without[0])
+    assert torch.equal(with_grad[1], without[1])
+    assert torch.equal(with_grad[3], without[3])
+
+
+def adamw_inputs(n: int, seed: int, g_scale: float) -> dict:
+    """Flat p, g, mu, nu of n parameters from a numpy seed; the gradients'
+    global norm is about g_scale·sqrt(n)·0.1."""
+    rng = np.random.default_rng(seed)
+    f = lambda s: torch.from_numpy(rng.normal(0.0, s, n).astype(np.float32))
+    return {"p": f(1.0), "g": f(0.1 * g_scale), "mu": f(0.01),
+            "nu": f(0.01).abs()}
+
+
+def adamw_emulated(libs, st: dict, count, lr, max_norm) -> torch.Tensor:
+    """K12's two passes through their C entry points, as `train/optim.py`
+    calls them, on the flat CPU buffers of `st` (updated in place);
+    returns the norm, and checks the ticket came back to 0."""
+    n = st["p"].numel()
+    blocks = _fn(libs["clip_adamw"], "gat_clip_norm_blocks",
+                 [ctypes.c_longlong])(n)
+    assert blocks == optim.clip_norm_blocks(n)
+    part = torch.full((blocks,), float("nan"))
+    ticket = torch.zeros(1, dtype=torch.int32)
+    norm = torch.full((), float("nan"))
+    fn = _fn(libs["clip_adamw"], "gat_clip_norm", optim._NORM_ARGS)
+    assert fn(st["g"].data_ptr(), part.data_ptr(), ticket.data_ptr(),
+              norm.data_ptr(), count.data_ptr(), n, None) == 0
+    assert int(ticket) == 0
+    fn = _fn(libs["clip_adamw"], "gat_adamw_update", optim._UPDATE_ARGS)
+    assert fn(st["p"].data_ptr(), st["g"].data_ptr(), st["mu"].data_ptr(),
+              st["nu"].data_ptr(), norm.data_ptr(), count.data_ptr(),
+              lr.data_ptr(), n, int(max_norm is not None),
+              0.0 if max_norm is None else max_norm, 0.9, 0.999,
+              *optim.complements(0.9, 0.999, True), 1e-8, 1e-4, None) == 0
+    return norm
+
+
+@pytest.mark.parametrize("n", [300, 5000])
+@pytest.mark.parametrize("g_scale, max_norm", [(0.1, 1.0), (10.0, 1.0),
+                                               (10.0, None)])
+def test_clip_adamw_kernel_emulated(libs, n, g_scale, max_norm):
+    """Three steps, the learning rate changed after the first, below the
+    clip threshold, above it, and without a clip; one block (300) and
+    three (5000). The norm within 1e-6 relative (other summation orders),
+    p, mu, nu and the clipped gradients within 2e-6 relative (powf against
+    torch.pow, and the norm's last bit through the clip) and 2e-7 of each
+    buffer's largest value (about an ulp of it, where (1 - b1)·g + b1·mu
+    cancels); the count exact."""
+    got = adamw_inputs(n, seed=n, g_scale=g_scale)
+    ref = {k: v.clone() for k, v in got.items()}
+    counts = [torch.zeros((), dtype=torch.int32) for _ in range(2)]
+    lr = torch.tensor(1e-3)
+    for step in range(3):
+        if step == 1:
+            lr.fill_(3e-4)
+        if step:
+            for st in (got, ref):  # a fresh gradient a step
+                st["g"].copy_(adamw_inputs(n, seed=n + step,
+                                           g_scale=g_scale)["g"])
+        norm = adamw_emulated(libs, got, counts[0], lr, max_norm)
+        ref_norm = torch.zeros(())
+        optim.clip_norm_plain(ref["g"], ref_norm, counts[1])
+        optim.adamw_update_plain(ref["p"], ref["g"], ref["mu"], ref["nu"],
+                                 ref_norm, counts[1], lr, max_norm, 0.9,
+                                 0.999, *optim.complements(0.9, 0.999, True),
+                                 1e-8, 1e-4)
+        torch.testing.assert_close(norm, ref_norm, rtol=1e-6, atol=0)
+        assert int(counts[0]) == int(counts[1]) == step + 1
+        for k in ("p", "g", "mu", "nu"):
+            torch.testing.assert_close(
+                got[k], ref[k], rtol=2e-6,
+                atol=2e-7 * float(ref[k].abs().max()),
+                msg=lambda m, k=k: f"{k}: {m}")
+    clipped = max_norm is not None and float(ref_norm) >= max_norm
+    assert clipped == (g_scale > 1.0 and max_norm is not None)
+
+
+def bn_inputs(shape: tuple, seed: int, dtype, channels_last: bool) -> dict:
+    """x, dy (N, C, H, W) in `dtype` and layout, weight, bias and running
+    statistics (C,) float32, from a numpy seed; channel 0 is constant, so
+    its E[x²] - E[x]² is rounding noise that the clamp at 0 may hold."""
+    rng = np.random.default_rng(seed)
+    n, c, h, w = shape
+    x = rng.normal(0.5, 2.0, shape).astype(np.float32)
+    x[:, 0] = 1.25
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    t = lambda a: torch.from_numpy(a).to(dtype).contiguous(memory_format=fmt)
+    f = lambda *s: torch.from_numpy(rng.normal(0.0, 1.0, s).astype(np.float32))
+    return {"x": t(x), "dy": t(rng.normal(0.0, 1.0, shape).astype(np.float32)),
+            "w": f(c) + 1.0, "b": f(c), "rm": f(c), "rv": f(c).abs()}
+
+
+def bn_emulated(libs, d: dict, eps: float = 1e-5, momentum: float = 0.9):
+    """K13's four kernels through their C entry points, as
+    `ops/batchnorm.py` calls them, on CPU tensors: (y, mean, sq, running
+    mean, running var, dx, dw, db)."""
+    lib = libs["batchnorm_train"]
+    x, dy = d["x"], d["dy"]
+    (sn, sc, sp), last = batchnorm.layout(x)
+    (gsn, gsc, gsp), _ = batchnorm.layout(dy, read_only=True)
+    n, c, h, w = x.shape
+    p = h * w
+    splits = _fn(lib, "gat_bn_splits", [ctypes.c_int, ctypes.c_longlong,
+                                        ctypes.c_int])(c, n * p, int(last))
+    bf16 = int(x.dtype == torch.bfloat16)
+    part = torch.full((2 * c * splits,), float("nan"))
+    ticket = torch.zeros(1, dtype=torch.int32)
+    mean, sq = torch.full((c,), float("nan")), torch.full((c,), float("nan"))
+    rm, rv = d["rm"].clone(), d["rv"].clone()
+    assert _fn(lib, "gat_bn_moments", batchnorm._MOMENTS_ARGS)(
+        x.data_ptr(), n, c, p, sn, sc, sp, splits, part.data_ptr(),
+        ticket.data_ptr(), mean.data_ptr(), sq.data_ptr(), bf16, int(last),
+        None) == 0
+    assert int(ticket) == 0
+    y = torch.empty_like(x)
+    assert _fn(lib, "gat_bn_apply", batchnorm._APPLY_ARGS)(
+        x.data_ptr(), y.data_ptr(), n, c, p, sn, sc, sp, splits,
+        mean.data_ptr(), sq.data_ptr(), d["w"].data_ptr(), d["b"].data_ptr(),
+        eps, rm.data_ptr(), rv.data_ptr(), momentum, 1.0 - momentum, bf16,
+        int(last), None) == 0
+    outs = torch.full((5, c), float("nan"))
+    assert _fn(lib, "gat_bn_apply_grad", batchnorm._APPLY_GRAD_ARGS)(
+        dy.data_ptr(), gsn, gsc, gsp, x.data_ptr(), n, c, p, sn, sc, sp,
+        splits, mean.data_ptr(), sq.data_ptr(), d["w"].data_ptr(), eps,
+        part.data_ptr(), ticket.data_ptr(),
+        *(outs[i].data_ptr() for i in range(5)), bf16, int(last), None) == 0
+    assert int(ticket) == 0
+    dw, db, dmean, dsq, mul = outs
+    dx = torch.empty_like(x)
+    assert _fn(lib, "gat_bn_moments_grad", batchnorm._MOMENTS_GRAD_ARGS)(
+        dy.data_ptr(), gsn, gsc, gsp, x.data_ptr(), dx.data_ptr(), n, c, p,
+        sn, sc, sp, splits, mul.data_ptr(), dmean.data_ptr(), dsq.data_ptr(),
+        bf16, int(last), None) == 0
+    return y, mean, sq, rm, rv, dx, dw, db
+
+
+def bn_reference(d: dict, eps: float = 1e-5, momentum: float = 0.9):
+    """The plain version and its autograd on the same inputs: (y, mean,
+    sq, running mean, running var, dx, dw, db)."""
+    x = d["x"].clone().requires_grad_(True)
+    w = d["w"].clone().requires_grad_(True)
+    b = d["b"].clone().requires_grad_(True)
+    rm, rv = d["rm"].clone(), d["rv"].clone()
+    y = batchnorm.batch_norm_train_plain(x, w, b, rm, rv, eps, momentum)
+    y.backward(d["dy"])
+    xf = d["x"].float()
+    return (y.detach(), xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3)),
+            rm, rv, x.grad, w.grad, b.grad)
+
+
+@pytest.mark.parametrize("shape, channels_last", [
+    ((3, 4, 5, 6), False), ((3, 4, 5, 6), True), ((4, 2, 48, 48), False),
+    ((4, 4, 48, 48), True), ((2, 3, 4, 5), True), ((2, 8, 1, 7), False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_kernels_emulated(libs, shape, channels_last, dtype):
+    """K13's moments, apply, apply-backward and moments-backward against
+    the plain version and its autograd: NCHW (one block a channel, and two
+    splits a channel at 9,216 positions), channels-last (thread t on
+    channel t mod C; five splits at 9,216 positions), channels-last with 3
+    channels (which does not divide 256: the NCHW map over channels-last
+    strides) and H = 1. float32: moments and per-channel gradients within
+    1e-5 relative of their scale (other summation orders), y and dx within
+    2e-5 of theirs; bfloat16 (x, y, dy, dx rounded to nearest even): y and
+    dx within 2 of their ulps (the float32 values they round differ in
+    their last bits). The running statistics within 1e-6 relative."""
+    d = bn_inputs(shape, seed=sum(shape), dtype=dtype,
+                  channels_last=channels_last)
+    got = bn_emulated(libs, d)
+    ref = bn_reference(d)
+    names = ("y", "mean", "sq", "running_mean", "running_var", "dx", "dw",
+             "db")
+    for name, g, r in zip(names, got, ref):
+        g, r = g.float(), r.float()
+        scale = float(r.abs().max())
+        if name in ("y", "dx"):
+            assert got[names.index(name)].stride() == d["x"].stride(), name
+            tol = 2e-5 * scale if dtype == torch.float32 else None
+        else:
+            tol = 1e-6 * scale if name.startswith("running") else 1e-5 * scale
+        if tol is None:  # bfloat16: two ulps of each value (8 bits)
+            bound = 2.0 * 2.0 ** (torch.floor(torch.log2(r.abs().clamp_min(
+                1e-30))) - 7)
+            assert bool(((g - r).abs() <= bound + 1e-6 * scale).all()), name
+        else:
+            torch.testing.assert_close(g, r, rtol=0, atol=tol, msg=name)
+
+
+def test_batchnorm_layout_refusals():
+    """The wrappers' guard refuses what the kernels cannot read in place:
+    a 3-D tensor, positions not p·stride(W) apart, and for an output's
+    layout a tensor neither contiguous nor channels-last; an incoming
+    gradient may be expanded."""
+    x = torch.zeros(2, 3, 4, 5)
+    assert batchnorm.layout(x) == ((60, 20, 1), False)
+    assert batchnorm.layout(x.contiguous(memory_format=torch.channels_last)
+                            )[1] is False  # 3 channels: the NCHW map
+    assert batchnorm.layout(torch.zeros(2, 4, 4, 5).contiguous(
+        memory_format=torch.channels_last)) == ((80, 1, 4), True)
+    with pytest.raises(ValueError):
+        batchnorm.layout(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError):
+        batchnorm.layout(torch.zeros(2, 3, 5, 4).transpose(2, 3))
+    with pytest.raises(ValueError):
+        batchnorm.layout(torch.zeros(3, 2, 4, 5).transpose(0, 1))
+    expanded = torch.ones(()).expand(2, 3, 4, 5)
+    assert batchnorm.layout(expanded, read_only=True) == ((0, 0, 0), False)
+
+
+def test_batchnorm_splits(libs):
+    """gat_bn_splits: the NCHW map splits a channel once its positions pass
+    what one block covers, the channels-last map by rows of 256 / C
+    channels, both at most 264 blocks; channels-last with C not dividing
+    256 is refused (-1)."""
+    fn = _fn(libs["batchnorm_train"], "gat_bn_splits",
+             [ctypes.c_int, ctypes.c_longlong, ctypes.c_int])
+    # the shipped CNN's three layers at a step of 32 clips
+    for c, m in ((32, 45056), (64, 11264), (128, 2560)):
+        nchw, last = fn(c, m, 0), fn(c, m, 1)
+        assert 1 <= nchw * c <= 264 + c and 1 <= last <= 264
+    assert fn(3, 1000, 1) == -1 and fn(3, 1000, 0) == 1
+    assert fn(4, 9216, 0) == 2 and fn(4, 9216, 1) == 5

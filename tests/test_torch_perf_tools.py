@@ -89,7 +89,8 @@ def test_parse_trace_keeps_device_lanes_and_sums(tmp_path, capsys):
         "onset_pick_kernel(float const*, int const*)": 3.0}
     assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 7.0, "K5": 3.0,
                       "K6": 0, "K7": 0, "K8": 0,
-                      "K9": 0, "K10": 0}
+                      "K9": 0, "K10": 0, "K11": 0,
+                      "K12": 0, "K13": 0}
     out = capsys.readouterr().out
     assert "top 10 by total us (device lanes)" in out
     assert "cudaLaunchKernel" not in out and "aten::mul" not in out
@@ -112,7 +113,8 @@ def test_parse_trace_names_k6(tmp_path, capsys):
     (_, _, shares), = prof.parse_trace(str(tmp_path), top=10)
     assert shares == {"K1": 0, "K2": 2.0, "K3": 1.0, "K4": 0, "K5": 0,
                       "K6": 9.0, "K7": 0, "K8": 0,
-                      "K9": 0, "K10": 0}
+                      "K9": 0, "K10": 0, "K11": 0,
+                      "K12": 0, "K13": 0}
     assert "75.0%  K6" in capsys.readouterr().out
 
 
@@ -132,7 +134,8 @@ def test_parse_trace_names_k7_and_k8(tmp_path, capsys):
     (_, _, shares), = prof.parse_trace(str(tmp_path), top=10)
     assert shares == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                       "K6": 0, "K7": 8.0, "K8": 2.0,
-                      "K9": 0, "K10": 0}
+                      "K9": 0, "K10": 0, "K11": 0,
+                      "K12": 0, "K13": 0}
     out = capsys.readouterr().out
     assert "80.0%  K7" in out and "20.0%  K8" in out
 
@@ -148,7 +151,8 @@ def test_kernel_shares_read_names_by_device_function():
         "void at::native::noise_gate_apply_kernel_copy<4>()": 3.0})
     assert shares == {"K1": 5.0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                       "K6": 0, "K7": 0, "K8": 2.0,
-                      "K9": 0, "K10": 0}
+                      "K9": 0, "K10": 0, "K11": 0,
+                      "K12": 0, "K13": 0}
 
 
 def test_parse_trace_without_device_lanes_keeps_all(tmp_path, capsys):
@@ -442,7 +446,7 @@ def test_onset_timing_tool_times_the_compaction(monkeypatch):
     assert files * k == 7168 and budget == (files * k * 3) // 4
     assert [smoke.KERNEL_ROWS[i] for i in smoke.COMPACTING] == [
         "wave_select", "wave_scatter"]
-    assert smoke.BRANCH == len(smoke.KERNEL_ROWS) == 11
+    assert smoke.BRANCH == len(smoke.KERNEL_ROWS) == 18
     assert roofline.KERNEL_SYMBOLS["K10"] == ("wave_select_kernel",
                                               "wave_scatter_kernel")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -710,3 +714,50 @@ def test_ranges_a_call_enters_and_none_open_without_a_profiler(
         t.transcribe(path, fused=call == "transcribe_fused")
     assert entered == RANGES_A_CALL[call]
     assert opened == []
+
+
+def test_onset_timing_tool_times_training(monkeypatch):
+    """`tools/torch_onset_timing.py TREE train` runs chip_smoke's
+    `time_train` (the steady-state epoch of the shipped MLP and bf16 CNN
+    at `[train]`'s sizes, any checkout) and exits 1 without a card; the
+    kernels line and every path count K11's, K12's two and K13's four
+    kernels after K10's, as the roofline names their device functions."""
+    timing = _tool("torch_onset_timing")
+    assert timing.TIMINGS["train"] == ("train_step", "time_train")
+    spec = importlib.util.spec_from_file_location("_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert [smoke.KERNEL_ROWS[i] for i in smoke.TRAINING + smoke.BATCHNORM
+            ] == ["softmax_xent", "clip_norm", "adamw_update", "bn_moments",
+                  "bn_apply", "bn_apply_grad", "bn_moments_grad"]
+    assert smoke.BN_KERNELS == tuple(smoke.KERNEL_ROWS[i]
+                                     for i in smoke.BATCHNORM)
+    assert [len(roofline.KERNEL_SYMBOLS[k]) for k in ("K11", "K12", "K13")
+            ] == [1, 2, 4]
+    assert smoke.BN_LAYERS[0] == (smoke.TRAIN_BATCH, 32, 64, 22)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert timing.main(["torch_onset_timing.py", str(REPO), "train"]) == 1
+
+
+def test_k11_to_k13_costs_count_each_byte_once():
+    """K11-K13's bounds: K11 reads the logits and labels once and writes
+    the loss, the count and (where asked) the gradient and argmaxes; K12's
+    passes read g (pass 1) and p, g, mu, nu and write p, mu, nu and, where
+    the step clips, g (pass 2); K13's kernels read and write each tensor
+    once at its element size."""
+    assert roofline.xent_cost(32, 47, True) == (10 * 32 * 47,
+                                                8 * 32 * 47 + 8 * 32 + 12)
+    assert roofline.xent_cost(8, 5, False, preds=True)[1] == (
+        4 * 40 + 8 * 8 + 12 + 8 * 8)
+    assert roofline.clip_norm_cost(100) == (200, 408)
+    assert roofline.adamw_cost(100, False)[1] == 28 * 100 + 12
+    assert roofline.adamw_cost(100, True)[1] == 32 * 100 + 12
+    e = 2 * 3 * 20
+    assert roofline.bn_cost("moments", 2, 3, 20, 2) == (3 * e, 2 * e + 24)
+    assert roofline.bn_cost("apply", 2, 3, 20, 4)[1] == 2 * 4 * e + 96
+    assert roofline.bn_cost("apply_grad", 2, 3, 20, 2)[1] == 2 * 2 * e + 96
+    assert roofline.bn_cost("moments_grad", 2, 3, 20, 4)[1] == (
+        3 * 4 * e + 36)
+    ms, by = roofline.bound(*roofline.adamw_cost(629743, True))
+    assert by == "bytes" and abs(ms - (32 * 629743 + 12) / 3.35e12 * 1e3) < 1e-12

@@ -9,10 +9,13 @@ polyphase resampler K9 at the serving wave's clip re-rate, four user
 files and one note (or, in a checkout without K9, its plain route at the
 same calls); with `compact`, the file body's clip-budget compaction
 stage in situ at the serving wave, and (where the checkout has K10) K10
-at the `[compact]` cases.
+at the `[compact]` cases; with `train`, the steady-state training epoch
+of the shipped MLP and bf16 CNN at `[train]`'s sizes, with the host time
+and the CUDA runtime's launches of a step.
 
     python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip] [gate]
                                              [slice] [resample] [compact]
+                                             [train]
 
 TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
 another commit unpacked with `git archive`; its kernels are built there.
@@ -34,7 +37,9 @@ time; `time_compact`: the serving wave's body (4 files x 60 s, 112
 onsets, budget 384) on the gate's riffs and on the roofline tool's noise
 wave under the profiler, the `compaction` stage's device ms and kernels
 and the body's synchronising calls, then K10 against its plain twins at
-`compact_data`'s cases), so two
+`compact_data`'s cases; `time_train`: 601 training and 151 validation
+examples of random features, batch 32, two warm epochs, then the median
+of three, and `step_launches` over ten steps), so two
 checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
@@ -53,7 +58,8 @@ TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
            "gate": ("noise_gate", "time_gate"),
            "slice": ("slice_clips", "time_slice"),
            "resample": ("resample", "time_resample"),
-           "compact": ("wave_compact", "time_compact")}
+           "compact": ("wave_compact", "time_compact"),
+           "train": ("train_step", "time_train")}
 
 
 def main(argv: list[str]) -> int:
@@ -95,7 +101,7 @@ def main(argv: list[str]) -> int:
             args = (slicing, dev)
         elif n == "resample":
             args = (resample, dev)
-        elif n == "compact":
+        elif n in ("compact", "train"):
             args = (dev,)
         else:
             args = (onset, dev)
