@@ -2969,16 +2969,46 @@ def model_params(kind: str) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def empty_launch_ms() -> float | None:
+    """The device time of an empty kernel's launch, the latency floor that
+    K12's and K13's times read against: `torch.cuda._sleep(0)` (a kernel
+    that spins for 0 cycles), the mean over 4 x POOL launches in the
+    profiler, which sees no other kernel then. None where it saw no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(POOL):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4 * POOL):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+        kept = [e for e in prof.key_averages()
+                if e.self_device_time_total > 0]
+        n = sum(e.count for e in kept)
+        if n:
+            best = sum(e.self_device_time_total for e in kept) / n / 1e3
+        if n == 4 * POOL:
+            break
+    return best
+
+
 def time_clip_adamw(dev, failures: list) -> list[dict]:
     """K12 (`train/optim.py`: `clip_norm`, then `adamw_update`) at the
     shipped CNN's and MLP's parameter counts with gradients above the clip
     threshold (the step clips): one step against the plain versions on
     copies of the same buffers (norm within 1e-5 relative, parameters,
     moments and clipped gradients within 1e-6 of their largest value, the
-    count equal), then each pass timed over POOL optimizers in CUDA
+    count equal) and against a second run on the same buffers (the same
+    bits), the passes' grids (`optim.clip_adamw_grid`, where the checkout
+    has it), then each pass timed over POOL optimizers in CUDA
     events, its device ms, its plain version's ms, the library's (pass
     1: `torch._foreach_norm`; pass 2: the `_foreach_mul_` clip, the step
-    count's `_foreach_add_` and `torch._fused_adamw_`) and its bound.
+    count's `_foreach_add_` and `torch._fused_adamw_`) and its bound, and
+    an empty kernel's launch (`empty_launch_ms`).
     Returns the two kernels-line rows (the CNN's numbers; the MLP's under
     `mlp`)."""
     import torch
@@ -2997,10 +3027,25 @@ def time_clip_adamw(dev, failures: list) -> list[dict]:
                 rng.normal(0.0, 0.02, n).astype(np.float32)))
             return opt
         a = make()
-        b = optim.ClipAdamW([torch.nn.Parameter(a._flat_p.clone())],
-                            lr=1e-3, max_norm=1.0)
+        b, a2 = (optim.ClipAdamW([torch.nn.Parameter(a._flat_p.clone())],
+                                 lr=1e-3, max_norm=1.0) for _ in range(2))
         b.flat_grad.copy_(a.flat_grad)
+        a2.flat_grad.copy_(a.flat_grad)
         a.step()
+        a2.step()
+        same = all(torch.equal(getattr(a, f), getattr(a2, f)) for f in (
+            "_flat_p", "mu", "nu", "flat_grad", "norm", "count"))
+        log(f"[train] clip_adamw at {n} parameters ({kind}): two runs on "
+            f"the same buffers give the same bits: {same}")
+        if not same:
+            failures.append(f"[train] clip_adamw ({kind}): two runs differ")
+        del a2
+        grid = (optim.clip_adamw_grid(n, dev)
+                if hasattr(optim, "clip_adamw_grid") else None)
+        if grid is not None:
+            log(f"[occupancy] clip_adamw at {n} parameters ({kind}): pass 1 "
+                f"{grid[0]} blocks of 256 threads, {grid[1]} resident a SM; "
+                f"pass 2 {grid[2]} blocks, {grid[3]} resident a SM")
         optim.clip_norm_plain(b.flat_grad, b.norm, b.count)
         optim.adamw_update_plain(b._flat_p, b.flat_grad, b.mu, b.nu, b.norm,
                                  b.count, b.lr, 1.0, b.b1, b.b2, b.c1, b.c2,
@@ -3061,7 +3106,12 @@ def time_clip_adamw(dev, failures: list) -> list[dict]:
                  update_library if has_fused else None,
                  roofline.adamw_cost(n, clipped), "adamw_update_kernel")):
             bound_ms, bound_by = roofline.bound(*cost)
-            o = dict(params=n, ms=time_ms(kern, pool, 10),
+            o = dict(params=n, ms=time_ms(kern, pool, 10), deterministic=same,
+                     host_us=host_us(kern, pool, 10),
+                     grid=None if grid is None else grid[
+                         0 if name == "clip_norm" else 2],
+                     blocks_per_sm=None if grid is None else grid[
+                         1 if name == "clip_norm" else 3],
                      device_ms=symbol_device_ms(kern, pool, [sym])[sym],
                      plain_ms=time_ms(plain, pool, 10),
                      library_ms=None if lib is None else time_ms(lib, pool,
@@ -3071,11 +3121,14 @@ def time_clip_adamw(dev, failures: list) -> list[dict]:
             per[kind][name] = o
             log(f"[time] {name} at {n} parameters ({kind}): kernel "
                 f"{o['ms']:.4f} ms (events), {fmt_ms(o['device_ms'])} "
-                f"device, plain {o['plain_ms']:.4f} ms, library "
+                f"device, {o['host_us']:.1f} µs host a call, plain "
+                f"{o['plain_ms']:.4f} ms, library "
                 f"{fmt_ms(o['library_ms'])}, bound {bound_ms:.6f} ms "
                 f"({bound_by})")
         del pool
         torch.cuda.synchronize()
+    floor = empty_launch_ms()
+    log(f"[time] an empty kernel's launch: {fmt_ms(floor)} device")
     rows = []
     for name, replaces in (("clip_norm", "gat_tpu/train/trainer.py:263"),
                            ("adamw_update", "gat_tpu/train/trainer.py:264")):
@@ -3089,31 +3142,65 @@ def time_clip_adamw(dev, failures: list) -> list[dict]:
             ms=c["ms"], device_ms=c["device_ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], params=c["params"],
+            grid=c["grid"], blocks_per_sm=c["blocks_per_sm"],
+            empty_launch_ms=floor,
+            deterministic=all(per[k][name]["deterministic"] for k in per),
             mlp=per["mlp"][name]))
     return rows
 
 
 def bn_layouts(dev) -> list:
-    """(shape, strides, dtype) of x at each BatchNorm of the shipped bf16
-    CNN's train-mode forward on the card, as cuDNN's convolutions give
-    them."""
+    """(shape, strides, dtype, dy's strides) of x and of its incoming
+    gradient at each BatchNorm of the shipped bf16 CNN's train-mode
+    forward and backward on the card, as cuDNN's convolutions give them."""
     import torch
     from gat_tpu_torch.models import CNN
     from gat_tpu_torch.models import cnn as cnn_mod
-    seen = []
+    seen, grads = [], []
     inner = cnn_mod.batch_norm_train
 
     def spy(x, *args, **kwargs):
         seen.append((tuple(x.shape), x.stride(), x.dtype))
-        return inner(x, *args, **kwargs)
+        y = inner(x, *args, **kwargs)
+        y.register_hook(lambda g, i=len(seen) - 1: grads.append((i,
+                                                                 g.stride())))
+        return y
     model = CNN(TRAIN_CLASSES, dtype=torch.bfloat16).to(dev).train()
     x = torch.randn(TRAIN_BATCH, 64, 22, 1, device=dev)
     cnn_mod.batch_norm_train = spy
     try:
-        model(x)
+        model(x).float().sum().backward()
     finally:
         cnn_mod.batch_norm_train = inner
-    return seen
+    dy = dict(grads)
+    return [(*s, dy.get(i)) for i, s in enumerate(seen)]
+
+
+def bn_grid(kernels, shape: tuple, last: bool, bf16: bool) -> dict | None:
+    """K13's grids at an x of `shape` on the card (`gat_bn_splits`: blocks
+    in the rows map, C·splits in the runs map; the two kernels that sum
+    over the positions have their own), per kernel, and each kernel's
+    resident blocks per SM (`gat_bn_blocks_per_sm`); None in a checkout
+    whose K13 has neither."""
+    import ctypes
+    try:
+        per_sm = kernels.function("batchnorm_train", "gat_bn_blocks_per_sm",
+                                  [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p])
+    except AttributeError:
+        return None
+    splits = kernels.function("batchnorm_train", "gat_bn_splits",
+                              [ctypes.c_int, ctypes.c_longlong]
+                              + [ctypes.c_int] * 3)
+    n, c, h, w = shape
+    blocks = (ctypes.c_int * 4)()
+    kernels.check(per_sm(int(bf16), int(last), blocks), "bn_blocks_per_sm")
+    grid = {}
+    for name in BN_KERNELS:
+        s = splits(c, n * h * w, int(last), int(bf16),
+                   int(name in ("bn_moments", "bn_apply_grad")))
+        grid[name] = s if last else c * s
+    return {"grid": grid, "blocks_per_sm": dict(zip(BN_KERNELS, blocks))}
 
 
 def time_bn(dev, failures: list) -> list[dict]:
@@ -3126,19 +3213,30 @@ def time_bn(dev, failures: list) -> list[dict]:
     it, dw and db 1e-4, running statistics 1e-5), then each kernel's
     device ms a layer in the profiler over a forward and backward, the
     whole forward and backward in CUDA events, the plain version's
-    forward and its backward in CUDA events, and each kernel's bound.
-    Returns the four kernels-line rows: the bfloat16 layers' sums, the
-    float32 ones under `fp32`, per layer under `layers`; library_ms is
-    null (F.batch_norm in training mode moves the running variance toward
-    the unbiased variance, another function)."""
+    forward and its backward in CUDA events, and each kernel's bound;
+    also two runs on the same inputs (the same bits, or a failure), each
+    kernel's grid and resident blocks per SM (`bn_grid`, where the
+    checkout has them), an empty kernel's launch (`empty_launch_ms`) and
+    `F.batch_norm(training=True)` forward and backward in CUDA events
+    (`nearest_library_ms`) and in the profiler's device time
+    (`nearest_library_device_ms`), the same in all four rows: one call
+    does the four kernels' work. Returns the four kernels-line rows: the bfloat16
+    layers' sums, the float32 ones under `fp32`, per layer under
+    `layers`; library_ms is null (F.batch_norm in training mode moves the
+    running variance toward the unbiased variance, another function)."""
     import torch
+    import torch.nn.functional as F
+    from gat_tpu_torch import kernels
     from gat_tpu_torch.ops import batchnorm
     roofline = load_roofline()
     seen = bn_layouts(dev)
     last = [s[1][1] == 1 for s in seen]
     log(f"[train] BatchNorm inputs of the bf16 CNN on the card: "
-        f"{[(s[0], s[1]) for s in seen]} (channels-last {last})")
+        f"{[(s[0], s[1]) for s in seen]} (channels-last {last}); their "
+        f"incoming gradients' strides {[s[3] for s in seen]}")
     channels_last = all(last)
+    floor = empty_launch_ms()
+    log(f"[time] an empty kernel's launch: {fmt_ms(floor)} device")
     syms = dict(zip(BN_KERNELS, load_roofline().KERNEL_SYMBOLS["K13"]))
     per = {name: {"bf16": [], "fp32": []} for name in BN_KERNELS}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
@@ -3170,7 +3268,21 @@ def time_bn(dev, failures: list) -> list[dict]:
                 return go
             kern = run(batchnorm.batch_norm_train)
             plain = run(batchnorm.batch_norm_train_plain)
+            library = run(lambda x, w, b, rm, rv, eps, mom: F.batch_norm(
+                x, rm, rv, w, b, True, 1.0 - mom, eps))
             got, ref = kern(pool[0]), plain(pool[0])
+            same = all(torch.equal(a, b) for a, b in zip(got, kern(pool[0])))
+            grid = bn_grid(kernels, shape, channels_last, tag == "bf16")
+            log(f"[train] batch_norm {tag} at {shape}: two runs on the same "
+                f"inputs give the same bits: {same}")
+            if not same:
+                failures.append(f"[train] batch_norm {tag} {shape}: two "
+                                f"runs differ")
+            if grid is not None:
+                log(f"[occupancy] batch_norm {tag} at {shape}: blocks of "
+                    f"256 threads {grid['grid']} "
+                    f"({'rows' if channels_last else 'runs'} map), resident "
+                    f"blocks a SM {grid['blocks_per_sm']}")
             errs, ok = {}, True
             for name, g, r in zip(("y", "rm", "rv", "dx", "dw", "db"), got,
                                   ref):
@@ -3192,9 +3304,12 @@ def time_bn(dev, failures: list) -> list[dict]:
                                 f"its plain version")
             device = symbol_device_ms(kern, pool, list(syms.values()))
             events = time_ms(kern, pool, 10)
+            host = host_us(kern, pool, 10)
             plain_fwd = time_ms(run(batchnorm.batch_norm_train_plain, False),
                                 pool, 10)
             plain_all = time_ms(plain, pool, 10)
+            lib_all = time_ms(library, pool, 10)
+            lib_device = call_device_ms(library, pool)
             n, c, h, w = shape
             for name in BN_KERNELS:
                 bound_ms, bound_by = roofline.bound(*roofline.bn_cost(
@@ -3204,15 +3319,24 @@ def time_bn(dev, failures: list) -> list[dict]:
                     shape=list(shape), device_ms=device[syms[name]],
                     events_ms=events, bound_ms=bound_ms, bound_by=bound_by,
                     plain_ms=plain_fwd if forward else plain_all - plain_fwd,
+                    nearest_library_ms=lib_all,
+                    nearest_library_device_ms=lib_device, deterministic=same,
+                    host_us=host,
+                    grid=None if grid is None else grid["grid"][name],
+                    blocks_per_sm=None if grid is None else grid[
+                        "blocks_per_sm"][name],
                     max_abs_err=max(errs[k] for k in (
                         ("y", "rm", "rv") if forward else
                         ("dx", "dw", "db")))))
             shown = {k: None if v is None else round(v, 5)
                      for k, v in device.items()}
             log(f"[time] batch_norm {tag} at {shape}: device ms {shown}, "
-                f"forward and backward {events:.4f} ms (events); plain "
+                f"forward and backward {events:.4f} ms (events), "
+                f"{host:.1f} µs host; plain "
                 f"forward {plain_fwd:.4f} ms, backward "
-                f"{plain_all - plain_fwd:.4f} ms")
+                f"{plain_all - plain_fwd:.4f} ms; F.batch_norm(training="
+                f"True) forward and backward {lib_all:.4f} ms (events), "
+                f"{fmt_ms(lib_device)} device")
             del pool
             torch.cuda.synchronize()
     rows = []
@@ -3239,6 +3363,14 @@ def time_bn(dev, failures: list) -> list[dict]:
             library_note="F.batch_norm in training mode moves the running "
                          "variance toward the unbiased variance: another "
                          "function",
+            nearest_library_ms=total("bf16", "nearest_library_ms"),
+            nearest_library_device_ms=total("bf16",
+                                            "nearest_library_device_ms"),
+            empty_launch_ms=floor,
+            grid=[o["grid"] for o in layers["bf16"]],
+            blocks_per_sm=layers["bf16"][0]["blocks_per_sm"],
+            deterministic=all(o["deterministic"] for t in layers.values()
+                              for o in t),
             layers=layers["bf16"], fp32=dict(
                 ms=total("fp32", "device_ms"),
                 plain_ms=total("fp32", "plain_ms"),

@@ -80,20 +80,29 @@ def layout(t: torch.Tensor, name: str = "batch_norm",
 _SPLITS: dict = {}
 
 
-def _splits(c: int, m: int, last: bool) -> int:
-    """K13's splits of the positions at C channels and M positions
-    (`gat_bn_splits`), 1 where there are none."""
+def _splits(x: torch.Tensor, last: bool, sums: bool) -> int:
+    """K13's splits of the positions for x's launches on its card
+    (`gat_bn_splits`: the grid sized to the card's SMs for C channels, M
+    positions, the map and the dtype; `sums` for the kernels that sum over
+    the positions, whose partial buffers hold 2·C·splits floats), 1 where
+    there are no positions."""
+    n, c, p = _dims(x)
+    m = n * p
     if m < 1:
         return 1
-    key = (c, m, last)
+    bf16 = _bf16(x)
+    key = (x.device.index, c, m, last, bf16, sums)
     s = _SPLITS.get(key)
     if s is None:
         fn = kernels.function("batchnorm_train", "gat_bn_splits",
-                              [ctypes.c_int, ctypes.c_longlong, ctypes.c_int])
-        s = _SPLITS[key] = int(fn(c, m, int(last)))
+                              [ctypes.c_int, ctypes.c_longlong] +
+                              [ctypes.c_int] * 3)
+        with kernels.device_guard(x.device):
+            s = int(fn(c, m, int(last), bf16, int(sums)))
         if s < 1:
             raise ValueError(f"[batch_norm] {c} channels, {m} positions "
                              f"refused")
+        _SPLITS[key] = s
     return s
 
 
@@ -142,7 +151,7 @@ def bn_moments(x: torch.Tensor) -> tuple:
     if n < 1:
         raise ValueError("[bn_moments] no rows")
     dev = x.device
-    splits = _splits(c, n * p, last)
+    splits = _splits(x, last, True)
     part = torch.empty(2 * c * splits, dtype=torch.float32, device=dev)
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
     fn = kernels.function("batchnorm_train", "gat_bn_moments", _MOMENTS_ARGS)
@@ -171,7 +180,7 @@ def bn_apply(x, mean, sq, weight, bias, running_mean, running_var,
     fn = kernels.function("batchnorm_train", "gat_bn_apply", _APPLY_ARGS)
     with kernels.device_guard(dev):
         status = fn(x.data_ptr(), y.data_ptr(), n, c, p, sn, sc, sp,
-                    _splits(c, n * p, last), mean.data_ptr(), sq.data_ptr(),
+                    _splits(x, last, False), mean.data_ptr(), sq.data_ptr(),
                     weight.data_ptr(), bias.data_ptr(), eps,
                     running_mean.data_ptr(), running_var.data_ptr(),
                     momentum, 1.0 - momentum, _bf16(x), int(last),
@@ -192,7 +201,7 @@ def bn_apply_grad(dy, x, mean, sq, weight, eps: float) -> tuple:
     _same(dy, x)
     n, c, p = _dims(x)
     dev = x.device
-    splits = _splits(c, n * p, last)
+    splits = _splits(x, last, True)
     part = torch.empty(2 * c * splits, dtype=torch.float32, device=dev)
     out = torch.empty((5, c), dtype=torch.float32, device=dev)
     fn = kernels.function("batchnorm_train", "gat_bn_apply_grad",
@@ -225,7 +234,7 @@ def bn_moments_grad(dy, x, mul, dmean, dsq) -> torch.Tensor:
                           _MOMENTS_GRAD_ARGS)
     with kernels.device_guard(dev):
         status = fn(dy.data_ptr(), gsn, gsc, gsp, x.data_ptr(), dx.data_ptr(),
-                    n, c, p, sn, sc, sp, _splits(c, n * p, last),
+                    n, c, p, sn, sc, sp, _splits(x, last, False),
                     mul.data_ptr(), dmean.data_ptr(), dsq.data_ptr(),
                     _bf16(x), int(last), kernels.stream(dev))
     kernels.check(status, "bn_moments_grad")

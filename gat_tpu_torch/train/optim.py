@@ -78,30 +78,47 @@ def adamw_update_plain(p, g, mu, nu, norm, count, lr, max_norm,
     nu.copy_(v)
 
 
-_NORM_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
-_UPDATE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
+_NORM_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+              + [ctypes.c_longlong, ctypes.c_void_p])
+_UPDATE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2
                 + [ctypes.c_float] * 7 + [ctypes.c_void_p])
-_MAX_BLOCKS = 512  # kMaxBlocks of `csrc/clip_adamw.cu`
-_BLOCK_WORK = 256 * 8
+_GRIDS: dict = {}
+
+
+def clip_adamw_grid(n: int, device: torch.device) -> tuple:
+    """K12's grids over n parameters on the card `device`, as
+    `gat_clip_adamw_grid` sizes them to its SMs: (pass 1's blocks, which
+    is also its partial slots, its resident blocks per SM, pass 2's
+    blocks, its resident blocks per SM); read once per device and n."""
+    key = (device.index, n)
+    grid = _GRIDS.get(key)
+    if grid is None:
+        fn = kernels.function("clip_adamw", "gat_clip_adamw_grid",
+                              [ctypes.c_longlong, ctypes.c_void_p])
+        out = (ctypes.c_int * 4)()
+        with kernels.device_guard(device):
+            kernels.check(fn(n, out), "clip_adamw_grid")
+        grid = _GRIDS[key] = tuple(out)
+    return grid
 
 
 def clip_norm(g: torch.Tensor, norm: torch.Tensor, count: torch.Tensor,
               part: torch.Tensor) -> None:
     """`clip_norm_plain` of the flat float32 gradients g into the device
     scalars norm (float32) and count (int32). CUDA tensor: one launch of
-    K12's pass 1, `part` (at least `clip_norm_blocks(n)` floats) its
+    K12's pass 1, `part` (at least `clip_adamw_grid(n)[0]` floats) its
     partial sums, the device's ticket (`kernels.ticket`) the last
     block's. CPU tensor: `clip_norm_plain`."""
     if g.device.type == "cpu":
         return clip_norm_plain(g, norm, count)
-    n = g.numel()
-    if n < 1 or part.numel() < clip_norm_blocks(n):
+    n, dev = g.numel(), g.device
+    blocks = clip_adamw_grid(n, dev)[0] if n > 0 else 0
+    if blocks < 1 or part.numel() < blocks:
         raise ValueError(f"[clip_norm] {n} gradients, {part.numel()} "
                          f"partial slots")
-    dev = g.device
     fn = kernels.function("clip_adamw", "gat_clip_norm", _NORM_ARGS)
     with kernels.device_guard(dev):
-        status = fn(g.data_ptr(), part.data_ptr(),
+        status = fn(g.data_ptr(), part.data_ptr(), blocks,
                     kernels.ticket(dev).data_ptr(), norm.data_ptr(),
                     count.data_ptr(), n, kernels.stream(dev))
     kernels.check(status, "clip_norm")
@@ -109,12 +126,6 @@ def clip_norm(g: torch.Tensor, norm: torch.Tensor, count: torch.Tensor,
 
 
 clip_norm.launches = 0
-
-
-def clip_norm_blocks(n: int) -> int:
-    """The blocks (and partial slots) of pass 1 over n gradients, as
-    `gat_clip_norm_blocks` counts them."""
-    return max(1, min(_MAX_BLOCKS, -(-n // _BLOCK_WORK)))
 
 
 def adamw_update(p, g, mu, nu, norm, count, lr, max_norm,
@@ -131,7 +142,8 @@ def adamw_update(p, g, mu, nu, norm, count, lr, max_norm,
     with kernels.device_guard(dev):
         status = fn(p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
                     norm.data_ptr(), count.data_ptr(), lr.data_ptr(),
-                    p.numel(), int(max_norm is not None),
+                    p.numel(), clip_adamw_grid(p.numel(), dev)[2],
+                    int(max_norm is not None),
                     0.0 if max_norm is None else max_norm, b1, b2, c1, c2,
                     eps, wd, kernels.stream(dev))
     kernels.check(status, "adamw_update")
@@ -176,8 +188,8 @@ class ClipAdamW:
         self.lr_value = float(lr)
         self.lr = torch.full((), self.lr_value, dtype=torch.float32,
                              device=dev)
-        self._part = torch.empty(clip_norm_blocks(self.n),
-                                 dtype=torch.float32, device=dev)
+        slots = clip_adamw_grid(self.n, dev)[0] if dev.type == "cuda" else 0
+        self._part = torch.empty(slots, dtype=torch.float32, device=dev)
         with torch.no_grad():
             for p, view in zip(self.params, self.views(self._flat_p)):
                 view.copy_(p)

@@ -1794,6 +1794,111 @@ def test_batchnorm_kernels(shape, dtype, channels_last):
                                        msg=lambda m, n=name: f"{n}: {m}")
 
 
+@pytest.mark.parametrize("case", ["nchw", "expanded_dy", "expanded_dy_nchw",
+                                  "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_kernels_other_layouts(case, dtype):
+    """K13 on the card off the rows map's 16-byte route, at the emulated
+    test's cases (`bn_layout_case`: NCHW, dy expanded along N beside
+    channels-last and NCHW x, tensors one element past a 16-byte
+    boundary): two runs give the same bits, and both are within
+    `test_batchnorm_kernels`' tolerances of the plain version."""
+    from gat_tpu_torch.ops import batchnorm
+    from test_torch_kernels_emulated import bn_layout_case
+    dev = _card()
+    d = bn_layout_case(case, dtype)
+    if case == "unaligned":
+        for k in ("x", "dy"):
+            t = d[k]
+            base = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+            d[k] = base[1:].as_strided(t.shape, t.stride())
+            d[k].copy_(t)
+    if case.startswith("expanded_dy"):  # the one image, then expanded
+        d["dy"] = d["dy"][:1].to(dev).expand(d["x"].shape)
+        assert d["dy"].stride()[0] == 0
+    d = {k: v if v.device == dev else v.to(dev) for k, v in d.items()}
+    runs = []
+    for fn in (batchnorm.batch_norm_train, batchnorm.batch_norm_train,
+               batchnorm.batch_norm_train_plain):
+        x = d["x"].detach().requires_grad_(True)
+        w = d["w"].clone().requires_grad_(True)
+        b = d["b"].clone().requires_grad_(True)
+        rm, rv = d["rm"].clone(), d["rv"].clone()
+        y = fn(x, w, b, rm, rv, 1e-5, 0.9)
+        y.backward(d["dy"])
+        torch.cuda.synchronize()
+        runs.append((y.detach(), rm, rv, x.grad, w.grad, b.grad))
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    for name, g, r in zip(("y", "rm", "rv", "dx", "dw", "db"), runs[0],
+                          runs[2]):
+        g, r = g.float().cpu(), r.float().cpu()
+        scale = float(r.abs().max())
+        if dtype == torch.bfloat16 and name in ("y", "dx"):
+            bound = 2.0 * 2.0 ** (torch.floor(torch.log2(
+                r.abs().clamp_min(1e-30))) - 7)
+            assert bool(((g - r).abs() <= bound + 1e-5 * scale).all()), name
+        else:
+            tol = 1e-6 if name in ("rm", "rv") else 1e-4
+            torch.testing.assert_close(g, r, rtol=0, atol=tol * scale,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.parametrize("n, offset", [(20143, 0), (20143, 1), (629743, 0),
+                                       (1001, 1), (5002, 0)])
+def test_clip_adamw_kernel_tails(n, offset):
+    """K12's wrappers on the card at n mod 4 = 3, 1 and 2, over buffers on
+    16 bytes and one float off (the kernels' element route), clipped: two
+    runs give the same bits; against `adamw_update_plain` on the CPU given
+    the card's norm, the clipped g and both moments bit-equal (no powf in
+    them), p within 1e-5 relative and 1e-6 of its largest value; the norm
+    within 1e-5 relative of the plain one."""
+    from gat_tpu_torch.train import optim
+    from test_torch_kernels_emulated import adamw_inputs
+    dev = _card()
+    st = adamw_inputs(n, seed=n, g_scale=10.0)
+
+    def on_card():
+        out = {}
+        for k, v in st.items():
+            base = torch.zeros(n + offset, device=dev)
+            out[k] = base[offset:]
+            out[k].copy_(v)
+        return out
+    lr = torch.tensor(1e-3, device=dev)
+    bufs, counts, norms = [], [], []
+    for _ in range(2):
+        b = on_card()
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        norm = torch.zeros((), device=dev)
+        part = torch.empty(optim.clip_adamw_grid(n, dev)[0], device=dev)
+        optim.clip_norm(b["g"], norm, count, part)
+        optim.adamw_update(b["p"], b["g"], b["mu"], b["nu"], norm, count, lr,
+                           1.0, 0.9, 0.999,
+                           *optim.complements(0.9, 0.999, True), 1e-8, 1e-4)
+        torch.cuda.synchronize()
+        bufs.append(b)
+        counts.append(count)
+        norms.append(norm)
+    assert torch.equal(norms[0], norms[1]) and int(counts[0]) == 1
+    for k in st:
+        assert torch.equal(bufs[0][k], bufs[1][k]), k
+    ref = {k: v.clone() for k, v in st.items()}
+    ref_norm = torch.zeros(())
+    optim.clip_norm_plain(ref["g"].clone(), ref_norm, torch.zeros(
+        (), dtype=torch.int32))
+    torch.testing.assert_close(norms[0].cpu(), ref_norm, rtol=1e-5, atol=0)
+    optim.adamw_update_plain(ref["p"], ref["g"], ref["mu"], ref["nu"],
+                             norms[0].cpu(), torch.ones((), dtype=torch.int32),
+                             lr.cpu(), 1.0, 0.9, 0.999,
+                             *optim.complements(0.9, 0.999, True), 1e-8,
+                             1e-4)
+    for k in ("g", "mu", "nu"):
+        assert torch.equal(bufs[0][k].cpu(), ref[k]), k
+    torch.testing.assert_close(bufs[0]["p"].cpu(), ref["p"], rtol=1e-5,
+                               atol=1e-6 * float(ref["p"].abs().max()))
+
+
 @pytest.mark.parametrize("kind", ["mlp", "cnn", "cnn_bf16"])
 def test_train_step_card_vs_cpu(kind, clips):
     """One training step (`Trainer._step`, dropout 0) from the same weights

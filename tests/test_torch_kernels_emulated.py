@@ -26,6 +26,7 @@ kernels' arithmetic and indexing, not the GPU compiler or the card:
 import contextlib
 import ctypes
 import hashlib
+import itertools
 import re
 import shutil
 import subprocess
@@ -156,6 +157,7 @@ inline void mbar_wait(uint64_t* bar, unsigned parity) {
 }
 struct int2 { int x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 // float32 steps rounded one by one (g++ here contracts no FMA)
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
@@ -2293,10 +2295,11 @@ def resample_taps(orig: int, target: int) -> tuple:
 
 
 @contextlib.contextmanager
-def emulated_sms(libs, sms: int):
-    """The emulated card's SMs, restored after: under the emulation K9's
-    grid is min(tiles, SMs) (one resident block an SM)."""
-    count = ctypes.c_int.in_dll(libs["resample"], "emu_sm_count")
+def emulated_sms(libs, sms: int, name: str = "resample"):
+    """The emulated card's SMs in kernel `name`'s library, restored after:
+    under the emulation K9's grid is min(tiles, SMs) (one resident block
+    an SM), K12's and K13's at most SMs."""
+    count = ctypes.c_int.in_dll(libs[name], "emu_sm_count")
     saved, count.value = count.value, sms
     try:
         yield
@@ -2808,27 +2811,65 @@ def adamw_inputs(n: int, seed: int, g_scale: float) -> dict:
             "nu": f(0.01).abs()}
 
 
+def grid_rule(items: int, unroll: int, sms: int, per_sm: int) -> int:
+    """K12's and K13's grid over `items` 16-byte loads of 256 threads
+    (`clip_blocks`, `bn_blocks`): enough blocks that each thread issues
+    `unroll` loads once, at least one an SM while each thread still has a
+    load, at most the SMs' resident blocks."""
+    once, each = -(-items // (256 * unroll)), -(-items // 256)
+    blocks = once if once > sms else min(each, sms)
+    return max(1, min(blocks, sms * per_sm))
+
+
+def clip_adamw_grid_emulated(libs, n: int) -> list:
+    """`gat_clip_adamw_grid` under the emulation: pass 1's blocks and
+    resident blocks per SM, pass 2's (one resident block an SM)."""
+    out = (ctypes.c_int * 4)()
+    assert _fn(libs["clip_adamw"], "gat_clip_adamw_grid",
+               [ctypes.c_longlong, ctypes.c_void_p])(n, out) == 0
+    return list(out)
+
+
 def adamw_emulated(libs, st: dict, count, lr, max_norm) -> torch.Tensor:
     """K12's two passes through their C entry points, as `train/optim.py`
-    calls them, on the flat CPU buffers of `st` (updated in place);
-    returns the norm, and checks the ticket came back to 0."""
+    calls them, on the flat CPU buffers of `st` (updated in place; a view
+    not on 16 bytes takes the kernels' element route); returns the norm,
+    and checks the grids follow the rule and the ticket came back to 0."""
     n = st["p"].numel()
-    blocks = _fn(libs["clip_adamw"], "gat_clip_norm_blocks",
-                 [ctypes.c_longlong])(n)
-    assert blocks == optim.clip_norm_blocks(n)
-    part = torch.full((blocks,), float("nan"))
+    grid = clip_adamw_grid_emulated(libs, n)
+    sms = ctypes.c_int.in_dll(libs["clip_adamw"], "emu_sm_count").value
+    assert grid == [grid_rule(-(-n // 4), 4, sms, 1), 1,
+                    grid_rule(-(-n // 4), 2, sms, 1), 1]
+    part = torch.full((grid[0],), float("nan"))
     ticket = torch.zeros(1, dtype=torch.int32)
     norm = torch.full((), float("nan"))
     fn = _fn(libs["clip_adamw"], "gat_clip_norm", optim._NORM_ARGS)
-    assert fn(st["g"].data_ptr(), part.data_ptr(), ticket.data_ptr(),
-              norm.data_ptr(), count.data_ptr(), n, None) == 0
+    assert fn(st["g"].data_ptr(), part.data_ptr(), grid[0],
+              ticket.data_ptr(), norm.data_ptr(), count.data_ptr(), n,
+              None) == 0
     assert int(ticket) == 0
     fn = _fn(libs["clip_adamw"], "gat_adamw_update", optim._UPDATE_ARGS)
     assert fn(st["p"].data_ptr(), st["g"].data_ptr(), st["mu"].data_ptr(),
               st["nu"].data_ptr(), norm.data_ptr(), count.data_ptr(),
-              lr.data_ptr(), n, int(max_norm is not None),
+              lr.data_ptr(), n, grid[2], int(max_norm is not None),
               0.0 if max_norm is None else max_norm, 0.9, 0.999,
               *optim.complements(0.9, 0.999, True), 1e-8, 1e-4, None) == 0
+    return norm
+
+
+def adamw_plain_step(st: dict, count, lr, max_norm, norm=None):
+    """`clip_norm_plain` (unless `norm`, the norm to clip by, is given)
+    and `adamw_update_plain` on the buffers of `st`, in place; returns
+    the norm."""
+    if norm is None:
+        norm = torch.zeros(())
+        optim.clip_norm_plain(st["g"], norm, count)
+    else:
+        count.add_(1)
+    optim.adamw_update_plain(st["p"], st["g"], st["mu"], st["nu"], norm,
+                             count, lr, max_norm, 0.9, 0.999,
+                             *optim.complements(0.9, 0.999, True), 1e-8,
+                             1e-4)
     return norm
 
 
@@ -2842,34 +2883,110 @@ def test_clip_adamw_kernel_emulated(libs, n, g_scale, max_norm):
     p, mu, nu and the clipped gradients within 2e-6 relative (powf against
     torch.pow, and the norm's last bit through the clip) and 2e-7 of each
     buffer's largest value (about an ulp of it, where (1 - b1)·g + b1·mu
-    cancels); the count exact."""
+    cancels); the count exact. A second run from the same buffers gives
+    the same bits."""
     got = adamw_inputs(n, seed=n, g_scale=g_scale)
+    again = {k: v.clone() for k, v in got.items()}
     ref = {k: v.clone() for k, v in got.items()}
-    counts = [torch.zeros((), dtype=torch.int32) for _ in range(2)]
+    counts = [torch.zeros((), dtype=torch.int32) for _ in range(3)]
     lr = torch.tensor(1e-3)
     for step in range(3):
         if step == 1:
             lr.fill_(3e-4)
         if step:
-            for st in (got, ref):  # a fresh gradient a step
+            for st in (got, again, ref):  # a fresh gradient a step
                 st["g"].copy_(adamw_inputs(n, seed=n + step,
                                            g_scale=g_scale)["g"])
         norm = adamw_emulated(libs, got, counts[0], lr, max_norm)
-        ref_norm = torch.zeros(())
-        optim.clip_norm_plain(ref["g"], ref_norm, counts[1])
-        optim.adamw_update_plain(ref["p"], ref["g"], ref["mu"], ref["nu"],
-                                 ref_norm, counts[1], lr, max_norm, 0.9,
-                                 0.999, *optim.complements(0.9, 0.999, True),
-                                 1e-8, 1e-4)
+        assert torch.equal(adamw_emulated(libs, again, counts[2], lr,
+                                          max_norm), norm)
+        ref_norm = adamw_plain_step(ref, counts[1], lr, max_norm)
         torch.testing.assert_close(norm, ref_norm, rtol=1e-6, atol=0)
         assert int(counts[0]) == int(counts[1]) == step + 1
         for k in ("p", "g", "mu", "nu"):
+            assert torch.equal(got[k], again[k]), k
             torch.testing.assert_close(
                 got[k], ref[k], rtol=2e-6,
                 atol=2e-7 * float(ref[k].abs().max()),
                 msg=lambda m, k=k: f"{k}: {m}")
     clipped = max_norm is not None and float(ref_norm) >= max_norm
     assert clipped == (g_scale > 1.0 and max_norm is not None)
+
+
+def unaligned(st: dict) -> dict:
+    """The buffers of `st` as views one float past a 16-byte boundary."""
+    out = {}
+    for k, v in st.items():
+        base = torch.zeros(v.numel() + 1)
+        base[1:].copy_(v)
+        out[k] = base[1:]
+        assert out[k].data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("n, offset", [(1001, 0), (5002, 0), (20143, 0),
+                                       (20143, 1)])
+@pytest.mark.parametrize("g_scale", [0.1, 10.0])
+def test_clip_adamw_kernel_emulated_tails(libs, n, offset, g_scale):
+    """K12 at n mod 4 = 1, 2 and 3 (20,143: the shipped MLP's count), the
+    last n mod 4 parameters taken one by one after the float4 loads, and
+    over views one float off a 16-byte boundary (the element route), below
+    and above the clip threshold (max_norm 1). The first step's pass 2
+    gives the bits of `adamw_update_plain` given the kernel's norm (at
+    count 1 powf and torch.pow both give b exactly, and every other step
+    rounds alike); two more steps, the learning rate changed, within
+    `test_clip_adamw_kernel_emulated`'s tolerances. Two runs give the same
+    bits."""
+    base = adamw_inputs(n, seed=n + offset, g_scale=g_scale)
+    runs = [unaligned(base) if offset else {k: v.clone()
+                                             for k, v in base.items()}
+            for _ in range(2)]
+    ref = {k: v.clone() for k, v in base.items()}
+    counts = [torch.zeros((), dtype=torch.int32) for _ in range(3)]
+    lr = torch.tensor(1e-3)
+    for step in range(3):
+        if step == 1:
+            lr.fill_(3e-4)
+        if step:
+            g = adamw_inputs(n, seed=n + offset + step, g_scale=g_scale)["g"]
+            for st in (*runs, ref):
+                st["g"].copy_(g)
+        norms = [adamw_emulated(libs, st, k, lr, 1.0)
+                 for st, k in zip(runs, counts)]
+        assert torch.equal(norms[0], norms[1])
+        if step == 0:  # the same norm and the same rounding: the same bits
+            adamw_plain_step(ref, counts[2], lr, 1.0, norm=norms[0].clone())
+            for k in ("p", "g", "mu", "nu"):
+                assert torch.equal(runs[0][k], ref[k]), k
+        else:
+            ref_norm = adamw_plain_step(ref, counts[2], lr, 1.0)
+            torch.testing.assert_close(norms[0], ref_norm, rtol=1e-6, atol=0)
+            for k in ("p", "g", "mu", "nu"):
+                torch.testing.assert_close(
+                    runs[0][k], ref[k], rtol=2e-6,
+                    atol=2e-7 * float(ref[k].abs().max()),
+                    msg=lambda m, k=k: f"{k}: {m}")
+        for k in ("p", "g", "mu", "nu"):
+            assert torch.equal(runs[0][k], runs[1][k]), k
+        assert int(counts[0]) == int(counts[1]) == int(counts[2]) == step + 1
+
+
+def test_clip_adamw_grid(libs):
+    """gat_clip_adamw_grid sizes both passes to the card by the rule, at
+    the shipped CNN's and MLP's parameter counts and the emulated SMs: a
+    card's worth of blocks for the CNN, one round of loads over as many
+    blocks as there are 256 float4 of the MLP's (20 on 132 SMs)."""
+    for sms in (4, 132):
+        with emulated_sms(libs, sms, "clip_adamw"):
+            for n in (629743, 20143, 1):
+                items = -(-n // 4)
+                assert clip_adamw_grid_emulated(libs, n) == [
+                    grid_rule(items, 4, sms, 1), 1, grid_rule(items, 2, sms,
+                                                              1), 1]
+    # the card's rule: 132 SMs, 8 resident blocks of 256 threads
+    assert grid_rule(-(-20143 // 4), 2, 132, 8) == 20
+    assert grid_rule(-(-629743 // 4), 2, 132, 8) == 308
+    assert grid_rule(-(-629743 // 4), 4, 132, 8) == 154
 
 
 def bn_inputs(shape: tuple, seed: int, dtype, channels_last: bool) -> dict:
@@ -2890,16 +3007,20 @@ def bn_inputs(shape: tuple, seed: int, dtype, channels_last: bool) -> dict:
 def bn_emulated(libs, d: dict, eps: float = 1e-5, momentum: float = 0.9):
     """K13's four kernels through their C entry points, as
     `ops/batchnorm.py` calls them, on CPU tensors: (y, mean, sq, running
-    mean, running var, dx, dw, db)."""
+    mean, running var, dx, dw, db, dmean, dsq, mul)."""
     lib = libs["batchnorm_train"]
     x, dy = d["x"], d["dy"]
     (sn, sc, sp), last = batchnorm.layout(x)
     (gsn, gsc, gsp), _ = batchnorm.layout(dy, read_only=True)
     n, c, h, w = x.shape
     p = h * w
-    splits = _fn(lib, "gat_bn_splits", [ctypes.c_int, ctypes.c_longlong,
-                                        ctypes.c_int])(c, n * p, int(last))
     bf16 = int(x.dtype == torch.bfloat16)
+    sms = ctypes.c_int.in_dll(lib, "emu_sm_count").value
+    fn = _fn(lib, "gat_bn_splits", [ctypes.c_int, ctypes.c_longlong]
+             + [ctypes.c_int] * 3)
+    splits, each = (fn(c, n * p, int(last), bf16, sums) for sums in (1, 0))
+    assert [splits, each] == [bn_splits_rule(c, n * p, last, bf16, sms, 1,
+                                             sums) for sums in (True, False)]
     part = torch.full((2 * c * splits,), float("nan"))
     ticket = torch.zeros(1, dtype=torch.int32)
     mean, sq = torch.full((c,), float("nan")), torch.full((c,), float("nan"))
@@ -2911,7 +3032,7 @@ def bn_emulated(libs, d: dict, eps: float = 1e-5, momentum: float = 0.9):
     assert int(ticket) == 0
     y = torch.empty_like(x)
     assert _fn(lib, "gat_bn_apply", batchnorm._APPLY_ARGS)(
-        x.data_ptr(), y.data_ptr(), n, c, p, sn, sc, sp, splits,
+        x.data_ptr(), y.data_ptr(), n, c, p, sn, sc, sp, each,
         mean.data_ptr(), sq.data_ptr(), d["w"].data_ptr(), d["b"].data_ptr(),
         eps, rm.data_ptr(), rv.data_ptr(), momentum, 1.0 - momentum, bf16,
         int(last), None) == 0
@@ -2926,9 +3047,40 @@ def bn_emulated(libs, d: dict, eps: float = 1e-5, momentum: float = 0.9):
     dx = torch.empty_like(x)
     assert _fn(lib, "gat_bn_moments_grad", batchnorm._MOMENTS_GRAD_ARGS)(
         dy.data_ptr(), gsn, gsc, gsp, x.data_ptr(), dx.data_ptr(), n, c, p,
-        sn, sc, sp, splits, mul.data_ptr(), dmean.data_ptr(), dsq.data_ptr(),
+        sn, sc, sp, each, mul.data_ptr(), dmean.data_ptr(), dsq.data_ptr(),
         bf16, int(last), None) == 0
-    return y, mean, sq, rm, rv, dx, dw, db
+    return y, mean, sq, rm, rv, dx, dw, db, dmean, dsq, mul
+
+
+def bn_splits_rule(c: int, m: int, last: bool, bf16: int, sms: int,
+                   per_sm: int, sums: bool) -> int:
+    """`gat_bn_splits`: the rule's grid over the layer's 16-byte loads
+    (8 bfloat16 or 4 float32 elements), all of it in the rows map, split
+    C ways in the runs map (at most one split per 256 positions); for the
+    kernels that sum (`sums`), at most 256 x 8 x 4 / C splits (256 x 8 /
+    C where C is not a multiple of 4): one round of the last block's
+    loads."""
+    blocks = grid_rule(-(-m * c // (8 if bf16 else 4)), 4, sms, per_sm)
+    cap = max(1, 256 * 8 * (4 if c % 4 == 0 else 1) // c) if sums else blocks
+    s = blocks if last else min(-(-blocks // c), -(-m // 256))
+    return min(s, cap)
+
+
+def bn_elementwise(d: dict, got: tuple):
+    """y and dx from the kernels' own statistics (mean, and dmean, dsq,
+    mul from the apply-backward, whose mul is the apply's, `norm_of`),
+    each step a float32 PyTorch operation in the kernels' order, rounded
+    once to x's dtype: the bits the elementwise kernels must give. (mul
+    is taken as the kernels give it: torch's own 1 / sqrt(var + eps) has
+    been seen an ulp off the correctly rounded one.)"""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    x, dy = d["x"].float(), d["dy"].float()
+    mean, dmean, dsq, mul = got[1], got[8], got[9], got[10]
+    ch = lambda v: v[:, None, None]
+    y = (x - ch(mean)) * ch(mul) + ch(d["b"])
+    count = f32(float(x.numel() // x.shape[1]))
+    dx = (dy * ch(mul) + ch(dmean / count)) + x * ch(f32(2.0) * (dsq / count))
+    return y.to(d["x"].dtype), dx.to(d["x"].dtype)
 
 
 def bn_reference(d: dict, eps: float = 1e-5, momentum: float = 0.9):
@@ -2945,25 +3097,13 @@ def bn_reference(d: dict, eps: float = 1e-5, momentum: float = 0.9):
             rm, rv, x.grad, w.grad, b.grad)
 
 
-@pytest.mark.parametrize("shape, channels_last", [
-    ((3, 4, 5, 6), False), ((3, 4, 5, 6), True), ((4, 2, 48, 48), False),
-    ((4, 4, 48, 48), True), ((2, 3, 4, 5), True), ((2, 8, 1, 7), False)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_batchnorm_kernels_emulated(libs, shape, channels_last, dtype):
-    """K13's moments, apply, apply-backward and moments-backward against
-    the plain version and its autograd: NCHW (one block a channel, and two
-    splits a channel at 9,216 positions), channels-last (thread t on
-    channel t mod C; five splits at 9,216 positions), channels-last with 3
-    channels (which does not divide 256: the NCHW map over channels-last
-    strides) and H = 1. float32: moments and per-channel gradients within
-    1e-5 relative of their scale (other summation orders), y and dx within
-    2e-5 of theirs; bfloat16 (x, y, dy, dx rounded to nearest even): y and
-    dx within 2 of their ulps (the float32 values they round differ in
-    their last bits). The running statistics within 1e-6 relative."""
-    d = bn_inputs(shape, seed=sum(shape), dtype=dtype,
-                  channels_last=channels_last)
-    got = bn_emulated(libs, d)
-    ref = bn_reference(d)
+def check_bn(got: tuple, ref: tuple, d: dict, dtype) -> None:
+    """K13's outputs against the plain version's: float32 moments and
+    per-channel gradients within 1e-5 relative of their scale (other
+    summation orders), y and dx within 2e-5 of theirs; bfloat16 y and dx
+    within 2 of their ulps (the float32 values they round differ in their
+    last bits); the running statistics within 1e-6 relative; y and dx in
+    x's strides."""
     names = ("y", "mean", "sq", "running_mean", "running_var", "dx", "dw",
              "db")
     for name, g, r in zip(names, got, ref):
@@ -2980,6 +3120,99 @@ def test_batchnorm_kernels_emulated(libs, shape, channels_last, dtype):
             assert bool(((g - r).abs() <= bound + 1e-6 * scale).all()), name
         else:
             torch.testing.assert_close(g, r, rtol=0, atol=tol, msg=name)
+
+
+def check_bn_runs(libs, d: dict, dtype) -> tuple:
+    """Two runs of K13 on the same inputs: the same bits, y and dx the
+    bits of `bn_elementwise` from the run's own statistics, and within
+    `check_bn`'s tolerances of the plain version. Returns the run."""
+    got = bn_emulated(libs, d)
+    again = bn_emulated(libs, d)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b) or (a.isnan().all() and b.isnan().all())
+    y, dx = bn_elementwise(d, got)
+    assert torch.equal(got[0], y) and torch.equal(got[5], dx)
+    check_bn(got, bn_reference(d), d, dtype)
+    return got
+
+
+@pytest.mark.parametrize("shape, channels_last", [
+    ((3, 4, 5, 6), False), ((3, 4, 5, 6), True), ((4, 2, 48, 48), False),
+    ((4, 4, 48, 48), True), ((2, 3, 4, 5), True), ((2, 8, 1, 7), False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_kernels_emulated(libs, shape, channels_last, dtype):
+    """K13's moments, apply, apply-backward and moments-backward against
+    the plain version and its autograd (`check_bn_runs`): NCHW (the runs
+    map; 16-byte loads along 2,304 positions, one element a load along 30
+    and 7), channels-last (the rows map: 4 channels, fewer than a 16-byte
+    load of bfloat16 holds), channels-last with 3 channels (which does not
+    divide 256: the runs map over channels-last strides) and H = 1."""
+    d = bn_inputs(shape, seed=sum(shape), dtype=dtype,
+                  channels_last=channels_last)
+    check_bn_runs(libs, d, dtype)
+
+
+# the shipped CNN's three BatchNorm layers at a batch of 2
+BN_CNN_LAYERS = ((2, 32, 64, 22), (2, 64, 32, 11), (2, 128, 16, 5))
+
+
+@pytest.mark.parametrize("shape", BN_CNN_LAYERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_kernels_emulated_cnn_layers(libs, shape, dtype):
+    """K13 at the shipped CNN's channel widths and image sizes, dense
+    channels-last as cuDNN gives them (the rows map, 16-byte loads), on an
+    emulated card of 8 SMs, so the sums span 8 blocks and several rounds
+    of loads (`check_bn_runs`)."""
+    d = bn_inputs(shape, seed=sum(shape), dtype=dtype, channels_last=True)
+    with emulated_sms(libs, 8, "batchnorm_train"):
+        check_bn_runs(libs, d, dtype)
+
+
+BN_LAYOUT_CASES = ("nchw", "expanded_dy", "expanded_dy_nchw", "unaligned")
+
+
+def bn_layout_case(case: str, dtype) -> dict:
+    """`bn_inputs` off the rows map's 16-byte route: NCHW at the CNN's
+    first layer's image size with 8 channels, dy expanded along N from one
+    image beside channels-last or NCHW x at the same size, or
+    channels-last x and dy one element past a 16-byte boundary at the
+    second layer."""
+    shape = (2, 64, 32, 11) if case == "unaligned" else (2, 8, 64, 22)
+    d = bn_inputs(shape, seed=7, dtype=dtype,
+                  channels_last=case in ("expanded_dy", "unaligned"))
+    if case.startswith("expanded_dy"):
+        rng = np.random.default_rng(8)
+        fmt = (torch.channels_last if case == "expanded_dy"
+               else torch.contiguous_format)
+        d["dy"] = torch.from_numpy(rng.normal(0.0, 1.0, (1, *shape[1:]))
+                                   .astype(np.float32)).to(dtype).contiguous(
+            memory_format=fmt).expand(shape)
+    elif case == "unaligned":
+        for k in ("x", "dy"):
+            t = d[k]
+            base = torch.empty(t.numel() + 1, dtype=dtype)
+            view = base[1:].as_strided(t.shape, t.stride())
+            view.copy_(t)
+            assert view.data_ptr() % 16 != 0
+            d[k] = view
+    return d
+
+
+@pytest.mark.parametrize("case", BN_LAYOUT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_kernels_emulated_other_layouts(libs, case, dtype):
+    """K13 off the rows map's 16-byte route (`bn_layout_case`):
+    contiguous NCHW (2, 8, 64, 22) (the runs map, 16-byte loads along
+    1,408 positions); an incoming gradient expanded from one image (1, C,
+    H, W), stride 0 along N, at the same shape: beside channels-last x
+    the backward kernels take the runs map, one element a load, beside
+    NCHW x the runs map's 16-byte loads; and channels-last tensors one
+    element past a 16-byte boundary at the second layer (2, 64, 32, 11)
+    (the rows map, one element a load, 64 channels over two warps'
+    lanes). `check_bn_runs` on an emulated card of 2 SMs."""
+    d = bn_layout_case(case, dtype)
+    with emulated_sms(libs, 2, "batchnorm_train"):
+        check_bn_runs(libs, d, dtype)
 
 
 def test_batchnorm_layout_refusals():
@@ -3004,15 +3237,26 @@ def test_batchnorm_layout_refusals():
 
 
 def test_batchnorm_splits(libs):
-    """gat_bn_splits: the NCHW map splits a channel once its positions pass
-    what one block covers, the channels-last map by rows of 256 / C
-    channels, both at most 264 blocks; channels-last with C not dividing
-    256 is refused (-1)."""
+    """gat_bn_splits sizes the grid to the card (`bn_splits_rule`): the
+    rows map's blocks, or the runs map's splits of each channel, follow the
+    rule at 4 and 132 emulated SMs for the shipped CNN's three layers at a
+    step of 32 clips, both dtypes, with and without the summing kernels'
+    cap; on the card's 132 SMs and 8 resident blocks the bfloat16 layers
+    take 176, 132 and 132 blocks in the elementwise kernels (every SM,
+    where the first design took 176, 88 and 40) and 176, 128 and 64 in the
+    two that sum; channels-last with C not dividing 256 is refused (-1)."""
     fn = _fn(libs["batchnorm_train"], "gat_bn_splits",
-             [ctypes.c_int, ctypes.c_longlong, ctypes.c_int])
-    # the shipped CNN's three layers at a step of 32 clips
-    for c, m in ((32, 45056), (64, 11264), (128, 2560)):
-        nchw, last = fn(c, m, 0), fn(c, m, 1)
-        assert 1 <= nchw * c <= 264 + c and 1 <= last <= 264
-    assert fn(3, 1000, 1) == -1 and fn(3, 1000, 0) == 1
-    assert fn(4, 9216, 0) == 2 and fn(4, 9216, 1) == 5
+             [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3)
+    layers = ((32, 45056), (64, 11264), (128, 2560))
+    for sms in (4, 132):
+        with emulated_sms(libs, sms, "batchnorm_train"):
+            for c, m in layers + ((3, 9000),):
+                for last, bf16, sums in itertools.product((0, 1), repeat=3):
+                    if last and c == 3:
+                        continue
+                    assert fn(c, m, last, bf16, sums) == bn_splits_rule(
+                        c, m, last, bf16, sms, 1, sums)
+            assert fn(3, 1000, 1, 0, 0) == -1 and fn(3, 1000, 0, 0, 1) >= 1
+            assert fn(4, 0, 0, 0, 0) == -1
+    assert [[bn_splits_rule(c, m, True, 1, 132, 8, sums) for c, m in layers]
+            for sums in (False, True)] == [[176, 132, 132], [176, 128, 64]]

@@ -740,6 +740,25 @@ def test_onset_timing_tool_times_training(monkeypatch):
     assert timing.main(["torch_onset_timing.py", str(REPO), "train"]) == 1
 
 
+def test_onset_timing_tool_times_k12_and_k13(monkeypatch):
+    """`tools/torch_onset_timing.py TREE batchnorm clip_adamw` runs
+    chip_smoke's `time_bn` (K13 at the CNN's three layers) and
+    `time_clip_adamw` (K12 at both models' parameter counts), so a parent
+    tree is timed in turns with this one; both exit 1 without a card."""
+    timing = _tool("torch_onset_timing")
+    assert timing.TIMINGS["batchnorm"] == ("batchnorm_train", "time_bn")
+    assert timing.TIMINGS["clip_adamw"] == ("clip_adamw", "time_clip_adamw")
+    spec = importlib.util.spec_from_file_location("_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for _, fn in timing.TIMINGS.values():
+        assert callable(getattr(smoke, fn))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("batchnorm", "clip_adamw"):
+        assert timing.main(["torch_onset_timing.py", str(REPO), name]) == 1
+
+
 def test_k11_to_k13_costs_count_each_byte_once():
     """K11-K13's bounds: K11 reads the logits and labels once and writes
     the loss, the count and (where asked) the gradient and argmaxes; K12's

@@ -11,11 +11,13 @@ same calls); with `compact`, the file body's clip-budget compaction
 stage in situ at the serving wave, and (where the checkout has K10) K10
 at the `[compact]` cases; with `train`, the steady-state training epoch
 of the shipped MLP and bf16 CNN at `[train]`'s sizes, with the host time
-and the CUDA runtime's launches of a step.
+and the CUDA runtime's launches of a step; with `batchnorm`, the
+train-mode BatchNorm K13 at the shipped CNN's three layers; with
+`clip_adamw`, the clip and AdamW K12 at both models' parameter counts.
 
     python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip] [gate]
                                              [slice] [resample] [compact]
-                                             [train]
+                                             [train] [batchnorm] [clip_adamw]
 
 TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
 another commit unpacked with `git archive`; its kernels are built there.
@@ -39,7 +41,11 @@ wave under the profiler, the `compaction` stage's device ms and kernels
 and the body's synchronising calls, then K10 against its plain twins at
 `compact_data`'s cases; `time_train`: 601 training and 151 validation
 examples of random features, batch 32, two warm epochs, then the median
-of three, and `step_launches` over ten steps), so two
+of three, and `step_launches` over ten steps; `time_bn`: K13 forward and backward
+at (32, 32, 64, 22), (32, 64, 32, 11) and (32, 128, 16, 5) in bfloat16
+and float32, device ms per kernel and layer, with the grid where the
+checkout reports it; `time_clip_adamw`: K12's two passes at 629,743 and
+20,143 parameters, device ms per pass), so two
 checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
@@ -59,7 +65,9 @@ TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
            "slice": ("slice_clips", "time_slice"),
            "resample": ("resample", "time_resample"),
            "compact": ("wave_compact", "time_compact"),
-           "train": ("train_step", "time_train")}
+           "train": ("train_step", "time_train"),
+           "batchnorm": ("batchnorm_train", "time_bn"),
+           "clip_adamw": ("clip_adamw", "time_clip_adamw")}
 
 
 def main(argv: list[str]) -> int:
@@ -101,7 +109,7 @@ def main(argv: list[str]) -> int:
             args = (slicing, dev)
         elif n == "resample":
             args = (resample, dev)
-        elif n in ("compact", "train"):
+        elif n in ("compact", "train", "batchnorm", "clip_adamw"):
             args = (dev,)
         else:
             args = (onset, dev)
