@@ -1718,9 +1718,16 @@ def time_compact_cases(compaction, dev, failures: list,
         def scatter_plain(p):
             return compaction.wave_scatter_plain(p, parts)
         widths = 3 * COMPACT_CLASSES + 1
+        grid = (list(compaction.compact_grid(files, k, dev))
+                if hasattr(compaction, "compact_grid") else None)
+        if grid is not None and world == 1:
+            log(f"[occupancy] wave_compact at {files} x {k} slots: select "
+                f"{grid[0]} tile(s), one block of {grid[1]} threads; "
+                f"scatter {grid[2]} blocks of 256 threads over the slots, "
+                f"{grid[3]} resident a SM")
         row = dict(case=tag, files=files, slots=k, budget=budget,
                    world=world, n_local=local, n_kept=int(kept.sum()),
-                   n_sel=n_sel0, launches=launched, checked=ok,
+                   n_sel=n_sel0, launches=launched, checked=ok, grid=grid,
                    select_ms=time_ms(select, pool, reps=20),
                    scatter_ms=time_ms(scatter, pos_pool, reps=20),
                    select_plain_ms=time_ms(select_plain, pool, reps=5),
@@ -1851,7 +1858,7 @@ def compact_phase(failures: list, device: str = "cuda") -> list[dict]:
                   replaces="gat_tpu/infer/pipeline.py:171", launches=0,
                   max_abs_err=0.0 if all(c["checked"] for c in cases)
                   else None, tolerance=tolerance, library_ms=None,
-                  plain_device_ms=wave["plain_device_ms"])
+                  plain_device_ms=wave["plain_device_ms"], grid=wave["grid"])
     # every case's and the stage's numbers (both kernels') once, in the
     # selection's row
     return [dict(name="wave_select", ms=wave["select_ms"],
@@ -2882,12 +2889,16 @@ def time_xent(dev, failures: list) -> dict:
     step (32 x 47: the loss and its gradient, through autograd) and at an
     eval chunk (65,536 x 47: the loss sum, the count and the argmaxes, no
     gradient): loss within 1e-5 relative, gradient within 1e-6 of its
-    largest value, counts and argmaxes equal; each timed in CUDA events
-    (the step's loss and gradient, `torch.autograd.grad`), the kernel's
-    device ms in the profiler, the plain version's ms, one
+    largest value, counts and argmaxes equal; a second run on the same
+    inputs the same bits (a failure where not); K11's launch (blocks,
+    resident blocks per SM, rows a tile, lanes a row, shared bytes) where
+    the checkout reports it; each timed in CUDA events (the step's loss
+    and gradient, `torch.autograd.grad`), the kernel's device ms and the
+    whole call's in the profiler, the plain version's ms, one
     `F.cross_entropy(label_smoothing=0.05)` forward and backward (at the
-    eval chunk its forward, reduction "sum") and the bound. Returns the
-    kernels-line row."""
+    eval chunk its forward, reduction "sum") in events and in device ms,
+    the bound and an empty kernel's launch (`empty_launch_ms`). Returns
+    the kernels-line row."""
     import torch
     import torch.nn.functional as F
     from gat_tpu_torch.ops import loss as loss_mod
@@ -2917,6 +2928,8 @@ def time_xent(dev, failures: list) -> dict:
                               ("eval", evals, EVAL_CHUNK, False)):
         pool = xent_pool(b, SEED + b, dev)
         got, ref = fns["kernel"](pool[0]), fns["plain"](pool[0])
+        again = fns["kernel"](pool[0])
+        same = all(bool(torch.equal(u, v)) for u, v in zip(got, again))
         counts = [int(loss_mod.softmax_xent(*pool[0], SMOOTHING, 1.0)[1]),
                   int(loss_mod.softmax_xent_plain(*pool[0], SMOOTHING)[1])]
         rel = float((got[0] - ref[0]).detach().abs() / ref[0].detach().abs())
@@ -2928,37 +2941,59 @@ def time_xent(dev, failures: list) -> dict:
             ok = bool(torch.equal(got[2], ref[2]))
         ok = ok and rel <= 1e-5 and counts[0] == counts[1]
         err = max(err, float((got[0] - ref[0]).abs()))
+        grid = (loss_mod.xent_grid(b, TRAIN_CLASSES, dev)
+                if hasattr(loss_mod, "xent_grid") else None)
+        if grid is not None:
+            log(f"[occupancy] softmax_xent at {b} x {TRAIN_CLASSES} ({tag}): "
+                f"{grid[0]} block(s) of 256 threads, {grid[1]} resident a "
+                f"SM, {grid[2]} rows a tile, {grid[3]} lane(s) a row, "
+                f"{grid[4]} shared bytes")
         cost = roofline.xent_cost(b, TRAIN_CLASSES, grad, preds=not grad)
         bound_ms, bound_by = roofline.bound(*cost)
         out[tag] = dict(
-            rows=b, max_abs_err=err, ms=time_ms(fns["kernel"], pool, 10),
+            rows=b, max_abs_err=err, deterministic=same,
+            grid=None if grid is None else list(grid),
+            ms=time_ms(fns["kernel"], pool, 10),
             device_ms=symbol_device_ms(fns["kernel"], pool, [
                 "softmax_xent_kernel"])["softmax_xent_kernel"],
+            call_device_ms=call_device_ms(fns["kernel"], pool),
             plain_ms=time_ms(fns["plain"], pool, 10),
             library_ms=time_ms(fns["library"], pool, 10),
+            library_device_ms=call_device_ms(fns["library"], pool),
             bound_ms=bound_ms, bound_by=bound_by)
         o = out[tag]
         log(f"[train] softmax_xent at {b} x {TRAIN_CLASSES} ({tag}): loss "
             f"rel err {rel:.3g} (1e-5), max abs err {err:.3g}, correct "
-            f"{counts}, {'gradient' if grad else 'argmaxes'} -> "
-            f"{'ok' if ok else 'FAIL'}; kernel {o['ms']:.4f} ms (events), "
-            f"{fmt_ms(o['device_ms'])} device, plain {o['plain_ms']:.4f} "
-            f"ms, F.cross_entropy {o['library_ms']:.4f} ms, bound "
+            f"{counts}, {'gradient' if grad else 'argmaxes'}, two runs the "
+            f"same bits {same} -> {'ok' if ok and same else 'FAIL'}; kernel "
+            f"{o['ms']:.4f} ms (events), {fmt_ms(o['device_ms'])} device "
+            f"({fmt_ms(o['call_device_ms'])} the whole call), plain "
+            f"{o['plain_ms']:.4f} ms, F.cross_entropy {o['library_ms']:.4f} "
+            f"ms (events), {fmt_ms(o['library_device_ms'])} device, bound "
             f"{bound_ms:.6f} ms ({bound_by})")
         if not ok:
             failures.append(f"[train] softmax_xent ({tag}) against its "
                             f"plain version")
+        if not same:
+            failures.append(f"[train] softmax_xent ({tag}): two runs differ")
         del pool
+    floor = empty_launch_ms()
+    log(f"[time] an empty kernel's launch: {fmt_ms(floor)} device")
     s = out["step"]
     return dict(name="softmax_xent", route="cuda",
                 source="gat_tpu_torch/csrc/softmax_xent.cu",
                 replaces="gat_tpu/train/trainer.py:250", launches=0,
                 max_abs_err=max(o["max_abs_err"] for o in out.values()),
                 tolerance="loss 1e-5 relative; gradient 1e-6 of its largest "
-                          "value; counts and argmaxes equal",
+                          "value; counts and argmaxes equal; two runs the "
+                          "same bits",
                 ms=s["ms"], device_ms=s["device_ms"], plain_ms=s["plain_ms"],
                 bound_ms=s["bound_ms"], bound_by=s["bound_by"],
-                library_ms=s["library_ms"], eval_chunk=out["eval"])
+                library_ms=s["library_ms"],
+                library_device_ms=s["library_device_ms"],
+                call_device_ms=s["call_device_ms"], grid=s["grid"],
+                deterministic=all(o["deterministic"] for o in out.values()),
+                empty_launch_ms=floor, eval_chunk=out["eval"])
 
 
 def model_params(kind: str) -> int:
@@ -3007,8 +3042,9 @@ def time_clip_adamw(dev, failures: list) -> list[dict]:
     has it), then each pass timed over POOL optimizers in CUDA
     events, its device ms, its plain version's ms, the library's (pass
     1: `torch._foreach_norm`; pass 2: the `_foreach_mul_` clip, the step
-    count's `_foreach_add_` and `torch._fused_adamw_`) and its bound, and
-    an empty kernel's launch (`empty_launch_ms`).
+    count's `_foreach_add_` and `torch._fused_adamw_`) in events and in
+    device ms (every kernel it launches), its bound, and an empty
+    kernel's launch (`empty_launch_ms`).
     Returns the two kernels-line rows (the CNN's numbers; the MLP's under
     `mlp`)."""
     import torch
@@ -3116,6 +3152,8 @@ def time_clip_adamw(dev, failures: list) -> list[dict]:
                      plain_ms=time_ms(plain, pool, 10),
                      library_ms=None if lib is None else time_ms(lib, pool,
                                                                  10),
+                     library_device_ms=None if lib is None
+                     else call_device_ms(lib, pool),
                      bound_ms=bound_ms, bound_by=bound_by,
                      max_abs_err=max(errs.values()))
             per[kind][name] = o
@@ -3123,8 +3161,9 @@ def time_clip_adamw(dev, failures: list) -> list[dict]:
                 f"{o['ms']:.4f} ms (events), {fmt_ms(o['device_ms'])} "
                 f"device, {o['host_us']:.1f} µs host a call, plain "
                 f"{o['plain_ms']:.4f} ms, library "
-                f"{fmt_ms(o['library_ms'])}, bound {bound_ms:.6f} ms "
-                f"({bound_by})")
+                f"{fmt_ms(o['library_ms'])} (events), "
+                f"{fmt_ms(o['library_device_ms'])} device, bound "
+                f"{bound_ms:.6f} ms ({bound_by})")
         del pool
         torch.cuda.synchronize()
     floor = empty_launch_ms()
@@ -3141,7 +3180,8 @@ def time_clip_adamw(dev, failures: list) -> list[dict]:
                       "buffer's largest value; count equal",
             ms=c["ms"], device_ms=c["device_ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-            library_ms=c["library_ms"], params=c["params"],
+            library_ms=c["library_ms"],
+            library_device_ms=c["library_device_ms"], params=c["params"],
             grid=c["grid"], blocks_per_sm=c["blocks_per_sm"],
             empty_launch_ms=floor,
             deterministic=all(per[k][name]["deterministic"] for k in per),

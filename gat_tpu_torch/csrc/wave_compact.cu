@@ -37,93 +37,166 @@
 // What bounds them: latency. The serving wave (4 files x 112 slots, budget
 // 384, 47 classes) moves under half a megabyte in all, 0.14 µs at the
 // card's 3.35 TB/s, so a launch and its few dependent steps are the time.
-// The design takes the least of those. The select is one block of 512
-// threads that walks the slot-major positions in tiles of 512 x `items`
-// positions, `items` consecutive positions a thread, as few as cover the
-// wave and at most 16 (the serving wave: one a thread; a 64-file wave of
-// 7,168 slots: 14 a thread, one tile). A thread finds its first
-// position's file and slot by one division and steps through the others,
-// loads its kept bits with the loads in flight together and counts them;
-// one block-wide exclusive scan of the threads' counts (warp shuffles, one
-// exchange of warp totals through shared memory) gives every position its
-// kb, and the counts carry from tile to tile. A wave of one tile is read
-// once for everything (its kept count is the scan's total); a longer one
-// is counted first, in memory order; under a mesh a pass more counts this
-// rank's picked kept slots. The scatter is one launch for all four
-// outputs, each part its own range of blocks sized to it, each thread four
-// output elements a block's width apart (32-bit index arithmetic), each
-// reading its row's pos and copying or writing 0. No library sort, scan or
-// scatter is called.
+// The design takes the least of those.
+//
+// The select is one block of 512 threads over tiles of the wave. A tile
+// is slots [s0, s0 + w) of files [f0, f0 + fc) whose slot-major positions
+// are one contiguous range: every file and as many slots as fill kTile
+// positions (fc = n_files), or, past kTile files, one slot of kTile files
+// (w = 1). A wave of at most kTile slots is one tile: its kept bytes are
+// read once, in memory order, by 16-byte loads into shared memory (448
+// bytes at the serving wave, 7,168 at 64 files); a longer one is counted
+// first in memory order the same way, then staged tile by tile, each row
+// segment by coalesced byte loads. In a tile:
+// - each warp takes a contiguous run of 32-position words in slot-major
+//   order; a lane finds its first position's file and slot by one
+//   division, then steps; `__ballot_sync` of the kept bits read from
+//   shared memory gives the words, `__popc` their counts;
+// - one block-wide exclusive scan of the warps' counts (warp 0's shuffle
+//   scan) gives every position its kb as the warp's prefix, its words
+//   before and `__popc` of its word under the lane mask; under a mesh a
+//   second scan counts the rank's picked kept and picked non-kept words;
+// - each position's row and kept byte go into shared memory in the
+//   tile's file-major order, sel is written in rank order (consecutive
+//   ranks from consecutive lanes), and a bit a file marks a lost kept
+//   slot (shared-memory atomicOr);
+// - pos and kept leave shared memory in file-major order, coalesced, and
+//   dropped / overflow / fixable are built from the file bits.
+// Under a mesh a wave of more than one tile takes a pass more that counts
+// this rank's picked kept slots before any row is written.
+//
+// The scatter works by output row: a warp a row, its pos read once (the
+// next row's read while this one is copied) and the row's C floats of
+// each part copied (or zeroed) by the warp's lanes, no division an
+// element, the pitch by lane 0; the four parts in one launch, a null part
+// skipped; the grid is the rows' warps, at most what the SMs hold at once
+// (8 blocks of 256 threads a SM by the launch bounds, as the CUDA
+// runtime reports them), the warps striding over the rows. No library
+// sort, scan or scatter is called.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <mutex>
 
 constexpr int kSelectThreads = 512;  // one block
 constexpr int kSelectWarps = kSelectThreads / 32;
-constexpr int kItems = 16;           // consecutive positions a thread, at most
-constexpr int kTile = kSelectThreads * kItems;
+constexpr int kTile = 8192;           // slot-major positions a tile
+constexpr int kTileWords = kTile / 32;
 constexpr int kScatterThreads = 256;
-constexpr int kScatterItems = 4;     // output elements a thread
-constexpr int kScatterBlock = kScatterThreads * kScatterItems;
+constexpr int kScatterWarps = kScatterThreads / 32;
+constexpr int kScatterBlocksPerSm = 8;  // a warp a row: 8,448 rows at once
+constexpr unsigned kFull = 0xffffffffu;
 
-// Exclusive prefix sums in thread order of N counts a thread over the
-// block (`before`) and their totals (`total`). Every thread of the block
-// calls it; `sums` is shared memory of N x kSelectWarps ints.
-template <int N>
-__device__ __forceinline__ void block_scan(const int (&v)[N],
-                                           int (&before)[N],
-                                           int (&total)[N],
-                                           int (*sums)[kSelectWarps]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc[N];
-  for (int i = 0; i < N; ++i) {
-    inc[i] = v[i];
-    for (int d = 1; d < 32; d <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, inc[i], d);
-      if (lane >= d) inc[i] += u;
-    }
-    if (lane == 31) sums[i][warp] = inc[i];
-  }
-  __syncthreads();
-  for (int i = 0; i < N; ++i) {
-    int b = inc[i] - v[i], t = 0;
-    for (int w = 0; w < kSelectWarps; ++w) {
-      const int s = sums[i][w];
-      b += w < warp ? s : 0;
-      t += s;
-    }
-    before[i] = b;
-    total[i] = t;
-  }
-  __syncthreads();  // sums are free for the next call
+// A tile of the wave (see the top of this file): slots [s0, s0 + w) of
+// files [f0, f0 + fc), its n = w·fc positions the slot-major range from p0.
+struct Tile {
+  int s0, w, f0, fc, n, p0;
+};
+
+__host__ __device__ inline int tile_width(int n_files, int k) {
+  return kTile / n_files < k ? kTile / n_files : k;
 }
 
-// A thread's walk over its `items` slot-major positions from p0 on:
-// position p is file p % n_files, slot p / n_files, found once by a
-// division and then stepped.
-struct Walk {
-  int f, s, n_files;
-  __device__ Walk(int p0, int n) : f(p0 % n), s(p0 / n), n_files(n) {}
+__host__ __device__ inline int tile_count(int n_files, int k) {
+  if (n_files <= kTile) {
+    const int w = tile_width(n_files, k);
+    return (k + w - 1) / w;
+  }
+  return k * ((n_files + kTile - 1) / kTile);
+}
+
+__device__ inline Tile tile_at(int i, int n_files, int k) {
+  Tile t;
+  if (n_files <= kTile) {
+    const int w = tile_width(n_files, k);
+    t.s0 = i * w;
+    t.w = k - t.s0 < w ? k - t.s0 : w;
+    t.f0 = 0;
+    t.fc = n_files;
+  } else {
+    const int chunks = (n_files + kTile - 1) / kTile;
+    t.s0 = i / chunks;
+    t.w = 1;
+    t.f0 = (i - t.s0 * chunks) * kTile;
+    t.fc = n_files - t.f0 < kTile ? n_files - t.f0 : kTile;
+  }
+  t.n = t.w * t.fc;
+  t.p0 = t.s0 * n_files + t.f0;
+  return t;
+}
+
+// Index i = major·width + minor, found by one division and stepped by d.
+struct Step {
+  int major, minor, width, d_major, d_minor;
+  __device__ Step(int i, int width_, int d) : width(width_) {
+    major = i / width;
+    minor = i - major * width;
+    d_major = d / width;
+    d_minor = d - d_major * width;
+  }
   __device__ void next() {
-    if (++f == n_files) {
-      f = 0;
-      ++s;
+    minor += d_minor;
+    major += d_major;
+    if (minor >= width) {
+      minor -= width;
+      ++major;
     }
   }
 };
 
-// The kept bits of a thread's positions (0 past the wave) as the bits of
-// one word; the loads are independent, so they are in flight together.
-__device__ __forceinline__ unsigned thread_bits(
-    const unsigned char* __restrict__ kept_all, int p0, int items, int total,
-    int n_files, int k) {
-  unsigned bits = 0;
-  Walk w(p0, n_files);
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (j < items && p0 + j < total && kept_all[w.f * k + w.s] != 0)
-      bits |= 1u << j;
-    w.next();
+// The tile's kept bytes into shared memory in its file-major order (file
+// f0 + e / w, slot s0 + e % w at e): whole rows are one range in memory
+// order, read by 16-byte loads where it starts on 16 bytes; row segments
+// by coalesced byte loads.
+__device__ __forceinline__ void stage(const unsigned char* __restrict__ kept_all,
+                                      const Tile& tl, int k,
+                                      unsigned char* bits) {
+  const int t = threadIdx.x;
+  if (tl.w == k) {
+    const unsigned char* src = kept_all + (long long)tl.f0 * k;
+    int i0 = 0;
+    if (((uintptr_t)src & 15u) == 0) {
+      for (int i = t; i < tl.n >> 4; i += kSelectThreads)
+        reinterpret_cast<uint4*>(bits)[i] =
+            __ldg(reinterpret_cast<const uint4*>(src) + i);
+      i0 = tl.n & ~15;
+    }
+    for (int i = i0 + t; i < tl.n; i += kSelectThreads) bits[i] = src[i];
+  } else {
+    Step e(t, tl.w, kSelectThreads);
+    for (int i = t; i < tl.n; i += kSelectThreads, e.next())
+      bits[i] = kept_all[(long long)(tl.f0 + e.major) * k + tl.s0 + e.minor];
   }
-  return bits;
+}
+
+// The block's exclusive scan of N counts a warp (lane 0's v, warps in
+// order): this warp's prefixes in `before`, the totals in `total`. Every
+// thread calls it; each scan of a tile has its own rows of s_scan.
+template <int N>
+__device__ __forceinline__ void warp_scan(const int (&v)[N],
+                                          int (*s_scan)[kSelectWarps],
+                                          int* s_total, int (&before)[N],
+                                          int (&total)[N]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0)
+    for (int j = 0; j < N; ++j) s_scan[j][warp] = v[j];
+  __syncthreads();
+  if (warp == 0)
+    for (int j = 0; j < N; ++j) {
+      const int x = lane < kSelectWarps ? s_scan[j][lane] : 0;
+      int inc = x;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(kFull, inc, d);
+        if (lane >= d) inc += u;
+      }
+      if (lane < kSelectWarps) s_scan[j][lane] = inc - x;
+      if (lane == 31) s_total[j] = inc;
+    }
+  __syncthreads();
+  for (int j = 0; j < N; ++j) {
+    before[j] = s_scan[j][warp];
+    total[j] = s_total[j];
+  }
 }
 
 __global__ void __launch_bounds__(kSelectThreads) wave_select_kernel(
@@ -133,138 +206,274 @@ __global__ void __launch_bounds__(kSelectThreads) wave_select_kernel(
     int* __restrict__ pos, unsigned char* __restrict__ kept,
     unsigned char* __restrict__ dropped, unsigned char* __restrict__ overflow,
     unsigned char* __restrict__ fixable, int* __restrict__ n_sel,
-    int n_files, int k, int budget, int first, int n_local, int items) {
-  __shared__ int sums[2][kSelectWarps];
-  const int t = threadIdx.x;
-  const int total = n_files * k;
-  const int tile_len = kSelectThreads * items;
-  const bool one_tile = total <= tile_len;
+    int n_files, int k, int budget, int first, int n_local) {
+  __shared__ uint4 s_bits4[kTile / 16];  // kept bits, then kept & picked
+  __shared__ int s_row[kTile];           // rows, -1: not picked
+  __shared__ unsigned s_word[kTileWords], s_lk[kTileWords], s_ln[kTileWords];
+  __shared__ unsigned s_drop[kTileWords];  // a bit a file of the tile
+  __shared__ int s_scan[3][kSelectWarps];
+  __shared__ int s_total[3];
+  unsigned char* bits = reinterpret_cast<unsigned char*>(s_bits4);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+  const int total = n_files * k, tiles = tile_count(n_files, k);
   const bool whole = first == 0 && n_local == n_files;
-  for (int f = t; f < n_local; f += kSelectThreads) dropped[f] = 0;
-
-  // the wave's kept count, read in memory order (one tile: the scans
-  // below count it)
-  int n_kept = 0;
-  for (int base = 0; !one_tile && base < total; base += tile_len) {
-    int count[1] = {0}, before[1], tile[1];
-    for (int j = 0; j < items; ++j) {
-      const int i = base + j * kSelectThreads + t;
-      count[0] += i < total && kept_all[i] != 0;
-    }
-    block_scan<1>(count, before, tile, sums);
-    n_kept += tile[0];
-  }
-
-  // a position with kb kept bits before it is picked when its rank in the
-  // stable partition is below the budget
-  const auto picked = [&](int p, int kb, bool is_kept) {
-    return (is_kept ? kb : n_kept + (p - kb)) < budget;
-  };
+  const bool chunked = n_files > kTile;  // a tile holds part of the files
   const auto local = [&](int f) { return f >= first && f < first + n_local; };
+  for (int i = t; i < kTileWords; i += kSelectThreads) s_drop[i] = 0;
+  if (chunked)
+    for (int f = t; f < n_local; f += kSelectThreads) dropped[f] = 0;
 
-  // this rank's picked kept slots: all the picked kept ones on one device
-  int local_kept = -1;
-  if (!whole) {
-    local_kept = 0;
-    int carry = 0;  // kept bits before the tile
-    for (int base = 0; base < total; base += tile_len) {
-      const int p0 = base + t * items;
-      const unsigned bits = thread_bits(kept_all, p0, items, total, n_files,
-                                        k);
-      int count[1] = {__popc(bits)}, before[1], tile[1];
-      block_scan<1>(count, before, tile, sums);
-      if (one_tile) n_kept = tile[0];
-      int kb = carry + before[0], lk[1] = {0}, lk_before[1], lk_tile[1];
-      Walk w(p0, n_files);
-      for (int j = 0; j < items && p0 + j < total; ++j, w.next()) {
-        const bool is_kept = bits >> j & 1u;
-        lk[0] += is_kept && picked(p0 + j, kb, true) && local(w.f);
-        kb += is_kept;
+  // the wave's kept count: one tile's scan counts it; past one tile it is
+  // read first, in memory order (bytes 0 or 1)
+  int n_kept = 0;
+  if (tiles > 1) {
+    int cnt = 0, i0 = 0;
+    if (((uintptr_t)kept_all & 15u) == 0) {
+      const uint4* v = reinterpret_cast<const uint4*>(kept_all);
+      for (int i = t; i < total >> 4; i += kSelectThreads) {
+        const uint4 q = __ldg(v + i);
+        cnt += __popc(q.x & 0x01010101u) + __popc(q.y & 0x01010101u) +
+               __popc(q.z & 0x01010101u) + __popc(q.w & 0x01010101u);
       }
-      block_scan<1>(lk, lk_before, lk_tile, sums);
-      local_kept += lk_tile[0];
-      carry += tile[0];
+      i0 = total & ~15;
     }
+    for (int i = i0 + t; i < total; i += kSelectThreads)
+      cnt += kept_all[i] != 0;
+    for (int d = 16; d > 0; d >>= 1) cnt += __shfl_xor_sync(kFull, cnt, d);
+    int v[1] = {cnt}, before[1], tot[1];
+    warp_scan<1>(v, s_scan, s_total, before, tot);
+    n_kept = tot[0];
   }
 
-  // every output, tile by tile: this rank's row of a picked slot is its
-  // count of picked kept slots before it, or past them its count of
-  // picked non-kept ones
-  int carry_k = 0, carry_lk = 0, carry_ln = 0;
-  for (int base = 0; base < total; base += tile_len) {
-    const int p0 = base + t * items;
-    const unsigned bits = thread_bits(kept_all, p0, items, total, n_files,
-                                      k);
-    int count[1] = {__popc(bits)}, before[1], tile[1];
-    block_scan<1>(count, before, tile, sums);
-    if (one_tile) n_kept = tile[0];
-    if (local_kept < 0) local_kept = n_kept < budget ? n_kept : budget;
-    unsigned lk_bits = 0, ln_bits = 0;
-    int kb = carry_k + before[0];
-    Walk w(p0, n_files);
-    for (int j = 0; j < items && p0 + j < total; ++j, w.next()) {
-      const bool is_kept = bits >> j & 1u;
-      if (picked(p0 + j, kb, is_kept) && local(w.f))
-        (is_kept ? lk_bits : ln_bits) |= 1u << j;
-      kb += is_kept;
+  // this rank's picked kept slots (under a mesh), ahead of its non-kept
+  // rows; past one tile a first pass counts them
+  int local_kept = 0, carry_ln = 0;
+  for (int pass = !whole && tiles > 1 ? 0 : 1; pass < 2; ++pass) {
+    int carry = 0, carry_lk = 0;  // the counts before the tile
+    carry_ln = 0;
+    for (int ti = 0; ti < tiles; ++ti) {
+      const Tile tl = tile_at(ti, n_files, k);
+      stage(kept_all, tl, k, bits);
+      __syncthreads();
+      // words of 32 slot-major positions, a contiguous run a warp; a
+      // lane's position is (slot major, file minor) of the tile
+      const int words = (tl.n + 31) >> 5;
+      const int per = (words + kSelectWarps - 1) / kSelectWarps;
+      const int w0 = warp * per, w1 = w0 + per < words ? w0 + per : words;
+      int cnt = 0;
+      {
+        Step q(w0 * 32 + lane, tl.fc, 32);
+        for (int wd = w0; wd < w1; ++wd, q.next()) {
+          const unsigned word = __ballot_sync(
+              kFull, wd * 32 + lane < tl.n &&
+                         bits[q.minor * tl.w + q.major] != 0);
+          if (lane == 0) s_word[wd] = word;
+          cnt += __popc(word);
+        }
+      }
+      int v1[1] = {cnt}, kb_before[1], kb_tile[1];
+      warp_scan<1>(v1, s_scan, s_total, kb_before, kb_tile);
+      if (tiles == 1) n_kept = kb_tile[0];
+      // under a mesh: this rank's picked kept and picked non-kept words
+      int lk_before = 0, ln_before = 0, lk_tile = 0, ln_tile = 0;
+      if (!whole) {
+        Step q(w0 * 32 + lane, tl.fc, 32);
+        int kb = carry + kb_before[0], ck = 0, cn = 0;
+        for (int wd = w0; wd < w1; ++wd, q.next()) {
+          const unsigned word = s_word[wd];
+          const int at = wd * 32 + lane, kbl = kb + __popc(word & lt);
+          const bool b = word >> lane & 1u;
+          const bool mine = at < tl.n && local(tl.f0 + q.minor) &&
+                            (b ? kbl : n_kept + (tl.p0 + at - kbl)) < budget;
+          const unsigned lk = __ballot_sync(kFull, mine && b);
+          const unsigned ln = __ballot_sync(kFull, mine && !b);
+          if (lane == 0) {
+            s_lk[wd] = lk;
+            s_ln[wd] = ln;
+          }
+          ck += __popc(lk);
+          cn += __popc(ln);
+          kb += __popc(word);
+        }
+        int v2[2] = {ck, cn}, b2[2], t2[2];
+        warp_scan<2>(v2, s_scan + 1, s_total + 1, b2, t2);
+        lk_before = b2[0];
+        ln_before = b2[1];
+        lk_tile = t2[0];
+        ln_tile = t2[1];
+        if (tiles == 1) local_kept = lk_tile;
+      }
+      if (pass == 0) {
+        local_kept += lk_tile;
+        carry += kb_tile[0];
+        continue;
+      }
+      // every position's row and kept byte into the tile's file-major
+      // order; sel in rank order
+      {
+        Step q(w0 * 32 + lane, tl.fc, 32);
+        int kb = carry + kb_before[0];
+        int rk = carry_lk + lk_before, rn = local_kept + carry_ln + ln_before;
+        for (int wd = w0; wd < w1; ++wd, q.next()) {
+          const unsigned word = s_word[wd];
+          const int at = wd * 32 + lane, kbl = kb + __popc(word & lt);
+          const bool b = word >> lane & 1u;
+          int row;
+          if (whole) {
+            const int r = b ? kbl : n_kept + (tl.p0 + at - kbl);
+            row = r < budget ? r : -1;
+          } else {
+            const unsigned lk = s_lk[wd], ln = s_ln[wd];
+            row = lk >> lane & 1u   ? rk + __popc(lk & lt)
+                  : ln >> lane & 1u ? rn + __popc(ln & lt)
+                                    : -1;
+            rk += __popc(lk);
+            rn += __popc(ln);
+          }
+          kb += __popc(word);
+          if (at >= tl.n) continue;
+          const int e = q.minor * tl.w + q.major;
+          s_row[e] = row;
+          bits[e] = b && row >= 0;
+          if (b && row < 0) atomicOr(&s_drop[q.minor >> 5], 1u << (q.minor & 31));
+          if (row >= 0) sel[row] = (tl.f0 + q.minor - first) * k + tl.s0 + q.major;
+        }
+      }
+      __syncthreads();
+      // pos and kept of this rank's files, file-major, coalesced
+      if (tl.w == k) {  // whole rows: this rank's files are one range
+        const int lo = first > tl.f0 ? (first - tl.f0) * k : 0;
+        const int end = (first + n_local - tl.f0) * k;
+        const int hi = end < tl.n ? end : tl.n;
+        const long long out = (long long)(tl.f0 - first) * k;
+        for (int e = lo + t; e < hi; e += kSelectThreads) {
+          pos[out + e] = s_row[e];
+          kept[out + e] = bits[e];
+        }
+      } else {
+        Step r(t, tl.w, kSelectThreads);
+        for (int e = t; e < tl.n; e += kSelectThreads, r.next()) {
+          const int f = tl.f0 + r.major;
+          if (!local(f)) continue;
+          const long long out = (long long)(f - first) * k + tl.s0 + r.minor;
+          pos[out] = s_row[e];
+          kept[out] = bits[e];
+        }
+      }
+      if (chunked) {  // the tile's file bits, to this rank's dropped
+        for (int fl = t; fl < tl.fc; fl += kSelectThreads)
+          if (local(tl.f0 + fl) && (s_drop[fl >> 5] >> (fl & 31) & 1u))
+            dropped[tl.f0 + fl - first] = 1;
+        __syncthreads();
+        for (int i = t; i < kTileWords; i += kSelectThreads) s_drop[i] = 0;
+      }
+      carry += kb_tile[0];
+      carry_lk += lk_tile;
+      carry_ln += ln_tile;
+      __syncthreads();  // the tile's shared memory is free
     }
-    int mine[2] = {__popc(lk_bits), __popc(ln_bits)}, mine_before[2],
-        mine_tile[2];
-    block_scan<2>(mine, mine_before, mine_tile, sums);
-    int row_k = carry_lk + mine_before[0];
-    int row_n = local_kept + carry_ln + mine_before[1];
-    w = Walk(p0, n_files);
-    for (int j = 0; j < items && p0 + j < total; ++j, w.next()) {
-      if (!local(w.f)) continue;
-      const int f = w.f - first;
-      const int at = f * k + w.s;
-      const bool is_lk = lk_bits >> j & 1u, is_ln = ln_bits >> j & 1u;
-      const int row = is_lk ? row_k++ : is_ln ? row_n++ : -1;
-      pos[at] = row;
-      kept[at] = is_lk;
-      if (row >= 0) sel[row] = at;
-      if ((bits >> j & 1u) && !is_lk) dropped[f] = 1;
-    }
-    carry_k += tile[0];
-    carry_lk += mine_tile[0];
-    carry_ln += mine_tile[1];
   }
-  __syncthreads();  // every dropped bit is written
+  __syncthreads();  // every file bit (or dropped byte) is set
   for (int f = t; f < n_local; f += kSelectThreads) {
-    overflow[f] = overflow_in[f] | dropped[f];
-    fixable[f] = fixable_in[f] | dropped[f];
+    const int fl = f + first;
+    const unsigned char d =
+        chunked ? dropped[f] : (unsigned char)(s_drop[fl >> 5] >> (fl & 31) & 1u);
+    if (!chunked) dropped[f] = d;
+    overflow[f] = overflow_in[f] | d;
+    fixable[f] = fixable_in[f] | d;
   }
-  if (t == 0) n_sel[0] = local_kept + carry_ln;
+  if (t == 0) n_sel[0] = whole ? (budget < total ? budget : total)
+                               : local_kept + carry_ln;
 }
 
-// Blocks [0, end0) write the blend, [end0, end1) the MLP's, [end1, end2)
-// the CNN's probs and [end2, gridDim) the pitch; a part given as null has
-// no blocks.
-__global__ void __launch_bounds__(kScatterThreads) wave_scatter_kernel(
-    const int* __restrict__ pos, const float* __restrict__ probs_c,
-    const float* __restrict__ mlp_c, const float* __restrict__ cnn_c,
-    const float* __restrict__ pitch_c, float* __restrict__ probs,
-    float* __restrict__ mlp, float* __restrict__ cnn,
-    float* __restrict__ pitch, int n, int c, int end0, int end1, int end2) {
-  const int b = blockIdx.x;
-  const float* __restrict__ src = b < end0 ? probs_c
-                                  : b < end1 ? mlp_c
-                                  : b < end2 ? cnn_c : pitch_c;
-  float* __restrict__ dst = b < end0 ? probs
-                            : b < end1 ? mlp : b < end2 ? cnn : pitch;
-  const int first = b < end0 ? 0 : b < end1 ? end0 : b < end2 ? end1 : end2;
-  const int width = b < end2 ? c : 1;
-  const int n_el = n * width;
-  const int e0 = (b - first) * kScatterBlock + threadIdx.x;
-#pragma unroll
-  for (int q = 0; q < kScatterItems; ++q) {
-    const int e = e0 + q * kScatterThreads;
-    if (e < n_el) {
-      const int i = e / width;
-      const int row = pos[i];
-      dst[e] = row >= 0 ? src[row * width + (e - i * width)] : 0.0f;
+// A warp an output row: its pos read once, the row's c floats of each
+// part copied from the compact row or zeroed, the pitch by lane 0; a null
+// part is skipped. The warps stride over the n rows.
+__global__ void __launch_bounds__(kScatterThreads, kScatterBlocksPerSm)
+    wave_scatter_kernel(const int* __restrict__ pos,
+                        const float* __restrict__ probs_c,
+                        const float* __restrict__ mlp_c,
+                        const float* __restrict__ cnn_c,
+                        const float* __restrict__ pitch_c,
+                        float* __restrict__ probs, float* __restrict__ mlp,
+                        float* __restrict__ cnn, float* __restrict__ pitch,
+                        int n, int c) {
+  const int lane = threadIdx.x & 31;
+  const int warps = (int)gridDim.x * kScatterWarps;
+  int i = blockIdx.x * kScatterWarps + (threadIdx.x >> 5);
+  int row = i < n ? __ldg(pos + i) : -1;
+  for (; i < n; i += warps) {
+    // the warp's next row's pos is in flight while this row is copied
+    const int next = i + warps < n ? __ldg(pos + i + warps) : -1;
+    const bool hit = row >= 0;
+    const long long src = (long long)(hit ? row : 0) * c,
+                    dst = (long long)i * c;
+    for (int j = lane; j < c; j += 32) {
+      if (probs_c != nullptr)
+        probs[dst + j] = hit ? __ldg(probs_c + src + j) : 0.0f;
+      if (mlp_c != nullptr) mlp[dst + j] = hit ? __ldg(mlp_c + src + j) : 0.0f;
+      if (cnn_c != nullptr) cnn[dst + j] = hit ? __ldg(cnn_c + src + j) : 0.0f;
     }
+    if (pitch_c != nullptr && lane == 0)
+      pitch[i] = hit ? __ldg(pitch_c + row) : 0.0f;
+    row = next;
   }
+}
+
+static std::mutex occupancy_lock;
+
+// The scatter's resident blocks per SM (remembered per device) and the
+// SMs of the current device.
+static int scatter_occupancy(int* per_sm, int* sms) {
+  struct Entry {
+    int device, per_sm;
+  };
+  static Entry seen[16];
+  static int n_seen = 0;
+  int device = 0;
+  int err = (int)cudaGetDevice(&device);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                      device);
+  if (err) return err;
+  std::lock_guard<std::mutex> guard(occupancy_lock);
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].device == device) {
+      *per_sm = seen[i].per_sm;
+      return 0;
+    }
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, wave_scatter_kernel, kScatterThreads, 0);
+  if (err) return err;
+  if (*per_sm < 1) *per_sm = 1;
+  if (n_seen < 16) seen[n_seen++] = {device, *per_sm};
+  return 0;
+}
+
+// The scatter's blocks over n rows: a warp a row, at most what the SMs
+// hold at once.
+static int scatter_blocks(int n, int per_sm, int sms) {
+  const long long need = ((long long)n + kScatterWarps - 1) / kScatterWarps;
+  const long long most = (long long)per_sm * sms;
+  return (int)(need < most ? need : most);
+}
+
+// K10's launches over a wave of n_files x K slots on the current device:
+// out[0] the selection's tiles, out[1] its threads (one block), out[2] the
+// scatter's blocks over the n_files·K rows and out[3] its resident blocks
+// per SM.
+extern "C" int gat_wave_compact_grid(int n_files, int k, int* out) {
+  if (n_files < 1 || k < 1 || (long long)n_files * k > 0x7fffffff - kTile)
+    return (int)cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  const int err = scatter_occupancy(&per_sm, &sms);
+  if (err) return err;
+  out[0] = tile_count(n_files, k);
+  out[1] = kSelectThreads;
+  out[2] = scatter_blocks(n_files * k, per_sm, sms);
+  out[3] = per_sm;
+  return 0;
 }
 
 // The compaction's selection of one wave (see the top of this file). sel
@@ -284,12 +493,9 @@ extern "C" int gat_wave_select(const unsigned char* kept_all,
       first + n_local > n_files ||
       (long long)n_files * k > 0x7fffffff - kTile)
     return (int)cudaErrorInvalidValue;
-  const int total = n_files * k;
-  const int per_thread = (total + kSelectThreads - 1) / kSelectThreads;
-  const int items = per_thread < kItems ? per_thread : kItems;
   wave_select_kernel<<<1, kSelectThreads, 0, (cudaStream_t)stream>>>(
       kept_all, overflow_in, fixable_in, sel, pos, kept, dropped, overflow,
-      fixable, n_sel, n_files, k, budget, first, n_local, items);
+      fixable, n_sel, n_files, k, budget, first, n_local);
   return (int)cudaGetLastError();
 }
 
@@ -302,18 +508,15 @@ extern "C" int gat_wave_scatter(const int* pos, const float* probs_c,
                                 const float* pitch_c, float* probs,
                                 float* mlp, float* cnn, float* pitch, int n,
                                 int c, void* stream) {
-  if (n < 1 || c < 1 || (long long)n * c > 0x7fffffff - kScatterBlock)
+  if (n < 1 || c < 1 || (long long)n * c > 0x7fffffff ||
+      (probs_c == nullptr && mlp_c == nullptr && cnn_c == nullptr &&
+       pitch_c == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int mat = (n * c + kScatterBlock - 1) / kScatterBlock;
-  const int end0 = probs_c == nullptr ? 0 : mat;
-  const int end1 = end0 + (mlp_c == nullptr ? 0 : mat);
-  const int end2 = end1 + (cnn_c == nullptr ? 0 : mat);
-  const int blocks =
-      end2 + (pitch_c == nullptr ? 0 : (n + kScatterBlock - 1) /
-                                           kScatterBlock);
-  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  const int err = scatter_occupancy(&per_sm, &sms);
+  if (err) return err;
+  const int blocks = scatter_blocks(n, per_sm, sms);
   wave_scatter_kernel<<<blocks, kScatterThreads, 0, (cudaStream_t)stream>>>(
-      pos, probs_c, mlp_c, cnn_c, pitch_c, probs, mlp, cnn, pitch, n, c, end0,
-      end1, end2);
+      pos, probs_c, mlp_c, cnn_c, pitch_c, probs, mlp, cnn, pitch, n, c);
   return (int)cudaGetLastError();
 }

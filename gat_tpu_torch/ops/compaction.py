@@ -14,9 +14,10 @@ files [first, first + n_local): it keeps its own picked slots, in the
 order the whole wave's selection gives them.
 
 On the card both launch the hand-written kernels of
-`csrc/wave_compact.cu` (K10): `gat_wave_select`, one block that counts
-the partition with warp ballots and writes the selection and the flags,
-and `gat_wave_scatter`, one launch for the four outputs. On the CPU they
+`csrc/wave_compact.cu` (K10): `gat_wave_select`, one block that stages
+the kept bits in shared memory, counts the partition with warp ballots
+and writes the selection and the flags, and `gat_wave_scatter`, one
+launch for the four outputs, a warp an output row. On the CPU they
 take the plain versions, `wave_select_plain` and `wave_scatter_plain`,
 the reference's argsort and scatter written in PyTorch.
 """
@@ -31,10 +32,11 @@ from .. import kernels
 
 __all__ = ["Selection", "wave_select", "wave_select_plain", "wave_scatter",
            "wave_scatter_plain", "check_select", "check_scatter",
-           "MAX_SLOTS"]
+           "compact_grid", "MAX_SLOTS"]
 
 # the most slots a wave may have: int32 positions, walked in tiles of
-# 8,192 (`kTile` in `csrc/wave_compact.cu`)
+# 8,192 slot-major positions staged in shared memory (`kTile` in
+# `csrc/wave_compact.cu`)
 MAX_SLOTS = 2 ** 31 - 1 - 8192
 
 
@@ -115,6 +117,21 @@ def wave_select_plain(kept_all: torch.Tensor, budget: int, first: int = 0,
 
 _SELECT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SCATTER_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_GRID_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def compact_grid(n_files: int, k: int, device: torch.device) -> tuple:
+    """K10's launches over a wave of n_files x K slots on `device`, from
+    `gat_wave_compact_grid`: (the selection's tiles, its threads, the
+    scatter's blocks over the wave's slots, its resident blocks per
+    SM)."""
+    out = (ctypes.c_int * 4)()
+    fn = kernels.function("wave_compact", "gat_wave_compact_grid",
+                          _GRID_ARGS)
+    with kernels.device_guard(device):
+        kernels.check(fn(n_files, k, ctypes.addressof(out)),
+                      "wave_compact grid")
+    return tuple(out)
 
 
 def wave_select(kept_all: torch.Tensor, budget: int, first: int = 0,

@@ -20,7 +20,8 @@ import torch
 
 from .. import kernels
 
-__all__ = ["softmax_xent", "softmax_xent_plain"]
+__all__ = ["softmax_xent", "softmax_xent_plain", "check_kernel", "xent_grid",
+           "MAX_CLASSES"]
 
 
 def _check(logits: torch.Tensor, labels: torch.Tensor) -> None:
@@ -52,31 +53,72 @@ def softmax_xent_plain(logits: torch.Tensor, labels: torch.Tensor,
 
 
 _ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
-         + [ctypes.c_void_p])
+         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_GRID_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# the most classes the kernel takes (`kMaxClasses` in `csrc/softmax_xent.cu`:
+# 32 lanes a row, each holding 32 classes in registers)
+MAX_CLASSES = 1024
+_grids: dict[tuple, tuple] = {}
 
 
-def blocks(b: int) -> int:
-    """K11's blocks (and partial slots) over b rows, eight a block, as
-    `gat_softmax_xent_blocks` counts them."""
-    return -(-b // 8)
+def check_kernel(logits: torch.Tensor, labels: torch.Tensor) -> None:
+    """Raise where K11 refuses a call (its C entry points refuse the same
+    class counts): logits that are not contiguous float32 (B, C) with B >=
+    1 and 1 <= C <= MAX_CLASSES, or labels that are not contiguous int64
+    (B,)."""
+    _check(logits, labels)
+    if logits.dtype != torch.float32 or labels.dtype != torch.int64:
+        raise ValueError(f"[softmax_xent] the kernel takes float32 logits "
+                         f"and int64 labels, got {logits.dtype} and "
+                         f"{labels.dtype}")
+    if not (logits.is_contiguous() and labels.is_contiguous()):
+        raise ValueError("[softmax_xent] the kernel takes contiguous logits "
+                         "and labels")
+    if logits.shape[0] == 0:
+        raise ValueError("[softmax_xent] no rows")
+    if logits.shape[1] > MAX_CLASSES:
+        raise ValueError(f"[softmax_xent] {logits.shape[1]} classes; the "
+                         f"kernel takes at most {MAX_CLASSES}")
+
+
+def xent_grid(b: int, c: int, device: torch.device) -> tuple:
+    """K11's launch over b rows of c classes on `device`, as
+    `gat_softmax_xent_grid` sizes it: (blocks, resident blocks per SM, rows
+    a tile, lanes a row, shared bytes); one block for a batch of at most
+    two tiles, else a grid sized to the card. Remembered per (device, b,
+    c)."""
+    key = (device.index, b, c)
+    grid = _grids.get(key)
+    if grid is None:
+        out = (ctypes.c_int * 5)()
+        fn = kernels.function("softmax_xent", "gat_softmax_xent_grid",
+                              _GRID_ARGS)
+        with kernels.device_guard(device):
+            kernels.check(fn(b, c, ctypes.addressof(out)),
+                          "softmax_xent grid")
+        grid = _grids[key] = tuple(out)
+    return grid
 
 
 def _launch(logits, labels, smoothing, scale, grad, pred):
     b, c = logits.shape
     dev = logits.device
-    n_blocks = blocks(b)
-    part_loss = torch.empty(n_blocks, dtype=torch.float32, device=dev)
-    part_correct = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+    blocks, _, rows, lanes, _ = xent_grid(b, c, dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     correct = torch.empty((), dtype=torch.int64, device=dev)
+    part = ticket = None
+    if blocks > 1:  # the grid form's partial slots: losses, then counts
+        part = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
+        ticket = kernels.ticket(dev).data_ptr()
     fn = kernels.function("softmax_xent", "gat_softmax_xent", _ARGS)
     with kernels.device_guard(dev):
         status = fn(logits.data_ptr(), labels.data_ptr(),
                     None if grad is None else grad.data_ptr(),
                     None if pred is None else pred.data_ptr(),
-                    part_loss.data_ptr(), part_correct.data_ptr(),
-                    kernels.ticket(dev).data_ptr(), loss.data_ptr(),
-                    correct.data_ptr(), b, c, smoothing, scale,
+                    None if part is None else part.data_ptr(),
+                    None if part is None else part.data_ptr() + 4 * blocks,
+                    ticket, loss.data_ptr(), correct.data_ptr(), b, c,
+                    smoothing, scale, blocks, rows, lanes,
                     kernels.stream(dev))
     kernels.check(status, "softmax_xent")
     softmax_xent.launches += 1
@@ -105,25 +147,16 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  smoothing: float, scale: float = 1.0, preds: bool = False):
     """(loss, correct[, preds]) of `softmax_xent_plain`, device scalars.
 
-    CUDA tensor: one launch of K11 (logits float32 (B, C), labels int64
-    (B,), both contiguous). Where the logits need a gradient the launch
-    writes it and the loss's backward scales it; otherwise (an eval step)
-    no gradient is written, and with `preds` the launch also writes the
-    argmaxes. CPU tensor: `softmax_xent_plain`."""
+    CUDA tensor: one launch of K11 (`check_kernel` says what it takes).
+    Where the logits need a gradient the launch writes it and the loss's
+    backward scales it; otherwise (an eval step) no gradient is written,
+    and with `preds` the launch also writes the argmaxes. CPU tensor:
+    `softmax_xent_plain`."""
     if logits.device.type == "cpu":
         return softmax_xent_plain(logits, labels, smoothing, scale, preds)
     if logits.device.type != "cuda":
         raise ValueError(f"[softmax_xent] unsupported device {logits.device}")
-    _check(logits, labels)
-    if logits.dtype != torch.float32 or labels.dtype != torch.int64:
-        raise ValueError(f"[softmax_xent] the kernel takes float32 logits "
-                         f"and int64 labels, got {logits.dtype} and "
-                         f"{labels.dtype}")
-    if not (logits.is_contiguous() and labels.is_contiguous()):
-        raise ValueError("[softmax_xent] the kernel takes contiguous logits "
-                         "and labels")
-    if logits.shape[0] == 0:
-        raise ValueError("[softmax_xent] no rows")
+    check_kernel(logits, labels)
     if logits.requires_grad and torch.is_grad_enabled():
         loss, correct = _SoftmaxXent.apply(logits, labels, float(smoothing),
                                            float(scale))

@@ -13,7 +13,8 @@ from gat_tpu_torch import features
 from gat_tpu_torch.ops import compaction, onset, resample, spectral, yin
 from gat_tpu_torch.segment import gating, slicing
 from test_torch_kernels_emulated import (FILE_SR, GATE_MIN_DB, LIVE_MIN_SEP,
-                                         WAVE_SHAPES, check_selection,
+                                         WAVE_SHAPES, WAVE_SHAPES_PAST,
+                                         check_selection,
                                          scatter_parts, wave_flags, wave_kept,
                                          LIVE_RING, RESAMPLE_PINS,
                                          RESAMPLE_RATES,
@@ -1620,6 +1621,36 @@ def test_wave_scatter_card_vs_plain(c, cnn):
             assert (g is None and r is None) or torch.equal(g, r)
 
 
+@pytest.mark.parametrize("shape", WAVE_SHAPES_PAST + ((83, 100),))
+@pytest.mark.parametrize("world", [1, 2])
+def test_wave_compact_card_past_a_tile(shape, world):
+    """K10 on the card at 7,168 slots (one tile) and past the selection's
+    tile of 8,192 positions (64 x 129, 83 x 100, and 8,200 files: tiles of
+    part of the files), on one device and every rank of a world of 2:
+    the selection equal to the plain one field by field and the scatter
+    bit-equal, at budget 1, 3/4 of the slots and all but one; a second
+    run of both kernels gives the same bits."""
+    dev = _card()
+    n_files, k = shape
+    kept = wave_kept(n_files, k, 0.6, seed=n_files + k).to(dev)
+    b = n_files // world
+    for budget in (1, 3 * n_files * k // 4, n_files * k - 1):
+        for rank in range(world):
+            got = compaction.wave_select(kept, budget, rank * b, b)
+            again = compaction.wave_select(kept, budget, rank * b, b)
+            check_selection(got, compaction.wave_select_plain(
+                kept, budget, rank * b, b))
+            check_selection(again, got)
+            parts = tuple(x.to(dev) for x in scatter_parts(
+                max(got.n_sel, 1), 47, seed=budget))
+            out = compaction.wave_scatter(got.pos, parts)
+            out2 = compaction.wave_scatter(got.pos, parts)
+            for g, g2, r in zip(out, out2, compaction.wave_scatter_plain(
+                    got.pos, parts)):
+                assert torch.equal(g, r) and torch.equal(g, g2)
+    torch.cuda.synchronize()
+
+
 def test_files_body_compacts_on_card():
     """The file body with a clip budget on the card: K10 launched once
     each, no sort kernel, outputs equal to the CPU body's (kept, flags,
@@ -1702,6 +1733,58 @@ def test_softmax_xent_kernel(b, grad):
                                    atol=1e-6 * float(ref.grad.abs().max()))
     else:
         assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("b, offset", [(32, 0), (65536, 0), (64, 0),
+                                       (65, 0), (300, 1), (20000, 1)])
+@pytest.mark.parametrize("grad", [True, False])
+def test_softmax_xent_kernel_forms(b, offset, grad):
+    """K11's two forms on the card against the plain version: the step's
+    32 rows and 64 (one block of two tiles, no ticket), 65 and an eval
+    chunk's 65,536 (a grid sized to the card), and logits one row into
+    their buffer (off
+    16 bytes: the element route) at 300 and 20,000 rows (several tiles a
+    block): loss within 1e-5 relative, the gradient within 1e-6 of its
+    largest value, count and argmaxes exact; a second run gives the same
+    bits and the ticket is back at 0."""
+    from gat_tpu_torch import kernels
+    from gat_tpu_torch.ops import loss as loss_mod
+    from test_torch_kernels_emulated import xent_inputs
+    dev = torch.device("cuda", _card().index or 0)
+    x, y = xent_inputs(b + offset, 47, seed=b)
+    logits, labels = x.to(dev)[offset:], y.to(dev)[offset:]
+    assert (logits.data_ptr() % 16 == 0) == (offset == 0)
+    grid = loss_mod.xent_grid(b, 47, dev)
+    assert (grid[0] == 1) == (b <= 64)
+    assert grid[0] <= torch.cuda.get_device_properties(
+        dev).multi_processor_count * grid[1]
+    scale = 1.0 / b
+    runs = []
+    for _ in range(2):
+        xg = logits.clone().requires_grad_(grad) if grad else logits
+        got = loss_mod.softmax_xent(xg, labels, 0.05, scale, preds=not grad)
+        if grad:
+            got[0].backward()
+            runs.append((got[0].detach(), got[1], xg.grad))
+        else:
+            runs.append(got)
+    ref = logits.clone().requires_grad_(grad)
+    want = loss_mod.softmax_xent_plain(ref, labels, 0.05, scale,
+                                       preds=not grad)
+    if grad:
+        want[0].backward()
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    torch.testing.assert_close(runs[0][0], want[0].detach(), rtol=1e-5,
+                               atol=0)
+    assert int(runs[0][1]) == int(want[1])
+    if grad:
+        torch.testing.assert_close(runs[0][2], ref.grad, rtol=0,
+                                   atol=1e-6 * float(ref.grad.abs().max()))
+    else:
+        assert torch.equal(runs[0][2], want[2])
+    assert int(kernels.ticket(logits.device)) == 0
 
 
 @pytest.mark.parametrize("max_norm, g_scale", [(1.0, 0.01), (1.0, 10.0),

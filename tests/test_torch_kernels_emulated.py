@@ -4,7 +4,7 @@ CUDA subset they use, against their plain PyTorch versions.
 There is no nvcc on a CPU-only machine, but the kernels of
 `gat_tpu_torch/csrc/` use only thread/block indices, shared memory,
 register arrays, device lambdas, `__syncthreads`, warp shuffles, ballots,
-`__popc` and `__ffs`, integer atomicMax and atomicAdd, `__threadfence`
+`__popc` and `__ffs`, integer atomicMax, atomicAdd and atomicOr, `__threadfence`
 and `__ldcg` (a fence and a plain load: the blocks run one after
 another), the float/int bit casts, the float32 steps rounded one by one (`__fadd_rn`, `__fsub_rn`,
 `__fmul_rn`) and `fmaf` (libm's, fused as the card's), `__ldg`, `float4`, asynchronous copies into shared memory
@@ -106,6 +106,9 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
 inline int atomicMax(int* p, int v) {
   int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
@@ -2586,11 +2589,16 @@ def wave_flags(n_files: int, seed: int) -> tuple:
 
 
 # (files, K): 1, 31, 448 (the serving wave), 4,100 and 8,300 slots (past
-# one tile of the selection's 512 threads x 16 positions)
+# one tile of the selection's 8,192 positions: 98 slots a tile)
 WAVE_SHAPES = ((1, 1), (1, 31), (31, 1), (4, 112), (41, 100), (83, 100))
+COMPACT_TILE = 8192
+# the 64-file wave of 7,168 slots (one tile), 64 x 129 (a tile of 128
+# slots and one of 1), and 8,200 files (past a tile's files: tiles of one
+# slot of 8,192 files and of 8)
+WAVE_SHAPES_PAST = ((64, 112), (64, 129), (8200, 2))
 
 
-@pytest.mark.parametrize("shape", WAVE_SHAPES)
+@pytest.mark.parametrize("shape", WAVE_SHAPES + WAVE_SHAPES_PAST)
 @pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
 def test_wave_select_emulated(libs, shape, density):
     """Random budgets (1, below, at and above the kept count, all slots)
@@ -2613,7 +2621,8 @@ def test_wave_select_emulated(libs, shape, density):
 
 @pytest.mark.parametrize("shape, world, density", [
     ((4, 112), 2, 0.2), ((4, 112), 4, 0.9), ((8, 112), 8, 0.5),
-    ((64, 64), 4, 0.3), ((6, 7), 3, 0.6), ((90, 100), 3, 0.5)])
+    ((64, 64), 4, 0.3), ((6, 7), 3, 0.6), ((90, 100), 3, 0.5),
+    ((64, 112), 4, 0.6), ((64, 129), 2, 0.6), ((8200, 2), 2, 0.5)])
 def test_wave_select_emulated_mesh(libs, shape, world, density):
     """Each rank's (first, n_local) of the whole wave's kept bits: its
     slots of the wave's selection, in the same order, equal to the plain
@@ -2665,7 +2674,8 @@ def wave_scatter_emulated(libs, pos: torch.Tensor, parts) -> tuple:
 
 @pytest.mark.parametrize("shape, c, density, budget", [
     ((1, 1), 47, 1.0, 1), ((4, 112), 47, 0.3, 384), ((4, 112), 47, 0.9, 1),
-    ((41, 100), 1, 0.5, 3000), ((6, 7), 5, 0.4, 42), ((6, 7), 5, 0.0, 9)])
+    ((41, 100), 1, 0.5, 3000), ((6, 7), 5, 0.4, 42), ((6, 7), 5, 0.0, 9),
+    ((64, 112), 47, 0.6, 5376), ((64, 112), 33, 0.5, 100)])
 def test_wave_scatter_emulated(libs, shape, c, density, budget):
     """The compact outputs back at their slots, zeros elsewhere: bit-equal
     to the plain scatter (a copy), with a dummy row past n_sel unread."""
@@ -2693,6 +2703,37 @@ def test_wave_scatter_emulated_missing_parts(libs, cnn, mlp):
         assert (g is None and r is None) or torch.equal(g, r)
 
 
+def compact_grid_rule(n_files: int, k: int, sms: int, per_sm: int) -> list:
+    """K10's launches by the rule its source states: the selection's tiles
+    (every file and kTile // files slots, or past kTile files one slot of
+    kTile files) of one block of 512 threads; the scatter a warp a row,
+    at most the SMs' resident blocks of 256 threads."""
+    if n_files <= COMPACT_TILE:
+        tiles = -(-k // min(k, COMPACT_TILE // n_files))
+    else:
+        tiles = k * -(-n_files // COMPACT_TILE)
+    return [tiles, 512, min(-(-n_files * k // 8), sms * per_sm), per_sm]
+
+
+def test_wave_compact_grid(libs):
+    """gat_wave_compact_grid follows the rule at the emulated SMs (one
+    resident block an SM): the serving wave and 64 files one tile, past
+    8,192 slots several; the scatter's grid the rows' warps up to the
+    SMs'."""
+    fn = _fn(libs["wave_compact"], "gat_wave_compact_grid",
+             compaction._GRID_ARGS)
+    out = (ctypes.c_int * 4)()
+    for sms in (1, 4, 132):
+        with emulated_sms(libs, sms, "wave_compact"):
+            for shape in WAVE_SHAPES + WAVE_SHAPES_PAST:
+                assert fn(*shape, ctypes.addressof(out)) == 0
+                assert list(out) == compact_grid_rule(*shape, sms, 1), shape
+    assert compact_grid_rule(4, 112, 132, 8)[::2] == [1, 56]
+    assert compact_grid_rule(64, 112, 132, 8)[::2] == [1, 896]
+    assert compact_grid_rule(83, 100, 132, 8)[0] == 2
+    assert fn(0, 4, ctypes.addressof(out)) != 0
+
+
 def test_wave_compact_refusals(libs):
     """The C entry points refuse what the wrappers' guards refuse."""
     sel_fn = _fn(libs["wave_compact"], "gat_wave_select",
@@ -2713,14 +2754,13 @@ def test_wave_compact_refusals(libs):
 
 
 def test_wave_compact_constants_match_kernel():
-    """`compaction.MAX_SLOTS` leaves the selection's last tile of
-    kSelectThreads x kItems positions inside int32, as its C entry point
-    refuses the rest."""
+    """`compaction.MAX_SLOTS` leaves the selection's last tile of kTile
+    positions inside int32, as its C entry point refuses the rest; a tile
+    is whole words of 32 positions."""
     src = (kernels.CSRC / "wave_compact.cu").read_text()
-    threads = int(re.search(r"kSelectThreads = (\d+);", src)[1])
-    items = int(re.search(r"kItems = (\d+);", src)[1])
-    assert re.search(r"kTile = kSelectThreads \* kItems;", src)
-    assert compaction.MAX_SLOTS == 2 ** 31 - 1 - threads * items
+    tile = int(re.search(r"kTile = (\d+);", src)[1])
+    assert tile == COMPACT_TILE and tile % 32 == 0
+    assert compaction.MAX_SLOTS == 2 ** 31 - 1 - tile
     with pytest.raises(ValueError, match="at most"):
         compaction.check_select(torch.zeros(1, 1, dtype=torch.bool).expand(
             compaction.MAX_SLOTS + 1, 1), 1, 0, 1)
@@ -2744,41 +2784,76 @@ def xent_inputs(b: int, c: int, seed: int) -> tuple:
     return torch.from_numpy(x), torch.from_numpy(y.astype(np.int64))
 
 
+def xent_grid_emulated(libs, b: int, c: int) -> list:
+    """`gat_softmax_xent_grid` under the emulation: blocks, resident blocks
+    per SM (1), rows a tile, lanes a row, shared bytes."""
+    out = (ctypes.c_int * 5)()
+    assert _fn(libs["softmax_xent"], "gat_softmax_xent_grid",
+               loss_mod._GRID_ARGS)(b, c, ctypes.addressof(out)) == 0
+    return list(out)
+
+
+XENT_THREADS, XENT_ONE_BLOCK_TILES = 256, 2
+XENT_STAGES = int(re.search(r"kStages = (\d+);", (
+    kernels.CSRC / "softmax_xent.cu").read_text())[1])
+
+
+def xent_grid_rule(b: int, c: int, sms: int, per_sm: int) -> list:
+    """K11's launch by the rule its source states: as many lanes a row as
+    keep a lane to 8 classes (a power of two, at most 32), a group of
+    lanes a row of the tile; one block for at most two tiles, its lanes
+    widened while the batch fills under half the groups; else min(tiles,
+    SMs x resident blocks)."""
+    lanes = 1
+    while lanes < 32 and lanes * 8 < c:
+        lanes *= 2
+    tiles = -(-b // (XENT_THREADS // lanes))
+    blocks = 1
+    if tiles <= XENT_ONE_BLOCK_TILES:
+        while lanes < 32 and XENT_THREADS // lanes >= 2 * b:
+            lanes *= 2
+    else:
+        blocks = min(tiles, sms * per_sm, XENT_THREADS * 8)
+    return [blocks, XENT_THREADS // lanes, lanes]
+
+
 def xent_emulated(libs, logits, labels, smoothing: float, scale: float,
                   grad: bool = True) -> tuple:
-    """K11 through its C entry point, as `ops/loss.py::_launch` calls it:
-    (loss, correct, grad or None, preds, the ticket after the launch)."""
+    """K11 through its C entry points, as `ops/loss.py::_launch` calls
+    them: (loss, correct, grad or None, preds, the ticket after the launch,
+    the grid). The grid follows the rule at the emulated SMs (one resident
+    block an SM); outputs start as NaN or -1, so an unwritten one shows."""
     b, c = logits.shape
-    blocks = _fn(libs["softmax_xent"], "gat_softmax_xent_blocks",
-                 [ctypes.c_int])(b)
-    assert blocks == loss_mod.blocks(b)
+    grid = xent_grid_emulated(libs, b, c)
+    sms = ctypes.c_int.in_dll(libs["softmax_xent"], "emu_sm_count").value
+    assert [grid[0], grid[2], grid[3]] == xent_grid_rule(b, c, sms, 1)
+    assert grid[1] == 1 and grid[4] == 4 * XENT_STAGES * (
+        -(-grid[2] * c // 4) * 4 + 2 * grid[2])
+    blocks = grid[0]
     part_loss = torch.full((blocks,), float("nan"))
     part_correct = torch.zeros(blocks, dtype=torch.int32)
     ticket = torch.zeros(1, dtype=torch.int32)
     out = torch.full((), float("nan"))
-    correct = torch.zeros((), dtype=torch.int64)
+    correct = torch.full((), -1, dtype=torch.int64)
     g = torch.full_like(logits, float("nan")) if grad else None
     pred = torch.full((b,), -1, dtype=torch.int64)
     fn = _fn(libs["softmax_xent"], "gat_softmax_xent", loss_mod._ARGS)
     assert fn(logits.data_ptr(), labels.data_ptr(), _ptr(g), pred.data_ptr(),
               part_loss.data_ptr(), part_correct.data_ptr(),
               ticket.data_ptr(), out.data_ptr(), correct.data_ptr(), b, c,
-              smoothing, scale, None) == 0
-    return out, correct, g, pred, ticket
+              smoothing, scale, blocks, grid[2], grid[3], None) == 0
+    return out, correct, g, pred, ticket, grid
 
 
-@pytest.mark.parametrize("b, c", [(8, 47), (19, 47), (5, 3), (3, 70)])
-@pytest.mark.parametrize("scale", [1.0, 0.125])
-def test_softmax_xent_kernel_emulated(libs, b, c, scale):
-    """Loss, correct count, argmaxes and gradient against the plain version
-    and its autograd: one block (8 rows), three, fewer classes than lanes
-    and more than two rounds of them. The loss within 2e-6 relative (other
-    summation orders), the gradient within 1e-6 absolute (a softmax less a
-    target times scale, each term rounded once either way), count and
-    argmaxes exact; the ticket back at 0."""
-    logits, labels = xent_inputs(b, c, seed=b * c)
-    got, correct, grad, pred, ticket = xent_emulated(libs, logits, labels,
-                                                     0.05, scale)
+def check_xent(libs, logits, labels, scale: float, grad: bool = True
+               ) -> list:
+    """K11 against the plain version and its autograd: the loss within
+    2e-6 relative (other summation orders), the gradient within 1e-6
+    absolute (a softmax less a target times scale, each term rounded once
+    either way), count and argmaxes exact, the first of tied maxima; a
+    second run the same bits; the ticket back at 0. Returns the grid."""
+    got, correct, g, pred, ticket, grid = xent_emulated(
+        libs, logits, labels, 0.05, scale, grad)
     x = logits.clone().requires_grad_(True)
     ref, ref_correct, ref_pred = loss_mod.softmax_xent_plain(
         x, labels, 0.05, scale, preds=True)
@@ -2786,20 +2861,102 @@ def test_softmax_xent_kernel_emulated(libs, b, c, scale):
     torch.testing.assert_close(got, ref.detach(), rtol=2e-6, atol=0)
     assert int(correct) == int(ref_correct)
     assert torch.equal(pred, ref_pred)
-    assert int(pred[0]) == 1 % c  # the first of the tied maxima
-    torch.testing.assert_close(grad, x.grad, rtol=0, atol=1e-6)
+    assert int(pred[0]) == 1 % logits.shape[1]  # the first of the maxima
+    if grad:
+        torch.testing.assert_close(g, x.grad, rtol=0, atol=1e-6)
     assert int(ticket) == 0
+    again = xent_emulated(libs, logits, labels, 0.05, scale, grad)
+    assert torch.equal(again[0], got) and torch.equal(again[1], correct)
+    assert torch.equal(again[3], pred)
+    assert not grad or torch.equal(again[2], g)
+    return grid
 
 
-def test_softmax_xent_kernel_emulated_eval_form(libs):
+@pytest.mark.parametrize("b, c", [(8, 47), (19, 47), (32, 47), (5, 3),
+                                  (32, 3), (3, 70), (32, 70), (64, 47),
+                                  (500, 3), (16, 600)])
+@pytest.mark.parametrize("scale", [1.0, 0.125])
+def test_softmax_xent_kernel_emulated(libs, b, c, scale):
+    """The one-block form: the training step's 32 x 47 (8 lanes a row, 6
+    classes a lane), fewer classes than lanes, more than two rounds of
+    them, two tiles of 32 rows (8 lanes a row), two tiles of 256 rows of 3
+    classes (a lane a row) and 600 classes (32 lanes a row, 19 classes a
+    lane); no partial slot, fence or ticket."""
+    logits, labels = xent_inputs(b, c, seed=b * c)
+    assert check_xent(libs, logits, labels, scale)[0] == 1
+
+
+@pytest.mark.parametrize("b, c, grad", [(1500, 47, True), (2000, 47, False),
+                                        (700, 70, True), (1100, 3, False)])
+def test_softmax_xent_kernel_emulated_grid_form(libs, b, c, grad):
+    """The grid form over 4 emulated SMs: several blocks, each a span of
+    double-buffered tiles (1,500 rows: 47 tiles of 32, the last of 28;
+    700 x 70: 16 lanes a row, 44 tiles of 16), with and without the
+    gradient, the partials added by the last block."""
+    logits, labels = xent_inputs(b, c, seed=b + c)
+    with emulated_sms(libs, 4, "softmax_xent"):
+        grid = check_xent(libs, logits, labels, 1.0 / b, grad)
+    assert grid[0] == 4 and -(-b // grid[2]) > grid[0]
+
+
+@pytest.mark.parametrize("b, sms", [(32, 4), (1500, 4), (1500, 1)])
+def test_softmax_xent_kernel_emulated_unaligned(libs, b, sms):
+    """Logits as a view one row in (188 bytes: off 16) take the element
+    route of the same kernels; one SM gives the grid form one block, which
+    writes the results itself."""
+    logits, labels = xent_inputs(b + 1, 47, seed=b)
+    view, labels = logits[1:], labels[1:]
+    assert view.data_ptr() % 16 != 0
+    view[0, [1, 46]] = view[0].max() + 1.0
+    with emulated_sms(libs, sms, "softmax_xent"):
+        grid = check_xent(libs, view, labels, 1.0 / b)
+    assert grid[0] == (1 if b == 32 or sms == 1 else 4)
+
+
+@pytest.mark.parametrize("b, sms", [(21, 4), (1500, 4)])
+def test_softmax_xent_kernel_emulated_eval_form(libs, b, sms):
     """Without a gradient (the eval step) the launch writes none and gives
-    the same loss, count and argmaxes."""
-    logits, labels = xent_inputs(21, 47, seed=5)
-    with_grad = xent_emulated(libs, logits, labels, 0.05, 1.0)
-    without = xent_emulated(libs, logits, labels, 0.05, 1.0, grad=False)
+    the same loss, count and argmaxes, in both forms."""
+    logits, labels = xent_inputs(b, 47, seed=5)
+    with emulated_sms(libs, sms, "softmax_xent"):
+        with_grad = xent_emulated(libs, logits, labels, 0.05, 1.0)
+        without = xent_emulated(libs, logits, labels, 0.05, 1.0, grad=False)
+    assert without[2] is None
     assert torch.equal(with_grad[0], without[0])
     assert torch.equal(with_grad[1], without[1])
     assert torch.equal(with_grad[3], without[3])
+
+
+def test_softmax_xent_grid(libs):
+    """gat_softmax_xent_grid follows the rule at the emulated SMs, and the
+    rule gives the card's launches: the step one block of 32 rows at 8
+    lanes, an eval chunk 2,048 tiles of 32 rows over 528 blocks at 4
+    resident a SM; the C entry points refuse what the wrapper refuses."""
+    for sms in (1, 4, 132):
+        with emulated_sms(libs, sms, "softmax_xent"):
+            for b, c in ((1, 47), (32, 47), (128, 47), (129, 47),
+                         (65536, 47), (7, 300), (2000, 1000), (40, 1024)):
+                got = xent_grid_emulated(libs, b, c)
+                assert [got[0], got[2], got[3]] == xent_grid_rule(b, c, sms,
+                                                                  1), (b, c)
+    assert xent_grid_rule(32, 47, 132, 4) == [1, 32, 8]
+    assert xent_grid_rule(65536, 47, 132, 4) == [528, 32, 8]
+    grid_fn = _fn(libs["softmax_xent"], "gat_softmax_xent_grid",
+                  loss_mod._GRID_ARGS)
+    out = (ctypes.c_int * 5)()
+    for b, c in ((0, 47), (4, 0), (4, loss_mod.MAX_CLASSES + 1)):
+        assert grid_fn(b, c, ctypes.addressof(out)) != 0
+    fn = _fn(libs["softmax_xent"], "gat_softmax_xent", loss_mod._ARGS)
+    for blocks, rows, lanes in ((2, 32, 8), (1, 6, 8), (1, 256, 3),
+                                (1, 256, 1)):
+        assert fn(*[None] * 9, 600, 47, 0.05, 1.0, blocks, rows, lanes,
+                  None) != 0  # no partials; rows not of 4; lanes not 2^k;
+        # more than 32 classes a lane
+    with pytest.raises(ValueError, match="at most"):
+        loss_mod.check_kernel(torch.zeros(2, loss_mod.MAX_CLASSES + 1),
+                              torch.zeros(2, dtype=torch.int64))
+    loss_mod.check_kernel(torch.zeros(2, loss_mod.MAX_CLASSES),
+                          torch.zeros(2, dtype=torch.int64))
 
 
 def adamw_inputs(n: int, seed: int, g_scale: float) -> dict:

@@ -780,3 +780,27 @@ def test_k11_to_k13_costs_count_each_byte_once():
         3 * 4 * e + 36)
     ms, by = roofline.bound(*roofline.adamw_cost(629743, True))
     assert by == "bytes" and abs(ms - (32 * 629743 + 12) / 3.35e12 * 1e3) < 1e-12
+
+
+def test_onset_timing_tool_times_k11(monkeypatch):
+    """`tools/torch_onset_timing.py TREE xent` runs chip_smoke's
+    `time_xent` (K11 at a training step's 32 x 47 and an eval chunk's
+    65,536 x 47, the trainer's `_EVAL_CHUNK`), so a parent tree is timed
+    in turns with this one, and exits 1 without a card; K11 is one device
+    function, a template of two instances."""
+    from gat_tpu_torch.train import trainer
+    timing = _tool("torch_onset_timing")
+    assert timing.TIMINGS["xent"] == ("softmax_xent", "time_xent")
+    spec = importlib.util.spec_from_file_location("_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert (smoke.TRAIN_BATCH, smoke.TRAIN_CLASSES) == (32, 47)
+    assert smoke.EVAL_CHUNK == trainer.Trainer._EVAL_CHUNK == 65536
+    assert roofline.KERNEL_SYMBOLS["K11"] == ("softmax_xent_kernel",)
+    assert roofline.device_function(
+        "void softmax_xent_kernel<true>(float const*, long long const*, "
+        "float*, long long*, float*, int*, int*, float*, long long*, int, "
+        "int, int, int, float, float)") == "softmax_xent_kernel"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert timing.main(["torch_onset_timing.py", str(REPO), "xent"]) == 1

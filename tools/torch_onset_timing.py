@@ -13,11 +13,14 @@ at the `[compact]` cases; with `train`, the steady-state training epoch
 of the shipped MLP and bf16 CNN at `[train]`'s sizes, with the host time
 and the CUDA runtime's launches of a step; with `batchnorm`, the
 train-mode BatchNorm K13 at the shipped CNN's three layers; with
-`clip_adamw`, the clip and AdamW K12 at both models' parameter counts.
+`clip_adamw`, the clip and AdamW K12 at both models' parameter counts;
+with `xent`, the label-smoothed loss K11 at a training step and an eval
+chunk.
 
     python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip] [gate]
                                              [slice] [resample] [compact]
                                              [train] [batchnorm] [clip_adamw]
+                                             [xent]
 
 TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
 another commit unpacked with `git archive`; its kernels are built there.
@@ -45,7 +48,10 @@ of three, and `step_launches` over ten steps; `time_bn`: K13 forward and backwar
 at (32, 32, 64, 22), (32, 64, 32, 11) and (32, 128, 16, 5) in bfloat16
 and float32, device ms per kernel and layer, with the grid where the
 checkout reports it; `time_clip_adamw`: K12's two passes at 629,743 and
-20,143 parameters, device ms per pass), so two
+20,143 parameters, device ms per pass and the library's; `time_xent`:
+K11 at 32 x 47 with its gradient and at 65,536 x 47 with the argmaxes,
+device ms, the whole call's and `F.cross_entropy`'s, two runs' bits and
+the launch's grid where the checkout reports it), so two
 checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
@@ -67,7 +73,8 @@ TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
            "compact": ("wave_compact", "time_compact"),
            "train": ("train_step", "time_train"),
            "batchnorm": ("batchnorm_train", "time_bn"),
-           "clip_adamw": ("clip_adamw", "time_clip_adamw")}
+           "clip_adamw": ("clip_adamw", "time_clip_adamw"),
+           "xent": ("softmax_xent", "time_xent")}
 
 
 def main(argv: list[str]) -> int:
@@ -109,11 +116,12 @@ def main(argv: list[str]) -> int:
             args = (slicing, dev)
         elif n == "resample":
             args = (resample, dev)
-        elif n in ("compact", "train", "batchnorm", "clip_adamw"):
+        elif n in ("compact", "train", "batchnorm", "clip_adamw", "xent"):
             args = (dev,)
         else:
             args = (onset, dev)
-        for row in getattr(smoke, timing)(*args, failures):
+        rows = getattr(smoke, timing)(*args, failures)
+        for row in [rows] if isinstance(rows, dict) else rows:
             print(json.dumps({"tree": str(tree), "kernel": kernel, **row}),
                   flush=True)
     print(smoke.card_line(), flush=True)
