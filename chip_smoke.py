@@ -184,15 +184,22 @@ non-zero:
    `TrainingManager(mesh=)` against the single-device manager, 2 epochs
    of each family at the shipped widths on a 16-variant dataset
    (histories and parameters), and `dryrun_multichip(1)`;
-17. `[long-clips]`: K1, K2, K3 and K6 at 256 clips of 4.0 s at 11025 Hz
-   (87 frames at hop 512, 173 at hop 256; before PR 16 K3 and K6 refused
-   clips past 70 and 69 frames) against their plain versions (K1 0.1 dB
-   above -60 dB, MFCC atol 1e-3 and rtol 2e-6, pitch rtol 2e-3), K6's
-   MFCC K2's and its pitch K3's bit for bit, each timed with its bound
-   and blocks per SM (`long_clips` in its kernels-line row); then
-   `[file]` at `clip_duration=4.0`: `transcribe` of a 12 s riff on the
-   card and the CPU, on the FFT route (K1-K5 launched) and the matmul
-   route (K1, K6, K4, K5): labels, onsets and times equal;
+17. `[long-clips]`: K1, K2, K3 and K6 at 256 clips of 4.0 s, one of 120 s
+   and 64 of 60 s at 11025 Hz (87, 2,584 and 1,292 frames at hop 512;
+   173, 5,168 and 2,584 at hop 256; the card refused the last two before
+   the split route, `csrc/dsp_common.cuh`) against their plain versions
+   (K1 0.1 dB above -60 dB, MFCC atol 1e-3 and rtol 2e-6, pitch rtol
+   2e-3), K6's MFCC K2's and its pitch K3's bit for bit, each timed in
+   CUDA events and device ms with its bound, its tiles and blocks per SM
+   (`time_long_clips`, which `tools/torch_onset_timing.py long` shares;
+   `long_clips` in its kernels-line row, a row a shape); then `[file]` at
+   `clip_duration=4.0`: `transcribe` of a 12 s riff on the card and the
+   CPU, on the FFT route (K1-K5 launched) and the matmul route (K1, K6,
+   K4, K5): labels, onsets and times equal; then `transcribe` and
+   `transcribe_note` at `clip_duration=60.0` of a 2 min riff on the card
+   and the CPU (labels, onsets and times equal), and
+   `FeatureBuilder.extract_melspec_features` and `extract_mfcc_features`
+   on a loader of 16 files with one of 60 s, card against CPU;
 18. `[numpy]`: the numpy baseline's twin,
    `tools/torch_numpy_reference_pipeline.py`, on 32 of `[main]`'s clips:
    its argmax equal to the card's `transcribe_clips`, its rate logged;
@@ -202,11 +209,12 @@ non-zero:
 Each path's kernel launches, K1..K13, are counted from zero just before
 it is driven and read just after (`launches_by_path` in the kernels
 line: clips, file, long, files, serve, http, stream, live, cli, train,
-shared, eval, tools, parallel, file_4s, file_4s_shared; K6's row from
+shared, eval, tools, parallel, file_4s, file_4s_shared, file_60s,
+note_60s, loader_60s; K6's row from
 `shared` on; the two K4 pass rows launch on `parallel` only, K6 on
 `shared` and `file_4s_shared` only); every path that segments a file
-(file, long, files, serve, http, cli, eval, tools, parallel and both
-file_4s paths) must launch K7, K8 and K9 (its clips re-rated to the
+(file, long, files, serve, http, cli, eval, tools, parallel, both
+file_4s paths and file_60s) must launch K7, K8 and K9 (its clips re-rated to the
 checkpoint's rate), and stream, live and train, which re-rate their
 clips or files, K9. Each wave through the file body's budget branch
 (more slots than the budget: `transcribe_files` waves of 4 under the
@@ -368,12 +376,13 @@ def time_ms(fn, pool, reps: int) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, pool, kernel: str) -> float | None:
+def kernel_device_ms(fn, pool, kernel: str, names=None) -> float | None:
     """Device time per call of the device functions of `kernel` (K1..K13,
-    `load_roofline().KERNEL_SYMBOLS`), each launched once a call: the sum
-    of `symbol_device_ms`. None when the profiler saw no device time."""
+    `load_roofline().KERNEL_SYMBOLS`, or those of `names` among them),
+    each launched once a call: the sum of `symbol_device_ms`. None when
+    the profiler saw no device time."""
     per_call = sum(ms or 0.0 for ms in symbol_device_ms(
-        fn, pool, load_roofline().KERNEL_SYMBOLS[kernel]).values())
+        fn, pool, names or load_roofline().KERNEL_SYMBOLS[kernel]).values())
     return per_call if per_call > 0 else None
 
 
@@ -618,7 +627,9 @@ def time_clip_kernels(features, yin, clips, failures: list,
                    ms=time_ms(fn, pool, reps=10), plain_ms=time_ms(
                        plain, pool, reps=10), bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=None,
-                   device_ms=kernel_device_ms(fn, pool, kernel))
+                   device_ms=kernel_device_ms(
+                       fn, pool, kernel,
+                       roofline.KERNEL_SYMBOLS[kernel][:1]))
         log(f"[time] {name} at {n} x {length}: kernel {row['ms']:.4f} ms "
             f"(events), {fmt_ms(row['device_ms'])} device (profiler), plain "
             f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -878,7 +889,7 @@ def gate_errors(got: dict, ref: dict, y, min_db: float | None,
                 hop: int) -> tuple[dict, bool]:
     """K7's parts (`gating.noise_gate(parts=True)`) against the plain
     gate's (`gating.gate_parts_plain`), at the bounds of
-    `tests/test_torch_kernels_emulated.py::check_gate`: envelope, median
+    `tests/emulated_kernels.py::check_gate`: envelope, median
     and gate_db within 1e-4 dB; frame masks equal except at frames within
     1e-3 dB of gate_db; gated samples bit-equal where the frame decision
     agrees and the sample's dB is not within 1e-4 dB of min_db. Returns
@@ -4722,19 +4733,29 @@ def parallel_train(mesh, failures: list) -> None:
                 failures.append(f"[parallel] Trainer(mesh=) {family}")
 
 
-LONG_CLIPS = 256           # [long-clips]: 256 clips of 4.0 s at 11025 Hz,
-LONG_CLIP_SECONDS = 4.0   # 87 frames at hop 512, 173 at hop 256
+# [long-clips]: the clip kernels at 256 clips of 4.0 s (87 frames at hop
+# 512, 173 at hop 256), one of 120 s (2,584 and 5,168) and 64 of 60 s
+# (1,292 and 2,584), at 11025 Hz; the last two the card refused before
+# the split route (`csrc/dsp_common.cuh`)
+LONG_CLIP_SHAPES = ((256, 4.0), (1, 120.0), (64, 60.0))
+LONG_KERNELS = {"melspec_frontend": "K1", "mfcc_frontend": "K2",
+                "yin_pitch": "K3", "mfcc_pitch_frontend": "K6"}
 FILE_4S_MIDI = [45, 55, 64]  # A2 G3 E4 from 0.4 s, 4.2 s apart, 12 s
+# a 2 min riff at 22050 Hz, a held note every 20 s from 0.4 s
+# (`sustained_riff`), through transcribe and transcribe_note at
+# clip_duration=60.0
+LONG_RIFF_MIDI = [45, 50, 55, 59, 64, 69]
+LONG_RIFF_SECONDS, LONG_RIFF_CLIP = 120.0, 60.0
+LOADER_FILES = 16         # [long-clips]' loader: 15 plucks and one 60 s file
 NUMPY_CLIPS = 32          # [numpy]: the twin's clips, as its main's count
 
 
-def long_clip_kernels(features, yin) -> dict:
-    """K1, K2, K3 and K6 as (kernel, plain version, roofline cost, frames,
-    the occupancy query and its sizes) by name, at the long clips'
-    shape."""
+def long_clip_kernels(features, yin, n: int, length: int) -> dict:
+    """K1, K2, K3 and K6 at (n, length) as (kernel, plain version,
+    roofline cost, frames, the plan's symbol and sizes, the occupancy
+    query's symbol and sizes) by name."""
     roofline = load_roofline()
     from gat_tpu_torch.ops import spectral
-    n, length = LONG_CLIPS, int(LONG_CLIP_SECONDS * SR)
     t_mel = spectral.n_frames(length, 2048, 256)
     t_mfcc = spectral.n_frames(length, 2048, 512)
     max_p = yin.yin_periods(SR, 50.0, 1000.0, 2048, 1024)[1]
@@ -4743,31 +4764,55 @@ def long_clip_kernels(features, yin) -> dict:
             lambda x: features.melspec_features(x, SR),
             lambda x: features.melspec_features_plain(x, SR),
             lambda dev: roofline.melspec_cost(n, length, SR, dev), t_mel,
-            "gat_melspec_blocks_per_sm", (64, t_mel)),
+            ("gat_melspec_plan", (n, length, t_mel, 64, 1)),
+            ("gat_melspec_blocks_per_sm", (64, t_mel))),
         "mfcc_frontend": (
             lambda x: features.mfcc_frontend(x, SR),
             lambda x: features.mfcc_frontend_plain(x, SR),
             lambda dev: roofline.mfcc_cost(n, length, SR, dev), t_mfcc,
-            "gat_mfcc_blocks_per_sm", (128, t_mfcc)),
+            ("gat_mfcc_plan", (n, length, t_mfcc, 128)),
+            ("gat_mfcc_blocks_per_sm", (128, t_mfcc))),
         "yin_pitch": (
             lambda x: yin.yin_pitch(x, SR),
             lambda x: yin.yin_pitch_plain(x, SR),
             lambda dev: roofline.yin_cost(n, length, SR), t_mfcc,
-            "gat_yin_blocks_per_sm", (1024, 512, t_mfcc, max_p)),
+            ("gat_yin_plan", (n, 1024, 512, t_mfcc, max_p)),
+            ("gat_yin_blocks_per_sm", (1024, 512, t_mfcc, max_p))),
         "mfcc_pitch_frontend": (
             lambda x: features.mfcc_pitch_features(x, SR),
             lambda x: features.mfcc_pitch_features_plain(x, SR),
             lambda dev: roofline.mfcc_pitch_cost(n, length, SR, dev),
-            t_mfcc, "gat_mfcc_pitch_frontend_blocks_per_sm",
-            (length, 512, t_mfcc, 128, 1024, max_p)),
+            t_mfcc, ("gat_mfcc_pitch_plan",
+                     (n, length, t_mfcc, 128, 64, 1024, 512, max_p)),
+            ("gat_mfcc_pitch_frontend_blocks_per_sm",
+             (length, 512, t_mfcc, 128, 1024, max_p))),
     }
+
+
+def clip_launch(kernels, name: str, plan: tuple, query: tuple) -> dict:
+    """How a clip front-end runs a shape: its plan's frames a tile (0: one
+    block a clip), tiles a clip and resident blocks per SM of the kernel
+    that runs the frames (`kernels.plan`); in a checkout without the
+    split route, one block a clip and its occupancy query's blocks."""
+    import torch
+    if hasattr(kernels, "plan"):
+        tile, tiles, per_sm, _ = kernels.plan(name, plan[0],
+                                              torch.device("cuda", 0),
+                                              *plan[1])
+        return dict(tile=tile, tiles=tiles, blocks_per_sm=per_sm)
+    symbol, sizes = query
+    blocks = ctypes.c_int(0)
+    kernels.check(kernels.function(
+        name, symbol, [ctypes.c_int] * len(sizes) + [ctypes.c_void_p])(
+            *sizes, ctypes.addressof(blocks)), f"{name} occupancy")
+    return dict(tile=0, tiles=1, blocks_per_sm=blocks.value)
 
 
 def long_clip_error(name: str, got, ref) -> tuple[float, bool]:
     """(max abs error, ok) of a long-clip kernel against its plain
     version, at the tolerance of its clip-path check: K1 0.1 dB where the
     plain image is above -60 dB; K2 and K6's MFCC atol 1e-3 and rtol
-    2e-6 (a mean over 87 frames); K3's and K6's pitch rtol 2e-3."""
+    2e-6 (a mean over frames); K3's and K6's pitch rtol 2e-3."""
     import torch
     if name == "melspec_frontend":
         return mel_error(got, ref)
@@ -4785,60 +4830,104 @@ def long_clip_error(name: str, got, ref) -> tuple[float, bool]:
                             and bool((d <= 1e-3 + 2e-6 * ref.abs()).all()))
 
 
+def long_clip_batch(n: int, seconds: float, dev):
+    """(n, seconds x SR) riffs on `dev`: a pluck every 0.7 s from 0.4 s
+    over the 47 classes in turn, plus noise of sigma 0.1 (`make_riffs`;
+    at 256 x 4.0 s the inputs of PR 16's phase)."""
+    import torch
+    k = max(5, int((seconds - 0.5) / 0.7))
+    midi = (40 + np.arange(n * k) % 47).reshape(n, k)
+    return torch.from_numpy(make_riffs(midi, seconds, SR, SEED + 16,
+                                       noise=0.1)).to(dev)
+
+
+def time_long_clips(features, yin, dev, failures: list,
+                    shapes=LONG_CLIP_SHAPES) -> list[dict]:
+    """K1, K2, K3 and K6 at each of `shapes` (clips, seconds): each
+    against its plain version (`long_clip_error`), K6's MFCC K2's and its
+    pitch K3's bit for bit, each timed in CUDA events over POOL buffers,
+    in device ms (the profiler, every device function of its route) with
+    its bound, its plain version's time and its launch (`clip_launch`).
+    A checkout that caps the frames (`kernels.MAX_FRAMES`, before the
+    split route) gives a `refused` row where it raises."""
+    import torch
+    from gat_tpu_torch import kernels
+    roofline = load_roofline()
+    out = []
+    for n, seconds in shapes:
+        length = int(seconds * SR)
+        x = long_clip_batch(n, seconds, dev)
+        pool = noisy_pool(x, SEED, 0.01)
+        got = {}
+        for name, (fn, plain, cost, frames, plan, query) in (
+                long_clip_kernels(features, yin, n, length).items()):
+            row = dict(kernel=name, shape=[n, length], frames=frames)
+            try:
+                got[name] = fn(x)
+            except ValueError as e:
+                if not hasattr(kernels, "MAX_FRAMES"):
+                    raise
+                out.append(dict(row, refused=str(e)))
+                log(f"[long-clips] {name} at {n} x {length}: refused")
+                continue
+            err, ok = long_clip_error(name, got[name], plain(x))
+            bound_ms, bound_by = roofline.bound(*cost(dev))
+            row.update(clip_launch(kernels, name, plan, query))
+            # the route's device functions: the one-block kernel, or the
+            # split route's launches
+            symbols = roofline.KERNEL_SYMBOLS[LONG_KERNELS[name]]
+            parts = symbol_device_ms(fn, pool, symbols[1:] if row["tile"]
+                                     else symbols[:1])
+            row.update(max_abs_err=err, ms=time_ms(fn, pool, reps=10),
+                       device_ms=sum(ms or 0.0 for ms in parts.values())
+                       or None, device_parts=parts,
+                       plain_ms=time_ms(plain, pool, reps=3),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            out.append(row)
+            log(f"[long-clips] {name} at {n} x {length} ({frames} frames, "
+                f"tile {row['tile']} x {row['tiles']}): max abs err "
+                f"{err:.6g} -> {'ok' if ok else 'FAIL'}; kernel "
+                f"{row['ms']:.4f} ms, {fmt_ms(row['device_ms'])} device, "
+                f"plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {row['blocks_per_sm']} blocks per SM")
+            if not ok:
+                failures.append(f"[long-clips] {name} at {n} x {length} "
+                                f"against its plain version")
+        if len(got) == len(LONG_KERNELS):
+            k6, hz = got["mfcc_pitch_frontend"]
+            same = (torch.equal(k6[:, :64], got["mfcc_frontend"])
+                    and torch.equal(hz, got["yin_pitch"]))
+            log(f"[long-clips] at {n} x {length} K6's MFCC K2's and its "
+                f"pitch K3's bit for bit: {same}")
+            if not same:
+                failures.append(f"[long-clips] K6 differs from K2 and K3 at "
+                                f"{n} x {length}")
+        del x, pool, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out
+
+
 def long_clips_phase(rows: list, card: str, failures: list,
                      device: str = "cuda") -> None:
-    """`[long-clips]`: K1, K2, K3 and K6 at LONG_CLIPS clips of
-    LONG_CLIP_SECONDS (the kernels refused clips past 70 frames, K1 and K2
-    past 744 and 354, before YIN ran in groups of frames and the dB images
-    could leave shared memory): each against its plain version, K6's MFCC
-    K2's and its pitch K3's bit for bit, each timed in CUDA events over
-    POOL buffers with its bound and blocks per SM, into its kernels-line
-    row's `long_clips`; then `[file]` at `clip_duration=4.0` (module
-    docstring, phase 17)."""
+    """`[long-clips]`: K1, K2, K3 and K6 at LONG_CLIP_SHAPES
+    (`time_long_clips`), each shape's row into its kernels-line row's
+    `long_clips`; then `[file]` at `clip_duration=4.0`, `transcribe` and
+    `transcribe_note` at `clip_duration=60.0`, and a loader holding one
+    60 s file (module docstring, phase 17)."""
     import torch
-    from gat_tpu_torch import features, kernels
+    from gat_tpu_torch import features
     from gat_tpu_torch.ops import yin
-    roofline = load_roofline()
-    dev = torch.device(device)
-    length = int(LONG_CLIP_SECONDS * SR)
-    midi = (40 + np.arange(LONG_CLIPS * 5) % 47).reshape(LONG_CLIPS, 5)
-    x = torch.from_numpy(make_riffs(midi, LONG_CLIP_SECONDS, SR, SEED + 16,
-                                    noise=0.1)).to(dev)
-    pool = noisy_pool(x, SEED, 0.01)
     by_name = {r["name"]: r for r in rows}
-    outs = {}
-    for name, (fn, plain, cost, frames, symbol, sizes) in (
-            long_clip_kernels(features, yin).items()):
-        outs[name] = got = fn(x)
-        err, ok = long_clip_error(name, got, plain(x))
-        blocks = ctypes.c_int(0)
-        kernels.check(kernels.function(
-            name, symbol, [ctypes.c_int] * len(sizes) + [ctypes.c_void_p])(
-                *sizes, ctypes.addressof(blocks)), f"{name} occupancy")
-        bound_ms, bound_by = roofline.bound(*cost(dev))
-        info = dict(shape=[LONG_CLIPS, length], frames=frames,
-                    max_abs_err=err, ms=time_ms(fn, pool, reps=10),
-                    plain_ms=time_ms(plain, pool, reps=3),
-                    bound_ms=bound_ms, bound_by=bound_by,
-                    blocks_per_sm=blocks.value)
-        log(f"[long-clips] {name} at {LONG_CLIPS} x {length} ({frames} "
-            f"frames): max abs err {err:.6g} -> {'ok' if ok else 'FAIL'}; "
-            f"kernel {info['ms']:.4f} ms, plain {info['plain_ms']:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {blocks.value} blocks "
-            f"per SM, on {card}")
-        if not ok:
-            failures.append(f"[long-clips] {name} against its plain version")
+    for row in time_long_clips(features, yin, torch.device(device),
+                               failures):
+        name = row.pop("kernel")
         if name in by_name:
-            by_name[name]["long_clips"] = info
-    k6, hz = outs["mfcc_pitch_frontend"]
-    same = (torch.equal(k6[:, :64], outs["mfcc_frontend"])
-            and torch.equal(hz, outs["yin_pitch"]))
-    log(f"[long-clips] K6's MFCC K2's and its pitch K3's bit for bit: "
-        f"{same}")
-    if not same:
-        failures.append("[long-clips] K6 differs from K2 and K3")
-    torch.cuda.synchronize()
+            by_name[name].setdefault("long_clips", []).append(row)
+    log(f"[long-clips] on {card}")
     file_4s_phase(rows, card, failures, device)
+    long_file_phase(rows, card, failures, device)
+    long_loader_phase(rows, card, failures, device)
 
 
 def file_4s_phase(rows: list, card: str, failures: list,
@@ -4889,6 +4978,133 @@ def file_4s_phase(rows: list, card: str, failures: list,
                 record_launches(rows, path_name, launches)
         finally:
             spectral.set_stft_backend("auto")
+    torch.cuda.synchronize()
+
+
+def sustained_riff(midi: list, seconds: float, sr: int, seed: int
+                   ) -> np.ndarray:
+    """(seconds·sr,) float32: note j of `midi` from 0.4 + j·seconds/len(midi)
+    s, held until 0.5 s before the next, four harmonics decaying over 6 s
+    with a 10 ms attack and the last 30 % faded out, plus noise of sigma
+    0.003. A slice holds one note up to the next onset, so a note of a
+    60 s clip must sound for seconds to pass the slicer's loudness gate,
+    which a pluck of 0.45 s does not."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(0.0, 0.003, int(seconds * sr))
+    spacing = seconds / len(midi)
+    n = int((spacing - 0.5) * sr)
+    t = np.arange(n) / sr
+    env = np.exp(-t / 6.0) * np.minimum(1.0, t / 0.01)
+    env[-int(0.3 * n):] *= np.linspace(1.0, 0.0, int(0.3 * n))
+    for j, m in enumerate(midi):
+        f = 440.0 * 2.0 ** ((m - 69) / 12.0)
+        tone = sum(np.sin(2 * np.pi * k * f * t) / k for k in range(1, 5))
+        s = int((0.4 + spacing * j) * sr)
+        y[s:s + n] += (0.3 * env * tone)[:len(y) - s]
+    return y.astype(np.float32)
+
+
+def long_file_phase(rows: list, card: str, failures: list,
+                    device: str = "cuda") -> None:
+    """`transcribe(clip_duration=60.0)` and `transcribe_note(audio,
+    clip_duration=60.0)` of a 2 min riff at 22050 Hz (LONG_RIFF_MIDI, a
+    held note every 20 s from 0.4 s, `sustained_riff`), on the card and on the CPU: labels (and
+    the file's onsets and times) equal, probs within 1e-2. Its clips of 60
+    s give 2,584 frames at the mel's hop 256 and 1,292 at 512, which the
+    card refused before the split route: the card's calls launch K1, the
+    MFCC and pitch front-ends (K2 and K3, or K6) and the re-rate K9, and
+    `transcribe` the segmentation's K4, K5, K7 and K8 (paths `file_60s`
+    and `note_60s`)."""
+    import torch
+    from gat_tpu_torch.infer import Transcriber
+    from gat_tpu_torch.utils.wavio import write_wav
+    card_t, cpu_t = Transcriber(device=device), Transcriber(device="cpu")
+    riff = sustained_riff(LONG_RIFF_MIDI, LONG_RIFF_SECONDS, FILE_SR,
+                          SEED + 26)
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "riff_120s.wav"
+        write_wav(path, riff, FILE_SR)
+        calls = (
+            ("file_60s", lambda t: t.transcribe(
+                path, clip_duration=LONG_RIFF_CLIP), (K1, K4, K5, K7, K8, K9)),
+            ("note_60s", lambda t: t.transcribe_note(
+                riff, clip_duration=LONG_RIFF_CLIP, sr_in=FILE_SR), (K1, K9)))
+        for path_name, call, need in calls:
+            got, launches, wall = driven(lambda: call(card_t))
+            ref = call(cpu_t)
+            if path_name == "file_60s":
+                same, err = same_result(got, ref)
+            else:
+                err = float(np.abs(got["probs"] - ref["probs"]).max())
+                same = got["labels"] == ref["labels"] and err <= 1e-2
+            missing = not_launched(launches, need)
+            front = (min(launches[K2], launches[K3]) >= 1
+                     or launches[K6] >= 1)
+            ok = same and bool(got["labels"]) and not missing and front
+            log(f"[long-clips] {path_name}: labels {got['labels']}; equal to "
+                f"the CPU plain path {same} (max prob err {err:.3g}); "
+                f"launches K1..K13, branch {launches}, not launched "
+                f"{missing}, MFCC and pitch front-ends {front}; "
+                f"{wall * 1e3:.3f} ms on {card} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"[long-clips] {path_name} at clip_duration="
+                                f"{LONG_RIFF_CLIP}")
+            record_launches(rows, path_name, launches)
+    torch.cuda.synchronize()
+
+
+def long_loader_phase(rows: list, card: str, failures: list,
+                      device: str = "cuda") -> None:
+    """`FeatureBuilder.extract_melspec_features` and
+    `extract_mfcc_features` on a loader of LOADER_FILES files at 11025 Hz:
+    15 plucks of 0.5 s and one 60 s riff, which the loader pads every
+    clip to (16 clips of 2,584 frames at hop 256, which the card refused
+    before the split route), on the card and on the CPU: labels equal,
+    the mel image within 0.1 dB where the CPU's is above -60 dB, the MFCC
+    within 1e-3 and the pitch feature within 2e-3 relative (path
+    `loader_60s`)."""
+    import torch
+    from gat_tpu_torch.data.loader import AudioDatasetLoader
+    from gat_tpu_torch.features import FeatureBuilder
+    from gat_tpu_torch.ops import spectral
+    from gat_tpu_torch.ops.pitch import midi_to_note
+    from gat_tpu_torch.utils.wavio import write_wav
+    plucks, midi = make_clips(LOADER_FILES, SEED + 27)
+    riff = long_clip_batch(1, 60.0, "cpu")[0].numpy()
+    with tempfile.TemporaryDirectory() as d:
+        for i, m in enumerate(midi):
+            folder = Path(d) / midi_to_note(int(m), unicode=False)
+            folder.mkdir(exist_ok=True)
+            write_wav(folder / f"take_{i}.wav",
+                      riff if i == 0 else plucks[i], SR)
+        card_b, cpu_b = FeatureBuilder(device=device), FeatureBuilder(
+            device="cpu")
+        card_l = AudioDatasetLoader([d], target_sr=SR, device=device)
+        cpu_l = AudioDatasetLoader([d], target_sr=SR, device="cpu")
+        (mel, ms_labels), launches, wall = driven(
+            lambda: card_b.extract_melspec_features(card_l)[:2])
+        mf, mf_labels = card_b.extract_mfcc_features(card_l)[:2]
+        ref_mel, ref_labels = cpu_b.extract_melspec_features(cpu_l)[:2]
+        ref_mf = cpu_b.extract_mfcc_features(cpu_l)[0]
+    mel_err, mel_ok = mel_error(torch.as_tensor(np.asarray(mel)),
+                                torch.as_tensor(np.asarray(ref_mel)))
+    mf, ref_mf = np.asarray(mf), np.asarray(ref_mf)
+    mf_err = float(np.abs(mf[:, :64] - ref_mf[:, :64]).max())
+    hz_err = float(np.abs(10.0 ** (mf[:, 64] - ref_mf[:, 64]) - 1.0).max())
+    labels_ok = (np.array_equal(ms_labels, ref_labels)
+                 and np.array_equal(mf_labels, ref_labels))
+    ok = (mel_ok and mf_err <= 1e-3 and hz_err <= 2e-3 and labels_ok
+          and np.shape(mel)[2] == spectral.n_frames(int(60.0 * SR), 2048,
+                                                    256)
+          and launches[K1] >= 1)
+    log(f"[long-clips] loader of {LOADER_FILES} files with one 60 s file: "
+        f"mel {tuple(np.shape(mel))} max abs err {mel_err:.6g}, MFCC "
+        f"{mf_err:.3g}, pitch rel {hz_err:.3g}, labels equal {labels_ok}; "
+        f"K1 launches {launches[K1]}; {wall * 1e3:.3f} ms on {card} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[long-clips] a loader with one 60 s file")
+    record_launches(rows, "loader_60s", launches)
     torch.cuda.synchronize()
 
 

@@ -40,17 +40,86 @@ __device__ __forceinline__ float padded_sample(const float* __restrict__ clip,
   return (i >= 0 && i < n) ? clip[i] : 0.0f;
 }
 
-// The volume normalization's divisor rms + eps of the clip, y / (rms +
-// eps), its sum of squares in one fixed order. Every thread of the block
+// The volume normalization's divisor rms + eps, y / (rms + eps), from its
+// sum of squares in one fixed order: lane l of the kThreads lanes sums
+// the squares of its samples l, l + kThreads, ... of each chunk of
+// kDivisorChunk samples in order, then its chunks' sums in order, then
+// the block sums the lanes (block_sum). A clip of at most one chunk (5.9
+// s at 11025 Hz) is one running sum a lane. The split route
+// (dsp_common.cuh) forms each chunk's lane sums in a block of its own and
+// sums them as the one-block route does: the same float.
+constexpr int kDivisorChunk = kThreads * 256;  // samples of a chunk
+
+__host__ __device__ constexpr int divisor_chunks(int n_samples) {
+  return (n_samples + kDivisorChunk - 1) / kDivisorChunk;
+}
+
+// Lane threadIdx.x's sum of squares over chunk c of the clip, in order;
+// its loads eight at a time before their sums.
+__device__ __forceinline__ float chunk_squares(const float* __restrict__ clip,
+                                               int n_samples, int c) {
+  const int end = (c + 1) * kDivisorChunk < n_samples
+                      ? (c + 1) * kDivisorChunk
+                      : n_samples;
+  float p = 0.0f;
+  int i = c * kDivisorChunk + threadIdx.x;
+  for (; i + 7 * kThreads < end; i += 8 * kThreads) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = clip[i + k * kThreads];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) p += v[k] * v[k];
+  }
+  for (; i < end; i += kThreads) p += clip[i] * clip[i];
+  return p;
+}
+
+// rms + eps from each lane's sum of squares. Every thread of the block
+// calls this and gets the result; scratch holds kThreads floats.
+__device__ __forceinline__ float lane_divisor(float ss, int n_samples,
+                                              float* scratch) {
+  ss = block_sum(ss, scratch);
+  return sqrtf(ss / (float)n_samples) + kVolumeEps;
+}
+
+// The clip's divisor, read whole by this block. Every thread of the block
 // calls this and gets the result; scratch holds kThreads floats.
 __device__ __forceinline__ float volume_divisor(const float* __restrict__ clip,
                                                 int n_samples,
                                                 float* scratch) {
   float ss = 0.0f;
-  for (int i = threadIdx.x; i < n_samples; i += kThreads)
-    ss += clip[i] * clip[i];
-  ss = block_sum(ss, scratch);
-  return sqrtf(ss / (float)n_samples) + kVolumeEps;
+  for (int c = 0; c < divisor_chunks(n_samples); ++c)
+    ss += chunk_squares(clip, n_samples, c);
+  return lane_divisor(ss, n_samples, scratch);
+}
+
+// The split route's pre-pass, a block a (clip, chunk): block b writes the
+// kThreads lane sums of chunk b % chunks of clip b / chunks to
+// sums[b * kThreads ..], a clip's chunks one after another.
+__device__ __forceinline__ void chunk_lane_sums(
+    const float* __restrict__ clips, int n_samples, float* __restrict__ sums) {
+  const int chunks = divisor_chunks(n_samples);
+  const int c = blockIdx.x / chunks;
+  sums[(size_t)blockIdx.x * kThreads + threadIdx.x] = chunk_squares(
+      clips + (size_t)c * n_samples, n_samples, blockIdx.x - c * chunks);
+}
+
+// A split clip's divisor from its chunks' lane sums (chunk_lane_sums),
+// summed as volume_divisor sums them. Every thread of the block calls
+// this and gets the result; scratch holds kThreads floats.
+__device__ __forceinline__ float summed_divisor(const float* __restrict__ sums,
+                                                int n_samples,
+                                                float* scratch) {
+  float ss = 0.0f;
+  for (int c = 0; c < divisor_chunks(n_samples); ++c)
+    ss += sums[c * kThreads + threadIdx.x];
+  return lane_divisor(ss, n_samples, scratch);
+}
+
+// The power scale of a clip whose volume divisor is d: the split's
+// (1/2)^2 over d^2.
+__device__ __forceinline__ float divisor_scale(float d) {
+  return 0.25f / (d * d);
 }
 
 // The scale of the rounds' mel sums: the 1/2 of the two-for-one split,
@@ -61,8 +130,7 @@ __device__ __forceinline__ float power_scale(const float* __restrict__ clip,
                                              int n_samples, int normalize,
                                              float* scratch) {
   if (!normalize) return 0.25f;
-  const float d = volume_divisor(clip, n_samples, scratch);
-  return 0.25f / (d * d);
+  return divisor_scale(volume_divisor(clip, n_samples, scratch));
 }
 
 // Runs frames first_frame .. end_frame - 1 of `clip` through the rounds;

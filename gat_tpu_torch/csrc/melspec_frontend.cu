@@ -51,6 +51,18 @@
 // into the output, which is the image (the kernel's kImageInSmem = false
 // instance): the same values, stored one at a time instead of once as a
 // whole.
+//
+// Clips of any length. Where one block a clip leaves the card under-filled
+// (dsp_common.cuh: fewer clips than resident blocks, at least 64 frames),
+// the split route cuts each clip's frames into tiles, one block a tile
+// (melspec_tile_kernel), each writing its frames' values straight into the
+// image. The image is per frame; the one per-clip term is the volume
+// scale: a pre-pass sums the squares of each chunk of the clip in a block
+// of its own (melspec_divisor_kernel), and each tile sums those lane sums
+// into the one-block route's divisor (mel_rounds.cuh::summed_divisor),
+// so no block reads a whole clip. A tile is an even number
+// of frames, so every FFT pairs the frames the one-block route pairs and
+// the image is that route's bit for bit.
 #include "mel_rounds.cuh"
 
 using namespace gat;
@@ -122,8 +134,7 @@ extern "C" int gat_melspec_frontend(const float* clips, float* out,
                                     int n_samples, int hop, int n_frames,
                                     int n_mels, int normalize, int to_db,
                                     void* stream) {
-  if (n_frames < 1 || n_frames >= kMaxFrames)
-    return (int)cudaErrorInvalidValue;
+  if (n_frames < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = melspec_set_attributes(n_mels, n_frames);
   if (err != cudaSuccess) return (int)err;
   const MelspecKernel kernel = melspec_kernel(n_mels, n_frames);
@@ -138,11 +149,125 @@ extern "C" int gat_melspec_frontend(const float* clips, float* out,
 // from the kernel's registers and shared memory.
 extern "C" int gat_melspec_blocks_per_sm(int n_mels, int n_frames,
                                          int* blocks) {
-  if (n_frames < 1 || n_frames >= kMaxFrames)
-    return (int)cudaErrorInvalidValue;
+  if (n_frames < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = melspec_set_attributes(n_mels, n_frames);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, melspec_kernel(n_mels, n_frames), kThreads,
       melspec_smem_bytes(n_mels, n_frames));
+}
+
+// ---------------------------------------------------------------------------
+// The split route
+// ---------------------------------------------------------------------------
+// Block b: the lane sums of squares of chunk b % chunks of clip b /
+// chunks (mel_rounds.cuh::chunk_lane_sums), the volume divisor's parts.
+__global__ void __launch_bounds__(kThreads)
+melspec_divisor_kernel(const float* __restrict__ clips,
+                       float* __restrict__ sums, int n_samples) {
+  chunk_lane_sums(clips, n_samples, sums);
+}
+
+// Block b runs tile b % tiles of clip b / tiles: frames [t0, t0 + tile)
+// of the clip, cut at n_frames, scaled by the clip's divisor from its
+// chunks' lane sums (none: not normalized).
+__global__ void __launch_bounds__(kThreads, 4)
+melspec_tile_kernel(const float* __restrict__ clips, float* __restrict__ out,
+                    const float* __restrict__ sums,
+                    const float* __restrict__ hann,
+                    const float* __restrict__ tw,
+                    const float* __restrict__ fb,
+                    const int* __restrict__ lo, const int* __restrict__ hi,
+                    int n_samples, int hop, int n_frames, int n_mels,
+                    int tile, int tiles, int to_db) {
+  extern __shared__ float smem[];
+  const int c = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - c * tiles) * tile;
+  const int t1 = t0 + tile < n_frames ? t0 + tile : n_frames;
+  const float scale =
+      sums ? divisor_scale(summed_divisor(
+                 sums + (size_t)c * divisor_chunks(n_samples) * kThreads,
+                 n_samples, smem))
+           : 0.25f;
+  float* o = out + (size_t)c * n_mels * n_frames;
+  mel_rounds</*kReflect=*/true>(
+      clips + (size_t)c * n_samples, n_samples, hop, t0, t1, n_mels, hann,
+      tw, fb, lo, hi, smem, [&](int m, int t, float v) {
+        v *= scale;
+        o[(size_t)m * n_frames + t] =
+            to_db ? 10.0f * log10f(fmaxf(v, 1e-10f)) : v;
+      });
+}
+
+static size_t melspec_tile_smem_bytes(int n_mels) {
+  return sizeof(float) * (size_t)mel_rounds_floats(n_mels);
+}
+
+static cudaError_t melspec_tile_attributes(int n_mels) {
+  return cudaFuncSetAttribute(melspec_tile_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)melspec_tile_smem_bytes(n_mels));
+}
+
+// The launch at these sizes on the current device: plan[kPlanTile] frames
+// a tile (0: one block a clip), plan[kPlanTiles] tiles a clip,
+// plan[kPlanPerSM] the resident blocks per SM of the kernel the route
+// runs, plan[kPlanFloats] floats of scratch a clip (the split route's
+// lane sums of the volume divisor when normalizing).
+extern "C" int gat_melspec_plan(int n_clips, int n_samples, int n_frames,
+                                int n_mels, int normalize, int* plan) {
+  if (n_frames < 1 || n_clips < 0 || n_samples < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = melspec_tile_attributes(n_mels);
+  long long slots = 0;
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = card_slots(melspec_tile_kernel, melspec_tile_smem_bytes(n_mels),
+                     &slots, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  const int tile =
+      split_tile(n_clips, n_frames, slots, kInFlight, kNoMaxTile);
+  plan[kPlanTile] = tile;
+  plan[kPlanTiles] = tile ? (n_frames + tile - 1) / tile : 1;
+  plan[kPlanFloats] =
+      tile && normalize ? divisor_chunks(n_samples) * kThreads : 0;
+  if (tile) {
+    plan[kPlanPerSM] = per_sm;
+    return 0;
+  }
+  return gat_melspec_blocks_per_sm(n_mels, n_frames, &plan[kPlanPerSM]);
+}
+
+// The split route: tiles of `tile` frames (even, so that each FFT pairs
+// the one-block route's frames), one block a tile; `scratch` holds
+// n_clips x divisor_chunks(n_samples) x kThreads floats, the clips'
+// chunks' lane sums of squares, when `normalize` (else it may be NULL).
+// Two launches: the lane sums, a block a chunk, then the tiles.
+extern "C" int gat_melspec_split(const float* clips, float* out,
+                                 float* scratch, const float* hann,
+                                 const float* tw, const float* fb,
+                                 const int* lo, const int* hi, int n_clips,
+                                 int n_samples, int hop, int n_frames,
+                                 int n_mels, int normalize, int to_db,
+                                 int tile, void* stream) {
+  if (n_frames < 1 || n_samples < 1 || tile < 2 || tile % 2 != 0 ||
+      (normalize && !scratch))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (n_frames + tile - 1) / tile;
+  const long long chunk_grid = (long long)n_clips * divisor_chunks(n_samples);
+  if ((long long)n_clips * tiles > 0x7fffffffLL || chunk_grid > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = melspec_tile_attributes(n_mels);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (normalize) {
+    melspec_divisor_kernel<<<(int)chunk_grid, kThreads, 0, s>>>(
+        clips, scratch, n_samples);
+  }
+  const int grid = n_clips * tiles;
+  melspec_tile_kernel<<<grid, kThreads, melspec_tile_smem_bytes(n_mels),
+                        s>>>(
+      clips, out, normalize ? scratch : nullptr, hann, tw, fb, lo, hi,
+      n_samples, hop, n_frames, n_mels, tile, tiles, to_db);
+  return (int)cudaGetLastError();
 }

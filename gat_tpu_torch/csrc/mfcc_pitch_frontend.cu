@@ -60,7 +60,7 @@
 // clips put the YIN copy after the dB image and the tables at the start of
 // the buffer when the copy does not fit in the exchange buffer.
 //
-// Clips of any length up to kMaxFrames frames: YIN runs in groups of
+// Clips of any length: YIN runs in groups of
 // frames (yin_acf.cuh), the first group's copy started by the hook as
 // above, each later one staged when the last is done; the group is the
 // largest that fits the shared memory a block has at the occupancy the
@@ -71,6 +71,21 @@
 // and a group of YIN do not fit beside the rounds' buffers (355 frames or
 // more at 128 mels, as in K2), the image goes to a workspace in device
 // memory that the caller passes, n_frames x n_mels floats per clip.
+//
+// Where one block a clip leaves the card under-filled, or a clip has more
+// frames than kMaxTile, the split route (dsp_common.cuh) cuts each clip's
+// frames into tiles, one block a tile, in four launches: the lane sums
+// of squares of each chunk of a clip's samples, a block a chunk
+// (mel_rounds.cuh, which each tile sums into the one-block route's
+// volume divisor); each
+// tile's MFCC rounds into the dB image in device memory with its peak
+// (K2's split steps, mfcc_mean.cuh), then YIN over the tile's frames in
+// groups, every frame's f0 into device memory (the same float at any tile
+// or group); each chunk's clamped sums; and per clip the mean and the DCT
+// from its chunks' sums in order, and the median of its frames' f0 by a
+// radix selection over device memory (yin_acf.cuh::select_median). Its
+// MFCC is K2's and its raw pitch K3's bit for bit, and both are the
+// one-block route's floats.
 #include <cuda_pipeline.h>
 
 #include <cstdint>
@@ -229,7 +244,8 @@ using FrontendKernel = decltype(&mfcc_pitch_frontend_kernel<true>);
 // YIN's group of frames, and the layout. The image stays in shared memory
 // when some group fits beside it; the group is the largest whose buffer
 // fits at the occupancy the MFCC branch alone allows (at most
-// kBlocksPerSM). group 0: refused.
+// kBlocksPerSM), else the largest a block holds beside the image in device
+// memory. group 0: refused.
 struct FrontendPlan {
   bool image_in_smem = true;
   int group = 0;
@@ -238,7 +254,7 @@ struct FrontendPlan {
 static FrontendPlan frontend_plan(int n_frames, int n_mels, int n_mfcc,
                                   int win, int hop, int max_p) {
   FrontendPlan plan;
-  if (n_frames < 1 || n_frames >= kMaxFrames || max_p < 1 ||
+  if (n_frames < 1 || max_p < 1 ||
       n_mfcc > n_mels || !mfcc_epilogue_fits(n_mels, n_mfcc) ||
       !shared_chains_fit(win, hop))
     return plan;
@@ -254,6 +270,16 @@ static FrontendPlan frontend_plan(int n_frames, int n_mels, int n_mfcc,
           .bytes();
     });
     if (plan.group > 0) break;
+  }
+  if (plan.group == 0) {  // a clip whose f0 table crowds out any group at
+                          // that occupancy: the largest group a block holds
+    plan.image_in_smem = false;
+    plan.group = yin_group(win, hop, n_frames, max_p, kMaxBlockSmem,
+                           [&](int g) {
+                             return FrontendLayout(n_frames, n_mels, win, hop,
+                                                   max_p, g, false)
+                                 .bytes();
+                           });
   }
   return plan;
 }
@@ -334,4 +360,248 @@ extern "C" int gat_mfcc_pitch_frontend_blocks_per_sm(int n_samples, int hop,
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, frontend_kernel(plan), kThreads, lay.bytes());
+}
+
+// ---------------------------------------------------------------------------
+// The split route
+// ---------------------------------------------------------------------------
+constexpr int kMaxTile = 512;  // frames the one-block route takes alone
+
+// Block b: the lane sums of squares of chunk b % chunks of clip b /
+// chunks (mel_rounds.cuh::chunk_lane_sums), the volume divisor's parts.
+__global__ void __launch_bounds__(kThreads)
+mfcc_pitch_divisor_kernel(const float* __restrict__ clips,
+                          float* __restrict__ sums, int n_samples) {
+  chunk_lane_sums(clips, n_samples, sums);
+}
+
+// The split route's shared memory for groups of `group` frames: the
+// rounds' buffers, then over them YIN's tables at 0 and its padded copy
+// of a group past them. Bytes.
+struct TileLayout {
+  YinLayout yin;
+  size_t clip, bytes;
+  __host__ __device__ TileLayout(int n_mels, int win, int hop, int max_p,
+                                 int group)
+      : yin(win, hop, group, max_p) {
+    clip = (yin.tables + 15) / 16 * 16;
+    const size_t yin_bytes = clip + sizeof(float) * (size_t)yin.padded_len;
+    const size_t rounds = sizeof(float) * (size_t)mel_rounds_floats(n_mels);
+    bytes = yin_bytes > rounds ? yin_bytes : rounds;
+  }
+};
+
+// Block b runs tile b % tiles of clip b / tiles: the MFCC rounds of its
+// frames, scaled by the clip's divisor from its chunks' lane sums (none:
+// not normalized), into the clip's dB image with its peak into peaks[b],
+// then YIN over the same frames in groups of `group`, their f0 into
+// f0s[clip * n_frames + t].
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+mfcc_pitch_tile_kernel(const float* __restrict__ clips,
+                       const float* __restrict__ lanes,
+                       const float* __restrict__ hann,
+                       const float* __restrict__ tw,
+                       const float* __restrict__ fb,
+                       const int* __restrict__ lo, const int* __restrict__ hi,
+                       float* __restrict__ img, float* __restrict__ peaks,
+                       float* __restrict__ f0s, int n_samples, int hop,
+                       int n_frames, int n_mels, int win, int min_p,
+                       int max_p, int group, int tile, int tiles,
+                       int pitch_normalized, float threshold, float sr) {
+  const TileLayout lay(n_mels, win, hop, max_p, group);
+  extern __shared__ float smem[];
+  char* tables = reinterpret_cast<char*>(smem);
+  float* padded = reinterpret_cast<float*>(tables + lay.clip);
+
+  const int c = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - c * tiles) * tile;
+  const int t1 = t0 + tile < n_frames ? t0 + tile : n_frames;
+  const float* clip = clips + (size_t)c * n_samples;
+  const float d =
+      lanes ? summed_divisor(
+                  lanes + (size_t)c * divisor_chunks(n_samples) * kThreads,
+                  n_samples, smem)
+            : 1.0f;
+  const float scale = lanes ? divisor_scale(d) : 0.25f;
+  const float peak =
+      mfcc_tile_db(clip, n_samples, hop, t0, t1, n_mels, scale, hann, tw, fb,
+                   lo, hi, smem, img + (size_t)c * n_frames * n_mels);
+  if (threadIdx.x == 0) peaks[blockIdx.x] = peak;
+
+  // block_max's last barrier: the rounds' buffers pass to YIN
+  float* f0 = f0s + (size_t)c * n_frames;
+  for (int g0 = t0; g0 < t1; g0 += group) {
+    if (g0 > t0) __syncthreads();  // the last group is done with the copy
+    stage_yin_clip(clip, n_samples, g0 * hop, lay.yin.padded_len, padded);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (lanes && pitch_normalized) {
+      for (int p = threadIdx.x; p < lay.yin.padded_len; p += kThreads)
+        padded[p] = padded[p] / d;
+      __syncthreads();
+    }
+    yin_frames_f0</*kFused=*/true>(
+        padded, tables, lay.yin, t1 - g0 < group ? t1 - g0 : group, f0 + g0,
+        win, hop, min_p, max_p, threshold, sr);
+  }
+}
+
+// Block b sums chunk b % chunks of clip b / chunks into sums[b * n_mels..].
+__global__ void __launch_bounds__(kThreads)
+mfcc_pitch_sums_kernel(const float* __restrict__ img,
+                       const float* __restrict__ peaks,
+                       float* __restrict__ sums, int n_frames, int n_mels,
+                       int tiles, float top_db) {
+  const int chunks = mean_chunks(n_frames);
+  const int c = blockIdx.x / chunks;
+  mfcc_chunk_sums(img + (size_t)c * n_frames * n_mels,
+                  peaks + (size_t)c * tiles, tiles, blockIdx.x - c * chunks,
+                  n_frames, n_mels, top_db,
+                  sums + (size_t)blockIdx.x * n_mels);
+}
+
+// Block c: clip c's mean MFCC from its chunks' sums into its row's first
+// n_mfcc values, the median of its frames' f0 into hz[c] and log10 of it
+// after the coefficients.
+__global__ void __launch_bounds__(kThreads)
+mfcc_pitch_mean_kernel(const float* __restrict__ sums,
+                       const float* __restrict__ f0s,
+                       const float* __restrict__ dct, float* __restrict__ out,
+                       float* __restrict__ hz_out, int n_frames, int n_mels,
+                       int n_mfcc) {
+  extern __shared__ float smem[];
+  float* row = out + (size_t)blockIdx.x * (n_mfcc + 1);
+  mfcc_chunks_mean(sums + (size_t)blockIdx.x * mean_chunks(n_frames) * n_mels,
+                   n_frames, n_mels, n_mfcc, dct, smem, row);
+  int* hist = reinterpret_cast<int*>(smem + n_mels + kDctParts * n_mfcc);
+  const float hz =
+      select_median(f0s + (size_t)blockIdx.x * n_frames, n_frames, hist);
+  if (threadIdx.x == 0) {
+    row[n_mfcc] = log10f(hz);
+    hz_out[blockIdx.x] = hz;
+  }
+}
+
+// The split route's group for tiles of up to `tile` frames: the largest
+// whose layout lets kBlocksPerSM blocks share an SM, else the largest a
+// block holds (0: none).
+static int tile_group(int n_mels, int win, int hop, int tile, int max_p) {
+  if (tile < 1 || max_p < 1) return 0;
+  const auto bytes = [&](int g) {
+    return TileLayout(n_mels, win, hop, max_p, g).bytes;
+  };
+  const int g = yin_group(win, hop, tile, max_p,
+                          smem_per_block(kBlocksPerSM), bytes);
+  return g > 0 ? g : yin_group(win, hop, tile, max_p, kMaxBlockSmem, bytes);
+}
+
+static cudaError_t tile_attributes(size_t bytes) {
+  return cudaFuncSetAttribute(mfcc_pitch_tile_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// Floats of scratch a clip on the split route: its divisor's lane sums,
+// its tiles' peaks, its chunks' sums, its frames' f0 and its dB image.
+static long long split_floats(int n_samples, int n_frames, int n_mels,
+                              int tiles) {
+  return (long long)divisor_chunks(n_samples) * kThreads + tiles +
+         (long long)mean_chunks(n_frames) * n_mels + n_frames +
+         (long long)n_frames * n_mels;
+}
+
+// Whether the split route takes these sizes: what the one-block route
+// needs of them, but the frame bound.
+static bool split_fits(int n_mels, int n_mfcc, int win, int hop, int max_p) {
+  return max_p >= 1 && n_mfcc <= n_mels &&
+         mfcc_epilogue_fits(n_mels, n_mfcc) && shared_chains_fit(win, hop);
+}
+
+// The launch at these sizes on the current device: plan[kPlanTile] frames
+// a tile (0: one block a clip), plan[kPlanTiles] tiles a clip,
+// plan[kPlanPerSM] the resident blocks per SM of the kernel that runs the
+// frames, plan[kPlanFloats] floats of scratch a clip (one block: the
+// workspace of gat_mfcc_pitch_workspace_floats).
+extern "C" int gat_mfcc_pitch_plan(int n_clips, int n_samples, int n_frames,
+                                   int n_mels, int n_mfcc, int win, int hop,
+                                   int max_p, int* plan) {
+  if (n_frames < 1 || n_clips < 0 || n_samples < 1 ||
+      !split_fits(n_mels, n_mfcc, win, hop, max_p))
+    return (int)cudaErrorInvalidValue;
+  const int group = tile_group(n_mels, win, hop, kMaxTile, max_p);
+  if (group == 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = TileLayout(n_mels, win, hop, max_p, group).bytes;
+  cudaError_t err = tile_attributes(bytes);
+  long long slots = 0;
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = card_slots(mfcc_pitch_tile_kernel, bytes, &slots, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  const int tile = split_tile(n_clips, n_frames, slots, kInFlight, kMaxTile);
+  plan[kPlanTile] = tile;
+  plan[kPlanTiles] = tile ? (n_frames + tile - 1) / tile : 1;
+  if (tile) {
+    const long long floats =
+        split_floats(n_samples, n_frames, n_mels, plan[kPlanTiles]);
+    if (floats > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    plan[kPlanPerSM] = per_sm;
+    plan[kPlanFloats] = (int)floats;
+    return 0;
+  }
+  plan[kPlanFloats] = gat_mfcc_pitch_workspace_floats(n_frames, n_mels,
+                                                      n_mfcc, win, hop, max_p);
+  if (plan[kPlanFloats] < 0) return (int)cudaErrorInvalidValue;
+  return gat_mfcc_pitch_frontend_blocks_per_sm(0, hop, n_frames, n_mels, win,
+                                               max_p, &plan[kPlanPerSM]);
+}
+
+// The split route: tiles of `tile` frames (even, so that each FFT pairs
+// the one-block route's frames), one block a tile; `scratch` holds
+// plan[kPlanFloats] floats a clip at this tile. Four launches: the
+// divisor's lane sums (when `normalize`), the tiles' dB, peaks and f0,
+// their clamped sums, the means and medians.
+extern "C" int gat_mfcc_pitch_split(
+    const float* clips, float* out, float* hz, float* scratch,
+    const float* hann, const float* tw, const float* fb, const int* lo,
+    const int* hi, const float* dct, int n_clips, int n_samples, int hop,
+    int n_frames, int n_mels, int n_mfcc, int win, int min_p, int max_p,
+    int normalize, int pitch_normalized, float top_db, float threshold,
+    float sr, int tile, void* stream) {
+  if (n_frames < 1 || n_samples < 1 || tile < 2 || tile % 2 != 0 ||
+      !scratch || !split_fits(n_mels, n_mfcc, win, hop, max_p))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (n_frames + tile - 1) / tile;
+  const int group = tile_group(n_mels, win, hop, tile, max_p);
+  const int div_chunks = divisor_chunks(n_samples);
+  if (group == 0 || (long long)n_clips * tiles > 0x7fffffffLL ||
+      (long long)n_clips * mean_chunks(n_frames) > 0x7fffffffLL ||
+      (long long)n_clips * div_chunks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = TileLayout(n_mels, win, hop, max_p, group).bytes;
+  cudaError_t err = tile_attributes(bytes);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  float* lanes = scratch;
+  float* peaks = lanes + (size_t)n_clips * div_chunks * kThreads;
+  float* sums = peaks + (size_t)n_clips * tiles;
+  float* f0s = sums + (size_t)n_clips * mean_chunks(n_frames) * n_mels;
+  float* img = f0s + (size_t)n_clips * n_frames;
+  if (normalize) {
+    mfcc_pitch_divisor_kernel<<<n_clips * div_chunks, kThreads, 0, s>>>(
+        clips, lanes, n_samples);
+  }
+  const int grid = n_clips * tiles;
+  mfcc_pitch_tile_kernel<<<grid, kThreads, bytes, s>>>(
+      clips, normalize ? lanes : nullptr, hann, tw, fb, lo, hi, img,
+      peaks, f0s, n_samples, hop, n_frames, n_mels, win, min_p, max_p, group,
+      tile, tiles, pitch_normalized, threshold, sr);
+  const int chunk_grid = n_clips * mean_chunks(n_frames);
+  mfcc_pitch_sums_kernel<<<chunk_grid, kThreads, 0, s>>>(
+      img, peaks, sums, n_frames, n_mels, tiles, top_db);
+  const size_t mean_bytes =
+      sizeof(float) * (size_t)(n_mels + kDctParts * n_mfcc) +
+      sizeof(int) * 258;
+  mfcc_pitch_mean_kernel<<<n_clips, kThreads, mean_bytes, s>>>(
+      sums, f0s, dct, out, hz, n_frames, n_mels, n_mfcc);
+  return (int)cudaGetLastError();
 }

@@ -64,10 +64,10 @@ struct YinLayout {
   }
 };
 
-// The median's rank sort (K6) places the f0 of every frame in the ACF
-// round table, free by then.
-static_assert(2 * kSegs * kBlockLags >= kMaxFrames,
-              "the round table holds a clip's f0");
+// The frames whose f0 the median's rank sort (K6) places in the ACF round
+// table, free by then; a one-block clip of more frames takes the
+// insertion sort (the same floats).
+constexpr int kRankFrames = 2 * kSegs * kBlockLags;
 
 // The largest group of frames, at most n_frames, whose shared memory
 // `bytes(g)` fits in `budget` bytes; 0 when not even one frame fits. Any
@@ -414,28 +414,9 @@ __device__ __forceinline__ void yin_frames_f0(
   __syncthreads();
 }
 
-// Step 4: the median in Hz of the f0 of a clip's n_frames frames, in the
-// layout's f0 table. kFused: each f0's rank (ties by frame) places it in
-// ascending order in the ACF round table, free by then, which is the
-// insertion sort's order of the same values; else (K3) an insertion sort
-// in place on thread 0. Every thread of the block calls this; the result
-// is thread 0's.
-template <bool kFused = false>
-__device__ __forceinline__ float yin_median(char* base, const YinLayout& lay,
-                                            int n_frames) {
-  float* f0 = reinterpret_cast<float*>(base + lay.f0);
-  if constexpr (kFused) {
-    float* sorted = reinterpret_cast<float*>(base + lay.red);
-    for (int t = threadIdx.x; t < n_frames; t += kThreads) {
-      const float v = f0[t];
-      int rank = 0;
-      for (int j = 0; j < n_frames; ++j)
-        rank += f0[j] < v || (f0[j] == v && j < t);
-      sorted[rank] = v;
-    }
-    __syncthreads();
-    return threadIdx.x == 0 ? sorted_median(sorted, n_frames) : 0.0f;
-  }
+// Thread 0's insertion sort of f0[0..n_frames) in place, and its
+// median (the result is thread 0's).
+__device__ __forceinline__ float insertion_median(float* f0, int n_frames) {
   float hz = 0.0f;
   if (threadIdx.x == 0) {
     for (int i = 1; i < n_frames; ++i) {  // insertion sort
@@ -452,5 +433,83 @@ __device__ __forceinline__ float yin_median(char* base, const YinLayout& lay,
   return hz;
 }
 
+// Step 4: the median in Hz of the f0 of a clip's n_frames frames, in the
+// layout's f0 table. kFused: each f0's rank (ties by frame) places it in
+// ascending order in the ACF round table, free by then, which is the
+// insertion sort's order of the same values; else (K3), or past the
+// kRankFrames the table holds, an insertion sort in place on thread 0.
+// Every thread of the block calls this; the result is thread 0's.
+template <bool kFused = false>
+__device__ __forceinline__ float yin_median(char* base, const YinLayout& lay,
+                                            int n_frames) {
+  float* f0 = reinterpret_cast<float*>(base + lay.f0);
+  if (kFused && n_frames <= kRankFrames) {
+    float* sorted = reinterpret_cast<float*>(base + lay.red);
+    for (int t = threadIdx.x; t < n_frames; t += kThreads) {
+      const float v = f0[t];
+      int rank = 0;
+      for (int j = 0; j < n_frames; ++j)
+        rank += f0[j] < v || (f0[j] == v && j < t);
+      sorted[rank] = v;
+    }
+    __syncthreads();
+    return threadIdx.x == 0 ? sorted_median(sorted, n_frames) : 0.0f;
+  }
+  return insertion_median(f0, n_frames);
+}
+
+// The split route's median (dsp_common.cuh): the median of the n f0 of a
+// clip in device memory, from any number of frames, by a radix selection
+// of each middle value (k = n / 2, and n / 2 - 1 when n is even) over the
+// floats' order keys, 8 bits a pass from the top: each pass counts, in a
+// histogram of 256 bins in shared memory, the keys whose bits above the
+// pass match the digits found so far, and thread 0 walks the bins to the
+// one that holds the k-th key. The middle values are the sorted order's,
+// and the median is sorted_median's float (the mean of the two middle
+// ones when n is even, as jnp.median). hist holds 258 ints of shared
+// memory. Every thread of the block calls this; the result is every
+// thread's.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = (unsigned)__float_as_int(v);
+  return u & 0x80000000u ? ~u : u | 0x80000000u;
+}
+
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __int_as_float((int)(k & 0x80000000u ? k & 0x7fffffffu : ~k));
+}
+
+__device__ __forceinline__ float select_kth(const float* __restrict__ v,
+                                            int n, int k, int* hist) {
+  unsigned prefix = 0, mask = 0;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < 256; i += kThreads) hist[i] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const unsigned key = order_key(v[i]);
+      if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int d = 0;
+      while (k >= hist[d]) k -= hist[d++];
+      hist[256] = d;
+      hist[257] = k;
+    }
+    __syncthreads();
+    prefix |= (unsigned)hist[256] << shift;
+    mask |= 255u << shift;
+    k = hist[257];
+    __syncthreads();  // the next pass clears the bins
+  }
+  return key_float(prefix);
+}
+
+__device__ __forceinline__ float select_median(const float* __restrict__ f0,
+                                               int n, int* hist) {
+  const int h = n / 2;
+  const float hi = select_kth(f0, n, h, hist);
+  if (n & 1) return hi;
+  return (select_kth(f0, n, h - 1, hist) + hi) * 0.5f;
+}
 
 }  // namespace gat

@@ -77,20 +77,10 @@ def normalize_volume(y: torch.Tensor, eps: float = _VOLUME_EPS
 
 
 def kernel_frames(length: int, hop: int, name: str) -> int:
-    """The frame count of a clip of `length` samples at `hop`, raising
-    where the clip kernels refuse it (`kernels.check_frames`)."""
-    n_fr = spectral.n_frames(length, _KERNEL_N_FFT, hop)
-    kernels.check_frames(n_fr, hop, length, name)
-    return n_fr
-
-
-@functools.lru_cache(maxsize=64)
-def _workspace_floats(kernel: str, symbol: str, *sizes: int) -> int:
-    """Floats of device-memory workspace per clip that a kernel's launch
-    at these sizes needs (0: its dB image stays in shared memory), as the
-    kernel's own C entry point `symbol` computes it."""
-    fn = kernels.function(kernel, symbol, [ctypes.c_int] * len(sizes))
-    return fn(*sizes)
+    """The frame count of a clip of `length` samples at `hop`; any length
+    the kernels' C entry points can address (`kernels.check_samples`)."""
+    kernels.check_samples(length, name)
+    return spectral.n_frames(length, _KERNEL_N_FFT, hop)
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +135,8 @@ def melspec_features_plain(clips: torch.Tensor, sr: int, n_mels: int = 64,
 
 _MELSPEC_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
+_MELSPEC_SPLIT_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    ctypes.c_void_p]
 
 
 def melspec_features(clips: torch.Tensor, sr: int, n_mels: int = 64,
@@ -163,8 +155,13 @@ def melspec_features(clips: torch.Tensor, sr: int, n_mels: int = 64,
     flight), then power, mel and dB in shared memory, so the spectrum
     never reaches device memory; an image too large for shared memory
     (745 frames or more at 64 mels) is written straight to the output.
-    Clips of `kernels.MAX_FRAMES` frames or more raise. On the matmul
-    route with bfloat16
+    Clips of any length: where one block a clip would leave the card
+    under-filled (`kernels.plan`), the split route cuts each clip's frames
+    into tiles, one block a tile, after a pre-pass that sums the squares
+    of each chunk of a clip's samples in a block of its own into a scratch
+    (each tile adds them up into the clip's volume scale); its image is
+    the one-block route's bit for bit.
+    On the matmul route with bfloat16
     operands it is handed the clips rounded to bfloat16
     (`spectral.kernel_signal`; its twiddles stay float32). CPU tensor:
     `melspec_features_plain`."""
@@ -189,14 +186,25 @@ def melspec_features(clips: torch.Tensor, sr: int, n_mels: int = 64,
     if n == 0:
         return out
     hann, tw, fb, lo, hi = _kernel_tables(sr, n_mels, True, clips.device)
-    fn = kernels.function("melspec_frontend", "gat_melspec_frontend",
-                          _MELSPEC_ARGS)
+    tile, _, _, floats = kernels.plan(
+        "melspec_frontend", "gat_melspec_plan", clips.device, n, length,
+        n_fr, n_mels, int(normalize_audio_volume))
+    tables = (hann.data_ptr(), tw.data_ptr(), fb.data_ptr(), lo.data_ptr(),
+              hi.data_ptr())
+    sizes = (n, length, hop_length, n_fr, n_mels,
+             int(normalize_audio_volume), int(to_db))
     with kernels.device_guard(clips.device):
-        status = fn(clips.data_ptr(), out.data_ptr(), hann.data_ptr(),
-                    tw.data_ptr(), fb.data_ptr(), lo.data_ptr(),
-                    hi.data_ptr(), n, length, hop_length, n_fr, n_mels,
-                    int(normalize_audio_volume), int(to_db),
-                    kernels.stream(clips.device))
+        if tile:
+            ws = _workspace(n, floats, clips.device)
+            fn = kernels.function("melspec_frontend", "gat_melspec_split",
+                                  _MELSPEC_SPLIT_ARGS)
+            status = fn(clips.data_ptr(), out.data_ptr(), _ptr(ws), *tables,
+                        *sizes, tile, kernels.stream(clips.device))
+        else:
+            fn = kernels.function("melspec_frontend", "gat_melspec_frontend",
+                                  _MELSPEC_ARGS)
+            status = fn(clips.data_ptr(), out.data_ptr(), *tables, *sizes,
+                        kernels.stream(clips.device))
     kernels.check(status, "melspec_frontend")
     melspec_features.launches += 1
     return out
@@ -219,17 +227,20 @@ def mfcc_frontend_plain(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
 
 _MFCC_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
+_MFCC_SPLIT_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _workspace(n: int, floats: int, device: torch.device
                ) -> torch.Tensor | None:
-    """A kernel's (n, floats) scratch in device memory, or None when it
-    needs none."""
-    if floats < 0:
-        raise ValueError("[gat_tpu_torch.features] the kernel refuses these "
-                         "sizes")
+    """A kernel's (n, floats) scratch in device memory (`kernels.plan`'s
+    floats a clip), or None when it needs none."""
     return (torch.empty((n, floats), dtype=torch.float32, device=device)
             if floats else None)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
@@ -248,9 +259,15 @@ def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     the clamp, the mean over frames and the DCT, which commutes with the
     mean. A dB image too large for shared memory (355 frames or more)
     goes to a workspace in device memory that this wrapper allocates.
-    Clips of `kernels.MAX_FRAMES` frames or more raise. The same bfloat16
-    rounding of the clips as K1's on the matmul route. CPU tensor:
-    `mfcc_frontend_plain`."""
+    Clips of any length: where one block a clip would leave the card
+    under-filled (`kernels.plan`), the split route cuts each clip's frames
+    into tiles, one block a tile, in four launches (the volume scale's
+    chunk sums, the tiles' dB and peaks, their clamped sums, the means),
+    the image in the scratch this wrapper allocates; its mean is the
+    one-block route's bit for bit (both sum the frames in chunks of 128
+    in order). The same
+    bfloat16 rounding of the clips as K1's on the matmul route. CPU
+    tensor: `mfcc_frontend_plain`."""
     if clips.device.type == "cpu":
         return mfcc_frontend_plain(clips, sr, n_mfcc, normalize_audio_volume)
     if clips.device.type != "cuda":
@@ -265,18 +282,25 @@ def mfcc_frontend(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     hann, tw, fb, lo, hi = _kernel_tables(sr, _MFCC_N_MELS, False,
                                           clips.device)
     dct = _dct_table(n_mfcc, clips.device)
-    ws = _workspace(n, _workspace_floats(
-        "mfcc_frontend", "gat_mfcc_workspace_floats", _MFCC_N_MELS, n_fr),
-        clips.device)
-    fn = kernels.function("mfcc_frontend", "gat_mfcc_frontend", _MFCC_ARGS)
+    tile, _, _, floats = kernels.plan("mfcc_frontend", "gat_mfcc_plan",
+                                      clips.device, n, length, n_fr,
+                                      _MFCC_N_MELS)
+    ws = _workspace(n, floats, clips.device)
+    tables = (hann.data_ptr(), tw.data_ptr(), fb.data_ptr(), lo.data_ptr(),
+              hi.data_ptr(), dct.data_ptr())
+    sizes = (n, length, _MFCC_HOP, n_fr, _MFCC_N_MELS, n_mfcc,
+             int(normalize_audio_volume), _TOP_DB)
     with kernels.device_guard(clips.device):
-        status = fn(clips.data_ptr(), out.data_ptr(), hann.data_ptr(),
-                    tw.data_ptr(), fb.data_ptr(), lo.data_ptr(),
-                    hi.data_ptr(), dct.data_ptr(),
-                    None if ws is None else ws.data_ptr(), n, length,
-                    _MFCC_HOP,
-                    n_fr, _MFCC_N_MELS, n_mfcc, int(normalize_audio_volume),
-                    _TOP_DB, kernels.stream(clips.device))
+        if tile:
+            fn = kernels.function("mfcc_frontend", "gat_mfcc_split",
+                                  _MFCC_SPLIT_ARGS)
+            status = fn(clips.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                        *tables, *sizes, tile, kernels.stream(clips.device))
+        else:
+            fn = kernels.function("mfcc_frontend", "gat_mfcc_frontend",
+                                  _MFCC_ARGS)
+            status = fn(clips.data_ptr(), out.data_ptr(), *tables, _ptr(ws),
+                        *sizes, kernels.stream(clips.device))
     kernels.check(status, "mfcc_frontend")
     mfcc_frontend.launches += 1
     return out
@@ -354,6 +378,9 @@ def mfcc_pitch_features_plain(clips: torch.Tensor, sr: int,
 
 _MFCC_PITCH_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                     + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+_MFCC_PITCH_SPLIT_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                          + [ctypes.c_float] * 3
+                          + [ctypes.c_int, ctypes.c_void_p])
 
 
 def mfcc_pitch_features(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
@@ -376,8 +403,14 @@ def mfcc_pitch_features(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     1 / (rms + eps) only when both flags are on, in groups of frames that
     fit in shared memory. Its MFCC is K2's and its raw pitch K3's bit for
     bit. A dB image too large for shared memory goes to a workspace in
-    device memory that this wrapper allocates; clips of
-    `kernels.MAX_FRAMES` frames or more raise. Its twiddles stay float32;
+    device memory that this wrapper allocates. Clips of any length: where
+    one block a clip would leave the card under-filled, or a clip has
+    more frames than one block should take alone (`kernels.plan`), the
+    split route cuts each clip's frames into tiles, one block a tile, in
+    four launches (the volume scale's chunk sums; each tile's MFCC dB,
+    peak and YIN f0; the tiles' clamped sums; the means and the medians,
+    the latter by a radix selection over every frame's f0), its MFCC K2's
+    and its raw pitch K3's bit for bit. Its twiddles stay float32;
     with `bf16` (None: `spectral.matmul_dtype()` is bfloat16) it is handed
     the clips rounded to bfloat16. Bound by operations: one shared FFT
     per frame and the ACF from FFTs (`utils/roofline.py::
@@ -410,20 +443,30 @@ def mfcc_pitch_features(clips: torch.Tensor, sr: int, n_mfcc: int = 64,
     hann, tw, fb, lo, hi = _kernel_tables(sr, _MFCC_N_MELS, False,
                                           clips.device)
     dct = _dct_table(n_mfcc, clips.device)
-    ws = _workspace(n, _workspace_floats(
-        "mfcc_pitch_frontend", "gat_mfcc_pitch_workspace_floats", n_fr,
-        _MFCC_N_MELS, n_mfcc, win, _MFCC_HOP, max_p), clips.device)
-    fn = kernels.function("mfcc_pitch_frontend", "gat_mfcc_pitch_frontend",
-                          _MFCC_PITCH_ARGS)
+    tile, _, _, floats = kernels.plan(
+        "mfcc_pitch_frontend", "gat_mfcc_pitch_plan", clips.device, n,
+        length, n_fr, _MFCC_N_MELS, n_mfcc, win, _MFCC_HOP, max_p)
+    ws = _workspace(n, floats, clips.device)
+    tables = (hann.data_ptr(), tw.data_ptr(), fb.data_ptr(), lo.data_ptr(),
+              hi.data_ptr(), dct.data_ptr())
+    sizes = (n, length, _MFCC_HOP, n_fr, _MFCC_N_MELS, n_mfcc, win, min_p,
+             max_p, int(normalize_audio_volume), int(pitch_on_normalized),
+             _TOP_DB, _TROUGH_THRESHOLD, float(sr))
     with kernels.device_guard(clips.device):
-        status = fn(clips.data_ptr(), out.data_ptr(), hz.data_ptr(),
-                    hann.data_ptr(), tw.data_ptr(), fb.data_ptr(),
-                    lo.data_ptr(), hi.data_ptr(), dct.data_ptr(),
-                    None if ws is None else ws.data_ptr(), n, length,
-                    _MFCC_HOP, n_fr, _MFCC_N_MELS, n_mfcc, win, min_p, max_p,
-                    int(normalize_audio_volume), int(pitch_on_normalized),
-                    _TOP_DB, _TROUGH_THRESHOLD, float(sr),
-                    kernels.stream(clips.device))
+        if tile:
+            fn = kernels.function("mfcc_pitch_frontend",
+                                  "gat_mfcc_pitch_split",
+                                  _MFCC_PITCH_SPLIT_ARGS)
+            status = fn(clips.data_ptr(), out.data_ptr(), hz.data_ptr(),
+                        ws.data_ptr(), *tables, *sizes, tile,
+                        kernels.stream(clips.device))
+        else:
+            fn = kernels.function("mfcc_pitch_frontend",
+                                  "gat_mfcc_pitch_frontend",
+                                  _MFCC_PITCH_ARGS)
+            status = fn(clips.data_ptr(), out.data_ptr(), hz.data_ptr(),
+                        *tables, _ptr(ws), *sizes,
+                        kernels.stream(clips.device))
     kernels.check(status, "mfcc_pitch_frontend")
     mfcc_pitch_features.launches += 1
     return out, hz
@@ -479,28 +522,25 @@ class FeatureBuilder:
         self.device = resolve_device(device)
         self.scaler = None
 
-    def _on_device(self, clips, hop_length: int) -> torch.Tensor:
+    def _on_device(self, clips) -> torch.Tensor:
         """Clips as a contiguous float32 tensor on the builder's device.
-        On the card, clips the kernels refuse (`kernels.MAX_FRAMES` frames
-        or more at the smallest hop) raise here, before any upload or
-        launch, instead of running another version."""
+        On the card, clips the kernels cannot address (not (N, L), or more
+        samples than `kernels.MAX_SAMPLES`) raise here, before any upload
+        or launch, instead of running another version; clips of any other
+        length run on the kernels."""
         clips = torch.as_tensor(clips, dtype=torch.float32)
         if self.device.type == "cuda":
-            frames = spectral.n_frames(clips.shape[-1], _KERNEL_N_FFT,
-                                       hop_length)
-            if clips.ndim != 2 or frames >= kernels.MAX_FRAMES:
+            if clips.ndim != 2:
                 raise ValueError(
-                    f"[FeatureBuilder] clips of shape {tuple(clips.shape)} "
-                    f"give {frames} frames at hop {hop_length}; the card's "
-                    f"front-end kernels take mono clips of fewer than "
-                    f"{kernels.MAX_FRAMES} frames. Give the loader a clip "
-                    f"`duration` (TrainingManager does).")
+                    f"[FeatureBuilder] clips of shape {tuple(clips.shape)}: "
+                    f"the card's front-end kernels take mono clips (N, L)")
+            kernels.check_samples(clips.shape[-1], "FeatureBuilder")
         return clips.to(self.device).contiguous()
 
-    def _clips(self, audio_loader, hop_length: int):
+    def _clips(self, audio_loader):
         """(the loader's clips on the device, labels)."""
         wavs, _, labels, _ = audio_loader.load_audio_dataset(pad_to_max=True)
-        return self._on_device(np.stack(wavs), hop_length), labels
+        return self._on_device(np.stack(wavs)), labels
 
     def extract_mfcc_features(self, audio_loader, n_mfcc: int | None = None,
                               normalize_audio_volume: bool | None = None,
@@ -512,7 +552,7 @@ class FeatureBuilder:
             normalize_audio_volume = MFCC_CONFIG.NORMALIZE_AUDIO_VOLUME
         if add_pitch_features is None:
             add_pitch_features = MFCC_CONFIG.ADD_PITCH_FEATURES
-        clips, labels = self._clips(audio_loader, _MFCC_HOP)
+        clips, labels = self._clips(audio_loader)
         X = mfcc_feature_vectors(
             clips, audio_loader.target_sr, n_mfcc=n_mfcc,
             normalize_audio_volume=normalize_audio_volume,
@@ -538,7 +578,7 @@ class FeatureBuilder:
             normalize_audio_volume = MELSPEC_CONFIG.NORMALIZE_AUDIO_VOLUME
         if to_db is None:
             to_db = MELSPEC_CONFIG.TO_DB
-        clips, labels = self._clips(audio_loader, hop_length)
+        clips, labels = self._clips(audio_loader)
         X = melspec_features(
             clips, audio_loader.target_sr, n_mels=n_mels, n_fft=n_fft,
             hop_length=hop_length,
@@ -596,9 +636,7 @@ class FeatureBuilder:
 
     def _inference_features(self, clips, sr, mfcc_params, melspec_params,
                             scaler, pitch_on_normalized, default_to_db):
-        hops = [_MFCC_HOP] + ([] if melspec_params is None
-                              else [melspec_params["HOP_LENGTH"]])
-        clips = self._on_device(clips, min(hops))
+        clips = self._on_device(clips)
         mf = mfcc_feature_vectors(
             clips, sr, n_mfcc=mfcc_params["N_MFCC"],
             normalize_audio_volume=mfcc_params["NORMALIZE_AUDIO_VOLUME"],

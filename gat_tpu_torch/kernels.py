@@ -28,8 +28,8 @@ import torch
 
 from .config import KERNEL_BUILD_DIR
 
-__all__ = ["KERNELS", "MAX_FRAMES", "build", "function", "device_guard",
-           "stream", "ticket", "check_input", "check_frames", "check",
+__all__ = ["KERNELS", "build", "function", "device_guard", "stream",
+           "ticket", "plan", "check_input", "check_samples", "check",
            "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -37,11 +37,10 @@ KERNELS = ("melspec_frontend", "mfcc_frontend", "yin_pitch", "onset_envelope",
            "onset_pick", "mfcc_pitch_frontend", "noise_gate", "slice_clips",
            "resample", "wave_compact", "softmax_xent", "clip_adamw",
            "batchnorm_train")
-# The clip front-ends (K1, K2, K3, K6) take fewer frames than this
-# (`kMaxFrames` in `csrc/dsp_common.cuh`); below it they take any length,
-# running YIN in groups of frames and keeping a dB image too large for
-# shared memory in device memory.
-MAX_FRAMES = 2000
+# The clip kernels index a clip's samples as int, and reach up to a
+# frame's half (1024 samples) and a stride of loads (2048) past its end:
+# a clip of more samples than this cannot be addressed by them.
+MAX_SAMPLES = 2**31 - 2**16
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +48,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
+_plans: dict[tuple, tuple[int, int, int, int]] = {}
 
 
 def nvcc_path() -> str:
@@ -163,13 +163,34 @@ def check_input(clips, name: str) -> None:
         raise ValueError(f"[{name}] kernel takes contiguous clips")
 
 
-def check_frames(n_frames: int, hop: int, length: int, name: str) -> None:
-    """Raise where the clip front-ends refuse a clip of `length` samples:
-    at MAX_FRAMES frames or more at `hop`."""
-    if n_frames >= MAX_FRAMES:
-        raise ValueError(f"[{name}] clips of {length} samples give "
-                         f"{n_frames} frames at hop {hop}; the kernel takes "
-                         f"fewer than {MAX_FRAMES} frames")
+def plan(name: str, symbol: str, device: torch.device, *sizes: int
+         ) -> tuple[int, int, int, int]:
+    """How a clip front-end (K1, K2, K3, K6) runs these sizes on `device`,
+    as its C entry point `symbol` (`gat_*_plan`) plans it from the card's
+    SMs and the kernel's resident blocks: (frames a tile, 0 for one block
+    a clip; tiles a clip; resident blocks per SM of the kernel that runs
+    the frames; floats of device-memory scratch a clip). The split route
+    (`csrc/dsp_common.cuh`) is taken past a frame count where one block a
+    clip leaves the card under-filled. Remembered per (device, symbol,
+    sizes)."""
+    key = (device.index, symbol, sizes)
+    got = _plans.get(key)
+    if got is None:
+        out = (ctypes.c_int * 4)()
+        fn = function(name, symbol,
+                      [ctypes.c_int] * len(sizes) + [ctypes.c_void_p])
+        with device_guard(device):
+            check(fn(*sizes, ctypes.addressof(out)), f"{name} plan")
+        got = _plans[key] = tuple(out)
+    return got
+
+
+def check_samples(length: int, name: str) -> None:
+    """Raise where a clip of `length` samples cannot be addressed by the
+    clip kernels' C entry points (more than MAX_SAMPLES samples)."""
+    if length > MAX_SAMPLES:
+        raise ValueError(f"[{name}] clips of {length} samples: the kernel "
+                         f"addresses at most {MAX_SAMPLES} samples a clip")
 
 
 def check(status: int, name: str) -> None:

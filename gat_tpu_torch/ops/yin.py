@@ -282,6 +282,8 @@ def yin_pitch_plain(clips: torch.Tensor, sr: int, fmin: float = 50.0,
 
 _YIN_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+_YIN_SPLIT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def yin_pitch(clips: torch.Tensor, sr: int, fmin: float = 50.0,
@@ -298,7 +300,13 @@ def yin_pitch(clips: torch.Tensor, sr: int, fmin: float = 50.0,
     the whole clip does not fit, and tiles the ACF in registers: a thread
     sums 7 lags of one frame over one of 8 segments of the window, with
     the 7 window samples in registers (2 loads per 7 multiply-adds); the sliding energies are a running fp64 sum of the
-    entering minus the leaving square, O(W + max_p) per frame. The
+    entering minus the leaving square, O(W + max_p) per frame. Clips of
+    any length: where one block a clip would leave the card under-filled,
+    or a clip has more frames than one block should take alone
+    (`kernels.plan`), the split route cuts each clip's frames into tiles,
+    one block a tile, every frame's f0 into a scratch this wrapper
+    allocates, then takes each clip's median by a radix selection over
+    them; the same floats as the one-block route. The
     kernel computes the same function on both routes; on the matmul route
     with bfloat16 operands it is handed the clips rounded to bfloat16
     (`spectral.kernel_signal`). CPU tensor: `yin_pitch_plain`."""
@@ -312,20 +320,30 @@ def yin_pitch(clips: torch.Tensor, sr: int, fmin: float = 50.0,
     win, hop = frame_length // 2, frame_length // 4
     min_p, max_p = yin_periods(sr, fmin, fmax, frame_length, win)
     n, length = clips.shape
+    kernels.check_samples(length, "yin_pitch")
     n_fr = n_frames(length, frame_length, hop)
-    kernels.check_frames(n_fr, hop, length, "yin_pitch")
     if max_p - min_p < 1:
         raise ValueError(f"[yin_pitch] period range [{min_p}, {max_p}] "
                          "needs at least two periods")
     out = torch.empty(n, dtype=torch.float32, device=clips.device)
     if n == 0:
         return out
-    fn = kernels.function("yin_pitch", "gat_yin_pitch", _YIN_ARGS)
+    tile, _, _, floats = kernels.plan("yin_pitch", "gat_yin_plan",
+                                      clips.device, n, win, hop, n_fr, max_p)
+    sizes = (n, length, frame_length, win, hop, n_fr, min_p, max_p,
+             _TROUGH_THRESHOLD, float(sr))
     with kernels.device_guard(clips.device):
         stream = kernels.stream(clips.device)
-        status = fn(clips.data_ptr(), out.data_ptr(), n, length,
-                    frame_length, win, hop, n_fr, min_p, max_p,
-                    _TROUGH_THRESHOLD, float(sr), stream)
+        if tile:
+            f0 = torch.empty((n, floats), dtype=torch.float32,
+                             device=clips.device)
+            fn = kernels.function("yin_pitch", "gat_yin_split",
+                                  _YIN_SPLIT_ARGS)
+            status = fn(clips.data_ptr(), out.data_ptr(), f0.data_ptr(),
+                        *sizes, tile, stream)
+        else:
+            fn = kernels.function("yin_pitch", "gat_yin_pitch", _YIN_ARGS)
+            status = fn(clips.data_ptr(), out.data_ptr(), *sizes, stream)
     kernels.check(status, "yin_pitch")
     yin_pitch.launches += 1
     return out

@@ -40,14 +40,19 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # the device functions of K1-K13 (`device_function` of the profiler's
-# names)
+# names); K1, K2, K3 and K6 first their one-block route's, then their
+# split route's (`csrc/dsp_common.cuh`)
 KERNEL_SYMBOLS = {
-    "K1": ("melspec_frontend_kernel",),
-    "K2": ("mfcc_frontend_kernel",),
-    "K3": ("yin_pitch_kernel",),
+    "K1": ("melspec_frontend_kernel", "melspec_divisor_kernel",
+           "melspec_tile_kernel"),
+    "K2": ("mfcc_frontend_kernel", "mfcc_divisor_kernel", "mfcc_tile_kernel",
+           "mfcc_sums_kernel", "mfcc_mean_kernel"),
+    "K3": ("yin_pitch_kernel", "yin_tile_kernel", "yin_median_kernel"),
     "K4": ("onset_mel_db_kernel", "onset_flux_kernel"),
     "K5": ("onset_pick_kernel",),
-    "K6": ("mfcc_pitch_frontend_kernel",),
+    "K6": ("mfcc_pitch_frontend_kernel", "mfcc_pitch_divisor_kernel",
+           "mfcc_pitch_tile_kernel", "mfcc_pitch_sums_kernel",
+           "mfcc_pitch_mean_kernel"),
     "K7": ("noise_gate_rms_kernel", "noise_gate_threshold_kernel",
            "noise_gate_apply_kernel"),
     "K8": ("slice_clips_kernel",),

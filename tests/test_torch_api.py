@@ -228,7 +228,7 @@ def test_stft_matches(noisy, pad_mode, n_fft, hop, win, center):
 
 def _envelopes(seed: int, n: int = 3) -> np.ndarray:
     """(n, T) onset envelopes of pluck riffs at 22050 Hz, hop 512."""
-    from tests.test_torch_kernels_emulated import riffs
+    from emulated_kernels import riffs
     y = torch.from_numpy(riffs(int(4.0 * FILE_SR), seed)[:n])
     return tonset.onset_strength_plain(y, FILE_SR).numpy()
 
@@ -427,23 +427,36 @@ def test_inference_features_from_loader(tmp_path):
     _check_features(got, ref)
 
 
-def test_inference_features_refuse_long_clips_before_the_card():
-    """On the card the extractors refuse clips at the clip kernels' frame
-    limit before any launch (the device is set by hand: there is no
-    card)."""
-    fb = tf.FeatureBuilder(device="cpu")
-    fb.device = torch.device("cuda")
+def long_tone_clips(n: int, length: int, seed: int = 26) -> np.ndarray:
+    """(n, length) from a numpy seed: decaying harmonic tones at 196 and
+    330 Hz, a note every 2 s, plus noise; clips far past 2000 frames at
+    the mel's hop 256."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(length) / SR
+    rows = []
+    for f0 in (196.0, 329.63)[:n]:
+        env = np.exp(-3.0 * (t % 2.0))
+        tone = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in (1, 2, 3))
+        rows.append(0.5 * env * tone + rng.normal(0.0, 0.02, length))
+    return np.stack(rows).astype(np.float32)
+
+
+def test_inference_features_at_long_clips():
+    """The extractors take clips of any length: at 2 x (256 x 2000)
+    samples (2001 frames at the mel's hop 256, 1001 at the MFCC's 512,
+    which the card refused before its split route) the port's features
+    equal gat_tpu's, for clips and for one clip's audio."""
+    fb, jfb = tf.FeatureBuilder(device="cpu"), jf.FeatureBuilder()
     mfcc = dataclasses.asdict(tf.MFCC_CONFIG)
     mel = dataclasses.asdict(tf.MELSPEC_CONFIG)
-    long = np.zeros((2, 256 * 2000), np.float32)
-    with pytest.raises(ValueError, match="fewer than 2000 frames"):
-        fb.extract_inference_features_from_clips(long, SR, mfcc, mel)
-    with pytest.raises(ValueError, match="fewer than 2000 frames"):
-        fb.extract_inference_features_from_audio(long[0], SR, mfcc, mel)
-    # 1200 frames at the MFCC's hop 512 but 2400 at the mel's hop 256
-    mid = np.zeros((2, 512 * 1200), np.float32)
-    with pytest.raises(ValueError, match="hop 256"):
-        fb.extract_inference_features_from_clips(mid, SR, mfcc, mel)
+    long = long_tone_clips(2, 256 * 2000)
+    got = fb.extract_inference_features_from_clips(long, SR, mfcc, mel)
+    assert got[1].shape == (2, 64, 2001, 1)
+    _check_features(got, jfb.extract_inference_features_from_clips(
+        jnp.asarray(long), SR, mfcc, mel), mel_floor=-60.0)
+    _check_features(fb.extract_inference_features_from_audio(
+        long[0], SR, mfcc, mel), jfb.extract_inference_features_from_audio(
+        long[0], SR, mfcc, mel), mel_floor=-60.0)
 
 
 def test_transcriber_feature_builder_and_mlp_weight(port_t, jax_t):

@@ -13,7 +13,7 @@ import torch
 from gat_tpu import cli as jcli
 from gat_tpu_torch import cli
 from gat_tpu_torch.utils.wavio import write_wav
-from tests.test_torch_kernels_emulated import RIFF_NOTES, pluck_riff
+from emulated_kernels import RIFF_NOTES, pluck_riff
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -12,28 +12,28 @@ import torch
 from gat_tpu_torch import features
 from gat_tpu_torch.ops import compaction, onset, resample, spectral, yin
 from gat_tpu_torch.segment import gating, slicing
-from test_torch_kernels_emulated import (FILE_SR, GATE_MIN_DB, LIVE_MIN_SEP,
-                                         WAVE_SHAPES, WAVE_SHAPES_PAST,
-                                         check_selection,
-                                         scatter_parts, wave_flags, wave_kept,
-                                         LIVE_RING, RESAMPLE_PINS,
-                                         RESAMPLE_RATES,
-                                         RIFF_NOTES, SLICE_PINS,
-                                         SLICE_PINS_PAST_ROW, _digest,
-                                         check_gate,
-                                         check_mel_image, check_slice,
-                                         check_mfcc_level_step,
-                                         check_zero_row, edge_envelopes,
-                                         file_batch, frame_count_clips,
-                                         frames_clips, level_step_clip,
-                                         mfcc_level_step_clip, padded_wave,
-                                         PLUCK_NEAR_TIE, past_row_inputs,
-                                         pin_inputs,
-                                         pluck_riff, port_pluck_clips,
-                                         random_envelopes,
-                                         resample_pin_digest, riffs, scan_envelopes,
-                                         shared_frontend_clips, stitch,
-                                         time_shards, yin_float64)
+from emulated_kernels import (FILE_SR, GATE_MIN_DB, LIVE_MIN_SEP,
+                              WAVE_SHAPES, WAVE_SHAPES_PAST,
+                              check_selection,
+                              scatter_parts, wave_flags, wave_kept,
+                              LIVE_RING, RESAMPLE_PINS,
+                              RESAMPLE_RATES,
+                              RIFF_NOTES, SLICE_PINS,
+                              SLICE_PINS_PAST_ROW, _digest,
+                              check_gate,
+                              check_mel_image, check_slice,
+                              check_mfcc_level_step,
+                              check_zero_row, edge_envelopes,
+                              file_batch, frame_count_clips,
+                              frames_clips, level_step_clip,
+                              mfcc_level_step_clip, padded_wave,
+                              PLUCK_NEAR_TIE, past_row_inputs,
+                              pin_inputs,
+                              pluck_riff, port_pluck_clips,
+                              random_envelopes,
+                              resample_pin_digest, riffs, scan_envelopes,
+                              shared_frontend_clips, stitch,
+                              time_shards, yin_float64)
 
 pytestmark = pytest.mark.cuda
 
@@ -656,36 +656,58 @@ def test_inference_features_card_vs_cpu(clips):
         np.testing.assert_allclose(ms[mask], rms[mask], atol=0.1, rtol=0)
 
 
-def test_feature_builder_refuses_long_clips_on_the_card(tmp_path):
-    """Clips at the clip kernels' frame limit (2000 frames) are refused
-    before any launch, by the dataset and the inference extractors
-    alike."""
+def test_feature_builder_long_clips_on_the_card(tmp_path):
+    """Clips past the 2000 frames the clip kernels once refused run on the
+    card, by the dataset and the inference extractors alike: a loader
+    holding one 100 s file, and 2 x (256 x 2000) samples. Each call
+    launches the kernels (no plain version, no CPU) and gives the CPU
+    plain path's features."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
     from gat_tpu_torch.data.loader import AudioDatasetLoader
     from gat_tpu_torch.utils.wavio import write_wav
+    from emulated_kernels import long_riff
     (tmp_path / "E2").mkdir()
-    write_wav(tmp_path / "E2" / "long.wav",
-              np.zeros(11025 * 100, np.float32), 11025)
-    fb = features.FeatureBuilder(device="cuda")
+    write_wav(tmp_path / "E2" / "long.wav", long_riff(100.0)[0], 11025)
+    fb, cpu = (features.FeatureBuilder(device="cuda"),
+               features.FeatureBuilder(device="cpu"))
     loader = AudioDatasetLoader([tmp_path], target_sr=11025, device="cuda")
+    cpu_loader = AudioDatasetLoader([tmp_path], target_sr=11025,
+                                    device="cpu")
     mfcc = dataclasses.asdict(features.MFCC_CONFIG)
     mel = dataclasses.asdict(features.MELSPEC_CONFIG)
-    long = torch.zeros(2, 256 * 2000, device="cuda")
-    before = [features.melspec_features.launches,
-              features.mfcc_frontend.launches, yin.yin_pitch.launches]
-    for call in (lambda: fb.extract_mfcc_features(loader),
-                 lambda: fb.extract_melspec_features(loader),
-                 lambda: fb.extract_inference_features(loader),
-                 lambda: fb.extract_inference_features_from_clips(
-                     long, 11025, mfcc, mel),
-                 lambda: fb.extract_inference_features_from_audio(
-                     long[0], 11025, mfcc, mel)):
-        with pytest.raises(ValueError, match="fewer than 2000 frames"):
-            call()
-    assert before == [features.melspec_features.launches,
-                      features.mfcc_frontend.launches, yin.yin_pitch.launches]
+    long = torch.from_numpy(np.concatenate(
+        [long_riff(46.5), long_riff(46.5, seed=7)])[:, :256 * 2000])
+
+    def check(got, ref):
+        for g, r in zip(got, ref):
+            g = np.asarray(g.cpu() if isinstance(g, torch.Tensor) else g)
+            r = np.asarray(r)
+            assert g.shape == r.shape
+            if g.ndim == 4:  # the mel image
+                mask = r > -60.0
+                np.testing.assert_allclose(g[mask], r[mask], atol=0.1)
+            else:
+                np.testing.assert_allclose(g[:, :64], r[:, :64], atol=1e-3)
+                np.testing.assert_allclose(10.0 ** (g[:, 64] - r[:, 64]),
+                                           1.0, atol=2e-3)
+    calls = (
+        (lambda b, ld: b.extract_mfcc_features(ld)[:1], True),
+        (lambda b, ld: b.extract_melspec_features(ld)[:1], True),
+        (lambda b, ld: b.extract_inference_features(ld), True),
+        (lambda b, ld: b.extract_inference_features_from_clips(
+            long.to(b.device), 11025, mfcc, mel), False),
+        (lambda b, ld: b.extract_inference_features_from_audio(
+            long[0].to(b.device), 11025, mfcc, mel), False))
+    wrappers = (features.melspec_features, features.mfcc_frontend,
+                yin.yin_pitch)
+    for call, _ in calls:
+        before = [w.launches for w in wrappers]
+        got = call(fb, loader)
+        after = [w.launches for w in wrappers]
+        assert sum(a - b for a, b in zip(after, before)) >= 1
+        check(got, call(cpu, cpu_loader))
 
 
 def test_evaluate_set_card_vs_cpu(tmp_path):
@@ -996,23 +1018,23 @@ def test_mfcc_pitch_kernel_plucks(matmul_route):
 
 
 def test_mfcc_pitch_wrapper_edges(matmul_route, clips):
-    """Zero rows, the input checks, the refusal of 2000 frames in the
-    wrapper, and a clip of 60,000 samples (118 frames), which the launch
-    refused while YIN staged the whole clip, run in groups of frames:
-    K2's MFCC and K3's pitch bit for bit."""
+    """Zero rows, the input checks, a clip of 2000 x 512 samples (1997
+    frames), which the wrapper refused before the split route, and a clip
+    of 60,000 samples (118 frames), which the launch refused while YIN
+    staged the whole clip, run in groups of frames: K2's MFCC and K3's
+    pitch bit for bit."""
+    from emulated_kernels import long_riff
     got, hz = features.mfcc_pitch_features(clips[:0], SR)
     assert got.shape == (0, 65) and hz.shape == (0,)
     with pytest.raises(ValueError, match="float32"):
         features.mfcc_pitch_features(clips.double(), SR)
     with pytest.raises(ValueError, match="contiguous"):
         features.mfcc_pitch_features(clips.t().contiguous().t(), SR)
-    with pytest.raises(ValueError, match="2000"):
-        features.mfcc_pitch_features(torch.zeros(1, 2000 * 512,
-                                                 device="cuda"), SR)
-    x = frame_count_clips(60000).cuda()
-    got, hz = features.mfcc_pitch_features(x, SR)
-    assert torch.equal(got[:, :64], features.mfcc_frontend(x, SR))
-    assert torch.equal(hz, yin.yin_pitch(x, SR))
+    long = torch.from_numpy(long_riff(93.0)[:, :2000 * 512]).cuda()
+    for x in (long, frame_count_clips(60000).cuda()):
+        got, hz = features.mfcc_pitch_features(x, SR)
+        assert torch.equal(got[:, :64], features.mfcc_frontend(x, SR))
+        assert torch.equal(hz, yin.yin_pitch(x, SR))
 
 
 def test_mfcc_pitch_frontend_four_blocks_per_sm(matmul_route, clips):
@@ -1111,6 +1133,102 @@ def test_melspec_kernel_past_the_image_limit_card():
     x = frames_clips(800, hop=256)[[1, 2, 3]].cuda()
     check_mel_image(features.melspec_features(x, SR),
                     features.melspec_features_plain(x, SR), True)
+
+
+# ---------------------------------------------------------------------------
+# K1, K2, K3 and K6 at any length: the split route (csrc/dsp_common.cuh)
+# ---------------------------------------------------------------------------
+LONG_CLIP_SHAPES = ((1, 120.0), (64, 60.0), (1, 900.0))
+
+
+def long_clip_batch(n: int, seconds: float) -> torch.Tensor:
+    """(n, seconds x SR) on the card: `emulated_kernels.long_riff`
+    rows from seeds 0..n-1."""
+    from emulated_kernels import long_riff
+    return torch.from_numpy(np.concatenate(
+        [long_riff(seconds, seed=i) for i in range(n)])).cuda()
+
+
+def one_block_plan(name, symbol, device, *sizes):
+    """`kernels.plan` bound to the one-block route, with its workspace."""
+    import ctypes
+
+    from gat_tpu_torch import kernels
+    if symbol == "gat_mfcc_plan":
+        _, _, t, mels = sizes
+        return (0, 1, 0, kernels.function(
+            name, "gat_mfcc_workspace_floats", [ctypes.c_int] * 2)(mels, t))
+    if symbol == "gat_mfcc_pitch_plan":
+        _, _, t, mels, n_mfcc, win, hop, max_p = sizes
+        return (0, 1, 0, kernels.function(
+            name, "gat_mfcc_pitch_workspace_floats", [ctypes.c_int] * 6)(
+                t, mels, n_mfcc, win, hop, max_p))
+    return (0, 1, 0, 0)
+
+
+@pytest.mark.parametrize("n, seconds", LONG_CLIP_SHAPES)
+def test_clip_kernels_long_clip_card(n, seconds):
+    """K1, K2, K3 and K6 at 1 x 120 s, 64 x 60 s and 1 x 15 min (5,168,
+    2,584 and 38,760 frames at hop 256; 2,584, 1,292 and 19,380 at 512),
+    which the card refused before its split route: each wrapper launches
+    its kernel once on the split route (the plan's tiles) and agrees with
+    its plain version on the card (K1 0.1 dB above -60 dB, MFCC atol 1e-3
+    and rtol 2e-6, pitch rtol 2e-3); K6's MFCC is K2's and its pitch K3's
+    bit for bit."""
+    from gat_tpu_torch import kernels
+    _card()
+    x = long_clip_batch(n, seconds)
+    t_mel = spectral.n_frames(x.shape[1], 2048, 256)
+    t = spectral.n_frames(x.shape[1], 2048, 512)
+    assert kernels.plan("melspec_frontend", "gat_melspec_plan", x.device,
+                        n, x.shape[1], t_mel, 64, 1)[0] > 0
+    wrappers = (features.melspec_features, features.mfcc_frontend,
+                yin.yin_pitch, features.mfcc_pitch_features)
+    before = [w.launches for w in wrappers]
+    mel = features.melspec_features(x, SR)
+    k2 = features.mfcc_frontend(x, SR)
+    k3 = yin.yin_pitch(x, SR)
+    k6, hz = features.mfcc_pitch_features(x, SR, 64, True, False, bf16=False)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 4
+    assert mel.shape == (n, 64, t_mel, 1) and k2.shape == (n, 64)
+    check_mel_image(mel, features.melspec_features_plain(x, SR), True)
+    torch.testing.assert_close(k2, features.mfcc_frontend_plain(x, SR),
+                               atol=1e-3, rtol=2e-6)
+    torch.testing.assert_close(k3, yin.yin_pitch_plain(x, SR), rtol=2e-3,
+                               atol=0)
+    assert torch.equal(k6[:, :64], k2) and torch.equal(hz, k3)
+    ref, ref_hz = features.mfcc_pitch_features_plain(x, SR, 64, True, False,
+                                                     bf16=False)
+    torch.testing.assert_close(k6[:, :64], ref[:, :64], atol=1e-3,
+                               rtol=2e-6)
+    torch.testing.assert_close(hz, ref_hz, rtol=2e-3, atol=0)
+    assert t > 0 and bool(torch.isfinite(k6).all())
+
+
+@pytest.mark.parametrize("n, seconds", [(256, 4.0), (64, 60.0)])
+def test_split_route_matches_one_block_card(monkeypatch, n, seconds):
+    """Where both routes run a shape, the split route gives the one-block
+    route's floats on the card: K1's image, K2's and K6's MFCC mean (the
+    same chunks of frames summed in the same order) and K3's and K6's
+    pitch, bit for bit; and two runs of the split route the same bits."""
+    from gat_tpu_torch import kernels
+    _card()
+    x = long_clip_batch(n, seconds)
+    t = spectral.n_frames(x.shape[1], 2048, 512)
+    assert kernels.plan("mfcc_frontend", "gat_mfcc_plan", x.device, n,
+                        x.shape[1], t, 128)[0] > 0
+
+    def run():
+        return (features.melspec_features(x, SR),
+                features.mfcc_frontend(x, SR), yin.yin_pitch(x, SR),
+                *features.mfcc_pitch_features(x, SR, 64, True, False,
+                                              bf16=False))
+    split, again = run(), run()
+    monkeypatch.setattr(kernels, "plan", one_block_plan)
+    one = run()
+    for a, b, c in zip(split, again, one):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_yin_four_blocks_per_sm_at_the_clip_path():
@@ -1710,7 +1828,7 @@ def test_softmax_xent_kernel(b, grad):
     and argmaxes exact, the gradient within 1e-6 of its largest value; one
     launch."""
     from gat_tpu_torch.ops import loss as loss_mod
-    from test_torch_kernels_emulated import xent_inputs
+    from emulated_kernels import xent_inputs
     dev = _card()
     logits, labels = (t.to(dev) for t in xent_inputs(b, 47, seed=b))
     scale = 1.0 / b
@@ -1749,7 +1867,7 @@ def test_softmax_xent_kernel_forms(b, offset, grad):
     bits and the ticket is back at 0."""
     from gat_tpu_torch import kernels
     from gat_tpu_torch.ops import loss as loss_mod
-    from test_torch_kernels_emulated import xent_inputs
+    from emulated_kernels import xent_inputs
     dev = torch.device("cuda", _card().index or 0)
     x, y = xent_inputs(b + offset, 47, seed=b)
     logits, labels = x.to(dev)[offset:], y.to(dev)[offset:]
@@ -1798,7 +1916,7 @@ def test_clip_adamw_kernel(max_norm, g_scale):
     largest value (the norm's last bits through the clip, powf), the count
     exact."""
     from gat_tpu_torch.train import optim
-    from test_torch_kernels_emulated import adamw_inputs
+    from emulated_kernels import adamw_inputs
     dev = _card()
     n = 629743
     st = adamw_inputs(n, seed=1, g_scale=g_scale)
@@ -1839,7 +1957,7 @@ def test_batchnorm_kernels(shape, dtype, channels_last):
     the emulated test (`test_batchnorm_kernels_emulated`), the per-channel
     sums over up to 45,056 positions within 1e-4 of their scale."""
     from gat_tpu_torch.ops import batchnorm
-    from test_torch_kernels_emulated import bn_inputs
+    from emulated_kernels import bn_inputs
     dev = _card()
     d = {k: v.to(dev) for k, v in bn_inputs(shape, seed=sum(shape),
                                             dtype=dtype,
@@ -1887,7 +2005,7 @@ def test_batchnorm_kernels_other_layouts(case, dtype):
     boundary): two runs give the same bits, and both are within
     `test_batchnorm_kernels`' tolerances of the plain version."""
     from gat_tpu_torch.ops import batchnorm
-    from test_torch_kernels_emulated import bn_layout_case
+    from emulated_kernels import bn_layout_case
     dev = _card()
     d = bn_layout_case(case, dtype)
     if case == "unaligned":
@@ -1937,7 +2055,7 @@ def test_clip_adamw_kernel_tails(n, offset):
     them), p within 1e-5 relative and 1e-6 of its largest value; the norm
     within 1e-5 relative of the plain one."""
     from gat_tpu_torch.train import optim
-    from test_torch_kernels_emulated import adamw_inputs
+    from emulated_kernels import adamw_inputs
     dev = _card()
     st = adamw_inputs(n, seed=n, g_scale=10.0)
 

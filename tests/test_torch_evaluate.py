@@ -21,7 +21,7 @@ from gat_tpu.infer import Transcriber as JTranscriber
 from gat_tpu_torch.config import MLP_CONFIG
 from gat_tpu_torch.infer import Transcriber
 from gat_tpu_torch.utils.wavio import write_wav
-from tests.test_torch_kernels_emulated import pluck_riff
+from emulated_kernels import pluck_riff
 
 TOOLS = Path(__file__).resolve().parent.parent / "tools"
 WITNESS = MLP_CONFIG.CHECKPOINTS_DIR / MLP_CONFIG.REFERENCE_CKPT_NAME

@@ -18,7 +18,7 @@ from gat_tpu.infer import Transcriber as JTranscriber
 from gat_tpu_torch.infer import Transcriber
 from gat_tpu_torch.infer import transcriber as ttr
 from gat_tpu_torch.utils.wavio import write_wav
-from test_torch_kernels_emulated import RIFF_NOTES, pluck_riff
+from emulated_kernels import RIFF_NOTES, pluck_riff
 
 SR = 22050
 HZ = [f for _, f in RIFF_NOTES]                    # A2 D3 G3 B3 E4

@@ -18,8 +18,8 @@ from gat_tpu_torch.config import CLIP_DURATION
 from gat_tpu_torch.ops import onset as to
 from gat_tpu_torch.segment import gating as tg
 from gat_tpu_torch.segment import slicing as ts
-from tests.test_torch_kernels_emulated import (gate_counts, gate_rows,
-                                               pluck_riff)
+from emulated_kernels import (gate_counts, gate_rows,
+                              pluck_riff)
 
 SR = 22050
 MIN_DB = -32.5

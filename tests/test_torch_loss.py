@@ -4,7 +4,7 @@ softmax_cross_entropy, the mean) and `jnp.argmax`, on inputs made from a
 numpy seed: the loss at the three scales the port uses, its gradient
 against jax.grad, the correct count and the argmaxes with ties among the
 logits and a row whose label is the argmax. The kernel itself is held to
-this plain version under the emulation (`test_torch_kernels_emulated.py`)
+this plain version under the emulation (`test_torch_kernels_emulated_train.py`)
 and on the card (`test_torch_cuda.py`).
 
 Tolerances: the loss within 1e-6 relative and its gradient within 1e-6 of

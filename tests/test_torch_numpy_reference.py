@@ -58,7 +58,7 @@ def main_clips(sr: int) -> np.ndarray:
 def test_transcribe_clip_matches(pipes):
     """The blended probs of every one of main's 32 clips and of 8 noisy
     plucks, and the argmax."""
-    from tests.test_torch_kernels_emulated import port_pluck_clips
+    from emulated_kernels import port_pluck_clips
     _, _, ref, port = pipes
     assert port.sr == ref.sr == 11025
     clips = np.concatenate([main_clips(port.sr), port_pluck_clips(0.1)[::6]])

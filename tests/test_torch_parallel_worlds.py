@@ -94,7 +94,7 @@ def test_serve_mesh_once_matches_single_device(tmp_path):
     four files) writes the single-device pass's results."""
     from gat_tpu_torch.serve import main
     from gat_tpu_torch.utils.wavio import write_wav
-    from test_torch_kernels_emulated import RIFF_NOTES, pluck_riff
+    from emulated_kernels import RIFF_NOTES, pluck_riff
     src = tmp_path / "in"
     src.mkdir()
     for i in range(4):
@@ -124,7 +124,7 @@ def test_serve_mesh_once_matches_single_device(tmp_path):
 
 def _riff_folder(d, n: int):
     from gat_tpu_torch.utils.wavio import write_wav
-    from test_torch_kernels_emulated import RIFF_NOTES, pluck_riff
+    from emulated_kernels import RIFF_NOTES, pluck_riff
     d.mkdir()
     for i in range(n):
         notes = [(0.4 + 0.7 * j, RIFF_NOTES[(i + j) % 5][1])

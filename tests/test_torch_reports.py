@@ -24,7 +24,7 @@ from gat_tpu_torch.utils import display
 from gat_tpu_torch.utils.reports import audio_report, feature_report
 from gat_tpu_torch.utils.scaler import FeatureScaler
 from gat_tpu_torch.utils.wavio import write_wav
-from tests.test_torch_kernels_emulated import pluck_riff
+from emulated_kernels import pluck_riff
 
 
 @pytest.fixture(scope="module")

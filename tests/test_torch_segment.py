@@ -26,8 +26,8 @@ from gat_tpu_torch.ops import filters as tfl
 from gat_tpu_torch.ops import onset as to
 from gat_tpu_torch.segment import gating as tg
 from gat_tpu_torch.segment import slicing as ts
-from tests.test_torch_kernels_emulated import (RIFF_NOTES as NOTES,
-                                               pluck_riff, random_envelopes)
+from emulated_kernels import (RIFF_NOTES as NOTES,
+                              pluck_riff, random_envelopes)
 
 SR = 22050
 

@@ -20,7 +20,7 @@ from gat_tpu.infer import Transcriber as JTranscriber
 from gat_tpu_torch import serve
 from gat_tpu_torch.infer import Transcriber
 from gat_tpu_torch.utils.wavio import write_wav
-from test_torch_kernels_emulated import RIFF_NOTES, pluck_riff
+from emulated_kernels import RIFF_NOTES, pluck_riff
 
 SR = 22050
 A_LABELS = ["A2", "D3"]  # a.wav's three plucks but the dropped last

@@ -26,7 +26,7 @@ from gat_tpu_torch.infer import Transcriber
 from gat_tpu_torch.stream import (ArraySource, LiveTranscriber, MicSource,
                                   RingBuffer)
 from tests.conftest import make_pluck
-from tests.test_torch_kernels_emulated import LIVE_MIN_SEP
+from emulated_kernels import LIVE_MIN_SEP
 
 SR = 22050
 

@@ -29,7 +29,7 @@ from gat_tpu.data import synth as jsynth
 from gat_tpu_torch.config import CHECKPOINTS_ROOT, CNN_CONFIG, MLP_CONFIG
 from gat_tpu_torch.data import synth as tsynth
 from gat_tpu_torch.utils.wavio import write_wav
-from tests.test_torch_kernels_emulated import pluck_riff
+from emulated_kernels import pluck_riff
 
 REPO = Path(__file__).resolve().parent.parent
 TOOLS = REPO / "tools"

@@ -107,18 +107,45 @@ def test_feature_builder_melspec(loaders):
     assert np.isfinite(tX).all() and tX.min() >= -100.0
 
 
-def test_feature_builder_refuses_long_clips_on_the_card():
-    """On the card the kernels keep a clip's frames in shared memory: a
-    dataset of whole files must raise before any launch."""
+def test_feature_builder_takes_a_60s_loader():
+    """A dataset holding one 60 s recording builds its features: the loader
+    pads every clip to the longest, and the card's kernels refused such
+    clips (2584 frames at hop 256) before their split route. The port's
+    mel and MFCC features of a 60 s riff and a 0.5 s pluck padded to it
+    equal gat_tpu's."""
+    from gat_tpu_torch.data.synth import karplus_strong
+    sr, n = 11025, 11025 * 60
+    rng = np.random.default_rng(60)
+    riff = rng.normal(0.0, 0.01, n)
+    for i, f0 in enumerate((110.0, 196.0, 293.66, 440.0)):
+        note = karplus_strong(f0, sr, 2.0, seed=i)[0]
+        riff[(1 + 15 * i) * sr:(1 + 15 * i) * sr + len(note)] += note
+    # a noisy pluck padded to the riff's length: the mel's stated
+    # tolerance (0.1 dB above -60 dB) is for noisy plucks
+    short = np.zeros(n)
+    short[:sr // 2] = (karplus_strong(146.83, sr, 0.5, seed=9)[0]
+                       + rng.normal(0.0, 0.01, sr // 2))
+
     class Loader:
-        target_sr = 11025
+        target_sr = sr
 
         def load_audio_dataset(self, pad_to_max=True):
-            return [np.zeros(11025 * 60, np.float32)] * 2, None, ["A", "B"], None
+            return ([riff.astype(np.float32), short.astype(np.float32)],
+                    None, ["A", "B"], None)
     builder = tfeatures.FeatureBuilder(device="cpu")
-    builder.device = torch.device("cuda")
-    with pytest.raises(ValueError, match="fewer than 2000 frames"):
-        builder.extract_melspec_features(Loader())
+    tX, ty, tn, tmap = builder.extract_melspec_features(Loader())
+    jX, jy, jn, jmap = jfeatures.FeatureBuilder().extract_melspec_features(
+        Loader())
+    assert tX.shape == jX.shape == (2, 64, 2584, 1)
+    np.testing.assert_array_equal(ty, jy)
+    assert (tn, tmap) == (jn, jmap)
+    mask = jX > -60.0
+    np.testing.assert_allclose(tX[mask], jX[mask], atol=0.1, rtol=0)
+    tM = builder.extract_mfcc_features(Loader())[0]
+    jM = jfeatures.FeatureBuilder().extract_mfcc_features(Loader())[0]
+    np.testing.assert_allclose(tM[:, :64], jM[:, :64], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(10.0 ** (tM[:, 64] - jM[:, 64]), 1.0,
+                               atol=2e-3, rtol=0)
 
 
 def test_encode_labels_and_layout():

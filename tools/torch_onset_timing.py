@@ -15,12 +15,14 @@ and the CUDA runtime's launches of a step; with `batchnorm`, the
 train-mode BatchNorm K13 at the shipped CNN's three layers; with
 `clip_adamw`, the clip and AdamW K12 at both models' parameter counts;
 with `xent`, the label-smoothed loss K11 at a training step and an eval
-chunk.
+chunk; with `long`, the clip front-ends K1, K2, K3 and K6 at 256 clips
+of 4.0 s, one of 120 s and 64 of 60 s (a checkout that caps the frames
+refuses the last two).
 
     python3 tools/torch_onset_timing.py TREE [envelope] [pick] [clip] [gate]
                                              [slice] [resample] [compact]
                                              [train] [batchnorm] [clip_adamw]
-                                             [xent]
+                                             [xent] [long]
 
 TREE is the root of a checkout that holds `gat_tpu_torch/`: this one, or
 another commit unpacked with `git archive`; its kernels are built there.
@@ -51,7 +53,10 @@ checkout reports it; `time_clip_adamw`: K12's two passes at 629,743 and
 20,143 parameters, device ms per pass and the library's; `time_xent`:
 K11 at 32 x 47 with its gradient and at 65,536 x 47 with the argmaxes,
 device ms, the whole call's and `F.cross_entropy`'s, two runs' bits and
-the launch's grid where the checkout reports it), so two
+the launch's grid where the checkout reports it; `time_long_clips`:
+`[long-clips]`' riffs at each shape, every kernel against its plain
+version, device ms over every device function of its route, its tiles
+and blocks per SM), so two
 checkouts timed in turns within one run compare like with like. Prints one JSON line per
 kernel and shape, then the card's name and power limit; exits 1 without
 a card, when a check fails or when a kernel refuses a shape. Imports
@@ -74,7 +79,8 @@ TIMINGS = {"envelope": ("onset_envelope", "time_envelope"),
            "train": ("train_step", "time_train"),
            "batchnorm": ("batchnorm_train", "time_bn"),
            "clip_adamw": ("clip_adamw", "time_clip_adamw"),
-           "xent": ("softmax_xent", "time_xent")}
+           "xent": ("softmax_xent", "time_xent"),
+           "long": ("clip_kernels_long", "time_long_clips")}
 
 
 def main(argv: list[str]) -> int:
@@ -110,6 +116,8 @@ def main(argv: list[str]) -> int:
             clips = torch.from_numpy(
                 smoke.make_clips(smoke.N_CLIPS, smoke.SEED)[0]).to(dev)
             args = (features, yin, clips)
+        elif n == "long":
+            args = (features, yin, dev)
         elif n == "gate":
             args = (gating, dev)
         elif n == "slice":
